@@ -1,0 +1,562 @@
+"""GPT-style causal language model + KV-cache generation (port of the
+inference half of ``distributed_tensorflow_example_tpu/models/gpt.py``).
+
+Architecture (GPT-2 layout): learned token + position embeddings, pre-LN
+blocks (``h += attn(ln1(h)); h += ffn(ln2(h))``), final layernorm, LM
+head weight-tied to the token embedding. Parameters are the reference's
+nested dict with the same keys and layouts (dense kernels [in, out]), so
+the weight bridge (:func:`params_from_numpy` / :func:`params_to_numpy`)
+moves them across with no transposes.
+
+Generation: one full causal prefill over the prompt (the flash-attention
+kernel per layer with ``attention_impl="flash"``), then a Python decode
+loop over a static [B, T, H, D] per-layer KV-cache slab, one token per
+step, each layer's attention the single-query decode kernel. Where the
+reference threads immutable caches through ``lax.scan``, the port writes
+each step's K/V into the slab IN PLACE (the returned caches are the same
+tensors): one slab per generation, no per-step copies.
+
+Numerics follow the reference: bf16 matmuls with f32 accumulation, f32
+layernorm statistics (eps 1e-6), f32 softmax, tanh-approximated GELU,
+and f32 logits from the bf16-rounded hidden state and table (the logits
+are never rounded to bf16, so greedy argmax does not flip on bf16 ties).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ckpt import checkpoint as ckpt
+from ..config import TrainConfig, flash_attention_kwargs
+from ..ops import nn
+from ..ops.attention import NEG_INF, multi_head_attention
+from ..ops.cuda.decode_attention import decode_attention as decode_attn
+from ..runtime.device import resolve_device
+from ..utils.pytree import flatten_dict
+from .base import cast_floating, register_model, resolve_dtype
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 30522       # framework default vocab (BERT wordpiece)
+    hidden: int = 768
+    layers: int = 12
+    heads: int = 12
+    intermediate: int = 3072
+    max_len: int = 1024
+
+    @classmethod
+    def small(cls) -> "GPTConfig":
+        """GPT-2-small shape (124M at its native 50k vocab)."""
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "GPTConfig":
+        return cls(vocab_size=1000, hidden=128, layers=2, heads=4,
+                   intermediate=256, max_len=128)
+
+
+def _key_mask(mask, ids: torch.Tensor) -> torch.Tensor:
+    """[B, S] key validity (nonzero = attend; None = all valid) as the
+    contiguous int32 tensor on ``ids``' device that the flash kernel reads:
+    converted once per forward, not once per layer."""
+    if mask is None:
+        return torch.ones(ids.shape, dtype=torch.int32, device=ids.device)
+    mask = torch.as_tensor(mask, device=ids.device)
+    if mask.dtype != torch.int32:
+        mask = (mask != 0).to(torch.int32)
+    return mask.contiguous()
+
+
+class GPT:
+    name = "gpt"
+
+    def __init__(self, cfg: GPTConfig, dtype=torch.float32,
+                 attention_impl: str = "xla",
+                 param_dtype=torch.float32,
+                 attention_kwargs: dict | None = None):
+        if cfg.hidden % cfg.heads:
+            raise ValueError(f"hidden {cfg.hidden} is not a multiple of "
+                             f"heads {cfg.heads}")
+        if attention_impl not in ("xla", "flash"):
+            raise ValueError(f"attention_impl must be xla/flash, got "
+                             f"{attention_impl!r}")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.attention_impl = attention_impl
+        self.attention_kwargs = dict(attention_kwargs or {})
+        self.head_dim = cfg.hidden // cfg.heads
+
+    # ------------------------------------------------------------------
+    def param_shapes(self) -> dict[str, tuple]:
+        """Every flat parameter key, in the reference's naming (the keys
+        its checkpoint ``_flatten`` writes), with its shape."""
+        c = self.cfg
+        out = {"wte/table": (c.vocab_size, c.hidden),
+               "wpe/table": (c.max_len, c.hidden)}
+        for i in range(c.layers):
+            p = f"layer_{i}"
+            for ln in ("ln1", "ln2"):
+                out[f"{p}/{ln}/scale"] = out[f"{p}/{ln}/bias"] = (c.hidden,)
+            for n in ("q", "k", "v", "o"):
+                out[f"{p}/attn/{n}/kernel"] = (c.hidden, c.hidden)
+                out[f"{p}/attn/{n}/bias"] = (c.hidden,)
+            out[f"{p}/ffn/in/kernel"] = (c.hidden, c.intermediate)
+            out[f"{p}/ffn/in/bias"] = (c.intermediate,)
+            out[f"{p}/ffn/out/kernel"] = (c.intermediate, c.hidden)
+            out[f"{p}/ffn/out/bias"] = (c.hidden,)
+        out["ln_f/scale"] = out["ln_f/bias"] = (c.hidden,)
+        return out
+
+    def init(self, seed: int | torch.Generator = 0, device=None) -> dict:
+        """Seeded random parameters on ``device`` (``cuda`` by default)."""
+        c = self.cfg
+        if isinstance(seed, torch.Generator):
+            gen = seed
+        else:
+            gen = torch.Generator(device=resolve_device(device))
+            gen.manual_seed(int(seed))
+        dev = gen.device
+        params: dict = {
+            "wte": nn.embedding_init(gen, c.vocab_size, c.hidden),
+            "wpe": nn.embedding_init(gen, c.max_len, c.hidden),
+        }
+        for i in range(c.layers):
+            params[f"layer_{i}"] = {
+                "ln1": nn.layernorm_init(c.hidden, device=dev),
+                "attn": {n: nn.dense_init(gen, c.hidden, c.hidden)
+                         for n in ("q", "k", "v", "o")},
+                "ln2": nn.layernorm_init(c.hidden, device=dev),
+                "ffn": {
+                    "in": nn.dense_init(gen, c.hidden, c.intermediate),
+                    "out": nn.dense_init(gen, c.intermediate, c.hidden),
+                },
+            }
+        params["ln_f"] = nn.layernorm_init(c.hidden, device=dev)
+        return cast_floating(params, self.param_dtype)
+
+    # ------------------------------------------------------------------
+    def _qkv(self, ap, h):
+        b, s, _ = h.shape
+
+        def split(x):
+            return x.reshape(b, s, self.cfg.heads, self.head_dim)
+
+        return (split(nn.dense(ap["q"], h, dtype=self.dtype)),
+                split(nn.dense(ap["k"], h, dtype=self.dtype)),
+                split(nn.dense(ap["v"], h, dtype=self.dtype)))
+
+    def _ffn(self, lp, x):
+        f = nn.dense(lp["ffn"]["in"], x, dtype=self.dtype)
+        f = nn.gelu(f.float()).to(self.dtype)
+        return nn.dense(lp["ffn"]["out"], f, dtype=self.dtype)
+
+    def _layer(self, lp, h, mask, *, return_kv: bool = False):
+        """Pre-LN decoder block over the full (causal) sequence: ONE body
+        for the forward and the prefill, which also yields this layer's
+        (k, v) for the decode cache."""
+        c = self.cfg
+        b, s, _ = h.shape
+        q, k, v = self._qkv(lp["attn"], nn.layernorm(lp["ln1"], h))
+        ctx = multi_head_attention(
+            q, k, v, mask=mask[:, None, None, :], causal=True,
+            impl=self.attention_impl,
+            flash_kwargs=self.attention_kwargs or None)
+        a = nn.dense(lp["attn"]["o"], ctx.reshape(b, s, c.hidden),
+                     dtype=self.dtype)
+        h = h + a.to(h.dtype)
+        f = self._ffn(lp, nn.layernorm(lp["ln2"], h))
+        h = h + f.to(h.dtype)
+        return (h, (k, v)) if return_kv else h
+
+    def _embed(self, params, ids, pos_ids):
+        h = (nn.embedding(params["wte"], ids)
+             + nn.embedding(params["wpe"], pos_ids))
+        return h.to(self.dtype)
+
+    def encode(self, params, batch):
+        ids = torch.as_tensor(batch["input_ids"],
+                              device=params["wte"]["table"].device)
+        b, s = ids.shape
+        mask = _key_mask(batch.get("attention_mask"), ids)
+        h = self._embed(params, ids,
+                        torch.arange(s, device=ids.device)[None])
+        for i in range(self.cfg.layers):
+            h = self._layer(params[f"layer_{i}"], h, mask)
+        return nn.layernorm(params["ln_f"], h)
+
+    def lm_logits(self, params, h):
+        """Weight-tied LM head: [B,S,hid] -> [B,S,V] f32 logits from
+        operands rounded to the compute dtype, accumulated in f32 (the
+        reference's ``preferred_element_type=f32`` einsum)."""
+        table = params["wte"]["table"]
+        return torch.matmul(h.to(self.dtype).float(),
+                            table.to(self.dtype).float().t())
+
+    @torch.no_grad()
+    def apply(self, params, extras, batch):
+        """(logits [B, S, V] f32, extras): the forward of the reference's
+        ``apply`` with ``train=False``."""
+        return self.lm_logits(params, self.encode(params, batch)), extras
+
+    # ------------------------------------------------------------------
+    # autoregressive decoding (static-shape KV-cache slab)
+    # ------------------------------------------------------------------
+    def _prefill_full(self, params, ids, total_len: int, *, mask=None,
+                      pos_ids=None):
+        """Full causal forward over the (possibly padded) prompt, also
+        returning per-layer K/V padded to ``total_len`` slots. Returns
+        (hidden [B,S,hid] post-ln_f, caches {layer_i: {k, v}: [B,T,H,D]})."""
+        _, s = ids.shape
+        mask = _key_mask(mask, ids)
+        if pos_ids is None:
+            pos_ids = torch.arange(s, device=ids.device)[None]
+        h = self._embed(params, ids, pos_ids)
+        caches = {}
+        for i in range(self.cfg.layers):
+            h, (k, v) = self._layer(params[f"layer_{i}"], h, mask,
+                                    return_kv=True)
+            caches[f"layer_{i}"] = {
+                n: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, total_len - s))
+                for n, x in (("k", k), ("v", v))}
+        return nn.layernorm(params["ln_f"], h), caches
+
+    def _prefill(self, params, ids, total_len: int, *, mask=None,
+                 pos_ids=None):
+        """:meth:`_prefill_full` sliced to the LAST slot's hidden state
+        (every row's prompt ends at slot S0-1)."""
+        h, caches = self._prefill_full(params, ids, total_len, mask=mask,
+                                       pos_ids=pos_ids)
+        return h[:, -1], caches
+
+    def _decode_step(self, params, caches, tok, pos: int, pad=None):
+        """One-token forward against the per-layer caches: the reference
+        loop path (plain attention), the parity oracle of the stacked
+        step. ``tok`` [B], ``pos`` the cache slot tok sits at, ``pad`` [B]
+        left-pad counts. Writes slot ``pos`` of each layer's caches in
+        place. Returns (logits [B,V], caches)."""
+        c = self.cfg
+        b = tok.shape[0]
+        dev = tok.device
+        total = caches["layer_0"]["k"].shape[1]
+        if pad is None:
+            pad = torch.zeros(b, dtype=torch.int32, device=dev)
+        h = self._embed(params, tok[:, None], (pos - pad)[:, None])
+        slots = torch.arange(total, device=dev)
+        kmask = (slots[None, :] <= pos) & (slots[None, :] >= pad[:, None])
+        for i in range(c.layers):
+            lp = params[f"layer_{i}"]
+            cache = caches[f"layer_{i}"]
+            q, k, v = self._qkv(lp["attn"], nn.layernorm(lp["ln1"], h))
+            cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+            ctx = multi_head_attention(q, cache["k"], cache["v"],
+                                       mask=kmask[:, None, None, :],
+                                       impl="xla")
+            a = nn.dense(lp["attn"]["o"], ctx.reshape(b, 1, c.hidden),
+                         dtype=self.dtype)
+            h = h + a.to(h.dtype)
+            f = self._ffn(lp, nn.layernorm(lp["ln2"], h))
+            h = h + f.to(h.dtype)
+        h = nn.layernorm(params["ln_f"], h)
+        return self.lm_logits(params, h)[:, 0], caches
+
+    def stack_decode_params(self, params, *, weight_quant: str | None = None):
+        """Restack the per-layer params along a leading layer axis, with
+        Q/K/V fused into one [hid, 3*hid] kernel per layer. The dense
+        kernels and biases are cast to the compute dtype here, once per
+        generation (``dense`` would cast them on every step; the values
+        are identical); layernorm params keep ``param_dtype``."""
+        if weight_quant is not None:
+            raise NotImplementedError(
+                "weight_quant='int8' arrives with the paged-engine slice")
+        lps = [params[f"layer_{i}"] for i in range(self.cfg.layers)]
+
+        def stk(fn, dtype=None):
+            x = torch.stack([fn(lp) for lp in lps])
+            return x if dtype is None else x.to(dtype)
+
+        def dense_stack(fn):
+            return {"kernel": stk(lambda lp: fn(lp)["kernel"], self.dtype),
+                    "bias": stk(lambda lp: fn(lp)["bias"], self.dtype)}
+
+        return {
+            "ln1": {"scale": stk(lambda lp: lp["ln1"]["scale"]),
+                    "bias": stk(lambda lp: lp["ln1"]["bias"])},
+            "qkv": dense_stack(lambda lp: {
+                "kernel": torch.cat([lp["attn"][n]["kernel"]
+                                     for n in ("q", "k", "v")], dim=1),
+                "bias": torch.cat([lp["attn"][n]["bias"]
+                                   for n in ("q", "k", "v")])}),
+            "o": dense_stack(lambda lp: lp["attn"]["o"]),
+            "ln2": {"scale": stk(lambda lp: lp["ln2"]["scale"]),
+                    "bias": stk(lambda lp: lp["ln2"]["bias"])},
+            "ffn_in": dense_stack(lambda lp: lp["ffn"]["in"]),
+            "ffn_out": dense_stack(lambda lp: lp["ffn"]["out"]),
+        }
+
+    def _decode_step_stacked(self, params, stacked, caches, tok, pos: int,
+                             pad=None, decode_attention: str | None = None):
+        """One-token forward over the stacked layer axis: fused QKV, a 2-D
+        [B, hid] residual stream, and the cache-slab attention as the
+        decode kernel (``"auto"``) or the plain reference (``"xla"``).
+        ``caches``: ``{"k": [L,B,T,H,D], "v": [L,B,T,H,D]}``, slot ``pos``
+        written in place. Same contract as :meth:`_decode_step`."""
+        c = self.cfg
+        b = tok.shape[0]
+        impl = decode_attention or "auto"
+        if pad is None:
+            pad = torch.zeros(b, dtype=torch.int32, device=tok.device)
+        h = self._embed(params, tok[:, None], (pos - pad)[:, None])[:, 0]
+        pos_b = torch.full((b,), pos, dtype=torch.int32, device=tok.device)
+        for i in range(c.layers):
+            lp = {g: {n: t[i] for n, t in d.items()}
+                  for g, d in stacked.items()}
+            ck, cv = caches["k"][i], caches["v"][i]
+            qkv = nn.dense(lp["qkv"], nn.layernorm(lp["ln1"], h),
+                           dtype=self.dtype)
+            q, k, v = [x.reshape(b, c.heads, self.head_dim)
+                       for x in torch.split(qkv, c.hidden, dim=-1)]
+            ck[:, pos] = k.to(ck.dtype)
+            cv[:, pos] = v.to(cv.dtype)
+            ctx = decode_attn(q.contiguous(), ck, cv, pos=pos_b, pad=pad,
+                              impl=impl)
+            a = nn.dense(lp["o"], ctx.reshape(b, c.hidden), dtype=self.dtype)
+            h = h + a.to(h.dtype)
+            f = nn.dense(lp["ffn_in"], nn.layernorm(lp["ln2"], h),
+                         dtype=self.dtype)
+            f = nn.gelu(f.float()).to(self.dtype)
+            f = nn.dense(lp["ffn_out"], f, dtype=self.dtype)
+            h = h + f.to(h.dtype)
+        h = nn.layernorm(params["ln_f"], h)
+        return self.lm_logits(params, h[:, None])[:, 0], caches
+
+    def ragged_prefill(self, params, input_ids, prompt_mask, total_len: int):
+        """Ragged-prompt prefill: right-pack every row's real tokens
+        against slot S0-1 (stable argsort — order preserving), build
+        per-row positions/attention from the pad count, and run
+        :meth:`_prefill`. Returns ``(last_hidden [B, hid], caches,
+        pad [B])``."""
+        b, s0 = input_ids.shape
+        dev = input_ids.device
+        pm = (torch.as_tensor(prompt_mask, device=dev) != 0).to(torch.int32)
+        order = torch.argsort(pm, dim=1, stable=True)
+        ids = torch.gather(input_ids, 1, order)
+        pad = (s0 - pm.sum(dim=1)).to(torch.int32)
+        ar = torch.arange(s0, dtype=torch.int32, device=dev)[None, :]
+        valid = ar >= pad[:, None]
+        ids = torch.where(valid, ids, torch.zeros_like(ids))
+        pos_ids = torch.clamp(ar - pad[:, None], min=0)
+        last_h, caches = self._prefill(params, ids, total_len,
+                                       mask=valid.to(torch.int32),
+                                       pos_ids=pos_ids)
+        return last_h, caches, pad
+
+    def _stack_caches(self, caches):
+        """Per-layer {layer_i: {k, v}} caches -> stacked {"k": [L, ...],
+        "v": [L, ...]} slabs."""
+        return {n: torch.stack([caches[f"layer_{i}"][n]
+                                for i in range(self.cfg.layers)])
+                for n in ("k", "v")}
+
+    def _filter_logits(self, logits, top_k: int, top_p: float):
+        """Nucleus/top-k filtering of [B, V] logits with the reference's
+        ``>=``-threshold semantics: only logits STRICTLY below the k-th
+        largest / nucleus threshold drop to NEG_INF, so exact ties with
+        the boundary survive. top-p keeps the smallest prefix of the
+        descending order whose EXCLUSIVE cumulative mass is < top_p."""
+        neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
+        if top_k:
+            kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth, neg, logits)
+        if top_p > 0.0:
+            sl = torch.sort(logits, dim=-1, descending=True).values
+            probs = torch.softmax(sl, dim=-1)
+            keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+            thresh = torch.where(keep, sl, torch.full_like(sl, float("inf"))
+                                 ).min(dim=-1, keepdim=True).values
+            logits = torch.where(logits < thresh, neg, logits)
+        return logits
+
+    @torch.no_grad()
+    def generate(self, params, input_ids, max_new_tokens: int, *,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, eos_id: int | None = None,
+                 pad_id: int = 0, prompt_mask=None,
+                 rng: torch.Generator | None = None,
+                 decode_impl: str = "stacked",
+                 decode_attention: str | None = None,
+                 weight_quant: str | None = None) -> torch.Tensor:
+        """Autoregressive generation: prefill + KV-cache decode loop,
+        greedy (``temperature=0``) or sampled with optional
+        ``top_k``/``top_p`` filtering.
+
+        ``decode_impl``: ``"stacked"`` (fused-QKV step over the stacked
+        layer axis, the decode kernel's path) or ``"loop"`` (the per-layer
+        reference step). ``decode_attention`` picks the stacked path's
+        cache-slab attention: ``"auto"`` (the default: the decode kernel
+        on CUDA tensors) or ``"xla"`` (the plain version on any device,
+        the card's reference path). ``prompt_mask`` [B, S0] (nonzero = real token) admits
+        ragged prompts, right-packed internally; each row needs at least
+        one real token. ``eos_id`` stops once every row has emitted EOS
+        (later slots hold ``pad_id``). Sampling draws from ``rng``, a
+        ``torch.Generator`` on the params' device (Gumbel-max over the
+        filtered logits): deterministic per seed, not the reference's
+        threefry stream. The reference's ``tokens_per_dispatch`` (an XLA
+        loop-unroll lever) has no meaning in an eager loop and is not
+        taken; ``weight_quant`` arrives with the paged-engine slice.
+
+        Returns [B, max_new_tokens] int32 on the params' device."""
+        c = self.cfg
+        dev = params["wte"]["table"].device
+        input_ids = torch.as_tensor(input_ids, device=dev)
+        b, s0 = input_ids.shape
+        if max_new_tokens < 0:
+            raise ValueError(f"max_new_tokens must be >= 0, got "
+                             f"{max_new_tokens}")
+        if max_new_tokens == 0:
+            return torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        total = s0 + max_new_tokens
+        if total > c.max_len:
+            raise ValueError(
+                f"prompt {s0} + max_new_tokens {max_new_tokens} exceeds "
+                f"max_len {c.max_len}")
+        if temperature > 0.0 and rng is None:
+            raise ValueError("sampling (temperature > 0) needs rng")
+        if (top_k or top_p) and temperature <= 0.0:
+            raise ValueError("top_k/top_p shape the SAMPLING "
+                             "distribution; greedy decoding "
+                             "(temperature=0) would silently ignore "
+                             "them — set temperature > 0")
+        if not 0 <= top_p <= 1.0:
+            raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if top_k < 0 or top_k > c.vocab_size:
+            raise ValueError(f"top_k must be in [0, vocab_size="
+                             f"{c.vocab_size}], got {top_k}")
+        if decode_impl not in ("stacked", "loop"):
+            raise ValueError(f"decode_impl must be 'stacked' or 'loop', "
+                             f"got {decode_impl!r}")
+        if weight_quant is not None and decode_impl != "stacked":
+            raise ValueError("weight_quant needs decode_impl='stacked' "
+                             "(only the stacked step consumes the "
+                             "quantized layer stack)")
+        if decode_attention is not None and decode_impl != "stacked":
+            raise ValueError(
+                "decode_attention picks the stacked path's cache-slab "
+                "attention; decode_impl='loop' always uses the plain "
+                "reference — silently ignoring the override would "
+                "mislabel a benchmark")
+
+        if prompt_mask is not None:
+            prompt_mask = torch.as_tensor(prompt_mask, device=dev)
+            if tuple(prompt_mask.shape) != (b, s0):
+                raise ValueError(
+                    f"prompt_mask shape {tuple(prompt_mask.shape)} != "
+                    f"input_ids shape {(b, s0)}")
+            last_h, caches, pad = self.ragged_prefill(
+                params, input_ids, prompt_mask, total)
+        else:
+            pad = torch.zeros(b, dtype=torch.int32, device=dev)
+            last_h, caches = self._prefill(params, input_ids, total)
+        first_logits = self.lm_logits(params, last_h[:, None])[:, 0]
+
+        if decode_impl == "stacked":
+            stacked = self.stack_decode_params(params,
+                                               weight_quant=weight_quant)
+            caches = self._stack_caches(caches)
+
+            def step(tok, pos):
+                return self._decode_step_stacked(
+                    params, stacked, caches, tok, pos, pad,
+                    decode_attention=decode_attention)[0]
+        else:
+            def step(tok, pos):
+                return self._decode_step(params, caches, tok, pos, pad)[0]
+
+        def pick(logits):
+            if temperature <= 0.0:
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            scaled = self._filter_logits(logits / temperature, top_k, top_p)
+            u = torch.rand(scaled.shape, generator=rng, device=dev)
+            gumbel = -torch.log(-torch.log(
+                u.clamp_(min=torch.finfo(torch.float32).tiny)))
+            return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+
+        tok = pick(first_logits)
+        if eos_id is None:
+            out = [tok]
+            for t in range(1, max_new_tokens):
+                tok = pick(step(tok, s0 + t - 1))
+                out.append(tok)
+            return torch.stack(out, dim=1)
+
+        # EOS early stop: emit into a pad-filled buffer, stop once every
+        # row is done (a batch whose rows all finish by step k pays k
+        # decode steps, not max_new)
+        out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32,
+                         device=dev)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        for t in range(max_new_tokens):
+            out[:, t] = torch.where(done, torch.full_like(tok, pad_id), tok)
+            done |= tok == eos_id
+            if t + 1 == max_new_tokens or bool(done.all()):
+                break
+            tok = pick(step(tok, s0 + t))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# weight bridge: the reference's flat npz keys <-> the port's params
+# ---------------------------------------------------------------------------
+
+def params_from_numpy(model: GPT, tree, device=None) -> dict:
+    """The reference's GPT params as numpy arrays, keyed as its checkpoint
+    ``_flatten`` keys them (``layer_0/attn/q/kernel``; bf16 leaves either
+    as numpy bfloat16 arrays or as uint16 under ``__bf16__/``) -> the
+    port's params on ``device`` (``cuda`` by default). Same layouts on
+    both sides, so nothing is transposed. Raises on a missing, unknown
+    or mis-shaped key."""
+    params = ckpt.from_numpy(tree, resolve_device(device))
+    flat = flatten_dict(params)
+    want = model.param_shapes()
+    missing = sorted(set(want) - set(flat))
+    unknown = sorted(set(flat) - set(want))
+    if missing or unknown:
+        raise ValueError(f"GPT params mismatch: missing {missing[:8]}, "
+                         f"unknown {unknown[:8]}")
+    for k, shape in want.items():
+        if tuple(flat[k].shape) != shape:
+            raise ValueError(f"param {k!r} has shape {tuple(flat[k].shape)}"
+                             f", the config wants {shape}")
+    return params
+
+
+def params_to_numpy(params) -> dict[str, np.ndarray]:
+    """The inverse bridge: the port's params -> flat numpy arrays in the
+    reference's checkpoint layout (bf16 as uint16 under ``__bf16__/``)."""
+    return ckpt.to_numpy(params)
+
+
+def _make(config: TrainConfig, cfg: GPTConfig, *,
+          config_vocab: bool = True) -> GPT:
+    if config_vocab:
+        cfg.vocab_size = config.data.vocab_size
+    cfg.max_len = max(cfg.max_len, config.data.seq_len)
+    return GPT(cfg, dtype=resolve_dtype(config.dtype),
+               attention_impl=config.attention_impl,
+               param_dtype=resolve_dtype(config.param_dtype),
+               attention_kwargs=flash_attention_kwargs(config))
+
+
+@register_model("gpt")
+def _make_gpt(config: TrainConfig) -> GPT:
+    return _make(config, GPTConfig.small())
+
+
+@register_model("gpt_tiny")
+def _make_gpt_tiny(config: TrainConfig) -> GPT:
+    return _make(config, GPTConfig.tiny(), config_vocab=False)

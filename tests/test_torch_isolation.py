@@ -1,0 +1,142 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the card unless the CPU is asked for.
+
+The import check runs in a subprocess: this test process has JAX loaded
+already (``conftest.py``).
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import distributed_tensorflow_example_tpu_torch as port
+from distributed_tensorflow_example_tpu_torch.models.gpt import (
+    GPT, GPTConfig, params_from_numpy, params_to_numpy)
+from distributed_tensorflow_example_tpu_torch.runtime.device import \
+    resolve_device
+from distributed_tensorflow_example_tpu_torch.serving import (
+    export_generator, load_servable)
+from distributed_tensorflow_example_tpu_torch.serving_http import \
+    PredictServer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(port.__file__))
+FORBIDDEN = ("jax", "jaxlib", "distributed_tensorflow_example_tpu")
+TINY = GPTConfig(vocab_size=64, hidden=32, layers=1, heads=2,
+                 intermediate=64, max_len=32)
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def _port_sources() -> list[str]:
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _port_modules()
+    assert len(mods) >= 20, mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_no_module_imports_triton_or_builds_at_import():
+    code = (
+        "import sys\n"
+        "import distributed_tensorflow_example_tpu_torch.models.gpt\n"
+        "import distributed_tensorflow_example_tpu_torch.serving_http\n"
+        "print('TRITON', 'triton' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert "TRITON False" in out.stdout, out.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without CUDA, also where the tests run beside a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_cuda_raise_instead_of_using_the_cpu(
+        no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        resolve_device("meta")
+    model = GPT(TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(0)
+    params = model.init(0, device="cpu")
+    assert params["wte"]["table"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy(model, params_to_numpy(params))
+    export_generator(model, params, str(tmp_path), prompt_len=4,
+                     max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_servable(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PredictServer(str(tmp_path), port=0)
+    with PredictServer(str(tmp_path), port=0, device="cpu") as srv:
+        out = srv.generate({"inputs": {"input_ids": [[1, 2, 3, 4]]}})
+    assert np.asarray(out["generations"]).shape == (1, 2)
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    """``chip_smoke.py`` exits non-zero and prints no result where there
+    is no card, and in a directory that holds nothing else of the
+    repository."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    for script, cwd in ((os.path.join(ROOT, "chip_smoke.py"), ROOT),
+                        (str(alone), str(tmp_path))):
+        out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0, out.stdout
+        assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

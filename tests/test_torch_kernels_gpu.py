@@ -1,0 +1,118 @@
+"""The port's hand-written Hopper kernels against their plain PyTorch
+versions, on the card, at the serving path's widths (GPT-small: 12 heads
+of 64). Marked ``gpu``; each test skips where there is no card.
+
+This file imports no JAX, so it also runs where only PyTorch is
+installed::
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu \\
+        tests/test_torch_kernels_gpu.py
+
+Tolerances, as in ``chip_smoke.py``: each output row (one query of one
+head) is held to its relative error max|o - o_ref| / max|o_ref|, since
+|o| runs from ~|v| on rows with one live key down to ~|v| / sqrt(n) on
+rows with n. Both sides round the probabilities and the output to bf16,
+so an element may differ by an ulp or two (one ulp is up to 2^-7 = 7.8e-3
+of it). The worst rows of ``chip_smoke.py``'s kernel phases on an H100
+are 8.0e-3 (flash) and 1.7e-3 (decode); the limits are a few times that.
+"""
+
+import pytest
+import torch
+
+from distributed_tensorflow_example_tpu_torch.ops.cuda import (
+    decode_attention as da, flash_attention as fa)
+
+pytestmark = pytest.mark.gpu
+
+FLASH_ROW_REL_TOL = 2e-2
+DECODE_ROW_REL_TOL = 1e-2
+
+
+def _row_rel_err(o, o_ref):
+    diff = (o.float() - o_ref.float()).abs().amax(dim=-1)
+    size = o_ref.float().abs().amax(dim=-1)
+    return (diff / size.clamp_min(torch.finfo(torch.float32).tiny)
+            ).max().item()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build and run only there)")
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dev):
+    return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [512, 500, 77])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, s, causal):
+    gen = torch.Generator().manual_seed(s)
+    q, k, v = (_randn(gen, (2, s, 12, 64), cuda) for _ in range(3))
+    mask = torch.ones((2, s), dtype=torch.int32, device=cuda)
+    mask[1, : s // 3] = 0
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
+    assert fa.flash_attention_fwd.launches == before + 1
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, mask,
+                                                  causal=causal)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= FLASH_ROW_REL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    if causal:                       # left-pad rows see no key: zeros
+        assert o[1, : s // 3].abs().max().item() == 0
+
+
+def test_flash_kernel_head_dim_128_and_no_mask(cuda):
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (_randn(gen, (1, 200, 4, 128), cuda) for _ in range(3))
+    o, _ = fa.flash_attention_fwd(q, k, v, None, causal=True)
+    o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, None, causal=True)
+    assert _row_rel_err(o, o_ref) <= FLASH_ROW_REL_TOL
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_fwd(q, q, q)                  # f32: no fallback
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        q32 = qb[..., :32].contiguous()
+        fa.flash_attention_fwd(q32, q32, q32)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = qb.transpose(1, 2)
+        fa.flash_attention_fwd(t, t, t)
+    with pytest.raises(TypeError, match="int32 key mask"):
+        fa.flash_attention_fwd(qb, qb, qb, torch.ones((1, 64), device=cuda))
+
+
+@pytest.mark.parametrize("t", [640, 613])
+@pytest.mark.parametrize("per_row", [True, False])
+def test_decode_kernel_matches_plain(cuda, t, per_row):
+    gen = torch.Generator().manual_seed(t)
+    q = _randn(gen, (8, 12, 64), cuda)
+    k, v = (_randn(gen, (8, t, 12, 64), cuda) for _ in range(2))
+    pad = torch.randint(0, 128, (8,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    pos = (torch.randint(t - 100, t, (8,), generator=gen,
+                         dtype=torch.int32).to(cuda) if per_row else t - 1)
+    before = da.decode_attention.launches
+    o = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    assert da.decode_attention.launches == before + 1
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= DECODE_ROW_REL_TOL
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 2, 64), device=cuda)
+    k = torch.zeros((2, 16, 2, 64), device=cuda)
+    pad = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        da.decode_attention(q, k, k, pos=3, pad=pad)     # f32: no fallback
+    kb = torch.zeros((2, 9000, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="T <="):
+        da.decode_attention(q.to(torch.bfloat16), kb, kb, pos=3, pad=pad)
