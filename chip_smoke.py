@@ -1,7 +1,8 @@
 """On-card check of the PyTorch/CUDA port: builds the hand-written Hopper
 kernels, holds each against its plain PyTorch version at the serving
 path's shapes, then serves GPT-small generation over HTTP through the
-port's entry points and checks the kernels carried it.
+port's entry points, without and with the continuous-batching engine,
+and checks the kernels carried it.
 
     python3 chip_smoke.py
 
@@ -11,8 +12,12 @@ the card's name and power limit, the kernel build (seconds and the
 kernel (error against the plain version, kernel / plain / library time,
 the roofline bound), the slice phase (three ``:generate`` requests on
 full-width GPT-small with launch counts, token agreement with the plain
-versions, tokens/s, latency, peak memory), a ``{"kernels": [...]}``
-JSON line, the card line again, and as the last line
+versions, tokens/s, latency, peak memory), the engine phase (the
+continuous-batching engine over HTTP on a paged and a slab export:
+concurrent requests, prefix reuse, launch counts, paged-vs-slab
+agreement, tokens/s, latency, peak memory, the device idle share of one
+request), a ``{"kernels": [...]}`` JSON line, the card line again, and
+as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line; without CUDA (or outside the repository) it exits
 non-zero and prints no result.
@@ -66,10 +71,34 @@ LOGIT_TOL = 0.1
 # equal positions, with the first-step logits above as the strict check
 AGREEMENT_FLOOR = 0.5
 
+# paged decode attention: the slab kernel's arithmetic through one table
+# lookup per slot. Measured worst rows (H100, 700 W): 6.5e-3 at D=64 (one
+# bf16 ulp of an element, as for flash), 2.2e-7 at D=128; the limit is 3x
+# the worst, two ulps
+PAGED_ROW_REL_TOL = 2e-2
+
 FLASH_SHAPE = dict(b=8, s=512, h=12, d=64)
+# the engine's decode step at GPT-small: 8 slots, 12 heads, 16-slot blocks,
+# 40 blocks per row (prompt 512 + 128 new = 640 slots)
+PAGED_SHAPE = dict(b=8, h=12, bs=16, nb=40)
 FLASH_ODD_S = 500
 DECODE_SHAPE = dict(b=8, t=640, h=12, d=64)
 PROMPT_LEN, MAX_NEW, BATCH = 512, 128, 8
+ENGINE_SLOTS = 8
+# paged vs slab engine on the same weights and prompts: the two differ in
+# layout (left-aligned blocks vs right-packed slab rows) and kernel (B5 vs
+# B4), which moves bf16 rounding; a near-tie flip diverges a row from there
+# on, so the floor is on the share of equal greedy tokens, and the
+# first-step logits are the strict check. Measured (H100, 700 W): token
+# agreement 0.9453, first-step logits 2.09e-2 (logit std ~0.56). Limits:
+# ~3.6x the measured disagreement (0.055) and ~4x the logit error.
+ENGINE_AGREEMENT_FLOOR = 0.8
+ENGINE_LOGIT_TOL = 0.08
+# an exact prefix-cache hit runs its last prompt token through the decode
+# step (B5) where its cold request ran it in the prefill (B1): measured
+# agreement 0.8203 (one early near-tie flip in 128 tokens); the floor is
+# ~2.8x that disagreement
+PREFIX_HIT_AGREEMENT_FLOOR = 0.5
 
 
 def log(*a) -> None:
@@ -282,6 +311,108 @@ def phase_decode(gen) -> dict:
             "library_ms": lms, "bound_ms": bms, "bound_by": by}
 
 
+def paged_inputs(gen, d: int) -> dict:
+    """B5's inputs at the engine's shapes: B rows of ~640 logical slots in
+    16-slot blocks, physical blocks shuffled over the pool, rows 0-3
+    sharing their first 8 blocks (a 128-token prefix), per-row pos and
+    pad, and table entries outside each row's live window pointing at the
+    null block 0 (random bytes here; :func:`phase_paged` also runs it
+    NaN-filled)."""
+    dev = torch.device("cuda")
+    b, h, bs, nb = (PAGED_SHAPE[x] for x in ("b", "h", "bs", "nb"))
+    shared = 8
+    n = 1 + b * nb                                    # null block + rows
+    perm = torch.randperm(n - 1, generator=gen) + 1
+    bt = perm[:b * nb].reshape(b, nb).to(torch.int32)
+    bt[1:4, :shared] = bt[0, :shared]                 # shared prefix blocks
+    pos = torch.randint(nb * bs - 40, nb * bs, (b,), generator=gen,
+                        dtype=torch.int32)
+    pad = torch.zeros(b, dtype=torch.int32)
+    pad[4:] = torch.randint(1, 3 * bs, (b - 4,), generator=gen,
+                            dtype=torch.int32)
+    for row in range(b):          # blocks wholly outside the window -> 0
+        blk = torch.arange(nb)
+        outside = (blk > pos[row] // bs) | (blk < pad[row] // bs)
+        bt[row, outside] = 0
+    q = torch.randn((b, h, d), generator=gen).to(dev, torch.bfloat16)
+    k_pool, v_pool = (torch.randn((n, bs, h, d), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    return {"q": q, "k_pool": k_pool, "v_pool": v_pool,
+            "bt": bt.to(dev), "pos": pos.to(dev), "pad": pad.to(dev)}
+
+
+def phase_paged(gen) -> dict:
+    """B5 against its plain version at D=64 and D=128 (shuffled and shared
+    blocks), and against itself with the null block 0 NaN-filled: the
+    output must not change by a bit, since the kernel never reads a
+    masked slot. (The plain version, like the reference's gather path,
+    multiplies masked V rows by zero probabilities, so it cannot take a
+    NaN null block.) Then timed at D=64: the kernel, the plain version,
+    and SDPA over the gathered slab with and without the gather."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        paged_decode_attention as pa
+    err = rel = 0.0
+    for d in (128, 64):                 # the timed D=64 inputs stay below
+        x = paged_inputs(gen, d)
+        kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
+        o = pa.paged_decode_attention(x["q"], x["k_pool"], x["v_pool"], **kw)
+        o_ref = pa.xla_paged_decode_attention(x["q"], x["k_pool"],
+                                              x["v_pool"], **kw)
+        k_nan, v_nan = x["k_pool"].clone(), x["v_pool"].clone()
+        k_nan[0] = v_nan[0] = float("nan")
+        o_nan = pa.paged_decode_attention(x["q"], k_nan, v_nan, **kw)
+        torch.cuda.synchronize()
+        e = (o.float() - o_ref.float()).abs().max().item()
+        r = row_rel_err(o, o_ref)
+        same = bool(torch.equal(o, o_nan))
+        log(f"[paged D={d}] worst row max|o - plain| / max|plain| {r:.3e} "
+            f"(tol {PAGED_ROW_REL_TOL}; max abs err {e:.3e}); NaN null "
+            f"block leaves the output bitwise unchanged: {same}")
+        if not same or r > PAGED_ROW_REL_TOL:
+            raise SystemExit(f"paged_decode_attention disagrees with its "
+                             f"plain version at D={d}")
+        err, rel = max(err, e), max(rel, r)
+    b, h, bs, nb = (PAGED_SHAPE[x] for x in ("b", "h", "bs", "nb"))
+    d = 64
+    pos, pad, bt = x["pos"], x["pad"], x["bt"]
+    live = int((pos - pad + 1).sum())
+    flops = 4.0 * h * d * live
+    nbytes = (2 * live * h * d * 2                   # live K and V rows
+              + 2 * b * h * d * 2                    # q in, o out
+              + b * nb * 4 + 2 * b * 4)              # table, pos, pad
+    bms, by = bound(flops, nbytes)
+    sets = cold_sets((x["q"], x["k_pool"], x["v_pool"]))
+    kw = dict(block_tables=bt, pos=pos, pad=pad)
+    kms = cuda_ms(lambda *a: pa.paged_decode_attention(*a, **kw), sets,
+                  iters=192)
+    pms = cuda_ms(lambda *a: pa.xla_paged_decode_attention(*a, **kw), sets)
+    slots = torch.arange(nb * bs, device=pos.device)
+    amask = ((slots[None, :] <= pos[:, None])
+             & (slots[None, :] >= pad[:, None]))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bt_l = bt.long()
+
+    def gathered(q_, kp, vp):
+        k_ = kp[bt_l].reshape(b, nb * bs, h, d)
+        v_ = vp[bt_l].reshape(b, nb * bs, h, d)
+        return sdpa(q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                    attn_mask=amask)
+
+    slab_sets = [(q_, kp[bt_l].reshape(b, nb * bs, h, d),
+                  vp[bt_l].reshape(b, nb * bs, h, d)) for q_, kp, vp in sets]
+    lms = cuda_ms(lambda q_, k_, v_: sdpa(
+        q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+        attn_mask=amask), slab_sets, iters=192)
+    gms = cuda_ms(gathered, sets, iters=192)
+    log(f"[paged] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, library_ms "
+        f"(sdpa over the gathered slab) {lms:.4f}, with the gather "
+        f"{gms:.4f}, bound_ms {bms:.4f} ({by}: {live} live slots of "
+        f"{b * nb * bs}, {nbytes / 1e6:.2f} MB)")
+    return {"max_abs_err": err, "max_row_rel_err": rel, "ms": kms,
+            "plain_ms": pms, "library_ms": lms, "library_gather_ms": gms,
+            "bound_ms": bms, "bound_by": by}
+
+
 # ---------------------------------------------------------------------------
 # slice phase: GPT-small generation served over HTTP
 # ---------------------------------------------------------------------------
@@ -415,6 +546,250 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# engine phase: the continuous-batching engine over HTTP, paged and slab
+# ---------------------------------------------------------------------------
+
+def _post_rows(srv, prompts: list, results: list, lat: list) -> float:
+    """POST each prompt as its own concurrent ``:generate`` request;
+    returns the wall time of the whole wave."""
+    import threading
+
+    errors = []
+
+    def worker(i):
+        try:
+            body, sec = post(srv.port, srv.name, {"inputs": {
+                "input_ids": [prompts[i].tolist()]}})
+            results[i], lat[i] = body["generations"][0], sec
+        except Exception as e:
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(r is None for r in results):
+        raise SystemExit(f"engine requests failed: {errors}")
+    return wall
+
+
+def _reset_launches() -> dict:
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import (
+        decode_attention as da, flash_attention as fa,
+        paged_decode_attention as pa)
+    fns = {"flash_attention_fwd": fa.flash_attention_fwd,
+           "decode_attention": da.decode_attention,
+           "paged_decode_attention": pa.paged_decode_attention}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def _engine_wave(srv, label: str, prompts: list, card: str) -> dict:
+    """One wave of concurrent requests through ``srv``'s engine, with
+    every kernel's launch count set to 0 just before it and read just
+    after, and the engine's dispatch counters over the same window."""
+    eng = srv.engine
+    n = len(prompts)
+    results, lat = [None] * n, [0.0] * n
+    d0, p0 = eng.decode_steps, eng.prefills
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fns = _reset_launches()
+    wall = _post_rows(srv, prompts, results, lat)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps, prefills = eng.decode_steps - d0, eng.prefills - p0
+    toks = sum(len(r) for r in results)
+    log(f"[engine {label}] {n} concurrent requests: {prefills} prefills, "
+        f"{steps} shared decode steps, launches {launches}; wave "
+        f"{wall * 1e3:.1f} ms, {toks / wall:.1f} tokens/s, request latency "
+        f"p50 {sorted(lat)[n // 2] * 1e3:.1f} ms max {max(lat) * 1e3:.1f} "
+        f"ms, {wall / max(steps, 1) * 1e3:.2f} ms per shared step, peak "
+        f"device memory {peak / 2**20:.1f} MiB ({card})")
+    return {"results": results, "launches": launches, "steps": steps,
+            "prefills": prefills, "wall": wall}
+
+
+def phase_engine(card: str) -> dict:
+    """GPT-small (bf16, flash prefill) exported stepwise twice, paged
+    (16-slot blocks, B5) and slab (B4), and served by the
+    continuous-batching engine over HTTP: 8 concurrent ragged greedy
+    requests, then 2 shared-prefix requests on the paged server, then the
+    same 8 on the slab server."""
+    from distributed_tensorflow_example_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        export_generator, load_stepwise)
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+
+    cfg = TrainConfig(model="gpt", dtype="bfloat16", attention_impl="flash")
+    model = get_model("gpt", cfg)
+    c = model.cfg
+    params = model.init(0)
+    bs, slots = PAGED_SHAPE["bs"], ENGINE_SLOTS
+    per_row = -(-(PROMPT_LEN + MAX_NEW) // bs)
+    num_blocks = 1 + 2 * slots * per_row     # 8 full rows + prefix room
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, c.vocab_size, (int(n),)).astype(np.int32)
+               for n in rs.randint(PROMPT_LEN // 4, PROMPT_LEN + 1, slots)]
+    prompts[0] = rs.randint(0, c.vocab_size, (PROMPT_LEN,)).astype(np.int32)
+    prompts[1] = prompts[1][:PROMPT_LEN - 5]       # ends inside a block
+    # shared prefix: prompt 0's first half (whole blocks) + a new suffix
+    # (a partial hit), and an exact repeat of prompt 1 (an exact hit whose
+    # first write copies its shared tail block)
+    half = PROMPT_LEN // 2 // bs * bs
+    prefix_reqs = [np.concatenate([prompts[0][:half], rs.randint(
+        0, c.vocab_size, (PROMPT_LEN // 8,)).astype(np.int32)]), prompts[1]]
+    warm = [rs.randint(0, c.vocab_size, (PROMPT_LEN,)).astype(np.int32)]
+    with tempfile.TemporaryDirectory() as tmp:
+        paged_dir = os.path.join(tmp, "paged")
+        slab_dir = os.path.join(tmp, "slab")
+        t0 = time.perf_counter()
+        export_generator(model, params, paged_dir, prompt_len=PROMPT_LEN,
+                         max_new_tokens=MAX_NEW, ragged=True, stepwise=True,
+                         slots=slots, paged=True, block_size=bs,
+                         num_blocks=num_blocks)
+        export_generator(model, params, slab_dir, prompt_len=PROMPT_LEN,
+                         max_new_tokens=MAX_NEW, ragged=True, stepwise=True,
+                         slots=slots)
+        log(f"[engine] two stepwise exports in "
+            f"{time.perf_counter() - t0:.2f} s; paged pool {num_blocks} "
+            f"blocks of {bs} slots "
+            f"({2 * c.layers * num_blocks * bs * c.hidden * 2 / 1e9:.3f} GB"
+            f" bf16), slab pool {slots} x {PROMPT_LEN + MAX_NEW} slots")
+        with PredictServer(paged_dir, scheduler="on", port=0) as srv:
+            _post_rows(srv, warm, [None], [0.0])                # warm-up
+            paged = _engine_wave(srv, "paged", prompts, card)
+            saved0, cow0 = srv.engine.prefill_tokens_saved, \
+                srv.engine.cow_copies
+            shared = _engine_wave(srv, "paged shared-prefix", prefix_reqs,
+                                  card)
+            stats = srv.engine.stats()
+            saved = srv.engine.prefill_tokens_saved - saved0
+            cows = srv.engine.cow_copies - cow0
+            idle = phase_engine_profile(srv.engine, prompts[0], card)
+        with PredictServer(slab_dir, scheduler="on", port=0) as srv:
+            _post_rows(srv, warm, [None], [0.0])                # warm-up
+            slab = _engine_wave(srv, "slab", prompts, card)
+        paged_sw = load_stepwise(paged_dir)
+        slab_sw = load_stepwise(slab_dir)
+        lerr = first_logits_err(paged_sw, slab_sw, prompts)
+        del paged_sw, slab_sw
+    log(f"[engine] /stats after the paged waves: prefills "
+        f"{stats['prefills']}, decode_steps {stats['decode_steps']}, "
+        f"steps_shared {stats['steps_shared']}, prefix_cache_hits "
+        f"{stats['prefix_cache_hits']}, cow_copies {stats['cow_copies']}, "
+        f"bytes_resident_peak {stats['bytes_resident_peak']}")
+    want = {"paged": {"flash_attention_fwd": c.layers * paged["prefills"],
+                      "decode_attention": 0,
+                      "paged_decode_attention": c.layers * paged["steps"]},
+            "slab": {"flash_attention_fwd": c.layers * slab["prefills"],
+                     "decode_attention": c.layers * slab["steps"],
+                     "paged_decode_attention": 0}}
+    for label, run in (("paged", paged), ("slab", slab)):
+        if run["launches"] != want[label] or run["steps"] < MAX_NEW - 1:
+            raise SystemExit(f"engine {label}: launches {run['launches']} "
+                             f"over {run['steps']} shared steps, want "
+                             f"{want[label]}")
+    if shared["launches"]["paged_decode_attention"] \
+            != c.layers * shared["steps"] or shared["prefills"]:
+        raise SystemExit(f"shared-prefix requests: {shared}")
+    log(f"[engine] shared-prefix requests: 0 prefills, {saved} prefill "
+        f"tokens saved, {cows} copy-on-write block copies")
+    if saved <= 0 or cows < 1:
+        raise SystemExit("the shared-prefix requests did not reuse cached "
+                         "blocks with a copy-on-write")
+    for out in paged["results"] + slab["results"] + shared["results"]:
+        if len(out) != MAX_NEW or min(out) < 0 or max(out) >= c.vocab_size:
+            raise SystemExit(f"bad engine generation {out[:8]}...")
+    agree = _agreement(paged["results"], slab["results"])
+    # the exact hit feeds its last prompt token through the decode step
+    # (B5) where the cold request ran it in the prefill (B1): the same
+    # bytes in the cache, other bf16 rounding for that one token
+    hit = _agreement(shared["results"][1:], paged["results"][1:2])
+    log(f"[engine] paged vs slab greedy token agreement {agree:.4f} (floor "
+        f"{ENGINE_AGREEMENT_FLOOR}), exact prefix hit vs its cold request "
+        f"{hit:.4f} (floor {PREFIX_HIT_AGREEMENT_FLOOR}); first-step logits "
+        f"max abs err {lerr:.3e} (tol {ENGINE_LOGIT_TOL})")
+    if agree < ENGINE_AGREEMENT_FLOOR or hit < PREFIX_HIT_AGREEMENT_FLOOR \
+            or lerr > ENGINE_LOGIT_TOL:
+        raise SystemExit("the paged engine disagrees with the slab engine")
+    return {"launches": paged["launches"]["paged_decode_attention"],
+            "idle": idle}
+
+
+def _agreement(a: list, b: list) -> float:
+    return float(np.mean([x == y for ra, rb in zip(a, b)
+                          for x, y in zip(ra, rb)]))
+
+
+def first_logits_err(paged_sw, slab_sw, prompts: list) -> float:
+    """Max abs difference of the first-step logits of each prompt, paged
+    prefill (left-aligned, whole blocks) vs slab prefill (right-packed)."""
+    worst = 0.0
+    paged_pool, slab_pool = paged_sw.make_pool(), slab_sw.make_pool()
+    nb = paged_sw.step_meta["prompt_blocks"]
+    for i, p in enumerate(prompts):
+        ids = np.zeros((1, PROMPT_LEN), np.int32)
+        mask = np.zeros((1, PROMPT_LEN), np.int32)
+        ids[0, :p.size], mask[0, :p.size] = p, 1
+        a = paged_sw.prefill({"input_ids": ids, "prompt_mask": mask,
+                              "table_row": np.arange(1, nb + 1,
+                                                     dtype=np.int32),
+                              **paged_pool})["logits"]
+        b = slab_sw.prefill({"input_ids": ids, "prompt_mask": mask,
+                             "slot": np.int32(i), **slab_pool})["logits"]
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def phase_engine_profile(eng, prompt, card: str) -> float:
+    """One engine request alone (prompt, 128 new tokens): host-clock
+    latency, then the device's busy time and idle share under
+    ``torch.profiler`` over a second identical request."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fresh = prompt.copy()
+    fresh[0] = (fresh[0] + 1) % 1000          # a cold prompt, no cache hit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(fresh, timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fresh[0] = (fresh[0] + 1) % 1000
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(fresh, timeout=600)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"[engine profile] one request ({prompt.size} prompt tokens, "
+        f"{MAX_NEW} new): {wall * 1e3:.1f} ms, {MAX_NEW / wall:.1f} "
+        f"tokens/s ({card})")
+    if not kernels:
+        log("[engine profile] the profiler saw no device time: idle share "
+            "not measured")
+        return float("nan")
+    idle = 1 - busy / (wall * 1e3)
+    log(f"[engine profile] traced request {traced * 1e3:.1f} ms, device "
+        f"busy {busy:.1f} ms: idle share {1 - busy / (traced * 1e3):.3f} "
+        f"of the traced request, {idle:.3f} of the untraced one")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:6]:
+        log(f"[engine profile]   {_device_us(e) / 1e3:8.2f} ms  "
+            f"{e.count:6d}x  {e.key[:90]}")
+    return idle
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -473,8 +848,11 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flash = phase_flash(gen)
     decode = phase_decode(gen)
-    log("[kernels] flash_attention_fwd, decode_attention")
+    paged = phase_paged(gen)
+    log("[kernels] flash_attention_fwd, decode_attention, "
+        "paged_decode_attention")
     launches = phase_slice(card)
+    engine = phase_engine(card)
     rows = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -488,6 +866,12 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:58",
          "launches": launches["decode_attention"], **decode},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "distributed_tensorflow_example_tpu_torch/csrc/"
+                   "paged_decode_attention.cu",
+         "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
+                     "decode_attention.py:187",
+         "launches": engine["launches"], **paged},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -16,6 +16,13 @@ reference threads immutable caches through ``lax.scan``, the port writes
 each step's K/V into the slab IN PLACE (the returned caches are the same
 tensors): one slab per generation, no per-step copies.
 
+Serving engine steps: :meth:`GPT.decode_step_batched` (per-row depths
+over a slab pool, the slab decode kernel), :meth:`GPT.paged_prefill`
+(a left-aligned prompt written in whole blocks through a block-table row)
+and :meth:`GPT.decode_step_batched_paged` (per-row depths read and written
+through block tables, the paged decode kernel). They too write their
+pools in place.
+
 Numerics follow the reference: bf16 matmuls with f32 accumulation, f32
 layernorm statistics (eps 1e-6), f32 softmax, tanh-approximated GELU,
 and f32 logits from the bf16-rounded hidden state and table (the logits
@@ -34,6 +41,8 @@ from ..config import TrainConfig, flash_attention_kwargs
 from ..ops import nn
 from ..ops.attention import NEG_INF, multi_head_attention
 from ..ops.cuda.decode_attention import decode_attention as decode_attn
+from ..ops.cuda.paged_decode_attention import \
+    paged_decode_attention as paged_decode_attn
 from ..runtime.device import resolve_device
 from ..utils.pytree import flatten_dict
 from .base import cast_floating, register_model, resolve_dtype
@@ -299,32 +308,21 @@ class GPT:
             "ffn_out": dense_stack(lambda lp: lp["ffn"]["out"]),
         }
 
-    def _decode_step_stacked(self, params, stacked, caches, tok, pos: int,
-                             pad=None, decode_attention: str | None = None):
-        """One-token forward over the stacked layer axis: fused QKV, a 2-D
-        [B, hid] residual stream, and the cache-slab attention as the
-        decode kernel (``"auto"``) or the plain reference (``"xla"``).
-        ``caches``: ``{"k": [L,B,T,H,D], "v": [L,B,T,H,D]}``, slot ``pos``
-        written in place. Same contract as :meth:`_decode_step`."""
+    def _stacked_layers(self, params, stacked, h, attend):
+        """The decode fast path's layer loop over the stacked layer axis:
+        fused QKV, a 2-D [B, hid] residual stream, and
+        ``attend(i, q, k, v) -> ctx`` (each [B, H, D]) for layer i's cache
+        write and attention. Returns the [B, V] f32 logits."""
         c = self.cfg
-        b = tok.shape[0]
-        impl = decode_attention or "auto"
-        if pad is None:
-            pad = torch.zeros(b, dtype=torch.int32, device=tok.device)
-        h = self._embed(params, tok[:, None], (pos - pad)[:, None])[:, 0]
-        pos_b = torch.full((b,), pos, dtype=torch.int32, device=tok.device)
+        b = h.shape[0]
         for i in range(c.layers):
             lp = {g: {n: t[i] for n, t in d.items()}
                   for g, d in stacked.items()}
-            ck, cv = caches["k"][i], caches["v"][i]
             qkv = nn.dense(lp["qkv"], nn.layernorm(lp["ln1"], h),
                            dtype=self.dtype)
             q, k, v = [x.reshape(b, c.heads, self.head_dim)
                        for x in torch.split(qkv, c.hidden, dim=-1)]
-            ck[:, pos] = k.to(ck.dtype)
-            cv[:, pos] = v.to(cv.dtype)
-            ctx = decode_attn(q.contiguous(), ck, cv, pos=pos_b, pad=pad,
-                              impl=impl)
+            ctx = attend(i, q.contiguous(), k, v)
             a = nn.dense(lp["o"], ctx.reshape(b, c.hidden), dtype=self.dtype)
             h = h + a.to(h.dtype)
             f = nn.dense(lp["ffn_in"], nn.layernorm(lp["ln2"], h),
@@ -333,7 +331,145 @@ class GPT:
             f = nn.dense(lp["ffn_out"], f, dtype=self.dtype)
             h = h + f.to(h.dtype)
         h = nn.layernorm(params["ln_f"], h)
-        return self.lm_logits(params, h[:, None])[:, 0], caches
+        return self.lm_logits(params, h[:, None])[:, 0]
+
+    def _decode_step_stacked(self, params, stacked, caches, tok, pos: int,
+                             pad=None, decode_attention: str | None = None):
+        """One-token forward over the stacked layer axis: fused QKV, a 2-D
+        [B, hid] residual stream, and the cache-slab attention as the
+        decode kernel (``"auto"``) or the plain reference (``"xla"``).
+        ``caches``: ``{"k": [L,B,T,H,D], "v": [L,B,T,H,D]}``, slot ``pos``
+        written in place. Same contract as :meth:`_decode_step`."""
+        b = tok.shape[0]
+        impl = decode_attention or "auto"
+        if pad is None:
+            pad = torch.zeros(b, dtype=torch.int32, device=tok.device)
+        h = self._embed(params, tok[:, None], (pos - pad)[:, None])[:, 0]
+        pos_b = torch.full((b,), pos, dtype=torch.int32, device=tok.device)
+
+        def attend(i, q, k, v):
+            ck, cv = caches["k"][i], caches["v"][i]
+            ck[:, pos] = k.to(ck.dtype)
+            cv[:, pos] = v.to(cv.dtype)
+            return decode_attn(q, ck, cv, pos=pos_b, pad=pad, impl=impl)
+
+        return self._stacked_layers(params, stacked, h, attend), caches
+
+    def _row_inputs(self, tok, pos, pad, alive, pos_max: int):
+        """The batched steps' per-row operands on the params' device:
+        ``pos`` clipped to the cache (a dead row may carry a stale one),
+        ``pad``, ``alive`` as bool, and the position ids
+        ``clip(pos - pad)``, kept in range for the position table."""
+        dev = tok.device
+        pos = torch.as_tensor(pos, device=dev).to(torch.int32).clamp(
+            0, pos_max)
+        pad = torch.as_tensor(pad, device=dev).to(torch.int32)
+        alive = (torch.ones(tok.shape[0], dtype=torch.bool, device=dev)
+                 if alive is None
+                 else torch.as_tensor(alive, device=dev) != 0)
+        pos_ids = (pos - pad).clamp(0, self.cfg.max_len - 1)
+        return pos, pad, alive, pos_ids
+
+    @torch.no_grad()
+    def decode_step_batched(self, params, stacked, caches, tok, pos, pad,
+                            alive=None, decode_attention: str | None = None):
+        """One-token forward with PER-ROW cache depths: the decode step of
+        the continuous-batching engine over the slab pool. Row b's token
+        writes cache slot ``pos[b]`` and carries position id ``pos[b] -
+        pad[b]``; ``alive`` [B] gates the write (a dead row rewrites the
+        bytes it read, so the pool stays as it was). Rows are independent.
+        ``caches``: ``{"k"/"v": [L, B, T, H, D]}``, written in place.
+        Returns (logits [B, V] f32, caches)."""
+        tok = torch.as_tensor(tok, device=params["wte"]["table"].device)
+        total = caches["k"].shape[2]
+        impl = decode_attention or "auto"
+        pos, pad, alive, pos_ids = self._row_inputs(tok, pos, pad, alive,
+                                                    total - 1)
+        h = self._embed(params, tok[:, None], pos_ids[:, None])[:, 0]
+        rows = torch.arange(tok.shape[0], device=tok.device)
+        live = alive[:, None, None]
+
+        def attend(i, q, k, v):
+            ck, cv = caches["k"][i], caches["v"][i]
+            ck[rows, pos] = torch.where(live, k.to(ck.dtype), ck[rows, pos])
+            cv[rows, pos] = torch.where(live, v.to(cv.dtype), cv[rows, pos])
+            return decode_attn(q, ck, cv, pos=pos, pad=pad, impl=impl)
+
+        return self._stacked_layers(params, stacked, h, attend), caches
+
+    # ------------------------------------------------------------------
+    # block-paged serving path: the KV pool is shared [L, N, Bs, H, D]
+    # physical blocks + per-slot block tables
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def paged_prefill(self, params, input_ids, prompt_mask, k_pool, v_pool,
+                      table_row):
+        """LEFT-ALIGNED prompt prefill writing WHOLE blocks through a
+        block-table row: the paged engine's admission. Token i sits at
+        logical slot i (no right-packing), so a shared token prefix fills
+        the same leading blocks for every request, which is what makes
+        block-granularity prefix reuse possible.
+
+        ``input_ids``/``prompt_mask``: [1, S0] (mask 1 = real token,
+        left-aligned); ``k_pool``/``v_pool``: [L, N, Bs, H, D], written in
+        place; ``table_row``: [ceil(S0 / Bs)] int32 physical block ids
+        (unused trailing entries point at the null block 0, where their
+        whole-block writes land and are never read). Returns ``(logits
+        [1, V] of the last real token, k_pool, v_pool)``."""
+        dev = params["wte"]["table"].device
+        ids = torch.as_tensor(input_ids, device=dev)
+        _, s0 = ids.shape
+        l, _, bs = k_pool.shape[:3]
+        table_row = torch.as_tensor(table_row, device=dev).long()
+        nb_p = table_row.shape[0]
+        pm = torch.as_tensor(prompt_mask, device=dev) != 0
+        ids = torch.where(pm, ids, torch.zeros_like(ids))
+        h_full, caches = self._prefill_full(
+            params, ids, nb_p * bs, mask=pm.to(torch.int32),
+            pos_ids=torch.arange(s0, device=dev)[None])
+        last = (pm.sum() - 1).clamp(min=0)
+        last_h = h_full[:, last]                             # [1, hid]
+        kv = self._stack_caches(caches)             # {"k"/"v": [L,1,T,H,D]}
+        for pool, x in ((k_pool, kv["k"]), (v_pool, kv["v"])):
+            pool[:, table_row] = x[:, 0].reshape(
+                l, nb_p, bs, *x.shape[3:]).to(pool.dtype)
+        return self.lm_logits(params, last_h[:, None])[:, 0], k_pool, v_pool
+
+    @torch.no_grad()
+    def decode_step_batched_paged(self, params, stacked, pools, block_tables,
+                                  tok, pos, pad, alive=None,
+                                  decode_attention: str | None = None):
+        """:meth:`decode_step_batched` with the cache read and written
+        THROUGH per-slot block tables: row b's token writes physical block
+        ``block_tables[b, pos_b // Bs]`` at offset ``pos_b % Bs``, and
+        attention reads through the same table (the paged decode kernel,
+        or its plain version). ``pools``: ``{"k"/"v": [L, N, Bs, H, D]}``,
+        written in place; ``block_tables``: [B, NB] int32. The engine
+        makes every written block uniquely owned (copy-on-write happens on
+        the host before the step); a dead row's table points at the null
+        block, where its gated write rewrites the bytes it read. Returns
+        (logits [B, V] f32, pools)."""
+        tok = torch.as_tensor(tok, device=params["wte"]["table"].device)
+        bs = pools["k"].shape[2]
+        bt = torch.as_tensor(block_tables, device=tok.device).to(torch.int32)
+        nb = bt.shape[1]
+        impl = decode_attention or "auto"
+        pos, pad, alive, pos_ids = self._row_inputs(tok, pos, pad, alive,
+                                                    nb * bs - 1)
+        h = self._embed(params, tok[:, None], pos_ids[:, None])[:, 0]
+        rows = torch.arange(tok.shape[0], device=tok.device)
+        pbid = bt[rows, pos // bs].long()                # [B] physical
+        off = (pos % bs).long()
+        live = alive[:, None, None]
+
+        def attend(i, q, k, v):
+            ck, cv = pools["k"][i], pools["v"][i]
+            ck[pbid, off] = torch.where(live, k.to(ck.dtype), ck[pbid, off])
+            cv[pbid, off] = torch.where(live, v.to(cv.dtype), cv[pbid, off])
+            return paged_decode_attn(q, ck, cv, block_tables=bt, pos=pos,
+                                     pad=pad, impl=impl)
+
+        return self._stacked_layers(params, stacked, h, attend), pools
 
     def ragged_prefill(self, params, input_ids, prompt_mask, total_len: int):
         """Ragged-prompt prefill: right-pack every row's real tokens

@@ -48,6 +48,9 @@ ENTRY_POINTS = {
     "flash_attention_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     # q, k, v, pos, pad, o, B, T, H, D, sm_scale, stream
     "decode_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # q, k_pool, v_pool, block_tables, pos, pad, o, B, N, Bs, NB, H, D,
+    # sm_scale, stream
+    "paged_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,18 +1,28 @@
-"""HTTP serving of a generator export (port of the ``scheduler="off"``
-path of ``distributed_tensorflow_example_tpu/serving_http.py``).
+"""HTTP serving of a generator export (port of the ``:generate`` path of
+``distributed_tensorflow_example_tpu/serving_http.py``).
 
 Routes:
 
 - ``POST /v1/models/<name>:generate`` with ``{"inputs": {"input_ids":
   [[...]], "prompt_mask": [[...]]}, "seed": N}`` (or ``"instances"``)
   -> ``{"generations": [[token ids]]}``;
-- ``GET /healthz`` -> ``{"status": "live", ...}``;
+- ``GET /healthz`` -> ``{"status": "live", ...}`` (503 unless live);
+- ``GET /stats`` -> the engine's counters (scheduler on);
 - ``GET /v1/models/<name>`` -> the model status.
 
-One request runs one ``generate`` at a time (single-flight lock), on the
-server's device (``cuda`` by default). Client mistakes answer 400, a
-failure while generating 500. The continuous-batching engine (scheduler
-on), ``:predict``, metrics and tracing arrive with later slices.
+Scheduling: with ``scheduler="on"`` (``"auto"`` turns it on when the
+export carries the ``stepwise`` block) ``:generate`` routes through the
+continuous-batching :class:`~.serving_batch.GenerationEngine`: each
+instance row is one engine request, concurrent requests share decode
+steps over one cache pool, prompts may be shorter than the exported
+capacity, per-request ``max_new``/``temperature``/``top_k``/``top_p``/
+``seed``/``stop_sequences`` ride the payload, the response carries
+``request_ids`` and ``timings``, and a full admission queue answers 429
+with ``Retry-After``. ``scheduler="off"`` runs one ``generate`` per
+request behind a single-flight lock: the parity oracle of the engine.
+Both run on the server's device (``cuda`` by default). Client mistakes
+answer 400, a failure while generating 500. ``:predict``, ``/metrics``,
+tracing routes, drain, cancel and deadlines arrive with a later slice.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ from typing import Any
 
 import numpy as np
 
-from .serving import ServableModel, load_servable
+from .serving import has_stepwise, load_servable, load_stepwise
+from .serving_batch import GenerationEngine, QueueFullError
 
 
 class _ServerFault(Exception):
@@ -42,22 +53,35 @@ class PredictServer:
     >>> srv.stop()
     """
 
-    def __init__(self, export_dir: str, *, scheduler: str = "off",
+    def __init__(self, export_dir: str, *, scheduler: str = "auto",
                  port: int = 0, device=None, host: str = "127.0.0.1",
-                 name: str | None = None):
+                 name: str | None = None, max_queue: int = 64,
+                 prefix_cache: bool = True):
         if scheduler not in ("auto", "on", "off"):
             raise ValueError(f"scheduler must be auto/on/off, got "
                              f"{scheduler!r}")
-        if scheduler == "on":
+        stepwise = has_stepwise(export_dir)
+        if scheduler == "auto":
+            scheduler = "on" if stepwise else "off"
+        if scheduler == "on" and not stepwise:
             # as the reference: a monolithic generator has no stepwise
             # programs for the continuous-batching engine to drive
             raise ValueError(
                 f"scheduler='on' needs stepwise generator artifacts in "
-                f"{export_dir!r}; the port's stepwise export arrives with "
-                "the paged-engine slice — serve with scheduler='off'")
-        self.scheduler = "off"
-        self.servable: ServableModel = load_servable(export_dir, device)
-        self.name = name or self.servable.meta.get("model", "model")
+                f"{export_dir!r} — re-export with export_generator(..., "
+                "stepwise=True), or serve with scheduler='off'")
+        self.scheduler = scheduler
+        self.engine: GenerationEngine | None = None
+        self.servable = None
+        if scheduler == "on":
+            sw = load_stepwise(export_dir, device)
+            self.meta, self.device = sw.meta, sw.device
+            self.engine = GenerationEngine(
+                sw, max_queue=max_queue, prefix_cache=prefix_cache).start()
+        else:
+            self.servable = load_servable(export_dir, device)
+            self.meta, self.device = self.servable.meta, self.servable.device
+        self.name = name or self.meta.get("model", "model")
         self._exec_lock = threading.Lock()
         self._httpd = ThreadingHTTPServer((host, port), self._make_handler())
         self.port = self._httpd.server_address[1]
@@ -138,7 +162,7 @@ class PredictServer:
     def _check_prompt_lengths(self, payload: dict) -> None:
         """A prompt longer than the export's capacity is a 400 naming the
         limit, not an opaque shape error."""
-        limit = int(self.servable.meta["prompt_len"])
+        limit = int(self.meta["prompt_len"])
         rows = None
         if isinstance(payload.get("inputs"), dict):
             rows = payload["inputs"].get("input_ids")
@@ -162,13 +186,127 @@ class PredictServer:
         except Exception as e:
             raise _ServerFault(f"{type(e).__name__}: {e}") from e
 
-    def generate(self, payload: dict) -> dict:
+    def _generate_scheduled(self, payload: dict,
+                            request_id: str | None = None) -> dict:
+        """:generate via the continuous-batching engine: each instance
+        row becomes one engine request (row i samples under ``seed + i``
+        so rows stay independent). Rows may be SHORTER than the exported
+        prompt capacity; a ``prompt_mask`` row keeps its nonzero
+        positions. Every row gets a request id (the client's
+        ``X-Request-Id``, suffixed per row, or an engine-generated one);
+        the response carries ``request_ids`` and the per-request
+        ``timings`` beside ``generations``."""
+        self._check_prompt_lengths(payload)
+        for knob in ("deadline_ms", "priority"):
+            if payload.get(knob) is not None:
+                raise ValueError(
+                    f"{knob!r} arrives with a later slice of the port "
+                    "(the engine's deadline and priority admission are "
+                    "not served over HTTP yet)")
+        rows = None
+        if isinstance(payload.get("inputs"), dict):
+            rows = payload["inputs"].get("input_ids")
+            masks = payload["inputs"].get("prompt_mask")
+        elif isinstance(payload.get("instances"), list):
+            inst = payload["instances"]
+            if not all(isinstance(r, dict) for r in inst):
+                raise ValueError("generate instances must be dicts with "
+                                 "'input_ids'")
+            bad_keys = set().union(*[set(r) for r in inst]) \
+                - {"input_ids", "prompt_mask"}
+            if bad_keys:
+                raise ValueError(
+                    f"unknown model inputs {sorted(bad_keys)} (the "
+                    "scheduler takes input_ids and prompt_mask)")
+            rows = [r.get("input_ids") for r in inst]
+            masks = ([r.get("prompt_mask") for r in inst]
+                     if any("prompt_mask" in r for r in inst) else None)
+        else:
+            raise ValueError("request needs 'instances' or 'inputs'")
+        if not isinstance(rows, list) or not rows or any(
+                r is None for r in rows):
+            raise ValueError("generate needs non-empty 'input_ids' rows")
+        if masks is not None and len(masks) != len(rows):
+            raise ValueError("prompt_mask row count != input_ids rows")
+        unknown = (set(payload.get("inputs", {}))
+                   - {"input_ids", "prompt_mask"}
+                   if isinstance(payload.get("inputs"), dict) else set())
+        if unknown:
+            raise ValueError(f"unknown model inputs {sorted(unknown)} "
+                             "(the scheduler takes input_ids and "
+                             "prompt_mask)")
+
+        def knob(name, conv):
+            v = payload.get(name)
+            if v is None:
+                return None
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise ValueError(f"{name!r} must be a number, got {v!r}")
+            return conv(v)
+
+        kw = {"max_new": knob("max_new", int),
+              "temperature": knob("temperature", float),
+              "top_k": knob("top_k", int),
+              "top_p": knob("top_p", float),
+              # 0 opts out of drafting; > 0 is refused by the engine
+              # (speculative decoding arrives with a later slice)
+              "spec_tokens": knob("spec_tokens", int)}
+        stop = payload.get("stop_sequences")
+        if stop is not None:
+            # shape/type validation happens in the engine's _make_request
+            # (on this handler thread), so a bad list is a clean 400
+            kw["stop_sequences"] = stop
+        seed = payload.get("seed", 0)
+        if isinstance(seed, bool) or not isinstance(seed, int):
+            raise ValueError(f"'seed' must be an integer, got {seed!r}")
+        prompts = []
+        for i, row in enumerate(rows):
+            prompt = np.asarray(row, np.int32).reshape(-1)
+            if masks is not None and masks[i] is not None:
+                mask = np.asarray(masks[i]).reshape(-1)
+                if mask.shape != prompt.shape:
+                    raise ValueError(
+                        f"prompt_mask row {i} shape {mask.shape} != "
+                        f"input_ids row shape {prompt.shape}")
+                if not np.any(mask != 0):
+                    raise ValueError("every prompt_mask row needs at "
+                                     "least one real token")
+                prompt = prompt[mask != 0]
+            prompts.append(prompt)
+        rids = None
+        if request_id:
+            rids = ([request_id] if len(prompts) == 1 else
+                    [f"{request_id}-{i}" for i in range(len(prompts))])
+        # validates EVERY row before queueing ANY, and the enqueue is
+        # atomic: a 400/429 on row k leaves no rows generating for nobody
+        handles = self.engine.submit_many(prompts, seed=seed,
+                                          request_ids=rids, **kw)
+        try:
+            gens = [h.result(timeout=300) for h in handles]
+        except BaseException as e:
+            # one row's failure fails the whole response: cancel the
+            # siblings still running instead of decoding for nobody
+            for h in handles:
+                if not h.done():
+                    h.cancel()
+            if isinstance(e, (TimeoutError, RuntimeError)):
+                raise _ServerFault(f"{type(e).__name__}: {e}") from e
+            raise
+        return {"generations": gens,
+                "request_ids": [h.request_id for h in handles],
+                "timings": [h.timings for h in handles]}
+
+    def generate(self, payload: dict, request_id: str | None = None) -> dict:
         """The decode route: ``{"inputs": {"input_ids": [[...]], ...},
-        "seed": 7}`` -> ``{"generations": [[token ids]]}``. The sampling
-        generator is seeded server-side from the request's integer
-        ``seed`` (default 0)."""
+        "seed": 7}`` -> ``{"generations": [[token ids]]}``. With the
+        scheduler on, each row rides the engine (per-request sampling
+        knobs in the payload; see :meth:`_generate_scheduled`); off, the
+        sampling generator is seeded server-side from the request's
+        integer ``seed`` (default 0)."""
         if not isinstance(payload, dict):
             raise ValueError("request body must be a JSON object")
+        if self.engine is not None:
+            return self._generate_scheduled(payload, request_id)
         for knob in ("stop_sequences", "spec_tokens"):
             if payload.get(knob) is not None:
                 raise ValueError(
@@ -185,7 +323,7 @@ class PredictServer:
             raise ValueError(
                 "every prompt_mask row needs at least one real token")
         seed = None
-        if self.servable.meta["temperature"] > 0.0:
+        if self.meta["temperature"] > 0.0:
             seed = payload.get("seed", 0)
             # bool is an int subclass (true would silently mean seed 1)
             if isinstance(seed, bool) or not isinstance(seed, int) \
@@ -196,11 +334,24 @@ class PredictServer:
         return {"generations": toks[:n].tolist()}
 
     def health(self) -> dict:
-        """``GET /healthz``: with no scheduler thread to watch, the server
-        answering at all is the liveness signal."""
-        return {"status": "live", "scheduler": self.scheduler,
-                "device": str(self.servable.device),
-                "mono_now": time.perf_counter()}
+        """``GET /healthz``: the engine's watchdog view (live / stalled /
+        dead, with the heartbeat age) when the scheduler runs; without a
+        scheduler thread, the server answering at all is the liveness
+        signal."""
+        h = (self.engine.health() if self.engine is not None
+             else {"status": "live"})
+        h.update(scheduler=self.scheduler, device=str(self.device),
+                 mono_now=time.perf_counter())
+        return h
+
+    def stats(self) -> dict:
+        """``GET /stats``: the scheduler mode plus the engine's counters
+        (one atomic registry snapshot)."""
+        out: dict[str, Any] = {"model": self.name,
+                               "scheduler": self.scheduler}
+        if self.engine is not None:
+            out["generate"] = self.engine.stats()
+        return out
 
     def _make_handler(self):
         server = self
@@ -213,11 +364,14 @@ class PredictServer:
             def log_message(self, *a):      # quiet: tests/CLI own stdout
                 pass
 
-            def _send(self, code: int, obj: Any) -> None:
+            def _send(self, code: int, obj: Any,
+                      headers: dict | None = None) -> None:
                 body = json.dumps(obj).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
 
@@ -227,9 +381,15 @@ class PredictServer:
                         "version": "1", "state": "AVAILABLE",
                         "status": {"error_code": "OK",
                                    "error_message": ""}}]})
+                elif self.path in ("/stats",
+                                   f"/v1/models/{server.name}/stats"):
+                    self._send(200, server.stats())
                 elif self.path in ("/healthz",
                                    f"/v1/models/{server.name}/healthz"):
-                    self._send(200, server.health())
+                    # 200 only while live: a wedged or dead scheduler
+                    # thread fails load-balancer probes
+                    h = server.health()
+                    self._send(200 if h["status"] == "live" else 503, h)
                 else:
                     self._send(404, {"error": f"unknown path {self.path}"})
 
@@ -251,7 +411,13 @@ class PredictServer:
                     self._send(400, {"error": f"bad request: {e}"})
                     return
                 try:
-                    self._send(200, server.generate(payload))
+                    self._send(200, server.generate(
+                        payload, self.headers.get("X-Request-Id") or None))
+                except QueueFullError as e:
+                    # bounded admission: tell the client WHEN to come back
+                    self._send(429, {"error": str(e)},
+                               headers={"Retry-After":
+                                        str(int(e.retry_after + 0.5))})
                 except _ServerFault as e:
                     self._send(500, {"error": str(e)})
                 except (ValueError, KeyError, TypeError) as e:
@@ -276,6 +442,9 @@ class PredictServer:
         return self
 
     def stop(self) -> None:
+        """Listener down first, then the engine (fail-fast: queued and
+        live requests fail loudly; graceful drain arrives with a later
+        slice)."""
         # shutdown() waits for serve_forever, which only a started server
         # ever runs
         if self._thread is not None:
@@ -283,6 +452,8 @@ class PredictServer:
             self._thread.join(timeout=5)
             self._thread = None
         self._httpd.server_close()
+        if self.engine is not None:
+            self.engine.close()
 
     def __enter__(self) -> "PredictServer":
         return self.start()
@@ -304,16 +475,21 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=8501)
     ap.add_argument("--scheduler", choices=("auto", "on", "off"),
                     default="auto",
-                    help="auto/off: one request, one generate (the "
-                    "continuous-batching engine arrives with a later "
-                    "slice; 'on' is refused)")
+                    help="on: the continuous-batching engine over a "
+                    "stepwise export; off: one request, one generate; "
+                    "auto: on exactly when the export is stepwise")
+    ap.add_argument("--max_queue", type=int, default=64,
+                    help="engine admission queue bound (429 past it)")
+    ap.add_argument("--prefix_cache", choices=("on", "off"), default="on",
+                    help="paged exports: reuse cached prompt-prefix blocks")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default cuda; pass "
                     "cpu to run without a GPU)")
     args = ap.parse_args(argv)
     srv = PredictServer(args.export_dir, scheduler=args.scheduler,
                         port=args.port, device=args.device, host=args.host,
-                        name=args.name)
+                        name=args.name, max_queue=args.max_queue,
+                        prefix_cache=args.prefix_cache == "on")
 
     def _graceful(signum, frame):
         # stop() must run off the serve_forever thread
@@ -323,7 +499,7 @@ def main(argv=None) -> int:
     print(f"serving {srv.name!r} on http://{args.host}:{srv.port}"
           f"/v1/models/{srv.name}:generate", flush=True)
     srv.serve()
-    srv._httpd.server_close()
+    srv.stop()
     return 0
 
 

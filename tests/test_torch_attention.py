@@ -22,6 +22,10 @@ from distributed_tensorflow_example_tpu_torch.ops import attention as tattn
 from distributed_tensorflow_example_tpu_torch.ops.cuda import (
     decode_attention as tdec, flash_attention as tflash)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
+
 # the pallas package re-exports functions under its modules' names
 jdec = importlib.import_module(
     "distributed_tensorflow_example_tpu.ops.pallas.decode_attention")

@@ -25,6 +25,10 @@ from distributed_tensorflow_example_tpu_torch.models.gpt import (
     GPT, GPTConfig, params_from_numpy, params_to_numpy)
 from distributed_tensorflow_example_tpu_torch.ops.attention import NEG_INF
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
+
 SMALL = dict(vocab_size=512, hidden=128, layers=2, heads=2,
              intermediate=256, max_len=256)
 F32_TOL = 1e-4

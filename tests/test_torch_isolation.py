@@ -21,9 +21,13 @@ from distributed_tensorflow_example_tpu_torch.models.gpt import (
 from distributed_tensorflow_example_tpu_torch.runtime.device import \
     resolve_device
 from distributed_tensorflow_example_tpu_torch.serving import (
-    export_generator, load_servable)
+    export_generator, load_servable, load_stepwise)
 from distributed_tensorflow_example_tpu_torch.serving_http import \
     PredictServer
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(port.__file__))
@@ -51,9 +55,18 @@ def _port_sources() -> list[str]:
     return sorted(out)
 
 
+#: the engine slice's modules, named so that the walk below is shown to
+#: reach them
+ENGINE_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "obs.registry", "obs.trace", "runtime.faults", "serving_batch",
+        "ops.cuda.paged_decode_attention"))
+
+
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
+    assert set(ENGINE_MODULES) <= set(mods), mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -88,6 +101,7 @@ def test_no_module_imports_triton_or_builds_at_import():
         "import sys\n"
         "import distributed_tensorflow_example_tpu_torch.models.gpt\n"
         "import distributed_tensorflow_example_tpu_torch.serving_http\n"
+        "import distributed_tensorflow_example_tpu_torch.serving_batch\n"
         "print('TRITON', 'triton' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -123,6 +137,25 @@ def test_entry_points_without_cuda_raise_instead_of_using_the_cpu(
         PredictServer(str(tmp_path), port=0)
     with PredictServer(str(tmp_path), port=0, device="cpu") as srv:
         out = srv.generate({"inputs": {"input_ids": [[1, 2, 3, 4]]}})
+    assert np.asarray(out["generations"]).shape == (1, 2)
+
+
+def test_engine_entry_points_without_cuda_raise(no_cuda, tmp_path):
+    """The stepwise export loads onto the card by default: without CUDA
+    the engine's loader and a scheduler-on server raise; with
+    ``device="cpu"`` they serve."""
+    model = GPT(TINY)
+    params = model.init(0, device="cpu")
+    export_generator(model, params, str(tmp_path), prompt_len=4,
+                     max_new_tokens=2, stepwise=True, slots=2, paged=True,
+                     block_size=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_stepwise(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PredictServer(str(tmp_path), port=0)
+    with PredictServer(str(tmp_path), port=0, device="cpu") as srv:
+        assert srv.engine is not None
+        out = srv.generate({"inputs": {"input_ids": [[1, 2, 3]]}})
     assert np.asarray(out["generations"]).shape == (1, 2)
 
 

@@ -15,18 +15,27 @@ rows with n. Both sides round the probabilities and the output to bf16,
 so an element may differ by an ulp or two (one ulp is up to 2^-7 = 7.8e-3
 of it). The worst rows of ``chip_smoke.py``'s kernel phases on an H100
 are 8.0e-3 (flash) and 1.7e-3 (decode); the limits are a few times that.
+The paged kernel runs the decode kernel's arithmetic through its block
+tables; its worst row in ``chip_smoke.py`` is 6.5e-3 (one ulp), and its
+limit is 2e-2, as ``chip_smoke.py``'s.
 """
 
 import pytest
 import torch
 
 from distributed_tensorflow_example_tpu_torch.ops.cuda import (
-    decode_attention as da, flash_attention as fa)
+    decode_attention as da, flash_attention as fa,
+    paged_decode_attention as pa)
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
 
 FLASH_ROW_REL_TOL = 2e-2
 DECODE_ROW_REL_TOL = 1e-2
+PAGED_ROW_REL_TOL = 2e-2
 
 
 def _row_rel_err(o, o_ref):
@@ -116,3 +125,85 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     kb = torch.zeros((2, 9000, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="T <="):
         da.decode_attention(q.to(torch.bfloat16), kb, kb, pos=3, pad=pad)
+
+
+def _paged_case(gen, dev, *, b=8, h=12, d=64, bs=16, nb=40):
+    """Shuffled physical blocks, rows 0-3 sharing their first blocks,
+    per-row pos and pad, entries outside each window on the null block
+    0."""
+    n = 1 + b * nb
+    bt = (torch.randperm(n - 1, generator=gen) + 1)[:b * nb].reshape(b, nb)
+    bt = bt.to(torch.int32)
+    shared = max(1, nb // 5)
+    bt[1:4, :shared] = bt[0, :shared]
+    pos = torch.randint(nb * bs - 2 * bs, nb * bs, (b,), generator=gen,
+                        dtype=torch.int32)
+    pad = torch.zeros(b, dtype=torch.int32)
+    pad[4:] = torch.randint(1, 3 * bs, (b - 4,), generator=gen,
+                            dtype=torch.int32)
+    blk = torch.arange(nb)
+    for row in range(b):
+        bt[row, (blk > pos[row] // bs) | (blk < pad[row] // bs)] = 0
+    q = _randn(gen, (b, h, d), dev)
+    kp, vp = (_randn(gen, (n, bs, h, d), dev) for _ in range(2))
+    return q, kp, vp, dict(block_tables=bt.to(dev), pos=pos.to(dev),
+                           pad=pad.to(dev))
+
+
+@pytest.mark.parametrize("d,bs", [(64, 16), (128, 16), (64, 4)])
+def test_paged_kernel_matches_plain_with_nan_null_block(cuda, d, bs):
+    gen = torch.Generator().manual_seed(d + bs)
+    q, kp, vp, kw = _paged_case(gen, cuda, d=d, bs=bs, nb=640 // bs)
+    before = pa.paged_decode_attention.launches
+    o = pa.paged_decode_attention(q, kp, vp, **kw)
+    assert pa.paged_decode_attention.launches == before + 1
+    o_ref = pa.xla_paged_decode_attention(q, kp, vp, **kw)
+    # the kernel never reads a masked slot: a NaN null block changes no bit
+    # (the plain version multiplies masked V rows by zero, so it is run on
+    # the finite pool only)
+    kp[0] = vp[0] = float("nan")
+    o_nan = pa.paged_decode_attention(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_nan)
+    assert o.dtype == vp.dtype
+    assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
+
+
+def test_paged_kernel_empty_window_and_bad_block_id(cuda):
+    """pad > pos gives zeros, as the plain version; a block id past the
+    pool is not read and the row comes out NaN."""
+    gen = torch.Generator().manual_seed(3)
+    q, kp, vp, kw = _paged_case(gen, cuda, b=8, nb=8)
+    kw["pad"][5] = kw["pos"][5] + 1
+    kw["block_tables"][6, kw["pos"][6] // 16] = kp.shape[0]
+    o = pa.paged_decode_attention(q, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert o[5].abs().max().item() == 0
+    assert torch.isnan(o[6].float()).all()
+    ok = [r for r in range(8) if r != 6]
+    o_ref = pa.xla_paged_decode_attention(q[ok], kp, vp, block_tables=kw[
+        "block_tables"][ok], pos=kw["pos"][ok], pad=kw["pad"][ok])
+    assert _row_rel_err(o[ok], o_ref) <= PAGED_ROW_REL_TOL
+
+
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 2, 64), device=cuda, dtype=torch.bfloat16)
+    kp = torch.zeros((5, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
+    bt = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    z = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):          # f32: no fallback
+        pa.paged_decode_attention(q.float(), kp.float(), kp.float(),
+                                  block_tables=bt, pos=z, pad=z)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_decode_attention(q, kp, kp, block_tables=bt.long(), pos=z,
+                                  pad=z)
+    with pytest.raises(ValueError, match="head dim"):
+        k32 = kp[..., :32].contiguous()
+        pa.paged_decode_attention(q[..., :32].contiguous(), k32, k32,
+                                  block_tables=bt, pos=z, pad=z)
+    with pytest.raises(ValueError, match="contiguous"):
+        kt = kp.transpose(0, 1).contiguous().transpose(0, 1)
+        pa.paged_decode_attention(q, kt, kt, block_tables=bt, pos=z, pad=z)
+    with pytest.raises(ValueError, match="8192"):
+        pa.paged_decode_attention(q, kp, kp, block_tables=torch.ones(
+            (2, 513), dtype=torch.int32, device=cuda), pos=z, pad=z)

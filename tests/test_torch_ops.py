@@ -14,6 +14,10 @@ import torch
 from distributed_tensorflow_example_tpu.ops import nn as jnn
 from distributed_tensorflow_example_tpu_torch.ops import nn as tnn
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
+
 BF16_RTOL = 2.0 ** -7
 
 

@@ -38,6 +38,10 @@ from distributed_tensorflow_example_tpu_torch.serving_http import \
 from test_torch_gpt import (SMALL, jax_generate, make_pair, prompts,
                             ragged_mask)
 
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, P, NEW = 3, 12, 6
 
@@ -239,25 +243,67 @@ def test_routes_and_malformed_json(greedy_server):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(stepwise=True), dict(paged=True), dict(spec_tokens=4),
+    dict(stepwise=True), dict(stepwise=True, paged=True), dict(spec_tokens=4),
     dict(prefill_chunk=16), dict(weight_quant="int8"),
     dict(kv_cache_dtype="int8")])
 def test_export_refuses_later_slices(pair, tmp_path, knob):
+    """The stepwise export (slab and paged) writes the reference's
+    ``stepwise`` metadata block; speculative verify, chunked prefill and
+    the int8 paths still belong to a later slice and raise, writing
+    nothing."""
     _, _, tm, tp = pair
-    with pytest.raises(NotImplementedError, match="later slice|arrives"):
-        export_generator(tm, tp, str(tmp_path), prompt_len=P,
-                         max_new_tokens=NEW, **knob)
-    assert not os.listdir(tmp_path)
+    kw = dict(prompt_len=P, max_new_tokens=NEW)
+    if not knob.get("stepwise"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            export_generator(tm, tp, str(tmp_path), **kw, **knob)
+        assert not os.listdir(tmp_path)
+        return
+    export_generator(tm, tp, str(tmp_path), slots=3, **kw, **knob)
+    with open(tmp_path / "export.json") as f:
+        meta = json.load(f)
+    sm = meta["stepwise"]
+    c, total = tm.cfg, P + NEW
+    assert meta["quant_schema"] == 1
+    assert (sm["slots"], sm["prompt_len"], sm["max_new_tokens"],
+            sm["max_context"]) == (3, P, NEW, total)
+    assert sm["cache_dtype"] == sm["kv_cache_dtype"] == "float32"
+    assert sm["paged"] is bool(knob.get("paged"))
+    assert sm["spec_tokens"] == sm["prefill_chunk"] == 0
+    shape = [c.layers, None, None, c.heads, c.hidden // c.heads]
+    if not sm["paged"]:
+        shape[1:3] = [3, total]
+    else:
+        per_row = -(-total // 16)
+        assert (sm["block_size"], sm["blocks_per_slot"],
+                sm["prompt_blocks"]) == (16, per_row, 1)
+        assert sm["num_blocks"] == 1 + 3 * per_row        # + null block
+        assert sm["layout"] == "left_aligned"
+        shape[1:3] = [sm["num_blocks"], 16]
+        with pytest.raises(ValueError, match="requires stepwise"):
+            export_generator(tm, tp, str(tmp_path), paged=True, **kw)
+    assert sm["pool_shape"] == shape
 
 
-def test_scheduler_modes(greedy_server):
+def test_scheduler_modes(pair, greedy_server, tmp_path):
+    """``"on"`` builds the engine over a stepwise export and refuses a
+    monolithic one; ``"auto"`` picks ``"on"`` exactly for a stepwise
+    export."""
     d = greedy_server.servable.directory
     with PredictServer(d, device="cpu", scheduler="auto") as srv:
-        assert srv.scheduler == "off"
+        assert srv.scheduler == "off" and srv.engine is None
     with pytest.raises(ValueError, match="stepwise"):
         PredictServer(d, device="cpu", scheduler="on")
     with pytest.raises(ValueError, match="scheduler"):
         PredictServer(d, device="cpu", scheduler="maybe")
+    _, _, tm, tp = pair
+    export_generator(tm, tp, str(tmp_path), prompt_len=P,
+                     max_new_tokens=NEW, stepwise=True, slots=2)
+    for mode in ("on", "auto"):
+        with PredictServer(str(tmp_path), device="cpu",
+                           scheduler=mode) as srv:
+            assert srv.scheduler == "on" and srv.engine is not None
+            out = srv.generate({"inputs": {"input_ids": [[1, 2, 3]]}})
+        assert np.asarray(out["generations"]).shape == (1, NEW)
 
 
 def test_cli_serves_until_sigterm(greedy_server):
