@@ -10,14 +10,16 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``). Prints, in order:
 the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
 kernel (error against the plain version, kernel / plain / library time,
-the roofline bound), the slice phase (three ``:generate`` requests on
-full-width GPT-small with launch counts, token agreement with the plain
-versions, tokens/s, latency, peak memory), the engine phase (the
-continuous-batching engine over HTTP on a paged and a slab export:
-concurrent requests, prefix reuse, launch counts, paged-vs-slab
-agreement, tokens/s, latency, peak memory, the device idle share of one
-request), a ``{"kernels": [...]}`` JSON line, the card line again, and
-as the last line
+the roofline bound; the paged kernel over bf16 and over int8 pools), the
+slice phase (three ``:generate`` requests on full-width GPT-small with
+launch counts, token agreement with the plain versions, tokens/s,
+latency, peak memory, then one request of an int8-weight export and the
+decode step with int8 weights beside the float one), the engine phase
+(the continuous-batching engine over HTTP on a paged, a slab, an int8-KV
+paged and an int8-KV int8-weight paged export: concurrent requests,
+prefix reuse, launch counts, agreement between them, tokens/s, latency,
+peak memory, the device idle share of one request), a ``{"kernels":
+[...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line; without CUDA (or outside the repository) it exits
 non-zero and prints no result.
@@ -25,6 +27,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -76,6 +79,15 @@ AGREEMENT_FLOOR = 0.5
 # bf16 ulp of an element, as for flash), 2.2e-7 at D=128; the limit is 3x
 # the worst, two ulps
 PAGED_ROW_REL_TOL = 2e-2
+# the int8 paged kernel follows the Pallas kernel's algebra (scales folded
+# into the f32 scores and probabilities), its plain version the reference's
+# XLA path (rows dequantized to bf16, probabilities rounded to bf16): the
+# two differ by bf16 rounding as the bf16 kernel and its plain version do,
+# and are held to the same limit
+PAGED_INT8_ROW_REL_TOL = 2e-2
+# int8 KV (and int8 weights) against the float engine, greedy: the
+# reference's drift gate (experiments/serving_load.py INT8_MIN_AGREEMENT)
+INT8_MIN_AGREEMENT = 0.75
 
 FLASH_SHAPE = dict(b=8, s=512, h=12, d=64)
 # the engine's decode step at GPT-small: 8 slots, 12 heads, 16-slot blocks,
@@ -149,6 +161,17 @@ def row_rel_err(o: torch.Tensor, o_ref: torch.Tensor) -> float:
     size = o_ref.float().abs().amax(dim=-1)
     return (diff / size.clamp_min(torch.finfo(torch.float32).tiny)
             ).max().item()
+
+
+def live_slots(bt: torch.Tensor, pos: torch.Tensor, pad: torch.Tensor,
+               bs: int) -> tuple[int, int]:
+    """(live (row, slot) pairs, distinct physical slots they read): rows
+    that share prefix blocks read the same slots, which the bound counts
+    once."""
+    slots = torch.arange(bt.shape[1] * bs, device=bt.device)
+    live = (slots[None, :] <= pos[:, None]) & (slots[None, :] >= pad[:, None])
+    phys = bt.long()[:, slots // bs] * bs + slots % bs
+    return int(live.sum()), int(torch.unique(phys[live]).numel())
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -375,9 +398,9 @@ def phase_paged(gen) -> dict:
     b, h, bs, nb = (PAGED_SHAPE[x] for x in ("b", "h", "bs", "nb"))
     d = 64
     pos, pad, bt = x["pos"], x["pad"], x["bt"]
-    live = int((pos - pad + 1).sum())
+    live, distinct = live_slots(bt, pos, pad, bs)
     flops = 4.0 * h * d * live
-    nbytes = (2 * live * h * d * 2                   # live K and V rows
+    nbytes = (2 * distinct * h * d * 2               # live K and V rows
               + 2 * b * h * d * 2                    # q in, o out
               + b * nb * 4 + 2 * b * 4)              # table, pos, pad
     bms, by = bound(flops, nbytes)
@@ -407,7 +430,100 @@ def phase_paged(gen) -> dict:
     log(f"[paged] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, library_ms "
         f"(sdpa over the gathered slab) {lms:.4f}, with the gather "
         f"{gms:.4f}, bound_ms {bms:.4f} ({by}: {live} live slots of "
-        f"{b * nb * bs}, {nbytes / 1e6:.2f} MB)")
+        f"{b * nb * bs} over {distinct} distinct physical slots, "
+        f"{nbytes / 1e6:.2f} MB)")
+    return {"max_abs_err": err, "max_row_rel_err": rel, "ms": kms,
+            "plain_ms": pms, "library_ms": lms, "library_gather_ms": gms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_paged_int8(gen) -> dict:
+    """B6 (int8 pools, one f32 scale per slot) at B5's shapes, its pools
+    quantized on the card from random bf16 ones: against its plain version
+    at D=128 and D=64, and against itself with garbage bytes and NaN
+    scales in the null block 0 (never read, so no bit may change). Then
+    timed at D=64: the kernel, the plain version, and SDPA over the slab
+    gathered and dequantized beforehand and with the gather and dequant
+    included."""
+    from distributed_tensorflow_example_tpu_torch.models.gpt import \
+        quantize_kv_rows
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        paged_decode_attention as pa
+    err = rel = 0.0
+    for d in (128, 64):                 # the timed D=64 inputs stay below
+        x = paged_inputs(gen, d)
+        kq, ks = quantize_kv_rows(x["k_pool"])
+        vq, vs = quantize_kv_rows(x["v_pool"])
+        kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
+        o = pa.paged_decode_attention(x["q"], kq, vq, k_scale=ks,
+                                      v_scale=vs, **kw)
+        o_ref = pa.xla_paged_decode_attention(x["q"], kq, vq, k_scale=ks,
+                                              v_scale=vs, **kw)
+        k_bad, v_bad, ks_nan, vs_nan = (t.clone() for t in (kq, vq, ks, vs))
+        k_bad[0], v_bad[0] = 127, -128
+        ks_nan[0] = vs_nan[0] = float("nan")
+        o_nan = pa.paged_decode_attention(x["q"], k_bad, v_bad,
+                                          k_scale=ks_nan, v_scale=vs_nan,
+                                          **kw)
+        torch.cuda.synchronize()
+        e = (o.float() - o_ref.float()).abs().max().item()
+        r = row_rel_err(o, o_ref)
+        same = bool(torch.equal(o, o_nan))
+        log(f"[paged int8 D={d}] worst row max|o - plain| / max|plain| "
+            f"{r:.3e} (tol {PAGED_INT8_ROW_REL_TOL}; max abs err {e:.3e}); "
+            f"garbage bytes and NaN scales in the null block leave the "
+            f"output bitwise unchanged: {same}; output dtype {o.dtype}")
+        if not same or r > PAGED_INT8_ROW_REL_TOL or o.dtype != x["q"].dtype:
+            raise SystemExit(f"paged_decode_attention int8 disagrees with "
+                             f"its plain version at D={d}")
+        err, rel = max(err, e), max(rel, r)
+    b, h, bs, nb = (PAGED_SHAPE[k] for k in ("b", "h", "bs", "nb"))
+    d = 64
+    pos, pad, bt = x["pos"], x["pad"], x["bt"]
+    live, distinct = live_slots(bt, pos, pad, bs)
+    flops = 4.0 * h * d * live
+    nbytes = (2 * distinct * (h * d + 4)             # live int8 K/V + scales
+              + 2 * b * h * d * 2                    # q in, o out
+              + b * nb * 4 + 2 * b * 4)              # table, pos, pad
+    bms, by = bound(flops, nbytes)
+    sets = cold_sets((x["q"], kq, vq, ks, vs))
+    kw = dict(block_tables=bt, pos=pos, pad=pad)
+
+    def kernel(q_, kq_, vq_, ks_, vs_):
+        return pa.paged_decode_attention(q_, kq_, vq_, k_scale=ks_,
+                                         v_scale=vs_, **kw)
+
+    def plain(q_, kq_, vq_, ks_, vs_):
+        return pa.xla_paged_decode_attention(q_, kq_, vq_, k_scale=ks_,
+                                             v_scale=vs_, **kw)
+
+    kms = cuda_ms(kernel, sets, iters=192)
+    pms = cuda_ms(plain, sets)
+    slots = torch.arange(nb * bs, device=pos.device)
+    amask = ((slots[None, :] <= pos[:, None])
+             & (slots[None, :] >= pad[:, None]))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bt_l = bt.long()
+
+    def slab(pool, scale):
+        return (pool[bt_l].float() * scale[bt_l][..., None, None]).to(
+            torch.bfloat16).reshape(b, nb * bs, h, d)
+
+    def gathered(q_, kq_, vq_, ks_, vs_):
+        return sdpa(q_[:, :, None], slab(kq_, ks_).transpose(1, 2),
+                    slab(vq_, vs_).transpose(1, 2), attn_mask=amask)
+
+    slab_sets = [(q_, slab(kq_, ks_), slab(vq_, vs_))
+                 for q_, kq_, vq_, ks_, vs_ in sets]
+    lms = cuda_ms(lambda q_, k_, v_: sdpa(
+        q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+        attn_mask=amask), slab_sets, iters=192)
+    gms = cuda_ms(gathered, sets, iters=192)
+    log(f"[paged int8] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, library_ms "
+        f"(sdpa over the slab gathered and dequantized beforehand) "
+        f"{lms:.4f}, with the gather and dequant {gms:.4f}, bound_ms "
+        f"{bms:.4f} ({by}: {live} live slots of {b * nb * bs} over "
+        f"{distinct} distinct physical slots, {nbytes / 1e6:.2f} MB)")
     return {"max_abs_err": err, "max_row_rel_err": rel, "ms": kms,
             "plain_ms": pms, "library_ms": lms, "library_gather_ms": gms,
             "bound_ms": bms, "bound_by": by}
@@ -431,8 +547,6 @@ def post(port: int, name: str, payload: dict) -> tuple[dict, float]:
 def phase_slice(card: str) -> dict:
     from distributed_tensorflow_example_tpu_torch.config import TrainConfig
     from distributed_tensorflow_example_tpu_torch.models import get_model
-    from distributed_tensorflow_example_tpu_torch.ops.cuda import (
-        decode_attention as da, flash_attention as fa)
     from distributed_tensorflow_example_tpu_torch.serving import \
         export_generator
     from distributed_tensorflow_example_tpu_torch.serving_http import \
@@ -477,20 +591,19 @@ def phase_slice(card: str) -> dict:
             post(g_srv.port, g_srv.name, requests[0][2])    # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            fa.flash_attention_fwd.launches = 0
-            da.decode_attention.launches = 0
+            read_launches = _reset_launches()
             outs, lat = [], []
             for srv, label, payload in requests:
                 body, sec = post(srv.port, srv.name, payload)
                 outs.append(np.asarray(body["generations"]))
                 lat.append(sec)
-            launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                        "decode_attention": da.decode_attention.launches}
+            launches = read_launches()
             peak = torch.cuda.max_memory_allocated()
             again, _ = post(s_srv.port, s_srv.name, requests[2][2])
     n_req = len(requests)
     want = {"flash_attention_fwd": c.layers * n_req,
-            "decode_attention": c.layers * (MAX_NEW - 1) * n_req}
+            "decode_attention": c.layers * (MAX_NEW - 1) * n_req,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
     log(f"[slice] launches over {n_req} requests: {launches} "
         f"(want {want})")
     if launches != want:
@@ -543,7 +656,66 @@ def phase_slice(card: str) -> dict:
     if min(agree) < AGREEMENT_FLOOR or lerr > LOGIT_TOL:
         raise SystemExit("the kernel path disagrees with the plain path")
     phase_profile(model, params, ids_t, card)
+    phase_weight_int8(model, params, ids, outs[0], card)
     return launches
+
+
+def phase_weight_int8(model, params, ids: np.ndarray, float_out: np.ndarray,
+                      card: str) -> None:
+    """The monolithic path with int8 decode weights: an export with
+    ``weight_quant="int8"`` served over HTTP (batch 8, prompt 512, 128 new
+    tokens) with its launch counts, its first tokens against the float
+    export's (the prefill runs on the float weights, so they are equal)
+    and its token agreement with them; then the decode step with int8
+    weights beside the float step on the host clock, in turns (float,
+    int8, int8, float)."""
+    from distributed_tensorflow_example_tpu_torch.serving import \
+        export_generator
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    c = model.cfg
+    payload = {"inputs": {"input_ids": ids.tolist(),
+                          "prompt_mask": np.ones_like(ids).tolist()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "w8")
+        export_generator(model, params, d, prompt_len=PROMPT_LEN,
+                         max_new_tokens=MAX_NEW, batch_size=BATCH,
+                         ragged=True, weight_quant="int8")
+        with PredictServer(d, port=0) as srv:
+            post(srv.port, srv.name, payload)                   # warm-up
+            read_launches = _reset_launches()
+            body, sec = post(srv.port, srv.name, payload)
+            launches = read_launches()
+    out = np.asarray(body["generations"])
+    want = {"flash_attention_fwd": c.layers,
+            "decode_attention": c.layers * (MAX_NEW - 1),
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+    agree = float((out == float_out).mean())
+    log(f"[weight int8] greedy request: {sec * 1e3:.1f} ms, "
+        f"{BATCH * MAX_NEW / sec:.1f} tokens/s, launches {launches} (want "
+        f"{want}); token agreement with the float export {agree:.4f}; "
+        f"first tokens equal: {bool((out[:, 0] == float_out[:, 0]).all())} "
+        f"({card})")
+    if launches != want or out.shape != (BATCH, MAX_NEW) \
+            or not (out[:, 0] == float_out[:, 0]).all():
+        raise SystemExit("the int8-weight export did not serve through the "
+                         "kernels, or its first tokens differ from the "
+                         "float export's")
+    ids_t = torch.as_tensor(ids, device="cuda")
+
+    def wall(n_new: int, wq) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(params, ids_t, n_new, weight_quant=wq)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    steps = {None: [], "int8": []}
+    for wq in (None, "int8", "int8", None):
+        one = min(wall(1, wq) for _ in range(2))
+        steps[wq].append((wall(MAX_NEW, wq) - one) / (MAX_NEW - 1) * 1e3)
+    log(f"[weight int8] decode ms/step, float {steps[None]} and int8 "
+        f"weights {steps['int8']} (host clock, in turns; {card})")
 
 
 # ---------------------------------------------------------------------------
@@ -578,16 +750,21 @@ def _post_rows(srv, prompts: list, results: list, lat: list) -> float:
     return wall
 
 
-def _reset_launches() -> dict:
+def _reset_launches():
+    """Set every kernel's launch count to 0; returns a function that reads
+    them all ({kernel name: launches})."""
     from distributed_tensorflow_example_tpu_torch.ops.cuda import (
         decode_attention as da, flash_attention as fa,
         paged_decode_attention as pa)
-    fns = {"flash_attention_fwd": fa.flash_attention_fwd,
-           "decode_attention": da.decode_attention,
-           "paged_decode_attention": pa.paged_decode_attention}
-    for fn in fns.values():
-        fn.launches = 0
-    return fns
+    counters = (("flash_attention_fwd", fa.flash_attention_fwd, "launches"),
+                ("decode_attention", da.decode_attention, "launches"),
+                ("paged_decode_attention", pa.paged_decode_attention,
+                 "launches"),
+                ("paged_decode_attention_int8", pa.paged_decode_attention,
+                 "launches_int8"))
+    for _, fn, attr in counters:
+        setattr(fn, attr, 0)
+    return lambda: {name: getattr(fn, attr) for name, fn, attr in counters}
 
 
 def _engine_wave(srv, label: str, prompts: list, card: str) -> dict:
@@ -598,11 +775,12 @@ def _engine_wave(srv, label: str, prompts: list, card: str) -> dict:
     n = len(prompts)
     results, lat = [None] * n, [0.0] * n
     d0, p0 = eng.decode_steps, eng.prefills
+    gc.collect()          # servers closed earlier free their tensors first
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fns = _reset_launches()
+    read_launches = _reset_launches()
     wall = _post_rows(srv, prompts, results, lat)
-    launches = {k: fn.launches for k, fn in fns.items()}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     steps, prefills = eng.decode_steps - d0, eng.prefills - p0
     toks = sum(len(r) for r in results)
@@ -613,7 +791,7 @@ def _engine_wave(srv, label: str, prompts: list, card: str) -> dict:
         f"ms, {wall / max(steps, 1) * 1e3:.2f} ms per shared step, peak "
         f"device memory {peak / 2**20:.1f} MiB ({card})")
     return {"results": results, "launches": launches, "steps": steps,
-            "prefills": prefills, "wall": wall}
+            "prefills": prefills, "wall": wall, "lat": lat, "peak": peak}
 
 
 def phase_engine(card: str) -> dict:
@@ -678,6 +856,9 @@ def phase_engine(card: str) -> dict:
         with PredictServer(slab_dir, scheduler="on", port=0) as srv:
             _post_rows(srv, warm, [None], [0.0])                # warm-up
             slab = _engine_wave(srv, "slab", prompts, card)
+        del srv                       # the int8 waves' peak excludes it
+        quant = phase_engine_int8(model, params, tmp, paged_dir, paged,
+                                  prompts, prefix_reqs, warm, card)
         paged_sw = load_stepwise(paged_dir)
         slab_sw = load_stepwise(slab_dir)
         lerr = first_logits_err(paged_sw, slab_sw, prompts)
@@ -689,17 +870,20 @@ def phase_engine(card: str) -> dict:
         f"bytes_resident_peak {stats['bytes_resident_peak']}")
     want = {"paged": {"flash_attention_fwd": c.layers * paged["prefills"],
                       "decode_attention": 0,
-                      "paged_decode_attention": c.layers * paged["steps"]},
+                      "paged_decode_attention": c.layers * paged["steps"],
+                      "paged_decode_attention_int8": 0},
             "slab": {"flash_attention_fwd": c.layers * slab["prefills"],
                      "decode_attention": c.layers * slab["steps"],
-                     "paged_decode_attention": 0}}
+                     "paged_decode_attention": 0,
+                     "paged_decode_attention_int8": 0}}
     for label, run in (("paged", paged), ("slab", slab)):
         if run["launches"] != want[label] or run["steps"] < MAX_NEW - 1:
             raise SystemExit(f"engine {label}: launches {run['launches']} "
                              f"over {run['steps']} shared steps, want "
                              f"{want[label]}")
     if shared["launches"]["paged_decode_attention"] \
-            != c.layers * shared["steps"] or shared["prefills"]:
+            != c.layers * shared["steps"] or shared["prefills"] \
+            or shared["launches"]["paged_decode_attention_int8"]:
         raise SystemExit(f"shared-prefix requests: {shared}")
     log(f"[engine] shared-prefix requests: 0 prefills, {saved} prefill "
         f"tokens saved, {cows} copy-on-write block copies")
@@ -722,7 +906,164 @@ def phase_engine(card: str) -> dict:
             or lerr > ENGINE_LOGIT_TOL:
         raise SystemExit("the paged engine disagrees with the slab engine")
     return {"launches": paged["launches"]["paged_decode_attention"],
-            "idle": idle}
+            "launches_int8": quant, "idle": idle}
+
+
+def phase_engine_int8(model, params, tmp: str, float_dir: str,
+                      float_wave: dict, prompts: list, prefix_reqs: list,
+                      warm: list, card: str) -> int:
+    """The quantized engine: GPT-small exported stepwise and paged with an
+    int8 KV pool at the float paged pool's byte budget (``pool_bytes``),
+    then with int8 weights as well, each served by the engine over HTTP:
+    the 8 concurrent requests of the float wave, then (int8 KV) the 2
+    shared-prefix requests and a profile of one request. Every shared
+    decode step must attend through B6 (12 launches a step, B5 none); the
+    first tokens equal the float wave's (the prefill attends in float
+    before the int8 write); greedy agreement with the float wave holds
+    the reference's drift gate. Last, the float wave again, so that the
+    per-step times come in turns (float, int8, int8 + weights, float).
+    Returns B6's launches in the int8 wave."""
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        export_generator, load_stepwise)
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    c = model.cfg
+    with open(os.path.join(float_dir, "export.json")) as f:
+        fm = json.load(f)["stepwise"]
+    budget = fm["num_blocks"] * fm["block_bytes"]     # the float K/V bytes
+    dirs = {}
+    for name, kw in (("int8", {}), ("int8_w8", dict(weight_quant="int8"))):
+        dirs[name] = os.path.join(tmp, name)
+        export_generator(model, params, dirs[name], prompt_len=PROMPT_LEN,
+                         max_new_tokens=MAX_NEW, ragged=True, stepwise=True,
+                         slots=ENGINE_SLOTS, paged=True,
+                         block_size=fm["block_size"], pool_bytes=budget,
+                         kv_cache_dtype="int8", **kw)
+    with open(os.path.join(dirs["int8"], "export.json")) as f:
+        qm = json.load(f)["stepwise"]
+    usable = (fm["num_blocks"] - 1, qm["num_blocks"] - 1)
+    log(f"[engine int8] pool_bytes {budget} (the float paged pool's K/V "
+        f"bytes): usable blocks bf16 {usable[0]}, int8 {usable[1]} (at "
+        f"least {2 * usable[0] - 1} wanted); block_bytes bf16 "
+        f"{fm['block_bytes']}, int8 {qm['block_bytes']} with its scale rows")
+    if usable[1] < 2 * usable[0] - 1:
+        raise SystemExit("the int8 export does not hold twice the blocks")
+    with PredictServer(dirs["int8"], scheduler="on", port=0) as srv:
+        _post_rows(srv, warm, [None], [0.0])                    # warm-up
+        wave = _engine_wave(srv, "paged int8", prompts, card)
+        saved0, cow0 = srv.engine.prefill_tokens_saved, srv.engine.cow_copies
+        shared = _engine_wave(srv, "paged int8 shared-prefix", prefix_reqs,
+                              card)
+        stats = srv.engine.stats()
+        saved = srv.engine.prefill_tokens_saved - saved0
+        cows = srv.engine.cow_copies - cow0
+        phase_engine_profile(srv.engine, prompts[0], card,
+                             label="engine int8 profile")
+    with PredictServer(dirs["int8_w8"], scheduler="on", port=0) as srv:
+        _post_rows(srv, warm, [None], [0.0])                    # warm-up
+        w8 = _engine_wave(srv, "paged int8 + int8 weights", prompts, card)
+    with PredictServer(float_dir, scheduler="on", port=0) as srv:
+        _post_rows(srv, warm, [None], [0.0])                    # warm-up
+        again = _engine_wave(srv, "paged again", prompts, card)
+    # after the waves, so that their peak memory holds no other model
+    float_sw = load_stepwise(float_dir)
+    lerr_q, std = step_logits_err(float_sw, load_stepwise(dirs["int8"]),
+                                  prompts)
+    lerr_w, _ = step_logits_err(float_sw, load_stepwise(dirs["int8_w8"]),
+                                prompts)
+    del float_sw
+    log(f"[engine int8] first decode step's logits against the float "
+        f"engine's, max abs err: int8 KV {lerr_q:.3e}, int8 KV + int8 "
+        f"weights {lerr_w:.3e} (logit std {std:.3f})")
+    log(f"[engine int8] /stats: kv_cache_dtype {stats['kv_cache_dtype']}, "
+        f"prefills {stats['prefills']}, decode_steps "
+        f"{stats['decode_steps']}, prefix_cache_hits "
+        f"{stats['prefix_cache_hits']}, cow_copies {stats['cow_copies']}, "
+        f"bytes_resident_peak {stats['bytes_resident_peak']}; shared-prefix "
+        f"requests: {saved} prefill tokens saved, {cows} copy-on-write "
+        f"block copies")
+    ms = {label: run["wall"] / max(run["steps"], 1) * 1e3
+          for label, run in (("float", float_wave), ("int8 KV", wave),
+                             ("int8 KV + weights", w8),
+                             ("float again", again))}
+    log(f"[engine int8] ms per shared step, same call, in this order: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + f"; the float wave's tokens again: "
+        f"{again['results'] == float_wave['results']} ({card})")
+    agree = {label: _agreement(run["results"], float_wave["results"])
+             for label, run in (("int8 KV", wave), ("int8 KV + weights", w8))}
+    first = {label: [r[0] for r in run["results"]]
+             == [r[0] for r in float_wave["results"]]
+             for label, run in (("int8 KV", wave), ("int8 KV + weights", w8))}
+    hit = _agreement(shared["results"][1:], wave["results"][1:2])
+    log(f"[engine int8] greedy token agreement with the float engine: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in agree.items())
+        + f" (floor {INT8_MIN_AGREEMENT} on int8 KV); first tokens equal: "
+        f"{first}; exact prefix hit vs its cold int8 request {hit:.4f}")
+    failed = []
+    for label, run in (("int8", wave), ("int8 + weights", w8),
+                       ("float again", again)):
+        b5, b6 = (0, run["steps"]) if run is not again else (run["steps"], 0)
+        want = {"flash_attention_fwd": c.layers * run["prefills"],
+                "decode_attention": 0,
+                "paged_decode_attention": c.layers * b5,
+                "paged_decode_attention_int8": c.layers * b6}
+        if run["launches"] != want or run["steps"] < MAX_NEW - 1:
+            failed.append(f"{label}: launches {run['launches']}, want {want}")
+    if shared["prefills"] or shared["launches"][
+            "paged_decode_attention_int8"] != c.layers * shared["steps"] \
+            or shared["launches"]["paged_decode_attention"]:
+        failed.append(f"shared-prefix: {shared['prefills']} prefills, "
+                      f"launches {shared['launches']}")
+    if saved <= 0 or cows < 1:
+        failed.append("no prefix reuse with a copy-on-write")
+    if stats["kv_cache_dtype"] != "int8":
+        failed.append(f"/stats kv_cache_dtype {stats['kv_cache_dtype']}")
+    for run in (wave, shared, w8):
+        for out in run["results"]:
+            if len(out) != MAX_NEW or min(out) < 0 \
+                    or max(out) >= c.vocab_size:
+                failed.append(f"bad generation {out[:8]}...")
+    if not all(first.values()):
+        failed.append(f"first tokens differ from the float engine: {first}")
+    if agree["int8 KV"] < INT8_MIN_AGREEMENT:
+        failed.append(f"int8 KV agreement {agree['int8 KV']:.4f}")
+    if failed:
+        raise SystemExit("the int8 engine failed: " + "; ".join(failed))
+    return wave["launches"]["paged_decode_attention_int8"]
+
+
+def step_logits_err(float_sw, quant_sw, prompts: list) -> tuple[float, float]:
+    """Max abs difference of the first decode step's logits (the step after
+    the prefill, which reads the cache), float paged program vs a quantized
+    one, over ``prompts``; and the float logits' std."""
+    worst, std = 0.0, 0.0
+    pools = (float_sw.make_pool(), quant_sw.make_pool())
+    m = float_sw.step_meta
+    nb, slots = m["blocks_per_slot"], m["slots"]
+    tables = np.zeros((slots, nb), np.int32)
+    tables[0] = np.arange(1, nb + 1)
+    alive = np.zeros(slots, np.int32)
+    alive[0] = 1
+    for p in prompts:
+        ids = np.zeros((1, PROMPT_LEN), np.int32)
+        mask = np.zeros((1, PROMPT_LEN), np.int32)
+        ids[0, :p.size], mask[0, :p.size] = p, 1
+        logits = []
+        for sw, pool in zip((float_sw, quant_sw), pools):
+            first = sw.prefill({"input_ids": ids, "prompt_mask": mask,
+                                "table_row": tables[0, :m["prompt_blocks"]],
+                                **pool})["logits"]
+            tok = np.zeros(slots, np.int32)
+            tok[0] = int(np.argmax(first[0]))
+            pos = np.zeros(slots, np.int32)
+            pos[0] = p.size
+            logits.append(sw.decode({
+                "tok": tok, "pos": pos, "pad": np.zeros(slots, np.int32),
+                "alive": alive, "block_tables": tables, **pool})["logits"][0])
+        worst = max(worst, float(np.abs(logits[0] - logits[1]).max()))
+        std = max(std, float(logits[0].std()))
+    return worst, std
 
 
 def _agreement(a: list, b: list) -> float:
@@ -750,7 +1091,8 @@ def first_logits_err(paged_sw, slab_sw, prompts: list) -> float:
     return worst
 
 
-def phase_engine_profile(eng, prompt, card: str) -> float:
+def phase_engine_profile(eng, prompt, card: str,
+                         label: str = "engine profile") -> float:
     """One engine request alone (prompt, 128 new tokens): host-clock
     latency, then the device's busy time and idle share under
     ``torch.profiler`` over a second identical request."""
@@ -773,19 +1115,19 @@ def phase_engine_profile(eng, prompt, card: str) -> float:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in kernels) / 1e3
-    log(f"[engine profile] one request ({prompt.size} prompt tokens, "
+    log(f"[{label}] one request ({prompt.size} prompt tokens, "
         f"{MAX_NEW} new): {wall * 1e3:.1f} ms, {MAX_NEW / wall:.1f} "
         f"tokens/s ({card})")
     if not kernels:
-        log("[engine profile] the profiler saw no device time: idle share "
+        log(f"[{label}] the profiler saw no device time: idle share "
             "not measured")
         return float("nan")
     idle = 1 - busy / (wall * 1e3)
-    log(f"[engine profile] traced request {traced * 1e3:.1f} ms, device "
+    log(f"[{label}] traced request {traced * 1e3:.1f} ms, device "
         f"busy {busy:.1f} ms: idle share {1 - busy / (traced * 1e3):.3f} "
         f"of the traced request, {idle:.3f} of the untraced one")
     for e in sorted(kernels, key=_device_us, reverse=True)[:6]:
-        log(f"[engine profile]   {_device_us(e) / 1e3:8.2f} ms  "
+        log(f"[{label}]   {_device_us(e) / 1e3:8.2f} ms  "
             f"{e.count:6d}x  {e.key[:90]}")
     return idle
 
@@ -849,8 +1191,9 @@ def main() -> int:
     flash = phase_flash(gen)
     decode = phase_decode(gen)
     paged = phase_paged(gen)
+    paged_int8 = phase_paged_int8(gen)
     log("[kernels] flash_attention_fwd, decode_attention, "
-        "paged_decode_attention")
+        "paged_decode_attention, paged_decode_attention_int8")
     launches = phase_slice(card)
     engine = phase_engine(card)
     rows = [
@@ -872,6 +1215,12 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
          "launches": engine["launches"], **paged},
+        {"name": "paged_decode_attention_int8", "route": "cuda",
+         "source": "distributed_tensorflow_example_tpu_torch/csrc/"
+                   "paged_decode_attention_int8.cu",
+         "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
+                     "decode_attention.py:187",
+         "launches": engine["launches_int8"], **paged_int8},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

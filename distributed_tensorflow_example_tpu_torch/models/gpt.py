@@ -21,7 +21,11 @@ over a slab pool, the slab decode kernel), :meth:`GPT.paged_prefill`
 (a left-aligned prompt written in whole blocks through a block-table row)
 and :meth:`GPT.decode_step_batched_paged` (per-row depths read and written
 through block tables, the paged decode kernel). They too write their
-pools in place.
+pools in place. Both take int8 pools with per-token-slot f32 scales: each
+K/V row is quantized on write (:func:`quantize_kv_rows`) and the decode
+step attends through the int8 kernel. ``weight_quant="int8"`` stores the
+decode layers' four matmul kernels as per-output-channel int8 and
+dequantizes one layer at a time inside the step.
 
 Numerics follow the reference: bf16 matmuls with f32 accumulation, f32
 layernorm statistics (eps 1e-6), f32 softmax, tanh-approximated GELU,
@@ -46,6 +50,21 @@ from ..ops.cuda.paged_decode_attention import \
 from ..runtime.device import resolve_device
 from ..utils.pytree import flatten_dict
 from .base import cast_floating, register_model, resolve_dtype
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of K/V entries: ``x`` [..., H, D]
+    -> ``(q int8 [..., H, D], scale f32 [...])`` with ``scale = max|row| /
+    127`` over each trailing [H, D] plane (an eps floor of 1e-8 makes an
+    all-zero row dequantize to exact zeros). The reference's order of
+    operations, ``round(xf / scale)`` rounding half to even in both
+    packages, so the int8 bytes are the reference's bit for bit, and a
+    function of the row values alone: the same token prefix always writes
+    the same block bytes, which the prefix cache's block sharing needs."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=(-2, -1)), 1e-8) / 127.0
+    q = torch.round(xf / scale[..., None, None]).to(torch.int8)
+    return q, scale
 
 
 @dataclasses.dataclass
@@ -279,10 +298,18 @@ class GPT:
         Q/K/V fused into one [hid, 3*hid] kernel per layer. The dense
         kernels and biases are cast to the compute dtype here, once per
         generation (``dense`` would cast them on every step; the values
-        are identical); layernorm params keep ``param_dtype``."""
-        if weight_quant is not None:
-            raise NotImplementedError(
-                "weight_quant='int8' arrives with the paged-engine slice")
+        are identical); layernorm params keep ``param_dtype``.
+
+        ``weight_quant="int8"`` stores the four matmul kernels instead as
+        symmetric per-output-channel int8 ``kernel_q`` plus an f32
+        ``scale`` [L, 1, out] (the f32 kernel's column max / 127, rounded
+        as the reference rounds), which :meth:`_dequant` expands one layer
+        at a time inside the step. Lossy: greedy parity with the float
+        path is not promised. Embeddings, the LM head and the layernorms
+        stay in ``param_dtype``."""
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"weight_quant must be None or 'int8', got "
+                             f"{weight_quant!r}")
         lps = [params[f"layer_{i}"] for i in range(self.cfg.layers)]
 
         def stk(fn, dtype=None):
@@ -290,8 +317,15 @@ class GPT:
             return x if dtype is None else x.to(dtype)
 
         def dense_stack(fn):
-            return {"kernel": stk(lambda lp: fn(lp)["kernel"], self.dtype),
-                    "bias": stk(lambda lp: fn(lp)["bias"], self.dtype)}
+            bias = stk(lambda lp: fn(lp)["bias"], self.dtype)
+            if weight_quant is None:
+                return {"kernel": stk(lambda lp: fn(lp)["kernel"], self.dtype),
+                        "bias": bias}
+            w = stk(lambda lp: fn(lp)["kernel"]).float()
+            scale = torch.clamp_min(w.abs().amax(dim=1, keepdim=True),
+                                    1e-8) / 127.0
+            return {"kernel_q": torch.round(w / scale).to(torch.int8),
+                    "scale": scale, "bias": bias}
 
         return {
             "ln1": {"scale": stk(lambda lp: lp["ln1"]["scale"]),
@@ -308,6 +342,17 @@ class GPT:
             "ffn_out": dense_stack(lambda lp: lp["ffn"]["out"]),
         }
 
+    def _dequant(self, dp):
+        """int8-stacked dense params of one layer -> plain {kernel, bias}
+        (unchanged for a float stack). Runs inside the layer loop, so the
+        int8 tensors are what the step reads from device memory; the
+        product itself stays ``torch.matmul`` in :func:`nn.dense`, as the
+        reference leaves it to XLA."""
+        if "kernel_q" not in dp:
+            return dp
+        w = dp["kernel_q"].float() * dp["scale"]
+        return {"kernel": w.to(self.dtype), "bias": dp["bias"]}
+
     def _stacked_layers(self, params, stacked, h, attend):
         """The decode fast path's layer loop over the stacked layer axis:
         fused QKV, a 2-D [B, hid] residual stream, and
@@ -318,17 +363,18 @@ class GPT:
         for i in range(c.layers):
             lp = {g: {n: t[i] for n, t in d.items()}
                   for g, d in stacked.items()}
-            qkv = nn.dense(lp["qkv"], nn.layernorm(lp["ln1"], h),
-                           dtype=self.dtype)
+            qkv = nn.dense(self._dequant(lp["qkv"]),
+                           nn.layernorm(lp["ln1"], h), dtype=self.dtype)
             q, k, v = [x.reshape(b, c.heads, self.head_dim)
                        for x in torch.split(qkv, c.hidden, dim=-1)]
             ctx = attend(i, q.contiguous(), k, v)
-            a = nn.dense(lp["o"], ctx.reshape(b, c.hidden), dtype=self.dtype)
-            h = h + a.to(h.dtype)
-            f = nn.dense(lp["ffn_in"], nn.layernorm(lp["ln2"], h),
+            a = nn.dense(self._dequant(lp["o"]), ctx.reshape(b, c.hidden),
                          dtype=self.dtype)
+            h = h + a.to(h.dtype)
+            f = nn.dense(self._dequant(lp["ffn_in"]),
+                         nn.layernorm(lp["ln2"], h), dtype=self.dtype)
             f = nn.gelu(f.float()).to(self.dtype)
-            f = nn.dense(lp["ffn_out"], f, dtype=self.dtype)
+            f = nn.dense(self._dequant(lp["ffn_out"]), f, dtype=self.dtype)
             h = h + f.to(h.dtype)
         h = nn.layernorm(params["ln_f"], h)
         return self.lm_logits(params, h[:, None])[:, 0]
@@ -403,7 +449,7 @@ class GPT:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def paged_prefill(self, params, input_ids, prompt_mask, k_pool, v_pool,
-                      table_row):
+                      table_row, *, k_scale=None, v_scale=None):
         """LEFT-ALIGNED prompt prefill writing WHOLE blocks through a
         block-table row: the paged engine's admission. Token i sits at
         logical slot i (no right-packing), so a shared token prefix fills
@@ -415,7 +461,13 @@ class GPT:
         place; ``table_row``: [ceil(S0 / Bs)] int32 physical block ids
         (unused trailing entries point at the null block 0, where their
         whole-block writes land and are never read). Returns ``(logits
-        [1, V] of the last real token, k_pool, v_pool)``."""
+        [1, V] of the last real token, k_pool, v_pool)``.
+
+        ``k_scale``/``v_scale`` ([L, N, Bs] f32 pools beside int8 K/V
+        pools) switch on quantize-on-write: each token's [H, D] row is
+        stored as :func:`quantize_kv_rows` gives it, its scale in the same
+        slot of the scale pool, and the return grows to ``(logits, k_pool,
+        v_pool, k_scale, v_scale)``, all written in place."""
         dev = params["wte"]["table"].device
         ids = torch.as_tensor(input_ids, device=dev)
         _, s0 = ids.shape
@@ -430,10 +482,18 @@ class GPT:
         last = (pm.sum() - 1).clamp(min=0)
         last_h = h_full[:, last]                             # [1, hid]
         kv = self._stack_caches(caches)             # {"k"/"v": [L,1,T,H,D]}
-        for pool, x in ((k_pool, kv["k"]), (v_pool, kv["v"])):
-            pool[:, table_row] = x[:, 0].reshape(
-                l, nb_p, bs, *x.shape[3:]).to(pool.dtype)
-        return self.lm_logits(params, last_h[:, None])[:, 0], k_pool, v_pool
+        logits = self.lm_logits(params, last_h[:, None])[:, 0]
+        if k_scale is None:
+            for pool, x in ((k_pool, kv["k"]), (v_pool, kv["v"])):
+                pool[:, table_row] = x[:, 0].reshape(
+                    l, nb_p, bs, *x.shape[3:]).to(pool.dtype)
+            return logits, k_pool, v_pool
+        for pool, spool, x in ((k_pool, k_scale, kv["k"]),
+                               (v_pool, v_scale, kv["v"])):
+            q, s = quantize_kv_rows(x[:, 0])              # [L,T,H,D] / [L,T]
+            pool[:, table_row] = q.reshape(l, nb_p, bs, *q.shape[2:])
+            spool[:, table_row] = s.reshape(l, nb_p, bs)
+        return logits, k_pool, v_pool, k_scale, v_scale
 
     @torch.no_grad()
     def decode_step_batched_paged(self, params, stacked, pools, block_tables,
@@ -448,7 +508,13 @@ class GPT:
         makes every written block uniquely owned (copy-on-write happens on
         the host before the step); a dead row's table points at the null
         block, where its gated write rewrites the bytes it read. Returns
-        (logits [B, V] f32, pools)."""
+        (logits [B, V] f32, pools).
+
+        int8 pools: ``pools`` also carries ``"k_scale"``/``"v_scale"``
+        ([L, N, Bs] f32). The new row is quantized on write
+        (:func:`quantize_kv_rows`, as :meth:`paged_prefill` writes), its
+        int8 bytes AND its scales gated by ``alive``, and attention reads
+        through the int8 kernel (or its plain version)."""
         tok = torch.as_tensor(tok, device=params["wte"]["table"].device)
         bs = pools["k"].shape[2]
         bt = torch.as_tensor(block_tables, device=tok.device).to(torch.int32)
@@ -464,10 +530,21 @@ class GPT:
 
         def attend(i, q, k, v):
             ck, cv = pools["k"][i], pools["v"][i]
-            ck[pbid, off] = torch.where(live, k.to(ck.dtype), ck[pbid, off])
-            cv[pbid, off] = torch.where(live, v.to(cv.dtype), cv[pbid, off])
+            if "k_scale" not in pools:
+                ck[pbid, off] = torch.where(live, k.to(ck.dtype),
+                                            ck[pbid, off])
+                cv[pbid, off] = torch.where(live, v.to(cv.dtype),
+                                            cv[pbid, off])
+                return paged_decode_attn(q, ck, cv, block_tables=bt, pos=pos,
+                                         pad=pad, impl=impl)
+            cks, cvs = pools["k_scale"][i], pools["v_scale"][i]
+            for pool, spool, x in ((ck, cks, k), (cv, cvs, v)):
+                xq, xs = quantize_kv_rows(x)
+                pool[pbid, off] = torch.where(live, xq, pool[pbid, off])
+                spool[pbid, off] = torch.where(alive, xs, spool[pbid, off])
             return paged_decode_attn(q, ck, cv, block_tables=bt, pos=pos,
-                                     pad=pad, impl=impl)
+                                     pad=pad, k_scale=cks, v_scale=cvs,
+                                     impl=impl)
 
         return self._stacked_layers(params, stacked, h, attend), pools
 
@@ -544,7 +621,9 @@ class GPT:
         filtered logits): deterministic per seed, not the reference's
         threefry stream. The reference's ``tokens_per_dispatch`` (an XLA
         loop-unroll lever) has no meaning in an eager loop and is not
-        taken; ``weight_quant`` arrives with the paged-engine slice.
+        taken. ``weight_quant="int8"`` decodes against int8-quantized
+        stacked layer weights (:meth:`stack_decode_params`); the prefill,
+        and so the first token, uses the float weights.
 
         Returns [B, max_new_tokens] int32 on the params' device."""
         c = self.cfg

@@ -51,6 +51,9 @@ ENTRY_POINTS = {
     # q, k_pool, v_pool, block_tables, pos, pad, o, B, N, Bs, NB, H, D,
     # sm_scale, stream
     "paged_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, block_tables, pos, pad, o, B, N,
+    # Bs, NB, H, D, sm_scale, stream
+    "paged_decode_attention_int8": [_P] * 9 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

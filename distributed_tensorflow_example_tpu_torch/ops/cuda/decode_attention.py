@@ -6,8 +6,8 @@ decode_attention.py``).
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 the call raises (no silent fallback). The kernel takes any cache length
 T up to 8192 (no ``T % 128`` gate), head dims 64 and 128, bf16 q
-[B, H, D] and contiguous bf16 slabs [B, T, H, D]. The block-paged kernel
-and its int8 variant arrive with the paged-engine slice.
+[B, H, D] and contiguous bf16 slabs [B, T, H, D]. The block-paged
+kernels (bf16 and int8 pools) are in :mod:`.paged_decode_attention`.
 """
 
 from __future__ import annotations

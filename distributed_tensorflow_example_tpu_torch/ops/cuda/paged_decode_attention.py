@@ -9,8 +9,15 @@ tensor takes the plain version; a CUDA tensor takes the kernel or the call
 raises (no silent fallback). The kernel takes bf16 q [B, H, D] and
 contiguous bf16 pools [N, Bs, H, D], an int32 [B, NB] table and int32
 pos/pad, head dims 64 and 128, any block size, and up to 8192 logical
-slots per row (``NB * Bs``). The int8 pools with their row scales (the
-reference's ``quant=True`` kernel) arrive with a later slice.
+slots per row (``NB * Bs``).
+
+int8 pools carry one f32 scale per token slot (``k_scale``/``v_scale``
+[N, Bs], the reference's ``quant=True`` kernel): on CUDA tensors they
+take the second kernel, ``csrc/paged_decode_attention_int8.cu``, which
+folds the scales into the scores and probabilities; the plain version
+dequantizes the gathered rows to q's dtype first. The output is then in
+q's dtype. Scales and int8 pools travel together: one without the other
+raises.
 """
 
 from __future__ import annotations
@@ -28,29 +35,69 @@ KERNEL_MAX_SLOTS = 8192
 
 def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, *, block_tables, pos,
-                               pad) -> torch.Tensor:
+                               pad, k_scale=None, v_scale=None
+                               ) -> torch.Tensor:
     """The plain version: gather each row's block run out of the pool into
     its [NB * Bs, H, D] logical cache and run the plain slab path
     (:func:`xla_decode_attention`), so it is bitwise the slab path on equal
-    logical contents."""
+    logical contents. With int8 pools the gather also dequantizes each
+    row: an f32 multiply by its ``k_scale``/``v_scale`` entry, cast to q's
+    dtype (the reference's XLA path)."""
     n, bs, h, d = k_pool.shape
     bt = torch.as_tensor(block_tables, device=k_pool.device).long()
     b, nb = bt.shape
 
-    def gather(pool):
-        return pool[bt].reshape(b, nb * bs, h, d)
+    def gather(pool, scale):
+        g = pool[bt]                                    # [B, NB, Bs, H, D]
+        if scale is not None:
+            g = (g.float() * scale[bt][..., None, None]).to(q.dtype)
+        return g.reshape(b, nb * bs, h, d)
 
-    return xla_decode_attention(q, gather(k_pool), gather(v_pool), pos=pos,
-                                pad=pad)
+    return xla_decode_attention(q, gather(k_pool, k_scale),
+                                gather(v_pool, v_scale), pos=pos, pad=pad)
 
 
-def _launch(q, k_pool, v_pool, bt, pos, pad):
+def _check_scales(k_pool, v_pool, k_scale, v_scale) -> None:
+    """The reference's rules for int8 pools and their scales (both
+    packages raise on the same inputs), plus f32 scales."""
+    n, bs = k_pool.shape[:2]
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together (int8 "
+                         "pools carry one scale per cached token for BOTH "
+                         "k and v)")
+    if k_scale is None:
+        if k_pool.dtype == torch.int8 or v_pool.dtype == torch.int8:
+            raise ValueError("int8 pools need k_scale/v_scale: attending "
+                             "over raw int8 bytes would give garbage")
+        return
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise ValueError(f"k_scale/v_scale describe int8 pools, got pool "
+                         f"dtype {k_pool.dtype}/{v_pool.dtype}")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(s.shape) != (n, bs):
+            raise ValueError(f"{name} scale shape {tuple(s.shape)} != "
+                             f"per-slot ({n}, {bs}) from pool "
+                             f"{tuple(k_pool.shape)}")
+        if s.dtype != torch.float32:
+            raise TypeError(f"{name} must be f32 scales, got {s.dtype}")
+
+
+def _launch(q, k_pool, v_pool, bt, pos, pad, k_scale=None, v_scale=None):
+    """Check the inputs against what the kernel takes and launch it: the
+    bf16 kernel, or with scales the int8 kernel (each with its own launch
+    count). Raises instead of falling back."""
     n, bs, h, d = k_pool.shape
     b, nb = bt.shape
-    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"paged_decode_attention kernel takes bf16, got "
-                            f"{name} {x.dtype}")
+    quant = k_scale is not None
+    pool = ("int8", torch.int8) if quant else ("bf16", torch.bfloat16)
+    tensors = [("q", q, ("bf16", torch.bfloat16)), ("k_pool", k_pool, pool),
+               ("v_pool", v_pool, pool)]
+    if quant:       # the wrapper has checked the scales' shape and f32 dtype
+        tensors += [("k_scale", k_scale, None), ("v_scale", v_scale, None)]
+    for name, x, want in tensors:
+        if want is not None and x.dtype != want[1]:
+            raise TypeError(f"paged_decode_attention kernel takes {want[0]} "
+                            f"{name}, got {x.dtype}")
         if x.device != q.device:
             raise ValueError(f"{name} on {x.device}, q on {q.device}")
         if not x.is_contiguous():
@@ -62,6 +109,11 @@ def _launch(q, k_pool, v_pool, bt, pos, pad):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged_decode_attention kernel takes head dim "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
+    if quant and (k_pool.data_ptr() % (d // 32)
+                  or v_pool.data_ptr() % (d // 32)):
+        raise ValueError(f"paged_decode_attention int8 kernel reads "
+                         f"{d // 32}-byte vectors: the pools must be "
+                         f"{d // 32}-byte aligned")
     if nb * bs > KERNEL_MAX_SLOTS:
         raise ValueError(
             f"paged_decode_attention kernel keeps a row's scores in shared "
@@ -78,12 +130,18 @@ def _launch(q, k_pool, v_pool, bt, pos, pad):
                          f"<= 65535, got B={b} H={h}")
     pos_b = _rows(pos, b, q.device).contiguous()
     pad_b = _rows(pad, b, q.device).contiguous()
-    o = torch.empty((b, h, d), dtype=v_pool.dtype, device=q.device)
-    _build.launch("paged_decode_attention", q.device, q.data_ptr(),
-                  k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
-                  pos_b.data_ptr(), pad_b.data_ptr(), o.data_ptr(), b, n, bs,
-                  nb, h, d, 1.0 / math.sqrt(d))
-    paged_decode_attention.launches += 1
+    o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    tail = (bt.data_ptr(), pos_b.data_ptr(), pad_b.data_ptr(), o.data_ptr(),
+            b, n, bs, nb, h, d, 1.0 / math.sqrt(d))
+    if quant:
+        _build.launch("paged_decode_attention_int8", q.device, q.data_ptr(),
+                      k_pool.data_ptr(), v_pool.data_ptr(),
+                      k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+        paged_decode_attention.launches_int8 += 1
+    else:
+        _build.launch("paged_decode_attention", q.device, q.data_ptr(),
+                      k_pool.data_ptr(), v_pool.data_ptr(), *tail)
+        paged_decode_attention.launches += 1
     return o
 
 
@@ -96,10 +154,13 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``q``: [B, H, D]; ``k_pool``/``v_pool``: [N, block_size, H, D] shared
     physical blocks; ``block_tables``: [B, NB] int32; ``pos``/``pad``: [B]
     (or scalar) int32 live window per row. Returns [B, H, D] in V's dtype.
+    int8 pools come with ``k_scale``/``v_scale`` ([N, block_size] f32, one
+    scale per token slot) and return q's dtype.
 
     ``impl="auto"``: the kernel for CUDA tensors (counted in
-    ``paged_decode_attention.launches``), the plain version for CPU
-    tensors; ``"xla"``: the plain version on any device."""
+    ``paged_decode_attention.launches``, or ``.launches_int8`` for int8
+    pools), the plain version for CPU tensors; ``"xla"``: the plain
+    version on any device."""
     n, bs, h, d = k_pool.shape
     b = q.shape[0]
     if tuple(q.shape) != (b, h, d):
@@ -107,21 +168,19 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)}")
     if impl not in ("auto", "xla"):
         raise ValueError(f"unknown decode attention impl {impl!r}")
-    if k_scale is not None or v_scale is not None \
-            or k_pool.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV pools (k_scale/v_scale, the reference's quant=True "
-            "kernel) arrive with a later slice")
+    _check_scales(k_pool, v_pool, k_scale, v_scale)
     bt = torch.as_tensor(block_tables, device=q.device)
     if bt.ndim != 2 or bt.shape[0] != b:
         raise ValueError(f"block_tables shape {tuple(bt.shape)} != ({b}, NB)")
     if impl == "xla" or q.device.type == "cpu":
         return xla_paged_decode_attention(q, k_pool, v_pool,
-                                          block_tables=bt, pos=pos, pad=pad)
+                                          block_tables=bt, pos=pos, pad=pad,
+                                          k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
-    return _launch(q, k_pool, v_pool, bt, pos, pad)
+    return _launch(q, k_pool, v_pool, bt, pos, pad, k_scale, v_scale)
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = 0       # float pools: the bf16 kernel
+paged_decode_attention.launches_int8 = 0  # int8 pools: the int8 kernel

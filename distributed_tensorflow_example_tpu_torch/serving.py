@@ -15,8 +15,13 @@ own model code, kernels included::
 :class:`StepwiseGenerator` serves it to the continuous-batching engine
 (``serving_batch.GenerationEngine``) with the reference's dict interface
 (``make_pool`` / ``prefill`` / ``decode``) over a slab pool or, with
-``paged=True``, a block-paged pool. Speculative verify, chunked prefill
-and the quantized paths arrive with a later slice.
+``paged=True``, a block-paged pool. ``weight_quant="int8"`` serves the
+decode steps (monolithic and stepwise) from int8 layer weights;
+``kv_cache_dtype="int8"`` gives a paged export int8 K/V pools with f32
+per-token-slot scale pools beside them (``cache_k_scale``/
+``cache_v_scale``). Every loader validates the quant metadata first
+(:func:`validate_quant_meta`). Speculative verify and chunked prefill
+arrive with a later slice.
 """
 
 from __future__ import annotations
@@ -37,15 +42,52 @@ from .runtime.device import resolve_device
 _PARAMS = "params.npz"
 _META = "export.json"
 
-#: quant metadata schema version recorded in every generator export (the
-#: reference's value; no quantized path exists in the port yet)
+#: quant metadata schema version recorded in every generator export; the
+#: loaders refuse an artifact that claims a newer one (the reference's value)
 QUANT_SCHEMA = 1
 
 _LATER = "arrives with a later slice of the port"
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
-    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return str(dtype).removeprefix("torch.")
+
+
+def storage_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a pool dtype named in ``export.json``
+    (``"float32"``, ``"bfloat16"``, ``"int8"``; ``bfloat16`` is a name
+    numpy does not know). Raises ValueError on a name that is no dtype."""
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"{name!r} is not a dtype")
+    return dtype
+
+
+def _normalize_weight_quant(weight_quant) -> str | None:
+    """The weight-quant knob: ``None``/``"off"`` -> None, ``"int8"`` ->
+    ``"int8"``; anything else raises."""
+    if weight_quant in (None, "off"):
+        return None
+    if weight_quant == "int8":
+        return "int8"
+    raise ValueError(f"weight_quant must be 'off' or 'int8', got "
+                     f"{weight_quant!r}")
+
+
+def _normalize_kv_cache_dtype(kv_cache_dtype, model_dtype: torch.dtype
+                              ) -> tuple[torch.dtype, bool]:
+    """The KV-cache storage knob: ``None``/``"auto"`` keeps the model's
+    compute dtype (the default export, unchanged), ``"bf16"`` stores
+    bfloat16, ``"int8"`` the quantized pool (paged exports only). Returns
+    ``(pool dtype, quantized)``."""
+    if kv_cache_dtype in (None, "auto"):
+        return model_dtype, False
+    if kv_cache_dtype in ("bf16", "bfloat16"):
+        return torch.bfloat16, False
+    if kv_cache_dtype == "int8":
+        return torch.int8, True
+    raise ValueError(f"kv_cache_dtype must be 'auto', 'bf16' or 'int8', "
+                     f"got {kv_cache_dtype!r}")
 
 
 def export_generator(model: GPT, params, out_dir: str, *,
@@ -73,14 +115,27 @@ def export_generator(model: GPT, params, out_dir: str, *,
     reserved null block. ``num_blocks`` defaults to the slab pool's
     capacity plus the null block; ``pool_bytes`` instead sizes it in K/V
     bytes. The artifact's sampling knobs become the engine's per-request
-    defaults."""
+    defaults.
+
+    ``weight_quant="int8"`` (or ``"off"``) is recorded in the metadata,
+    and every decode step of the artifact (``generate`` and the stepwise
+    step) runs on int8 layer weights. ``kv_cache_dtype``: ``"auto"`` (the
+    compute dtype), ``"bf16"``, or ``"int8"`` (paged only: int8 K/V pools
+    plus [L, N, Bs] f32 scale pools, quantized on write); ``pool_bytes``
+    counts only the K/V payload, so int8 holds twice the bf16 blocks at
+    equal bytes."""
     for name, on in (("spec_tokens", spec_tokens),
-                     ("prefill_chunk", prefill_chunk),
-                     ("weight_quant", weight_quant not in (None, "off")),
-                     ("kv_cache_dtype",
-                      kv_cache_dtype not in (None, "auto"))):
+                     ("prefill_chunk", prefill_chunk)):
         if on:
             raise NotImplementedError(f"export_generator {name}: {_LATER}")
+    weight_quant = _normalize_weight_quant(weight_quant)
+    cache_dtype, kv_quant = _normalize_kv_cache_dtype(kv_cache_dtype,
+                                                      model.dtype)
+    if kv_quant and not paged:
+        raise ValueError("kv_cache_dtype='int8' quantizes the block-paged "
+                         "pool (its per-slot scales follow the block "
+                         "layout): export with paged=True, or drop the "
+                         "knob")
     if prompt_len < 1 or max_new_tokens < 0 or batch_size < 1:
         raise ValueError(f"bad export shape: prompt_len={prompt_len} "
                          f"max_new_tokens={max_new_tokens} "
@@ -105,7 +160,8 @@ def export_generator(model: GPT, params, out_dir: str, *,
     step_meta = (_stepwise_meta(model, prompt_len=prompt_len,
                                 max_new_tokens=max_new_tokens, slots=slots,
                                 paged=paged, block_size=block_size,
-                                num_blocks=num_blocks, pool_bytes=pool_bytes)
+                                num_blocks=num_blocks, pool_bytes=pool_bytes,
+                                cache_dtype=cache_dtype, kv_quant=kv_quant)
                  if stepwise else None)
     arrays = params_to_numpy(params)
     os.makedirs(out_dir, exist_ok=True)
@@ -129,7 +185,7 @@ def export_generator(model: GPT, params, out_dir: str, *,
         "eos_id": eos_id, "pad_id": pad_id, "ragged": ragged,
         "decode_impl": "stacked",
         "quant_schema": QUANT_SCHEMA,
-        "weight_quant": None,
+        "weight_quant": weight_quant,
         "gpt_config": dataclasses.asdict(model.cfg),
         "dtype": _dtype_name(model.dtype),
         "param_dtype": _dtype_name(model.param_dtype),
@@ -150,19 +206,22 @@ def export_generator(model: GPT, params, out_dir: str, *,
 
 def _stepwise_meta(model: GPT, *, prompt_len: int, max_new_tokens: int,
                    slots: int, paged: bool, block_size: int,
-                   num_blocks: int | None, pool_bytes: int | None) -> dict:
+                   num_blocks: int | None, pool_bytes: int | None,
+                   cache_dtype: torch.dtype, kv_quant: bool) -> dict:
     """The reference's ``stepwise`` metadata block (``serving.py``
     ``_export_stepwise`` / ``_export_stepwise_paged``): the pool the
-    engine allocates once, and the block geometry of a paged pool."""
+    engine allocates once, and the block geometry of a paged pool. An
+    int8 pool adds the scale pools' shape and dtype, and its
+    ``block_bytes`` counts their rows."""
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     c = model.cfg
     total = prompt_len + max_new_tokens
     head_dim = c.hidden // c.heads
-    cache_dtype = _dtype_name(model.dtype)
+    name = _dtype_name(cache_dtype)
     meta = {"slots": slots, "prompt_len": prompt_len,
             "max_new_tokens": max_new_tokens, "max_context": total,
-            "cache_dtype": cache_dtype, "kv_cache_dtype": cache_dtype,
+            "cache_dtype": name, "kv_cache_dtype": name,
             "vocab_size": c.vocab_size, "paged": paged,
             "spec_tokens": 0, "prefill_chunk": 0}
     if not paged:
@@ -172,10 +231,15 @@ def _stepwise_meta(model: GPT, *, prompt_len: int, max_new_tokens: int,
         raise ValueError(f"block_size must be >= 1, got {block_size}")
     blocks_per_slot = -(-total // block_size)
     prompt_blocks = -(-prompt_len // block_size)
-    block_bytes = (2 * c.layers * block_size * c.heads * head_dim
-                   * model.dtype.itemsize)
+    # one block's K+V payload at the storage dtype (int8: half of bf16,
+    # which is what doubles the blocks at equal pool_bytes) ...
+    kv_block_bytes = (2 * c.layers * block_size * c.heads * head_dim
+                      * cache_dtype.itemsize)
+    # ... and its whole residency, the f32 scale rows included
+    block_bytes = kv_block_bytes + (2 * c.layers * block_size * 4
+                                    if kv_quant else 0)
     if pool_bytes is not None:
-        num_blocks = 1 + pool_bytes // block_bytes
+        num_blocks = 1 + pool_bytes // kv_block_bytes
     if num_blocks is None:
         # the slab pool's token capacity, block-granular, plus the
         # reserved null block: equal bytes, equal worst case
@@ -192,7 +256,57 @@ def _stepwise_meta(model: GPT, *, prompt_len: int, max_new_tokens: int,
                 blocks_per_slot=blocks_per_slot,
                 prompt_blocks=prompt_blocks, layout="left_aligned",
                 block_bytes=block_bytes)
+    if kv_quant:
+        meta.update(kv_scale_shape=[c.layers, num_blocks, block_size],
+                    kv_scale_dtype="float32")
     return meta
+
+
+def validate_quant_meta(meta: dict, *, where: str = "artifact") -> None:
+    """Load-time validation of an artifact's quant metadata (the
+    reference's rules): every mismatch raises naming its ``export.json``
+    field, before any tensor is shaped from it. An artifact without a
+    ``quant_schema`` key predates the schema and passes."""
+    schema = meta.get("quant_schema")
+    if schema is None:
+        return
+    if not isinstance(schema, int) or schema < 1 or schema > QUANT_SCHEMA:
+        raise ValueError(
+            f"{where}: metadata field 'quant_schema'={schema!r} is not "
+            f"supported by this loader (understands 1..{QUANT_SCHEMA}): "
+            "re-export the artifact or upgrade the server")
+    wq = meta.get("weight_quant")
+    if wq not in (None, "int8"):
+        raise ValueError(
+            f"{where}: metadata field 'weight_quant'={wq!r} names an "
+            "unknown weight quantization (known: null, 'int8')")
+    sm = meta.get("stepwise")
+    if not sm:
+        return
+    kd = sm.get("kv_cache_dtype", sm.get("cache_dtype"))
+    if kd == "int8":
+        if not sm.get("paged"):
+            raise ValueError(
+                f"{where}: metadata field 'stepwise.kv_cache_dtype'='int8' "
+                "requires a paged artifact ('stepwise.paged' is false): "
+                "the int8 pool's scales follow the block layout")
+        want = [sm["pool_shape"][i] for i in (0, 1, 2)]   # [L, N, Bs]
+        got = sm.get("kv_scale_shape")
+        if got != want:
+            raise ValueError(
+                f"{where}: metadata field 'stepwise.kv_scale_shape'="
+                f"{got!r} does not match the per-slot layout {want} of "
+                f"'stepwise.pool_shape'={sm['pool_shape']}")
+        field, name = "kv_scale_dtype", sm.get("kv_scale_dtype", "float32")
+    elif kd is None:
+        return
+    else:
+        field, name = "kv_cache_dtype", kd
+    try:
+        storage_dtype(name)
+    except ValueError as e:
+        raise ValueError(f"{where}: metadata field 'stepwise.{field}'="
+                         f"{name!r}: {e}") from e
 
 
 def _load_model(directory: str, device) -> tuple[dict, GPT, dict]:
@@ -202,6 +316,7 @@ def _load_model(directory: str, device) -> tuple[dict, GPT, dict]:
     if meta.get("kind") != "generator":
         raise ValueError(f"{directory!r} holds no generator artifact "
                          f"(kind {meta.get('kind')!r})")
+    validate_quant_meta(meta, where=directory)
     model = GPT(GPTConfig(**meta["gpt_config"]),
                 dtype=resolve_dtype(meta["dtype"]),
                 attention_impl=meta["attention_impl"],
@@ -245,7 +360,7 @@ class ServableModel:
             self.params, ids, m["max_new_tokens"],
             temperature=m["temperature"], top_k=m["top_k"], top_p=m["top_p"],
             eos_id=m["eos_id"], pad_id=m["pad_id"], prompt_mask=mask,
-            rng=rng)
+            rng=rng, weight_quant=m.get("weight_quant"))
         return toks.cpu().numpy()
 
 
@@ -268,10 +383,11 @@ class StepwiseGenerator:
     engine (``serving_batch.GenerationEngine``), with the reference's dict
     interface: :meth:`make_pool` once, then :meth:`prefill` per admission
     and :meth:`decode` per shared step. Inputs are host arrays plus the
-    pool's ``cache_*`` tensors; each call writes the pool IN PLACE on the
-    device (where the reference donates it to a new buffer) and returns
-    it beside the logits as a host f32 array (the engine samples on the
-    host). A call that fails midway may have written some layers' slots
+    pool's ``cache_*`` tensors (``cache_k``/``cache_v``, and
+    ``cache_k_scale``/``cache_v_scale`` beside an int8 pool); each call
+    writes the pool IN PLACE on the device (where the reference donates
+    it to a new buffer) and returns it beside the logits as a host f32
+    array (the engine samples on the host). A call that fails midway may have written some layers' slots
     of the rows it was given; those rows are retried or failed by the
     engine, and nothing outside them is touched. The model is the port's
     own, rebuilt from the export (its kernels included)."""
@@ -289,20 +405,37 @@ class StepwiseGenerator:
                 "(or serve it with the scheduler off)")
         self.step_meta = step_meta
         self.paged: bool = bool(step_meta.get("paged", False))
-        self.kv_cache_dtype: str = str(step_meta["kv_cache_dtype"])
+        #: "int8" for the quantized pool (with its scale pools), else the
+        #: pool's float dtype
+        self.kv_cache_dtype: str = str(
+            step_meta.get("kv_cache_dtype", step_meta["cache_dtype"]))
         #: the port exports neither a verify nor a chunked-prefill program
         self.spec_tokens: int = 0
         self.prefill_chunk_tokens: int = 0
         self._total = int(step_meta["max_context"])
-        self._stacked = self.model.stack_decode_params(self.params)
+        self._stacked = self.model.stack_decode_params(
+            self.params, weight_quant=self.meta.get("weight_quant"))
+
+    @property
+    def _quant(self) -> bool:
+        return self.kv_cache_dtype == "int8"
 
     def make_pool(self) -> dict:
         """A zeroed cache pool of the exported shape on the device (the
-        engine's one-time allocation)."""
-        shape = tuple(self.step_meta["pool_shape"])
-        dtype = resolve_dtype(self.step_meta["cache_dtype"])
-        return {n: torch.zeros(shape, dtype=dtype, device=self.device)
+        engine's one-time allocation); an int8 pool comes with its zeroed
+        f32 scale pools."""
+        m = self.step_meta
+        pool = {n: torch.zeros(tuple(m["pool_shape"]),
+                               dtype=storage_dtype(m["cache_dtype"]),
+                               device=self.device)
                 for n in ("cache_k", "cache_v")}
+        if self._quant:
+            for n in ("cache_k_scale", "cache_v_scale"):
+                pool[n] = torch.zeros(
+                    tuple(m["kv_scale_shape"]),
+                    dtype=storage_dtype(m.get("kv_scale_dtype", "float32")),
+                    device=self.device)
+        return pool
 
     def _t(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), device=self.device)
@@ -317,8 +450,17 @@ class StepwiseGenerator:
         ck, cv = feats["cache_k"], feats["cache_v"]
         ids, mask = self._t(feats["input_ids"]), self._t(feats["prompt_mask"])
         if self.paged:
+            table_row = self._t(feats["table_row"])
+            if self._quant:
+                logits, ck, cv, cks, cvs = m.paged_prefill(
+                    self.params, ids, mask, ck, cv, table_row,
+                    k_scale=feats["cache_k_scale"],
+                    v_scale=feats["cache_v_scale"])
+                return {"logits": logits.cpu().numpy(), "cache_k": ck,
+                        "cache_v": cv, "cache_k_scale": cks,
+                        "cache_v_scale": cvs}
             logits, ck, cv = m.paged_prefill(self.params, ids, mask, ck, cv,
-                                             self._t(feats["table_row"]))
+                                             table_row)
             return {"logits": logits.cpu().numpy(), "cache_k": ck,
                     "cache_v": cv}
         with torch.no_grad():
@@ -338,6 +480,9 @@ class StepwiseGenerator:
         pool). Returns ``logits`` [slots, V] (host f32) plus the pool."""
         m = self.model
         pools = {"k": feats["cache_k"], "v": feats["cache_v"]}
+        if self._quant:
+            pools.update(k_scale=feats["cache_k_scale"],
+                         v_scale=feats["cache_v_scale"])
         args = (self._t(feats["tok"]), self._t(feats["pos"]),
                 self._t(feats["pad"]), self._t(feats["alive"]))
         if self.paged:
@@ -347,8 +492,12 @@ class StepwiseGenerator:
         else:
             logits, pools = m.decode_step_batched(self.params, self._stacked,
                                                   pools, *args)
-        return {"logits": logits.cpu().numpy(), "cache_k": pools["k"],
-                "cache_v": pools["v"]}
+        out = {"logits": logits.cpu().numpy(), "cache_k": pools["k"],
+               "cache_v": pools["v"]}
+        if self._quant:
+            out.update(cache_k_scale=pools["k_scale"],
+                       cache_v_scale=pools["v_scale"])
+        return out
 
 
 def load_stepwise(directory: str, device=None) -> StepwiseGenerator:

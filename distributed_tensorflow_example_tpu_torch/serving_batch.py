@@ -60,11 +60,10 @@ import uuid
 
 import numpy as np
 
-from .models.base import resolve_dtype
 from .obs.registry import SERVING_LATENCY_BUCKETS, Registry
 from .obs.trace import add_span, span
 from .runtime import faults
-from .serving import StepwiseGenerator
+from .serving import StepwiseGenerator, storage_dtype
 from .utils.logging import get_logger
 
 log = get_logger("serving")
@@ -72,8 +71,8 @@ log = get_logger("serving")
 
 def _itemsize(dtype_name: str) -> int:
     """Bytes per element of a pool dtype named in ``export.json``
-    (``bfloat16`` is a torch dtype, not a numpy one)."""
-    return resolve_dtype(dtype_name).itemsize
+    (``bfloat16`` is a torch dtype, not a numpy one; ``int8`` is 1)."""
+    return storage_dtype(dtype_name).itemsize
 
 
 class QueueFullError(Exception):

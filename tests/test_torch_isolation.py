@@ -6,6 +6,7 @@ already (``conftest.py``).
 """
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -78,6 +79,45 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+
+
+def test_quantized_paths_run_without_jax(tmp_path):
+    """The int8 paths run in a process that holds no JAX: an export with
+    int8 weights and an int8 KV pool, its stepwise loader and engine
+    (quantize-on-write, the int8 paged attention's plain version), and
+    ``generate(weight_quant="int8")``."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from distributed_tensorflow_example_tpu_torch.models.gpt import (\n"
+        "    GPT, GPTConfig)\n"
+        "from distributed_tensorflow_example_tpu_torch.serving import (\n"
+        "    export_generator, load_stepwise)\n"
+        "from distributed_tensorflow_example_tpu_torch.serving_batch \\\n"
+        "    import GenerationEngine\n"
+        f"m = GPT(GPTConfig(**{dataclasses.asdict(TINY)!r}))\n"
+        "p = m.init(0, device='cpu')\n"
+        f"export_generator(m, p, {str(tmp_path)!r}, prompt_len=4,\n"
+        "    max_new_tokens=2, stepwise=True, slots=2, paged=True,\n"
+        "    block_size=2, weight_quant='int8', kv_cache_dtype='int8')\n"
+        f"eng = GenerationEngine(load_stepwise({str(tmp_path)!r}, "
+        "device='cpu'))\n"
+        "f = eng.submit(np.array([1, 2, 3], np.int32))\n"
+        "eng.start()\n"
+        "out = f.result(timeout=60)\n"
+        "eng.close()\n"
+        "toks = m.generate(p, torch.tensor([[1, 2, 3]]), 2,\n"
+        "                  weight_quant='int8')\n"
+        "print('SHAPES', len(out), tuple(toks.shape),\n"
+        "      eng.stats()['kv_cache_dtype'])\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "SHAPES 2 (1, 2) int8" in out.stdout, out.stdout
     assert "FORBIDDEN []" in out.stdout, out.stdout
 
 

@@ -17,12 +17,17 @@ of it). The worst rows of ``chip_smoke.py``'s kernel phases on an H100
 are 8.0e-3 (flash) and 1.7e-3 (decode); the limits are a few times that.
 The paged kernel runs the decode kernel's arithmetic through its block
 tables; its worst row in ``chip_smoke.py`` is 6.5e-3 (one ulp), and its
-limit is 2e-2, as ``chip_smoke.py``'s.
+limit is 2e-2, as ``chip_smoke.py``'s. The int8 paged kernel follows the
+Pallas kernel's algebra (scales folded into the scores and the f32
+probabilities) where its plain version dequantizes to bf16 and rounds the
+probabilities to bf16: held to the same 2e-2.
 """
 
 import pytest
 import torch
 
+from distributed_tensorflow_example_tpu_torch.models.gpt import \
+    quantize_kv_rows
 from distributed_tensorflow_example_tpu_torch.ops.cuda import (
     decode_attention as da, flash_attention as fa,
     paged_decode_attention as pa)
@@ -207,3 +212,76 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="8192"):
         pa.paged_decode_attention(q, kp, kp, block_tables=torch.ones(
             (2, 513), dtype=torch.int32, device=cuda), pos=z, pad=z)
+
+
+def _int8_case(gen, dev, **kw):
+    """:func:`_paged_case` with its pools quantized on the card (int8 K/V,
+    one f32 scale per slot)."""
+    q, kp, vp, tables = _paged_case(gen, dev, **kw)
+    kq, ks = quantize_kv_rows(kp)
+    vq, vs = quantize_kv_rows(vp)
+    return q, kq, vq, dict(tables, k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("d,bs", [(64, 16), (128, 16), (64, 128),
+                                  (128, 128)])
+def test_int8_paged_kernel_matches_plain_with_garbage_null_block(cuda, d,
+                                                                  bs):
+    gen = torch.Generator().manual_seed(7 * d + bs)
+    q, kq, vq, kw = _int8_case(gen, cuda, d=d, bs=bs, nb=640 // bs)
+    before = (pa.paged_decode_attention.launches,
+              pa.paged_decode_attention.launches_int8)
+    o = pa.paged_decode_attention(q, kq, vq, **kw)
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention.launches_int8) == (before[0],
+                                                         before[1] + 1)
+    o_ref = pa.xla_paged_decode_attention(q, kq, vq, **kw)
+    # masked slots are never read, bytes or scales: garbage bytes and NaN
+    # scales in the null block 0 change no bit
+    kq[0], vq[0] = 127, -128
+    kw["k_scale"][0] = kw["v_scale"][0] = float("nan")
+    o_nan = pa.paged_decode_attention(q, kq, vq, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_nan)
+    assert o.dtype == q.dtype
+    assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
+
+
+def test_int8_paged_kernel_empty_window_and_bad_block_id(cuda):
+    gen = torch.Generator().manual_seed(5)
+    q, kq, vq, kw = _int8_case(gen, cuda, b=8, nb=8)
+    kw["pad"][5] = kw["pos"][5] + 1
+    kw["block_tables"][6, kw["pos"][6] // 16] = kq.shape[0]
+    o = pa.paged_decode_attention(q, kq, vq, **kw)
+    torch.cuda.synchronize()
+    assert o[5].abs().max().item() == 0
+    assert torch.isnan(o[6].float()).all()
+    ok = [r for r in range(8) if r != 6]
+    o_ref = pa.xla_paged_decode_attention(
+        q[ok], kq, vq, block_tables=kw["block_tables"][ok],
+        pos=kw["pos"][ok], pad=kw["pad"][ok], k_scale=kw["k_scale"],
+        v_scale=kw["v_scale"])
+    assert _row_rel_err(o[ok], o_ref) <= PAGED_ROW_REL_TOL
+
+
+def test_int8_paged_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 2, 64), device=cuda, dtype=torch.bfloat16)
+    kp = torch.zeros((5, 16, 2, 64), device=cuda, dtype=torch.bfloat16)
+    k8 = kp.to(torch.int8)
+    sc = torch.ones((5, 16), device=cuda)
+    bt = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    z = torch.zeros(2, dtype=torch.int32, device=cuda)
+    kw = dict(block_tables=bt, pos=z, pad=z)
+    with pytest.raises(ValueError, match="describe int8 pools"):
+        pa.paged_decode_attention(q, kp, kp, k_scale=sc, v_scale=sc, **kw)
+    with pytest.raises(ValueError, match="need k_scale/v_scale"):
+        pa.paged_decode_attention(q, k8, k8, **kw)
+    with pytest.raises(TypeError, match="f32 scales"):
+        pa.paged_decode_attention(q, k8, k8, k_scale=sc.half(), v_scale=sc,
+                                  **kw)
+    with pytest.raises(TypeError, match="bf16 q"):           # no fallback
+        pa.paged_decode_attention(q.float(), k8, k8, k_scale=sc,
+                                  v_scale=sc, **kw)
+    with pytest.raises(ValueError, match="contiguous k_scale"):
+        pa.paged_decode_attention(q, k8, k8, k_scale=sc.t().contiguous().t(),
+                                  v_scale=sc, **kw)

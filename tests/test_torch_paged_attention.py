@@ -133,10 +133,11 @@ def test_wrapper_argument_checks():
                                    pad=pad)
     with pytest.raises(ValueError, match="impl"):
         tpa.paged_decode_attention(q, kp, vp, impl="pallas", **kw)
-    with pytest.raises(NotImplementedError, match="int8"):
+    # scales belong to int8 pools, and int8 pools need their scales
+    with pytest.raises(ValueError, match="describe int8 pools"):
         tpa.paged_decode_attention(q, kp, vp, k_scale=torch.ones(9, 16),
                                    v_scale=torch.ones(9, 16), **kw)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="need k_scale/v_scale"):
         i8 = kp.to(torch.int8)
         tpa.paged_decode_attention(q, i8, i8, **kw)
     meta = [x.to("meta") for x in (q, kp, vp)]

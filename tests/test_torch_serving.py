@@ -248,13 +248,23 @@ def test_routes_and_malformed_json(greedy_server):
     dict(kv_cache_dtype="int8")])
 def test_export_refuses_later_slices(pair, tmp_path, knob):
     """The stepwise export (slab and paged) writes the reference's
-    ``stepwise`` metadata block; speculative verify, chunked prefill and
-    the int8 paths still belong to a later slice and raise, writing
-    nothing."""
+    ``stepwise`` metadata block; speculative verify and chunked prefill
+    still belong to a later slice and raise, writing nothing. The int8
+    knobs are served now: ``weight_quant`` lands in the metadata, and an
+    int8 KV pool on a monolithic (non-paged) export raises as in the
+    reference, writing nothing."""
     _, _, tm, tp = pair
     kw = dict(prompt_len=P, max_new_tokens=NEW)
+    if "weight_quant" in knob:
+        export_generator(tm, tp, str(tmp_path), **kw, **knob)
+        with open(tmp_path / "export.json") as f:
+            meta = json.load(f)
+        assert meta["weight_quant"] == "int8" and "stepwise" not in meta
+        return
     if not knob.get("stepwise"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        exc, match = ((ValueError, "paged=True") if "kv_cache_dtype" in knob
+                      else (NotImplementedError, "later slice"))
+        with pytest.raises(exc, match=match):
             export_generator(tm, tp, str(tmp_path), **kw, **knob)
         assert not os.listdir(tmp_path)
         return
