@@ -1,8 +1,9 @@
 """On-card check of the PyTorch/CUDA port: builds the hand-written Hopper
-kernels, holds each against its plain PyTorch version at the serving
-path's shapes, then serves GPT-small generation over HTTP through the
-port's entry points, without and with the continuous-batching engine,
-and checks the kernels carried it.
+kernels, holds each against its plain PyTorch version at the shapes its
+path gives it, trains GPT-small for a few steps through the port's sync
+step, then serves GPT-small generation over HTTP through the port's
+entry points, without and with the continuous-batching engine, and
+checks the kernels carried each path.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,12 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``). Prints, in order:
 the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
 kernel (error against the plain version, kernel / plain / library time,
-the roofline bound; the paged kernel over bf16 and over int8 pools), the
-slice phase (three ``:generate`` requests on full-width GPT-small with
+the roofline bound; the flash backward's dq and dk/dv kernels; the paged
+kernel over bf16 and over int8 pools), the training phase (one step's
+grads through the flash kernels against the plain attention's, then 20
+AdamW steps of full-width GPT-small through ``SyncReplicas`` with launch
+counts, the loss curve, ms per step, tokens/s, peak memory and the
+device idle share of one step), the slice phase (three ``:generate`` requests on full-width GPT-small with
 launch counts, token agreement with the plain versions, tokens/s,
 latency, peak memory, then one request of an int8-weight export and the
 decode step with int8 weights beside the float one), the engine phase
@@ -89,6 +94,29 @@ PAGED_INT8_ROW_REL_TOL = 2e-2
 # reference's drift gate (experiments/serving_load.py INT8_MIN_AGREEMENT)
 INT8_MIN_AGREEMENT = 0.75
 
+# the flash backward kernels (B2a dq, B2b dk/dv) against their plain
+# versions: the kernels round p and ds to bf16 before their products where
+# the plain versions keep f32, and round their outputs to bf16, as the
+# forward does; each gradient row (one query's dq, one key's dk or dv, of
+# one head) is held to the forward's limit (see grad_row_rel_err)
+FLASH_BWD_ROW_REL_TOL = 2e-2
+# the serving phases run no backward kernel
+NO_BACKWARD = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+# training phase: GPT-small, B=8, S=512, 20 AdamW steps on one fixed batch
+# (two rows end in 64 padding tokens), dropout 0.1
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_PAD = 8, 512, 20, 64
+# the loss after the last step must lie this share below the first's
+TRAIN_MIN_LOSS_DROP = 0.10
+# one step's grads with dropout off, attention_impl="flash" (B1, B2a,
+# B2b) against "xla" (the plain einsum path), both bf16 on the card: each
+# leaf's ||g_flash - g_xla|| / ||g_xla|| and the loss's difference. The
+# attention's key biases have a zero gradient by the softmax's shift
+# invariance (any rounding is all they get), so they are held instead to
+# ||g|| <= 1e-3 of the global grad norm in both paths
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_ZERO_GRAD_SHARE = 1e-3
+
 FLASH_SHAPE = dict(b=8, s=512, h=12, d=64)
 # the engine's decode step at GPT-small: 8 slots, 12 heads, 16-slot blocks,
 # 40 blocks per row (prompt 512 + 128 new = 640 slots)
@@ -161,6 +189,16 @@ def row_rel_err(o: torch.Tensor, o_ref: torch.Tensor) -> float:
     size = o_ref.float().abs().amax(dim=-1)
     return (diff / size.clamp_min(torch.finfo(torch.float32).tiny)
             ).max().item()
+
+
+def grad_row_rel_err(g: torch.Tensor, g_ref: torch.Tensor) -> float:
+    """:func:`row_rel_err` for a gradient, with each row's size floored at
+    a hundredth of the mean row size: a row whose gradient cancels to zero
+    (the first query of a causal row has one live key, where ds = p (dp -
+    D) is zero but for rounding) is held to that absolute error instead."""
+    diff = (g.float() - g_ref.float()).abs().amax(dim=-1)
+    size = g_ref.float().abs().amax(dim=-1)
+    return (diff / torch.maximum(size, 1e-2 * size.mean())).max().item()
 
 
 def live_slots(bt: torch.Tensor, pos: torch.Tensor, pad: torch.Tensor,
@@ -279,6 +317,95 @@ def phase_flash(gen) -> dict:
     for key in ("max_abs_err", "max_row_rel_err"):
         rec[key] = max(rec[key], odd[key])
     return rec
+
+
+def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
+    """B2a and B2b at the training shape (B=8, H=12, D=64, causal, left
+    pads) against their plain versions, on one forward's lse and Dsum;
+    with ``timed``, their kernel, plain and library times and bounds."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        flash_attention as fa
+    dev = torch.device("cuda")
+    b, h, d = FLASH_SHAPE["b"], FLASH_SHAPE["h"], FLASH_SHAPE["d"]
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    mask = _ragged_key_mask(gen, b, s, dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+    args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
+    dq = fa.flash_attention_bwd_dq(*args, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=True)
+    dq_ref = fa.flash_attention_bwd_dq_plain(*args, causal=True)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(*args, causal=True)
+    torch.cuda.synchronize()
+    # left pads: key j is masked, and (causal) query j sees no key, for
+    # j below the row's first live position
+    first_live = (mask == 0).sum(dim=1)
+    dead = (torch.arange(s, device=dev)[None, :]
+            < first_live[:, None])[:, :, None, None]            # [B,S,1,1]
+    recs = []
+    for name, pairs in (("dq", ((dq, dq_ref),)),
+                        ("dk, dv", ((dk, dk_ref), (dv, dv_ref)))):
+        rel = max(grad_row_rel_err(g, r) for g, r in pairs)
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in pairs)
+        dead_max = max((g.float().abs() * dead).max().item()
+                       for g, _ in pairs)
+        ok = rel <= FLASH_BWD_ROW_REL_TOL and dead_max == 0
+        what = ("queries that see no key" if name == "dq"
+                else "masked keys")
+        log(f"[flash bwd S={s}] {name}: worst row max|g - plain| / "
+            f"max|plain| {rel:.3e} (tol {FLASH_BWD_ROW_REL_TOL}; max abs "
+            f"err {err:.3e}), {what} max|g| {dead_max} (must be 0): "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"flash backward {name} disagrees with its "
+                             f"plain version at S={s}")
+        recs.append({"max_abs_err": err, "max_row_rel_err": rel})
+    if not timed:
+        return recs[0], recs[1]
+    live_pairs = sum((s - int(p)) * (s - int(p) + 1) // 2 for p in first_live)
+    act = b * s * h * d * 2                       # one bf16 [B,S,H,D]
+    rows = 2 * b * h * s * 4 + b * s * 4          # lse, Dsum, mask
+    sets = cold_sets(args)
+    # SDPA's backward (one call computing dq, dk and dv) through autograd
+    # on a retained graph, so that only the backward is timed
+    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    amask = (causal[None] & (mask[:, None, :] != 0))[:, None]  # [B,1,S,S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    graphs = []
+    for q_, k_, v_, do_, *_ in sets:
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q_, k_, v_)]
+        graphs.append((sdpa(*leaves, attn_mask=amask), leaves,
+                       do_.transpose(1, 2)))
+    lms = cuda_ms(lambda o_, leaves, do_: torch.autograd.grad(
+        o_, leaves, do_, retain_graph=True), graphs)
+    del graphs
+    for rec, stem, matmuls, outs in ((recs[0], "dq", 3, 1),
+                                     (recs[1], "dkv", 4, 2)):
+        fn = getattr(fa, f"flash_attention_bwd_{stem}")
+        plain = getattr(fa, f"flash_attention_bwd_{stem}_plain")
+        flops = 2.0 * matmuls * d * h * live_pairs
+        nbytes = (4 + outs) * act + rows     # q, k, v, dO in; grads out
+        bms, by = bound(flops, nbytes)
+        kms = cuda_ms(lambda *a: fn(*a, causal=True), sets)
+        pms = cuda_ms(lambda *a: plain(*a, causal=True), sets, iters=8)
+        log(f"[flash bwd S={s}] {stem}: kernel_ms {kms:.4f}, plain_ms "
+            f"{pms:.4f}, library_ms (sdpa backward: dq, dk, dv) {lms:.4f}, "
+            f"bound_ms {bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
+        rec.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                   bound_by=by)
+    return recs[0], recs[1]
+
+
+def phase_flash_bwd(gen) -> tuple[dict, dict]:
+    dq, dkv = flash_bwd_case(FLASH_SHAPE["s"], gen, timed=True)
+    for rec, odd in zip((dq, dkv), flash_bwd_case(FLASH_ODD_S, gen,
+                                                  timed=False)):
+        for key in ("max_abs_err", "max_row_rel_err"):
+            rec[key] = max(rec[key], odd[key])
+    return dq, dkv
 
 
 def phase_decode(gen) -> dict:
@@ -530,6 +657,178 @@ def phase_paged_int8(gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training phase: GPT-small training steps through SyncReplicas
+# ---------------------------------------------------------------------------
+
+def _loss_and_grads(model, params, batch) -> tuple[float, dict]:
+    """One forward and backward of ``model.loss`` with no generator
+    (dropout off): (loss, {flat key: grad})."""
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, unflatten_dict)
+    flat = {k: v.detach().requires_grad_() for k, v in
+            flatten_dict(params).items()}
+    loss, _ = model.loss(unflatten_dict(flat), {}, batch)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.item(), dict(zip(flat, grads))
+
+
+def phase_train(card: str) -> dict:
+    """Full-width GPT-small (bf16 compute, f32 params, flash attention,
+    dropout 0.1) trained by ``SyncReplicas`` with AdamW (lr 1e-3, 5
+    warmup steps, cosine decay, clip 1.0, weight decay 0.01 off the 1-d
+    leaves) for 20 steps on one fixed batch of 8 x 512 tokens, two rows
+    ending in 64 padding tokens. First one step's grads with dropout off,
+    flash against the plain einsum attention; then the 20 steps with
+    every kernel's launch count set to 0 just before and read just
+    after: B1, B2a and B2b must each launch 12 times a step, the serving
+    kernels not at all; every metric finite, no anomaly, the loss down by
+    at least 10%. Returns the launch counts."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        OptimizerConfig, TrainConfig)
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+        make_optimizer
+    from distributed_tensorflow_example_tpu_torch.train.state import \
+        param_count
+
+    cfg = TrainConfig(model="gpt", dtype="bfloat16", attention_impl="flash",
+                      seed=0, optimizer=OptimizerConfig(
+                          name="adamw", learning_rate=1e-3, warmup_steps=5,
+                          decay_schedule="cosine", total_steps=TRAIN_STEPS,
+                          grad_clip_norm=1.0, weight_decay=0.01))
+    cfg.data.seq_len = TRAIN_S
+    model = get_model("gpt", cfg)
+    c = model.cfg
+    sync = SyncReplicas(model.loss, make_optimizer(cfg.optimizer),
+                        sync=cfg.sync)
+    state = sync.init(model.init, seed=cfg.seed)
+    log(f"[train] GPT-small: {param_count(state.params)} params (f32), "
+        f"vocab {c.vocab_size}, {c.layers} layers, bf16 compute, flash "
+        f"attention, dropout {c.dropout}; AdamW lr "
+        f"{cfg.optimizer.learning_rate}, warmup {cfg.optimizer.warmup_steps}"
+        f", cosine over {TRAIN_STEPS} steps, clip "
+        f"{cfg.optimizer.grad_clip_norm}; batch {TRAIN_B} x {TRAIN_S}")
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, c.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1, -TRAIN_PAD:] = mask[5, -TRAIN_PAD:] = 0
+    batch = {k: torch.as_tensor(x, device="cuda")
+             for k, x in (("input_ids", ids), ("attention_mask", mask))}
+
+    # flash (B1, B2a, B2b) against the plain einsum attention, dropout off
+    plain = get_model("gpt", cfg.replace(attention_impl="xla"))
+    lf, gf = _loss_and_grads(model, state.params, batch)
+    lx, gx = _loss_and_grads(plain, state.params, batch)
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in gx.values()))
+    worst, worst_key, zero = 0.0, "", 0.0
+    for key in gx:
+        a, b = gf[key].float(), gx[key].float()
+        if key.endswith("attn/k/bias"):
+            zero = max(zero, (a.norm() / total).item(),
+                       (b.norm() / total).item())
+            continue
+        rel = ((a - b).norm() / b.norm()).item()
+        if rel > worst:
+            worst, worst_key = rel, key
+    del gf, gx, plain
+    log(f"[train] one step's grads, flash vs xla attention (dropout off): "
+        f"worst leaf {worst_key} ||g_flash - g_xla|| / ||g_xla|| "
+        f"{worst:.3e} (tol {TRAIN_GRAD_REL_TOL}); key biases ||g|| / global "
+        f"norm {zero:.3e} (tol {TRAIN_ZERO_GRAD_SHARE}); loss {lf:.5f} vs "
+        f"{lx:.5f} (tol {TRAIN_LOSS_TOL})")
+    if worst > TRAIN_GRAD_REL_TOL or zero > TRAIN_ZERO_GRAD_SHARE \
+            or abs(lf - lx) > TRAIN_LOSS_TOL:
+        raise SystemExit("flash attention's grads disagree with the plain "
+                         "attention's")
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_launches = _reset_launches()
+    metrics = []
+    t0 = t1 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        if i == 1:                         # the first step is not timed
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, met = sync.step(state, batch)
+        metrics.append(met)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [{k: float(v) for k, v in m.items()} for m in metrics]
+    ms = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
+    log(f"[train] {TRAIN_STEPS} steps: loss " + " ".join(
+        f"{v['loss']:.3f}" for v in vals))
+    log(f"[train] grad_norm first {vals[0]['grad_norm']:.3f} last "
+        f"{vals[-1]['grad_norm']:.3f}, token_accuracy last "
+        f"{vals[-1]['token_accuracy']:.4f}, anomaly_count "
+        f"{int(vals[-1]['anomaly_count'])}; launches {launches}")
+    log(f"[train] first step {(t1 - t0) * 1e3:.1f} ms, then {ms:.2f} ms per "
+        f"step, {TRAIN_B * TRAIN_S / ms * 1e3:.1f} tokens/s (all {TRAIN_B} "
+        f"x {TRAIN_S} input tokens), peak device memory "
+        f"{peak / 2**20:.1f} MiB ({card})")
+    want = {"flash_attention_fwd": c.layers * TRAIN_STEPS,
+            "flash_attention_bwd_dq": c.layers * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": c.layers * TRAIN_STEPS,
+            "decode_attention": 0, "paged_decode_attention": 0,
+            "paged_decode_attention_int8": 0}
+    failed = []
+    if launches != want:
+        failed.append(f"launches {launches}, want {want}")
+    if not all(np.isfinite(x) for v in vals for x in v.values()):
+        failed.append("a metric is not finite")
+    if int(vals[-1]["anomaly_count"]) != 0 or state.step != TRAIN_STEPS:
+        failed.append(f"anomaly_count {vals[-1]['anomaly_count']}, step "
+                      f"{state.step}")
+    if vals[-1]["loss"] > (1 - TRAIN_MIN_LOSS_DROP) * vals[0]["loss"]:
+        failed.append(f"the loss fell from {vals[0]['loss']:.4f} to "
+                      f"{vals[-1]['loss']:.4f}, less than "
+                      f"{TRAIN_MIN_LOSS_DROP:.0%}")
+    if failed:
+        raise SystemExit("the training phase failed: " + "; ".join(failed))
+    phase_train_profile(sync, state, batch, card)
+    return launches
+
+
+def phase_train_profile(sync, state, batch, card: str) -> None:
+    """One step on the host clock, then the device's busy time and idle
+    share under ``torch.profiler`` over a second step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = sync.step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sync.step(state, batch)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not kernels:
+        log("[train profile] the profiler saw no device time: idle share "
+            "not measured")
+        return
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"[train profile] one step {wall * 1e3:.1f} ms; traced step "
+        f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms in "
+        f"{sum(e.count for e in kernels)} kernel launches: idle share "
+        f"{1 - busy / (traced * 1e3):.3f} of the traced step, "
+        f"{1 - busy / (wall * 1e3):.3f} of the untraced one ({card})")
+    ours = [e for e in kernels if "flash_" in e.key]
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8] + ours:
+        log(f"[train profile]   {_device_us(e) / 1e3:8.2f} ms  "
+            f"{e.count:6d}x  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
 # slice phase: GPT-small generation served over HTTP
 # ---------------------------------------------------------------------------
 
@@ -603,7 +902,8 @@ def phase_slice(card: str) -> dict:
     n_req = len(requests)
     want = {"flash_attention_fwd": c.layers * n_req,
             "decode_attention": c.layers * (MAX_NEW - 1) * n_req,
-            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+            **NO_BACKWARD}
     log(f"[slice] launches over {n_req} requests: {launches} "
         f"(want {want})")
     if launches != want:
@@ -689,7 +989,8 @@ def phase_weight_int8(model, params, ids: np.ndarray, float_out: np.ndarray,
     out = np.asarray(body["generations"])
     want = {"flash_attention_fwd": c.layers,
             "decode_attention": c.layers * (MAX_NEW - 1),
-            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+            **NO_BACKWARD}
     agree = float((out == float_out).mean())
     log(f"[weight int8] greedy request: {sec * 1e3:.1f} ms, "
         f"{BATCH * MAX_NEW / sec:.1f} tokens/s, launches {launches} (want "
@@ -757,6 +1058,10 @@ def _reset_launches():
         decode_attention as da, flash_attention as fa,
         paged_decode_attention as pa)
     counters = (("flash_attention_fwd", fa.flash_attention_fwd, "launches"),
+                ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+                 "launches"),
+                ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+                 "launches"),
                 ("decode_attention", da.decode_attention, "launches"),
                 ("paged_decode_attention", pa.paged_decode_attention,
                  "launches"),
@@ -871,11 +1176,11 @@ def phase_engine(card: str) -> dict:
     want = {"paged": {"flash_attention_fwd": c.layers * paged["prefills"],
                       "decode_attention": 0,
                       "paged_decode_attention": c.layers * paged["steps"],
-                      "paged_decode_attention_int8": 0},
+                      "paged_decode_attention_int8": 0, **NO_BACKWARD},
             "slab": {"flash_attention_fwd": c.layers * slab["prefills"],
                      "decode_attention": c.layers * slab["steps"],
                      "paged_decode_attention": 0,
-                     "paged_decode_attention_int8": 0}}
+                     "paged_decode_attention_int8": 0, **NO_BACKWARD}}
     for label, run in (("paged", paged), ("slab", slab)):
         if run["launches"] != want[label] or run["steps"] < MAX_NEW - 1:
             raise SystemExit(f"engine {label}: launches {run['launches']} "
@@ -1007,7 +1312,8 @@ def phase_engine_int8(model, params, tmp: str, float_dir: str,
         want = {"flash_attention_fwd": c.layers * run["prefills"],
                 "decode_attention": 0,
                 "paged_decode_attention": c.layers * b5,
-                "paged_decode_attention_int8": c.layers * b6}
+                "paged_decode_attention_int8": c.layers * b6,
+                **NO_BACKWARD}
         if run["launches"] != want or run["steps"] < MAX_NEW - 1:
             failed.append(f"{label}: launches {run['launches']}, want {want}")
     if shared["prefills"] or shared["launches"][
@@ -1189,11 +1495,14 @@ def main() -> int:
     phase_build()
     gen = torch.Generator().manual_seed(0)
     flash = phase_flash(gen)
+    bwd_dq, bwd_dkv = phase_flash_bwd(gen)
     decode = phase_decode(gen)
     paged = phase_paged(gen)
     paged_int8 = phase_paged_int8(gen)
-    log("[kernels] flash_attention_fwd, decode_attention, "
+    log("[kernels] flash_attention_fwd, flash_attention_bwd_dq, "
+        "flash_attention_bwd_dkv, decode_attention, "
         "paged_decode_attention, paged_decode_attention_int8")
+    train = phase_train(card)
     launches = phase_slice(card)
     engine = phase_engine(card)
     rows = [
@@ -1203,6 +1512,18 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"], **flash},
+        {"name": "flash_attention_bwd_dq", "route": "cuda",
+         "source": "distributed_tensorflow_example_tpu_torch/csrc/"
+                   "flash_attention_bwd_dq.cu",
+         "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
+                     "flash_attention.py:233",
+         "launches": train["flash_attention_bwd_dq"], **bwd_dq},
+        {"name": "flash_attention_bwd_dkv", "route": "cuda",
+         "source": "distributed_tensorflow_example_tpu_torch/csrc/"
+                   "flash_attention_bwd_dkv.cu",
+         "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
+                     "flash_attention.py:268",
+         "launches": train["flash_attention_bwd_dkv"], **bwd_dkv},
         {"name": "decode_attention", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "decode_attention.cu",

@@ -1,5 +1,6 @@
-"""GPT-style causal language model + KV-cache generation (port of the
-inference half of ``distributed_tensorflow_example_tpu/models/gpt.py``).
+"""GPT-style causal language model + KV-cache generation (port of
+``distributed_tensorflow_example_tpu/models/gpt.py``: training loss,
+evaluation and generation).
 
 Architecture (GPT-2 layout): learned token + position embeddings, pre-LN
 blocks (``h += attn(ln1(h)); h += ffn(ln2(h))``), final layernorm, LM
@@ -27,6 +28,14 @@ step attends through the int8 kernel. ``weight_quant="int8"`` stores the
 decode layers' four matmul kernels as per-output-channel int8 and
 dequantizes one layer at a time inside the step.
 
+Training: :meth:`GPT.loss` is the next-token loss the sync step
+differentiates (``(loss, ({"token_accuracy"}, extras))``, padding carries
+no loss), with dropout after the embeddings, the attention output and the
+FFN output when ``train`` and a ``torch.Generator`` are given; with
+``attention_impl="flash"`` every layer's attention is the differentiable
+flash kernel pair (B1 forward, B2a/B2b backward). The LM head is
+``ops/losses.py`` ``lm_head_xent`` with ``impl="full"``.
+
 Numerics follow the reference: bf16 matmuls with f32 accumulation, f32
 layernorm statistics (eps 1e-6), f32 softmax, tanh-approximated GELU,
 and f32 logits from the bf16-rounded hidden state and table (the logits
@@ -41,8 +50,8 @@ import numpy as np
 import torch
 
 from ..ckpt import checkpoint as ckpt
-from ..config import TrainConfig, flash_attention_kwargs
-from ..ops import nn
+from ..config import TrainConfig, flash_attention_kwargs, lm_loss_settings
+from ..ops import losses, nn
 from ..ops.attention import NEG_INF, multi_head_attention
 from ..ops.cuda.decode_attention import decode_attention as decode_attn
 from ..ops.cuda.paged_decode_attention import \
@@ -75,6 +84,16 @@ class GPTConfig:
     heads: int = 12
     intermediate: int = 3072
     max_len: int = 1024
+    dropout: float = 0.1
+    #: LM-loss strategy (ops/losses.py lm_head_xent): "full" materializes
+    #: the [B, S, vocab] f32 logits; "chunked" and "fused" arrive with
+    #: slice A3c
+    loss_impl: str = "full"
+    #: seq chunk for loss_impl="chunked" (> 0 with "full" is the legacy
+    #: spelling of "chunked", as in the reference)
+    loss_chunk: int = 0
+    #: vocab tile for loss_impl="fused" (0 = the default)
+    loss_vocab_block: int = 0
 
     @classmethod
     def small(cls) -> "GPTConfig":
@@ -85,6 +104,34 @@ class GPTConfig:
     def tiny(cls) -> "GPTConfig":
         return cls(vocab_size=1000, hidden=128, layers=2, heads=4,
                    intermediate=256, max_len=128)
+
+
+def _check_loss_levers(cfg: GPTConfig) -> None:
+    """The reference's LM-loss lever validation (``GPT.__init__``), loud
+    at model build; resolves the legacy ``loss_chunk`` spelling of
+    ``"chunked"`` in place, as the reference does."""
+    if cfg.loss_impl not in losses.LM_LOSS_IMPLS:
+        raise ValueError(f"lm_loss_impl must be one of "
+                         f"{losses.LM_LOSS_IMPLS}, got {cfg.loss_impl!r}")
+    if cfg.loss_chunk < 0:
+        raise ValueError(f"lm_loss_chunk={cfg.loss_chunk} must be >= 0")
+    if cfg.loss_vocab_block < 0:
+        raise ValueError(f"lm_loss_vocab_block={cfg.loss_vocab_block} "
+                         "must be >= 0")
+    if cfg.loss_chunk and cfg.loss_impl == "full":
+        cfg.loss_impl = "chunked"
+    if cfg.loss_impl == "chunked" and not cfg.loss_chunk:
+        raise ValueError("lm_loss_impl='chunked' needs lm_loss_chunk > 0 "
+                         "(the chunk size)")
+    if cfg.loss_impl == "fused" and cfg.loss_chunk:
+        raise ValueError("lm_loss_chunk conflicts with lm_loss_impl="
+                         "'fused': the fused vocab scan never materializes "
+                         "full logits")
+    if cfg.loss_vocab_block and cfg.loss_impl != "fused":
+        raise ValueError(
+            f"lm_loss_vocab_block={cfg.loss_vocab_block} tunes the fused "
+            f"vocab scan and requires lm_loss_impl='fused', got "
+            f"{cfg.loss_impl!r}")
 
 
 def _key_mask(mask, ids: torch.Tensor) -> torch.Tensor:
@@ -105,13 +152,25 @@ class GPT:
     def __init__(self, cfg: GPTConfig, dtype=torch.float32,
                  attention_impl: str = "xla",
                  param_dtype=torch.float32,
-                 attention_kwargs: dict | None = None):
+                 attention_kwargs: dict | None = None,
+                 accuracy_every_n: int = 1):
         if cfg.hidden % cfg.heads:
             raise ValueError(f"hidden {cfg.hidden} is not a multiple of "
                              f"heads {cfg.heads}")
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl must be xla/flash, got "
                              f"{attention_impl!r}")
+        _check_loss_levers(cfg)
+        if accuracy_every_n < 1:
+            raise ValueError(f"token_accuracy_every_n={accuracy_every_n} "
+                             "must be >= 1")
+        if accuracy_every_n != 1:
+            # the cadence counter lives in TrainState.extras and is ticked
+            # by the trainer's step, which arrives with slice A3c
+            raise NotImplementedError(
+                f"token_accuracy_every_n={accuracy_every_n}: the every-n "
+                "accuracy cadence arrives with slice A3c; the port computes "
+                "token_accuracy every step")
         self.cfg = cfg
         self.dtype = dtype
         self.param_dtype = param_dtype
@@ -183,12 +242,18 @@ class GPT:
         f = nn.gelu(f.float()).to(self.dtype)
         return nn.dense(lp["ffn"]["out"], f, dtype=self.dtype)
 
-    def _layer(self, lp, h, mask, *, return_kv: bool = False):
+    def _use_dropout(self, gen, train: bool) -> bool:
+        return train and self.cfg.dropout > 0 and gen is not None
+
+    def _layer(self, lp, h, mask, gen=None, *, train: bool = False,
+               return_kv: bool = False):
         """Pre-LN decoder block over the full (causal) sequence: ONE body
-        for the forward and the prefill, which also yields this layer's
-        (k, v) for the decode cache."""
+        for training, the forward and the prefill, which also yields this
+        layer's (k, v) for the decode cache. Dropout on the attention and
+        FFN outputs when ``train`` and ``gen`` is given."""
         c = self.cfg
         b, s, _ = h.shape
+        drop = self._use_dropout(gen, train)
         q, k, v = self._qkv(lp["attn"], nn.layernorm(lp["ln1"], h))
         ctx = multi_head_attention(
             q, k, v, mask=mask[:, None, None, :], causal=True,
@@ -196,25 +261,35 @@ class GPT:
             flash_kwargs=self.attention_kwargs or None)
         a = nn.dense(lp["attn"]["o"], ctx.reshape(b, s, c.hidden),
                      dtype=self.dtype)
+        if drop:
+            a = nn.dropout(gen, a, c.dropout, train=True)
         h = h + a.to(h.dtype)
         f = self._ffn(lp, nn.layernorm(lp["ln2"], h))
+        if drop:
+            f = nn.dropout(gen, f, c.dropout, train=True)
         h = h + f.to(h.dtype)
         return (h, (k, v)) if return_kv else h
 
-    def _embed(self, params, ids, pos_ids):
+    def _embed(self, params, ids, pos_ids, gen=None, train: bool = False):
         h = (nn.embedding(params["wte"], ids)
              + nn.embedding(params["wpe"], pos_ids))
-        return h.to(self.dtype)
+        h = h.to(self.dtype)
+        if self._use_dropout(gen, train):
+            h = nn.dropout(gen, h, self.cfg.dropout, train=True)
+        return h
 
-    def encode(self, params, batch):
+    def encode(self, params, batch, gen=None, train: bool = False):
+        """[B, S] token ids (``batch["input_ids"]``, optional
+        ``attention_mask``) -> [B, S, hidden] after the final layernorm.
+        ``gen`` draws the dropout masks when ``train``."""
         ids = torch.as_tensor(batch["input_ids"],
                               device=params["wte"]["table"].device)
         b, s = ids.shape
         mask = _key_mask(batch.get("attention_mask"), ids)
         h = self._embed(params, ids,
-                        torch.arange(s, device=ids.device)[None])
+                        torch.arange(s, device=ids.device)[None], gen, train)
         for i in range(self.cfg.layers):
-            h = self._layer(params[f"layer_{i}"], h, mask)
+            h = self._layer(params[f"layer_{i}"], h, mask, gen, train=train)
         return nn.layernorm(params["ln_f"], h)
 
     def lm_logits(self, params, h):
@@ -230,6 +305,52 @@ class GPT:
         """(logits [B, S, V] f32, extras): the forward of the reference's
         ``apply`` with ``train=False``."""
         return self.lm_logits(params, self.encode(params, batch)), extras
+
+    # ------------------------------------------------------------------
+    def _lm_loss(self, params, h, targets, w, *, accuracy: bool = True):
+        """Next-token loss + accuracy over encoded ``h`` [B, S, hid].
+        ``targets``/``w`` are the S-1 shifted labels/weights, padded with
+        a weight-0 dummy at position S-1 as the reference pads them.
+        Returns (loss, accuracy) as weighted token means."""
+        c = self.cfg
+        targets = torch.cat([targets, torch.zeros_like(targets[:, :1])], 1)
+        w = torch.cat([w, torch.zeros_like(w[:, :1])], 1)
+        return losses.lm_head_xent(
+            h, params["wte"]["table"], targets, w, impl=c.loss_impl,
+            seq_chunk=c.loss_chunk, vocab_block=c.loss_vocab_block,
+            dtype=self.dtype, accuracy=accuracy)
+
+    def _targets(self, params, batch):
+        ids = torch.as_tensor(batch["input_ids"],
+                              device=params["wte"]["table"].device)
+        mask = batch.get("attention_mask")
+        mask = (torch.ones_like(ids) if mask is None
+                else torch.as_tensor(mask, device=ids.device))
+        return ids[:, 1:], mask[:, 1:].float()
+
+    def loss(self, params, extras, batch, gen=None):
+        """The training loss: next-token prediction, position t predicts
+        token t+1, padding (``attention_mask == 0``) carries no loss.
+        Returns ``(loss, ({"token_accuracy": acc}, extras))``, the
+        framework's loss signature. Dropout draws from ``gen`` (none when
+        it is None)."""
+        targets, w = self._targets(params, batch)
+        h = self.encode(params, batch, gen, train=True)
+        loss, acc = self._lm_loss(params, h, targets, w)
+        return loss, ({"token_accuracy": acc}, extras)
+
+    @torch.no_grad()
+    def eval_metrics(self, params, extras, batch) -> dict:
+        """Loss, perplexity and token accuracy with no dropout; an optional
+        ``__valid__`` [B] marks the real rows of a padded eval batch."""
+        targets, w = self._targets(params, batch)
+        valid = batch.get("__valid__")
+        if valid is not None:
+            w = w * torch.as_tensor(valid, device=w.device).float()[:, None]
+        h = self.encode(params, batch, train=False)
+        loss, acc = self._lm_loss(params, h, targets, w)
+        return {"loss": loss, "perplexity": torch.exp(loss),
+                "token_accuracy": acc}
 
     # ------------------------------------------------------------------
     # autoregressive decoding (static-shape KV-cache slab)
@@ -761,6 +882,7 @@ def _make(config: TrainConfig, cfg: GPTConfig, *,
     if config_vocab:
         cfg.vocab_size = config.data.vocab_size
     cfg.max_len = max(cfg.max_len, config.data.seq_len)
+    cfg.loss_impl, cfg.loss_chunk = lm_loss_settings(config)
     return GPT(cfg, dtype=resolve_dtype(config.dtype),
                attention_impl=config.attention_impl,
                param_dtype=resolve_dtype(config.param_dtype),

@@ -46,6 +46,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     # q, k, v, mask, o, lse, B, S, H, D, causal, sm_scale, stream
     "flash_attention_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # q, k, v, do, lse, dsum, mask, dq, B, S, H, D, causal, sm_scale, stream
+    "flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # q, k, v, do, lse, dsum, mask, dk, dv, B, S, H, D, causal, sm_scale,
+    # stream
+    "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],
     # q, k, v, pos, pad, o, B, T, H, D, sm_scale, stream
     "decode_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
     # q, k_pool, v_pool, block_tables, pos, pad, o, B, N, Bs, NB, H, D,

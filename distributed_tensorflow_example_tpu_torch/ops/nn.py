@@ -1,6 +1,5 @@
 """Functional NN primitives with explicit parameter dicts (port of
-``distributed_tensorflow_example_tpu/ops/nn.py``, the parts GPT
-inference reads).
+``distributed_tensorflow_example_tpu/ops/nn.py``, the parts GPT reads).
 
 Same conventions as the reference: parameters are plain dicts of tensors
 kept in ``param_dtype`` (f32 by default), matmul-bearing ops take a
@@ -81,3 +80,19 @@ def embedding(params: Params, ids: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout, the reference's rule: in training each element is
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
+    else 0; identity when not ``train`` or ``rate <= 0``. The keep mask
+    draws from ``gen`` (on ``x``'s device), so a seeded generator gives
+    the same mask again; it is not the reference's stream (JAX threefry
+    and torch Philox differ)."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))

@@ -1,6 +1,7 @@
-"""Flat-key helpers: nested parameter dicts <-> ``/``-joined keys, the
-same 'a/b/0/c' rendering the reference's checkpoints and sharding rules
-use (``utils/pytree.py`` ``path_str``)."""
+"""Tree helpers: nested parameter dicts <-> ``/``-joined keys, the same
+'a/b/0/c' rendering the reference's checkpoints and sharding rules use
+(``utils/pytree.py`` ``path_str``), and a map over the leaves of nested
+dicts, lists and tuples (the optimizer states)."""
 
 from __future__ import annotations
 
@@ -32,4 +33,23 @@ def unflatten_dict(flat: Mapping[str, Any]) -> dict[str, Any]:
         if leaf in node:
             raise ValueError(f"duplicate key {key!r}")
         node[leaf] = v
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (``rest``:
+    trees of the same structure, their leaves passed alongside)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, lists and tuples, in order."""
+    out: list = []
+    tree_map(out.append, tree)
     return out

@@ -121,6 +121,52 @@ def test_quantized_paths_run_without_jax(tmp_path):
     assert "FORBIDDEN []" in out.stdout, out.stdout
 
 
+#: the training slice's modules, named so that the walk above is shown
+#: to reach them
+TRAIN_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "ops.losses", "train.optimizers", "train.state",
+        "parallel.sync_replicas"))
+
+
+def test_training_step_runs_without_jax():
+    """``SyncReplicas.init`` and ``step`` (AdamW, clip, GPT loss through
+    the flash Function's plain versions, dropout on) run in a process
+    that holds no JAX, and every training module is in the walk of
+    :func:`test_importing_every_module_loads_no_jax`."""
+    assert set(TRAIN_MODULES) <= set(_port_modules())
+    code = (
+        "import sys, numpy as np\n"
+        "from distributed_tensorflow_example_tpu_torch.config import \\\n"
+        "    OptimizerConfig\n"
+        "from distributed_tensorflow_example_tpu_torch.models.gpt import (\n"
+        "    GPT, GPTConfig)\n"
+        "from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas"
+        " import SyncReplicas\n"
+        "from distributed_tensorflow_example_tpu_torch.train.optimizers "
+        "import make_optimizer\n"
+        f"m = GPT(GPTConfig(**{dataclasses.asdict(TINY)!r}), "
+        "attention_impl='flash')\n"
+        "tx = make_optimizer(OptimizerConfig(name='adamw', "
+        "learning_rate=1e-2, grad_clip_norm=1.0, weight_decay=0.01))\n"
+        "sync = SyncReplicas(m.loss, tx, device='cpu')\n"
+        "state = sync.init(m.init, seed=0)\n"
+        "ids = np.arange(16, dtype=np.int32).reshape(2, 8) % 64\n"
+        "for _ in range(3):\n"
+        "    state, met = sync.step(state, {'input_ids': ids})\n"
+        "print('STEP', state.step, int(met['anomaly_count']),\n"
+        "      bool(np.isfinite(float(met['loss']))))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "STEP 3 0 True" in out.stdout, out.stdout
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+
+
 def test_no_source_names_jax_or_the_jax_package():
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:
@@ -197,6 +243,28 @@ def test_engine_entry_points_without_cuda_raise(no_cuda, tmp_path):
         assert srv.engine is not None
         out = srv.generate({"inputs": {"input_ids": [[1, 2, 3]]}})
     assert np.asarray(out["generations"]).shape == (1, 2)
+
+
+def test_sync_replicas_without_cuda_raise(no_cuda):
+    """The training step runs on the card by default: without CUDA
+    ``SyncReplicas`` raises; with ``device="cpu"`` its ``init`` and
+    ``step`` train on the CPU."""
+    from distributed_tensorflow_example_tpu_torch.config import \
+        OptimizerConfig
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+        make_optimizer
+    model = GPT(TINY)
+    tx = make_optimizer(OptimizerConfig(name="adamw", learning_rate=1e-2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SyncReplicas(model.loss, tx)
+    sync = SyncReplicas(model.loss, tx, device="cpu")
+    state = sync.init(model.init, seed=0)
+    assert state.params["wte"]["table"].device.type == "cpu"
+    ids = np.arange(16, dtype=np.int32).reshape(2, 8)
+    state, met = sync.step(state, {"input_ids": ids})
+    assert state.step == 1 and int(met["anomaly_count"]) == 0
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -20,7 +20,15 @@ tables; its worst row in ``chip_smoke.py`` is 6.5e-3 (one ulp), and its
 limit is 2e-2, as ``chip_smoke.py``'s. The int8 paged kernel follows the
 Pallas kernel's algebra (scales folded into the scores and the f32
 probabilities) where its plain version dequantizes to bf16 and rounds the
-probabilities to bf16: held to the same 2e-2.
+probabilities to bf16: held to the same 2e-2. The flash backward kernels
+(dq, and dk with dv) round p and ds to bf16 before their products where
+the plain versions keep them in f32, and round their outputs to bf16: each
+gradient row (one query's dq, one key's dk or dv, of one head) is held to
+2e-2 too, with each row's size floored at a hundredth of the mean row
+size: a row whose gradient cancels to zero (the first query of a causal
+row has one live key, where ds = p (dp - D) is zero but for rounding) is
+held to that absolute error instead. A query row with no live key gets dq
+exactly 0, and a masked key gets dk and dv exactly 0.
 """
 
 import pytest
@@ -41,6 +49,7 @@ pytestmark = pytest.mark.gpu
 FLASH_ROW_REL_TOL = 2e-2
 DECODE_ROW_REL_TOL = 1e-2
 PAGED_ROW_REL_TOL = 2e-2
+FLASH_BWD_ROW_REL_TOL = 2e-2
 
 
 def _row_rel_err(o, o_ref):
@@ -48,6 +57,14 @@ def _row_rel_err(o, o_ref):
     size = o_ref.float().abs().amax(dim=-1)
     return (diff / size.clamp_min(torch.finfo(torch.float32).tiny)
             ).max().item()
+
+
+def _grad_row_err(g, g_ref):
+    """:func:`_row_rel_err` with each row's size floored at a hundredth of
+    the mean row size (see the module docstring)."""
+    diff = (g.float() - g_ref.float()).abs().amax(dim=-1)
+    size = g_ref.float().abs().amax(dim=-1)
+    return (diff / torch.maximum(size, 1e-2 * size.mean())).max().item()
 
 
 @pytest.fixture
@@ -101,6 +118,101 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_fwd(t, t, t)
     with pytest.raises(TypeError, match="int32 key mask"):
         fa.flash_attention_fwd(qb, qb, qb, torch.ones((1, 64), device=cuda))
+
+
+def _bwd_case(gen, dev, b, s, h, d, causal, pad):
+    """Random bf16 q, k, v, dO; a key mask with ``pad`` dead keys on the
+    left of row 1 (under causal masking its first ``pad`` queries see no
+    key); the forward's lse (B1) and Dsum from its output."""
+    q, k, v, do = (_randn(gen, (b, s, h, d), dev) for _ in range(4))
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    mask[1, :pad] = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
+    return q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask
+
+
+@pytest.mark.parametrize("s", [512, 500, 77])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_match_plain(cuda, s, causal):
+    gen = torch.Generator().manual_seed(3 * s + causal)
+    pad = s // 3
+    args = _bwd_case(gen, cuda, 2, s, 12, 64, causal, pad)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(*args, causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=causal)
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    dq_ref = fa.flash_attention_bwd_dq_plain(*args, causal=causal)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(*args, causal=causal)
+    torch.cuda.synchronize()
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.bfloat16
+        assert _grad_row_err(got, ref) <= FLASH_BWD_ROW_REL_TOL
+    # masked keys get no gradient; under causal masking the queries that
+    # see no key get none either
+    assert dk[1, :pad].abs().max().item() == 0
+    assert dv[1, :pad].abs().max().item() == 0
+    if causal:
+        assert dq[1, :pad].abs().max().item() == 0
+
+
+def test_flash_bwd_kernels_head_dim_128_and_no_mask(cuda):
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, do = (_randn(gen, (1, 200, 4, 128), cuda) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
+    dsum = fa.flash_attention_dsum(do, o)
+    got = (fa.flash_attention_bwd_dq(q, k, v, do, lse, dsum, None, True),
+           *fa.flash_attention_bwd_dkv(q, k, v, do, lse, dsum, None, True))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, None, True)
+    for g, w in zip(got, want):
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+
+
+def test_flash_bwd_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, do, lse, dsum, mask = _bwd_case(gen, cuda, 2, 64, 2, 64, True,
+                                             0)
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(TypeError, match="bf16"):         # no fallback
+            fn(q, k, v, do.float(), lse, dsum, mask, True)
+        with pytest.raises(ValueError, match="f32 \\[B,H,S\\] lse"):
+            fn(q, k, v, do, lse.to(torch.bfloat16), dsum, mask, True)
+        with pytest.raises(ValueError, match="contiguous"):
+            t = do.transpose(1, 2).contiguous().transpose(1, 2)
+            fn(q, k, v, t, lse, dsum, mask, True)
+        with pytest.raises(TypeError, match="int32 key mask"):
+            fn(q, k, v, do, lse, dsum, mask.bool(), True)
+
+
+def test_flash_grads_flow_through_the_kernels(cuda):
+    """On the card the flash output carries the graph (the detached-output
+    fault is gone): one backward launches B2a and B2b once each, and the
+    grads match the plain backward on the same saved forward."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (_randn(gen, (2, 256, 12, 64), cuda).requires_grad_()
+               for _ in range(3))
+    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
+    mask[1, :40] = 0
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    o = fa.flash_attention(q, k, v, mask=mask, causal=True)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    (o.float() ** 2).sum().backward()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(
+                n + 1 for n in before)
+    with torch.no_grad():
+        o2, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+        want = fa.flash_attention_bwd_plain(q, k, v, o2,
+                                            lse, (2 * o2.float()).to(
+                                                torch.bfloat16), mask, True)
+    torch.cuda.synchronize()
+    for t, w in zip((q, k, v), want):
+        assert _grad_row_err(t.grad, w) <= FLASH_BWD_ROW_REL_TOL
 
 
 @pytest.mark.parametrize("t", [640, 613])
