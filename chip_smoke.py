@@ -1,9 +1,11 @@
 """On-card check of the PyTorch/CUDA port: builds the hand-written Hopper
 kernels, holds each against its plain PyTorch version at the shapes its
 path gives it, trains GPT-small for a few steps through the port's sync
-step, then serves GPT-small generation over HTTP through the port's
-entry points, without and with the continuous-batching engine, and
-checks the kernels carried each path.
+step and then through its training CLI (``cli/train.py`` -> ``Trainer``
+-> checkpoint ring, the fused flash backward), then serves GPT-small
+generation over HTTP through the port's entry points, without and with
+the continuous-batching engine, and checks the kernels carried each
+path.
 
     python3 chip_smoke.py
 
@@ -11,12 +13,17 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``). Prints, in order:
 the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
 kernel (error against the plain version, kernel / plain / library time,
-the roofline bound; the flash backward's dq and dk/dv kernels; the paged
-kernel over bf16 and over int8 pools), the training phase (one step's
-grads through the flash kernels against the plain attention's, then 20
-AdamW steps of full-width GPT-small through ``SyncReplicas`` with launch
-counts, the loss curve, ms per step, tokens/s, peak memory and the
-device idle share of one step), the slice phase (three ``:generate`` requests on full-width GPT-small with
+the roofline bound; the flash backward's dq and dk/dv kernels and its
+fused kernel, bitwise against them; the paged kernel over bf16 and over
+int8 pools), the training phase (one step's grads through the flash
+kernels against the plain attention's, then 20 AdamW steps of
+full-width GPT-small through ``SyncReplicas`` with launch counts, the
+loss curve, ms per step, tokens/s, peak memory and the device idle share
+of one step), the CLI phase (20 steps of the training CLI with the fused
+backward and a checkpoint ring, a resume to 30 with a generator export
+served once, a 5-step split-backward run against it; launch counts, the
+loss curve, ms per step, save and restore times, peak memory and the
+idle share of one Trainer step), the slice phase (three ``:generate`` requests on full-width GPT-small with
 launch counts, token agreement with the plain versions, tokens/s,
 latency, peak memory, then one request of an int8-weight export and the
 decode step with int8 weights beside the float one), the engine phase
@@ -34,7 +41,10 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -100,8 +110,22 @@ INT8_MIN_AGREEMENT = 0.75
 # forward does; each gradient row (one query's dq, one key's dk or dv, of
 # one head) is held to the forward's limit (see grad_row_rel_err)
 FLASH_BWD_ROW_REL_TOL = 2e-2
+# the fused flash backward (B3) runs B2a's and B2b's products in their
+# order, so its dq, dk and dv are theirs bit for bit where the card forms
+# the transposed scores S^T = K Q^T (B2b's form) with the bits of B2a's
+# S = Q K^T. dk and dv are held to that bitwise; dq too, or, should the
+# card's S^T and S differ in their bits, to 1e-6 of B2a's dq relative to
+# each row (set before any run: ~100x f32 rounding, far below one bf16 ulp)
+FUSED_DQ_ROW_REL_TOL = 1e-6
+# the CLI phase's 5-step run with the split backward against the fused
+# run, same seed, batches and dropout masks: B3 is B2a and B2b bit for
+# bit, but the embedding's backward on the card (index_add with atomics)
+# is not deterministic, so the runs part by f32 rounding from step 3 on
+# (steps 1 and 2 run on equal params: lr(0) = 0 in the warmup)
+CLI_SPLIT_LOSS_REL_TOL = 1e-3
 # the serving phases run no backward kernel
-NO_BACKWARD = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+NO_BACKWARD = {"flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+               "flash_attention_bwd_fused": 0}
 # training phase: GPT-small, B=8, S=512, 20 AdamW steps on one fixed batch
 # (two rows end in 64 padding tokens), dropout 0.1
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_PAD = 8, 512, 20, 64
@@ -367,20 +391,7 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
     act = b * s * h * d * 2                       # one bf16 [B,S,H,D]
     rows = 2 * b * h * s * 4 + b * s * 4          # lse, Dsum, mask
     sets = cold_sets(args)
-    # SDPA's backward (one call computing dq, dk and dv) through autograd
-    # on a retained graph, so that only the backward is timed
-    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
-    amask = (causal[None] & (mask[:, None, :] != 0))[:, None]  # [B,1,S,S]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    graphs = []
-    for q_, k_, v_, do_, *_ in sets:
-        leaves = [x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q_, k_, v_)]
-        graphs.append((sdpa(*leaves, attn_mask=amask), leaves,
-                       do_.transpose(1, 2)))
-    lms = cuda_ms(lambda o_, leaves, do_: torch.autograd.grad(
-        o_, leaves, do_, retain_graph=True), graphs)
-    del graphs
+    lms = sdpa_bwd_ms(sets, mask, causal=True)
     for rec, stem, matmuls, outs in ((recs[0], "dq", 3, 1),
                                      (recs[1], "dkv", 4, 2)):
         fn = getattr(fa, f"flash_attention_bwd_{stem}")
@@ -397,6 +408,129 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
         rec.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                    bound_by=by)
     return recs[0], recs[1]
+
+
+def sdpa_bwd_ms(sets: list[tuple], mask: torch.Tensor,
+                causal: bool) -> float:
+    """SDPA's backward (one call computing dq, dk and dv) through autograd
+    on a retained graph, so that only the backward is timed, over the
+    (q, k, v, dO, ...) ``sets`` with the [B, S] key ``mask``."""
+    s = mask.shape[1]
+    amask = (mask[:, None, :] != 0)[:, None]                 # [B,1,1,S]
+    if causal:
+        tri = torch.ones((s, s), dtype=torch.bool, device=mask.device).tril()
+        amask = amask & tri[None, None]                      # [B,1,S,S]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    graphs = []
+    for q_, k_, v_, do_, *_ in sets:
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q_, k_, v_)]
+        graphs.append((sdpa(*leaves, attn_mask=amask), leaves,
+                       do_.transpose(1, 2)))
+    return cuda_ms(lambda o_, leaves, do_: torch.autograd.grad(
+        o_, leaves, do_, retain_graph=True), graphs)
+
+
+def flash_bwd_fused_case(b: int, s: int, causal: bool, gen,
+                         timed: bool) -> dict:
+    """B3 at [B, S, 12, 64] with left pads (row 0 unpadded) against its
+    plain version; two launches bitwise equal (dq is accumulated in a
+    fixed order, not by atomics); dk and dv bitwise B2b's; dq bitwise
+    B2a's, or, if the card forms S^T (B2b's and B3's form) with other bits
+    than B2a's S, within FUSED_DQ_ROW_REL_TOL of B2a per row, with both
+    max-abs differences printed; dead query rows and masked keys exactly
+    0. With ``timed``: kernel, plain, split-pair and SDPA-backward times
+    and the bound."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        flash_attention as fa
+    dev = torch.device("cuda")
+    h, d = FLASH_SHAPE["h"], FLASH_SHAPE["d"]
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    mask = _ragged_key_mask(gen, b, s, dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
+    args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
+    got = fa.flash_attention_bwd_fused(*args, causal=causal)
+    again = fa.flash_attention_bwd_fused(*args, causal=causal)
+    want = fa.flash_attention_bwd_fused_plain(*args, causal=causal)
+    dq_split = fa.flash_attention_bwd_dq(*args, causal=causal)
+    dk_split, dv_split = fa.flash_attention_bwd_dkv(*args, causal=causal)
+    torch.cuda.synchronize()
+    first_live = (mask == 0).sum(dim=1)
+    dead = (torch.arange(s, device=dev)[None, :]
+            < first_live[:, None])[:, :, None, None]            # [B,S,1,1]
+    rel = max(grad_row_rel_err(g, w) for g, w in zip(got, want))
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    determ = all(torch.equal(g, a) for g, a in zip(got, again))
+    dkv_bitwise = torch.equal(got[1], dk_split) and torch.equal(got[2],
+                                                                dv_split)
+    dq_bitwise = torch.equal(got[0], dq_split)
+    dq_rel = 0.0 if dq_bitwise else row_rel_err(got[0], dq_split)
+    dead_max = max((got[1].float().abs() * dead).max().item(),
+                   (got[2].float().abs() * dead).max().item(),
+                   (got[0].float().abs() * dead).max().item()
+                   if causal else 0.0)
+    label = f"[flash bwd fused B={b} S={s}{'' if causal else ' non-causal'}]"
+    if not dq_bitwise:
+        log(f"{label} dq differs from B2a's bits: max|dq - B2a dq| "
+            f"{(got[0].float() - dq_split.float()).abs().max().item():.3e}, "
+            f"max|dk - B2b dk| "
+            f"{(got[1].float() - dk_split.float()).abs().max().item():.3e}"
+            f"; dq held to {FUSED_DQ_ROW_REL_TOL} of B2a per row: "
+            f"{dq_rel:.3e}")
+    ok = (rel <= FLASH_BWD_ROW_REL_TOL and determ and dkv_bitwise
+          and dq_rel <= FUSED_DQ_ROW_REL_TOL and dead_max == 0)
+    log(f"{label} worst row max|g - plain| / max|plain| {rel:.3e} (tol "
+        f"{FLASH_BWD_ROW_REL_TOL}; max abs err {err:.3e}); two launches "
+        f"bitwise equal {determ}; dk, dv bitwise B2b's {dkv_bitwise}; dq "
+        f"bitwise B2a's {dq_bitwise}; dead rows and masked keys max|g| "
+        f"{dead_max} (must be 0): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the fused flash backward fails its checks at "
+                         f"B={b} S={s} causal={causal}")
+    rec = {"max_abs_err": err, "max_row_rel_err": rel}
+    if not timed:
+        return rec
+    if causal:
+        live_pairs = sum((s - int(p)) * (s - int(p) + 1) // 2
+                         for p in first_live)
+    else:
+        live_pairs = sum(s * (s - int(p)) for p in first_live)
+    act = b * s * h * d * 2
+    flops = 2.0 * 5 * d * h * live_pairs          # five products a pair
+    nbytes = 7 * act + 2 * b * h * s * 4 + b * s * 4  # q,k,v,dO; dq,dk,dv
+    bms, by = bound(flops, nbytes)
+    sets = cold_sets(args)
+    kms = cuda_ms(lambda *a: fa.flash_attention_bwd_fused(
+        *a, causal=causal), sets)
+    split_ms = cuda_ms(lambda *a: (
+        fa.flash_attention_bwd_dq(*a, causal=causal),
+        fa.flash_attention_bwd_dkv(*a, causal=causal)), sets)
+    kms2 = cuda_ms(lambda *a: fa.flash_attention_bwd_fused(
+        *a, causal=causal), sets)
+    pms = cuda_ms(lambda *a: fa.flash_attention_bwd_fused_plain(
+        *a, causal=causal), sets, iters=8)
+    lms = sdpa_bwd_ms(sets, mask, causal)
+    log(f"{label} kernel_ms {kms:.4f} (again {kms2:.4f}), B2a + B2b "
+        f"{split_ms:.4f}, plain_ms {pms:.4f}, library_ms (sdpa backward: "
+        f"dq, dk, dv) {lms:.4f}, bound_ms {bms:.4f} ({by}: "
+        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    rec.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+               bound_by=by)
+    return rec
+
+
+def phase_flash_bwd_fused(gen) -> dict:
+    """B3 at the training shape (timed), at S=4096 B=1, at a ragged
+    S=200, and non-causal."""
+    b, s = FLASH_SHAPE["b"], FLASH_SHAPE["s"]
+    rec = flash_bwd_fused_case(b, s, True, gen, timed=True)
+    for case in ((1, 4096, True), (b, 200, True), (b, s, False)):
+        odd = flash_bwd_fused_case(*case, gen, timed=False)
+        for key in ("max_abs_err", "max_row_rel_err"):
+            rec[key] = max(rec[key], odd[key])
+    return rec
 
 
 def phase_flash_bwd(gen) -> tuple[dict, dict]:
@@ -774,6 +908,7 @@ def phase_train(card: str) -> dict:
     want = {"flash_attention_fwd": c.layers * TRAIN_STEPS,
             "flash_attention_bwd_dq": c.layers * TRAIN_STEPS,
             "flash_attention_bwd_dkv": c.layers * TRAIN_STEPS,
+            "flash_attention_bwd_fused": 0,
             "decode_attention": 0, "paged_decode_attention": 0,
             "paged_decode_attention_int8": 0}
     failed = []
@@ -826,6 +961,289 @@ def phase_train_profile(sync, state, batch, card: str) -> None:
     for e in sorted(kernels, key=_device_us, reverse=True)[:8] + ours:
         log(f"[train profile]   {_device_us(e) / 1e3:8.2f} ms  "
             f"{e.count:6d}x  {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# CLI phase: GPT-small training through cli/train.py -> Trainer -> ring
+# ---------------------------------------------------------------------------
+
+class _LogTap(logging.Handler):
+    """Keeps the messages of the port's loggers (the LoggingHook's per-step
+    metrics, the trainer's restore line)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _step_metrics(lines: list[str]) -> dict[int, dict]:
+    """{step: {metric: value}} from the LoggingHook's lines."""
+    out = {}
+    for line in lines:
+        m = re.match(r"step (\d+): (\w+=.*)$", line)
+        if m and "loss=" in m.group(2):
+            out[int(m.group(1))] = {
+                k: float(v) for k, v in
+                (kv.split("=") for kv in m.group(2).split())}
+    return out
+
+
+def _ring(ckpt_dir: str) -> list[int]:
+    """The ring's steps, each verified against its CRC record."""
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import \
+        CheckpointManager
+    mgr = CheckpointManager(ckpt_dir)
+    steps = mgr.all_steps()
+    for step in steps:
+        mgr.verify_step(step)
+    return steps
+
+
+def phase_cli(card: str) -> dict:
+    """The tentpole command: ``cli/train.main`` trains full-width GPT-small
+    (bf16 compute, f32 params, flash attention with the fused backward B3,
+    dropout 0.1) on the synthetic LM corpus, 8 x 512 tokens a step, AdamW,
+    for 20 steps with a checkpoint every 10 in a ring of 2; a second call
+    on the same directory resumes at 20 and trains to 30, then exports the
+    generator, which ``PredictServer`` serves for one ``:generate``; a
+    5-step run with the split backward from the same seed gives the fused
+    run's losses. Launch counts are set to 0 before each call and read
+    after it: B3 12 a step, B2a and B2b none, B1 12 a step and 12 an eval
+    batch. Returns the B3 launches of the first call."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.obs import trace
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+
+    tap = _LogTap()
+    for name in ("dtx.hooks", "dtx.trainer"):
+        logging.getLogger(name).addHandler(tap)
+    rec = trace.recorder()
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    ck, gen_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "gen")
+    base = ["--model", "gpt", "--device", "cuda", "--attention", "flash",
+            "--attention_bwd", "fused", "--dtype", "bfloat16",
+            "--seq_len", str(TRAIN_S), "--batch_size", str(TRAIN_B),
+            "--optimizer", "adamw", "--learning_rate", "1e-3",
+            "--warmup_steps", "5", "--decay_schedule", "cosine",
+            "--grad_clip_norm", "1.0", "--weight_decay", "0.01",
+            "--seed", "0"]
+    layers = 12
+    eval_batches = -(-256 // TRAIN_B)     # get_lm_data's 256 eval rows
+
+    def run(argv, steps, label):
+        tap.lines.clear()
+        rec.start()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        read = _reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(base + argv)
+        wall = time.perf_counter() - t0
+        launches = read()
+        spans = rec.drain("training")
+        rec.stop()
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention_fwd": layers * (steps + eval_batches),
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_fused": layers * steps,
+                "decode_attention": 0, "paged_decode_attention": 0,
+                "paged_decode_attention_int8": 0}
+        if "split" in argv:
+            want.update(flash_attention_bwd_fused=0,
+                        flash_attention_bwd_dq=layers * steps,
+                        flash_attention_bwd_dkv=layers * steps)
+        if rc != 0:
+            failed.append(f"{label}: main returned {rc}")
+        if launches != want:
+            failed.append(f"{label}: launches {launches}, want {want}")
+        saves = [t1 - t0_ for _, lane, name, t0_, t1, _ in spans
+                 if name == "checkpoint_save"]
+        log(f"[cli {label}] rc {rc} in {wall:.1f} s, launches {launches}, "
+            f"peak device memory {peak / 2**20:.1f} MiB, checkpoint saves "
+            + (", ".join(f"{x:.2f} s" for x in saves) or "none")
+            + f" ({card})")
+        return _step_metrics(tap.lines), list(tap.lines), saves, launches
+
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    first, _, saves1, launches1 = run(
+        ["--train_steps", "20", "--ckpt_dir", ck, "--save_steps", "10",
+         "--max_to_keep", "2", "--log_every_steps", "1",
+         "--metrics_path", metrics], 20, "steps 1-20")
+    ring1 = _ring(ck)
+    second, lines2, saves2, _ = run(
+        ["--train_steps", "30", "--ckpt_dir", ck, "--save_steps", "10",
+         "--max_to_keep", "2", "--log_every_steps", "10",
+         "--metrics_path", metrics, "--export_generator", gen_dir,
+         "--gen_prompt_len", "64", "--gen_max_new", "16",
+         "--gen_batch", "2"], 10, "resume to 30 + export")
+    ring2 = _ring(ck)
+    split, _, _, _ = run(["--train_steps", "5", "--attention_bwd", "split",
+                       "--log_every_steps", "1"], 5, "split, 5 steps")
+    losses = [first[i]["loss"] for i in sorted(first)]
+    log(f"[cli] fused run losses (steps 1-20): "
+        + " ".join(f"{x:.4f}" for x in losses))
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    rates = {r["step"]: r["sec_per_step"] for r in recs
+             if "sec_per_step" in r}
+    # steps 2-20 of the first call (a host sync each step: log every
+    # step), leaving out step 11, whose window holds step 10's save
+    every = [rates[i] for i in range(2, 21) if i != 11 and i in rates]
+    ms1 = 1e3 * sum(every) / max(1, len(every))
+    ms2 = 1e3 * rates.get(30, float("nan"))     # steps 21-30, one window
+    log(f"[cli] ms per step: {ms1:.2f} over steps 2-20 but 11 (metrics "
+        f"read each step), {ms2:.2f} over steps 21-30 (read at 30 only); "
+        f"tokens/s {TRAIN_B * TRAIN_S / ms2 * 1e3:.1f} ({card})")
+    log(f"[cli] ring after 20: {ring1} (verified), after 30: {ring2} "
+        f"(verified); saves {[round(x, 3) for x in saves1 + saves2]} s")
+
+    # restore time of the newest checkpoint, outside the Trainer
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import \
+        CheckpointManager
+    from distributed_tensorflow_example_tpu_torch.config import \
+        OptimizerConfig, TrainConfig
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+        make_optimizer
+    cfg = TrainConfig(model="gpt", dtype="bfloat16",
+                      optimizer=OptimizerConfig(name="adamw",
+                                                grad_clip_norm=1.0,
+                                                weight_decay=0.01))
+    model = get_model("gpt", cfg)
+    sync = SyncReplicas(model.loss, make_optimizer(cfg.optimizer))
+    template = sync.init(model.init, seed=1)
+    mgr = CheckpointManager(ck)
+    t0 = time.perf_counter()
+    restored = mgr.restore(template)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.verify_step(30)
+    t_verify = time.perf_counter() - t0
+    size = os.path.getsize(mgr.checkpoint_path(30))
+    log(f"[cli] checkpoint ckpt-30.npz {size / 2**20:.1f} MiB: restore "
+        f"(read, CRC, to the card) {t_restore:.2f} s, verify alone "
+        f"{t_verify:.2f} s; restored step {restored.step}")
+    del template, restored, sync, model
+
+    # the exported generator, served
+    with PredictServer(gen_dir) as srv:
+        ids = np.random.RandomState(3).randint(0, 30522, (2, 64)).tolist()
+        out, secs = post(srv.port, srv.name, {"inputs": {"input_ids": ids}})
+    toks = np.asarray(out["generations"])
+    log(f"[cli] exported generator served: :generate of 2 x 64 tokens "
+        f"-> {toks.shape} in {secs * 1e3:.1f} ms")
+
+    if sorted(first) != list(range(1, 21)):
+        failed.append(f"logged steps {sorted(first)}")
+    elif losses[-1] > (1 - TRAIN_MIN_LOSS_DROP) * losses[0]:
+        failed.append(f"the loss fell from {losses[0]:.4f} to "
+                      f"{losses[-1]:.4f}, less than "
+                      f"{TRAIN_MIN_LOSS_DROP:.0%}")
+    counts = [m["anomaly_count"] for m in first.values()] + [
+        m["anomaly_count"] for m in second.values()]
+    if any(c != 0 for c in counts) or not all(
+            np.isfinite(x) for m in first.values() for x in m.values()):
+        failed.append(f"anomaly counts {counts} or a metric not finite")
+    if ring1 != [10, 20] or ring2 != [20, 30]:
+        failed.append(f"ring {ring1} then {ring2}, want [10, 20] then "
+                      "[20, 30]")
+    if not any("restored checkpoint at step 20" in x for x in lines2) \
+            or 30 not in second:
+        failed.append("the second call did not resume at step 20")
+    split_losses = [split[i]["loss"] for i in sorted(split)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(split_losses, losses))
+    log(f"[cli] split backward, 5 steps: losses "
+        + " ".join(f"{x:.4f}" for x in split_losses)
+        + f"; worst relative difference from the fused run {rel:.3e} "
+        f"(tol {CLI_SPLIT_LOSS_REL_TOL})")
+    if len(split_losses) != 5 or rel > CLI_SPLIT_LOSS_REL_TOL:
+        failed.append(f"split vs fused losses differ by {rel:.3e}")
+    if toks.shape != (2, 16) or toks.dtype.kind != "i":
+        failed.append(f"generations of shape {toks.shape}")
+    for name in ("dtx.hooks", "dtx.trainer"):
+        logging.getLogger(name).removeHandler(tap)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit("the CLI phase failed: " + "; ".join(failed))
+    phase_cli_profile(base, card)
+    return {"launches": launches1["flash_attention_bwd_fused"]}
+
+
+class _ProfileStep:
+    """A Trainer hook that traces one step with ``torch.profiler``: it
+    starts after step ``at`` and stops after step ``at + 1``."""
+
+    every_steps = 0
+
+    def __init__(self, at: int):
+        self.at = at
+        self.prof = None
+        self.t0 = self.wall = 0.0
+
+    def begin(self, trainer):
+        pass
+
+    def wants_metrics(self, step):
+        return False
+
+    def after_step(self, trainer, step, metrics):
+        from torch.profiler import ProfilerActivity, profile
+        if step == self.at:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif step == self.at + 1 and self.prof is not None:
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+
+    def end(self, trainer):
+        pass
+
+
+def phase_cli_profile(base: list, card: str) -> None:
+    """The device's busy time and idle share of one Trainer step of the
+    CLI's configuration (step 4 of a 5-step run, metrics read every 10
+    steps), under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    args = cli.build_parser().parse_args(
+        base + ["--train_steps", "5", "--log_every_steps", "10"])
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, _ = cli.load_dataset(cfg, model)
+    hook = _ProfileStep(3)
+    with Trainer(model, cfg, train, None, hooks=[hook]) as tr:
+        tr.train()
+    kernels = [e for e in hook.prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not kernels:
+        log("[cli profile] the profiler saw no device time: idle share not "
+            "measured")
+        return
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"[cli profile] one Trainer step (step 4) traced: "
+        f"{hook.wall * 1e3:.1f} ms, device busy {busy:.1f} ms in "
+        f"{sum(e.count for e in kernels)} kernel launches: idle share "
+        f"{1 - busy / (hook.wall * 1e3):.3f} ({card})")
+    ours = [e for e in kernels if "flash_" in e.key]
+    for e in ours:
+        log(f"[cli profile]   {_device_us(e) / 1e3:8.2f} ms  {e.count:6d}x"
+            f"  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1479,8 @@ def _reset_launches():
                 ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
                  "launches"),
                 ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+                 "launches"),
+                ("flash_attention_bwd_fused", fa.flash_attention_bwd_fused,
                  "launches"),
                 ("decode_attention", da.decode_attention, "launches"),
                 ("paged_decode_attention", pa.paged_decode_attention,
@@ -1496,13 +1916,16 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     flash = phase_flash(gen)
     bwd_dq, bwd_dkv = phase_flash_bwd(gen)
+    bwd_fused = phase_flash_bwd_fused(gen)
     decode = phase_decode(gen)
     paged = phase_paged(gen)
     paged_int8 = phase_paged_int8(gen)
     log("[kernels] flash_attention_fwd, flash_attention_bwd_dq, "
-        "flash_attention_bwd_dkv, decode_attention, "
-        "paged_decode_attention, paged_decode_attention_int8")
+        "flash_attention_bwd_dkv, flash_attention_bwd_fused, "
+        "decode_attention, paged_decode_attention, "
+        "paged_decode_attention_int8")
     train = phase_train(card)
+    cli_run = phase_cli(card)
     launches = phase_slice(card)
     engine = phase_engine(card)
     rows = [
@@ -1524,6 +1947,12 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
          "launches": train["flash_attention_bwd_dkv"], **bwd_dkv},
+        {"name": "flash_attention_bwd_fused", "route": "cuda",
+         "source": "distributed_tensorflow_example_tpu_torch/csrc/"
+                   "flash_attention_bwd_fused.cu",
+         "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
+                     "flash_attention.py:310",
+         "launches": cli_run["launches"], **bwd_fused},
         {"name": "decode_attention", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "decode_attention.cu",

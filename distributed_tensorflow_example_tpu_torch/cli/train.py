@@ -1,0 +1,570 @@
+"""Trainer entry point (an adapted copy of
+``distributed_tensorflow_example_tpu/cli/train.py``), one process on one
+card::
+
+    python -m distributed_tensorflow_example_tpu_torch.cli.train \\
+        --model gpt --attention flash --attention_bwd fused \\
+        --dtype bfloat16 --seq_len 512 --batch_size 8 --optimizer adamw \\
+        --learning_rate 1e-3 --train_steps 20 --ckpt_dir D --save_steps 10
+
+Every reference flag parses, so the same argv reads the same in both
+packages, and the reference's validation runs first with its messages.
+Then every flag of a later slice is refused with a SystemExit naming the
+slice, before any work. ``--device`` (``cuda`` by default, ``cpu`` when
+asked) picks the device; without CUDA, ``cuda`` exits with an error.
+``--job_name ps`` logs the no-PS notice and returns 0. The port trains
+``gpt`` and ``gpt_tiny`` on the synthetic LM corpus or pre-tokenized
+``.npy`` files, checkpoints into ``--ckpt_dir`` (a second run on the same
+directory resumes), evaluates at the end, and with ``--export_generator``
+hands the trained weights to the port's ``PredictServer``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from ..cluster import WORKER_JOB, ClusterSpec
+from ..config import (CheckpointConfig, DataConfig, MeshShape,
+                      ObservabilityConfig, OptimizerConfig, SyncConfig,
+                      TrainConfig, anomaly_settings, flash_attention_kwargs,
+                      lm_loss_settings)
+from ..utils.logging import get_logger
+
+log = get_logger("cli")
+
+#: the models this slice trains
+LM_MODELS = ("gpt", "gpt_tiny")
+
+
+def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
+    """The reference's distributed flags."""
+    parser.add_argument("--ps_hosts", type=str, default="",
+                        help="comma-separated ps host:port list (legacy; "
+                             "no PS role: accepted and mapped away)")
+    parser.add_argument("--worker_hosts", type=str, default="",
+                        help="comma-separated worker host:port list "
+                             "(legacy)")
+    parser.add_argument("--job_name", type=str, default="worker",
+                        choices=["ps", "worker"],
+                        help="legacy job name; 'ps' exits 0 with a notice")
+    parser.add_argument("--task_index", type=int, default=0,
+                        help="legacy task index (the process index)")
+
+
+def parse_hosts(csv: str) -> list[str]:
+    return [h.strip() for h in csv.split(",") if h.strip()]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's flags (a later slice's are refused in
+    :func:`main`) plus ``--device``."""
+    p = argparse.ArgumentParser(
+        description="sync data-parallel trainer on one card "
+                    "(distributed-tensorflow-example parity CLI)")
+    add_legacy_flags(p)
+    a = p.add_argument
+    a("--device", default="cuda", choices=["cuda", "cpu"],
+      help="device to train on (cuda unless the caller asks for the CPU)")
+    a("--model", default="mlp", help="gpt | gpt_tiny (the other models of "
+      "the reference arrive with later slices)")
+    a("--dataset", default=None,
+      help="default: the model's canonical dataset")
+    a("--data_dir", default=None,
+      help="pre-tokenized train.npy/test.npy or tokens.npy; omit for the "
+           "synthetic corpus")
+    a("--native", action="store_true", help="C++ loader (slice A3c)")
+    a("--streaming", action="store_true", help="slice A5")
+    a("--fast_decode", action="store_true", help="slice A5")
+    a("--augment", action="store_true", help="slice A5")
+    a("--label_offset", type=int, default=0, help="slice A5")
+    a("--max_per_class", type=int, default=None, help="slice A5")
+    a("--seq_len", type=int, default=128,
+      help="sequence length (must be <= the model's max_len)")
+    a("--batch_size", type=int, default=128, help="GLOBAL batch size")
+    a("--train_steps", type=int, default=1000)
+    a("--steps_per_loop", type=int, default=1,
+      help="steps per dispatch (> 1: slice A3c)")
+    a("--max_inflight_steps", type=int, default=0, help="slice A3c")
+    a("--learning_rate", type=float, default=0.5)
+    a("--optimizer", default="sgd", type=str.lower,
+      choices=["sgd", "momentum", "adam", "adamw", "lars", "lamb",
+               "adafactor"],
+      help="base optimizer (lars, lamb, adafactor: slice A3c)")
+    a("--momentum", type=float, default=0.9)
+    a("--weight_decay", type=float, default=0.0)
+    a("--wd_mask", default="exclude_1d", choices=["exclude_1d", "all"])
+    a("--warmup_steps", type=int, default=0, help="linear LR warmup steps")
+    a("--decay_schedule", default="constant",
+      choices=["constant", "cosine", "linear", "piecewise", "exponential",
+               "polynomial", "natural_exp", "inverse_time"])
+    a("--decay_steps", type=int, default=0)
+    a("--end_learning_rate", type=float, default=0.0)
+    a("--decay_power", type=float, default=1.0)
+    a("--decay_boundaries", default="",
+      help="comma-separated steps where piecewise LR drops")
+    a("--decay_factor", type=float, default=0.1)
+    for flag, typ in (("--moe_experts", int), ("--moe_top_k", int),
+                      ("--moe_capacity_factor", float),
+                      ("--moe_every", int), ("--moe_aux_weight", float),
+                      ("--moe_router_z_weight", float),
+                      ("--moe_jitter", float)):
+        a(flag, type=typ, default=None, help="MoE models (slice A5)")
+    a("--lm_loss_impl", default=None, choices=["full", "chunked", "fused"],
+      help="LM-head loss (chunked, fused: slice A3c)")
+    a("--lm_loss_vocab_block", type=int, default=None, help="slice A3c")
+    a("--token_accuracy_every_n", type=int, default=1, help="slice A3c")
+    a("--lm_loss_chunk", type=int, default=None, help="slice A3c")
+    a("--label_smoothing", type=float, default=0.0,
+      help="image classifiers (slice A5)")
+    a("--grad_clip_norm", type=float, default=0.0,
+      help="global-norm gradient clipping (0 disables)")
+    a("--grad_clip_value", type=float, default=0.0,
+      help="elementwise |g| clipping (0 disables)")
+    a("--export_dir", default=None,
+      help="serving artifact of the trained forward (slice A4)")
+    a("--export_generator", default=None, metavar="DIR",
+      help="write a generator artifact (the port's PredictServer serves "
+           "it) after training; gpt/gpt_tiny")
+    a("--gen_prompt_len", type=int, default=128)
+    a("--gen_max_new", type=int, default=128)
+    a("--gen_batch", type=int, default=1)
+    a("--gen_temperature", type=float, default=0.0)
+    a("--gen_top_k", type=int, default=0)
+    a("--gen_top_p", type=float, default=0.0)
+    a("--gen_eos_id", type=int, default=None)
+    a("--gen_pad_id", type=int, default=0)
+    a("--gen_ragged", action="store_true")
+    a("--gen_weight_quant", default="off", choices=["off", "int8"])
+    a("--warm_start", default=None, help="slice A5")
+    a("--warm_start_map", default="", help="slice A5")
+    a("--ema_decay", type=float, default=0.0, help="slice A5")
+    a("--ema_debias", action="store_true", help="slice A5")
+    a("--moment_dtype", default="float32", choices=["float32", "bfloat16"],
+      help="bfloat16: slice A5")
+    a("--accum_steps", type=int, default=1)
+    a("--dtype", default="float32", choices=["float32", "bfloat16"])
+    a("--param_dtype", default="float32", choices=["float32", "bfloat16"])
+    a("--bn_stats_dtype", default="float32",
+      choices=["float32", "bfloat16"], help="conv models (slice A5)")
+    a("--mesh", default="",
+      help="axis sizes; the port takes data=1 or data=-1 (one device)")
+    a("--sync_mode", default="auto", choices=["auto", "shard_map"],
+      help="shard_map: slice A3c")
+    a("--attention", default="xla", choices=["xla", "flash"],
+      help="flash = the hand-written Hopper kernels")
+    a("--attention_block_q", type=int, default=0,
+      help="refused: the Hopper kernels' tiles are fixed at 64x64")
+    a("--attention_block_k", type=int, default=0, help="as block_q")
+    a("--attention_bwd_block", type=int, default=0, help="as block_q")
+    a("--attention_bwd", default="split", choices=["split", "fused"],
+      help="flash backward: split = B2a + B2b; fused = B3 (dq, dk, dv in "
+           "one kernel); requires --attention flash")
+    a("--prng_impl", default="threefry2x32",
+      choices=["threefry2x32", "rbg", "unsafe_rbg"],
+      help="a JAX key implementation: the port draws dropout from torch "
+           "generators and takes only the default")
+    a("--remat", default="none", choices=["none", "full", "dots"],
+      help="slice A3c")
+    a("--ckpt_dir", default=None)
+    a("--save_steps", type=int, default=0)
+    a("--save_secs", type=float, default=0.0)
+    a("--max_to_keep", type=int, default=5)
+    a("--keep_best_metric", default=None, help="slice A3c")
+    a("--keep_best_mode", default="max", choices=["max", "min"])
+    a("--keep_checkpoint_every_n_hours", type=float, default=0.0)
+    a("--async_save", action="store_true", help="slice A3c")
+    a("--sharded_save", action="store_true", help="slice A3c")
+    a("--log_every_steps", type=int, default=100)
+    a("--summary_every_steps", type=int, default=0, help="slice A3c")
+    a("--param_histograms_every_steps", type=int, default=0,
+      help="slice A3c")
+    a("--metrics_path", default=None)
+    a("--tb_logdir", default=None, help="slice A3c")
+    a("--eval_every_steps", type=int, default=0)
+    a("--early_stop_metric", default=None, help="slice A3c")
+    a("--early_stop_patience", type=int, default=3)
+    a("--early_stop_mode", default="max", choices=["max", "min"])
+    a("--eval_only", action="store_true", help="slice A3c")
+    a("--eval_step", type=int, default=None, help="slice A3c")
+    a("--eval_best", action="store_true", help="slice A3c")
+    a("--seed", type=int, default=0)
+    a("--on_anomaly", default="halt", choices=["halt", "skip", "rollback"],
+      help="halt | skip (rollback: slice A3c)")
+    a("--max_anomalies", type=int, default=10)
+    a("--fault_spec", default="", help="slice A3c")
+    a("--check_nans", action="store_true",
+      help="stop on a non-finite loss (a host sync every step)")
+    a("--debug_checks", action="store_true", help="slice A3c")
+    a("--debug_nans", action="store_true", help="slice A3c")
+    a("--profiler_port", type=int, default=0, help="slice A3c")
+    a("--profile_dir", default=None, help="slice A3c")
+    a("--profile_steps", default=None, help="slice A3c")
+    a("--step_timing", action="store_true", help="slice A3c")
+    a("--trace_path", default=None, help="slice A3c")
+    a("--trace_buffer_events", type=int, default=65536, help="slice A3c")
+    return p
+
+
+def parse_mesh(spec: str) -> MeshShape | None:
+    if not spec:
+        return None
+    kw = {}
+    for part in spec.split(","):
+        k, v = part.split("=")
+        kw[k.strip()] = int(v)
+    return MeshShape(**kw)
+
+
+def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    """The TrainConfig of the fields the port carries."""
+    return TrainConfig(
+        model=args.model,
+        train_steps=args.train_steps,
+        lm_loss_impl=args.lm_loss_impl,
+        lm_loss_chunk=args.lm_loss_chunk,
+        eval_every_steps=args.eval_every_steps,
+        steps_per_loop=args.steps_per_loop,
+        on_anomaly=args.on_anomaly,
+        max_anomalies=args.max_anomalies,
+        seed=args.seed,
+        dtype=args.dtype,
+        param_dtype=args.param_dtype,
+        attention_impl=args.attention,
+        attention_block_q=args.attention_block_q,
+        attention_block_k=args.attention_block_k,
+        attention_bwd_block=args.attention_bwd_block,
+        attention_bwd=args.attention_bwd,
+        mesh=parse_mesh(args.mesh) or MeshShape(data=-1),
+        data=DataConfig(dataset=args.dataset or args.model,
+                        data_dir=args.data_dir,
+                        batch_size=args.batch_size, seed=args.seed,
+                        seq_len=args.seq_len),
+        optimizer=OptimizerConfig(
+            name=args.optimizer, learning_rate=args.learning_rate,
+            momentum=args.momentum, weight_decay=args.weight_decay,
+            wd_mask=args.wd_mask, warmup_steps=args.warmup_steps,
+            decay_schedule=args.decay_schedule,
+            decay_boundaries=tuple(int(b) for b in
+                                   args.decay_boundaries.split(",")
+                                   if b.strip()),
+            decay_factor=args.decay_factor, decay_steps=args.decay_steps,
+            end_learning_rate=args.end_learning_rate,
+            decay_power=args.decay_power,
+            grad_clip_norm=args.grad_clip_norm,
+            grad_clip_value=args.grad_clip_value,
+            moment_dtype=args.moment_dtype, ema_decay=args.ema_decay,
+            total_steps=args.train_steps),
+        sync=SyncConfig(accum_steps=args.accum_steps, mode=args.sync_mode),
+        checkpoint=CheckpointConfig(
+            directory=args.ckpt_dir, max_to_keep=args.max_to_keep,
+            save_steps=args.save_steps, save_secs=args.save_secs,
+            keep_checkpoint_every_n_hours=(
+                args.keep_checkpoint_every_n_hours)),
+        obs=ObservabilityConfig(log_every_steps=args.log_every_steps,
+                                metrics_path=args.metrics_path,
+                                check_nans=args.check_nans),
+    )
+
+
+def _lm_loss_lever_checks(args) -> None:
+    """The reference's ``lm_loss_settings`` rules on the two levers the
+    port's config does not carry (both of slice A3c), with its
+    messages."""
+    block, every = args.lm_loss_vocab_block, args.token_accuracy_every_n
+    impl = args.lm_loss_impl
+    if block is not None and block < 0:
+        raise ValueError(f"lm_loss_vocab_block={block} must be >= 0")
+    if every < 1:
+        raise ValueError(
+            f"token_accuracy_every_n={every} must be >= 1 (1 = the "
+            "default per-step argmax)")
+    if block and impl != "fused":
+        raise ValueError(
+            f"lm_loss_vocab_block={block} tunes the fused vocab scan "
+            f"and requires lm_loss_impl='fused', got {impl!r}")
+    if every != 1 and impl == "fused":
+        raise ValueError(
+            f"token_accuracy_every_n={every} skips the full/chunked "
+            "paths' per-step argmax; the fused path computes accuracy "
+            "inside the same vocab scan at no extra cost — drop the "
+            "knob (a silently ignored knob is worse than an error)")
+    if every != 1 and args.accum_steps > 1:
+        raise ValueError(
+            f"token_accuracy_every_n={every} does not compose with "
+            f"accum_steps={args.accum_steps}: the loss runs once per "
+            "MICROBATCH, so the cadence counter would tick per "
+            "microbatch")
+
+
+def _validate_like_the_reference(parser, args) -> TrainConfig:
+    """The reference's checks, in its order and with its messages."""
+    if args.eval_only and not args.ckpt_dir:
+        raise SystemExit("--eval_only requires --ckpt_dir")
+    for flag, d in (("--export_dir", args.export_dir),
+                    ("--export_generator", args.export_generator)):
+        if not d:
+            continue
+        # an unwritable export target fails now, not after the run
+        try:
+            os.makedirs(d, exist_ok=True)
+            if not os.access(d, os.W_OK):
+                raise PermissionError(d)
+        except OSError as e:
+            raise SystemExit(f"{flag} is not writable: {e}")
+    if args.label_smoothing and args.model not in ("lenet", "resnet20",
+                                                   "resnet50"):
+        raise SystemExit(
+            f"--label_smoothing is wired for the image classifiers "
+            f"(lenet/resnet20/resnet50), not model {args.model!r}")
+    if args.lm_loss_chunk is not None and not args.model.startswith("gpt"):
+        raise SystemExit(
+            f"--lm_loss_chunk is a causal-LM knob (gpt/gpt_tiny), not "
+            f"for model {args.model!r}")
+    lm_head_model = args.model.startswith(
+        ("gpt", "bert", "moe_bert", "pipe_bert", "pipe_moe"))
+    if ((args.lm_loss_impl is not None
+         or args.lm_loss_vocab_block is not None)
+            and not lm_head_model):
+        raise SystemExit(
+            f"--lm_loss_impl/--lm_loss_vocab_block configure the LM-head "
+            f"cross-entropy (gpt/bert families), not for model "
+            f"{args.model!r}")
+    if args.token_accuracy_every_n != 1 and not args.model.startswith(
+            "gpt"):
+        raise SystemExit(
+            f"--token_accuracy_every_n is a causal-LM knob (gpt/"
+            f"gpt_tiny), not for model {args.model!r}")
+    cfg = config_from_args(args)
+    try:
+        flash_attention_kwargs(cfg)
+        lm_loss_settings(cfg)
+        _lm_loss_lever_checks(args)
+        anomaly_settings(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    except NotImplementedError:
+        pass                        # refused below, naming its slice
+    if args.export_generator and not args.model.startswith("gpt"):
+        raise SystemExit(
+            f"--export_generator is a causal-LM knob (gpt/gpt_tiny), "
+            f"not for model {args.model!r} — only decoder models have "
+            "a KV-cache generate path")
+    gen_dests = [d for d in vars(args) if d.startswith("gen_")]
+    if not args.export_generator:
+        for d in gen_dests:
+            if getattr(args, d) != parser.get_default(d):
+                raise SystemExit(
+                    f"--{d} configures the generator artifact and "
+                    "does nothing without --export_generator DIR")
+    else:
+        if ((args.gen_top_k or args.gen_top_p)
+                and args.gen_temperature <= 0.0):
+            raise SystemExit(
+                "--gen_top_k/--gen_top_p shape the sampling "
+                "distribution; set --gen_temperature > 0")
+        if not 0.0 <= args.gen_top_p <= 1.0:
+            raise SystemExit(
+                f"--gen_top_p must be in [0, 1], got {args.gen_top_p}")
+        if args.gen_top_k < 0:
+            raise SystemExit(
+                f"--gen_top_k must be >= 0, got {args.gen_top_k}")
+        for flag, v in (("--gen_prompt_len", args.gen_prompt_len),
+                        ("--gen_max_new", args.gen_max_new),
+                        ("--gen_batch", args.gen_batch)):
+            if v < 1:
+                raise SystemExit(f"{flag} must be >= 1, got {v}")
+    for flag in ("moe_experts", "moe_top_k", "moe_capacity_factor",
+                 "moe_every", "moe_aux_weight", "moe_router_z_weight",
+                 "moe_jitter"):
+        if getattr(args, flag) is not None and not (
+                args.model.startswith("moe_")
+                or args.model.startswith("pipe_moe_")):
+            raise SystemExit(
+                f"--{flag} is an MoE routing knob (moe_bert/moe_bert_tiny/"
+                f"pipe_moe_bert/pipe_moe_bert_tiny), not for "
+                f"model {args.model!r}")
+    return cfg
+
+
+def _later_slice(args) -> list[tuple[str, bool, str]]:
+    """(what, set?, slice) for every knob the port does not carry yet."""
+    from ..train.trainer import one_replica
+    mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
+    model_slice = ("A3c" if args.model in ("mlp", "bert", "bert_tiny",
+                                           "bert_large") else
+                   "A6" if args.model.startswith("pipe_") else "A5")
+    return [
+        (f"--model {args.model}", args.model not in LM_MODELS, model_slice),
+        (f"--dataset {args.dataset}",
+         args.dataset not in (None,) + LM_MODELS, "A5"),
+        ("--native", args.native, "A3c"),
+        ("--streaming", args.streaming, "A5"),
+        ("--fast_decode", args.fast_decode, "A5"),
+        ("--augment", args.augment, "A5"),
+        ("--label_offset", args.label_offset != 0, "A5"),
+        ("--max_per_class", args.max_per_class is not None, "A5"),
+        ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c"),
+        ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c"),
+        (f"--optimizer {args.optimizer}",
+         args.optimizer in ("lars", "lamb", "adafactor"), "A3c"),
+        ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5"),
+        ("--ema_decay", args.ema_decay != 0.0, "A5"),
+        ("--ema_debias", args.ema_debias, "A5"),
+        (f"--lm_loss_impl {args.lm_loss_impl}",
+         args.lm_loss_impl in ("chunked", "fused"), "A3c"),
+        ("--lm_loss_chunk", bool(args.lm_loss_chunk), "A3c"),
+        ("--lm_loss_vocab_block", args.lm_loss_vocab_block is not None,
+         "A3c"),
+        ("--token_accuracy_every_n", args.token_accuracy_every_n != 1,
+         "A3c"),
+        ("--export_dir (the forward's serving artifact)",
+         args.export_dir is not None, "A4"),
+        ("--warm_start", args.warm_start is not None, "A5"),
+        ("--warm_start_map", bool(args.warm_start_map), "A5"),
+        ("--bn_stats_dtype", args.bn_stats_dtype != "float32", "A5"),
+        (f"--mesh {args.mesh} (more than one replica or a sharded axis)",
+         not one_replica(mesh), "A3c"),
+        ("--sync_mode shard_map", args.sync_mode != "auto", "A3c"),
+        (f"--remat {args.remat}", args.remat != "none", "A3c"),
+        ("--keep_best_metric", args.keep_best_metric is not None, "A3c"),
+        ("--async_save", args.async_save, "A3c"),
+        ("--sharded_save", args.sharded_save, "A3c"),
+        ("--summary_every_steps", args.summary_every_steps != 0, "A3c"),
+        ("--param_histograms_every_steps",
+         args.param_histograms_every_steps != 0, "A3c"),
+        ("--tb_logdir", args.tb_logdir is not None, "A3c"),
+        ("--early_stop_metric", args.early_stop_metric is not None, "A3c"),
+        ("--eval_only", args.eval_only, "A3c"),
+        ("--eval_step", args.eval_step is not None, "A3c"),
+        ("--eval_best", args.eval_best, "A3c"),
+        ("--on_anomaly rollback", args.on_anomaly == "rollback", "A3c"),
+        ("--fault_spec", bool(args.fault_spec), "A3c"),
+        ("--debug_checks", args.debug_checks, "A3c"),
+        ("--debug_nans", args.debug_nans, "A3c"),
+        ("--profiler_port", args.profiler_port != 0, "A3c"),
+        ("--profile_dir", args.profile_dir is not None, "A3c"),
+        ("--profile_steps", args.profile_steps is not None, "A3c"),
+        ("--step_timing", args.step_timing, "A3c"),
+        ("--trace_path", args.trace_path is not None, "A3c"),
+        ("--trace_buffer_events", args.trace_buffer_events != 65536,
+         "A3c"),
+    ]
+
+
+def refuse_later_slices(args) -> None:
+    """SystemExit for the first set knob of a later slice, and for the
+    knobs the port refuses by design."""
+    for what, on, slice_ in _later_slice(args):
+        if on:
+            raise SystemExit(f"{what} arrives with slice {slice_} of the "
+                             "port; this slice trains gpt/gpt_tiny on one "
+                             "card")
+    for flag in ("attention_block_q", "attention_block_k",
+                 "attention_bwd_block"):
+        if getattr(args, flag):
+            raise SystemExit(
+                f"--{flag}: the Hopper flash-attention kernels have fixed "
+                "64x64 tiles by design and take no tile lever")
+    if args.prng_impl != "threefry2x32":
+        raise SystemExit(
+            f"--prng_impl {args.prng_impl} is a JAX key implementation: "
+            "the port draws dropout from torch generators seeded by "
+            "--seed and the step")
+
+
+def load_dataset(cfg: TrainConfig, model=None):
+    """(train_arrays, eval_arrays) of the causal-LM models: the synthetic
+    corpus, or pre-tokenized files under ``data_dir``."""
+    name = cfg.data.dataset
+    if name not in LM_MODELS:
+        raise SystemExit(f"dataset {name!r} arrives with a later slice of "
+                         "the port")
+    from ..data.bert_data import get_lm_data
+    gcfg = getattr(model, "cfg", None)
+    vocab = gcfg.vocab_size if gcfg else cfg.data.vocab_size
+    if gcfg and cfg.data.seq_len > gcfg.max_len:
+        raise SystemExit(
+            f"--seq_len {cfg.data.seq_len} exceeds the model's "
+            f"max_len {gcfg.max_len}")
+    return get_lm_data(cfg.data.data_dir, vocab_size=vocab,
+                       seq_len=cfg.data.seq_len,
+                       synthetic=cfg.data.synthetic)
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    cfg = _validate_like_the_reference(parser, args)
+
+    cluster = None
+    if args.ps_hosts or args.worker_hosts:
+        cluster = ClusterSpec({
+            "ps": parse_hosts(args.ps_hosts),
+            WORKER_JOB: parse_hosts(args.worker_hosts) or ["localhost:0"],
+        })
+    from ..runtime.server import Server
+    if args.job_name == "ps":              # notice + exit 0, as the
+        Server(cluster, args.job_name, args.task_index).join()
+        return 0                           # reference's ps branch
+    refuse_later_slices(args)
+    try:
+        Server(cluster, args.job_name, args.task_index)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+
+    from ..runtime.device import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e))
+    from ..models import get_model
+    from ..train.trainer import Trainer
+
+    model = get_model(cfg.model, cfg)
+    if args.export_generator:
+        # the prechecks that need the model fail before training
+        ml = model.cfg.max_len
+        if args.gen_prompt_len + args.gen_max_new > ml:
+            raise SystemExit(
+                f"--gen_prompt_len {args.gen_prompt_len} + "
+                f"--gen_max_new {args.gen_max_new} exceeds the model's "
+                f"max_len {ml}")
+        if args.gen_top_k > model.cfg.vocab_size:
+            raise SystemExit(
+                f"--gen_top_k {args.gen_top_k} exceeds the model's "
+                f"vocab_size {model.cfg.vocab_size}")
+    train_arrays, eval_arrays = load_dataset(cfg, model)
+    trainer = Trainer(model, cfg, train_arrays, eval_arrays, device=device)
+    with trainer:
+        state, summary = trainer.train()
+
+    if "eval" in summary:
+        log.info("final eval: %s",
+                 {k: round(v, 4) for k, v in summary["eval"].items()})
+    log.info("done: step=%d wall=%.1fs steps/sec=%.2f",
+             summary["final_step"], summary["wall_time_sec"],
+             summary["steps_per_sec"])
+    _maybe_export(args, cfg, model, state)
+    return 0
+
+
+def _maybe_export(args, cfg, model, state) -> None:
+    """``--export_generator``: the trained weights as a generator artifact
+    the port's ``PredictServer`` serves."""
+    if not args.export_generator:
+        return
+    from ..serving import export_generator
+    artifact = export_generator(
+        model, state.params, args.export_generator,
+        prompt_len=args.gen_prompt_len, max_new_tokens=args.gen_max_new,
+        batch_size=args.gen_batch, temperature=args.gen_temperature,
+        top_k=args.gen_top_k, top_p=args.gen_top_p, eos_id=args.gen_eos_id,
+        pad_id=args.gen_pad_id, ragged=args.gen_ragged,
+        weight_quant=args.gen_weight_quant)
+    log.info("exported generator: %s", artifact)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

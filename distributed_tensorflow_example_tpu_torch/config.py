@@ -1,10 +1,14 @@
 """Config dataclasses (port of ``distributed_tensorflow_example_tpu/
-config.py``, the fields GPT construction, generation and the one-card
-training step read).
+config.py``, the fields GPT construction, generation, the one-card
+training step and the ``Trainer`` read).
 
 Field names and defaults are the reference's, so a config reads the same
-in both packages; the other training, data-pipeline, mesh and
-observability knobs arrive with the slices that read them.
+in both packages. The fields of a later slice are absent (warm start,
+best-checkpoint tracking, async and sharded saves, early stop, fault
+injection, the summary, histogram, profiler, step-timing and trace
+sinks, the image, BERT and MoE knobs), or refused by the ``Trainer``
+when set: a mesh of more than one replica, ``steps_per_loop > 1`` and
+``on_anomaly="rollback"``.
 """
 
 from __future__ import annotations
@@ -17,8 +21,17 @@ from .ops.losses import LM_LOSS_IMPLS
 
 @dataclasses.dataclass
 class DataConfig:
-    """The data fields a language model reads."""
+    """Input pipeline configuration: the loader's fields and the ones a
+    language model reads."""
 
+    dataset: str = "mnist"          # the CLI sets the model's name
+    data_dir: str | None = None     # pre-tokenized .npy files; None =>
+                                    # the synthetic corpus
+    batch_size: int = 128           # GLOBAL batch size
+    shuffle: bool = True
+    seed: int = 0
+    synthetic: bool = False         # force synthetic data even if data_dir set
+    prefetch: int = 2               # host-side prefetch depth
     seq_len: int = 128
     vocab_size: int = 30522
 
@@ -65,14 +78,66 @@ class SyncConfig:
 
 
 @dataclasses.dataclass
+class MeshShape:
+    """Logical mesh axis sizes (the reference's). The port runs one
+    replica: every axis is 1, or ``data=-1`` (all devices, here one)."""
+
+    data: int = 1
+    fsdp: int = 1
+    model: int = 1
+    seq: int = 1
+    expert: int = 1
+    pipe: int = 1
+
+    def total(self) -> int:
+        return (self.data * self.fsdp * self.model * self.seq *
+                self.expert * self.pipe)
+
+    def as_dict(self) -> dict[str, int]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    """Saver parity: a ``max_to_keep`` ring, the ``checkpoint`` state
+    file, restore-or-init (``ckpt/checkpoint.py``)."""
+
+    directory: str | None = None
+    max_to_keep: int = 5
+    save_steps: int = 0             # save every N steps (0 disables)
+    save_secs: float = 0.0          # save every T seconds (0 disables)
+    keep_checkpoint_every_n_hours: float = 0.0
+
+
+@dataclasses.dataclass
+class ObservabilityConfig:
+    """Logging, metrics and NaN-check knobs."""
+
+    log_every_steps: int = 100
+    metrics_path: str | None = None   # JSONL sink; None => stdout only
+    check_nans: bool = False          # NanTensorHook analogue
+
+
+@dataclasses.dataclass
 class TrainConfig:
-    """Top-level config (the fields GPT and the training step read)."""
+    """Top-level config (the fields GPT, the training step and the
+    ``Trainer`` read)."""
 
     model: str = "mlp"
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
     sync: SyncConfig = dataclasses.field(default_factory=SyncConfig)
+    mesh: MeshShape = dataclasses.field(default_factory=MeshShape)
+    checkpoint: CheckpointConfig = dataclasses.field(
+        default_factory=CheckpointConfig)
+    obs: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig)
+    train_steps: int = 1000
+    eval_every_steps: int = 0        # 0 => eval only at the end
+    steps_per_loop: int = 1          # > 1: slice A3c
+    on_anomaly: str = "halt"         # halt | skip (rollback: slice A3c)
+    max_anomalies: int = 10          # anomaly budget for skip
     lm_loss_impl: str | None = None  # full (chunked, fused: slice A3c);
                                      # None = "full", or "chunked" when
                                      # lm_loss_chunk is set
@@ -124,6 +189,46 @@ def flash_attention_kwargs(cfg: TrainConfig) -> dict:
                 f"attention_{name}={v} invalid: must be a positive "
                 f"multiple of {mult} or 0 for the kernel default")
     return set_levers
+
+
+#: --on_anomaly values anomaly_settings accepts
+ANOMALY_POLICIES = ("halt", "skip", "rollback")
+
+
+def anomaly_settings(cfg: TrainConfig) -> dict:
+    """Validated anomaly settings, the reference's rules: ValueError on a
+    policy no path could honor (an unknown policy, a negative budget,
+    rollback without a checkpoint cadence, ``check_nans`` beside a
+    policy other than halt). The port has halt and skip: rollback raises
+    NotImplementedError after the reference's checks."""
+    if cfg.on_anomaly not in ANOMALY_POLICIES:
+        raise ValueError(f"on_anomaly must be one of {ANOMALY_POLICIES}, "
+                         f"got {cfg.on_anomaly!r}")
+    if cfg.max_anomalies < 0:
+        raise ValueError(
+            f"max_anomalies={cfg.max_anomalies} must be >= 0 (the budget "
+            "of anomalous steps tolerated before halting)")
+    if cfg.on_anomaly == "rollback":
+        if not cfg.checkpoint.directory:
+            raise ValueError(
+                "on_anomaly='rollback' restores the last verified "
+                "checkpoint and needs checkpoint.directory (--ckpt_dir)")
+        if not (cfg.checkpoint.save_steps or cfg.checkpoint.save_secs):
+            raise ValueError(
+                "on_anomaly='rollback' needs a checkpoint cadence "
+                "(--save_steps or --save_secs): with no checkpoints there "
+                "is nothing to roll back to")
+    if cfg.obs.check_nans and cfg.on_anomaly != "halt":
+        raise ValueError(
+            "check_nans (per-step NanHook) pairs with on_anomaly='halt' "
+            "only: under skip/rollback an anomalous step's metrics "
+            "publish the -1.0 skipped sentinel, so the hook could never "
+            "fire (a silently ignored knob is worse than an error)")
+    if cfg.on_anomaly == "rollback":
+        raise NotImplementedError(
+            "on_anomaly='rollback' arrives with slice A3c; the port's "
+            "Trainer has halt and skip")
+    return {"policy": cfg.on_anomaly, "budget": cfg.max_anomalies}
 
 
 def lm_loss_settings(cfg: TrainConfig) -> tuple[str, int]:

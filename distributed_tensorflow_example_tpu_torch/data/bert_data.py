@@ -1,0 +1,97 @@
+"""Causal-LM token data (an adapted copy of the LM part of
+``distributed_tensorflow_example_tpu/data/bert_data.py``): the synthetic
+bigram corpus and pre-tokenized ``.npy`` files, packed as
+``{input_ids, attention_mask}``. numpy only; the arrays are the
+reference's bit for bit.
+
+Special ids follow the bert-base-uncased convention ([PAD]=0, [CLS]=101,
+[SEP]=102, [MASK]=103). TFRecord token files and the BERT MLM masking
+arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..utils.logging import get_logger
+
+PAD, CLS, SEP, MASK = 0, 101, 102, 103
+_FIRST_REGULAR = 110            # ids below this are reserved/special
+
+
+def synthetic_corpus(num_seqs: int = 2048, seq_len: int = 128,
+                     vocab_size: int = 30522, seed: int = 0) -> np.ndarray:
+    """[N, S] int32 token sequences with bigram structure: token t is
+    followed by (t*7+11)%V with prob 0.5 else a Zipf draw, so the next
+    token is partly predictable from context."""
+    rs = np.random.RandomState(seed)
+    v_eff = vocab_size - _FIRST_REGULAR
+
+    def zipf_draw(n):
+        # bounded zipf over the regular-token range
+        z = rs.zipf(1.3, size=n)
+        return (np.minimum(z, v_eff) - 1) + _FIRST_REGULAR
+
+    seqs = np.empty((num_seqs, seq_len), np.int32)
+    seqs[:, 0] = CLS
+    cur = zipf_draw(num_seqs)
+    seqs[:, 1] = cur
+    for j in range(2, seq_len - 1):
+        follow = (cur * 7 + 11) % v_eff + _FIRST_REGULAR
+        fresh = zipf_draw(num_seqs)
+        take = rs.rand(num_seqs) < 0.5
+        cur = np.where(take, follow, fresh).astype(np.int32)
+        seqs[:, j] = cur
+    seqs[:, -1] = SEP
+    return seqs
+
+
+def load_tokenized(data_dir: str) -> tuple[np.ndarray, np.ndarray]:
+    """Pre-tokenized [N,S] int32 arrays: ``train.npy`` + ``test.npy``, or a
+    single ``tokens.npy`` split 95/5."""
+    tr, te = (os.path.join(data_dir, f) for f in ("train.npy", "test.npy"))
+    if os.path.exists(tr) and os.path.exists(te):
+        return np.load(tr).astype(np.int32), np.load(te).astype(np.int32)
+    single = os.path.join(data_dir, "tokens.npy")
+    if os.path.exists(single):
+        toks = np.load(single).astype(np.int32)
+        cut = max(1, int(len(toks) * 0.95))
+        return toks[:cut], toks[cut:]
+    raise FileNotFoundError(
+        f"no train.npy/test.npy or tokens.npy under {data_dir!r}")
+
+
+def _load_seqs(data_dir, seq_len, vocab_size, synthetic,
+               num_train, num_test, seed):
+    """The token source: pre-tokenized files (truncated to seq_len with a
+    warning) or the synthetic corpus."""
+    if data_dir and not synthetic:
+        train_seqs, test_seqs = load_tokenized(data_dir)
+        if train_seqs.shape[1] > seq_len:
+            get_logger("data").warning(
+                "truncating pre-tokenized sequences from %d to seq_len=%d",
+                train_seqs.shape[1], seq_len)
+            train_seqs = train_seqs[:, :seq_len]
+            test_seqs = test_seqs[:, :seq_len]
+        return train_seqs, test_seqs
+    return (synthetic_corpus(num_train, seq_len, vocab_size, seed),
+            synthetic_corpus(num_test, seq_len, vocab_size, seed + 1))
+
+
+def get_lm_data(data_dir: str | None, *, vocab_size: int = 30522,
+                seq_len: int = 128, synthetic: bool = False,
+                num_train: int = 2048, num_test: int = 256,
+                seed: int = 0) -> tuple[dict, dict]:
+    """Causal-LM batches ``{input_ids, attention_mask}`` (train, eval):
+    PAD positions (token 0) carry no loss and are invisible as keys."""
+    train_seqs, test_seqs = _load_seqs(data_dir, seq_len, vocab_size,
+                                       synthetic, num_train, num_test,
+                                       seed)
+
+    def pack(seqs):
+        return {"input_ids": seqs.astype(np.int32),
+                "attention_mask": (seqs != PAD).astype(np.int32)}
+
+    return pack(train_seqs), pack(test_seqs)

@@ -51,6 +51,9 @@ ENTRY_POINTS = {
     # q, k, v, do, lse, dsum, mask, dk, dv, B, S, H, D, causal, sm_scale,
     # stream
     "flash_attention_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # q, k, v, do, lse, dsum, mask, dq, dk, dv, dq_acc, sync, B, S, H, D,
+    # causal, sm_scale, stream
+    "flash_attention_bwd_fused": [_P] * 12 + [_I] * 5 + [_F, _P],
     # q, k, v, pos, pad, o, B, T, H, D, sm_scale, stream
     "decode_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
     # q, k_pool, v_pool, block_tables, pos, pad, o, B, N, Bs, NB, H, D,

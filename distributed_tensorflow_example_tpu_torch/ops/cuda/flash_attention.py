@@ -1,8 +1,9 @@
-"""Flash attention, forward and split backward: the Hopper kernels
+"""Flash attention, forward and backward: the Hopper kernels
 ``csrc/flash_attention_fwd.cu`` (B1), ``csrc/flash_attention_bwd_dq.cu``
-(B2a) and ``csrc/flash_attention_bwd_dkv.cu`` (B2b), each beside its plain
-PyTorch version (port of ``distributed_tensorflow_example_tpu/ops/pallas/
-flash_attention.py``).
+(B2a) and ``csrc/flash_attention_bwd_dkv.cu`` (B2b), the split backward,
+and ``csrc/flash_attention_bwd_fused.cu`` (B3), the fused backward, each
+beside its plain PyTorch version (port of ``distributed_tensorflow_example_
+tpu/ops/pallas/flash_attention.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 the call raises (no silent fallback). The kernels take any sequence
@@ -13,16 +14,16 @@ and a contiguous int32 [B, S] key mask (nonzero = attend; the model
 converts it once per forward). Their tiles are fixed at 64 query rows x
 64 keys by design, so the reference's ``block_q``/``block_k``/
 ``bwd_block`` levers, which tune the TPU grid, are refused instead of
-silently ignored; the fused backward (``bwd_variant="fused"``, B3) is
-not ported yet.
+silently ignored.
 
 :func:`flash_attention` is differentiable: with grad mode on and q, k or
 v requiring grad it runs :class:`FlashAttention`, the counterpart of the
 reference's ``custom_vjp`` (``_make_flash``): the forward saves q, k, v,
 o, the logsumexp and the mask, and the backward computes
 ``Dsum = rowsum(dO * O)`` in f32 with plain ops (plain XLA in the
-reference's ``_bwd``) and then dq (B2a) and dk, dv (B2b). Otherwise
-(serving, ``torch.no_grad``) it runs the forward alone and saves nothing.
+reference's ``_bwd``) and then, by ``bwd_variant``, dq (B2a) and dk, dv
+(B2b), or all three in one pass (B3). Otherwise (serving,
+``torch.no_grad``) it runs the forward alone and saves nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +37,28 @@ from ..attention import (NEG_INF, apply_mask, attention_scores,
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 128)
+BLOCK = 64          # the kernels' query and key tile
+
+#: the reference's dq slab budget (``_FUSED_SLAB_LIMIT``): its fused TPU
+#: kernel keeps a [S, D] f32 dq slab in VMEM and runs the split backward
+#: past this size. The Hopper kernel has no such limit (its dq accumulator
+#: lies in device memory); the limit is kept only so that both packages
+#: pick the same variant for the same (S, D), and the launch counters say
+#: which kernels ran. At D=64 it starts above S=32,768, past every shipped
+#: ``max_len``.
+_FUSED_SLAB_LIMIT = 8 * 2**20
+
+BWD_VARIANTS = ("split", "fused")
+
+
+def effective_bwd_variant(seq: int, head_dim: int,
+                          bwd_variant: str = "split") -> str:
+    """The backward variant that runs for these shapes, the reference's
+    rule: "fused" becomes "split" when the reference's dq slab would pass
+    :data:`_FUSED_SLAB_LIMIT`."""
+    if bwd_variant == "fused" and seq * head_dim * 4 > _FUSED_SLAB_LIMIT:
+        return "split"
+    return bwd_variant
 
 
 def flash_attention_fwd_plain(q, k, v, mask=None, causal: bool = False):
@@ -82,6 +105,18 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, dsum, mask=None,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_fused_plain(q, k, v, do, lse, dsum, mask=None,
+                                    causal: bool = False):
+    """B3's plain version: p and ds formed once, then ``dq = ds k``,
+    ``dk = ds^T q`` and ``dv = p^T dO`` (f32, cast to the inputs' dtypes),
+    the same ops as the split plain versions, so equal to them bitwise."""
+    p, ds = _bwd_probs(q, k, v, do, lse, dsum, mask, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_dsum(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
@@ -228,16 +263,49 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dsum, mask=None,
 flash_attention_bwd_dkv.launches = 0
 
 
+def flash_attention_bwd_fused(q, k, v, do, lse, dsum, mask=None,
+                              causal: bool = False):
+    """(dq, dk, dv) [B,S,H,D] from the same inputs as
+    :func:`flash_attention_bwd_dq`, in one pass. CUDA tensors launch B3
+    (``flash_attention_bwd_fused.launches``); CPU tensors take the plain
+    version. Besides the outputs the wrapper allocates B3's scratch: an
+    f32 [B,H,S,D] dq accumulator (no zero fill needed) and one int32 zero
+    per (b*h, query tile) plus a ticket counter."""
+    if not _on_card("flash_attention_bwd_fused", q):
+        return flash_attention_bwd_fused_plain(q, k, v, do, lse, dsum, mask,
+                                               causal)
+    _check("flash_attention_bwd_fused", q,
+           {"q": q, "k": k, "v": v, "do": do}, mask,
+           {"lse": lse, "dsum": dsum})
+    b, s, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    sync = torch.zeros(1 + b * h * -(-s // BLOCK), dtype=torch.int32,
+                       device=q.device)
+    _build.launch("flash_attention_bwd_fused", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  dsum.data_ptr(), _ptr(mask), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(), b, s, h,
+                  d, int(causal), 1.0 / math.sqrt(d))
+    flash_attention_bwd_fused.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_fused.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
-    """Flash attention with the split backward: B1 forward, B2a and B2b
-    backward on the card; the plain versions of all three on the CPU.
-    ``apply(q, k, v, mask, causal)``; the mask gets no gradient."""
+    """Flash attention: B1 forward; the split backward (B2a and B2b) or
+    the fused one (B3) on the card, the plain versions on the CPU.
+    ``apply(q, k, v, mask, causal, bwd_variant)``; the mask gets no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, causal: bool):
+    def forward(ctx, q, k, v, mask, causal: bool, bwd_variant: str):
         o, lse = flash_attention_fwd(q, k, v, mask, causal)
         ctx.save_for_backward(q, k, v, o, lse, mask)
         ctx.causal = causal
+        ctx.bwd_variant = bwd_variant
         return o
 
     @staticmethod
@@ -245,10 +313,13 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, mask = ctx.saved_tensors
         do = do.contiguous()
         dsum = flash_attention_dsum(do, o)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, dsum, mask, ctx.causal)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, dsum, mask,
-                                         ctx.causal)
-        return dq, dk, dv, None, None
+        args = (q, k, v, do, lse, dsum, mask, ctx.causal)
+        if ctx.bwd_variant == "fused":
+            dq, dk, dv = flash_attention_bwd_fused(*args)
+        else:
+            dq = flash_attention_bwd_dq(*args)
+            dk, dv = flash_attention_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -257,22 +328,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bwd_variant: str = "split") -> torch.Tensor:
     """Drop-in for ``multi_head_attention(impl="xla")``: [B,S,H,D] in/out,
     differentiable (see the module docstring). ``mask``: [B,S] key
-    validity or broadcastable [B,1,1,S]. The tile levers are refused: the
-    tiles are fixed at 64x64."""
+    validity or broadcastable [B,1,1,S]. ``bwd_variant`` picks the split
+    or the fused backward, through :func:`effective_bwd_variant` as in
+    the reference. The tile levers are refused: the tiles are fixed at
+    64x64."""
     if block_q or block_k or bwd_block:
         raise NotImplementedError(
             "the Hopper flash-attention kernels have fixed 64x64 tiles by "
             "design: block_q/block_k/bwd_block are not taken")
-    if bwd_variant == "fused":
-        raise NotImplementedError(
-            "bwd_variant='fused' (the one-kernel backward B3) arrives with "
-            "slice A3b; the split backward (B2a + B2b) is ported")
-    if bwd_variant != "split":
-        raise ValueError(f"bwd_variant must be 'split' or 'fused', got "
+    if bwd_variant not in BWD_VARIANTS:
+        raise ValueError(f"bwd_variant must be one of {BWD_VARIANTS}, got "
                          f"{bwd_variant!r}")
+    bwd_variant = effective_bwd_variant(q.shape[1], q.shape[-1], bwd_variant)
     if mask is not None and mask.ndim == 4:
         mask = mask[:, 0, 0, :]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, mask, causal)
+        return FlashAttention.apply(q, k, v, mask, causal, bwd_variant)
     return flash_attention_fwd(q, k, v, mask, causal)[0]

@@ -162,8 +162,20 @@ class SyncReplicas:
                                  seed=seed)
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()}
+        """Host arrays -> tensors on the device. On the card a host array
+        goes through pinned memory with a non-blocking copy: a copy from
+        pageable memory would wait for the stream to drain, so the host
+        could not queue the next step while the card runs this one."""
+        if self.device.type != "cuda":
+            return {k: torch.as_tensor(v, device=self.device)
+                    for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.device.type == "cpu":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t.to(self.device)
+        return out
 
     def step(self, state: TrainState, batch: dict):
         """One sync step: ``(new_state, metrics)``."""

@@ -169,9 +169,11 @@ def scale_by_learning_rate(schedule: Schedule) -> Transform:
 
 
 def sgd(schedule: Schedule, momentum: float | None = None) -> Transform:
-    if momentum is None:
-        return scale_by_learning_rate(schedule)
-    return chain(trace(momentum), scale_by_learning_rate(schedule))
+    """optax's sgd: (trace or identity) then the learning rate, so the
+    state has optax's layout (the checkpoint keys name its positions)."""
+    first = (trace(momentum) if momentum is not None
+             else _stateless(lambda updates, params: updates))
+    return chain(first, scale_by_learning_rate(schedule))
 
 
 def adam(schedule: Schedule) -> Transform:

@@ -159,11 +159,13 @@ def test_bwd_wrappers_are_their_plain_versions_on_the_cpu():
 
 
 def test_fused_backward_and_tile_levers_are_refused():
+    """The tile levers are refused (the kernels' tiles are fixed at 64x64);
+    the fused backward is taken since slice A3b
+    (``tests/test_torch_flash_fused.py``)."""
     q = torch.zeros(1, 8, 1, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tflash.flash_attention(q, q, q, bwd_variant="fused")
-    with pytest.raises(NotImplementedError, match="bwd_block"):
-        tflash.flash_attention(q, q, q, bwd_block=128)
+    for lever in ("block_q", "block_k", "bwd_block"):
+        with pytest.raises(NotImplementedError, match="bwd_block"):
+            tflash.flash_attention(q, q, q, **{lever: 128})
     with pytest.raises(ValueError, match="bwd_variant"):
         tflash.flash_attention(q, q, q, bwd_variant="ring")
     m = q.detach().to("meta")

@@ -167,6 +167,47 @@ def test_training_step_runs_without_jax():
     assert "FORBIDDEN []" in out.stdout, out.stdout
 
 
+#: the trainer slice's modules, named so that the walk of
+#: :func:`test_importing_every_module_loads_no_jax` is shown to reach them
+TRAINER_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "cli.train", "train.trainer", "train.hooks", "data.bert_data",
+        "data.loader", "cluster", "runtime.server", "utils.metrics",
+        "ckpt.checkpoint"))
+
+
+def test_training_cli_runs_without_jax(tmp_path):
+    """``cli/train.main`` trains gpt_tiny on the CPU (fused flash backward,
+    a checkpoint, a resume), and the ps role exits 0, in a process that
+    holds no JAX; every trainer module is in the import walk."""
+    assert set(TRAINER_MODULES) <= set(_port_modules())
+    ck = str(tmp_path / "ck")
+    argv = ["--model", "gpt_tiny", "--device", "cpu", "--seq_len", "16",
+            "--batch_size", "2", "--optimizer", "adamw", "--attention",
+            "flash", "--attention_bwd", "fused", "--ckpt_dir", ck,
+            "--save_steps", "2", "--log_every_steps", "2"]
+    code = (
+        "import sys\n"
+        "from distributed_tensorflow_example_tpu_torch.cli.train import "
+        "main\n"
+        f"a = main({argv!r} + ['--train_steps', '2'])\n"
+        f"b = main({argv!r} + ['--train_steps', '4'])\n"
+        "c = main(['--job_name', 'ps'])\n"
+        "print('RC', a, b, c)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "RC 0 0 0" in out.stdout, out.stdout
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+    assert "restored checkpoint at step 2" in out.stderr
+    assert sorted(os.listdir(ck)) == ["checkpoint", "ckpt-2.npz",
+                                      "ckpt-4.npz"]
+
+
 def test_no_source_names_jax_or_the_jax_package():
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

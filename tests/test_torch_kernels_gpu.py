@@ -21,14 +21,18 @@ limit is 2e-2, as ``chip_smoke.py``'s. The int8 paged kernel follows the
 Pallas kernel's algebra (scales folded into the scores and the f32
 probabilities) where its plain version dequantizes to bf16 and rounds the
 probabilities to bf16: held to the same 2e-2. The flash backward kernels
-(dq, and dk with dv) round p and ds to bf16 before their products where
-the plain versions keep them in f32, and round their outputs to bf16: each
+(dq, and dk with dv, split or fused) round p and ds to bf16 before their
+products where the plain versions keep them in f32, and round their
+outputs to bf16: each
 gradient row (one query's dq, one key's dk or dv, of one head) is held to
 2e-2 too, with each row's size floored at a hundredth of the mean row
 size: a row whose gradient cancels to zero (the first query of a causal
 row has one live key, where ds = p (dp - D) is zero but for rounding) is
 held to that absolute error instead. A query row with no live key gets dq
-exactly 0, and a masked key gets dk and dv exactly 0.
+exactly 0, and a masked key gets dk and dv exactly 0. The fused kernel
+(B3) runs the split kernels' products in their order, so its outputs
+equal theirs bit for bit, and two of its launches agree bit for bit (its
+dq accumulation is ordered, not atomic).
 """
 
 import pytest
@@ -213,6 +217,79 @@ def test_flash_grads_flow_through_the_kernels(cuda):
     torch.cuda.synchronize()
     for t, w in zip((q, k, v), want):
         assert _grad_row_err(t.grad, w) <= FLASH_BWD_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("s", [512, 200, 77])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_fused_kernel_matches_plain_and_split(cuda, s, causal):
+    """B3 against its plain version (the rows' limit of the split
+    kernels), deterministic (two launches bitwise equal: dq is ordered,
+    not atomic), dk and dv bitwise B2b's and dq bitwise B2a's (the same
+    products in the same order), exact zeros where no pair is live."""
+    gen = torch.Generator().manual_seed(5 * s + causal)
+    pad = s // 3
+    args = _bwd_case(gen, cuda, 2, s, 12, 64, causal, pad)
+    before = fa.flash_attention_bwd_fused.launches
+    got = fa.flash_attention_bwd_fused(*args, causal=causal)
+    again = fa.flash_attention_bwd_fused(*args, causal=causal)
+    assert fa.flash_attention_bwd_fused.launches == before + 2
+    want = fa.flash_attention_bwd_fused_plain(*args, causal=causal)
+    split = (fa.flash_attention_bwd_dq(*args, causal=causal),
+             *fa.flash_attention_bwd_dkv(*args, causal=causal))
+    torch.cuda.synchronize()
+    for g, a, w, sp in zip(got, again, want, split):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, a)
+        assert torch.equal(g, sp)
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+    dq, dk, dv = got
+    assert dk[1, :pad].abs().max().item() == 0
+    assert dv[1, :pad].abs().max().item() == 0
+    if causal:
+        assert dq[1, :pad].abs().max().item() == 0
+
+
+def test_flash_bwd_fused_kernel_head_dim_128_and_refusals(cuda):
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, do = (_randn(gen, (1, 200, 4, 128), cuda) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, None, causal=True)
+    dsum = fa.flash_attention_dsum(do, o)
+    got = fa.flash_attention_bwd_fused(q, k, v, do, lse, dsum, None, True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, None, True)
+    for g, w in zip(got, want):
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+    with pytest.raises(TypeError, match="bf16"):             # no fallback
+        fa.flash_attention_bwd_fused(q, k, v, do.float(), lse, dsum)
+    with pytest.raises(ValueError, match="f32 \\[B,H,S\\] dsum"):
+        fa.flash_attention_bwd_fused(q, k, v, do, lse, dsum.half())
+
+
+def test_flash_grads_flow_through_the_fused_kernel(cuda):
+    """``bwd_variant="fused"``: one backward launches B3 once and B2a, B2b
+    never, with the split variant's grads bit for bit."""
+    gen = torch.Generator().manual_seed(6)
+    base = [_randn(gen, (2, 256, 12, 64), cuda) for _ in range(3)]
+    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
+    mask[1, :40] = 0
+    grads = {}
+    for variant in ("split", "fused"):
+        q, k, v = (t.clone().requires_grad_() for t in base)
+        before = (fa.flash_attention_bwd_fused.launches,
+                  fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkv.launches)
+        o = fa.flash_attention(q, k, v, mask=mask, causal=True,
+                               bwd_variant=variant)
+        (o.float() ** 2).sum().backward()
+        after = (fa.flash_attention_bwd_fused.launches,
+                 fa.flash_attention_bwd_dq.launches,
+                 fa.flash_attention_bwd_dkv.launches)
+        fused = variant == "fused"
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            int(fused), int(not fused), int(not fused))
+        grads[variant] = (q.grad, k.grad, v.grad)
+    torch.cuda.synchronize()
+    for a, b in zip(grads["split"], grads["fused"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("t", [640, 613])
