@@ -14,8 +14,10 @@ the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
 kernel (error against the plain version, kernel / plain / library time,
 the roofline bound; the flash backward's dq and dk/dv kernels and its
-fused kernel, bitwise against them; the paged kernel over bf16 and over
-int8 pools), the training phase (one step's grads through the flash
+fused kernel, bitwise against them; the split-K paged kernel over bf16
+and over int8 pools, bitwise from launch to launch, timed on the device
+through ``torch.profiler`` beside SDPA and over 16,384-slot rows), the
+training phase (one step's grads through the flash
 kernels against the plain attention's, then 20 AdamW steps of
 full-width GPT-small through ``SyncReplicas`` with launch counts, the
 loss curve, ms per step, tokens/s, peak memory and the device idle share
@@ -89,10 +91,13 @@ LOGIT_TOL = 0.1
 # equal positions, with the first-step logits above as the strict check
 AGREEMENT_FLOOR = 0.5
 
-# paged decode attention: the slab kernel's arithmetic through one table
-# lookup per slot. Measured worst rows (H100, 700 W): 6.5e-3 at D=64 (one
-# bf16 ulp of an element, as for flash), 2.2e-7 at D=128; the limit is 3x
-# the worst, two ulps
+# paged decode attention, split-K: the Pallas float kernel's arithmetic,
+# each split rounding its unnormalised probabilities exp(s - running max)
+# to bf16 before the PV product and the f32 sum dividing at the end, where
+# the plain version rounds the normalised softmax to bf16; the two differ
+# by bf16 rounding. Measured worst rows (H100, 700 W): 7.0e-3 at D=64,
+# 7.1e-3 at D=128, 7.8e-3 over 16,384-slot rows (about one bf16 ulp of an
+# element); the limit is under 3x the worst, two to three ulps
 PAGED_ROW_REL_TOL = 2e-2
 # the int8 paged kernel follows the Pallas kernel's algebra (scales folded
 # into the f32 scores and probabilities), its plain version the reference's
@@ -145,6 +150,8 @@ FLASH_SHAPE = dict(b=8, s=512, h=12, d=64)
 # the engine's decode step at GPT-small: 8 slots, 12 heads, 16-slot blocks,
 # 40 blocks per row (prompt 512 + 128 new = 640 slots)
 PAGED_SHAPE = dict(b=8, h=12, bs=16, nb=40)
+# the paged phases' long rows: 1024 blocks of 16 = 16,384 slots a row
+PAGED_LONG_NB = 1024
 FLASH_ODD_S = 500
 DECODE_SHAPE = dict(b=8, t=640, h=12, d=64)
 PROMPT_LEN, MAX_NEW, BATCH = 512, 128, 8
@@ -204,6 +211,37 @@ def cuda_ms(fn, sets: list[tuple], iters: int = 48,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, sets: list[tuple], iters: int = 48, warmup: int = 4,
+              by_kernel: dict | None = None) -> float:
+    """Device time of one ``fn(*args)`` call in ms: the durations of every
+    kernel and copy it ran on the card, as ``torch.profiler`` records them,
+    summed over ``iters`` calls that cycle through ``sets`` (as
+    :func:`cuda_ms`) and divided by ``iters``. The host's time between
+    launches is left out, so a call whose host work outlasts its kernels
+    (a wrapper's checks and allocations, a library's dispatch) reads what
+    the card spent on it; a call of two kernels counts both, and
+    ``by_kernel``, where given, gets each kernel's ms per call by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(_device_us(e) for e in events)
+    if by_kernel is not None:
+        by_kernel.update({e.key: _device_us(e) / iters / 1e3
+                          for e in events})
+    if total <= 0:
+        raise SystemExit("torch.profiler saw no device time: the paged "
+                         "kernels' device times cannot be measured")
+    return total / iters / 1e3
 
 
 def row_rel_err(o: torch.Tensor, o_ref: torch.Tensor) -> float:
@@ -595,15 +633,15 @@ def phase_decode(gen) -> dict:
             "library_ms": lms, "bound_ms": bms, "bound_by": by}
 
 
-def paged_inputs(gen, d: int) -> dict:
+def paged_inputs(gen, d: int, nb: int = PAGED_SHAPE["nb"]) -> dict:
     """B5's inputs at the engine's shapes: B rows of ~640 logical slots in
-    16-slot blocks, physical blocks shuffled over the pool, rows 0-3
-    sharing their first 8 blocks (a 128-token prefix), per-row pos and
-    pad, and table entries outside each row's live window pointing at the
-    null block 0 (random bytes here; :func:`phase_paged` also runs it
-    NaN-filled)."""
+    16-slot blocks (``nb`` blocks a row; :data:`PAGED_LONG_NB` for the long
+    rows), physical blocks shuffled over the pool, rows 0-3 sharing their
+    first 8 blocks (a 128-token prefix), per-row pos and pad, and table
+    entries outside each row's live window pointing at the null block 0
+    (random bytes here; :func:`phase_paged` also runs it NaN-filled)."""
     dev = torch.device("cuda")
-    b, h, bs, nb = (PAGED_SHAPE[x] for x in ("b", "h", "bs", "nb"))
+    b, h, bs = (PAGED_SHAPE[x] for x in ("b", "h", "bs"))
     shared = 8
     n = 1 + b * nb                                    # null block + rows
     perm = torch.randperm(n - 1, generator=gen) + 1
@@ -625,21 +663,94 @@ def paged_inputs(gen, d: int) -> dict:
             "bt": bt.to(dev), "pos": pos.to(dev), "pad": pad.to(dev)}
 
 
+def paged_bound(x: dict, quant: bool) -> tuple[float, str, int, int, float]:
+    """(bound ms, bound by, live slots, distinct physical slots, MB) of one
+    paged call at D=64 on ``x``: the live K and V rows read once (a shared
+    physical slot once; int8 rows with their two f32 scales), q read and o
+    written once, the table, pos and pad; 4 FLOP per live (slot, head,
+    dim)."""
+    b, h, bs = (PAGED_SHAPE[k] for k in ("b", "h", "bs"))
+    d, nb = 64, x["bt"].shape[1]
+    live, distinct = live_slots(x["bt"], x["pos"], x["pad"], bs)
+    row = h * d + 4 if quant else h * d * 2           # bytes a K or V slot
+    nbytes = (2 * distinct * row + 2 * b * h * d * 2
+              + b * nb * 4 + 2 * b * 4)
+    bms, by = bound(4.0 * h * d * live, nbytes)
+    return bms, by, live, distinct, nbytes / 1e6
+
+
+def paged_times(kernel, plain, slab, sets: list[tuple], amask) -> dict:
+    """The paged kernel against its plain version and SDPA, each on the
+    device (:func:`device_ms`, the split and combine kernels summed), and
+    the kernel's and SDPA's per-call times on CUDA events (:func:`cuda_ms`,
+    which also pay each call's host work). ``slab(*args)`` gathers one
+    set's rows into the [B, H, T, D] slabs SDPA takes (dequantized, for
+    int8): ``library_ms`` times SDPA over slabs gathered beforehand,
+    ``library_gather_ms`` with the gather. ``plain`` None leaves the plain
+    version out."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(q_, k_, v_):
+        return sdpa(q_[:, :, None], k_, v_, attn_mask=amask)
+
+    slab_sets = [slab(*a) for a in sets]
+    parts = {}
+    out = {"ms": device_ms(kernel, sets, iters=192, by_kernel=parts),
+           "call_ms": cuda_ms(kernel, sets, iters=192),
+           "library_ms": device_ms(library, slab_sets, iters=192),
+           "library_call_ms": cuda_ms(library, slab_sets, iters=192),
+           "library_gather_ms": device_ms(lambda *a: library(*slab(*a)),
+                                          sets, iters=192)}
+    if plain is not None:
+        out["plain_ms"] = device_ms(plain, sets)
+    # the split and combine kernels' shares (their names carry "paged::")
+    out["kernels_ms"] = {re.sub(r"^void paged::(\w+)<.*", r"\1", k): v
+                         for k, v in parts.items()}
+    return out
+
+
+def fmt_ms(named: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in named.items())
+
+
+def paged_window_mask(x: dict) -> torch.Tensor:
+    """SDPA's [B, 1, 1, T] mask of each row's live window."""
+    nb, bs = x["bt"].shape[1], PAGED_SHAPE["bs"]
+    slots = torch.arange(nb * bs, device=x["pos"].device)
+    return ((slots[None, :] <= x["pos"][:, None])
+            & (slots[None, :] >= x["pad"][:, None]))[:, None, None, :]
+
+
+def paged_plan(x: dict) -> dict:
+    """The wrapper's split plan for ``x`` on this card."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        paged_decode_attention as pa
+    b, nb = x["bt"].shape
+    per, splits = pa.split_plan(
+        b, PAGED_SHAPE["h"], nb * PAGED_SHAPE["bs"],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"splits": splits, "tiles_per_split": per}
+
+
 def phase_paged(gen) -> dict:
     """B5 against its plain version at D=64 and D=128 (shuffled and shared
-    blocks), and against itself with the null block 0 NaN-filled: the
-    output must not change by a bit, since the kernel never reads a
-    masked slot. (The plain version, like the reference's gather path,
-    multiplies masked V rows by zero probabilities, so it cannot take a
-    NaN null block.) Then timed at D=64: the kernel, the plain version,
-    and SDPA over the gathered slab with and without the gather."""
+    blocks), against itself (two launches bitwise equal) and with the null
+    block 0 NaN-filled: the output must not change by a bit, since the
+    kernel never reads a masked slot. (The plain version, like the
+    reference's gather path, multiplies masked V rows by zero
+    probabilities, so it cannot take a NaN null block.) Then timed at D=64
+    (:func:`paged_times`), and once more over 16,384-slot rows, held to
+    the plain version there too."""
     from distributed_tensorflow_example_tpu_torch.ops.cuda import \
         paged_decode_attention as pa
     err = rel = 0.0
+    b, h, bs = (PAGED_SHAPE[k] for k in ("b", "h", "bs"))
     for d in (128, 64):                 # the timed D=64 inputs stay below
         x = paged_inputs(gen, d)
         kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
         o = pa.paged_decode_attention(x["q"], x["k_pool"], x["v_pool"], **kw)
+        o_again = pa.paged_decode_attention(x["q"], x["k_pool"],
+                                            x["v_pool"], **kw)
         o_ref = pa.xla_paged_decode_attention(x["q"], x["k_pool"],
                                               x["v_pool"], **kw)
         k_nan, v_nan = x["k_pool"].clone(), x["v_pool"].clone()
@@ -648,69 +759,116 @@ def phase_paged(gen) -> dict:
         torch.cuda.synchronize()
         e = (o.float() - o_ref.float()).abs().max().item()
         r = row_rel_err(o, o_ref)
-        same = bool(torch.equal(o, o_nan))
+        same, det = bool(torch.equal(o, o_nan)), bool(torch.equal(o, o_again))
         log(f"[paged D={d}] worst row max|o - plain| / max|plain| {r:.3e} "
-            f"(tol {PAGED_ROW_REL_TOL}; max abs err {e:.3e}); NaN null "
-            f"block leaves the output bitwise unchanged: {same}")
-        if not same or r > PAGED_ROW_REL_TOL:
+            f"(tol {PAGED_ROW_REL_TOL}; max abs err {e:.3e}); two launches "
+            f"bitwise equal: {det}; NaN null block leaves the output "
+            f"bitwise unchanged: {same}")
+        if not same or not det or r > PAGED_ROW_REL_TOL:
             raise SystemExit(f"paged_decode_attention disagrees with its "
-                             f"plain version at D={d}")
+                             f"plain version or itself at D={d}")
         err, rel = max(err, e), max(rel, r)
-    b, h, bs, nb = (PAGED_SHAPE[x] for x in ("b", "h", "bs", "nb"))
-    d = 64
-    pos, pad, bt = x["pos"], x["pad"], x["bt"]
-    live, distinct = live_slots(bt, pos, pad, bs)
-    flops = 4.0 * h * d * live
-    nbytes = (2 * distinct * h * d * 2               # live K and V rows
-              + 2 * b * h * d * 2                    # q in, o out
-              + b * nb * 4 + 2 * b * 4)              # table, pos, pad
-    bms, by = bound(flops, nbytes)
-    sets = cold_sets((x["q"], x["k_pool"], x["v_pool"]))
-    kw = dict(block_tables=bt, pos=pos, pad=pad)
-    kms = cuda_ms(lambda *a: pa.paged_decode_attention(*a, **kw), sets,
-                  iters=192)
-    pms = cuda_ms(lambda *a: pa.xla_paged_decode_attention(*a, **kw), sets)
-    slots = torch.arange(nb * bs, device=pos.device)
-    amask = ((slots[None, :] <= pos[:, None])
-             & (slots[None, :] >= pad[:, None]))[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    bt_l = bt.long()
+    del k_nan, v_nan
+    nb = x["bt"].shape[1]
+    bt_l = x["bt"].long()
+    kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
 
-    def gathered(q_, kp, vp):
-        k_ = kp[bt_l].reshape(b, nb * bs, h, d)
-        v_ = vp[bt_l].reshape(b, nb * bs, h, d)
-        return sdpa(q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
-                    attn_mask=amask)
+    def slab(q_, kp, vp):               # [B, H, T, D] views for SDPA
+        return (q_, kp[bt_l].reshape(b, nb * bs, h, 64).transpose(1, 2),
+                vp[bt_l].reshape(b, nb * bs, h, 64).transpose(1, 2))
 
-    slab_sets = [(q_, kp[bt_l].reshape(b, nb * bs, h, d),
-                  vp[bt_l].reshape(b, nb * bs, h, d)) for q_, kp, vp in sets]
-    lms = cuda_ms(lambda q_, k_, v_: sdpa(
-        q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
-        attn_mask=amask), slab_sets, iters=192)
-    gms = cuda_ms(gathered, sets, iters=192)
-    log(f"[paged] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, library_ms "
-        f"(sdpa over the gathered slab) {lms:.4f}, with the gather "
-        f"{gms:.4f}, bound_ms {bms:.4f} ({by}: {live} live slots of "
-        f"{b * nb * bs} over {distinct} distinct physical slots, "
-        f"{nbytes / 1e6:.2f} MB)")
-    return {"max_abs_err": err, "max_row_rel_err": rel, "ms": kms,
-            "plain_ms": pms, "library_ms": lms, "library_gather_ms": gms,
-            "bound_ms": bms, "bound_by": by}
+    times = paged_times(
+        lambda *a: pa.paged_decode_attention(*a, **kw),
+        lambda *a: pa.xla_paged_decode_attention(*a, **kw), slab,
+        cold_sets((x["q"], x["k_pool"], x["v_pool"])), paged_window_mask(x))
+    bms, by, live, distinct, mb = paged_bound(x, quant=False)
+    plan = paged_plan(x)
+    log(f"[paged] device ms: kernel {times['ms']:.4f} "
+        f"({fmt_ms(times['kernels_ms'])}), "
+        f"plain {times['plain_ms']:.4f}, sdpa over the gathered slab "
+        f"{times['library_ms']:.4f}, with the gather "
+        f"{times['library_gather_ms']:.4f}; per call on CUDA events: kernel "
+        f"{times['call_ms']:.4f}, sdpa {times['library_call_ms']:.4f}; "
+        f"bound_ms {bms:.4f} ({by}: {live} live slots of {b * nb * bs} over "
+        f"{distinct} distinct physical slots, {mb:.2f} MB); {plan}")
+    long_row = paged_long_row(gen, quant=False)
+    return {"max_abs_err": err, "max_row_rel_err": rel, **times,
+            "bound_ms": bms, "bound_by": by, **plan, "long_row": long_row}
+
+
+def paged_long_row(gen, quant: bool) -> dict:
+    """B5 (or, ``quant``, B6) over 8 rows of :data:`PAGED_LONG_NB` blocks
+    (16,384 slots) at D=64: held to the
+    plain version, then the kernel and SDPA over the gathered slab timed
+    on the device beside the bound."""
+    from distributed_tensorflow_example_tpu_torch.models.gpt import \
+        quantize_kv_rows
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        paged_decode_attention as pa
+    b, h, bs = (PAGED_SHAPE[k] for k in ("b", "h", "bs"))
+    x = paged_inputs(gen, 64, nb=PAGED_LONG_NB)
+    nb, bt_l = PAGED_LONG_NB, x["bt"].long()
+    kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
+    args = (x["q"], x["k_pool"], x["v_pool"])
+    if quant:
+        (kq, ks), (vq, vs) = (quantize_kv_rows(x[k])
+                              for k in ("k_pool", "v_pool"))
+        args = (x["q"], kq, vq, ks, vs)
+        del x["k_pool"], x["v_pool"]
+
+    def kernel(q_, k_, v_, ks_=None, vs_=None):
+        return pa.paged_decode_attention(q_, k_, v_, k_scale=ks_,
+                                         v_scale=vs_, **kw)
+
+    def slab(q_, k_, v_, ks_=None, vs_=None):
+        def one(pool, scale):
+            g = pool[bt_l]
+            if scale is not None:
+                g = (g.float() * scale[bt_l][..., None, None]).to(
+                    torch.bfloat16)
+            return g.reshape(b, nb * bs, h, 64).transpose(1, 2)
+        return q_, one(k_, ks_), one(v_, vs_)
+
+    o = kernel(*args)
+    o_ref = pa.xla_paged_decode_attention(
+        *args[:3], k_scale=ks if quant else None,
+        v_scale=vs if quant else None, **kw)
+    torch.cuda.synchronize()
+    r = row_rel_err(o, o_ref)
+    del o_ref
+    times = paged_times(kernel, None, slab, [args], paged_window_mask(x))
+    bms, by, live, distinct, mb = paged_bound(x, quant)
+    plan = paged_plan(x)
+    label = "paged int8" if quant else "paged"
+    log(f"[{label} long rows] {b} rows of {nb * bs} slots: worst row "
+        f"max|o - plain| / max|plain| {r:.3e} (tol {PAGED_ROW_REL_TOL}); "
+        f"device ms: kernel {times['ms']:.4f} "
+        f"({fmt_ms(times['kernels_ms'])}), sdpa over the gathered slab "
+        f"{times['library_ms']:.4f}, with the gather "
+        f"{times['library_gather_ms']:.4f}; per call on CUDA events: kernel "
+        f"{times['call_ms']:.4f}; bound_ms {bms:.4f} ({by}: {live} live "
+        f"slots over {distinct} distinct, {mb:.2f} MB); {plan}")
+    if r > PAGED_ROW_REL_TOL:
+        raise SystemExit(f"{label} disagrees with its plain version over "
+                         f"{nb * bs}-slot rows")
+    return {"slots": nb * bs, "max_row_rel_err": r, **times,
+            "bound_ms": bms, "bound_by": by, **plan}
 
 
 def phase_paged_int8(gen) -> dict:
     """B6 (int8 pools, one f32 scale per slot) at B5's shapes, its pools
     quantized on the card from random bf16 ones: against its plain version
-    at D=128 and D=64, and against itself with garbage bytes and NaN
-    scales in the null block 0 (never read, so no bit may change). Then
-    timed at D=64: the kernel, the plain version, and SDPA over the slab
-    gathered and dequantized beforehand and with the gather and dequant
-    included."""
+    at D=128 and D=64, against itself (two launches bitwise equal) and with
+    garbage bytes and NaN scales in the null block 0 (never read, so no bit
+    may change). Then timed at D=64 (:func:`paged_times`; SDPA over the
+    slab gathered and dequantized beforehand, and with the gather and
+    dequant), and over 16,384-slot rows."""
     from distributed_tensorflow_example_tpu_torch.models.gpt import \
         quantize_kv_rows
     from distributed_tensorflow_example_tpu_torch.ops.cuda import \
         paged_decode_attention as pa
     err = rel = 0.0
+    b, h, bs = (PAGED_SHAPE[k] for k in ("b", "h", "bs"))
     for d in (128, 64):                 # the timed D=64 inputs stay below
         x = paged_inputs(gen, d)
         kq, ks = quantize_kv_rows(x["k_pool"])
@@ -718,6 +876,8 @@ def phase_paged_int8(gen) -> dict:
         kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
         o = pa.paged_decode_attention(x["q"], kq, vq, k_scale=ks,
                                       v_scale=vs, **kw)
+        o_again = pa.paged_decode_attention(x["q"], kq, vq, k_scale=ks,
+                                            v_scale=vs, **kw)
         o_ref = pa.xla_paged_decode_attention(x["q"], kq, vq, k_scale=ks,
                                               v_scale=vs, **kw)
         k_bad, v_bad, ks_nan, vs_nan = (t.clone() for t in (kq, vq, ks, vs))
@@ -729,26 +889,21 @@ def phase_paged_int8(gen) -> dict:
         torch.cuda.synchronize()
         e = (o.float() - o_ref.float()).abs().max().item()
         r = row_rel_err(o, o_ref)
-        same = bool(torch.equal(o, o_nan))
+        same, det = bool(torch.equal(o, o_nan)), bool(torch.equal(o, o_again))
         log(f"[paged int8 D={d}] worst row max|o - plain| / max|plain| "
             f"{r:.3e} (tol {PAGED_INT8_ROW_REL_TOL}; max abs err {e:.3e}); "
-            f"garbage bytes and NaN scales in the null block leave the "
-            f"output bitwise unchanged: {same}; output dtype {o.dtype}")
-        if not same or r > PAGED_INT8_ROW_REL_TOL or o.dtype != x["q"].dtype:
+            f"two launches bitwise equal: {det}; garbage bytes and NaN "
+            f"scales in the null block leave the output bitwise unchanged: "
+            f"{same}; output dtype {o.dtype}")
+        if (not same or not det or r > PAGED_INT8_ROW_REL_TOL
+                or o.dtype != x["q"].dtype):
             raise SystemExit(f"paged_decode_attention int8 disagrees with "
-                             f"its plain version at D={d}")
+                             f"its plain version or itself at D={d}")
         err, rel = max(err, e), max(rel, r)
-    b, h, bs, nb = (PAGED_SHAPE[k] for k in ("b", "h", "bs", "nb"))
-    d = 64
-    pos, pad, bt = x["pos"], x["pad"], x["bt"]
-    live, distinct = live_slots(bt, pos, pad, bs)
-    flops = 4.0 * h * d * live
-    nbytes = (2 * distinct * (h * d + 4)             # live int8 K/V + scales
-              + 2 * b * h * d * 2                    # q in, o out
-              + b * nb * 4 + 2 * b * 4)              # table, pos, pad
-    bms, by = bound(flops, nbytes)
-    sets = cold_sets((x["q"], kq, vq, ks, vs))
-    kw = dict(block_tables=bt, pos=pos, pad=pad)
+    del k_bad, v_bad, ks_nan, vs_nan
+    nb = x["bt"].shape[1]
+    bt_l = x["bt"].long()
+    kw = dict(block_tables=x["bt"], pos=x["pos"], pad=x["pad"])
 
     def kernel(q_, kq_, vq_, ks_, vs_):
         return pa.paged_decode_attention(q_, kq_, vq_, k_scale=ks_,
@@ -758,36 +913,29 @@ def phase_paged_int8(gen) -> dict:
         return pa.xla_paged_decode_attention(q_, kq_, vq_, k_scale=ks_,
                                              v_scale=vs_, **kw)
 
-    kms = cuda_ms(kernel, sets, iters=192)
-    pms = cuda_ms(plain, sets)
-    slots = torch.arange(nb * bs, device=pos.device)
-    amask = ((slots[None, :] <= pos[:, None])
-             & (slots[None, :] >= pad[:, None]))[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    bt_l = bt.long()
+    def slab(q_, kq_, vq_, ks_, vs_):   # dequantized [B, H, T, D] for SDPA
+        def one(pool, scale):
+            return (pool[bt_l].float() * scale[bt_l][..., None, None]).to(
+                torch.bfloat16).reshape(b, nb * bs, h, 64).transpose(1, 2)
+        return q_, one(kq_, ks_), one(vq_, vs_)
 
-    def slab(pool, scale):
-        return (pool[bt_l].float() * scale[bt_l][..., None, None]).to(
-            torch.bfloat16).reshape(b, nb * bs, h, d)
-
-    def gathered(q_, kq_, vq_, ks_, vs_):
-        return sdpa(q_[:, :, None], slab(kq_, ks_).transpose(1, 2),
-                    slab(vq_, vs_).transpose(1, 2), attn_mask=amask)
-
-    slab_sets = [(q_, slab(kq_, ks_), slab(vq_, vs_))
-                 for q_, kq_, vq_, ks_, vs_ in sets]
-    lms = cuda_ms(lambda q_, k_, v_: sdpa(
-        q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
-        attn_mask=amask), slab_sets, iters=192)
-    gms = cuda_ms(gathered, sets, iters=192)
-    log(f"[paged int8] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, library_ms "
-        f"(sdpa over the slab gathered and dequantized beforehand) "
-        f"{lms:.4f}, with the gather and dequant {gms:.4f}, bound_ms "
-        f"{bms:.4f} ({by}: {live} live slots of {b * nb * bs} over "
-        f"{distinct} distinct physical slots, {nbytes / 1e6:.2f} MB)")
-    return {"max_abs_err": err, "max_row_rel_err": rel, "ms": kms,
-            "plain_ms": pms, "library_ms": lms, "library_gather_ms": gms,
-            "bound_ms": bms, "bound_by": by}
+    times = paged_times(kernel, plain, slab,
+                        cold_sets((x["q"], kq, vq, ks, vs)),
+                        paged_window_mask(x))
+    bms, by, live, distinct, mb = paged_bound(x, quant=True)
+    plan = paged_plan(x)
+    log(f"[paged int8] device ms: kernel {times['ms']:.4f} "
+        f"({fmt_ms(times['kernels_ms'])}), plain {times['plain_ms']:.4f}, "
+        f"sdpa over the slab "
+        f"gathered and dequantized beforehand {times['library_ms']:.4f}, "
+        f"with the gather and dequant {times['library_gather_ms']:.4f}; per "
+        f"call on CUDA events: kernel {times['call_ms']:.4f}, sdpa "
+        f"{times['library_call_ms']:.4f}; bound_ms {bms:.4f} ({by}: {live} "
+        f"live slots of {b * nb * bs} over {distinct} distinct physical "
+        f"slots, {mb:.2f} MB); {plan}")
+    long_row = paged_long_row(gen, quant=True)
+    return {"max_abs_err": err, "max_row_rel_err": rel, **times,
+            "bound_ms": bms, "bound_by": by, **plan, "long_row": long_row}
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ library under ``build/kernels/`` at the repository root::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<stem>-<hash>.so csrc/<stem>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and a stale library is never loaded. All sources are
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and a
+stale library is never loaded. All sources are
 compiled in parallel (one ``nvcc`` process each). Each source has one
 entry point, named as the source, whose C signature is bound once (see
 :data:`ENTRY_POINTS`); :func:`launch` passes pointers and the CUDA stream
@@ -56,12 +57,12 @@ ENTRY_POINTS = {
     "flash_attention_bwd_fused": [_P] * 12 + [_I] * 5 + [_F, _P],
     # q, k, v, pos, pad, o, B, T, H, D, sm_scale, stream
     "decode_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
-    # q, k_pool, v_pool, block_tables, pos, pad, o, B, N, Bs, NB, H, D,
-    # sm_scale, stream
-    "paged_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
-    # q, k_pool, v_pool, k_scale, v_scale, block_tables, pos, pad, o, B, N,
-    # Bs, NB, H, D, sm_scale, stream
-    "paged_decode_attention_int8": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # q, k_pool, v_pool, block_tables, pos, pad, part, o, B, N, Bs, NB, H,
+    # D, per, splits, sm_scale, stream
+    "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, block_tables, pos, pad, part, o,
+    # B, N, Bs, NB, H, D, per, splits, sm_scale, stream
+    "paged_decode_attention_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
 }
 
 _lock = threading.Lock()
@@ -83,7 +84,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    """The library of ``src``, named by a hash of the source, the shared
+    headers of ``csrc/`` (``*.cuh``) and the flags."""
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

@@ -7,9 +7,13 @@ Row b's logical cache slot j lives in ``pool[block_tables[b, j // Bs],
 j % Bs]``; the row attends to the slots ``pad_b <= j <= pos_b``. A CPU
 tensor takes the plain version; a CUDA tensor takes the kernel or the call
 raises (no silent fallback). The kernel takes bf16 q [B, H, D] and
-contiguous bf16 pools [N, Bs, H, D], an int32 [B, NB] table and int32
-pos/pad, head dims 64 and 128, any block size, and up to 8192 logical
-slots per row (``NB * Bs``).
+contiguous, 16-byte aligned bf16 pools [N, Bs, H, D], an int32 [B, NB]
+table and int32 pos/pad, head dims 64 and 128, any block size, and any
+number of logical slots per row (``NB * Bs``) that int32 indexes. It is
+split-K: :func:`split_plan` cuts each row into splits, one CTA each, from
+the shapes and the card's SM count alone (never from ``pos``/``pad``, so
+no call waits on the card), and a second kernel merges each row's split
+partials, which the wrapper allocates.
 
 int8 pools carry one f32 scale per token slot (``k_scale``/``v_scale``
 [N, Bs], the reference's ``quant=True`` kernel): on CUDA tensors they
@@ -22,6 +26,7 @@ raises.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,7 +35,39 @@ from . import _build
 from .decode_attention import _rows, xla_decode_attention
 
 KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_MAX_SLOTS = 8192
+#: the kernels index slots, pos and pad, and number their CTAs, in int32
+INT32_MAX = 2**31 - 1
+#: logical slots a CTA of the kernels takes at once
+TILE = 64
+#: the plan gives each CTA one tile until the grid would pass this many CTAs
+#: per SM, then as many tiles as keep it there
+CTAS_PER_SM = 16
+#: the pools are read in 16-byte vectors
+POOL_ALIGN = 16
+
+
+def split_plan(b: int, h: int, slots: int, sms: int) -> tuple[int, int]:
+    """(per, splits) for a [B, H] query over rows of ``slots`` logical
+    slots on a card of ``sms`` SMs: each row is cut into ``splits`` runs of
+    ``per`` consecutive :data:`TILE`-slot tiles, one CTA each, so CTA
+    (b, h, i) takes slots ``[i * per * TILE, (i + 1) * per * TILE)`` of its
+    row (the last run may be cut by the row's end). ``per`` is 1 while the
+    ``b * h * tiles`` CTAs stay within ``CTAS_PER_SM * sms``, and grows to
+    keep them there beyond. Raises where the grid would pass int32 (the
+    wrapper has checked ``slots`` against it)."""
+    tiles = -(-slots // TILE)
+    per = max(1, -(-b * h * tiles // (CTAS_PER_SM * sms)))
+    splits = -(-tiles // per)
+    if b * h * splits > INT32_MAX:
+        raise ValueError(f"paged_decode_attention kernel numbers its CTAs "
+                         f"in int32: B x H x splits <= {INT32_MAX}, got "
+                         f"{b} x {h} x {splits}")
+    return per, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -85,7 +122,8 @@ def _check_scales(k_pool, v_pool, k_scale, v_scale) -> None:
 def _launch(q, k_pool, v_pool, bt, pos, pad, k_scale=None, v_scale=None):
     """Check the inputs against what the kernel takes and launch it: the
     bf16 kernel, or with scales the int8 kernel (each with its own launch
-    count). Raises instead of falling back."""
+    count: one per call, for the split kernel and the combine kernel it
+    runs). Raises instead of falling back."""
     n, bs, h, d = k_pool.shape
     b, nb = bt.shape
     quant = k_scale is not None
@@ -109,30 +147,29 @@ def _launch(q, k_pool, v_pool, bt, pos, pad, k_scale=None, v_scale=None):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"paged_decode_attention kernel takes head dim "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    if quant and (k_pool.data_ptr() % (d // 32)
-                  or v_pool.data_ptr() % (d // 32)):
-        raise ValueError(f"paged_decode_attention int8 kernel reads "
-                         f"{d // 32}-byte vectors: the pools must be "
-                         f"{d // 32}-byte aligned")
-    if nb * bs > KERNEL_MAX_SLOTS:
-        raise ValueError(
-            f"paged_decode_attention kernel keeps a row's scores in shared "
-            f"memory: blocks per row x block_size <= {KERNEL_MAX_SLOTS}, "
-            f"got {nb} x {bs}")
+    if k_pool.data_ptr() % POOL_ALIGN or v_pool.data_ptr() % POOL_ALIGN:
+        raise ValueError(f"paged_decode_attention kernel reads "
+                         f"{POOL_ALIGN}-byte vectors: the pools must be "
+                         f"{POOL_ALIGN}-byte aligned")
+    if nb * bs > INT32_MAX:
+        raise ValueError(f"paged_decode_attention kernel indexes slots in "
+                         f"int32: blocks per row x block_size <= "
+                         f"{INT32_MAX}, got {nb} x {bs}")
     if bt.dtype != torch.int32:
         raise TypeError(f"paged_decode_attention kernel takes int32 "
                         f"block_tables, got {bt.dtype}")
     if bt.device != q.device or not bt.is_contiguous():
         raise ValueError("paged_decode_attention kernel needs contiguous "
                          "block_tables on q's device")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"paged_decode_attention kernel grid takes B and H "
-                         f"<= 65535, got B={b} H={h}")
+    per, splits = split_plan(b, h, nb * bs, _sm_count(q.device))
     pos_b = _rows(pos, b, q.device).contiguous()
     pad_b = _rows(pad, b, q.device).contiguous()
+    part = torch.empty((b * h, splits, d + 2), dtype=torch.float32,
+                       device=q.device)              # each split's acc, m, l
     o = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    tail = (bt.data_ptr(), pos_b.data_ptr(), pad_b.data_ptr(), o.data_ptr(),
-            b, n, bs, nb, h, d, 1.0 / math.sqrt(d))
+    tail = (bt.data_ptr(), pos_b.data_ptr(), pad_b.data_ptr(),
+            part.data_ptr(), o.data_ptr(), b, n, bs, nb, h, d, per, splits,
+            1.0 / math.sqrt(d))
     if quant:
         _build.launch("paged_decode_attention_int8", q.device, q.data_ptr(),
                       k_pool.data_ptr(), v_pool.data_ptr(),

@@ -15,12 +15,15 @@ rows with n. Both sides round the probabilities and the output to bf16,
 so an element may differ by an ulp or two (one ulp is up to 2^-7 = 7.8e-3
 of it). The worst rows of ``chip_smoke.py``'s kernel phases on an H100
 are 8.0e-3 (flash) and 1.7e-3 (decode); the limits are a few times that.
-The paged kernel runs the decode kernel's arithmetic through its block
-tables; its worst row in ``chip_smoke.py`` is 6.5e-3 (one ulp), and its
-limit is 2e-2, as ``chip_smoke.py``'s. The int8 paged kernel follows the
-Pallas kernel's algebra (scales folded into the scores and the f32
-probabilities) where its plain version dequantizes to bf16 and rounds the
-probabilities to bf16: held to the same 2e-2. The flash backward kernels
+The paged kernel follows the Pallas float kernel's algebra, split-K:
+each split rounds its unnormalised probabilities exp(s - running max)
+to bf16 before the PV product and the f32 sum divides at the end, where
+the plain version rounds the normalised softmax; the two differ by bf16
+rounding, and its limit is 2e-2, as ``chip_smoke.py``'s. The int8 paged
+kernel follows the Pallas kernel's algebra (scales folded into the
+scores and the f32 probabilities) where its plain version dequantizes to
+bf16 and rounds the probabilities to bf16: held to the same 2e-2. The
+flash backward kernels
 (dq, and dk with dv, split or fused) round p and ds to bf16 before their
 products where the plain versions keep them in f32, and round their
 outputs to bf16: each
@@ -398,9 +401,10 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kt = kp.transpose(0, 1).contiguous().transpose(0, 1)
         pa.paged_decode_attention(q, kt, kt, block_tables=bt, pos=z, pad=z)
-    with pytest.raises(ValueError, match="8192"):
-        pa.paged_decode_attention(q, kp, kp, block_tables=torch.ones(
-            (2, 513), dtype=torch.int32, device=cuda), pos=z, pad=z)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        km = torch.zeros(kp.numel() + 1, dtype=kp.dtype, device=cuda)[1:]
+        km = km.view(kp.shape)
+        pa.paged_decode_attention(q, km, km, block_tables=bt, pos=z, pad=z)
 
 
 def _int8_case(gen, dev, **kw):
@@ -451,6 +455,96 @@ def test_int8_paged_kernel_empty_window_and_bad_block_id(cuda):
         pos=kw["pos"][ok], pad=kw["pad"][ok], k_scale=kw["k_scale"],
         v_scale=kw["v_scale"])
     assert _row_rel_err(o[ok], o_ref) <= PAGED_ROW_REL_TOL
+
+
+def _paged_any(gen, dev, quant, **kw):
+    """B5's inputs (:func:`_paged_case`) or, quantized, B6's
+    (:func:`_int8_case`)."""
+    return (_int8_case if quant else _paged_case)(gen, dev, **kw)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_take_a_16384_slot_row(cuda, quant):
+    """No cap on a row's slots: 8 rows of 16,384 (the split-K kernels keep
+    no score past its tile), against the plain version."""
+    gen = torch.Generator().manual_seed(11 + quant)
+    q, k, v, kw = _paged_any(gen, cuda, quant, nb=1024)
+    o = pa.paged_decode_attention(q, k, v, **kw)
+    o_ref = pa.xla_paged_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_kernels_are_deterministic(cuda, quant, d):
+    """The split partials are merged in split order, never with atomics:
+    two launches on the same inputs are bitwise equal."""
+    gen = torch.Generator().manual_seed(13 * d + quant)
+    q, k, v, kw = _paged_any(gen, cuda, quant, d=d)
+    o1 = pa.paged_decode_attention(q, k, v, **kw)
+    o2 = pa.paged_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+
+
+# (pad, pos) per row: edges inside 64-slot tiles and across them, and rows
+# with one live slot at a tile's last slot, its first, inside it, and the
+# row's first
+MID_TILE_WINDOWS = [(5, 70), (63, 63), (64, 64), (300, 300), (17, 639),
+                    (0, 0), (100, 130), (630, 638)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,h,nb", [(8, 12, 40), (8, 12, 160), (2, 2, 40)])
+def test_paged_kernels_cut_the_window_mid_tile(cuda, quant, b, h, nb):
+    """Tile and split edges cut the live window. 640-slot rows give each
+    CTA one tile; on an H100 (132 SMs) 2,560-slot rows give each CTA two,
+    so windows also start in a CTA's second tile, cross split edges and
+    carry the running max from one tile to the next."""
+    gen = torch.Generator().manual_seed(17 * b + h + nb + quant)
+    q, k, v, kw = _paged_any(gen, cuda, quant, b=max(b, 4), h=h, nb=nb)
+    q = q[:b].contiguous()
+    pad, pos = (torch.tensor(w, dtype=torch.int32, device=cuda)
+                for w in zip(*MID_TILE_WINDOWS[:b]))
+    bt = kw["block_tables"][:b].clone()
+    bt[bt == 0] = 1                     # every block of the row is real
+    kw.update(block_tables=bt, pos=pos, pad=pad)
+    o = pa.paged_decode_attention(q, k, v, **kw)
+    o_ref = pa.xla_paged_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_with_most_splits_empty(cuda, quant):
+    """Short windows in 4,096-slot rows, the table outside them on the
+    null block 0: most splits hold no live slot and write the empty
+    partial. Against the plain version, and bitwise against themselves
+    with NaN bytes (and, int8, NaN scales) in the null block."""
+    gen = torch.Generator().manual_seed(19 + quant)
+    bs, nb = 16, 256
+    q, k, v, kw = _paged_any(gen, cuda, quant, nb=nb)
+    pad = torch.randint(0, nb * bs - 40, (8,), generator=gen,
+                        dtype=torch.int32)
+    pos = pad + torch.randint(0, 40, (8,), generator=gen, dtype=torch.int32)
+    bt = kw["block_tables"].cpu()
+    bt[bt == 0] = 1                     # the new windows' blocks are real
+    blk = torch.arange(nb)
+    for row in range(8):
+        bt[row, (blk > pos[row] // bs) | (blk < pad[row] // bs)] = 0
+    kw.update(block_tables=bt.to(cuda), pos=pos.to(cuda), pad=pad.to(cuda))
+    o = pa.paged_decode_attention(q, k, v, **kw)
+    o_ref = pa.xla_paged_decode_attention(q, k, v, **kw)
+    if quant:
+        k[0], v[0] = 127, -128
+        kw["k_scale"][0] = kw["v_scale"][0] = float("nan")
+    else:
+        k[0] = v[0] = float("nan")
+    o_nan = pa.paged_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_nan)
+    assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
 
 
 def test_int8_paged_kernel_refuses_what_it_does_not_take(cuda):

@@ -106,19 +106,25 @@ def _inputs(dtype=torch.bfloat16, d=64, nb=4, bs=16, bt_dtype=torch.int32):
 @pytest.mark.parametrize("case,exc,match", [
     (dict(dtype=torch.float32), TypeError, "bf16"),
     (dict(d=32), ValueError, "head dim"),
-    (dict(nb=513), ValueError, "8192"),
+    ("rows_past_int32", ValueError, "2147483647"),
+    ("misaligned", ValueError, "16-byte aligned"),
     (dict(bt_dtype=torch.int64), TypeError, "int32"),
     ("strided", ValueError, "contiguous"),
 ])
 def test_kernel_refuses_what_it_does_not_take(case, exc, match):
     """The kernel's checks, which run before its build and launch: a CUDA
-    tensor of these kinds raises instead of falling back."""
+    tensor of these kinds raises instead of falling back. A row may hold
+    any number of slots that int32 indexes (the split-K kernel keeps no
+    score past its tile), and the pools are read in 16-byte vectors."""
+    q, kp, vp, bt, pos, pad = _inputs(**(case if isinstance(case, dict)
+                                         else {}))
     if case == "strided":
-        q, kp, vp, bt, pos, pad = _inputs()
         kp = kp.transpose(0, 1).contiguous().transpose(0, 1)
         vp = kp
-    else:
-        q, kp, vp, bt, pos, pad = _inputs(**case)
+    if case == "misaligned":            # one bf16 off the 16-byte loads
+        kp = torch.zeros(kp.numel() + 1, dtype=kp.dtype)[1:].view(kp.shape)
+    if case == "rows_past_int32":       # 2^27 + 1 blocks of 16, no memory
+        bt = torch.ones((2, 1), dtype=torch.int32).expand(2, 2**27 + 1)
     with pytest.raises(exc, match=match):
         tpa._launch(q, kp, vp, bt, pos, pad)
 
@@ -144,3 +150,40 @@ def test_wrapper_argument_checks():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tpa.paged_decode_attention(*meta, block_tables=bt.to("meta"),
                                    pos=pos, pad=pad)
+
+
+# the split plan: pure Python, from the shapes and the SM count alone
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,h,slots", [
+    (8, 12, 640), (1, 12, 640), (2, 2, 64), (3, 5, 1), (8, 12, 16384),
+    (1, 1, 1000003), (4, 16, 4095), (64, 32, 8191)])
+def test_split_plan_tiles_each_row_once(b, h, slots):
+    per, splits = tpa.split_plan(b, h, slots, H100_SMS)
+    run = per * tpa.TILE                # slots of one split
+    hits = np.zeros(slots, np.int64)
+    for i in range(splits):             # CTA (b, h, i) takes [i * run, ...)
+        hits[i * run:(i + 1) * run] += 1
+    assert (hits == 1).all()
+    assert (splits - 1) * run < slots   # no CTA starts past the row
+    target = tpa.CTAS_PER_SM * H100_SMS
+    assert per == 1 or splits <= -(-target // (b * h))
+
+
+def test_split_plan_fills_the_card():
+    """The engine's decode step (8 rows, 12 heads, 640 slots) gets one
+    64-slot tile a CTA: 960 CTAs, over twice the H100's 132 SMs. A
+    16,384-slot row is planned like any other: its 256 tiles go 12 to a
+    CTA, 2,112 CTAs (16 per SM)."""
+    assert tpa.split_plan(8, 12, 640, H100_SMS) == (1, 10)
+    assert 8 * 12 * 10 >= 2 * H100_SMS
+    assert tpa.split_plan(1, 12, 640, H100_SMS) == (1, 10)
+    assert tpa.split_plan(8, 12, 16384, H100_SMS) == (12, 22)
+    assert 8 * 12 * 22 == tpa.CTAS_PER_SM * H100_SMS
+
+
+def test_split_plan_refuses_a_grid_past_int32():
+    assert tpa.split_plan(2**15, 2**15, 2**10, H100_SMS)[1] == 1
+    with pytest.raises(ValueError, match="splits"):
+        tpa.split_plan(2**16, 2**15, 2**10, H100_SMS)

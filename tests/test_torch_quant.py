@@ -276,9 +276,10 @@ def _kernel_inputs(d=64, bs=16, nb=4, q_dtype=torch.bfloat16,
     (dict(q_dtype=torch.float32), TypeError, "bf16 q"),
     (dict(pool_dtype=torch.uint8), TypeError, "int8 k_pool"),
     ("misaligned", ValueError, "aligned"),
+    ("misaligned_by_8", ValueError, "16-byte aligned"),
     ("strided_scale", ValueError, "contiguous k_scale"),
     (dict(d=32), ValueError, "head dim"),
-    (dict(nb=513), ValueError, "8192"),
+    ("rows_past_int32", ValueError, "2147483647"),
 ])
 def test_int8_kernel_refuses_what_it_does_not_take(case, exc, match):
     """Kernel B6's checks, which run before its build and launch: a CUDA
@@ -287,8 +288,12 @@ def test_int8_kernel_refuses_what_it_does_not_take(case, exc, match):
         **(case if isinstance(case, dict) else {}))
     if case == "strided_scale":
         ks = torch.ones((16, 9)).t()
-    if case == "misaligned":            # one byte off the 2-byte loads
-        kp = torch.zeros(kp.numel() + 1, dtype=torch.int8)[1:].view(kp.shape)
+    if case in ("misaligned", "misaligned_by_8"):  # off the 16-byte loads
+        off = 1 if case == "misaligned" else 8
+        kp = torch.zeros(kp.numel() + off, dtype=torch.int8)[off:].view(
+            kp.shape)
+    if case == "rows_past_int32":       # 2^27 + 1 blocks of 16, no memory
+        bt = torch.ones((2, 1), dtype=torch.int32).expand(2, 2**27 + 1)
     with pytest.raises(exc, match=match):
         tpa._launch(q, kp, vp, bt, pos, pad, ks, vs)
 
