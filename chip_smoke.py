@@ -12,11 +12,13 @@ path.
 Needs one CUDA card and ``nvcc`` (``/usr/local/cuda``). Prints, in order:
 the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
-kernel (error against the plain version, kernel / plain / library time,
+kernel (error against the plain version; kernel, plain and library time
+on the device through ``torch.profiler`` and per call on CUDA events;
 the roofline bound; the flash backward's dq and dk/dv kernels and its
-fused kernel, bitwise against them; the split-K paged kernel over bf16
-and over int8 pools, bitwise from launch to launch, timed on the device
-through ``torch.profiler`` beside SDPA and over 16,384-slot rows), the
+fused kernel, bitwise against them; the split-K slab decode kernel at
+both head dims, over empty and mid-tile windows and over 16,384-slot
+rows; the split-K paged kernel over bf16 and over int8 pools and over
+16,384-slot rows; each split-K kernel bitwise from launch to launch), the
 training phase (one step's grads through the flash
 kernels against the plain attention's, then 20 AdamW steps of
 full-width GPT-small through ``SyncReplicas`` with launch counts, the
@@ -239,9 +241,30 @@ def device_ms(fn, sets: list[tuple], iters: int = 48, warmup: int = 4,
         by_kernel.update({e.key: _device_us(e) / iters / 1e3
                           for e in events})
     if total <= 0:
-        raise SystemExit("torch.profiler saw no device time: the paged "
-                         "kernels' device times cannot be measured")
+        raise SystemExit("torch.profiler saw no device time: the kernels' "
+                         "device times cannot be measured")
     return total / iters / 1e3
+
+
+def kernel_times(kernel, sets: list[tuple], library, lib_sets: list[tuple],
+                 iters: int = 48, by_kernel: dict | None = None) -> dict:
+    """A kernel's time and that of its one-call library yardstick, each on
+    the device (:func:`device_ms`, every kernel of a call summed: ``ms``,
+    ``library_ms``) and per call on CUDA events (:func:`cuda_ms`, which
+    also pays the call's host work: ``call_ms``, ``library_call_ms``).
+    ``by_kernel`` gets the kernel's parts by name."""
+    return {"ms": device_ms(kernel, sets, iters=iters, by_kernel=by_kernel),
+            "call_ms": cuda_ms(kernel, sets, iters=iters),
+            "library_ms": device_ms(library, lib_sets, iters=iters),
+            "library_call_ms": cuda_ms(library, lib_sets, iters=iters)}
+
+
+def short_names(parts: dict) -> dict:
+    """Kernel names as ``torch.profiler`` reports them, cut to the
+    function's name (``void paged::split_kernel<64, false>(...)`` ->
+    ``split_kernel``)."""
+    return {re.sub(r"^void (?:\(anonymous namespace\)|paged)::(\w+)<.*",
+                   r"\1", k): v for k, v in parts.items()}
 
 
 def row_rel_err(o: torch.Tensor, o_ref: torch.Tensor) -> float:
@@ -356,20 +379,21 @@ def flash_case(s: int, gen, timed: bool) -> dict:
               + b * s * 4 + b * h * s * 4)           # mask in; lse out
     bms, by = bound(flops, nbytes)
     sets = cold_sets((q, k, v, mask))
-    kms = cuda_ms(lambda *a: fa.flash_attention_fwd(*a, causal=True), sets)
-    pms = cuda_ms(lambda *a: fa.flash_attention_fwd_plain(*a, causal=True),
-                  sets, iters=8)
     causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
     amask = (causal[None] & (mask[:, None, :] != 0))[:, None]  # [B,1,S,S]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lms = cuda_ms(lambda q_, k_, v_, _: sdpa(          # [B,H,S,D] views
-        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
-        attn_mask=amask), sets)
-    log(f"[flash S={s}] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, "
-        f"library_ms (sdpa) {lms:.4f}, bound_ms {bms:.4f} "
-        f"({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    rec.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-               bound_by=by)
+    t = kernel_times(
+        lambda *a: fa.flash_attention_fwd(*a, causal=True), sets,
+        lambda q_, k_, v_, _: sdpa(                     # [B,H,S,D] views
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            attn_mask=amask), sets)
+    pms = device_ms(lambda *a: fa.flash_attention_fwd_plain(
+        *a, causal=True), sets, iters=8)
+    log(f"[flash S={s}] device ms: kernel {t['ms']:.4f}, plain {pms:.4f}, "
+        f"sdpa {t['library_ms']:.4f}; per call on CUDA events: kernel "
+        f"{t['call_ms']:.4f}, sdpa {t['library_call_ms']:.4f}; bound_ms "
+        f"{bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    rec.update(**t, plain_ms=pms, bound_ms=bms, bound_by=by)
     return rec
 
 
@@ -429,7 +453,7 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
     act = b * s * h * d * 2                       # one bf16 [B,S,H,D]
     rows = 2 * b * h * s * 4 + b * s * 4          # lse, Dsum, mask
     sets = cold_sets(args)
-    lms = sdpa_bwd_ms(sets, mask, causal=True)
+    library, lib_sets = sdpa_bwd(sets, mask, causal=True)
     for rec, stem, matmuls, outs in ((recs[0], "dq", 3, 1),
                                      (recs[1], "dkv", 4, 2)):
         fn = getattr(fa, f"flash_attention_bwd_{stem}")
@@ -437,22 +461,25 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
         flops = 2.0 * matmuls * d * h * live_pairs
         nbytes = (4 + outs) * act + rows     # q, k, v, dO in; grads out
         bms, by = bound(flops, nbytes)
-        kms = cuda_ms(lambda *a: fn(*a, causal=True), sets)
-        pms = cuda_ms(lambda *a: plain(*a, causal=True), sets, iters=8)
-        log(f"[flash bwd S={s}] {stem}: kernel_ms {kms:.4f}, plain_ms "
-            f"{pms:.4f}, library_ms (sdpa backward: dq, dk, dv) {lms:.4f}, "
+        t = kernel_times(lambda *a: fn(*a, causal=True), sets, library,
+                         lib_sets)
+        pms = device_ms(lambda *a: plain(*a, causal=True), sets, iters=8)
+        log(f"[flash bwd S={s}] {stem}: device ms: kernel {t['ms']:.4f}, "
+            f"plain {pms:.4f}, sdpa backward (dq, dk, dv) "
+            f"{t['library_ms']:.4f}; per call on CUDA events: kernel "
+            f"{t['call_ms']:.4f}, sdpa backward {t['library_call_ms']:.4f}; "
             f"bound_ms {bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.2f} MB)")
-        rec.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                   bound_by=by)
+        rec.update(**t, plain_ms=pms, bound_ms=bms, bound_by=by)
     return recs[0], recs[1]
 
 
-def sdpa_bwd_ms(sets: list[tuple], mask: torch.Tensor,
-                causal: bool) -> float:
-    """SDPA's backward (one call computing dq, dk and dv) through autograd
-    on a retained graph, so that only the backward is timed, over the
-    (q, k, v, dO, ...) ``sets`` with the [B, S] key ``mask``."""
+def sdpa_bwd(sets: list[tuple], mask: torch.Tensor,
+             causal: bool) -> tuple:
+    """(fn, sets) that time SDPA's backward (one call computing dq, dk and
+    dv) through autograd on a retained graph, so that only the backward
+    runs, over the (q, k, v, dO, ...) ``sets`` with the [B, S] key
+    ``mask``."""
     s = mask.shape[1]
     amask = (mask[:, None, :] != 0)[:, None]                 # [B,1,1,S]
     if causal:
@@ -465,8 +492,8 @@ def sdpa_bwd_ms(sets: list[tuple], mask: torch.Tensor,
                   for x in (q_, k_, v_)]
         graphs.append((sdpa(*leaves, attn_mask=amask), leaves,
                        do_.transpose(1, 2)))
-    return cuda_ms(lambda o_, leaves, do_: torch.autograd.grad(
-        o_, leaves, do_, retain_graph=True), graphs)
+    return (lambda o_, leaves, do_: torch.autograd.grad(
+        o_, leaves, do_, retain_graph=True)), graphs
 
 
 def flash_bwd_fused_case(b: int, s: int, causal: bool, gen,
@@ -540,22 +567,31 @@ def flash_bwd_fused_case(b: int, s: int, causal: bool, gen,
     nbytes = 7 * act + 2 * b * h * s * 4 + b * s * 4  # q,k,v,dO; dq,dk,dv
     bms, by = bound(flops, nbytes)
     sets = cold_sets(args)
-    kms = cuda_ms(lambda *a: fa.flash_attention_bwd_fused(
-        *a, causal=causal), sets)
-    split_ms = cuda_ms(lambda *a: (
-        fa.flash_attention_bwd_dq(*a, causal=causal),
-        fa.flash_attention_bwd_dkv(*a, causal=causal)), sets)
-    kms2 = cuda_ms(lambda *a: fa.flash_attention_bwd_fused(
-        *a, causal=causal), sets)
-    pms = cuda_ms(lambda *a: fa.flash_attention_bwd_fused_plain(
+
+    def fused(*a):
+        return fa.flash_attention_bwd_fused(*a, causal=causal)
+
+    def split(*a):
+        return (fa.flash_attention_bwd_dq(*a, causal=causal),
+                fa.flash_attention_bwd_dkv(*a, causal=causal))
+
+    library, lib_sets = sdpa_bwd(sets, mask, causal)
+    parts = {}
+    t = kernel_times(fused, sets, library, lib_sets, by_kernel=parts)
+    split_ms = device_ms(split, sets)
+    split_call_ms = cuda_ms(split, sets)
+    again = device_ms(fused, sets)
+    pms = device_ms(lambda *a: fa.flash_attention_bwd_fused_plain(
         *a, causal=causal), sets, iters=8)
-    lms = sdpa_bwd_ms(sets, mask, causal)
-    log(f"{label} kernel_ms {kms:.4f} (again {kms2:.4f}), B2a + B2b "
-        f"{split_ms:.4f}, plain_ms {pms:.4f}, library_ms (sdpa backward: "
-        f"dq, dk, dv) {lms:.4f}, bound_ms {bms:.4f} ({by}: "
-        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    rec.update(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-               bound_by=by)
+    log(f"{label} device ms: kernel {t['ms']:.4f} (again {again:.4f}; "
+        f"{fmt_ms(short_names(parts))}), B2a + B2b {split_ms:.4f}, plain "
+        f"{pms:.4f}, sdpa backward (dq, dk, dv) {t['library_ms']:.4f}; per "
+        f"call on CUDA events: kernel {t['call_ms']:.4f}, B2a + B2b "
+        f"{split_call_ms:.4f}, sdpa backward {t['library_call_ms']:.4f}; "
+        f"bound_ms {bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB)")
+    rec.update(**t, plain_ms=pms, split_ms=split_ms,
+               split_call_ms=split_call_ms, bound_ms=bms, bound_by=by)
     return rec
 
 
@@ -580,57 +616,131 @@ def phase_flash_bwd(gen) -> tuple[dict, dict]:
     return dq, dkv
 
 
-def phase_decode(gen) -> dict:
-    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
-        decode_attention as da
+def decode_inputs(gen, d: int = DECODE_SHAPE["d"],
+                  t: int = DECODE_SHAPE["t"]) -> tuple:
+    """B4's inputs at the decode step's shape (B=8, H=12): random slabs,
+    per-row pads up to 127 and pos in the last 128 slots, row 0's window
+    the whole row."""
     dev = torch.device("cuda")
-    b, t, h, d = (DECODE_SHAPE[x] for x in ("b", "t", "h", "d"))
+    b, h = DECODE_SHAPE["b"], DECODE_SHAPE["h"]
     q = torch.randn((b, h, d), generator=gen).to(dev, torch.bfloat16)
     k, v = (torch.randn((b, t, h, d), generator=gen).to(
         dev, torch.bfloat16) for _ in range(2))
     pad = torch.randint(0, 128, (b,), generator=gen, dtype=torch.int32)
     pos = torch.randint(t - 128, t, (b,), generator=gen, dtype=torch.int32)
     pad[0], pos[0] = 0, t - 1                  # one full-window row
-    pad, pos = pad.to(dev), pos.to(dev)
-    t_odd = t - 27               # odd cache length: no T % 128 gate here
-    k_odd, v_odd = k[:, :t_odd].contiguous(), v[:, :t_odd].contiguous()
-    err = rel = 0.0
-    for name, args, p in (("[B] pos", (k, v), pos),
-                          ("scalar pos", (k, v), t - 1),
-                          (f"T={t_odd}", (k_odd, v_odd), t_odd - 1)):
-        o = da.decode_attention(q, *args, pos=p, pad=pad)
-        o_ref = da.xla_decode_attention(q, *args, pos=p, pad=pad)
-        torch.cuda.synchronize()
-        e = (o.float() - o_ref.float()).abs().max().item()
-        r = row_rel_err(o, o_ref)
-        log(f"[decode {name}] worst row max|o - plain| / max|plain| "
-            f"{r:.3e} (tol {DECODE_ROW_REL_TOL}; max abs err {e:.3e})")
-        err, rel = max(err, e), max(rel, r)
-    if rel > DECODE_ROW_REL_TOL:
-        raise SystemExit("decode_attention disagrees with its plain version")
-    live = int((pos - pad + 1).sum())
-    flops = 4.0 * h * d * live
-    nbytes = (2 * live * h * d * 2                   # live K and V rows
-              + 2 * b * h * d * 2 + 2 * b * 4)       # q in, o out; pos, pad
-    bms, by = bound(flops, nbytes)
-    sets = cold_sets((q, k, v))
-    kms = cuda_ms(lambda *a: da.decode_attention(*a, pos=pos, pad=pad),
-                  sets, iters=192)
-    pms = cuda_ms(lambda *a: da.xla_decode_attention(*a, pos=pos, pad=pad),
-                  sets)
-    slots = torch.arange(t, device=dev)
+    return q, k, v, pos.to(dev), pad.to(dev)
+
+
+def decode_check(name: str, q, k, v, pos, pad, empty=()) -> tuple:
+    """B4 against its plain version (rows outside ``empty``: worst row
+    within DECODE_ROW_REL_TOL), against itself (two launches bitwise
+    equal), and the rows in ``empty`` (pad > pos) exactly zero. Returns
+    (max abs err, worst row)."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        decode_attention as da
+    o = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    again = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    live = torch.ones(q.shape[0], dtype=torch.bool)
+    live[list(empty)] = False
+    e = (o[live].float() - o_ref[live].float()).abs().max().item()
+    r = row_rel_err(o[live], o_ref[live])
+    det = torch.equal(o, again)
+    zero = o[~live].float().abs().max().item() if empty else 0.0
+    ok = r <= DECODE_ROW_REL_TOL and det and zero == 0
+    log(f"[decode {name}] worst row max|o - plain| / max|plain| {r:.3e} "
+        f"(tol {DECODE_ROW_REL_TOL}; max abs err {e:.3e}); two launches "
+        f"bitwise equal {det}"
+        + (f"; empty windows max|o| {zero} (must be 0)" if empty else "")
+        + f": {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"decode_attention disagrees with its plain "
+                         f"version or itself: {name}")
+    return e, r
+
+
+def decode_times(q, k, v, pos, pad, sets: list[tuple],
+                 plain: bool) -> dict:
+    """B4 and SDPA (over the slabs' [B, H, T, D] views, the live window as
+    its mask) on the device and per call (:func:`kernel_times`), the plain
+    version on the device, the split plan and the bound: the live K and V
+    rows read once, q read and o written once, pos and pad."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        decode_attention as da
+    b, t, h, d = k.shape
+    slots = torch.arange(t, device=k.device)
     amask = ((slots[None, :] <= pos[:, None])
              & (slots[None, :] >= pad[:, None]))[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lms = cuda_ms(lambda q_, k_, v_: sdpa(             # [B,H,T,D] views
-        q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
-        attn_mask=amask), sets, iters=192)
-    log(f"[decode] kernel_ms {kms:.4f}, plain_ms {pms:.4f}, library_ms "
-        f"(sdpa) {lms:.4f}, bound_ms {bms:.4f} ({by}: {live} live "
-        f"slots of {b * t}, {nbytes / 1e6:.2f} MB)")
-    return {"max_abs_err": err, "max_row_rel_err": rel, "ms": kms,
-            "plain_ms": pms,
-            "library_ms": lms, "bound_ms": bms, "bound_by": by}
+
+    def kernel(q_, k_, v_):
+        return da.decode_attention(q_, k_, v_, pos=pos, pad=pad)
+
+    def library(q_, k_, v_):
+        return sdpa(q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                    attn_mask=amask)
+
+    parts = {}
+    out = kernel_times(kernel, sets, library, sets, iters=192,
+                       by_kernel=parts)
+    out["kernels_ms"] = short_names(parts)  # scores, PV, combine
+    if plain:
+        out["plain_ms"] = device_ms(lambda *a: da.xla_decode_attention(
+            *a, pos=pos, pad=pad), sets, iters=8)
+    live = int((pos - pad + 1).sum())
+    out["bound_ms"], out["bound_by"] = bound(
+        4.0 * h * d * live, 2 * live * h * d * 2 + 2 * b * h * d * 2 + 8 * b)
+    per, splits = da.split_plan(
+        b, h, t, torch.cuda.get_device_properties(0).multi_processor_count)
+    out.update(splits=splits, tiles_per_split=per)
+    log(f"[decode T={t}] device ms: kernel {out['ms']:.4f} "
+        f"({fmt_ms(out['kernels_ms'])})"
+        + (f", plain {out['plain_ms']:.4f}" if plain else "")
+        + f", sdpa {out['library_ms']:.4f}; per call on CUDA events: kernel "
+        f"{out['call_ms']:.4f}, sdpa {out['library_call_ms']:.4f}; bound_ms "
+        f"{out['bound_ms']:.4f} ({out['bound_by']}: {live} live slots of "
+        f"{b * t}); {splits} splits of {per} tiles")
+    return out
+
+
+# (pad, pos) per row of the windows case: empty (pad > pos) on rows 1 and
+# 7, edges inside 64-slot tiles and across them, one live slot at a tile's
+# last slot and at the next tile's first
+DECODE_WINDOWS = [(0, 639), (300, 299), (5, 70), (63, 63), (64, 64),
+                  (17, 639), (100, 130), (640, 639)]
+
+
+def phase_decode(gen) -> dict:
+    """B4 (split-K) against its plain version and itself at the decode
+    step's shape: [B] pos, scalar pos, odd T, D=128, windows that are
+    empty or cut mid-tile, and 8 rows of 16,384 slots; timed at the decode
+    step's shape and over the long rows."""
+    b, t = DECODE_SHAPE["b"], DECODE_SHAPE["t"]
+    q, k, v, pos, pad = decode_inputs(gen)
+    t_odd = t - 27               # odd cache length: no T % 128 gate here
+    k_odd, v_odd = k[:, :t_odd].contiguous(), v[:, :t_odd].contiguous()
+    win_pad, win_pos = (torch.tensor(w, dtype=torch.int32, device=q.device)
+                        for w in zip(*DECODE_WINDOWS))
+    results = [decode_check("[B] pos", q, k, v, pos, pad),
+               decode_check("scalar pos", q, k, v, t - 1, pad),
+               decode_check(f"T={t_odd}", q, k_odd, v_odd, t_odd - 1, pad),
+               decode_check("windows", q, k, v, win_pos, win_pad,
+                            empty=(1, 7))]
+    del k_odd, v_odd
+    results.append(decode_check("D=128", *decode_inputs(gen, d=128)))
+    rec = decode_times(q, k, v, pos, pad, cold_sets((q, k, v)), plain=True)
+    del q, k, v
+    long_in = decode_inputs(gen, t=PAGED_LONG_NB * PAGED_SHAPE["bs"])
+    e, r = decode_check(f"{b} rows of {long_in[1].shape[1]} slots",
+                        *long_in)
+    results.append((e, r))
+    long_row = decode_times(*long_in, [long_in[:3]], plain=False)
+    long_row.update(slots=long_in[1].shape[1], max_row_rel_err=r)
+    return {"max_abs_err": max(e for e, _ in results),
+            "max_row_rel_err": max(r for _, r in results), **rec,
+            "long_row": long_row}
 
 
 def paged_inputs(gen, d: int, nb: int = PAGED_SHAPE["nb"]) -> dict:
@@ -695,17 +805,13 @@ def paged_times(kernel, plain, slab, sets: list[tuple], amask) -> dict:
 
     slab_sets = [slab(*a) for a in sets]
     parts = {}
-    out = {"ms": device_ms(kernel, sets, iters=192, by_kernel=parts),
-           "call_ms": cuda_ms(kernel, sets, iters=192),
-           "library_ms": device_ms(library, slab_sets, iters=192),
-           "library_call_ms": cuda_ms(library, slab_sets, iters=192),
-           "library_gather_ms": device_ms(lambda *a: library(*slab(*a)),
-                                          sets, iters=192)}
+    out = kernel_times(kernel, sets, library, slab_sets, iters=192,
+                       by_kernel=parts)
+    out["library_gather_ms"] = device_ms(lambda *a: library(*slab(*a)),
+                                         sets, iters=192)
     if plain is not None:
         out["plain_ms"] = device_ms(plain, sets)
-    # the split and combine kernels' shares (their names carry "paged::")
-    out["kernels_ms"] = {re.sub(r"^void paged::(\w+)<.*", r"\1", k): v
-                         for k, v in parts.items()}
+    out["kernels_ms"] = short_names(parts)  # the split and combine kernels
     return out
 
 

@@ -27,7 +27,10 @@
 // ~44 MB (q, k, v, dO read once, dq, dk, dv written once): ~150 FLOP/byte,
 // below the bf16 ridge of ~295 FLOP/byte, so device memory bounds it. The
 // dq round trips through dq_acc (an f32 [64, D] tile read and written per
-// pair) add traffic that mostly stays in the 50 MB L2.
+// pair) add traffic that mostly stays in the 50 MB L2. In practice the
+// kernel is bound by neither: it holds ~250 registers a thread (2 CTAs, 8
+// warps, an SM) and issues mma.sync, full-precision expf and the shared
+// loads that feed them with little to hide their latency.
 //
 // Design: B2b's structure, with dq added. One CTA of 4 warps per (64-key
 // tile, b*h); each warp owns 16 keys. K and V are staged once into mma.sync
@@ -36,33 +39,58 @@
 // the causal diagonal (or the first tile) to the end; per tile it computes
 // S^T = K Q^T and dP^T = V dO^T, forms p^T and ds^T in f32 registers, and
 // adds dv += p^T dO and dk += ds^T Q into f32 registers, exactly as B2b does,
-// so dk and dv are B2b's bit for bit.
+// so dk and dv are B2b's bit for bit. Every mma.sync product, its operands
+// and the order in which dq, dk and dv accumulate are those of the split
+// pair; what is built around them:
+//
+// - A two-stage ring: the next query tile's Q, dO, L and D rows are copied
+//   with cp.async into the second shared-memory stage while the current
+//   tile computes (one cp.async group per tile; ~82 KB of dynamic shared
+//   memory a CTA at D = 64).
+// - Operands through ldmatrix: the B fragments of the five products (rows
+//   of Q, dO or K, plain or transposed) are loaded four 8x8 matrices at a
+//   time with ldmatrix(.trans), and ds^T is stored transposed with
+//   stmatrix.trans. A B fragment of a transposed operand is otherwise four
+//   16-bit loads and two shifts; these move the same bf16 values into the
+//   same registers, so no product changes, with ~4x fewer shared-memory
+//   instructions.
 //
 // dq needs ds with queries as rows, the transpose of what the registers
-// hold: the bf16 ds^T tile is stored transposed to shared memory and read
-// back as A-fragments in B2a's layout (one shared round trip per pair).
-// dq for a query tile collects one contribution per live key tile, from as
-// many CTAs. They are ordered, not atomic (f32 atomics would make dq differ
-// from run to run): per (b*h, query tile) an int32 counter in device memory
-// holds the number of key tiles that have contributed. The CTA of key tile
-// kt waits until it reads kt (its position among the tile's live key tiles,
-// which are 0, 1, ... in ascending order), loads the f32 dq fragment from
-// dq_acc (bypassing L1), chains onto it the same mma.sync products, in the
-// same kk order, that B2a chains onto its register accumulator for that key
-// tile, stores it, fences, and bumps the counter. The last contributor (key
-// tile min(nk, qt + 1) - 1 when causal, nk - 1 otherwise) rounds the
-// fragment to bf16 and writes dq instead. So dq is B2a's sum in B2a's order,
-// and equals it bit for bit wherever the transposed products S^T and dP^T
-// equal B2a's S and dP bit for bit.
+// hold: the bf16 ds^T tile is stored transposed into a ring of shared-memory
+// slots and read back as A-fragments in B2a's layout. dq for a query tile
+// collects one contribution per live key tile, from as many CTAs. They are
+// ordered, not atomic (f32 atomics would make dq differ from run to run):
+// per (b*h, query tile) an int32 counter in device memory holds the number
+// of key tiles that have contributed. The CTA of key tile kt may chain its
+// contribution to query tile qt once the counter reads kt (its position
+// among the tile's live key tiles, which are 0, 1, ... in ascending order):
+// it loads the f32 dq fragment from dq_acc (bypassing L1), chains onto it
+// the same mma.sync products, in the same kk order, that B2a chains onto its
+// register accumulator for that key tile, stores it, fences, and bumps the
+// counter. The last contributor (key tile min(nk, qt + 1) - 1 when causal,
+// nk - 1 otherwise) rounds the fragment to bf16 and writes dq instead. So dq
+// is B2a's sum in B2a's order, and equals it bit for bit wherever the
+// transposed products S^T and dP^T equal B2a's S and dP bit for bit.
+//
+// The chain does not idle the CTA: a query tile whose counter is not yet kt
+// keeps its ds^T in its ring slot (RING slots: 4 at D = 64, 2 at D = 128)
+// and the CTA goes on to the next query tile's S^T, dP^T, dk and dv. After
+// each tile it chains the pending tiles, oldest first, while their counters
+// allow; it waits on a counter only when the ring is full (to free the
+// oldest slot) and after the last tile (to drain the ring). Each query
+// tile still receives its contributions in ascending kt order, since the
+// counter admits only key tile kt after kt - 1.
 //
 // Deadlock: a CTA must never wait on one that has not started, since a
 // spinning CTA holds its SM slot. Each CTA therefore takes a ticket from an
 // atomic counter at entry and maps the ticket, not blockIdx, to its work:
-// ticket t -> key tile t / (B*H), b*h t % (B*H). A CTA waits only on CTAs of
-// the same b*h with smaller key tiles, which hold smaller tickets, so they
-// took theirs before it did and are running; the smallest ticket still
-// running waits on no one, so every CTA finishes. Loads are synchronous (no
-// cp.async, TMA or wgmma yet).
+// ticket t -> key tile t / (B*H), b*h t % (B*H). A CTA waits only on the
+// counters of its own b*h, which key tiles kt' < kt advance; their CTAs hold
+// smaller tickets, so they took theirs before it did and are running. Key
+// tile 0 never waits (every counter starts at 0), and a CTA of key tile kt
+// that waits needs only key tile kt - 1 to chain the same query tile, which
+// it does without waiting on any larger key tile. By induction on kt every
+// CTA finishes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,12 +102,21 @@ constexpr int BQ = 64;        // queries per shared-memory tile
 constexpr int BK = 64;        // keys per CTA (4 warps x 16)
 constexpr int NTHREADS = 128;
 constexpr int PAD = 8;        // bf16 elements of row padding (16 bytes)
-constexpr int DSW = BK + PAD; // row width of the staged ds tile
+constexpr int DSW = BK + PAD; // row width of a staged ds tile
+static_assert(NTHREADS == 2 * BQ, "one thread per L or D row of a tile");
+
+// ds tiles a CTA may keep waiting on the dq chain
+template <int D>
+__host__ __device__ constexpr int ring() {
+  return D == 64 ? 4 : 2;
+}
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // sQ, sO (dO), sK: [64][D + PAD] bf16; sDS: [64][BK + PAD] bf16; sL, sD
-  return (size_t)(3 * BQ * (D + PAD) + BQ * DSW) * 2 + 2 * BQ * 4;
+  // sK, then two stages of sQ and sO (dO): [64][D + PAD] bf16 each; the ds
+  // ring: [RING][64][BK + PAD] bf16; two stages of sL and sD: [64] f32
+  return (size_t)(5 * BQ * (D + PAD) + ring<D>() * BQ * DSW) * 2 +
+         4 * BQ * 4;
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -96,6 +133,65 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices; lane i names row i % 8 of matrix i / 8. Lane
+// (g, t4) = (lane / 4, lane % 4) receives row g, columns 2 t4 and 2 t4 + 1 of
+// each matrix (.trans: column g, rows 2 t4 and 2 t4 + 1), the first in the
+// low half.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// The inverse of ldsm_x4_t: lane (g, t4)'s register j holds row g, columns
+// 2 t4 and 2 t4 + 1 of matrix j, stored transposed at the rows lane i names.
+__device__ __forceinline__ void stsm_x4_t(void* p, uint32_t r0, uint32_t r1,
+                                          uint32_t r2, uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1,%2,%3,%4};\n" ::"r"(smem_addr(p)),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
@@ -103,20 +199,21 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-// Copy rows [row0, row0 + 64) of one head (row r at src + r * row_stride)
-// into dst [64][D + PAD]; rows at or past S are zero-filled.
+// Start copying rows [row0, row0 + 64) of one head (row r at src + r *
+// row_stride) into dst [64][D + PAD]; rows at or past S are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int S, int row_stride) {
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int row0, int S,
+                                                int row_stride) {
   constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < BQ * CHUNKS; c += NTHREADS) {
     const int r = c / CHUNKS, cc = c % CHUNKS;
-    int4 val = make_int4(0, 0, 0, 0);
+    __nv_bfloat16* d = dst + r * (D + PAD) + cc * 8;
     if (row0 + r < S)
-      val = *reinterpret_cast<const int4*>(
-          src + (size_t)(row0 + r) * row_stride + cc * 8);
-    *reinterpret_cast<int4*>(dst + r * (D + PAD) + cc * 8) = val;
+      cp_async16(d, src + (size_t)(row0 + r) * row_stride + cc * 8);
+    else
+      *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
   }
 }
 
@@ -137,34 +234,45 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&f)[W / 16][4],
 }
 
 // acc[16 x 64] = A[16 x D] . T^T, T a [64][D + PAD] tile (rows = columns of
-// the product).
+// the product). ldmatrix gives B fragments (b0, b1) of columns n and n + 1.
 template <int D>
 __device__ __forceinline__ void mma_abt(float (&acc)[BQ / 8][4],
                                         const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* tile, int g,
-                                        int t4) {
+                                        const __nv_bfloat16* tile, int lane) {
+  const int mi = lane >> 3, ri = lane & 7;
 #pragma unroll
-  for (int n = 0; n < BQ / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < BQ / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      const __nv_bfloat16* r = tile + (n * 8 + g) * (D + PAD) + kk * 16 + t4 * 2;
-      mma_bf16(acc[n], a[kk], *reinterpret_cast<const uint32_t*>(r),
-               *reinterpret_cast<const uint32_t*>(r + 8));
+    for (int n = 0; n < BQ / 8; n += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, tile + ((n + (mi >> 1)) * 8 + ri) * (D + PAD) + kk * 16 +
+                     (mi & 1) * 8);
+      mma_bf16(acc[n], a[kk], b[0], b[1]);
+      mma_bf16(acc[n + 1], a[kk], b[2], b[3]);
     }
   }
 }
 
-// B-fragment pair of the product's k rows kk*16 .. kk*16+15 and columns
-// dn*8 .. dn*8+7 of a [64][D + PAD] tile whose rows are the k index.
+// acc[16 x D] += A . T over k rows kk * 16 .. kk * 16 + 15 of T, a
+// [64][D + PAD] tile whose rows are the product's k index: ldmatrix.trans
+// gives the B fragments (b0, b1) of columns dn and dn + 1.
 template <int D>
-__device__ __forceinline__ void b_frag(const uint16_t* tu, int kk, int dn,
-                                       int g, int t4, uint32_t& b0,
-                                       uint32_t& b1) {
-  const uint16_t* p = tu + (kk * 16 + t4 * 2) * (D + PAD) + dn * 8 + g;
-  b0 = (uint32_t)p[0] | ((uint32_t)p[D + PAD] << 16);
-  b1 = (uint32_t)p[8 * (D + PAD)] | ((uint32_t)p[9 * (D + PAD)] << 16);
+__device__ __forceinline__ void mma_kk(float (&acc)[D / 8][4],
+                                       const uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int kk,
+                                       int lane) {
+  const int mi = lane >> 3, ri = lane & 7;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; dn += 2) {
+    uint32_t b[4];
+    ldsm_x4_t(b, tile + (kk * 16 + (mi & 1) * 8 + ri) * (D + PAD) +
+                     (dn + (mi >> 1)) * 8);
+    mma_bf16(acc[dn], a, b[0], b[1]);
+    mma_bf16(acc[dn + 1], a, b[2], b[3]);
+  }
 }
 
 // acc[16 x D] += A . T, A[16 x 64] the bf16 re-pack of a [16 x 64] f32
@@ -172,21 +280,14 @@ __device__ __forceinline__ void b_frag(const uint16_t* tu, int kk, int dn,
 template <int D>
 __device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4],
                                        const float (&x)[BQ / 8][4],
-                                       const __nv_bfloat16* tile, int g,
-                                       int t4) {
-  const uint16_t* tu = reinterpret_cast<const uint16_t*>(tile);
+                                       const __nv_bfloat16* tile, int lane) {
 #pragma unroll
   for (int kk = 0; kk < BQ / 16; ++kk) {
     const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      uint32_t b0, b1;
-      b_frag<D>(tu, kk, dn, g, t4, b0, b1);
-      mma_bf16(acc[dn], a, b0, b1);
-    }
+    mma_kk<D>(acc, a, tile, kk, lane);
   }
 }
 
@@ -204,13 +305,14 @@ flash_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ dv,
                        float* __restrict__ dq_acc, int* __restrict__ sync,
                        int S, int H, int BH, int causal, float sm_scale) {
+  constexpr int RING = ring<D>();
+  constexpr int TILE = BQ * (D + PAD);      // elements of one staged tile
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + BQ * (D + PAD);   // dO tile
-  __nv_bfloat16* sK = sO + BQ * (D + PAD);   // resident K tile
-  __nv_bfloat16* sDS = sK + BK * (D + PAD);  // ds tile, queries as rows
-  float* sL = reinterpret_cast<float*>(sDS + BQ * DSW);
-  float* sD = sL + BQ;
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);  // resident K
+  // stage s: Q at sK + (1 + 2 s) TILE, dO at sK + (2 + 2 s) TILE
+  __nv_bfloat16* sDS = sK + 5 * TILE;       // RING ds tiles, queries as rows
+  float* sL = reinterpret_cast<float*>(sDS + RING * BQ * DSW);  // [2][64]
+  float* sD = sL + 2 * BQ;                                      // [2][64]
   __shared__ int sTicket;
 
   if (threadIdx.x == 0) sTicket = atomicAdd(sync, 1);
@@ -221,20 +323,40 @@ flash_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int k0 = kt * BK;
   const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;  // mma groupID / thread in group
   const int row_stride = H * D;
   const size_t base = ((size_t)b * S * H + h) * D;  // element (b, 0, h, 0)
   const int wr = warp * 16;                         // warp's first tile row
 
-  // K stays in shared memory; V is staged through sO. Both -> A fragments.
-  load_tile<D>(sK, k + base, k0, S, row_stride);
-  load_tile<D>(sO, v + base, k0, S, row_stride);
+  // start copying query tile qt's Q, dO, L and D rows into stage st
+  auto prefetch = [&](int qt, int st) {
+    const int q0 = qt * BQ;
+    load_tile_async<D>(sK + (1 + 2 * st) * TILE, q + base, q0, S, row_stride);
+    load_tile_async<D>(sK + (2 + 2 * st) * TILE, dout + base, q0, S,
+                       row_stride);
+    const int r = tid % BQ, row = q0 + r;
+    float* dst = (tid < BQ ? sL : sD) + st * BQ + r;
+    if (row < S)
+      cp_async4(dst, (tid < BQ ? lse : dsum) + (size_t)bh * S + row);
+    else
+      *dst = 0.f;
+    cp_async_commit();
+  };
+
+  // K stays in shared memory; V is staged through stage 1's dO buffer. Both
+  // -> A fragments, while the first query tile lands in stage 0.
+  const int first = causal ? k0 / BQ : 0;  // no query above the diagonal
+  load_tile_async<D>(sK, k + base, k0, S, row_stride);
+  load_tile_async<D>(sK + 4 * TILE, v + base, k0, S, row_stride);
+  cp_async_commit();
+  prefetch(first, 0);
+  cp_async_wait<1>();
   __syncthreads();
   uint32_t kf[D / 16][4], vf[D / 16][4];
   load_a_frags<D>(kf, sK, wr, g, t4);
-  load_a_frags<D>(vf, sO, wr, g, t4);
-  __syncthreads();
+  load_a_frags<D>(vf, sK + 4 * TILE, wr, g, t4);
+  __syncthreads();  // stage 1 is free for the next tile
 
   // this thread's two keys: [0] = tile row wr+g, [1] = wr+g+8
   const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};
@@ -250,62 +372,27 @@ flash_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
     dka[dn][0] = dka[dn][1] = dka[dn][2] = dka[dn][3] = 0.f;
     dva[dn][0] = dva[dn][1] = dva[dn][2] = dva[dn][3] = 0.f;
   }
-  const uint16_t* sKu = reinterpret_cast<const uint16_t*>(sK);
 
-  const int first = causal ? k0 / BQ : 0;  // no query above the diagonal
-  for (int qt = first; qt < nq; ++qt) {
+  // Chain this key tile's contribution to query tile qt's dq (its ds in
+  // ring slot (qt - first) % RING) once the tile's counter reads kt; with
+  // `block` false, return false at once if it does not yet. Every thread
+  // calls it and gets the same answer (thread 0 reads the counter; the
+  // barrier broadcasts it).
+  auto chain = [&](int qt, bool block) -> bool {
+    bool ready = false;
+    if (tid == 0) {
+      int c = ld_acquire(qcount + qt);
+      while (block && c != kt) {
+        __nanosleep(32);
+        c = ld_acquire(qcount + qt);
+      }
+      if (c == kt) __threadfence();
+      ready = c == kt;
+    }
+    if (!__syncthreads_or(ready)) return false;
     const int q0 = qt * BQ;
-    load_tile<D>(sQ, q + base, q0, S, row_stride);
-    load_tile<D>(sO, dout + base, q0, S, row_stride);
-    if (threadIdx.x < BQ) {
-      const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < S ? lse[(size_t)bh * S + row] : 0.f;
-      sD[threadIdx.x] = row < S ? dsum[(size_t)bh * S + row] : 0.f;
-    }
-    __syncthreads();
-
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-    mma_abt<D>(st, kf, sQ, g, t4);   // S^T = K Q^T
-    mma_abt<D>(dpt, vf, sO, g, t4);  // dP^T = V dO^T
-
-    // p^T in st, ds^T in dpt; exactly 0 on masked pairs
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = n * 8 + t4 * 2 + (e & 1);
-        const int query = q0 + col;
-        const bool ok = live[i] && query < S && (!causal || keys[i] <= query);
-        const float p = ok ? expf(st[n][e] * sm_scale - sL[col]) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - sD[col]) * sm_scale;
-      }
-    }
-
-    mma_xt<D>(dva, st, sO, g, t4);   // dv += p^T dO
-    mma_xt<D>(dka, dpt, sQ, g, t4);  // dk += ds^T Q
-
-    // ds^T -> bf16 ds [query][key] in shared memory
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + t4 * 2 + (e & 1);
-        sDS[col * DSW + wr + g + 8 * (e >> 1)] = __float2bfloat16_rn(dpt[n][e]);
-      }
-    }
-    __syncthreads();
     uint32_t dsf[BK / 16][4];  // this warp's 16 queries' ds, B2a's A layout
-    load_a_frags<BK>(dsf, sDS, wr, g, t4);
-
-    // wait for the key tiles before this one to have added their part
-    if (threadIdx.x == 0) {
-      while (ld_acquire(qcount + qt) != kt) __nanosleep(32);
-      __threadfence();
-    }
-    __syncthreads();
-
+    load_a_frags<BK>(dsf, sDS + ((qt - first) % RING) * BQ * DSW, wr, g, t4);
     const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
     float acc[D / 8][4];
 #pragma unroll
@@ -322,14 +409,7 @@ flash_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
     }
     // dq += ds K, B2a's product and order
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        uint32_t b0, b1;
-        b_frag<D>(sKu, kk, dn, g, t4, b0, b1);
-        mma_bf16(acc[dn], dsf[kk], b0, b1);
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk) mma_kk<D>(acc, dsf[kk], sK, kk, lane);
 
     const int last = (causal ? min(nk, qt + 1) : nk) - 1;
     if (kt == last) {
@@ -354,10 +434,73 @@ flash_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
       }
       __threadfence();
       __syncthreads();
-      if (threadIdx.x == 0) atomicExch(qcount + qt, kt + 1);
+      if (tid == 0) atomicExch(qcount + qt, kt + 1);
+    }
+    return true;
+  };
+
+  int head = first;  // the oldest query tile whose dq contribution waits
+  for (int qt = first; qt < nq; ++qt) {
+    const int st = (qt - first) & 1;
+    if (qt + 1 < nq) {
+      prefetch(qt + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const __nv_bfloat16* tQ = sK + (1 + 2 * st) * TILE;
+    const __nv_bfloat16* tO = sK + (2 + 2 * st) * TILE;
+    const float* tL = sL + st * BQ;
+    const float* tD = sD + st * BQ;
+    const int q0 = qt * BQ;
+
+    float sT[BQ / 8][4], dpt[BQ / 8][4];
+    mma_abt<D>(sT, kf, tQ, lane);   // S^T = K Q^T
+    mma_abt<D>(dpt, vf, tO, lane);  // dP^T = V dO^T
+
+    // p^T in sT, ds^T in dpt; exactly 0 on masked pairs
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int col = n * 8 + t4 * 2 + (e & 1);
+        const int query = q0 + col;
+        const bool ok = live[i] && query < S && (!causal || keys[i] <= query);
+        const float p = ok ? expf(sT[n][e] * sm_scale - tL[col]) : 0.f;
+        sT[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - tD[col]) * sm_scale;
+      }
+    }
+
+    mma_xt<D>(dva, sT, tO, lane);   // dv += p^T dO
+    mma_xt<D>(dka, dpt, tQ, lane);  // dk += ds^T Q
+
+    // a full ring: the oldest tile's contribution goes first, waiting on
+    // its counter, to free its slot
+    if (qt - head == RING) {
+      chain(head++, true);
+      __syncthreads();  // every warp has read the slot this tile takes
+    }
+    // ds^T -> bf16 ds [query][key] in the tile's ring slot
+    __nv_bfloat16* slot = sDS + ((qt - first) % RING) * BQ * DSW;
+    {
+      const int mi = lane >> 3, ri = lane & 7;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; n += 2)
+        stsm_x4_t(slot + ((n + (mi >> 1)) * 8 + ri) * DSW + wr + (mi & 1) * 8,
+                  pack_bf16(dpt[n][0], dpt[n][1]),
+                  pack_bf16(dpt[n][2], dpt[n][3]),
+                  pack_bf16(dpt[n + 1][0], dpt[n + 1][1]),
+                  pack_bf16(dpt[n + 1][2], dpt[n + 1][3]));
+    }
+    __syncthreads();
+    // chain the waiting tiles, oldest first, while their counters allow
+    while (head <= qt && chain(head, false)) ++head;
+    __syncthreads();  // the stage just read is the next prefetch's target
   }
+  while (head < nq) chain(head++, true);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

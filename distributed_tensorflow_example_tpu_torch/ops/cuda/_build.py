@@ -55,8 +55,9 @@ ENTRY_POINTS = {
     # q, k, v, do, lse, dsum, mask, dq, dk, dv, dq_acc, sync, B, S, H, D,
     # causal, sm_scale, stream
     "flash_attention_bwd_fused": [_P] * 12 + [_I] * 5 + [_F, _P],
-    # q, k, v, pos, pad, o, B, T, H, D, sm_scale, stream
-    "decode_attention": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # q, k, v, pos, pad, scratch, o, B, T, H, D, per, splits, sm_scale,
+    # stream
+    "decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
     # q, k_pool, v_pool, block_tables, pos, pad, part, o, B, N, Bs, NB, H,
     # D, per, splits, sm_scale, stream
     "paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _P],

@@ -5,13 +5,18 @@ decode_attention.py``).
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 the call raises (no silent fallback). The kernel takes any cache length
-T up to 8192 (no ``T % 128`` gate), head dims 64 and 128, bf16 q
-[B, H, D] and contiguous bf16 slabs [B, T, H, D]. The block-paged
-kernels (bf16 and int8 pools) are in :mod:`.paged_decode_attention`.
+T that int32 indexes (no ``T % 128`` gate), head dims 64 and 128, bf16 q
+[B, H, D] and contiguous, 16-byte aligned bf16 slabs [B, T, H, D]. It is
+split-K: :func:`split_plan` cuts each row into splits, one CTA each, from
+the shapes and the card's SM count alone (never from ``pos``/``pad``, so
+no call waits on the card); the wrapper allocates the scores and the
+splits' partials. The block-paged kernels (bf16 and int8 pools) are in
+:mod:`.paged_decode_attention` and share the plan.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,7 +25,40 @@ from ..attention import multi_head_attention
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_MAX_T = 8192
+#: the decode kernels index slots, pos and pad, and number their CTAs, in
+#: int32
+INT32_MAX = 2**31 - 1
+#: slots a CTA of the decode kernels takes at once
+TILE = 64
+#: the plan gives each CTA one tile until the grid would pass this many CTAs
+#: per SM, then as many tiles as keep it there
+CTAS_PER_SM = 16
+#: the caches are read in 16-byte vectors
+CACHE_ALIGN = 16
+
+
+def split_plan(b: int, h: int, slots: int, sms: int) -> tuple[int, int]:
+    """(per, splits) for a [B, H] query over rows of ``slots`` slots on a
+    card of ``sms`` SMs: each row is cut into ``splits`` runs of ``per``
+    consecutive :data:`TILE`-slot tiles, one CTA each, so CTA (b, h, i)
+    takes slots ``[i * per * TILE, (i + 1) * per * TILE)`` of its row (the
+    last run may be cut by the row's end). ``per`` is 1 while the
+    ``b * h * tiles`` CTAs stay within ``CTAS_PER_SM * sms``, and grows to
+    keep them there beyond. Raises where the grid would pass int32 (the
+    wrappers have checked ``slots`` against it)."""
+    tiles = -(-slots // TILE)
+    per = max(1, -(-b * h * tiles // (CTAS_PER_SM * sms)))
+    splits = -(-tiles // per)
+    if b * h * splits > INT32_MAX:
+        raise ValueError(f"the split-K decode kernels number their CTAs in "
+                         f"int32: B x H x splits <= {INT32_MAX}, got {b} x "
+                         f"{h} x {splits}")
+    return per, splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _rows(x, b: int, device) -> torch.Tensor:
@@ -66,18 +104,24 @@ def _launch(q, k, v, pos, pad):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes head dim "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    if t > KERNEL_MAX_T:
-        raise ValueError(f"decode_attention kernel keeps the live scores "
-                         f"in shared memory: T <= {KERNEL_MAX_T}, got {t}")
-    if b > 65535:
-        raise ValueError(f"decode_attention kernel grid takes B <= 65535, "
-                         f"got {b}")
+    if k.data_ptr() % CACHE_ALIGN or v.data_ptr() % CACHE_ALIGN:
+        raise ValueError(f"decode_attention kernel reads {CACHE_ALIGN}-byte "
+                         f"vectors: the caches must be {CACHE_ALIGN}-byte "
+                         f"aligned")
+    if t > INT32_MAX:
+        raise ValueError(f"decode_attention kernel indexes slots in int32: "
+                         f"T <= {INT32_MAX}, got {t}")
+    per, splits = split_plan(b, h, t, _sm_count(q.device))
     pos_b = _rows(pos, b, q.device).contiguous()
     pad_b = _rows(pad, b, q.device).contiguous()
+    # the scores [B*H, T], each split's (m, l) and its [D] PV partial
+    scratch = torch.empty(b * h * (t + splits * (d + 2)),
+                          dtype=torch.float32, device=q.device)
     o = torch.empty((b, h, d), dtype=v.dtype, device=q.device)
     _build.launch("decode_attention", q.device, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), pos_b.data_ptr(), pad_b.data_ptr(),
-                  o.data_ptr(), b, t, h, d, 1.0 / math.sqrt(d))
+                  scratch.data_ptr(), o.data_ptr(), b, t, h, d, per, splits,
+                  1.0 / math.sqrt(d))
     decode_attention.launches += 1
     return o
 

@@ -26,48 +26,17 @@ raises.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from . import _build
-from .decode_attention import _rows, xla_decode_attention
+from .decode_attention import (INT32_MAX, _rows, _sm_count, split_plan,
+                               xla_decode_attention)
 
 KERNEL_HEAD_DIMS = (64, 128)
-#: the kernels index slots, pos and pad, and number their CTAs, in int32
-INT32_MAX = 2**31 - 1
-#: logical slots a CTA of the kernels takes at once
-TILE = 64
-#: the plan gives each CTA one tile until the grid would pass this many CTAs
-#: per SM, then as many tiles as keep it there
-CTAS_PER_SM = 16
 #: the pools are read in 16-byte vectors
 POOL_ALIGN = 16
-
-
-def split_plan(b: int, h: int, slots: int, sms: int) -> tuple[int, int]:
-    """(per, splits) for a [B, H] query over rows of ``slots`` logical
-    slots on a card of ``sms`` SMs: each row is cut into ``splits`` runs of
-    ``per`` consecutive :data:`TILE`-slot tiles, one CTA each, so CTA
-    (b, h, i) takes slots ``[i * per * TILE, (i + 1) * per * TILE)`` of its
-    row (the last run may be cut by the row's end). ``per`` is 1 while the
-    ``b * h * tiles`` CTAs stay within ``CTAS_PER_SM * sms``, and grows to
-    keep them there beyond. Raises where the grid would pass int32 (the
-    wrapper has checked ``slots`` against it)."""
-    tiles = -(-slots // TILE)
-    per = max(1, -(-b * h * tiles // (CTAS_PER_SM * sms)))
-    splits = -(-tiles // per)
-    if b * h * splits > INT32_MAX:
-        raise ValueError(f"paged_decode_attention kernel numbers its CTAs "
-                         f"in int32: B x H x splits <= {INT32_MAX}, got "
-                         f"{b} x {h} x {splits}")
-    return per, splits
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def xla_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,

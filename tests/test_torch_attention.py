@@ -190,3 +190,64 @@ def test_decode_wrapper_checks():
     before = tdec.decode_attention.launches
     tdec.decode_attention(q, k, k, pos=3, pad=pad)
     assert tdec.decode_attention.launches == before
+
+
+# B4's split plan (pure Python, shared with the paged kernels): from B, H,
+# T and the SM count alone
+H100_SMS = 132
+
+
+def _split_windows(b, h, t, pad, pos):
+    """The live slots ``[lo, hi]`` each of B4's CTAs of one row takes, as
+    ``csrc/decode_attention.cu`` ``split_window`` cuts them from the plan
+    (empty runs left out)."""
+    per, splits = tdec.split_plan(b, h, t, H100_SMS)
+    run = per * tdec.TILE
+    assert (splits - 1) * run < t          # every split starts in the row
+    out = []
+    for i in range(splits):
+        lo = max(pad, 0, i * run)
+        hi = min(pos, t - 1, min((i + 1) * run, t) - 1)
+        if lo <= hi:
+            out.append((lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("b,h,t", [
+    (8, 12, 640), (8, 12, 613), (8, 12, 16384), (8, 12, 16383), (1, 1, 1),
+    (1, 12, 8193), (2, 2, 100003), (64, 32, 4097)])
+@pytest.mark.parametrize("window", ["full", "cut"])
+def test_slab_split_plan_covers_every_live_slot_once(b, h, t, window):
+    """Each live slot of a row falls in exactly one CTA's run, whatever T
+    (16,384 slots, T not a multiple of the 64-slot tile, past the old
+    8192-slot cap), and a window cut mid-tile at both ends too."""
+    pad, pos = (0, t - 1) if window == "full" else (t // 3 + 5, t - 7)
+    if pad > pos:
+        pad, pos = 0, 0
+    hits = np.zeros(t, np.int64)
+    for lo, hi in _split_windows(b, h, t, pad, pos):
+        hits[lo:hi + 1] += 1
+    live = np.zeros(t, np.int64)
+    live[pad:pos + 1] = 1
+    np.testing.assert_array_equal(hits, live)
+
+
+@pytest.mark.parametrize("t", [8320, 16384])
+def test_decode_plain_takes_rows_past_8192_slots(t):
+    """The CPU path takes T > 8192 through the plain version (no launch)
+    and matches the JAX package's XLA slab path on the same numpy
+    inputs, in f32 and in bf16."""
+    b, h, d = 2, 2, 64
+    rs = np.random.RandomState(t)
+    pad = np.asarray([0, 4000], np.int32)
+    pos = np.asarray([t - 1, t - 300], np.int32)
+    for dtype in ("float32", "bfloat16"):
+        (jq, jk, jv), (tq, tk, tv) = _decode_inputs(rs, b, t, h, d, dtype)
+        want = jdec.xla_decode_attention(jq, jk, jv, pos=jnp.asarray(pos),
+                                         pad=jnp.asarray(pad))
+        before = tdec.decode_attention.launches
+        got = tdec.decode_attention(tq, tk, tv, pos=torch.from_numpy(pos),
+                                    pad=torch.from_numpy(pad))
+        assert tdec.decode_attention.launches == before
+        tol = F32_TOL if dtype == "float32" else BF16_TOL
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)

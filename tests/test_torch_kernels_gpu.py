@@ -267,13 +267,16 @@ def test_flash_bwd_fused_kernel_head_dim_128_and_refusals(cuda):
         fa.flash_attention_bwd_fused(q, k, v, do, lse, dsum.half())
 
 
-def test_flash_grads_flow_through_the_fused_kernel(cuda):
+@pytest.mark.parametrize("b,s", [(2, 256), (1, 4096)])
+def test_flash_grads_flow_through_the_fused_kernel(cuda, b, s):
     """``bwd_variant="fused"``: one backward launches B3 once and B2a, B2b
-    never, with the split variant's grads bit for bit."""
-    gen = torch.Generator().manual_seed(6)
-    base = [_randn(gen, (2, 256, 12, 64), cuda) for _ in range(3)]
-    mask = torch.ones((2, 256), dtype=torch.int32, device=cuda)
-    mask[1, :40] = 0
+    never, with the split variant's grads bit for bit; at S=4096 each CTA
+    walks 64 query tiles through its two-stage ring and keeps up to four
+    ds tiles waiting on the dq chain."""
+    gen = torch.Generator().manual_seed(6 + s)
+    base = [_randn(gen, (b, s, 12, 64), cuda) for _ in range(3)]
+    mask = torch.ones((b, s), dtype=torch.int32, device=cuda)
+    mask[b - 1, :40] = 0
     grads = {}
     for variant in ("split", "fused"):
         q, k, v = (t.clone().requires_grad_() for t in base)
@@ -319,9 +322,100 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     pad = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="bf16"):
         da.decode_attention(q, k, k, pos=3, pad=pad)     # f32: no fallback
-    kb = torch.zeros((2, 9000, 2, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="T <="):
-        da.decode_attention(q.to(torch.bfloat16), kb, kb, pos=3, pad=pad)
+    q96 = torch.zeros((2, 2, 96), device=cuda, dtype=torch.bfloat16)
+    k96 = torch.zeros((2, 16, 2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention(q96, k96, k96, pos=3, pad=pad)
+    flat = torch.zeros(2 * 16 * 2 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    k_off = flat[4:].view(2, 16, 2, 64)          # 8 bytes past alignment
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention(q.to(torch.bfloat16), k_off, k_off, pos=3,
+                            pad=pad)
+
+
+def _decode_case(gen, dev, *, b=8, t=640, h=12, d=64):
+    """B4's inputs: random slabs, per-row pads up to 127 and pos in the
+    last 128 slots, row 0's window the whole row."""
+    q = _randn(gen, (b, h, d), dev)
+    k, v = (_randn(gen, (b, t, h, d), dev) for _ in range(2))
+    pad = torch.randint(0, min(128, t), (b,), generator=gen,
+                        dtype=torch.int32)
+    pos = torch.randint(max(t - 128, 0), t, (b,), generator=gen,
+                        dtype=torch.int32)
+    pad[0], pos[0] = 0, t - 1
+    return q, k, v, pos.to(dev), pad.to(dev)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_kernel_is_deterministic(cuda, d):
+    """The split partials are reduced and summed in a fixed order, never
+    with atomics: two launches on the same inputs are bitwise equal."""
+    gen = torch.Generator().manual_seed(23 + d)
+    q, k, v, pos, pad = _decode_case(gen, cuda, d=d)
+    o1 = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o2 = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    assert _row_rel_err(o1, o_ref) <= DECODE_ROW_REL_TOL
+
+
+def test_decode_kernel_empty_window_gives_zeros(cuda):
+    """A row whose window is empty (pad > pos) gets exact zeros; the other
+    rows of the call still match the plain version."""
+    gen = torch.Generator().manual_seed(29)
+    q, k, v, pos, pad = _decode_case(gen, cuda)
+    pad[3], pos[3] = 300, 299
+    pad[5], pos[5] = 640, 639
+    o = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    assert o[3].abs().max().item() == 0 and o[5].abs().max().item() == 0
+    ok = torch.ones(8, dtype=torch.bool)
+    ok[3] = ok[5] = False
+    assert _row_rel_err(o[ok], o_ref[ok]) <= DECODE_ROW_REL_TOL
+
+
+def test_decode_kernel_takes_a_16384_slot_row(cuda):
+    """No cap on the cache length: 8 rows of 16,384 slots (the scores live
+    in the scratch row, not in shared memory), against the plain
+    version."""
+    gen = torch.Generator().manual_seed(31)
+    q, k, v, pos, pad = _decode_case(gen, cuda, t=16384)
+    o = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= DECODE_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("b,h,t", [(8, 12, 640), (8, 12, 2560), (2, 2, 640)])
+def test_decode_kernel_cuts_the_window_mid_tile(cuda, b, h, t):
+    """Tile and split edges cut the live window. 640-slot rows give each
+    CTA one tile; on an H100 (132 SMs) 2,560-slot rows give each CTA two,
+    so windows also start in a CTA's second tile and cross split edges."""
+    gen = torch.Generator().manual_seed(37 * b + h + t)
+    q, k, v, _, _ = _decode_case(gen, cuda, b=b, h=h, t=t)
+    pad, pos = (torch.tensor(w, dtype=torch.int32, device=cuda)
+                for w in zip(*MID_TILE_WINDOWS[:b]))
+    o = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= DECODE_ROW_REL_TOL
+
+
+def test_decode_kernel_with_most_splits_empty(cuda):
+    """Windows of under 40 slots in 4,096-slot rows: most splits hold no
+    live slot and write empty partials. Against the plain version."""
+    gen = torch.Generator().manual_seed(41)
+    q, k, v, _, _ = _decode_case(gen, cuda, t=4096)
+    pad = torch.randint(0, 4096 - 40, (8,), generator=gen,
+                        dtype=torch.int32)
+    pos = pad + torch.randint(0, 40, (8,), generator=gen, dtype=torch.int32)
+    pad, pos = pad.to(cuda), pos.to(cuda)
+    o = da.decode_attention(q, k, v, pos=pos, pad=pad)
+    o_ref = da.xla_decode_attention(q, k, v, pos=pos, pad=pad)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= DECODE_ROW_REL_TOL
 
 
 def _paged_case(gen, dev, *, b=8, h=12, d=64, bs=16, nb=40):

@@ -161,13 +161,13 @@ H100_SMS = 132
     (1, 1, 1000003), (4, 16, 4095), (64, 32, 8191)])
 def test_split_plan_tiles_each_row_once(b, h, slots):
     per, splits = tpa.split_plan(b, h, slots, H100_SMS)
-    run = per * tpa.TILE                # slots of one split
+    run = per * tdec.TILE               # slots of one split
     hits = np.zeros(slots, np.int64)
     for i in range(splits):             # CTA (b, h, i) takes [i * run, ...)
         hits[i * run:(i + 1) * run] += 1
     assert (hits == 1).all()
     assert (splits - 1) * run < slots   # no CTA starts past the row
-    target = tpa.CTAS_PER_SM * H100_SMS
+    target = tdec.CTAS_PER_SM * H100_SMS
     assert per == 1 or splits <= -(-target // (b * h))
 
 
@@ -180,7 +180,7 @@ def test_split_plan_fills_the_card():
     assert 8 * 12 * 10 >= 2 * H100_SMS
     assert tpa.split_plan(1, 12, 640, H100_SMS) == (1, 10)
     assert tpa.split_plan(8, 12, 16384, H100_SMS) == (12, 22)
-    assert 8 * 12 * 22 == tpa.CTAS_PER_SM * H100_SMS
+    assert 8 * 12 * 22 == tdec.CTAS_PER_SM * H100_SMS
 
 
 def test_split_plan_refuses_a_grid_past_int32():
