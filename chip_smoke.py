@@ -14,8 +14,9 @@ the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
 kernel (error against the plain version; kernel, plain and library time
 on the device through ``torch.profiler`` and per call on CUDA events;
-the roofline bound; the flash backward's dq and dk/dv kernels and its
-fused kernel, bitwise against them; the split-K slab decode kernel at
+the roofline bound; the flash backward's dq and dk/dv kernels, bitwise
+from launch to launch and timed at B=1 S=4096 too, and its fused kernel,
+bitwise against them; the split-K slab decode kernel at
 both head dims, over empty and mid-tile windows and over 16,384-slot
 rows; the split-K paged kernel over bf16 and over int8 pools and over
 16,384-slot rows; each split-K kernel bitwise from launch to launch), the
@@ -155,6 +156,8 @@ PAGED_SHAPE = dict(b=8, h=12, bs=16, nb=40)
 # the paged phases' long rows: 1024 blocks of 16 = 16,384 slots a row
 PAGED_LONG_NB = 1024
 FLASH_ODD_S = 500
+# the split backward's long causal case: B=1, 64 tiles of 64 a row
+FLASH_LONG_S = 4096
 DECODE_SHAPE = dict(b=8, t=640, h=12, d=64)
 PROMPT_LEN, MAX_NEW, BATCH = 512, 128, 8
 ENGINE_SLOTS = 8
@@ -405,14 +408,15 @@ def phase_flash(gen) -> dict:
     return rec
 
 
-def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
-    """B2a and B2b at the training shape (B=8, H=12, D=64, causal, left
-    pads) against their plain versions, on one forward's lse and Dsum;
-    with ``timed``, their kernel, plain and library times and bounds."""
+def flash_bwd_case(b: int, s: int, gen, timed: bool) -> tuple[dict, dict]:
+    """B2a and B2b at [B, S, 12, 64] (causal, left pads, row 0 unpadded)
+    against their plain versions, on one forward's lse and Dsum; two
+    launches of each bitwise equal; with ``timed``, their kernel, plain and
+    library times and bounds."""
     from distributed_tensorflow_example_tpu_torch.ops.cuda import \
         flash_attention as fa
     dev = torch.device("cuda")
-    b, h, d = FLASH_SHAPE["b"], FLASH_SHAPE["h"], FLASH_SHAPE["d"]
+    h, d = FLASH_SHAPE["h"], FLASH_SHAPE["d"]
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
         dev, torch.bfloat16) for _ in range(4))
     mask = _ragged_key_mask(gen, b, s, dev)
@@ -420,6 +424,8 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
     args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
     dq = fa.flash_attention_bwd_dq(*args, causal=True)
     dk, dv = fa.flash_attention_bwd_dkv(*args, causal=True)
+    again = (fa.flash_attention_bwd_dq(*args, causal=True),
+             *fa.flash_attention_bwd_dkv(*args, causal=True))
     dq_ref = fa.flash_attention_bwd_dq_plain(*args, causal=True)
     dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(*args, causal=True)
     torch.cuda.synchronize()
@@ -428,24 +434,27 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
     first_live = (mask == 0).sum(dim=1)
     dead = (torch.arange(s, device=dev)[None, :]
             < first_live[:, None])[:, :, None, None]            # [B,S,1,1]
+    label = f"[flash bwd B={b} S={s}]"
     recs = []
-    for name, pairs in (("dq", ((dq, dq_ref),)),
-                        ("dk, dv", ((dk, dk_ref), (dv, dv_ref)))):
+    for name, pairs, twice in (("dq", ((dq, dq_ref),), again[:1]),
+                               ("dk, dv", ((dk, dk_ref), (dv, dv_ref)),
+                                again[1:])):
         rel = max(grad_row_rel_err(g, r) for g, r in pairs)
         err = max((g.float() - r.float()).abs().max().item()
                   for g, r in pairs)
         dead_max = max((g.float().abs() * dead).max().item()
                        for g, _ in pairs)
-        ok = rel <= FLASH_BWD_ROW_REL_TOL and dead_max == 0
+        determ = all(torch.equal(g, a) for (g, _), a in zip(pairs, twice))
+        ok = rel <= FLASH_BWD_ROW_REL_TOL and dead_max == 0 and determ
         what = ("queries that see no key" if name == "dq"
                 else "masked keys")
-        log(f"[flash bwd S={s}] {name}: worst row max|g - plain| / "
-            f"max|plain| {rel:.3e} (tol {FLASH_BWD_ROW_REL_TOL}; max abs "
-            f"err {err:.3e}), {what} max|g| {dead_max} (must be 0): "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"{label} {name}: worst row max|g - plain| / max|plain| "
+            f"{rel:.3e} (tol {FLASH_BWD_ROW_REL_TOL}; max abs err "
+            f"{err:.3e}), {what} max|g| {dead_max} (must be 0), two "
+            f"launches bitwise equal {determ}: {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"flash backward {name} disagrees with its "
-                             f"plain version at S={s}")
+            raise SystemExit(f"flash backward {name} fails its checks at "
+                             f"B={b} S={s}")
         recs.append({"max_abs_err": err, "max_row_rel_err": rel})
     if not timed:
         return recs[0], recs[1]
@@ -464,13 +473,16 @@ def flash_bwd_case(s: int, gen, timed: bool) -> tuple[dict, dict]:
         t = kernel_times(lambda *a: fn(*a, causal=True), sets, library,
                          lib_sets)
         pms = device_ms(lambda *a: plain(*a, causal=True), sets, iters=8)
-        log(f"[flash bwd S={s}] {stem}: device ms: kernel {t['ms']:.4f}, "
-            f"plain {pms:.4f}, sdpa backward (dq, dk, dv) "
-            f"{t['library_ms']:.4f}; per call on CUDA events: kernel "
-            f"{t['call_ms']:.4f}, sdpa backward {t['library_call_ms']:.4f}; "
-            f"bound_ms {bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB)")
+        log(f"{label} {stem}: device ms: kernel {t['ms']:.4f} "
+            f"({t['ms'] / bms:.2f}x bound), plain {pms:.4f}, sdpa backward "
+            f"(dq, dk, dv) {t['library_ms']:.4f}; per call on CUDA events: "
+            f"kernel {t['call_ms']:.4f}, sdpa backward "
+            f"{t['library_call_ms']:.4f}; bound_ms {bms:.4f} ({by}: "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
         rec.update(**t, plain_ms=pms, bound_ms=bms, bound_by=by)
+    pair = recs[0]["ms"] + recs[1]["ms"]
+    log(f"{label} B2a + B2b {pair:.4f} device ms against sdpa backward "
+        f"{recs[0]['library_ms']:.4f} ({pair / recs[0]['library_ms']:.2f}x)")
     return recs[0], recs[1]
 
 
@@ -608,11 +620,23 @@ def phase_flash_bwd_fused(gen) -> dict:
 
 
 def phase_flash_bwd(gen) -> tuple[dict, dict]:
-    dq, dkv = flash_bwd_case(FLASH_SHAPE["s"], gen, timed=True)
-    for rec, odd in zip((dq, dkv), flash_bwd_case(FLASH_ODD_S, gen,
-                                                  timed=False)):
+    """B2a and B2b at the training shape (timed), at a ragged S=500, and at
+    B=1 S=4096 (timed: the longest causal walks, 64 tiles). Each row
+    carries the S=4096 times as ``long_row``."""
+    b = FLASH_SHAPE["b"]
+    dq, dkv = flash_bwd_case(b, FLASH_SHAPE["s"], gen, timed=True)
+    odd = flash_bwd_case(b, FLASH_ODD_S, gen, timed=False)
+    # its own generator: the later phases draw what they drew before
+    long = flash_bwd_case(1, FLASH_LONG_S,
+                          torch.Generator().manual_seed(FLASH_LONG_S),
+                          timed=True)
+    for rec, lg, od in zip((dq, dkv), long, odd):
         for key in ("max_abs_err", "max_row_rel_err"):
-            rec[key] = max(rec[key], odd[key])
+            rec[key] = max(rec[key], lg[key], od[key])
+        rec["long_row"] = {"b": 1, "s": FLASH_LONG_S, **{
+            key: lg[key] for key in ("ms", "call_ms", "plain_ms",
+                                     "library_ms", "library_call_ms",
+                                     "bound_ms", "bound_by")}}
     return dq, dkv
 
 

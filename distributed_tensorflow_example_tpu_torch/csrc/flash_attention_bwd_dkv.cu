@@ -19,122 +19,57 @@
 // What bounds it on the H100: at the training shapes (B=8, S=512, H=12, D=64,
 // causal) the work is ~6.4 GFLOP (four block products per live pair) over
 // ~38 MB: ~170 FLOP/byte, below the bf16 ridge of ~295 FLOP/byte, so device
-// memory bounds it (~11.4 us).
+// memory bounds it (~11.4 us). On the H100 it takes ~4.2x that (0.048 ms):
+// neither bytes nor tensor-core rate set its pace but latency, each warp's
+// chain of ldmatrix, mma.sync and full-precision expf at 8 warps an SM.
 //
 // Design: one CTA of 4 warps per (64-key tile, b*h); each warp owns 16 keys.
 // The K and V tiles are staged once into mma.sync A-fragments held in
-// registers. Q and dO tiles of 64 queries, with their L and D, stream through
-// shared memory from the diagonal down (causal) or from the first tile. The
-// CTA computes the products TRANSPOSED, keys as rows: S^T = K Q^T and
-// dP^T = V dO^T, so p^T and ds^T come out in the accumulator layout that
-// re-packs directly as A-fragments for dv += p^T dO and dk += ds^T Q, whose
-// B operands are Q's and dO's rows read as B1 reads V. That avoids the
-// transposed fragments (ldmatrix.trans, or staging p and ds in shared memory)
-// the straight form would need. dk and dv accumulate in f32 registers over
-// the whole query loop. Loads are synchronous (no cp.async, TMA or wgmma yet).
+// registers. The CTA computes the products TRANSPOSED, keys as rows:
+// S^T = K Q^T and dP^T = V dO^T, so p^T and ds^T come out in the
+// accumulator layout that re-packs directly as A-fragments for dv += p^T dO
+// and dk += ds^T Q. dk and dv accumulate in f32 registers over the query
+// tiles in ascending order, from the causal diagonal (or the first tile) to
+// the end, kk ascending inside each tile: the fused kernel B3 (csrc/
+// flash_attention_bwd_fused.cu) runs the same products in the same order, so
+// its dk and dv equal these bit for bit. Around that arithmetic:
+//
+// - Asynchronous loads: the query tiles' Q, dO, L and D rows stream through
+//   a two-stage cp.async ring in dynamic shared memory (~37 KB a CTA at
+//   D = 64, ~69 KB at D = 128). The copy of tile qt + 1 is issued right
+//   after the one barrier of step qt and lands while tile qt computes.
+// - Operands through ldmatrix (csrc/flash_attention_bwd.cuh): the B
+//   fragments of S^T and dP^T are Q's and dO's rows (ldmatrix), those of
+//   dv += p^T dO and dk += ds^T Q their columns (ldmatrix.trans), four 8x8
+//   matrices an instruction: the bf16 pairs that element-wise shared loads
+//   would put in the same registers, so no product changes.
+// - Column blocks at D = 128: each query tile is taken as two blocks of 32
+//   queries, S^T, dP^T, p^T, ds^T, dv and dk of one block before the next,
+//   so each accumulator still sums kk ascending over the whole tile; a
+//   block's scores need half the registers (32 bytes of spills at D = 128,
+//   674 for whole tiles). At D = 64 whole tiles run faster: one block.
+// - Heaviest first: CTA x of the 1-D grid takes key tile x / (B*H) and b*h
+//   x % (B*H), so under causal masking the key tiles with the longest query
+//   walks (key tile 0 walks every query tile) start in the first wave.
+//   Nothing is summed across CTAs, so the order moves no bit.
+// - The predicate where it is needed: a warp whose 16 keys are all live
+//   skips the per-element test on a query tile wholly inside S and, when
+//   causal, past the diagonal tile. The diagonal tile, the ragged last tile
+//   and warps holding a masked key keep it, as p = exp(ok ? x : -inf):
+//   exp(-inf) is 0 exactly, the same p as a select after the exp, with no
+//   branch around expf for the warp to diverge on.
+//
+// ptxas gives the D = 64 kernel ~245 registers a thread, no spills: 2 CTAs
+// (8 warps) an SM. A third CTA needs 168, which every form tried (half
+// tiles, a launch-bounds cap) reached only with spills.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention_bwd.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // queries per shared-memory tile
-constexpr int BK = 64;        // keys per CTA (4 warps x 16)
-constexpr int NTHREADS = 128;
-constexpr int PAD = 8;        // bf16 elements of row padding (16 bytes)
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + 64) of one head (row r at src + r * row_stride)
-// into dst [64][D + PAD]; rows at or past S are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int S, int row_stride) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < BQ * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, cc = c % CHUNKS;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const int4*>(
-          src + (size_t)(row0 + r) * row_stride + cc * 8);
-    *reinterpret_cast<int4*>(dst + r * (D + PAD) + cc * 8) = val;
-  }
-}
-
-// A-fragments of this warp's 16 rows of a [64][D + PAD] tile.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
-                                             const __nv_bfloat16* tile,
-                                             int wr, int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* r0 = tile + (wr + g) * (D + PAD) + kk * 16 + t4 * 2;
-    const __nv_bfloat16* r1 = r0 + 8 * (D + PAD);
-    f[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-    f[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-    f[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    f[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-  }
-}
-
-// acc[16 x 64] = A[16 x D] . T^T, T a [64][D + PAD] tile (rows = columns of
-// the product).
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[BQ / 8][4],
-                                        const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* tile, int g,
-                                        int t4) {
-#pragma unroll
-  for (int n = 0; n < BQ / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-      const __nv_bfloat16* r = tile + (n * 8 + g) * (D + PAD) + kk * 16 + t4 * 2;
-      mma_bf16(acc[n], a[kk], *reinterpret_cast<const uint32_t*>(r),
-               *reinterpret_cast<const uint32_t*>(r + 8));
-    }
-  }
-}
-
-// acc[16 x D] += A . T, A[16 x 64] the bf16 re-pack of a [16 x 64] f32
-// accumulator x, T a [64][D + PAD] tile (rows = the product's k index).
-template <int D>
-__device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4],
-                                       const float (&x)[BQ / 8][4],
-                                       const __nv_bfloat16* tile, int g,
-                                       int t4) {
-  const uint16_t* tu = reinterpret_cast<const uint16_t*>(tile);
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const uint16_t* p = tu + (kk * 16 + t4 * 2) * (D + PAD) + dn * 8 + g;
-      const uint32_t b0 = (uint32_t)p[0] | ((uint32_t)p[D + PAD] << 16);
-      const uint32_t b1 =
-          (uint32_t)p[8 * (D + PAD)] | ((uint32_t)p[9 * (D + PAD)] << 16);
-      mma_bf16(acc[dn], a, b0, b1);
-    }
-  }
-}
+using namespace flash_bwd;
+constexpr int BQ = TILE;  // queries per streamed tile
+constexpr int BK = TILE;  // keys per CTA (4 warps x 16)
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -146,29 +81,53 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ dsum,
                      const int* __restrict__ mask,
                      __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int S, int H, int causal,
-                     float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * (D + PAD)];
-  __shared__ __align__(16) __nv_bfloat16 sO[BQ * (D + PAD)];  // dO tile
-  __shared__ float sL[BQ], sD[BQ];
+                     __nv_bfloat16* __restrict__ dv, int S, int H, int BH,
+                     int causal, float sm_scale) {
+  constexpr int T = BQ * (D + PAD);  // elements of one staged tile
+  constexpr int NC = D == 128 ? BQ / 2 : BQ;  // queries of a column block
+  extern __shared__ __align__(16) unsigned char smem[];
+  // stage s: Q at ring + 2 s T, dO at ring + (2 s + 1) T; its L row at
+  // sLD + 2 s BQ and its D row at sLD + (2 s + 1) BQ
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* sLD = reinterpret_cast<float*>(ring + 4 * T);
 
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
+  const int kt = blockIdx.x / BH, bh = blockIdx.x % BH;
+  const int k0 = kt * BK;
   const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;  // mma groupID / thread in group
   const int row_stride = H * D;
   const size_t base = ((size_t)b * S * H + h) * D;  // element (b, 0, h, 0)
   const int wr = warp * 16;                         // warp's first tile row
+  const int nq = (S + BQ - 1) / BQ;
 
-  // K and V tiles -> shared (sQ, sO double as staging) -> A fragments.
-  load_tile<D>(sQ, k + base, k0, S, row_stride);
-  load_tile<D>(sO, v + base, k0, S, row_stride);
+  // start copying query tile qt's Q, dO, L and D rows into stage st
+  auto prefetch = [&](int qt, int st) {
+    const int q0 = qt * BQ;
+    load_tile_async<D>(ring + 2 * st * T, q + base, q0, S, row_stride);
+    load_tile_async<D>(ring + (2 * st + 1) * T, dout + base, q0, S,
+                       row_stride);
+    const int r = tid % BQ, row = q0 + r;
+    float* dst = sLD + (2 * st + (tid >= BQ)) * BQ + r;
+    if (row < S)
+      cp_async4(dst, (tid < BQ ? lse : dsum) + (size_t)bh * S + row);
+    else
+      *dst = 0.f;
+    cp_async_commit();
+  };
+
+  // K and V -> stage 1 -> A fragments, while the first query tile lands in
+  // stage 0
+  const int first = causal ? kt : 0;  // no query above the diagonal
+  load_tile_async<D>(ring + 2 * T, k + base, k0, S, row_stride);
+  load_tile_async<D>(ring + 3 * T, v + base, k0, S, row_stride);
+  cp_async_commit();
+  prefetch(first, 0);
+  cp_async_wait<1>();
   __syncthreads();
   uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags<D>(kf, sQ, wr, g, t4);
-  load_a_frags<D>(vf, sO, wr, g, t4);
-  __syncthreads();
+  load_a_frags<D>(kf, ring + 2 * T, wr, g, t4);
+  load_a_frags<D>(vf, ring + 3 * T, wr, g, t4);
 
   // this thread's two keys: [0] = tile row wr+g, [1] = wr+g+8
   const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};
@@ -177,6 +136,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i)
     live[i] = keys[i] < S && (mrow == nullptr || mrow[keys[i]] != 0);
+  const bool warp_live = __all_sync(0xffffffffu, live[0] && live[1]);
 
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -185,41 +145,63 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     dva[dn][0] = dva[dn][1] = dva[dn][2] = dva[dn][3] = 0.f;
   }
 
-  const int nq = (S + BQ - 1) / BQ;
-  const int first = causal ? k0 / BQ : 0;  // no query above the diagonal
   for (int qt = first; qt < nq; ++qt) {
+    const int st = (qt - first) & 1;
+    cp_async_wait<0>();
+    // tile qt is in stage st for every thread, and every warp is done with
+    // stage st ^ 1 (the last tile, or K and V), which the next copy takes
+    __syncthreads();
+    if (qt + 1 < nq) prefetch(qt + 1, st ^ 1);
+    const __nv_bfloat16* tQ = ring + 2 * st * T;
+    const __nv_bfloat16* tO = ring + (2 * st + 1) * T;
+    const float* tL = sLD + 2 * st * BQ;
+    const float* tD = tL + BQ;
     const int q0 = qt * BQ;
-    load_tile<D>(sQ, q + base, q0, S, row_stride);
-    load_tile<D>(sO, dout + base, q0, S, row_stride);
-    if (threadIdx.x < BQ) {
-      const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < S ? lse[(size_t)bh * S + row] : 0.f;
-      sD[threadIdx.x] = row < S ? dsum[(size_t)bh * S + row] : 0.f;
-    }
-    __syncthreads();
 
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-    mma_abt<D>(st, kf, sQ, g, t4);   // S^T = K Q^T
-    mma_abt<D>(dpt, vf, sO, g, t4);  // dP^T = V dO^T
+    const bool interior = warp_live && q0 + BQ <= S && (!causal || qt > kt);
+    // the tile in blocks of NC queries, each with all its products: every
+    // accumulator still sums kk ascending over the whole tile
+#pragma unroll 1
+    for (int c0 = 0; c0 < BQ; c0 += NC) {
+      const __nv_bfloat16* cQ = tQ + c0 * (D + PAD);
+      const __nv_bfloat16* cO = tO + c0 * (D + PAD);
+      float sT[NC / 8][4], dpt[NC / 8][4];
+      mma_abt<D, NC>(sT, kf, cQ, lane);   // S^T = K Q^T
+      mma_abt<D, NC>(dpt, vf, cO, lane);  // dP^T = V dO^T
 
-    // p^T in st, ds^T in dpt; exactly 0 on masked pairs
+      // p^T in sT, ds^T in dpt; exactly 0 on masked pairs
+      if (interior) {
 #pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
+        for (int n = 0; n < NC / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = n * 8 + t4 * 2 + (e & 1);
-        const int query = q0 + col;
-        const bool ok = live[i] && query < S && (!causal || keys[i] <= query);
-        const float p = ok ? expf(st[n][e] * sm_scale - sL[col]) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - sD[col]) * sm_scale;
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + n * 8 + t4 * 2 + (e & 1);
+            const float p = expf(sT[n][e] * sm_scale - tL[col]);
+            sT[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - tD[col]) * sm_scale;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NC / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int col = c0 + n * 8 + t4 * 2 + (e & 1);
+            const int query = q0 + col;
+            const bool ok =
+                live[i] && query < S && (!causal || keys[i] <= query);
+            const float p =
+                expf(ok ? sT[n][e] * sm_scale - tL[col] : -INFINITY);
+            sT[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - tD[col]) * sm_scale;
+          }
+        }
       }
-    }
 
-    mma_xt<D>(dva, st, sO, g, t4);   // dv += p^T dO
-    mma_xt<D>(dka, dpt, sQ, g, t4);  // dk += ds^T Q
-    __syncthreads();
+      mma_xt<D, NC>(dva, sT, cO, lane);   // dv += p^T dO
+      mma_xt<D, NC>(dka, dpt, cQ, lane);  // dk += ds^T Q
+    }
   }
 
 #pragma unroll
@@ -247,9 +229,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* mask, void* dk, void* dv,
                                        int B, int S, int H, int D, int causal,
                                        float sm_scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + BK - 1) / BK, B * H);
+  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const long long ctas = (long long)((S + BK - 1) / BK) * B * H;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const __nv_bfloat16*>(q);
   const auto* kb = static_cast<const __nv_bfloat16*>(k);
@@ -261,12 +242,12 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   auto* dkb = static_cast<__nv_bfloat16*>(dk);
   auto* dvb = static_cast<__nv_bfloat16*>(dv);
   if (D == 64)
-    flash_bwd_dkv_kernel<64><<<grid, NTHREADS, 0, st>>>(
-        qb, kb, vb, db, lb, sb, mb, dkb, dvb, S, H, causal, sm_scale);
-  else if (D == 128)
-    flash_bwd_dkv_kernel<128><<<grid, NTHREADS, 0, st>>>(
-        qb, kb, vb, db, lb, sb, mb, dkb, dvb, S, H, causal, sm_scale);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return flash_bwd::launch<64>(flash_bwd_dkv_kernel<64>, ctas, st, qb, kb,
+                                 vb, db, lb, sb, mb, dkb, dvb, S, H, B * H,
+                                 causal, sm_scale);
+  if (D == 128)
+    return flash_bwd::launch<128>(flash_bwd_dkv_kernel<128>, ctas, st, qb, kb,
+                                  vb, db, lb, sb, mb, dkb, dvb, S, H, B * H,
+                                  causal, sm_scale);
+  return (int)cudaErrorInvalidValue;
 }

@@ -129,11 +129,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 def _bwd_case(gen, dev, b, s, h, d, causal, pad):
     """Random bf16 q, k, v, dO; a key mask with ``pad`` dead keys on the
-    left of row 1 (under causal masking its first ``pad`` queries see no
-    key); the forward's lse (B1) and Dsum from its output."""
+    left of the last row (under causal masking its first ``pad`` queries
+    see no key); the forward's lse (B1) and Dsum from its output."""
     q, k, v, do = (_randn(gen, (b, s, h, d), dev) for _ in range(4))
     mask = torch.ones((b, s), dtype=torch.int32, device=dev)
-    mask[1, :pad] = 0
+    mask[b - 1, :pad] = 0
     o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
     return q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask
 
@@ -193,6 +193,79 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(cuda):
             fn(q, k, v, do, lse, dsum, mask.bool(), True)
 
 
+def _split(args, causal):
+    """B2a's dq and B2b's (dk, dv), one launch each."""
+    return (fa.flash_attention_bwd_dq(*args, causal=causal),
+            *fa.flash_attention_bwd_dkv(*args, causal=causal))
+
+
+def _split_plain(args, causal):
+    return (fa.flash_attention_bwd_dq_plain(*args, causal=causal),
+            *fa.flash_attention_bwd_dkv_plain(*args, causal=causal))
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 4096, 64), (2, 500, 128)])
+def test_flash_bwd_kernels_are_deterministic(cuda, b, s, d):
+    """B2a and B2b bitwise equal over two launches: nothing is summed
+    across CTAs, whatever order they run in. At B=1 S=4096 each causal
+    walk is up to 64 tiles long and the longest start first; D=128 takes
+    the larger ring and B2b's two column blocks a tile. Both within their
+    plain versions' row limit, and B3's outputs bit for bit."""
+    gen = torch.Generator().manual_seed(7 * s + d)
+    args = _bwd_case(gen, cuda, b, s, 12 if d == 64 else 4, d, True, s // 5)
+    got, again = _split(args, True), _split(args, True)
+    want = _split_plain(args, True)
+    fused = fa.flash_attention_bwd_fused(*args, causal=True)
+    torch.cuda.synchronize()
+    for g, a, w, f in zip(got, again, want, fused):
+        assert torch.equal(g, a)
+        assert torch.equal(g, f)
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+    dq, dk, dv = got
+    pad = s // 5
+    assert dk[-1, :pad].abs().max().item() == 0
+    assert dv[-1, :pad].abs().max().item() == 0
+    assert dq[-1, :pad].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_with_a_row_of_masked_keys(cuda, causal):
+    """Every key of row 1 masked: no pair of that row is live, so its dq,
+    dk and dv are exactly 0 (none of its tiles may take the kernels'
+    all-live shortcut), while row 0, all keys live, takes the shortcut on
+    its interior tiles and still matches the plain versions."""
+    gen = torch.Generator().manual_seed(13 + causal)
+    s = 320
+    args = _bwd_case(gen, cuda, 2, s, 12, 64, causal, s)
+    got = _split(args, causal)
+    want = _split_plain(args, causal)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g[1].abs().max().item() == 0
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("b,s", [(2, 200), (1, 1000)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_flash_bwd_kernels_ragged_tail_without_pads(cuda, b, s, causal,
+                                                    with_mask):
+    """S not a multiple of 64 and no key masked (an all-ones mask, or
+    none): every tile but the last may take the all-live shortcut, and
+    the ragged last tile, whose rows past S are zero-filled, must not."""
+    gen = torch.Generator().manual_seed(17 * s + 2 * causal + with_mask)
+    q, k, v, do = (_randn(gen, (b, s, 12, 64), cuda) for _ in range(4))
+    mask = (torch.ones((b, s), dtype=torch.int32, device=cuda)
+            if with_mask else None)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
+    args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
+    got = _split(args, causal)
+    want = _split_plain(args, causal)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+
+
 def test_flash_grads_flow_through_the_kernels(cuda):
     """On the card the flash output carries the graph (the detached-output
     fault is gone): one backward launches B2a and B2b once each, and the
@@ -222,16 +295,18 @@ def test_flash_grads_flow_through_the_kernels(cuda):
         assert _grad_row_err(t.grad, w) <= FLASH_BWD_ROW_REL_TOL
 
 
-@pytest.mark.parametrize("s", [512, 200, 77])
+@pytest.mark.parametrize("s", [512, 200, 77, 4096])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_fused_kernel_matches_plain_and_split(cuda, s, causal):
     """B3 against its plain version (the rows' limit of the split
     kernels), deterministic (two launches bitwise equal: dq is ordered,
     not atomic), dk and dv bitwise B2b's and dq bitwise B2a's (the same
-    products in the same order), exact zeros where no pair is live."""
+    products in the same order), exact zeros where no pair is live. At
+    S=4096 (B=1) the causal walks are longest: 64 tiles."""
     gen = torch.Generator().manual_seed(5 * s + causal)
     pad = s // 3
-    args = _bwd_case(gen, cuda, 2, s, 12, 64, causal, pad)
+    args = _bwd_case(gen, cuda, 1 if s == 4096 else 2, s, 12, 64, causal,
+                     pad)
     before = fa.flash_attention_bwd_fused.launches
     got = fa.flash_attention_bwd_fused(*args, causal=causal)
     again = fa.flash_attention_bwd_fused(*args, causal=causal)
@@ -246,10 +321,10 @@ def test_flash_bwd_fused_kernel_matches_plain_and_split(cuda, s, causal):
         assert torch.equal(g, sp)
         assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
     dq, dk, dv = got
-    assert dk[1, :pad].abs().max().item() == 0
-    assert dv[1, :pad].abs().max().item() == 0
+    assert dk[-1, :pad].abs().max().item() == 0
+    assert dv[-1, :pad].abs().max().item() == 0
     if causal:
-        assert dq[1, :pad].abs().max().item() == 0
+        assert dq[-1, :pad].abs().max().item() == 0
 
 
 def test_flash_bwd_fused_kernel_head_dim_128_and_refusals(cuda):
