@@ -14,9 +14,10 @@ the card's name and power limit, the kernel build (seconds and the
 ``-Xptxas -v`` register / shared-memory lines), one kernel phase per
 kernel (error against the plain version; kernel, plain and library time
 on the device through ``torch.profiler`` and per call on CUDA events;
-the roofline bound; the flash backward's dq and dk/dv kernels, bitwise
-from launch to launch and timed at B=1 S=4096 too, and its fused kernel,
-bitwise against them; the split-K slab decode kernel at
+the roofline bound; the flash forward, timed at B=1 S=4096 too; the flash
+backward's dq and dk/dv kernels, bitwise from launch to launch and timed
+at B=1 S=4096 too, and its fused kernel, bitwise against them; all four
+flash kernels at B*H = 65,536; the split-K slab decode kernel at
 both head dims, over empty and mid-tile windows and over 16,384-slot
 rows; the split-K paged kernel over bf16 and over int8 pools and over
 16,384-slot rows; each split-K kernel bitwise from launch to launch), the
@@ -156,8 +157,11 @@ PAGED_SHAPE = dict(b=8, h=12, bs=16, nb=40)
 # the paged phases' long rows: 1024 blocks of 16 = 16,384 slots a row
 PAGED_LONG_NB = 1024
 FLASH_ODD_S = 500
-# the split backward's long causal case: B=1, 64 tiles of 64 a row
+# the flash kernels' long causal case: B=1, 64 tiles of 64 a row
 FLASH_LONG_S = 4096
+# B*H = 65,536: one past what a grid with B*H on its y axis takes; S=80
+# gives each row a ragged second tile
+FLASH_WIDE = dict(b=4096, s=80, h=16)
 DECODE_SHAPE = dict(b=8, t=640, h=12, d=64)
 PROMPT_LEN, MAX_NEW, BATCH = 512, 128, 8
 ENGINE_SLOTS = 8
@@ -337,11 +341,15 @@ def _ragged_key_mask(gen, b: int, s: int, dev) -> torch.Tensor:
     return mask.to(dev)
 
 
-def flash_case(s: int, gen, timed: bool) -> dict:
+def flash_case(s: int, gen, timed: bool, b: int = FLASH_SHAPE["b"],
+               h: int = FLASH_SHAPE["h"]) -> dict:
+    """B1 at [B, S, H, 64] (causal, left pads, row 0 unpadded) against its
+    plain version; with ``timed``, its kernel, plain and SDPA times and its
+    bound."""
     from distributed_tensorflow_example_tpu_torch.ops.cuda import \
         flash_attention as fa
     dev = torch.device("cuda")
-    b, h, d = FLASH_SHAPE["b"], FLASH_SHAPE["h"], FLASH_SHAPE["d"]
+    d = FLASH_SHAPE["d"]
     q, k, v = (torch.randn((b, s, h, d), generator=gen).to(
         dev, torch.bfloat16) for _ in range(3))
     mask = _ragged_key_mask(gen, b, s, dev)
@@ -360,14 +368,15 @@ def flash_case(s: int, gen, timed: bool) -> dict:
     dead_max = (o.float().abs() * (~live_row)[:, :, None, None]).max().item()
     ok = (rel <= FLASH_ROW_REL_TOL and lse_err <= FLASH_LSE_TOL
           and dead_max == 0)
-    log(f"[flash S={s}] worst row max|o - plain| / max|plain| {rel:.3e} "
+    label = f"[flash B={b} S={s} H={h}]"
+    log(f"{label} worst row max|o - plain| / max|plain| {rel:.3e} "
         f"(tol {FLASH_ROW_REL_TOL}; max abs err {err:.3e}), "
         f"max|lse - plain| {lse_err:.3e} (tol {FLASH_LSE_TOL}), "
         f"fully-masked rows max|o| {dead_max} (must be 0): "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"flash_attention_fwd disagrees with its plain "
-                         f"version at S={s}")
+                         f"version at B={b} S={s} H={h}")
     rec = {"max_abs_err": err, "max_row_rel_err": rel}
     if not timed:
         return rec
@@ -382,41 +391,68 @@ def flash_case(s: int, gen, timed: bool) -> dict:
               + b * s * 4 + b * h * s * 4)           # mask in; lse out
     bms, by = bound(flops, nbytes)
     sets = cold_sets((q, k, v, mask))
-    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
-    amask = (causal[None] & (mask[:, None, :] != 0))[:, None]  # [B,1,S,S]
+    how = sdpa_mask_args(mask, causal=True)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t = kernel_times(
         lambda *a: fa.flash_attention_fwd(*a, causal=True), sets,
         lambda q_, k_, v_, _: sdpa(                     # [B,H,S,D] views
             q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
-            attn_mask=amask), sets)
+            **how), sets)
     pms = device_ms(lambda *a: fa.flash_attention_fwd_plain(
         *a, causal=True), sets, iters=8)
-    log(f"[flash S={s}] device ms: kernel {t['ms']:.4f}, plain {pms:.4f}, "
-        f"sdpa {t['library_ms']:.4f}; per call on CUDA events: kernel "
+    log(f"{label} device ms: kernel {t['ms']:.4f} ({t['ms'] / bms:.2f}x "
+        f"bound), plain {pms:.4f}, sdpa {t['library_ms']:.4f} "
+        f"({t['ms'] / t['library_ms']:.2f}x); per call on CUDA events: kernel "
         f"{t['call_ms']:.4f}, sdpa {t['library_call_ms']:.4f}; bound_ms "
-        f"{bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        f"{bms:.4f} ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); "
+        f"sdpa with {', '.join(how)}")
     rec.update(**t, plain_ms=pms, bound_ms=bms, bound_by=by)
     return rec
 
 
 def phase_flash(gen) -> dict:
+    """B1 at the training shape (timed), at a ragged S=500, and at B=1
+    S=4096 (timed: the longest causal walks, 64 tiles), whose times the
+    row carries as ``long_row``."""
     rec = flash_case(FLASH_SHAPE["s"], gen, timed=True)
     odd = flash_case(FLASH_ODD_S, gen, timed=False)
+    # its own generator: the later phases draw what they drew before
+    long = flash_case(FLASH_LONG_S, torch.Generator().manual_seed(
+        FLASH_LONG_S + 1), timed=True, b=1)
     for key in ("max_abs_err", "max_row_rel_err"):
-        rec[key] = max(rec[key], odd[key])
+        rec[key] = max(rec[key], odd[key], long[key])
+    rec["long_row"] = {"b": 1, "s": FLASH_LONG_S, **{
+        key: long[key] for key in ("ms", "call_ms", "plain_ms", "library_ms",
+                                   "library_call_ms", "bound_ms",
+                                   "bound_by")}}
     return rec
 
 
-def flash_bwd_case(b: int, s: int, gen, timed: bool) -> tuple[dict, dict]:
-    """B2a and B2b at [B, S, 12, 64] (causal, left pads, row 0 unpadded)
+def phase_flash_wide() -> None:
+    """All four flash kernels at B*H = 65,536 (B=4096, H=16, S=80: a
+    ragged second tile; causal, left pads), past the 65,535 that a 2-D
+    grid with B*H on y would take: B1, B2a and B2b and B3 against their
+    plain versions, B3 bitwise B2a's and B2b's. Untimed; its own
+    generator."""
+    b, s, h = FLASH_WIDE["b"], FLASH_WIDE["s"], FLASH_WIDE["h"]
+    gen = torch.Generator().manual_seed(b * h)
+    flash_case(s, gen, timed=False, b=b, h=h)
+    flash_bwd_case(b, s, gen, timed=False, h=h)
+    flash_bwd_fused_case(b, s, True, gen, timed=False, h=h)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flash_bwd_case(b: int, s: int, gen, timed: bool,
+                   h: int = FLASH_SHAPE["h"]) -> tuple[dict, dict]:
+    """B2a and B2b at [B, S, H, 64] (causal, left pads, row 0 unpadded)
     against their plain versions, on one forward's lse and Dsum; two
     launches of each bitwise equal; with ``timed``, their kernel, plain and
     library times and bounds."""
     from distributed_tensorflow_example_tpu_torch.ops.cuda import \
         flash_attention as fa
     dev = torch.device("cuda")
-    h, d = FLASH_SHAPE["h"], FLASH_SHAPE["d"]
+    d = FLASH_SHAPE["d"]
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
         dev, torch.bfloat16) for _ in range(4))
     mask = _ragged_key_mask(gen, b, s, dev)
@@ -434,7 +470,7 @@ def flash_bwd_case(b: int, s: int, gen, timed: bool) -> tuple[dict, dict]:
     first_live = (mask == 0).sum(dim=1)
     dead = (torch.arange(s, device=dev)[None, :]
             < first_live[:, None])[:, :, None, None]            # [B,S,1,1]
-    label = f"[flash bwd B={b} S={s}]"
+    label = f"[flash bwd B={b} S={s} H={h}]"
     recs = []
     for name, pairs, twice in (("dq", ((dq, dq_ref),), again[:1]),
                                ("dk, dv", ((dk, dk_ref), (dv, dv_ref)),
@@ -482,8 +518,24 @@ def flash_bwd_case(b: int, s: int, gen, timed: bool) -> tuple[dict, dict]:
         rec.update(**t, plain_ms=pms, bound_ms=bms, bound_by=by)
     pair = recs[0]["ms"] + recs[1]["ms"]
     log(f"{label} B2a + B2b {pair:.4f} device ms against sdpa backward "
-        f"{recs[0]['library_ms']:.4f} ({pair / recs[0]['library_ms']:.2f}x)")
+        f"{recs[0]['library_ms']:.4f} ({pair / recs[0]['library_ms']:.2f}x; "
+        f"sdpa with {', '.join(sdpa_mask_args(mask, causal=True))})")
     return recs[0], recs[1]
+
+
+def sdpa_mask_args(mask: torch.Tensor, causal: bool) -> dict:
+    """SDPA's keyword arguments for the function a flash kernel computes
+    under the [B, S] key ``mask``: with no key masked (B=1 here, whose one
+    row is unpadded), the causal flag alone, which lets SDPA take its flash
+    path; else an explicit boolean mask, [B,1,S,S] causal or [B,1,1,S]."""
+    if bool((mask != 0).all()):
+        return {"is_causal": causal}
+    s = mask.shape[1]
+    amask = (mask[:, None, :] != 0)[:, None]                 # [B,1,1,S]
+    if causal:
+        tri = torch.ones((s, s), dtype=torch.bool, device=mask.device).tril()
+        amask = amask & tri[None, None]                      # [B,1,S,S]
+    return {"attn_mask": amask}
 
 
 def sdpa_bwd(sets: list[tuple], mask: torch.Tensor,
@@ -492,25 +544,21 @@ def sdpa_bwd(sets: list[tuple], mask: torch.Tensor,
     dv) through autograd on a retained graph, so that only the backward
     runs, over the (q, k, v, dO, ...) ``sets`` with the [B, S] key
     ``mask``."""
-    s = mask.shape[1]
-    amask = (mask[:, None, :] != 0)[:, None]                 # [B,1,1,S]
-    if causal:
-        tri = torch.ones((s, s), dtype=torch.bool, device=mask.device).tril()
-        amask = amask & tri[None, None]                      # [B,1,S,S]
+    how = sdpa_mask_args(mask, causal)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     graphs = []
     for q_, k_, v_, do_, *_ in sets:
         leaves = [x.transpose(1, 2).detach().requires_grad_()
                   for x in (q_, k_, v_)]
-        graphs.append((sdpa(*leaves, attn_mask=amask), leaves,
+        graphs.append((sdpa(*leaves, **how), leaves,
                        do_.transpose(1, 2)))
     return (lambda o_, leaves, do_: torch.autograd.grad(
         o_, leaves, do_, retain_graph=True)), graphs
 
 
-def flash_bwd_fused_case(b: int, s: int, causal: bool, gen,
-                         timed: bool) -> dict:
-    """B3 at [B, S, 12, 64] with left pads (row 0 unpadded) against its
+def flash_bwd_fused_case(b: int, s: int, causal: bool, gen, timed: bool,
+                         h: int = FLASH_SHAPE["h"]) -> dict:
+    """B3 at [B, S, H, 64] with left pads (row 0 unpadded) against its
     plain version; two launches bitwise equal (dq is accumulated in a
     fixed order, not by atomics); dk and dv bitwise B2b's; dq bitwise
     B2a's, or, if the card forms S^T (B2b's and B3's form) with other bits
@@ -521,7 +569,7 @@ def flash_bwd_fused_case(b: int, s: int, causal: bool, gen,
     from distributed_tensorflow_example_tpu_torch.ops.cuda import \
         flash_attention as fa
     dev = torch.device("cuda")
-    h, d = FLASH_SHAPE["h"], FLASH_SHAPE["d"]
+    d = FLASH_SHAPE["d"]
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
         dev, torch.bfloat16) for _ in range(4))
     mask = _ragged_key_mask(gen, b, s, dev)
@@ -548,7 +596,8 @@ def flash_bwd_fused_case(b: int, s: int, causal: bool, gen,
                    (got[2].float().abs() * dead).max().item(),
                    (got[0].float().abs() * dead).max().item()
                    if causal else 0.0)
-    label = f"[flash bwd fused B={b} S={s}{'' if causal else ' non-causal'}]"
+    label = (f"[flash bwd fused B={b} S={s} H={h}"
+             f"{'' if causal else ' non-causal'}]")
     if not dq_bitwise:
         log(f"{label} dq differs from B2a's bits: max|dq - B2a dq| "
             f"{(got[0].float() - dq_split.float()).abs().max().item():.3e}, "
@@ -2195,6 +2244,7 @@ def main() -> int:
     flash = phase_flash(gen)
     bwd_dq, bwd_dkv = phase_flash_bwd(gen)
     bwd_fused = phase_flash_bwd_fused(gen)
+    phase_flash_wide()
     decode = phase_decode(gen)
     paged = phase_paged(gen)
     paged_int8 = phase_paged_int8(gen)

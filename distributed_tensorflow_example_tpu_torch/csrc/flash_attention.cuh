@@ -1,9 +1,10 @@
-// Building blocks of the split flash-attention backward for Hopper (sm_90a),
-// shared by B2a (dq, flash_attention_bwd_dq.cu) and B2b (dk and dv,
+// Building blocks of the flash-attention kernels for Hopper (sm_90a), shared
+// by the forward (B1, flash_attention_fwd.cu) and the split backward, B2a
+// (dq, flash_attention_bwd_dq.cu) and B2b (dk and dv,
 // flash_attention_bwd_dkv.cu): the bf16 mma.sync m16n8k16 product and its
 // operands read through ldmatrix, the cp.async copies of the two-stage tile
-// ring, and the ring's shared-memory size. Each .cu file says which TPU
-// kernel it replaces, its arithmetic and what bounds it.
+// ring, the ring's shared-memory size and the 1-D launch. Each .cu file says
+// which TPU kernel it replaces, its arithmetic and what bounds it.
 //
 // The fused backward (B3, flash_attention_bwd_fused.cu) carries its own
 // copies of the same helpers. Its dq, dk and dv equal the split pair's bit
@@ -17,7 +18,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace flash_bwd {
+namespace flash {
 
 constexpr int TILE = 64;       // rows of a CTA's tile and of a streamed tile
 constexpr int NTHREADS = 128;  // 4 warps x 16 of the CTA's rows
@@ -178,8 +179,9 @@ __device__ __forceinline__ void mma_xt(float (&acc)[D / 8][4],
   }
 }
 
-// Launch `kernel` on a 1-D grid of `ctas` CTAs with the ring's dynamic
-// shared memory (above 48 KB only once the function allows it).
+// Launch `kernel` on a 1-D grid of `ctas` CTAs (at most 2^31 - 1, the
+// grid's x limit) with the ring's dynamic shared memory (above 48 KB only
+// once the function allows it).
 template <int D, typename Kernel, typename... Args>
 int launch(Kernel kernel, long long ctas, cudaStream_t st, Args... args) {
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -193,4 +195,4 @@ int launch(Kernel kernel, long long ctas, cudaStream_t st, Args... args) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace flash_bwd
+}  // namespace flash

@@ -38,7 +38,7 @@
 //   a two-stage cp.async ring in dynamic shared memory (~37 KB a CTA at
 //   D = 64, ~69 KB at D = 128). The copy of tile qt + 1 is issued right
 //   after the one barrier of step qt and lands while tile qt computes.
-// - Operands through ldmatrix (csrc/flash_attention_bwd.cuh): the B
+// - Operands through ldmatrix (csrc/flash_attention.cuh): the B
 //   fragments of S^T and dP^T are Q's and dO's rows (ldmatrix), those of
 //   dv += p^T dO and dk += ds^T Q their columns (ldmatrix.trans), four 8x8
 //   matrices an instruction: the bf16 pairs that element-wise shared loads
@@ -63,11 +63,11 @@
 // (8 warps) an SM. A third CTA needs 168, which every form tried (half
 // tiles, a launch-bounds cap) reached only with spills.
 
-#include "flash_attention_bwd.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
-using namespace flash_bwd;
+using namespace flash;
 constexpr int BQ = TILE;  // queries per streamed tile
 constexpr int BK = TILE;  // keys per CTA (4 warps x 16)
 
@@ -242,11 +242,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   auto* dkb = static_cast<__nv_bfloat16*>(dk);
   auto* dvb = static_cast<__nv_bfloat16*>(dv);
   if (D == 64)
-    return flash_bwd::launch<64>(flash_bwd_dkv_kernel<64>, ctas, st, qb, kb,
+    return flash::launch<64>(flash_bwd_dkv_kernel<64>, ctas, st, qb, kb,
                                  vb, db, lb, sb, mb, dkb, dvb, S, H, B * H,
                                  causal, sm_scale);
   if (D == 128)
-    return flash_bwd::launch<128>(flash_bwd_dkv_kernel<128>, ctas, st, qb, kb,
+    return flash::launch<128>(flash_bwd_dkv_kernel<128>, ctas, st, qb, kb,
                                   vb, db, lb, sb, mb, dkb, dvb, S, H, B * H,
                                   causal, sm_scale);
   return (int)cudaErrorInvalidValue;

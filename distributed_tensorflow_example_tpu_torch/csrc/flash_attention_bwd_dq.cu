@@ -39,7 +39,7 @@
 //   stream through a two-stage cp.async ring in dynamic shared memory (~37 KB
 //   a CTA at D = 64, ~69 KB at D = 128). The copy of tile kt + 1 is issued
 //   right after the one barrier of step kt and lands while tile kt computes.
-// - Operands through ldmatrix (csrc/flash_attention_bwd.cuh): the B
+// - Operands through ldmatrix (csrc/flash_attention.cuh): the B
 //   fragments of S and dP are K's and V's rows (ldmatrix), those of dq += ds K
 //   K's columns (ldmatrix.trans), four 8x8 matrices an instruction: the same
 //   bf16 pairs that element-wise shared loads would put in the same
@@ -60,11 +60,11 @@
 // (12 warps) an SM. It must stay there: a select after the exp takes 171,
 // 2 CTAs an SM and ~14% more time; a launch-bounds cap on 168 spills.
 
-#include "flash_attention_bwd.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
-using namespace flash_bwd;
+using namespace flash;
 constexpr int BQ = TILE;  // query rows per CTA (4 warps x 16)
 constexpr int BK = TILE;  // keys per streamed tile
 
@@ -225,11 +225,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const auto* mb = static_cast<const int*>(mask);
   auto* ob = static_cast<__nv_bfloat16*>(dq);
   if (D == 64)
-    return flash_bwd::launch<64>(flash_bwd_dq_kernel<64>, ctas, st, qb, kb,
+    return flash::launch<64>(flash_bwd_dq_kernel<64>, ctas, st, qb, kb,
                                  vb, db, lb, sb, mb, ob, S, H, B * H, causal,
                                  sm_scale);
   if (D == 128)
-    return flash_bwd::launch<128>(flash_bwd_dq_kernel<128>, ctas, st, qb, kb,
+    return flash::launch<128>(flash_bwd_dq_kernel<128>, ctas, st, qb, kb,
                                   vb, db, lb, sb, mb, ob, S, H, B * H, causal,
                                   sm_scale);
   return (int)cudaErrorInvalidValue;

@@ -38,6 +38,7 @@ from . import _build
 
 KERNEL_HEAD_DIMS = (64, 128)
 BLOCK = 64          # the kernels' query and key tile
+MAX_CTAS = 2**31 - 1  # a 1-D grid's CTAs: one per (64-row tile, b*h)
 
 #: the reference's dq slab budget (``_FUSED_SLAB_LIMIT``): its fused TPU
 #: kernel keeps a [S, D] f32 dq slab in VMEM and runs the split backward
@@ -140,8 +141,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, mask=None,
 
 def _check(kernel: str, q, tensors: dict, mask, rows: dict):
     """Raise on anything the kernels do not take: bf16 [B,S,H,D] ``tensors``
-    shaped as q, contiguous and 16-byte aligned on q's device; f32 [B,H,S]
-    ``rows``; a contiguous int32 [B,S] mask or None."""
+    shaped as q, contiguous and 16-byte aligned on q's device, at most
+    :data:`MAX_CTAS` tiles of 64 rows; f32 [B,H,S] ``rows``; a contiguous
+    int32 [B,S] mask or None."""
     b, s, h, d = q.shape
     for name, t in tensors.items():
         if t.dtype != torch.bfloat16:
@@ -158,9 +160,10 @@ def _check(kernel: str, q, tensors: dict, mask, rows: dict):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} kernel takes head dim "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"{kernel} kernel grid takes B*H <= 65535, got "
-                         f"{b * h}")
+    ctas = -(-s // BLOCK) * b * h
+    if ctas > MAX_CTAS:
+        raise ValueError(f"{kernel} kernel launches ceil(S/64)*B*H = {ctas} "
+                         f"CTAs, past the 1-D grid's limit of 2**31 - 1")
     for name, t in rows.items():
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, s)
                 or t.device != q.device or not t.is_contiguous()):

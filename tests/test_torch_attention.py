@@ -137,6 +137,35 @@ def test_flash_levers_and_bad_impls_are_refused():
         tflash.flash_attention(m, m, m)
 
 
+@pytest.mark.parametrize("kernel,rows", [
+    ("flash_attention", ()), ("flash_attention_bwd_dq", ("lse", "dsum")),
+    ("flash_attention_bwd_dkv", ("lse", "dsum")),
+    ("flash_attention_bwd_fused", ("lse", "dsum"))])
+def test_flash_kernel_checks_take_bh_65536(kernel, rows):
+    """The four flash kernels launch 1-D grids of ceil(S/64)*B*H CTAs, so
+    B*H has no cap of its own: the checks take B*H = 65,536 (one row a
+    head), which the reference's (bh, nq, nk) grid takes too."""
+    q = torch.zeros((65536, 1, 1, 64), dtype=torch.bfloat16)
+    mask = torch.ones((65536, 1), dtype=torch.int32)
+    row = torch.zeros((65536, 1, 1), dtype=torch.float32)
+    tensors = {"q": q, "k": q, "v": q, **({"do": q} if rows else {})}
+    tflash._check(kernel, q, tensors, mask, {name: row for name in rows})
+
+
+@pytest.mark.parametrize("b,s,ok", [(2**31 - 1, 64, True),
+                                    (2**31 - 2, 65, False),
+                                    (2**15, 2**22, False)])
+def test_flash_kernel_checks_refuse_past_the_grid_limit(b, s, ok):
+    """The one limit left is the grid's: at most 2**31 - 1 CTAs, one per
+    (64-row tile, b*h). Meta tensors carry the shapes with no storage."""
+    q = torch.empty((b, s, 1, 64), dtype=torch.bfloat16, device="meta")
+    if ok:
+        tflash._check("flash_attention", q, {"q": q}, None, {})
+    else:
+        with pytest.raises(ValueError, match="2\\*\\*31 - 1"):
+            tflash._check("flash_attention", q, {"q": q}, None, {})
+
+
 def _decode_inputs(rs, b, t, h, d, dtype):
     q = (0.5 * rs.randn(b, h, d)).astype(np.float32)
     k, v = ((0.5 * rs.randn(b, t, h, d)).astype(np.float32)

@@ -112,6 +112,85 @@ def test_flash_kernel_head_dim_128_and_no_mask(cuda):
     assert _row_rel_err(o, o_ref) <= FLASH_ROW_REL_TOL
 
 
+@pytest.mark.parametrize("b,s,h,d", [(8, 512, 12, 64), (1, 4096, 12, 64),
+                                     (2, 500, 4, 128)])
+def test_flash_kernel_is_deterministic(cuda, b, s, h, d):
+    """Two launches of B1 bitwise equal: nothing is summed across CTAs,
+    whatever order its heaviest-first grid runs them in."""
+    gen = torch.Generator().manual_seed(b * s + d)
+    q, k, v = (_randn(gen, (b, s, h, d), cuda) for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.int32, device=cuda)
+    mask[b - 1, : s // 5] = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+    o_ref, _ = fa.flash_attention_fwd_plain(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert _row_rel_err(o, o_ref) <= FLASH_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_with_key_tiles_that_hold_no_valid_key(cuda, causal):
+    """Row 0's first 200 keys masked (three whole key tiles with no valid
+    key) and every key of row 1 masked: none of those tiles may take B1's
+    all-valid shortcut; row 1's output is exactly 0, as are row 0's
+    queries that see no key under causal masking, and both rows match the
+    plain version, lse included."""
+    gen = torch.Generator().manual_seed(19 + causal)
+    s = 320
+    q, k, v = (_randn(gen, (2, s, 12, 64), cuda) for _ in range(3))
+    mask = torch.ones((2, s), dtype=torch.int32, device=cuda)
+    mask[0, :200] = 0
+    mask[1] = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, mask,
+                                                  causal=causal)
+    torch.cuda.synchronize()
+    assert o[1].abs().max().item() == 0
+    if causal:
+        assert o[0, :200].abs().max().item() == 0
+    assert _row_rel_err(o, o_ref) <= FLASH_ROW_REL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+def test_flash_kernel_takes_bh_65536(cuda):
+    """B*H = 65,536 (B=4096, H=16): one past what a grid with B*H on its y
+    axis takes. S=80 gives each row a ragged second key tile; every eighth
+    row has 20 left pads, whose queries see no key."""
+    gen = torch.Generator().manual_seed(65536)
+    q, k, v = (_randn(gen, (4096, 80, 16, 64), cuda) for _ in range(3))
+    mask = torch.ones((4096, 80), dtype=torch.int32, device=cuda)
+    mask[::8, :20] = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    assert _row_rel_err(o, o_ref) <= FLASH_ROW_REL_TOL
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert o[::8, :20].abs().max().item() == 0
+
+
+def test_flash_bwd_kernels_take_bh_65536(cuda):
+    """B2a, B2b and B3 at B*H = 65,536 (the forward's case) against their
+    plain versions, and B3 bitwise the split pair."""
+    gen = torch.Generator().manual_seed(65537)
+    q, k, v, do = (_randn(gen, (4096, 80, 16, 64), cuda) for _ in range(4))
+    mask = torch.ones((4096, 80), dtype=torch.int32, device=cuda)
+    mask[::8, :20] = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+    args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
+    split = _split(args, True)
+    fused = fa.flash_attention_bwd_fused(*args, causal=True)
+    want = _split_plain(args, True)
+    torch.cuda.synchronize()
+    for g, f, w in zip(split, fused, want):
+        assert torch.equal(g, f)
+        assert _grad_row_err(g, w) <= FLASH_BWD_ROW_REL_TOL
+    dq, dk, dv = split
+    assert dq[::8, :20].abs().max().item() == 0
+    assert dk[::8, :20].abs().max().item() == 0
+    assert dv[::8, :20].abs().max().item() == 0
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 64, 2, 64), device=cuda)
     with pytest.raises(TypeError, match="bf16"):
