@@ -11,16 +11,24 @@
 Only numpy and torch are needed: no ``ml_dtypes``.
 
 On top of that format, the checkpoint ring (an adapted copy of the
-reference's ``CheckpointManager`` and ``restore_or_init``, single
-process): ``ckpt-N.npz`` files plus a JSON ``checkpoint`` state file
-naming the latest and the ring, rotated at ``max_to_keep``, each file
-written to a temp file, fsynced and renamed, each array CRC-checked on
-restore. A ``TrainState`` is flattened to the reference's keys
+reference's ``CheckpointManager`` and ``restore_or_init``):
+``ckpt-N.npz`` files plus a JSON ``checkpoint`` state file naming the
+latest and the ring, rotated at ``max_to_keep``, each file written to a
+temp file, fsynced and renamed, each array CRC-checked on restore. A
+``TrainState`` is flattened to the reference's keys
 (:func:`state_arrays`): ``step``, ``params/...``, ``opt_state/...`` by
 optax's state positions and field names, ``extras/...``,
 ``anomaly_count`` and the PRNG key ``rng``, so a directory written by
-either package restores in the other. Async and sharded saves,
-``save_best`` and ``discard_steps_above`` arrive with slice A3c.
+either package restores in the other.
+
+Under N ranks of a ``torch.distributed`` group (the directory on a
+filesystem they share), as in the reference: only rank 0 writes, and
+every rank meets the others at a barrier after each save;
+``restore_or_init`` takes rank 0's decision (the newest step that
+verifies, or a fresh init) on every rank, and rank 0 then broadcasts the
+whole state, so every rank starts from the same bits. Async and sharded
+saves, ``save_best`` and ``discard_steps_above`` arrive with slice
+A3c-4.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from ..runtime import distributed
 from ..utils.logging import get_logger
 from ..utils.pytree import flatten_dict, unflatten_dict
 
@@ -53,7 +62,7 @@ DEFAULTABLE_LEAVES = ("anomaly_count",)
 #: in the layout of a threefry2x32 key ([hi, lo] uint32)
 _KEY_DATA, _KEY_IMPL = "__prngkey__/rng", "__prngimpl__/rng"
 _THREEFRY = "threefry2x32"
-_A3C = "arrives with slice A3c"
+_A3C = "arrives with slice A3c-4"
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64,
@@ -304,9 +313,9 @@ def state_from_arrays(template, arrays: Mapping[str, np.ndarray]):
 
 class CheckpointManager:
     """Write and restore ``ckpt-<step>.npz`` with a ``max_to_keep`` ring
-    and the reference's ``checkpoint`` state file (one process, which is
-    the writer). ``keep_every_n_hours`` pins one checkpoint outside the
-    ring every N hours, as TF's Saver did."""
+    and the reference's ``checkpoint`` state file (rank 0 is the writer).
+    ``keep_every_n_hours`` pins one checkpoint outside the ring every N
+    hours, as TF's Saver did."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 5,
                  keep_every_n_hours: float = 0.0, async_save: bool = False,
@@ -321,7 +330,12 @@ class CheckpointManager:
         # the keep-forever clock starts now: the first interval must pass
         # before a checkpoint is pinned
         self._last_kept_forever = time.time()
-        os.makedirs(directory, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(directory, exist_ok=True)
+
+    @property
+    def is_writer(self) -> bool:
+        return distributed.process_index() == 0
 
     # -- state file -------------------------------------------------------
     def _state(self) -> dict:
@@ -361,14 +375,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save -------------------------------------------------------------
-    def save(self, state, step: int | None = None) -> str:
+    def save(self, state, step: int | None = None) -> str | None:
         """Write ``ckpt-<step>.npz`` (default: the state's step), commit it
-        to the state file and rotate the ring. Returns the path."""
+        to the state file and rotate the ring; every rank then waits at a
+        barrier. Returns the path on rank 0, None on the others."""
         if step is None:
             step = int(state.step)
-        path = self.checkpoint_path(step)
-        self._atomic_npz(state_arrays(state), path)
-        self._commit(os.path.basename(path))
+        path = None
+        if self.is_writer:
+            path = self.checkpoint_path(step)
+            self._atomic_npz(state_arrays(state), path)
+            self._commit(os.path.basename(path))
+        distributed.barrier()
         return path
 
     def _atomic_npz(self, arrays: dict[str, np.ndarray], path: str) -> None:
@@ -430,6 +448,10 @@ class CheckpointManager:
     def save_best(self, state, step: int, metric_value: float, *,
                   mode: str = "max") -> bool:
         raise NotImplementedError(f"best-checkpoint tracking {_A3C}")
+
+    def close(self) -> None:
+        """Nothing to drain: every save is written before it returns
+        (async saves arrive with slice A3c-4)."""
 
     def discard_steps_above(self, step: int) -> list[int]:
         raise NotImplementedError(f"discard_steps_above (rollback) {_A3C}")
@@ -507,14 +529,41 @@ class CheckpointManager:
         raise FileNotFoundError(path)
 
 
+def _agreed_latest_step(manager: CheckpointManager) -> int | None:
+    """Rank 0's newest step that verifies, on every rank. The decision
+    must be one: a rank that restored while another initialized would
+    run another loop and hang at the first all-reduce. Every rank checks
+    that it can see the chosen file (the directory must be shared)."""
+    local = manager.latest_valid_step() if manager.is_writer else None
+    step = distributed.broadcast_int(local)
+    if step is not None and not os.path.exists(
+            manager.checkpoint_path(step)):
+        raise FileNotFoundError(
+            f"rank {distributed.process_index()} cannot read checkpoint "
+            f"step {step} that rank 0 will restore: the checkpoint "
+            f"directory {manager.directory!r} must be a filesystem shared "
+            "by all ranks")
+    return step
+
+
 def restore_or_init(manager: CheckpointManager | None, init_fn, *args,
                     **kwargs):
     """Restore the latest checkpoint when one exists, else ``init_fn``
-    (the reference's prepare_session decision, one process). Returns
-    ``(state, restored)``. ``restore`` verifies while reading and walks
-    past corrupt files; every candidate corrupt raises rather than
-    re-initializing over a damaged directory."""
-    if manager is not None and manager.latest_step() is not None:
-        template = init_fn(*args, **kwargs)
-        return manager.restore(template, None), True
-    return init_fn(*args, **kwargs), False
+    (the reference's prepare_session decision). Returns ``(state,
+    restored)``. ``restore`` verifies while reading and walks past
+    corrupt files; every candidate corrupt raises rather than
+    re-initializing over a damaged directory. Under N ranks rank 0
+    decides, every rank restores the step it chose, and rank 0's state
+    is broadcast."""
+    if distributed.process_count() == 1:
+        if manager is not None and manager.latest_step() is not None:
+            template = init_fn(*args, **kwargs)
+            return manager.restore(template, None), True
+        return init_fn(*args, **kwargs), False
+    step = _agreed_latest_step(manager) if manager is not None else None
+    state = init_fn(*args, **kwargs)
+    if step is not None:
+        state = manager.restore(state, step)
+    # params, optimizer state, extras and anomaly count, in place
+    distributed.broadcast_(list(_state_leaves(state).values()))
+    return state, step is not None

@@ -1,6 +1,10 @@
 """Trainer entry point (an adapted copy of
-``distributed_tensorflow_example_tpu/cli/train.py``), one process on one
-card::
+``distributed_tensorflow_example_tpu/cli/train.py``), one replica per
+rank::
+
+    python -m distributed_tensorflow_example_tpu_torch.cli.train \\
+        --model mlp --batch_size 256 --learning_rate 0.5 \\
+        --train_steps 1000 --ckpt_dir D --save_steps 500
 
     python -m distributed_tensorflow_example_tpu_torch.cli.train \\
         --model gpt --attention flash --attention_bwd fused \\
@@ -12,11 +16,16 @@ packages, and the reference's validation runs first with its messages.
 Then every flag of a later slice is refused with a SystemExit naming the
 slice, before any work. ``--device`` (``cuda`` by default, ``cpu`` when
 asked) picks the device; without CUDA, ``cuda`` exits with an error.
-``--job_name ps`` logs the no-PS notice and returns 0. The port trains
-``gpt`` and ``gpt_tiny`` on the synthetic LM corpus or pre-tokenized
-``.npy`` files, checkpoints into ``--ckpt_dir`` (a second run on the same
-directory resumes), evaluates at the end, and with ``--export_generator``
-hands the trained weights to the port's ``PredictServer``.
+``--job_name ps`` logs the no-PS notice and returns 0. With
+``--worker_hosts`` naming N workers, ``--task_index i`` trains as rank i
+of N (worker 0's address the rendezvous, NCCL on ``cuda``, gloo on the
+CPU): each rank takes its slice of every global batch and the sync step
+all-reduces the gradients. The port trains ``mlp`` on MNIST (IDX files
+under ``--data_dir``, else the synthetic set) and ``gpt`` and
+``gpt_tiny`` on the synthetic LM corpus or pre-tokenized ``.npy`` files,
+checkpoints into ``--ckpt_dir`` (a second run on the same directory
+resumes), evaluates at the end, and with ``--export_generator`` hands the
+trained GPT weights to the port's ``PredictServer``.
 """
 
 from __future__ import annotations
@@ -34,8 +43,10 @@ from ..utils.logging import get_logger
 
 log = get_logger("cli")
 
-#: the models this slice trains
+#: the models the port trains, and the datasets it reads
 LM_MODELS = ("gpt", "gpt_tiny")
+MNIST_DATASETS = ("mlp", "mnist")
+MODELS = ("mlp",) + LM_MODELS
 
 
 def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
@@ -61,20 +72,20 @@ def build_parser() -> argparse.ArgumentParser:
     """The reference's flags (a later slice's are refused in
     :func:`main`) plus ``--device``."""
     p = argparse.ArgumentParser(
-        description="sync data-parallel trainer on one card "
+        description="sync data-parallel trainer, one replica per rank "
                     "(distributed-tensorflow-example parity CLI)")
     add_legacy_flags(p)
     a = p.add_argument
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
-    a("--model", default="mlp", help="gpt | gpt_tiny (the other models of "
-      "the reference arrive with later slices)")
+    a("--model", default="mlp", help="mlp | gpt | gpt_tiny (the other "
+      "models of the reference arrive with later slices)")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
-      help="pre-tokenized train.npy/test.npy or tokens.npy; omit for the "
-           "synthetic corpus")
-    a("--native", action="store_true", help="C++ loader (slice A3c)")
+      help="MNIST IDX files, or pre-tokenized train.npy/test.npy or "
+           "tokens.npy; omit for the synthetic set")
+    a("--native", action="store_true", help="C++ loader (slice A5b)")
     a("--streaming", action="store_true", help="slice A5")
     a("--fast_decode", action="store_true", help="slice A5")
     a("--augment", action="store_true", help="slice A5")
@@ -85,13 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
     a("--batch_size", type=int, default=128, help="GLOBAL batch size")
     a("--train_steps", type=int, default=1000)
     a("--steps_per_loop", type=int, default=1,
-      help="steps per dispatch (> 1: slice A3c)")
-    a("--max_inflight_steps", type=int, default=0, help="slice A3c")
+      help="steps per dispatch (> 1: slice A3c-2b)")
+    a("--max_inflight_steps", type=int, default=0, help="slice A3c-2b")
     a("--learning_rate", type=float, default=0.5)
     a("--optimizer", default="sgd", type=str.lower,
       choices=["sgd", "momentum", "adam", "adamw", "lars", "lamb",
                "adafactor"],
-      help="base optimizer (lars, lamb, adafactor: slice A3c)")
+      help="base optimizer (lars, lamb, adafactor: slice A3c-3)")
     a("--momentum", type=float, default=0.9)
     a("--weight_decay", type=float, default=0.0)
     a("--wd_mask", default="exclude_1d", choices=["exclude_1d", "all"])
@@ -112,10 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
                       ("--moe_jitter", float)):
         a(flag, type=typ, default=None, help="MoE models (slice A5)")
     a("--lm_loss_impl", default=None, choices=["full", "chunked", "fused"],
-      help="LM-head loss (chunked, fused: slice A3c)")
-    a("--lm_loss_vocab_block", type=int, default=None, help="slice A3c")
-    a("--token_accuracy_every_n", type=int, default=1, help="slice A3c")
-    a("--lm_loss_chunk", type=int, default=None, help="slice A3c")
+      help="LM-head loss (chunked, fused: slice A3c-3)")
+    a("--lm_loss_vocab_block", type=int, default=None, help="slice A3c-3")
+    a("--token_accuracy_every_n", type=int, default=1, help="slice A3c-3")
+    a("--lm_loss_chunk", type=int, default=None, help="slice A3c-3")
     a("--label_smoothing", type=float, default=0.0,
       help="image classifiers (slice A5)")
     a("--grad_clip_norm", type=float, default=0.0,
@@ -149,9 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--bn_stats_dtype", default="float32",
       choices=["float32", "bfloat16"], help="conv models (slice A5)")
     a("--mesh", default="",
-      help="axis sizes; the port takes data=1 or data=-1 (one device)")
+      help="axis sizes; the port takes data=-1 or data=<ranks> (one "
+           "replica per rank; sharded axes: slice A6)")
     a("--sync_mode", default="auto", choices=["auto", "shard_map"],
-      help="shard_map: slice A3c")
+      help="the same step for models without cross-example statistics")
     a("--attention", default="xla", choices=["xla", "flash"],
       help="flash = the hand-written Hopper kernels")
     a("--attention_block_q", type=int, default=0,
@@ -166,44 +178,44 @@ def build_parser() -> argparse.ArgumentParser:
       help="a JAX key implementation: the port draws dropout from torch "
            "generators and takes only the default")
     a("--remat", default="none", choices=["none", "full", "dots"],
-      help="slice A3c")
+      help="slice A3c-3")
     a("--ckpt_dir", default=None)
     a("--save_steps", type=int, default=0)
     a("--save_secs", type=float, default=0.0)
     a("--max_to_keep", type=int, default=5)
-    a("--keep_best_metric", default=None, help="slice A3c")
+    a("--keep_best_metric", default=None, help="slice A3c-4")
     a("--keep_best_mode", default="max", choices=["max", "min"])
     a("--keep_checkpoint_every_n_hours", type=float, default=0.0)
-    a("--async_save", action="store_true", help="slice A3c")
-    a("--sharded_save", action="store_true", help="slice A3c")
+    a("--async_save", action="store_true", help="slice A3c-4")
+    a("--sharded_save", action="store_true", help="slice A3c-4")
     a("--log_every_steps", type=int, default=100)
-    a("--summary_every_steps", type=int, default=0, help="slice A3c")
+    a("--summary_every_steps", type=int, default=0, help="slice A3c-4")
     a("--param_histograms_every_steps", type=int, default=0,
-      help="slice A3c")
+      help="slice A3c-4")
     a("--metrics_path", default=None)
-    a("--tb_logdir", default=None, help="slice A3c")
+    a("--tb_logdir", default=None, help="slice A3c-4")
     a("--eval_every_steps", type=int, default=0)
-    a("--early_stop_metric", default=None, help="slice A3c")
+    a("--early_stop_metric", default=None, help="slice A3c-4")
     a("--early_stop_patience", type=int, default=3)
     a("--early_stop_mode", default="max", choices=["max", "min"])
-    a("--eval_only", action="store_true", help="slice A3c")
-    a("--eval_step", type=int, default=None, help="slice A3c")
-    a("--eval_best", action="store_true", help="slice A3c")
+    a("--eval_only", action="store_true", help="slice A3c-4")
+    a("--eval_step", type=int, default=None, help="slice A3c-4")
+    a("--eval_best", action="store_true", help="slice A3c-4")
     a("--seed", type=int, default=0)
     a("--on_anomaly", default="halt", choices=["halt", "skip", "rollback"],
-      help="halt | skip (rollback: slice A3c)")
+      help="halt | skip (rollback: slice A3c-4)")
     a("--max_anomalies", type=int, default=10)
-    a("--fault_spec", default="", help="slice A3c")
+    a("--fault_spec", default="", help="slice A3c-4")
     a("--check_nans", action="store_true",
       help="stop on a non-finite loss (a host sync every step)")
-    a("--debug_checks", action="store_true", help="slice A3c")
-    a("--debug_nans", action="store_true", help="slice A3c")
-    a("--profiler_port", type=int, default=0, help="slice A3c")
-    a("--profile_dir", default=None, help="slice A3c")
-    a("--profile_steps", default=None, help="slice A3c")
-    a("--step_timing", action="store_true", help="slice A3c")
-    a("--trace_path", default=None, help="slice A3c")
-    a("--trace_buffer_events", type=int, default=65536, help="slice A3c")
+    a("--debug_checks", action="store_true", help="slice A3c-4")
+    a("--debug_nans", action="store_true", help="slice A3c-4")
+    a("--profiler_port", type=int, default=0, help="slice A3c-4")
+    a("--profile_dir", default=None, help="slice A3c-4")
+    a("--profile_steps", default=None, help="slice A3c-4")
+    a("--step_timing", action="store_true", help="slice A3c-4")
+    a("--trace_path", default=None, help="slice A3c-4")
+    a("--trace_buffer_events", type=int, default=65536, help="slice A3c-4")
     return p
 
 
@@ -388,68 +400,73 @@ def _validate_like_the_reference(parser, args) -> TrainConfig:
     return cfg
 
 
+def _num_workers(args) -> int:
+    return len(parse_hosts(args.worker_hosts)) or 1
+
+
 def _later_slice(args) -> list[tuple[str, bool, str]]:
     """(what, set?, slice) for every knob the port does not carry yet."""
-    from ..train.trainer import one_replica
+    from ..train.trainer import one_replica_per_rank
     mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
-    model_slice = ("A3c" if args.model in ("mlp", "bert", "bert_tiny",
-                                           "bert_large") else
+    model_slice = ("A3c-3" if args.model in ("bert", "bert_tiny",
+                                             "bert_large") else
                    "A6" if args.model.startswith("pipe_") else "A5")
     return [
-        (f"--model {args.model}", args.model not in LM_MODELS, model_slice),
+        (f"--model {args.model}", args.model not in MODELS, model_slice),
         (f"--dataset {args.dataset}",
-         args.dataset not in (None,) + LM_MODELS, "A5"),
-        ("--native", args.native, "A3c"),
+         args.dataset not in (None,) + MNIST_DATASETS + LM_MODELS, "A5"),
+        ("--native", args.native, "A5b"),
         ("--streaming", args.streaming, "A5"),
         ("--fast_decode", args.fast_decode, "A5"),
         ("--augment", args.augment, "A5"),
         ("--label_offset", args.label_offset != 0, "A5"),
         ("--max_per_class", args.max_per_class is not None, "A5"),
-        ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c"),
-        ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c"),
+        ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
+        ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
         (f"--optimizer {args.optimizer}",
-         args.optimizer in ("lars", "lamb", "adafactor"), "A3c"),
+         args.optimizer in ("lars", "lamb", "adafactor"), "A3c-3"),
         ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5"),
         ("--ema_decay", args.ema_decay != 0.0, "A5"),
         ("--ema_debias", args.ema_debias, "A5"),
         (f"--lm_loss_impl {args.lm_loss_impl}",
-         args.lm_loss_impl in ("chunked", "fused"), "A3c"),
-        ("--lm_loss_chunk", bool(args.lm_loss_chunk), "A3c"),
+         args.lm_loss_impl in ("chunked", "fused"), "A3c-3"),
+        ("--lm_loss_chunk", bool(args.lm_loss_chunk), "A3c-3"),
         ("--lm_loss_vocab_block", args.lm_loss_vocab_block is not None,
-         "A3c"),
+         "A3c-3"),
         ("--token_accuracy_every_n", args.token_accuracy_every_n != 1,
-         "A3c"),
+         "A3c-3"),
         ("--export_dir (the forward's serving artifact)",
          args.export_dir is not None, "A4"),
         ("--warm_start", args.warm_start is not None, "A5"),
         ("--warm_start_map", bool(args.warm_start_map), "A5"),
         ("--bn_stats_dtype", args.bn_stats_dtype != "float32", "A5"),
-        (f"--mesh {args.mesh} (more than one replica or a sharded axis)",
-         not one_replica(mesh), "A3c"),
-        ("--sync_mode shard_map", args.sync_mode != "auto", "A3c"),
-        (f"--remat {args.remat}", args.remat != "none", "A3c"),
-        ("--keep_best_metric", args.keep_best_metric is not None, "A3c"),
-        ("--async_save", args.async_save, "A3c"),
-        ("--sharded_save", args.sharded_save, "A3c"),
-        ("--summary_every_steps", args.summary_every_steps != 0, "A3c"),
+        (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
+         f"{_num_workers(args)} rank(s))",
+         not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
+        (f"--remat {args.remat}", args.remat != "none", "A3c-3"),
+        ("--keep_best_metric", args.keep_best_metric is not None, "A3c-4"),
+        ("--async_save", args.async_save, "A3c-4"),
+        ("--sharded_save", args.sharded_save, "A3c-4"),
+        ("--summary_every_steps", args.summary_every_steps != 0, "A3c-4"),
         ("--param_histograms_every_steps",
-         args.param_histograms_every_steps != 0, "A3c"),
-        ("--tb_logdir", args.tb_logdir is not None, "A3c"),
-        ("--early_stop_metric", args.early_stop_metric is not None, "A3c"),
-        ("--eval_only", args.eval_only, "A3c"),
-        ("--eval_step", args.eval_step is not None, "A3c"),
-        ("--eval_best", args.eval_best, "A3c"),
-        ("--on_anomaly rollback", args.on_anomaly == "rollback", "A3c"),
-        ("--fault_spec", bool(args.fault_spec), "A3c"),
-        ("--debug_checks", args.debug_checks, "A3c"),
-        ("--debug_nans", args.debug_nans, "A3c"),
-        ("--profiler_port", args.profiler_port != 0, "A3c"),
-        ("--profile_dir", args.profile_dir is not None, "A3c"),
-        ("--profile_steps", args.profile_steps is not None, "A3c"),
-        ("--step_timing", args.step_timing, "A3c"),
-        ("--trace_path", args.trace_path is not None, "A3c"),
+         args.param_histograms_every_steps != 0, "A3c-4"),
+        ("--tb_logdir", args.tb_logdir is not None, "A3c-4"),
+        ("--early_stop_metric", args.early_stop_metric is not None,
+         "A3c-4"),
+        ("--eval_only", args.eval_only, "A3c-4"),
+        ("--eval_step", args.eval_step is not None, "A3c-4"),
+        ("--eval_best", args.eval_best, "A3c-4"),
+        ("--on_anomaly rollback", args.on_anomaly == "rollback", "A3c-4"),
+        ("--fault_spec", bool(args.fault_spec), "A3c-4"),
+        ("--debug_checks", args.debug_checks, "A3c-4"),
+        ("--debug_nans", args.debug_nans, "A3c-4"),
+        ("--profiler_port", args.profiler_port != 0, "A3c-4"),
+        ("--profile_dir", args.profile_dir is not None, "A3c-4"),
+        ("--profile_steps", args.profile_steps is not None, "A3c-4"),
+        ("--step_timing", args.step_timing, "A3c-4"),
+        ("--trace_path", args.trace_path is not None, "A3c-4"),
         ("--trace_buffer_events", args.trace_buffer_events != 65536,
-         "A3c"),
+         "A3c-4"),
     ]
 
 
@@ -459,8 +476,8 @@ def refuse_later_slices(args) -> None:
     for what, on, slice_ in _later_slice(args):
         if on:
             raise SystemExit(f"{what} arrives with slice {slice_} of the "
-                             "port; this slice trains gpt/gpt_tiny on one "
-                             "card")
+                             "port; the port trains mlp, gpt and gpt_tiny, "
+                             "one replica per rank")
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):
         if getattr(args, flag):
@@ -475,9 +492,14 @@ def refuse_later_slices(args) -> None:
 
 
 def load_dataset(cfg: TrainConfig, model=None):
-    """(train_arrays, eval_arrays) of the causal-LM models: the synthetic
-    corpus, or pre-tokenized files under ``data_dir``."""
+    """(train_arrays, eval_arrays): MNIST for the MLP (``x`` flat 784,
+    ``y`` int32), the LM corpus for the causal-LM models."""
     name = cfg.data.dataset
+    if name in MNIST_DATASETS:
+        from ..data.mnist import get_mnist
+        d = get_mnist(cfg.data.data_dir, cfg.data.synthetic)
+        return ({"x": d["train_x"], "y": d["train_y"]},
+                {"x": d["test_x"], "y": d["test_y"]})
     if name not in LM_MODELS:
         raise SystemExit(f"dataset {name!r} arrives with a later slice of "
                          "the port")
@@ -509,16 +531,27 @@ def main(argv: list[str] | None = None) -> int:
         Server(cluster, args.job_name, args.task_index).join()
         return 0                           # reference's ps branch
     refuse_later_slices(args)
-    try:
-        Server(cluster, args.job_name, args.task_index)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
 
+    from ..runtime import distributed
     from ..runtime.device import resolve_device
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e))
+    try:
+        ctx = Server(cluster, args.job_name, args.task_index,
+                     device=device).context
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    try:
+        return _train(args, cfg, device, ctx)
+    finally:
+        if ctx.is_distributed:
+            distributed.shutdown()
+
+
+def _train(args, cfg: TrainConfig, device, ctx) -> int:
+    """Model, data, the Trainer's run and the export, as this rank."""
     from ..models import get_model
     from ..train.trainer import Trainer
 
@@ -536,7 +569,9 @@ def main(argv: list[str] | None = None) -> int:
                 f"--gen_top_k {args.gen_top_k} exceeds the model's "
                 f"vocab_size {model.cfg.vocab_size}")
     train_arrays, eval_arrays = load_dataset(cfg, model)
-    trainer = Trainer(model, cfg, train_arrays, eval_arrays, device=device)
+    trainer = Trainer(model, cfg, train_arrays, eval_arrays, device=device,
+                      process_index=ctx.process_index,
+                      num_processes=ctx.num_processes)
     with trainer:
         state, summary = trainer.train()
 
@@ -546,14 +581,15 @@ def main(argv: list[str] | None = None) -> int:
     log.info("done: step=%d wall=%.1fs steps/sec=%.2f",
              summary["final_step"], summary["wall_time_sec"],
              summary["steps_per_sec"])
-    _maybe_export(args, cfg, model, state)
+    _maybe_export(args, cfg, model, state, ctx)
     return 0
 
 
-def _maybe_export(args, cfg, model, state) -> None:
+def _maybe_export(args, cfg, model, state, ctx) -> None:
     """``--export_generator``: the trained weights as a generator artifact
-    the port's ``PredictServer`` serves."""
-    if not args.export_generator:
+    the port's ``PredictServer`` serves, written by rank 0 (every rank
+    holds the same weights)."""
+    if not args.export_generator or ctx.process_index != 0:
         return
     from ..serving import export_generator
     artifact = export_generator(

@@ -1,12 +1,12 @@
 """Cluster topology: ``tf.train.ClusterSpec`` parity (an adapted copy of
-``distributed_tensorflow_example_tpu/cluster.py``), for one process on
-one card.
+``distributed_tensorflow_example_tpu/cluster.py``).
 
 The reference CLI's ``--ps_hosts --worker_hosts --job_name --task_index``
-still parse: ``worker`` task ``i`` is process ``i``, and a ``ps`` task has
-no work (the parameters live on the card with the worker), so it exits
-0 with a notice. More than one worker process (gradients all-reduced
-over ``torch.distributed``) arrives with slice A3c.
+still parse: ``worker`` task ``i`` is rank ``i`` of a ``torch.distributed``
+group of as many ranks as worker hosts, with worker 0's address as the
+rendezvous (:meth:`ClusterSpec.coordinator_address`), and a ``ps`` task
+has no work (every worker keeps the parameters on its own card and the
+gradients are all-reduced), so it exits 0 with a notice.
 """
 
 from __future__ import annotations
@@ -71,6 +71,13 @@ class ClusterSpec:
     def num_ps(self) -> int:
         return self.num_tasks(PS_JOB) if PS_JOB in self._jobs else 0
 
+    def coordinator_address(self) -> str | None:
+        """The rendezvous of the ``torch.distributed`` group: worker task
+        0, the chief."""
+        workers = self.job_tasks(WORKER_JOB) if WORKER_JOB in self._jobs \
+            else []
+        return workers[0] if workers else None
+
 
 @dataclasses.dataclass(frozen=True)
 class LegacyRole:
@@ -96,11 +103,11 @@ def resolve_legacy_role(cluster: ClusterSpec | None,
             should_run=False, process_index=0,
             num_processes=(cluster.num_workers if cluster else 1),
             notice=(
-                "No PS role on the card: one process trains on one card, "
-                "with the parameters and the optimizer state in the "
-                "card's memory, so a parameter server has nothing to "
-                f"hold. ps task {task_index} exiting 0 (parity "
-                "behavior)."))
+                "No PS role on the card: every worker keeps the "
+                "parameters and the optimizer state in its own card's "
+                "memory and the workers all-reduce their gradients, so a "
+                f"parameter server has nothing to hold. ps task "
+                f"{task_index} exiting 0 (parity behavior)."))
     num = cluster.num_workers if cluster else 1
     if task_index >= num:
         raise ValueError(

@@ -1,5 +1,5 @@
 """Config dataclasses (port of ``distributed_tensorflow_example_tpu/
-config.py``, the fields GPT construction, generation, the one-card
+config.py``, the fields GPT and MLP construction, generation, the sync
 training step and the ``Trainer`` read).
 
 Field names and defaults are the reference's, so a config reads the same
@@ -7,7 +7,7 @@ in both packages. The fields of a later slice are absent (warm start,
 best-checkpoint tracking, async and sharded saves, early stop, fault
 injection, the summary, histogram, profiler, step-timing and trace
 sinks, the image, BERT and MoE knobs), or refused by the ``Trainer``
-when set: a mesh of more than one replica, ``steps_per_loop > 1`` and
+when set: a sharded mesh axis, ``steps_per_loop > 1`` and
 ``on_anomaly="rollback"``.
 """
 
@@ -25,8 +25,8 @@ class DataConfig:
     language model reads."""
 
     dataset: str = "mnist"          # the CLI sets the model's name
-    data_dir: str | None = None     # pre-tokenized .npy files; None =>
-                                    # the synthetic corpus
+    data_dir: str | None = None     # IDX or pre-tokenized .npy files;
+                                    # None => the synthetic set
     batch_size: int = 128           # GLOBAL batch size
     shuffle: bool = True
     seed: int = 0
@@ -68,8 +68,9 @@ class OptimizerConfig:
 
 @dataclasses.dataclass
 class SyncConfig:
-    """Sync-replica semantics (``parallel/sync_replicas.py`` reads them).
-    The port runs one replica; more arrive with slice A3c."""
+    """Sync-replica semantics (``parallel/sync_replicas.py`` reads them):
+    one replica per rank, ``replicas_to_aggregate`` the number of
+    ranks."""
 
     replicas_to_aggregate: int | None = None  # None => the replica count
     total_num_replicas: int | None = None     # must equal it
@@ -80,7 +81,8 @@ class SyncConfig:
 @dataclasses.dataclass
 class MeshShape:
     """Logical mesh axis sizes (the reference's). The port runs one
-    replica: every axis is 1, or ``data=-1`` (all devices, here one)."""
+    replica per rank: ``data`` is -1 or the number of ranks, every other
+    axis 1 (sharded axes arrive with slice A6)."""
 
     data: int = 1
     fsdp: int = 1
@@ -135,10 +137,10 @@ class TrainConfig:
         default_factory=ObservabilityConfig)
     train_steps: int = 1000
     eval_every_steps: int = 0        # 0 => eval only at the end
-    steps_per_loop: int = 1          # > 1: slice A3c
-    on_anomaly: str = "halt"         # halt | skip (rollback: slice A3c)
+    steps_per_loop: int = 1          # > 1: slice A3c-2b
+    on_anomaly: str = "halt"         # halt | skip (rollback: A3c-4)
     max_anomalies: int = 10          # anomaly budget for skip
-    lm_loss_impl: str | None = None  # full (chunked, fused: slice A3c);
+    lm_loss_impl: str | None = None  # full (chunked, fused: A3c-3);
                                      # None = "full", or "chunked" when
                                      # lm_loss_chunk is set
     lm_loss_chunk: int | None = None  # seq chunk of the chunked LM loss
@@ -226,7 +228,7 @@ def anomaly_settings(cfg: TrainConfig) -> dict:
             "fire (a silently ignored knob is worse than an error)")
     if cfg.on_anomaly == "rollback":
         raise NotImplementedError(
-            "on_anomaly='rollback' arrives with slice A3c; the port's "
+            "on_anomaly='rollback' arrives with slice A3c-4; the port's "
             "Trainer has halt and skip")
     return {"policy": cfg.on_anomaly, "budget": cfg.max_anomalies}
 

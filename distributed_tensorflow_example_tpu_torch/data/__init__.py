@@ -1,2 +1,2 @@
-"""Input pipelines of the port: the causal-LM token data and the
+"""Input pipelines of the port: MNIST, the causal-LM token data and the
 sharded, seeded, prefetching batch loader."""

@@ -4,7 +4,7 @@ adapted copy of ``distributed_tensorflow_example_tpu/data/loader.py``).
 Determinism contract: with the same seed the *global* batch sequence is
 the same whatever the process count (each process takes its contiguous
 slice of every global batch), and it is the reference's batch for batch,
-bit for bit. The native C++ loader arrives with slice A3c.
+bit for bit. The native C++ loader arrives with slice A5b.
 """
 
 from __future__ import annotations

@@ -24,6 +24,24 @@ def cast_floating(tree, dtype: torch.dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+def classification_eval_metrics(logits: torch.Tensor, batch, *,
+                                top5: bool = False) -> dict:
+    """The eval_metrics body of the integer-label classifiers: loss and
+    accuracy (and, with ``top5``, top-5 accuracy), each restricted by the
+    optional ``batch["__valid__"]`` example mask (1.0 a real example, 0.0
+    the padding of the eval tail)."""
+    from ..ops import losses
+    w = batch.get("__valid__")
+    out = {
+        "loss": losses.softmax_xent_int_labels(logits, batch["y"], where=w),
+        "accuracy": losses.accuracy(logits, batch["y"], where=w),
+    }
+    if top5:
+        out["top5_accuracy"] = losses.topk_accuracy(logits, batch["y"], 5,
+                                                    where=w)
+    return out
+
+
 _REGISTRY: dict[str, Callable[[TrainConfig], Any]] = {}
 
 

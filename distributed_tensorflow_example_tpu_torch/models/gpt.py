@@ -87,7 +87,7 @@ class GPTConfig:
     dropout: float = 0.1
     #: LM-loss strategy (ops/losses.py lm_head_xent): "full" materializes
     #: the [B, S, vocab] f32 logits; "chunked" and "fused" arrive with
-    #: slice A3c
+    #: slice A3c-3
     loss_impl: str = "full"
     #: seq chunk for loss_impl="chunked" (> 0 with "full" is the legacy
     #: spelling of "chunked", as in the reference)
@@ -166,10 +166,10 @@ class GPT:
                              "must be >= 1")
         if accuracy_every_n != 1:
             # the cadence counter lives in TrainState.extras and is ticked
-            # by the trainer's step, which arrives with slice A3c
+            # by the trainer's step, which arrives with slice A3c-3
             raise NotImplementedError(
                 f"token_accuracy_every_n={accuracy_every_n}: the every-n "
-                "accuracy cadence arrives with slice A3c; the port computes "
+                "accuracy cadence arrives with slice A3c-3; the port computes "
                 "token_accuracy every step")
         self.cfg = cfg
         self.dtype = dtype
@@ -215,12 +215,15 @@ class GPT:
         for i in range(c.layers):
             params[f"layer_{i}"] = {
                 "ln1": nn.layernorm_init(c.hidden, device=dev),
-                "attn": {n: nn.dense_init(gen, c.hidden, c.hidden)
+                "attn": {n: nn.dense_init(gen, c.hidden, c.hidden,
+                                         init="glorot")
                          for n in ("q", "k", "v", "o")},
                 "ln2": nn.layernorm_init(c.hidden, device=dev),
                 "ffn": {
-                    "in": nn.dense_init(gen, c.hidden, c.intermediate),
-                    "out": nn.dense_init(gen, c.intermediate, c.hidden),
+                    "in": nn.dense_init(gen, c.hidden, c.intermediate,
+                                        init="glorot"),
+                    "out": nn.dense_init(gen, c.intermediate, c.hidden,
+                                         init="glorot"),
                 },
             }
         params["ln_f"] = nn.layernorm_init(c.hidden, device=dev)

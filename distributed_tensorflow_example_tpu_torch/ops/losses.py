@@ -1,11 +1,18 @@
-"""LM-head losses (port of the language-model part of
-``distributed_tensorflow_example_tpu/ops/losses.py``).
+"""Loss functions (port of ``distributed_tensorflow_example_tpu/
+ops/losses.py``): the classification losses and metrics of the MNIST MLP
+and the language-model part.
+
+Every loss and metric reduces with a *mean* over the examples, so under
+N synchronous ranks the all-reduced mean of the ranks' gradients is the
+gradient of the global batch's mean, as in the reference.
+:func:`_masked_mean` is the one masked mean they share (the padded eval
+tail's ``where``).
 
 :func:`lm_head_xent` is the weight-tied LM head's softmax cross-entropy
 plus token accuracy, as weighted token means. The port has the
 reference's ``impl="full"``, which materializes the [..., T, V] f32
 logits; the sequence-chunked and the fused vocab-blockwise impls arrive
-with slice A3c and raise until then. The post-logits numerics
+with slice A3c-3 and raise until then. The post-logits numerics
 (:func:`token_nll`, :func:`lm_nll_hits`, :func:`weighted_token_mean`)
 are the reference's.
 """
@@ -14,14 +21,74 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.pytree import tree_leaves
+
 LM_LOSS_IMPLS = ("full", "chunked", "fused")
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-token negative log-likelihood (gather form, no one-hots)."""
+def _masked_mean(values: torch.Tensor, where) -> torch.Tensor:
+    """Mean over examples, restricted by optional example weights
+    ``where`` (the padded eval tail's mask)."""
+    if where is None:
+        return values.mean()
+    where = torch.as_tensor(where, device=values.device,
+                            dtype=values.dtype)
+    return (values * where).sum() / torch.clamp_min(where.sum(), 1.0)
+
+
+def softmax_xent(logits: torch.Tensor, onehot: torch.Tensor, *,
+                 where=None) -> torch.Tensor:
+    """Mean softmax cross-entropy against one-hot (or soft) targets."""
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    ll = (onehot * (logits - logz)).sum(dim=-1)
+    return -_masked_mean(ll, where)
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor, *,
+              label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-token negative log-likelihood (gather form, no one-hots);
+    ``label_smoothing=eps`` takes ``(1-eps) logit_y + eps mean(logits)``
+    as the target's logit."""
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if label_smoothing:
+        eps = label_smoothing
+        picked = (1.0 - eps) * picked + eps * logits.mean(dim=-1)
     return logz - picked
+
+
+def softmax_xent_int_labels(logits: torch.Tensor, labels: torch.Tensor, *,
+                            where=None,
+                            label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean softmax cross-entropy against integer labels, optionally
+    label-smoothed (algebraically xent against the smoothed
+    distribution, without one-hots)."""
+    if not 0.0 <= label_smoothing < 1.0:
+        raise ValueError(
+            f"label_smoothing must be in [0, 1), got {label_smoothing}")
+    return _masked_mean(
+        token_nll(logits, labels, label_smoothing=label_smoothing), where)
+
+
+def l2_regularization(params, scale: float) -> torch.Tensor:
+    return scale * sum(x.square().sum() for x in tree_leaves(params))
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor, *,
+             where=None) -> torch.Tensor:
+    """Mean top-1 accuracy over integer labels (f32 scalar); ``where``
+    restricts the mean."""
+    hit = (torch.argmax(logits, dim=-1) == labels.long()).float()
+    return _masked_mean(hit, where)
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int, *,
+                  where=None) -> torch.Tensor:
+    """A hit when fewer than ``k`` logits exceed the true class's
+    (``tf.nn.in_top_k``'s rule)."""
+    true_logit = torch.gather(logits, -1, labels.long()[..., None])
+    rank = (logits > true_logit).sum(dim=-1)
+    return _masked_mean((rank < k).float(), where)
 
 
 def lm_nll_hits(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -61,9 +128,9 @@ def lm_head_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
                  accuracy: bool = True):
     """Weighted-mean softmax cross-entropy and token accuracy of ``h``
     [..., T, H] decoded against the tied embedding ``table`` [V, H] (no
-    bias: the reference's ``bias`` serves BERT's head, slice A3c):
+    bias: the reference's ``bias`` serves BERT's head, slice A3c-3):
     ``(loss, accuracy)`` scalars. The knob checks are the reference's;
-    ``impl="chunked"`` and ``"fused"`` raise until slice A3c."""
+    ``impl="chunked"`` and ``"fused"`` raise until slice A3c-3."""
     if impl not in LM_LOSS_IMPLS:
         raise ValueError(f"lm_loss_impl must be one of {LM_LOSS_IMPLS}, "
                          f"got {impl!r}")
@@ -77,7 +144,7 @@ def lm_head_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
             f"impl={impl!r}")
     if impl != "full":
         raise NotImplementedError(
-            f"lm_loss_impl={impl!r} arrives with slice A3c; the port has "
+            f"lm_loss_impl={impl!r} arrives with slice A3c-3; the port has "
             f"impl='full'")
     nll, hit = lm_nll_hits(_head_logits(h, table, dtype), labels,
                            accuracy=accuracy)

@@ -1,5 +1,6 @@
 """Functional NN primitives with explicit parameter dicts (port of
-``distributed_tensorflow_example_tpu/ops/nn.py``, the parts GPT reads).
+``distributed_tensorflow_example_tpu/ops/nn.py``, the parts GPT and the
+MNIST MLP read).
 
 Same conventions as the reference: parameters are plain dicts of tensors
 kept in ``param_dtype`` (f32 by default), matmul-bearing ops take a
@@ -26,11 +27,44 @@ def glorot_uniform(gen: torch.Generator, shape, dtype, fan_in: int,
     return (u * (2 * limit) - limit).to(dtype)
 
 
+def truncated_normal(gen: torch.Generator, shape, dtype,
+                     stddev: float) -> torch.Tensor:
+    """``stddev`` times a standard normal truncated to [-2, 2], drawn as
+    ``jax.random.truncated_normal(-2, 2)`` draws it: the inverse CDF of a
+    uniform draw between erf(-2/sqrt 2) and erf(2/sqrt 2), in f32 (the
+    classic ``tf.truncated_normal`` init of the reference MLP)."""
+    lo, hi = math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0))
+    u = torch.rand(shape, generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    z = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+    z = z.clamp(-2.0, 2.0)
+    return (z * stddev).to(dtype)
+
+
+def he_normal(gen: torch.Generator, shape, dtype,
+              fan_in: int) -> torch.Tensor:
+    std = math.sqrt(2.0 / fan_in)
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32) * std).to(dtype)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
+               init: str = "truncated_normal",
                param_dtype=torch.float32) -> Params:
-    """Glorot-uniform [in, out] kernel (the init GPT uses) + zero bias."""
-    return {"kernel": glorot_uniform(gen, (in_dim, out_dim), param_dtype,
-                                     in_dim, out_dim),
+    """[in, out] kernel + zero bias. ``init`` is the reference's:
+    ``truncated_normal`` (stddev 1/sqrt(fan_in), the MLP's), ``glorot``
+    (GPT's) or ``he``."""
+    shape = (in_dim, out_dim)
+    if init == "truncated_normal":
+        kernel = truncated_normal(gen, shape, param_dtype,
+                                  1.0 / math.sqrt(in_dim))
+    elif init == "glorot":
+        kernel = glorot_uniform(gen, shape, param_dtype, in_dim, out_dim)
+    elif init == "he":
+        kernel = he_normal(gen, shape, param_dtype, in_dim)
+    else:
+        raise ValueError(f"unknown init {init!r}")
+    return {"kernel": kernel,
             "bias": torch.zeros(out_dim, dtype=param_dtype,
                                 device=gen.device)}
 

@@ -1,20 +1,32 @@
 """Sync data-parallel training step (port of ``distributed_tensorflow_
-example_tpu/parallel/sync_replicas.py``), on one device.
+example_tpu/parallel/sync_replicas.py``): one replica per rank.
 
 The reference compiles accumulate -> average -> apply into one program
-over a mesh; the port runs the same step eagerly on one card (or the CPU
-when asked): gradients of the loss by autograd, optional microbatch
-accumulation (``SyncConfig.accum_steps``), then :meth:`SyncReplicas.
-_update`, the reference's update with its on-device anomaly guard. A step
-whose loss or global grad-norm is not finite applies the identity update:
-params, optimizer state and extras keep their values (``torch.where`` on
-the device, no host sync) while ``step`` and ``anomaly_count`` advance.
+over a mesh; the port runs the same step eagerly on each rank's card (or
+the CPU when asked): gradients of the loss on the rank's share of the
+global batch by autograd, optional microbatch accumulation
+(``SyncConfig.accum_steps``), then, over N ranks of a
+``torch.distributed`` group, one all-reduce that takes the gradients,
+the loss and the aux metrics to their mean over the ranks (the
+reference's ``pmean`` in ``_shard_map_step``), then
+:meth:`SyncReplicas._update`, the reference's update with its on-device
+anomaly guard. A step whose reduced loss or global grad-norm is not
+finite applies the identity update on every rank alike: params,
+optimizer state and extras keep their values (``torch.where`` on the
+device, no host sync) while ``step`` and ``anomaly_count`` advance.
 Under ``anomaly_policy`` skip or rollback that step's metrics read -1.0;
-under halt the raw values are published (what a halting caller reports).
+under halt the raw values are published (what a halting caller
+reports).
 
-More than one replica (``mode="shard_map"``, a mesh or
-``replicas_to_aggregate`` above one, gradients all-reduced over
-``torch.distributed``) and ``multi_step`` arrive with slice A3c and raise.
+``mode="auto"`` and ``mode="shard_map"`` run the same step here: with
+one replica per rank the placement-driven and the explicit forms both
+come down to per-rank gradients and their mean. They part only for a
+model whose loss takes statistics across examples (batch norm), where
+the reference's auto mode normalizes over the global batch; that
+difference arrives with the convolutional models (slice A5a).
+``multi_step`` arrives with slice A3c-2b and raises; a data axis wider
+than the ranks (several cards to a process) or a sharded axis with slice
+A6.
 
 The loss signature is the framework's::
 
@@ -29,7 +41,8 @@ from typing import Any, Callable
 
 import torch
 
-from ..config import SyncConfig
+from ..config import MeshShape, SyncConfig
+from ..runtime import distributed
 from ..runtime.device import resolve_device
 from ..train.optimizers import Transform, apply_updates, global_norm
 from ..train.state import TrainState
@@ -93,16 +106,31 @@ def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
     return grads, lsum / accum_steps, aux, ex
 
 
-def _replica_count(mesh) -> int:
-    if mesh is None:
-        return 1
-    if isinstance(mesh, int):
-        return mesh
-    return int(mesh.size())
+def _replica_count(mesh, world: int) -> int:
+    """The replicas a ``mesh`` asks for (None or -1: one per rank; an int
+    or a ``MeshShape``'s data axis), refusing what one replica per rank
+    cannot give."""
+    if isinstance(mesh, MeshShape):
+        sharded = {k: v for k, v in mesh.as_dict().items()
+                   if k != "data" and v != 1}
+        if sharded:
+            raise NotImplementedError(
+                f"mesh axes {sharded} (sharded parameters or activations) "
+                "arrive with slice A6; the port's sync step replicates the "
+                "parameters, one replica per rank")
+        mesh = mesh.data
+    n = world if mesh is None or mesh == -1 else int(mesh)
+    if n != world:
+        raise NotImplementedError(
+            f"{n} replicas over {world} rank(s): the port runs one replica "
+            "per rank (one card each); more cards to a process arrive "
+            "with slice A6")
+    return n
 
 
 class SyncReplicas:
-    """The sync train step for a (loss_fn, optimizer) on one device.
+    """The sync train step for a (loss_fn, optimizer), one replica per
+    rank.
 
     Usage::
 
@@ -110,9 +138,11 @@ class SyncReplicas:
         state = sync.init(model.init, seed=0)
         state, metrics = sync.step(state, batch)
 
-    ``metrics`` are device tensors (``loss``, ``grad_norm`` — the global
-    norm before clipping —, the loss's aux metrics and ``anomaly_count``);
-    reading them is the caller's host sync.
+    ``batch`` is this rank's share of the global batch (the loader's
+    ``process_index``/``num_processes`` slice). ``metrics`` are device
+    tensors (``loss``, ``grad_norm`` — the global norm before clipping —,
+    the loss's aux metrics and ``anomaly_count``), the same on every
+    rank; reading them is the caller's host sync.
     """
 
     def __init__(self, loss_fn: LossFn, tx: Transform, mesh=None, *,
@@ -129,17 +159,16 @@ class SyncReplicas:
         self.anomaly_policy = anomaly_policy
         if self.sync.mode not in ("auto", "shard_map"):
             raise ValueError(f"unknown sync mode {self.sync.mode!r}")
-        if self.sync.mode == "shard_map":
-            raise NotImplementedError(
-                "sync mode 'shard_map' (per-replica gradients and an "
-                "explicit all-reduce) arrives with slice A3c")
-        if _replica_count(mesh) != 1 or self.sync.replicas_to_aggregate \
-                not in (None, 1):
-            raise NotImplementedError(
-                "more than one replica (gradients all-reduced over "
-                "torch.distributed) arrives with slice A3c; the port's "
-                "sync step runs one replica")
-        if self.sync.total_num_replicas not in (None, 1):
+        self.num_replicas = _replica_count(mesh, distributed.process_count())
+        if (self.sync.replicas_to_aggregate is not None
+                and self.sync.replicas_to_aggregate != self.num_replicas):
+            raise ValueError(
+                f"replicas_to_aggregate={self.sync.replicas_to_aggregate} "
+                f"must equal the replica count ({self.num_replicas}, one "
+                "per rank): partial aggregation has no synchronous "
+                "analogue, as in the reference")
+        if (self.sync.total_num_replicas is not None
+                and self.sync.total_num_replicas != self.num_replicas):
             raise ValueError(
                 f"total_num_replicas={self.sync.total_num_replicas} != "
                 f"replicas_to_aggregate (backup replicas) is not supported, "
@@ -185,11 +214,25 @@ class SyncReplicas:
         grads, loss, aux, new_extras = _grads_and_metrics(
             self.loss_fn, state.params, state.extras, batch, gens,
             self.sync.accum_steps)
+        if self.num_replicas > 1:
+            grads, loss, aux = self._mean_over_ranks(grads, loss, aux)
         return self._update(state, grads, loss, aux, new_extras)
+
+    @staticmethod
+    def _mean_over_ranks(grads, loss, aux):
+        """The reference's ``pmean`` of the gradients, the loss and the
+        aux metrics, in one all-reduce a dtype. No ported model keeps
+        extras; batch norm's running statistics (slice A5a) will join
+        here."""
+        keys = list(aux)
+        out = distributed.all_reduce_mean(
+            list(grads) + [loss] + [aux[k] for k in keys])
+        n = len(grads)
+        return out[:n], out[n], dict(zip(keys, out[n + 1:]))
 
     def multi_step(self, state: TrainState, stacked_batches):
         raise NotImplementedError("multi_step (K steps per dispatch) "
-                                  "arrives with slice A3c")
+                                  "arrives with slice A3c-2b")
 
     def _update(self, state: TrainState, grads, loss, aux, new_extras):
         flat = flatten_dict(state.params)

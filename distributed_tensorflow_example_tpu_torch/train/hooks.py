@@ -5,12 +5,14 @@ copy of ``distributed_tensorflow_example_tpu/train/hooks.py``):
 :class:`AnomalyPolicyHook` (halt and skip), :class:`NanHook` and
 :class:`PreemptionHook` (SIGTERM: save, then exit).
 
-One process, which is the chief. ``after_step`` may return True to ask
-for a stop. Hooks that need metric values declare ``every_steps``; the
-trainer reads the device metrics to the host only on steps where some
-hook wants them, so the other steps queue without a host sync. The
+Every rank runs the hooks; their side effects are the chief's (rank 0),
+as in the reference: it alone logs the metrics and the rates, and the
+checkpoint manager has it alone write. ``after_step`` may return True to
+ask for a stop. Hooks that need metric values declare ``every_steps``;
+the trainer reads the device metrics to the host only on steps where
+some hook wants them, so the other steps queue without a host sync. The
 summary, histogram, profiler, step-timing and global-step-waiter hooks
-arrive with slice A3c.
+arrive with slice A3c-4.
 """
 
 from __future__ import annotations
@@ -23,10 +25,15 @@ import numpy as np
 
 from ..ckpt.checkpoint import CheckpointManager
 from ..obs.trace import span
+from ..runtime import distributed
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsLogger, RateTracker
 
 log = get_logger("hooks")
+
+
+def _is_chief() -> bool:
+    return distributed.process_index() == 0
 
 
 class Hook:
@@ -48,7 +55,8 @@ class LoggingHook(Hook):
         self.every_steps = every_steps
 
     def after_step(self, trainer, step, metrics):
-        if metrics is None or not self.wants_metrics(step):
+        if metrics is None or not self.wants_metrics(step) \
+                or not _is_chief():
             return
         body = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
         log.info("step %d: %s", step, body)
@@ -80,7 +88,7 @@ class StepCounterHook(Hook):
         if self.every_steps <= 0 or step % self.every_steps:
             return
         self.last_rates = self.tracker.rates(step)
-        if not self.last_rates:
+        if not self.last_rates or not _is_chief():
             return
         lr = getattr(trainer, "learning_rate_at", None)
         if lr is not None:
@@ -106,6 +114,13 @@ class CheckpointSaverHook(Hook):
         self.save_secs = save_secs
         self._last_save_t = time.time()
         self._last_saved_step: int | None = None
+        # every rank enters save() (its barrier), so the decision to save
+        # must be the same on every rank: a wall-clock cadence is not
+        if save_secs and distributed.process_count() > 1:
+            raise ValueError(
+                "save_secs is wall-clock-based and not deterministic across "
+                "processes (a rank would wait at the save's barrier for "
+                "the others); use save_steps on multi-process runs")
 
     def _due(self, step: int) -> bool:
         if self.save_steps and step % self.save_steps == 0:
@@ -147,14 +162,14 @@ class AnomalyPolicyHook(Hook):
     at the metrics cadence the LoggingHook already pays. ``halt`` stops
     the run on a new anomaly; ``skip`` keeps training until more than
     ``max_anomalies`` anomalous steps were seen in this run. Rollback
-    arrives with slice A3c.
+    arrives with slice A3c-4.
     """
 
     def __init__(self, policy: str, max_anomalies: int,
                  every_steps: int = 100):
         if policy == "rollback":
             raise NotImplementedError("anomaly policy 'rollback' arrives "
-                                      "with slice A3c")
+                                      "with slice A3c-4")
         if policy not in ("halt", "skip"):
             raise ValueError(f"unknown anomaly policy {policy!r}")
         self.policy = policy

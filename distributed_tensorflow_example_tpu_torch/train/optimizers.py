@@ -24,7 +24,7 @@ tensor, or anything ``torch.as_tensor`` takes) returning an f32 tensor.
 
 Ported: sgd, momentum, adam and adamw, the eight decay schedules with
 linear warmup, the global-norm and elementwise clips and the weight-decay
-mask. lars, lamb and adafactor arrive with slice A3c; bf16 moments and
+mask. lars, lamb and adafactor arrive with slice A3c-3; bf16 moments and
 the parameter EMA with slice A5: they raise.
 """
 
@@ -363,7 +363,7 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
         parts.append(adamw(sched, cfg.weight_decay, mask))
     elif name in ("lars", "lamb", "adafactor"):
         raise NotImplementedError(f"optimizer {name!r} arrives with slice "
-                                  f"A3c; the port has sgd, momentum, adam "
+                                  f"A3c-3; the port has sgd, momentum, adam "
                                   f"and adamw")
     else:
         raise ValueError(f"unknown optimizer {cfg.name!r}")

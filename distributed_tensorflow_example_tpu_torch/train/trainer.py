@@ -1,16 +1,19 @@
 """Trainer: the Supervisor / MonitoredTrainingSession replacement (an
-adapted copy of ``distributed_tensorflow_example_tpu/train/trainer.py``,
-one process on one device).
+adapted copy of ``distributed_tensorflow_example_tpu/train/trainer.py``),
+one replica per rank.
 
 - restore-or-init          -> :func:`~..ckpt.checkpoint.restore_or_init`
 - Supervisor threads       -> hooks (``train/hooks.py``)
 - Coordinator should_stop  -> a hook returning True / StopAtStepHook
 - per-step feed_dict       -> ShardedLoader batches, copied to the device
 
-The loop queues steps without a host sync: device metrics are read to
-the host only on steps where some hook asks (``wants_metrics``). More
-than one replica, ``steps_per_loop > 1`` and rollback arrive with slice
-A3c and raise; early stop, best-checkpoint tracking, warm start and the
+Under N ranks of a ``torch.distributed`` group each rank takes its slice
+of every global batch (the loader's ``process_index``/``num_processes``)
+and the sync step all-reduces the gradients. The loop queues steps
+without a host sync: device metrics are read to the host only on steps
+where some hook asks (``wants_metrics``). ``steps_per_loop > 1`` arrives
+with slice A3c-2b, sharded mesh axes with A6 and rollback with A3c-4,
+and raise; early stop, best-checkpoint tracking, warm start and the
 summary, histogram, profiler, step-timing and trace sinks have no config
 field in the port yet.
 """
@@ -31,6 +34,7 @@ from ..data.loader import make_loader
 from ..obs.registry import Registry
 from ..obs.trace import add_span
 from ..parallel.sync_replicas import SyncReplicas
+from ..runtime import distributed
 from ..runtime.device import resolve_device
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsLogger
@@ -40,47 +44,58 @@ from .state import TrainState, param_count
 
 log = get_logger("trainer")
 
-_A3C = "arrives with slice A3c"
 
-
-def one_replica(mesh: MeshShape) -> bool:
-    """True for the meshes the port trains on: every axis 1, or data=-1
-    (all devices, here one)."""
+def one_replica_per_rank(mesh: MeshShape, num_processes: int) -> bool:
+    """True for the meshes the port trains on: one replica per rank, so
+    every axis but data is 1 and data is -1 (all ranks) or the number of
+    ranks."""
     axes = mesh.as_dict()
-    return axes.pop("data") in (1, -1) and all(v == 1
-                                               for v in axes.values())
+    return axes.pop("data") in (-1, num_processes) and all(
+        v == 1 for v in axes.values())
 
 
-def refuse_later_slices(config: TrainConfig) -> None:
-    """Raise NotImplementedError naming slice A3c for a set knob the
+def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
+    """Raise NotImplementedError naming its slice for a set knob the
     port's Trainer does not carry yet (and the reference's ValueErrors
     on anomaly settings no path could honor)."""
-    if not one_replica(config.mesh):
+    if not one_replica_per_rank(config.mesh, num_processes):
         raise NotImplementedError(
-            f"mesh {config.mesh.as_dict()} (more than one replica or a "
-            f"sharded axis) {_A3C}; the port trains on one device")
+            f"mesh {config.mesh.as_dict()} (a sharded axis, or more "
+            "replicas than ranks) arrives with slice A6; the port trains "
+            "one replica per rank")
     if config.steps_per_loop > 1:
-        raise NotImplementedError(f"steps_per_loop > 1 {_A3C}")
+        raise NotImplementedError("steps_per_loop > 1 arrives with slice "
+                                  "A3c-2b")
     anomaly_settings(config)          # rollback raises there
 
 
 class Trainer:
-    """End-to-end training loop for a registered model, one process.
+    """End-to-end training loop for a registered model, one replica per
+    rank.
 
     Args:
       model: a model with ``init(gen)``, ``loss`` and ``eval_metrics``.
       config: TrainConfig.
-      train_arrays/eval_arrays: batch-keyed numpy arrays.
+      train_arrays/eval_arrays: batch-keyed numpy arrays (the whole
+        sets: each rank takes its slice of every global batch).
       hooks: extra hooks appended after the default set.
       device: ``cuda`` (default) or ``cpu``.
+      process_index/num_processes: this rank's coordinates (default: the
+        ``torch.distributed`` group's, or 0 of 1 without one).
     """
 
     def __init__(self, model, config: TrainConfig,
                  train_arrays: dict[str, np.ndarray],
                  eval_arrays: dict[str, np.ndarray] | None = None,
                  *, hooks: list[hooks_lib.Hook] | None = None,
-                 device: str | torch.device | None = None):
-        refuse_later_slices(config)
+                 device: str | torch.device | None = None,
+                 process_index: int | None = None,
+                 num_processes: int | None = None):
+        self.process_index = (distributed.process_index()
+                              if process_index is None else process_index)
+        self.num_processes = (distributed.process_count()
+                              if num_processes is None else num_processes)
+        refuse_later_slices(config, self.num_processes)
         self.model = model
         self.config = config
         self.device = resolve_device(device)
@@ -88,7 +103,7 @@ class Trainer:
         self.eval_arrays = eval_arrays
         self.tx = make_optimizer(config.optimizer)
         self._schedule = make_schedule(config.optimizer)
-        self.sync = SyncReplicas(model.loss, self.tx,
+        self.sync = SyncReplicas(model.loss, self.tx, config.mesh,
                                  sync=config.sync,
                                  anomaly_policy=config.on_anomaly,
                                  device=self.device)
@@ -184,6 +199,8 @@ class Trainer:
         d = self.config.data
         return make_loader(self.train_arrays, d.batch_size,
                            prefetch=d.prefetch, start_step=start_step,
+                           process_index=self.process_index,
+                           num_processes=self.num_processes,
                            shuffle=d.shuffle, seed=d.seed)
 
     # ------------------------------------------------------------------
@@ -193,7 +210,8 @@ class Trainer:
         # the resolved config opens this run's segment of the (append
         # mode) metrics stream
         self.metrics_logger.log({
-            "config": dataclasses.asdict(self.config), "num_processes": 1,
+            "config": dataclasses.asdict(self.config),
+            "num_processes": self.num_processes,
             "start_step": self.start_step})
         state = self.state
         step = self.start_step

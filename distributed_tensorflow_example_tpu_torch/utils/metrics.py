@@ -2,8 +2,8 @@
 ``distributed_tensorflow_example_tpu/utils/metrics.py``).
 
 One JSON object per record, the reference's format; stdout only when no
-path is given. The TensorBoard event-file sink (``tb_logdir``) arrives
-with slice A3c.
+path is given. Rank 0 writes, as the reference's process 0 does. The
+TensorBoard event-file sink (``tb_logdir``) arrives with slice A3c-4.
 """
 
 from __future__ import annotations
@@ -13,24 +13,26 @@ import os
 import time
 from typing import Any, TextIO
 
+from ..runtime import distributed
+
 
 class MetricsLogger:
-    """Append-only JSONL metrics writer (the one process is the chief).
-    With ``registry`` (``obs.registry.Registry``) it counts the records
-    it writes."""
+    """Append-only JSONL metrics writer; rank 0 (the chief) writes, the
+    other ranks' records go nowhere. With ``registry``
+    (``obs.registry.Registry``) it counts the records it writes."""
 
     def __init__(self, path: str | None = None, *,
                  tb_logdir: str | None = None, registry=None):
         if tb_logdir:
             raise NotImplementedError("the TensorBoard sink (tb_logdir) "
-                                      "arrives with slice A3c")
+                                      "arrives with slice A3c-4")
         self.path = path
         self._f: TextIO | None = None
         self._c_records = (registry.counter(
             "metrics_records_written_total",
             "structured JSONL records written by MetricsLogger")
             if registry is not None else None)
-        if path:
+        if path and distributed.process_index() == 0:
             os.makedirs(os.path.dirname(os.path.abspath(path)),
                         exist_ok=True)
             self._f = open(path, "a", buffering=1)
@@ -50,8 +52,9 @@ class MetricsLogger:
 
 
 class RateTracker:
-    """steps/sec and examples/sec over a sliding window (one card: the
-    reference's per-chip rate is the same number)."""
+    """steps/sec and examples/sec(/chip) over a sliding window; a rank
+    drives one card, so the chips are the ranks (the reference's device
+    count)."""
 
     def __init__(self, batch_size: int = 0):
         self.batch_size = batch_size
@@ -73,6 +76,7 @@ class RateTracker:
         out = {"steps_per_sec": steps / dt, "sec_per_step": dt / steps}
         if self.batch_size:
             out["examples_per_sec"] = steps * self.batch_size / dt
-            out["examples_per_sec_per_chip"] = out["examples_per_sec"]
+            out["examples_per_sec_per_chip"] = (
+                out["examples_per_sec"] / distributed.process_count())
         self.start(step)
         return out

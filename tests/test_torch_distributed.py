@@ -1,0 +1,338 @@
+"""The port's N synchronous workers over ``torch.distributed``, on the CPU
+(gloo): two ranks against one rank on the same global batches, against
+the reference's ``SyncReplicas`` on a 2-device CPU mesh (``auto`` and
+``shard_map``), the CLI and the example script as two workers, and the
+refusals of what later slices bring.
+
+Every rank is a subprocess started with ``subprocess.run`` and a timeout
+of its own (no fork inside a test worker); the ranks of a test meet
+through a ``file://`` rendezvous in ``tmp_path``, or, for the entry
+points that take worker addresses, at ports bound to 0 just before the
+spawn. Tolerances are the reference's
+``tests/test_sync_replicas.py::test_nchip_step_equals_single_chip``:
+loss rtol 1e-5, params rtol 2e-5 and atol 1e-6.
+"""
+
+import os
+import re
+import socket
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distributed_tensorflow_example_tpu import config as jconfig
+from distributed_tensorflow_example_tpu.ckpt import checkpoint as jckpt
+from distributed_tensorflow_example_tpu.data import loader as jloader
+from distributed_tensorflow_example_tpu.models.mlp import MLP as JMLP
+from distributed_tensorflow_example_tpu.parallel.mesh import local_mesh
+from distributed_tensorflow_example_tpu.parallel.sync_replicas import \
+    SyncReplicas as JSyncReplicas
+from distributed_tensorflow_example_tpu.train import optimizers as jopt
+from distributed_tensorflow_example_tpu_torch import config as tconfig
+from distributed_tensorflow_example_tpu_torch.ckpt import checkpoint as tckpt
+from distributed_tensorflow_example_tpu_torch.cli import train as tcli
+from distributed_tensorflow_example_tpu_torch.data import loader as tloader
+from distributed_tensorflow_example_tpu_torch.data.mnist import \
+    synthetic_mnist
+from distributed_tensorflow_example_tpu_torch.models.mlp import MLP
+from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import (
+    SyncReplicas, make_sync_train_step)
+from distributed_tensorflow_example_tpu_torch.train import optimizers as topt
+from distributed_tensorflow_example_tpu_torch.train.trainer import Trainer
+from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+    flatten_dict
+
+# one intra-op thread per test process: the suite runs in parallel
+# workers that share the machine's cores
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORKER = os.path.join(ROOT, "tests", "_torch_sync_worker.py")
+EXAMPLE = "distributed_tensorflow_example_tpu_torch.examples.mnist_distributed"
+RANK_TIMEOUT_S = 150
+STEPS, GLOBAL_BATCH, NUM_TRAIN = 10, 256, 2048
+LOSS_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-5, 2e-5, 1e-6
+
+
+def _env():
+    # gloo on the loopback interface: the ranks share this host
+    return dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo",
+                PYTHONPATH=os.pathsep.join(
+                    p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+
+
+def _run_ranks(argvs: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Each argv as one rank, all at once, each under its own timeout."""
+    def one(argv):
+        return subprocess.run([sys.executable, *argv], cwd=ROOT, env=_env(),
+                              capture_output=True, text=True,
+                              timeout=RANK_TIMEOUT_S)
+    with ThreadPoolExecutor(len(argvs)) as ex:
+        out = list(ex.map(one, argvs))
+    for r in out:
+        assert r.returncode == 0, r.stdout + r.stderr
+    return out
+
+
+def _free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _reference_state(bridge: str, mode: str = "auto", n_dev: int = 1):
+    """The reference's MLP, SGD sync step at lr 0.5 over ``n_dev`` CPU
+    devices, and its seed-0 state, written to ``bridge`` as step 0 (the
+    weights the port's ranks restore)."""
+    jm = JMLP()
+    jsync = JSyncReplicas(
+        jm.loss, jopt.make_optimizer(jconfig.OptimizerConfig(
+            name="sgd", learning_rate=0.5)), local_mesh(n_dev),
+        sync=jconfig.SyncConfig(mode=mode))
+    js = jsync.init(jm.init, seed=0)
+    jckpt.CheckpointManager(bridge).save(js, 0)
+    return jsync, js
+
+
+def _spawn_sync_ranks(tmp_path, bridge: str, mode: str = "auto",
+                      world: int = 2) -> list[dict]:
+    rdv = "file://" + str(tmp_path / "rdv")
+    argvs = [[WORKER, "--rank", str(r), "--world", str(world), "--init",
+              rdv, "--bridge", bridge, "--ckpt", str(tmp_path / "ck"),
+              "--out", str(tmp_path / f"rank{r}.npz"), "--mode", mode,
+              "--steps", str(STEPS)] for r in range(world)]
+    _run_ranks(argvs)
+    outs = []
+    for r in range(world):
+        with np.load(tmp_path / f"rank{r}.npz") as z:
+            outs.append({k: z[k] for k in z.files})
+    return outs
+
+
+def _params(out: dict, prefix: str = "params/") -> dict:
+    return {k[len(prefix):]: v for k, v in out.items()
+            if k.startswith(prefix)}
+
+
+def _global_batches():
+    data = synthetic_mnist(NUM_TRAIN, 64)
+    return tloader.make_loader({"x": data["train_x"], "y": data["train_y"]},
+                               GLOBAL_BATCH, seed=0)
+
+
+def test_two_ranks_equal_one_rank_on_the_same_global_batch(tmp_path):
+    """2 gloo ranks, each on its half of every global batch of 256, over
+    10 SGD steps at lr 0.5, against 1 rank on the whole batch from the
+    same bridged weights: the reference's n-chip tolerances; the two
+    ranks' params equal bit for bit. Also on the ranks: rank 0's
+    restore-or-init decision and state reach rank 1 (a fresh init from
+    each rank's own seed ends equal), only rank 0 writes the
+    checkpoint, and replicas_to_aggregate=1 over 2 ranks is refused."""
+    bridge = str(tmp_path / "bridge")
+    _reference_state(bridge)
+    r0, r1 = _spawn_sync_ranks(tmp_path, bridge)
+
+    model = MLP()
+    sync = SyncReplicas(model.loss, topt.make_optimizer(
+        tconfig.OptimizerConfig(name="sgd", learning_rate=0.5)),
+        device="cpu")
+    state, restored = tckpt.restore_or_init(tckpt.CheckpointManager(bridge),
+                                            sync.init, model.init)
+    assert restored
+    batches = _global_batches()
+    losses = []
+    for _ in range(STEPS):
+        state, m = sync.step(state, next(batches))
+        losses.append(float(m["loss"]))
+
+    for r in (r0, r1):
+        assert bool(r["restored"]) and int(r["step"]) == STEPS
+        np.testing.assert_allclose(r["losses"], losses, rtol=LOSS_RTOL)
+        assert "replicas_to_aggregate=1" in str(r["refused"])
+    np.testing.assert_array_equal(r0["losses"], r1["losses"])
+    one = {k: v.detach().numpy() for k, v in
+           flatten_dict(state.params).items()}
+    p0, p1 = _params(r0), _params(r1)
+    assert sorted(p0) == sorted(one)
+    for k in one:
+        np.testing.assert_array_equal(p0[k], p1[k], err_msg=k)
+        np.testing.assert_allclose(p0[k], one[k], rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL, err_msg=k)
+    f0, f1 = _params(r0, "fresh/"), _params(r1, "fresh/")
+    own1 = MLP().init(torch.Generator().manual_seed(8))     # rank 1's seed
+    for k in f0:
+        np.testing.assert_array_equal(f0[k], f1[k], err_msg=k)
+    assert not np.array_equal(f1["fc1/kernel"],
+                              own1["fc1"]["kernel"].numpy())
+    assert bool(r0["wrote"]) and not bool(r1["wrote"])
+    assert sorted(os.listdir(tmp_path / "ck")) == ["checkpoint",
+                                                   f"ckpt-{STEPS}.npz"]
+
+
+@pytest.mark.parametrize("mode", ["auto", "shard_map"])
+def test_two_ranks_match_reference_two_device_mesh(tmp_path, mode):
+    """2 port ranks against the reference's ``SyncReplicas`` on a
+    2-device CPU mesh in the same ``mode``, from the reference's own
+    initial state bridged through its npz checkpoint, over 10 global
+    batches of 256: each step's loss rtol 1e-5, accuracy equal, final
+    params rtol 2e-5 and atol 1e-6."""
+    bridge = str(tmp_path / "bridge")
+    jsync, js = _reference_state(bridge, mode=mode, n_dev=2)
+    r0, r1 = _spawn_sync_ranks(tmp_path, bridge, mode=mode)
+    data = synthetic_mnist(NUM_TRAIN, 64)
+    batches = jloader.make_loader({"x": data["train_x"],
+                                   "y": data["train_y"]}, GLOBAL_BATCH,
+                                  seed=0)
+    losses, accs = [], []
+    for _ in range(STEPS):
+        js, m = jsync.step(js, jsync.shard_batch(next(batches)))
+        losses.append(float(m["loss"]))
+        accs.append(float(m["accuracy"]))
+    want = jckpt._flatten(jax.device_get(js.params))
+    for r in (r0, r1):
+        np.testing.assert_allclose(r["losses"], losses, rtol=LOSS_RTOL)
+        np.testing.assert_array_equal(r["accs"], accs)
+        got = _params(r)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=PARAM_RTOL,
+                                       atol=PARAM_ATOL, err_msg=k)
+
+
+def test_cli_two_workers_equal_one_worker(tmp_path):
+    """``cli.train --model mlp`` as two workers (``--worker_hosts`` of two
+    local addresses, gloo) against one worker on the same argv: 40 steps
+    with a checkpoint every 20 in a ring of 2, a resume to 60, and the
+    final checkpoints agree to the n-chip tolerances. Rank 0 alone writes
+    the ring and the metrics file."""
+    def argv(ck, m, steps):
+        return ["--model", "mlp", "--device", "cpu", "--batch_size", "256",
+                "--ckpt_dir", ck, "--save_steps", "20", "--max_to_keep",
+                "2", "--log_every_steps", "20", "--metrics_path", m,
+                "--train_steps", str(steps)]
+    one_ck, two_ck = str(tmp_path / "one"), str(tmp_path / "two")
+    one_m, two_m = str(tmp_path / "one.jsonl"), str(tmp_path / "two.jsonl")
+    for steps in (40, 60):
+        assert tcli.main(argv(one_ck, one_m, steps)) == 0
+        hosts = ",".join(f"127.0.0.1:{p}" for p in _free_ports(2))
+        _run_ranks([["-m", "distributed_tensorflow_example_tpu_torch.cli."
+                     "train", *argv(two_ck, two_m, steps), "--worker_hosts",
+                     hosts, "--task_index", str(i)] for i in range(2)])
+    assert tckpt.CheckpointManager(two_ck).all_steps() == [40, 60]
+    one = tckpt.load_npz(os.path.join(one_ck, "ckpt-60.npz"))
+    two = tckpt.load_npz(os.path.join(two_ck, "ckpt-60.npz"))
+    assert sorted(one) == sorted(two)
+    for k in one:
+        np.testing.assert_allclose(two[k], one[k], rtol=PARAM_RTOL,
+                                   atol=PARAM_ATOL, err_msg=k)
+    with open(two_m) as f:
+        starts = [line for line in f if '"start_step"' in line]
+    assert len(starts) == 2 and '"num_processes": 2' in starts[0]
+
+
+def test_example_as_two_workers_trains(tmp_path):
+    """The port's example with ``--worker_hosts`` naming two local
+    workers: both train on their halves of each global batch and reach
+    0.95 test accuracy; worker 0's output carries the reference's
+    lines."""
+    ckpt = str(tmp_path / "ckpt")
+    hosts = ",".join(f"127.0.0.1:{p}" for p in _free_ports(2))
+    out = _run_ranks([["-m", EXAMPLE, "--device", "cpu", "--train_steps",
+                       "120", "--log_every_steps", "60", "--ckpt_dir",
+                       ckpt, "--worker_hosts", hosts, "--task_index",
+                       str(i)] for i in range(2)])
+    w0 = out[0].stdout
+    assert re.search(r"^step 120: loss=[\d.]+ \([\d.]+ steps/s\)$", w0,
+                     re.M), w0
+    m = re.search(r"final test accuracy: ([\d.]+)", w0)
+    assert m and float(m.group(1)) >= 0.95, w0
+    assert "final test accuracy" in out[1].stdout
+    assert sorted(os.listdir(ckpt)) == ["checkpoint", "ckpt-120.npz"]
+
+
+def test_replicas_to_aggregate_must_equal_the_world_size():
+    """One process is a world of one: 2 replicas to aggregate, or 2 total
+    replicas, are refused with the reference's ValueError (the 2-rank
+    case runs in the ranks of the test above)."""
+    model = MLP(in_dim=20, hidden=16, num_classes=4)
+    tx = topt.make_optimizer(tconfig.OptimizerConfig())
+    for kw in (dict(replicas_to_aggregate=2), dict(total_num_replicas=2)):
+        with pytest.raises(ValueError, match="replicas"):
+            SyncReplicas(model.loss, tx, device="cpu",
+                         sync=tconfig.SyncConfig(**kw))
+    sync = SyncReplicas(model.loss, tx, device="cpu",
+                        sync=tconfig.SyncConfig(replicas_to_aggregate=1,
+                                                mode="shard_map"))
+    assert sync.num_replicas == 1
+
+
+def _cli_refusal(extra):
+    def run():
+        tcli.main(["--model", "mlp", "--device", "cpu", "--train_steps",
+                   "1"] + extra)
+    return run
+
+
+def _trainer_refusal(**kw):
+    def run():
+        cfg = tconfig.TrainConfig(model="mlp", **kw)
+        data = synthetic_mnist(64, 8)
+        Trainer(MLP(), cfg, {"x": data["train_x"], "y": data["train_y"]},
+                device="cpu")
+    return run
+
+
+def _sync_refusal(mesh):
+    def run():
+        model = MLP(in_dim=20, hidden=16, num_classes=4)
+        make_sync_train_step(model.loss, topt.make_optimizer(
+            tconfig.OptimizerConfig()), mesh, device="cpu")
+    return run
+
+
+def _multi_step():
+    model = MLP(in_dim=20, hidden=16, num_classes=4)
+    sync = SyncReplicas(model.loss, topt.make_optimizer(
+        tconfig.OptimizerConfig()), device="cpu")
+    sync.multi_step(sync.init(model.init), None)
+
+
+REFUSALS = {
+    "multi_step": (_multi_step, NotImplementedError, "A3c-2b"),
+    "cli-steps_per_loop": (_cli_refusal(["--steps_per_loop", "2"]),
+                           SystemExit, "A3c-2b"),
+    "cli-max_inflight_steps": (_cli_refusal(["--max_inflight_steps", "2"]),
+                               SystemExit, "A3c-2b"),
+    "trainer-steps_per_loop": (_trainer_refusal(steps_per_loop=2),
+                               NotImplementedError, "A3c-2b"),
+    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "data=1,fsdp=2"]),
+                      SystemExit, "A6"),
+    "cli-mesh-model": (_cli_refusal(["--mesh", "model=2"]), SystemExit,
+                       "A6"),
+    "trainer-mesh-fsdp": (_trainer_refusal(mesh=tconfig.MeshShape(fsdp=2)),
+                          NotImplementedError, "A6"),
+    "sync-mesh-model": (_sync_refusal(tconfig.MeshShape(model=2)),
+                        NotImplementedError, "A6"),
+    "sync-two-replicas-one-rank": (_sync_refusal(2), NotImplementedError,
+                                   "A6"),
+    "cli-native": (_cli_refusal(["--native"]), SystemExit, "A5b"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_later_slices_stay_refused_naming_their_slice(name):
+    """``multi_step``, ``--steps_per_loop 2``, ``--max_inflight_steps``
+    and the fsdp and model axes (or more replicas than ranks) are still
+    refused, each naming the slice that brings it."""
+    run, exc, slice_ = REFUSALS[name]
+    with pytest.raises(exc, match=f"slice {slice_}"):
+        run()

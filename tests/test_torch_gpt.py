@@ -280,5 +280,7 @@ def test_registered_configs():
     assert m.attention_impl == "flash" and m.head_dim == 64
     tiny = get_model("gpt_tiny")
     assert (tiny.cfg.vocab_size, tiny.cfg.hidden) == (1000, 128)
+    # the MLP registers since the MNIST slice; BERT is a later slice's
+    assert get_model("mlp").hidden == 100
     with pytest.raises(KeyError, match="unknown model"):
-        get_model("mlp")
+        get_model("bert_tiny")

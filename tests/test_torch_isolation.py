@@ -208,6 +208,43 @@ def test_training_cli_runs_without_jax(tmp_path):
                                       "ckpt-4.npz"]
 
 
+#: the MNIST slice's modules, named so that the walk of
+#: :func:`test_importing_every_module_loads_no_jax` is shown to reach them
+MNIST_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "data.mnist", "models.mlp", "runtime.distributed",
+        "examples.mnist_distributed"))
+
+
+def test_mnist_example_runs_without_jax(tmp_path):
+    """The port's copy of the example trains the MLP on the CPU, saves,
+    resumes, and its ps branch exits 0, in a process that holds no JAX;
+    every MNIST module is in the import walk."""
+    assert set(MNIST_MODULES) <= set(_port_modules())
+    ck = str(tmp_path / "ck")
+    argv = ["--device", "cpu", "--ckpt_dir", ck, "--log_every_steps", "20"]
+    code = (
+        "import sys\n"
+        "from distributed_tensorflow_example_tpu_torch.examples."
+        "mnist_distributed import main\n"
+        f"a = main({argv!r} + ['--train_steps', '20'])\n"
+        f"b = main({argv!r} + ['--train_steps', '40'])\n"
+        "c = main(['--job_name', 'ps', '--worker_hosts', 'w0:1,w1:1'])\n"
+        "print('RC', a, b, c)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "RC 0 0 0" in out.stdout, out.stdout
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+    assert "restored checkpoint at step 20" in out.stdout
+    assert sorted(os.listdir(ck)) == ["checkpoint", "ckpt-20.npz",
+                                      "ckpt-40.npz"]
+
+
 def test_no_source_names_jax_or_the_jax_package():
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

@@ -36,7 +36,14 @@ exactly 0, and a masked key gets dk and dv exactly 0. The fused kernel
 (B3) runs the split kernels' products in their order, so its outputs
 equal theirs bit for bit, and two of its launches agree bit for bit (its
 dq accumulation is ordered, not atomic).
+
+The last test runs the port's MNIST example on the card (no
+hand-written kernel on that path): it must train to the reference's
+0.95 test accuracy.
 """
+
+import os
+import re
 
 import pytest
 import torch
@@ -816,3 +823,20 @@ def test_int8_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous k_scale"):
         pa.paged_decode_attention(q, k8, k8, k_scale=sc.t().contiguous().t(),
                                   v_scale=sc, **kw)
+
+
+def test_mnist_example_trains_on_the_card(cuda, tmp_path, capsys):
+    """The port's copy of the reference example, one worker on ``cuda``,
+    200 steps at its defaults (hidden 100, batch 256, lr 0.5) with a
+    checkpoint: the reference's lines, test accuracy >= 0.95."""
+    from distributed_tensorflow_example_tpu_torch.examples import \
+        mnist_distributed
+    assert mnist_distributed.main(
+        ["--device", "cuda", "--train_steps", "200", "--log_every_steps",
+         "100", "--ckpt_dir", str(tmp_path / "ck")]) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"^step 200: loss=[\d.]+ \([\d.]+ steps/s\)$", out,
+                     re.M), out
+    m = re.search(r"final test accuracy: ([\d.]+)", out)
+    assert m and float(m.group(1)) >= 0.95, out
+    assert "ckpt-200.npz" in sorted(os.listdir(tmp_path / "ck"))

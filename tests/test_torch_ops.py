@@ -126,12 +126,13 @@ def test_gelu_is_the_tanh_approximation():
 
 def test_initialisers_are_seeded_and_shaped():
     gen = torch.Generator().manual_seed(5)
-    d = tnn.dense_init(gen, 128, 256)
+    d = tnn.dense_init(gen, 128, 256, init="glorot")
     assert d["kernel"].shape == (128, 256) and d["bias"].shape == (256,)
     limit = np.sqrt(6.0 / (128 + 256))          # glorot-uniform bound
     assert float(d["kernel"].abs().max()) <= limit
     assert float(d["bias"].abs().max()) == 0.0
     e = tnn.embedding_init(torch.Generator().manual_seed(5), 100, 32)
     assert abs(float(e["table"].std()) - 0.02) < 0.003
-    d2 = tnn.dense_init(torch.Generator().manual_seed(5), 128, 256)
+    d2 = tnn.dense_init(torch.Generator().manual_seed(5), 128, 256,
+                        init="glorot")
     assert torch.equal(d["kernel"], d2["kernel"])

@@ -470,13 +470,18 @@ def test_sync_replicas_nan_batch_is_the_identity_update(policy):
 
 
 def test_sync_replicas_refuses_what_a_later_slice_brings():
+    """One replica per rank: shard_map is the same step as auto; more
+    replicas than ranks is a later slice's (A6), and
+    replicas_to_aggregate other than the world size is the reference's
+    ValueError."""
     tm = GPT(GPTConfig(**SMALL))
     tx = topt.make_optimizer(tconfig.OptimizerConfig())
-    for kw in (dict(sync=tconfig.SyncConfig(mode="shard_map")),
-               dict(sync=tconfig.SyncConfig(replicas_to_aggregate=2))):
-        with pytest.raises(NotImplementedError, match="A3c"):
-            SyncReplicas(tm.loss, tx, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A3c"):
+    assert SyncReplicas(tm.loss, tx, device="cpu", sync=tconfig.SyncConfig(
+        mode="shard_map")).num_replicas == 1
+    with pytest.raises(ValueError, match="replicas_to_aggregate"):
+        SyncReplicas(tm.loss, tx, device="cpu",
+                     sync=tconfig.SyncConfig(replicas_to_aggregate=2))
+    with pytest.raises(NotImplementedError, match="slice A6"):
         make_sync_train_step(tm.loss, tx, 4, device="cpu")
     with pytest.raises(ValueError, match="sync mode"):
         SyncReplicas(tm.loss, tx, sync=tconfig.SyncConfig(mode="ps"),
@@ -488,5 +493,5 @@ def test_sync_replicas_refuses_what_a_later_slice_brings():
     assert param_count(state.params) == sum(
         int(np.prod(s)) for s in tm.param_shapes().values())
     assert param_bytes(state.params) == 4 * param_count(state.params)
-    with pytest.raises(NotImplementedError, match="A3c"):
+    with pytest.raises(NotImplementedError, match="A3c-2b"):
         sync.multi_step(state, None)
