@@ -5,8 +5,9 @@ step and then through its training CLI (``cli/train.py`` -> ``Trainer``
 -> checkpoint ring, the fused flash backward), then serves GPT-small
 generation over HTTP through the port's entry points, without and with
 the continuous-batching engine, and checks the kernels carried each
-path; last, it trains the source's MNIST MLP through the port's copy of
-the reference example and through the CLI.
+path; then it trains the source's MNIST MLP through the port's copy of
+the reference example and through the CLI, and last its convolutional
+models (LeNet, ResNet-20, ResNet-50) through the CLI.
 
     python3 chip_smoke.py
 
@@ -45,7 +46,13 @@ reference's defaults, 1000 steps with a checkpoint and a resume, then
 loss curve, the final test accuracy against the reference's 0.95, the
 resume lines, 20 card steps against 20 CPU steps, examples/s and ms per
 step over steps 101-1000, peak memory and the device idle share of one
-step, each beside the card's name and power limit), a ``{"kernels":
+step, each beside the card's name and power limit), the conv phase (the
+source's convolutional configs through ``cli/train.py``, no hand-written
+kernel on their path: full-width ResNet-50 in bf16 at batch 128 with a
+ring, a resume and a top-5 eval, its examples/s, ms per step, peak
+memory, idle share and share of the bf16 peak; ResNet-20 with
+``--augment`` to an eval bar and 20 f32 card steps against 20 CPU steps;
+LeNet to 0.95), a ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line; without CUDA (or outside the repository) it exits
@@ -2428,6 +2435,341 @@ def phase_mnist(card: str) -> dict:
             "accuracy": acc, "peak_mib": peak / 2**20}
 
 
+# ---------------------------------------------------------------------------
+# conv phase: LeNet, ResNet-20 and ResNet-50 through the port's CLI
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 4 at the registered preset: [3, 4, 6, 3]
+# bottlenecks, 224x224x3, 1000 classes, bf16 compute, f32 statistics
+R50_ARGV = ["--model", "resnet50", "--device", "cuda", "--dtype",
+            "bfloat16", "--batch_size", "128", "--optimizer", "momentum",
+            "--learning_rate", "0.05", "--warmup_steps", "5",
+            "--label_smoothing", "0.1", "--seed", "0"]
+R50_BATCH = 128
+# config 3: f32 on the card (TF32 off), the CIFAR augmentation on
+# the CIFAR recipe's piecewise drop (lr x 0.1 after step 300), because
+# the eval at a constant lr is noise: at 0.05 the same argv read 0.957
+# after 300 steps in one card run and 0.6641 in the next
+R20_ARGV = ["--model", "resnet20", "--device", "cuda", "--augment",
+            "--batch_size", "128", "--optimizer", "momentum",
+            "--learning_rate", "0.05", "--decay_schedule", "piecewise",
+            "--decay_boundaries", "300", "--decay_factor", "0.1",
+            "--seed", "0"]
+R20_STEPS, R20_MIN_ACCURACY = 400, 0.9
+# 20 f32 momentum steps (lr 0.01, batch 32) of ResNet-20 on the card
+# against the same steps on the CPU from one checkpoint. Step 1 starts
+# from the same weights: only the summation order differs (cuDNN against
+# the CPU's), ~1e-7 of the loss, where TF32 would put ~1e-3 into every
+# conv. From there batch norm and momentum amplify the rounding: on the
+# CPU alone the f32 run of these 20 steps drifts from the f64 one by up
+# to 2.3e-3 of the loss (steps 19-20), so the later steps are held to
+# 1e-2
+R20_CARD_CPU_STEP1_RTOL = 1e-5
+R20_CARD_CPU_LOSS_RTOL = 1e-2
+LENET_ARGV = ["--model", "lenet", "--device", "cuda", "--batch_size",
+              "128", "--optimizer", "momentum", "--learning_rate", "0.05",
+              "--seed", "0"]
+LENET_STEPS = 200
+
+
+class _Window:
+    """A Trainer hook that times steps ``a + 1 .. b`` on the host clock,
+    with a device sync after step ``a`` and after step ``b``."""
+
+    every_steps = 0
+
+    def __init__(self, a: int, b: int):
+        self.a, self.b = a, b
+        self.t0 = self.wall = 0.0
+
+    def begin(self, trainer):
+        pass
+
+    def wants_metrics(self, step):
+        return False
+
+    def after_step(self, trainer, step, metrics):
+        if step in (self.a, self.b):
+            torch.cuda.synchronize()
+            if step == self.a:
+                self.t0 = time.perf_counter()
+            else:
+                self.wall = time.perf_counter() - self.t0
+
+    def end(self, trainer):
+        pass
+
+
+def _train_flops(model, hw: int) -> float:
+    """Training FLOPs an image: 3 x the forward's multiply-adds x 2 of
+    every conv and dense call of one forward, from the shapes the code
+    gives them (the stem's input gradient included)."""
+    from distributed_tensorflow_example_tpu_torch.ops import nn
+    total = [0.0]
+    conv, dense = nn.conv2d, nn.dense
+
+    def conv_rec(params, x, **kw):
+        y = conv(params, x, **kw)
+        kh, kw_, cin, cout = params["kernel"].shape
+        total[0] += 2.0 * y.shape[1] * y.shape[2] * kh * kw_ * cin * cout
+        return y
+
+    def dense_rec(params, x, **kw):
+        total[0] += 2.0 * params["kernel"].numel() * (x.numel()
+                                                      // x.shape[-1])
+        return dense(params, x, **kw)
+
+    params, extras = model.init(0)
+    nn.conv2d, nn.dense = conv_rec, dense_rec
+    try:
+        with torch.no_grad():
+            model.apply(params, extras, {"x": torch.zeros(
+                1, hw, hw, 3, device="cuda")})
+    finally:
+        nn.conv2d, nn.dense = conv, dense
+    return 3 * total[0]
+
+
+def _cli_run(argv: list[str], label: str, failed: list, card: str):
+    """``cli.main(argv)`` with every kernel's count set to 0 before and
+    read after (none may launch: no hand-written kernel is on this
+    path); returns (rc, the trainer's and hooks' log lines, the metrics
+    records, peak device memory in MiB)."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    tap = _LogTap()
+    for name in ("dtx.hooks", "dtx.trainer", "dtx.cli"):
+        logging.getLogger(name).addHandler(tap)
+    metrics = argv[argv.index("--metrics_path") + 1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+    finally:
+        for name in ("dtx.hooks", "dtx.trainer", "dtx.cli"):
+            logging.getLogger(name).removeHandler(tap)
+    wall = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    with open(metrics) as f:
+        recs = [json.loads(line) for line in f]
+    log(f"[conv {label}] rc {rc} in {wall:.1f} s, peak device memory "
+        f"{peak:.1f} MiB ({card})")
+    if rc != 0:
+        failed.append(f"{label}: main returned {rc}")
+    if any(launches.values()):
+        failed.append(f"{label}: a kernel launched: {launches}")
+    return rc, list(tap.lines), recs, peak
+
+
+def _final_eval(lines: list[str]) -> dict:
+    """The CLI's ``final eval: {...}`` line as a dict."""
+    import ast
+    for line in lines:
+        if line.startswith("final eval: "):
+            return ast.literal_eval(line[len("final eval: "):])
+    return {}
+
+
+def _rates(recs: list[dict]) -> list[float]:
+    return [r["examples_per_sec"] for r in recs if "examples_per_sec" in r]
+
+
+def phase_conv(card: str) -> dict:
+    """The convolutional configs of ``BASELINE.json`` through the port's
+    CLI on the card, no hand-written kernel on their path (every launch
+    count must stay 0): ResNet-50 (config 4, full width: bf16 compute,
+    f32 batch statistics, batch 128 of synthetic ImageNet, momentum) for
+    30 steps with a ring of 2 checkpoints and a resume to 40, the final
+    eval with top-5; its examples/s and ms per step over steps 11-30 of
+    a ``Trainer`` run (host clock, one sync at each end), peak device
+    memory, the device idle share and launches of one traced step and
+    the step's share of the bf16 peak from the FLOPs of its conv and
+    dense shapes. ResNet-20 (config 3, f32 with TF32 off, ``--augment``)
+    with a ring and a resume to an eval accuracy of 0.9, and 20 f32
+    steps on the card against 20 on the CPU from one checkpoint. LeNet
+    (config 2) on synthetic MNIST to the reference's 0.95."""
+    from torch.autograd import DeviceType
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager)
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.config import (
+        OptimizerConfig)
+    from distributed_tensorflow_example_tpu_torch.data.cifar import \
+        synthetic_cifar10
+    from distributed_tensorflow_example_tpu_torch.data.loader import \
+        make_loader
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+        make_optimizer
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    failed: list[str] = []
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conv_")
+
+    # ResNet-50 through the CLI: 30 steps, a ring of 2, a resume to 40
+    ck, m = os.path.join(tmp, "r50"), os.path.join(tmp, "r50.jsonl")
+    base = R50_ARGV + ["--ckpt_dir", ck, "--save_steps", "10",
+                       "--max_to_keep", "2", "--metrics_path", m]
+    _, lines, _, peak1 = _cli_run(base + ["--train_steps", "30",
+                                          "--log_every_steps", "5"],
+                                  "resnet50 steps 1-30", failed, card)
+    curve = _step_metrics(lines)
+    ring1 = _ring(ck)
+    _, lines2, _, _ = _cli_run(base + ["--train_steps", "40",
+                                       "--log_every_steps", "10"],
+                               "resnet50 resume to 40", failed, card)
+    ring2 = _ring(ck)
+    ev = _final_eval(lines2)
+    losses = [curve[s]["loss"] for s in sorted(curve)]
+    log("[conv resnet50] loss at steps " + " ".join(
+        f"{s}:{curve[s]['loss']:.4f}" for s in sorted(curve))
+        + f"; ring after 30 {ring1}, after 40 {ring2} (verified); final "
+        f"eval {ev} ({card})")
+    if sorted(curve) != list(range(5, 31, 5)) \
+            or not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        failed.append(f"resnet50 loss curve {curve}")
+    if ring1 != [20, 30] or ring2 != [30, 40] or not any(
+            "restored checkpoint at step 30" in x for x in lines2):
+        failed.append(f"resnet50 ring {ring1} then {ring2}, or no resume")
+    if "top5_accuracy" not in ev or not np.isfinite(ev["loss"]):
+        failed.append(f"resnet50 final eval {ev}")
+
+    # ResNet-50 speed: a Trainer of the same argv, steps 11-30 timed, step
+    # 32 traced
+    args = cli.build_parser().parse_args(
+        R50_ARGV + ["--train_steps", "32", "--log_every_steps", "100"])
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, _ = cli.load_dataset(cfg, model)
+    flops = _train_flops(model, 224)
+    window, prof = _Window(10, 30), _ProfileStep(31)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Trainer(model, cfg, train, None, hooks=[window, prof]) as tr:
+        tr.train()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = window.wall / 20 * 1e3
+    eps = R50_BATCH * 20 / window.wall
+    bound_ms = flops * R50_BATCH / PEAK_BF16_FLOPS * 1e3
+    kernels = [e for e in prof.prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    idle = 1 - busy / (prof.wall * 1e3) if kernels else float("nan")
+    log(f"[conv resnet50] steps 11-30: {ms:.2f} ms per step, {eps:.1f} "
+        f"examples/s; peak device memory {peak:.1f} MiB (CLI run "
+        f"{peak1:.1f}); training FLOPs {flops / 1e9:.3f} GFLOP an image, "
+        f"{flops * R50_BATCH / 1e12:.3f} TFLOP a step, {bound_ms:.3f} ms "
+        f"at the bf16 peak: {bound_ms / ms:.4f} of it ({card})")
+    if kernels:
+        log(f"[conv resnet50 profile] one Trainer step (32) traced: "
+            f"{prof.wall * 1e3:.1f} ms, device busy {busy:.2f} ms in "
+            f"{n_launch} kernel launches: idle share {idle:.3f} ({card})")
+        for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
+            log(f"[conv resnet50 profile]   {_device_us(e) / 1e3:8.3f} ms "
+                f" {e.count:5d}x  {e.key[:90]}")
+        host = [e for e in prof.prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:8]:
+            log(f"[conv resnet50 profile]   host "
+                f"{e.self_cpu_time_total / 1e3:8.3f} ms self  "
+                f"{e.count:5d}x  {e.key[:70]}")
+    else:
+        log("[conv resnet50 profile] the profiler saw no device time: "
+            "idle share not measured")
+    out.update(r50_ms=ms, r50_eps=eps, r50_peak_mib=peak, r50_idle=idle,
+               r50_peak_share=bound_ms / ms, r50_launches=n_launch)
+    del model, train, tr
+    gc.collect()
+
+    # ResNet-20 through the CLI: a ring, a resume to the eval bar
+    ck, m = os.path.join(tmp, "r20"), os.path.join(tmp, "r20.jsonl")
+    base = R20_ARGV + ["--ckpt_dir", ck, "--save_steps", "150",
+                       "--max_to_keep", "2", "--log_every_steps", "50",
+                       "--metrics_path", m]
+    _cli_run(base + ["--train_steps", "300"], "resnet20 steps 1-300",
+             failed, card)
+    ring1 = _ring(ck)
+    _, lines, recs, _ = _cli_run(base + ["--train_steps", str(R20_STEPS)],
+                                 f"resnet20 resume to {R20_STEPS}", failed,
+                                 card)
+    ev = _final_eval(lines)
+    rates = _rates(recs)
+    log(f"[conv resnet20] f32 (the port's f32 convs run without TF32); "
+        f"ring after 300 {ring1}, after {R20_STEPS} {_ring(ck)}; "
+        "examples/s at the log cadence " + ", ".join(f"{x:.0f}" for x in rates)
+        + f"; final eval {ev} ({card})")
+    if ring1 != [150, 300] or not any(
+            "restored checkpoint at step 300" in x for x in lines):
+        failed.append(f"resnet20 ring {ring1} or no resume")
+    if not ev.get("accuracy", 0.0) >= R20_MIN_ACCURACY:
+        failed.append(f"resnet20 eval {ev}")
+    out.update(r20_eps=float(np.median(rates)) if rates else float("nan"),
+               r20_accuracy=ev.get("accuracy", float("nan")))
+
+    # 20 f32 steps on the card against 20 on the CPU, one checkpoint,
+    # with cuDNN's TF32 flag left at its default (True): the port's f32
+    # conv turns it off around itself
+    if not torch.backends.cudnn.allow_tf32:
+        failed.append("cuDNN's TF32 flag was changed before the card vs "
+                      "CPU check")
+    model = get_model("resnet20")
+    d = synthetic_cifar10(640, 8)
+    syncs = {dev: SyncReplicas(model.loss, make_optimizer(OptimizerConfig(
+        name="momentum", learning_rate=0.01)), device=dev)
+        for dev in ("cuda", "cpu")}
+    state = syncs["cuda"].init(model.init, seed=0)
+    bridge = CheckpointManager(os.path.join(tmp, "bridge"))
+    bridge.save(state)
+    cstate = bridge.restore(syncs["cpu"].init(model.init, seed=1))
+    batches = make_loader({"x": d["train_x"], "y": d["train_y"]}, 32,
+                          seed=0)
+    rels = []
+    for _ in range(20):
+        b = next(batches)
+        state, mt = syncs["cuda"].step(state, b)
+        cstate, cm = syncs["cpu"].step(cstate, b)
+        rels.append(abs(float(mt["loss"]) - float(cm["loss"]))
+                    / float(cm["loss"]))
+    rel = max(rels)
+    log(f"[conv resnet20] 20 f32 momentum steps (batch 32), card (cuDNN, "
+        f"f32 convs without TF32) against CPU from one checkpoint: loss "
+        f"relative difference a step " + " ".join(f"{r:.1e}" for r in rels)
+        + f" (tol {R20_CARD_CPU_STEP1_RTOL} at step 1, "
+        f"{R20_CARD_CPU_LOSS_RTOL} after)")
+    if not (rels[0] <= R20_CARD_CPU_STEP1_RTOL
+            and rel <= R20_CARD_CPU_LOSS_RTOL):
+        failed.append(f"resnet20 card vs CPU losses differ by {rels}")
+    out.update(r20_card_cpu=rel)
+
+    # LeNet on synthetic MNIST to the reference's bar
+    m = os.path.join(tmp, "lenet.jsonl")
+    _, lines, recs, _ = _cli_run(
+        LENET_ARGV + ["--train_steps", str(LENET_STEPS), "--log_every_steps",
+                      "50", "--metrics_path", m], "lenet", failed, card)
+    ev = _final_eval(lines)
+    rates = _rates(recs)
+    log(f"[conv lenet] examples/s at the log cadence "
+        + ", ".join(f"{x:.0f}" for x in rates) + f"; final eval {ev} "
+        f"({card})")
+    if not ev.get("accuracy", 0.0) >= MNIST_MIN_ACCURACY:
+        failed.append(f"lenet eval {ev}")
+    out.update(lenet_eps=float(np.median(rates)) if rates else float("nan"),
+               lenet_accuracy=ev.get("accuracy", float("nan")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit("the conv phase failed: " + "; ".join(failed))
+    return out
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -2503,6 +2845,15 @@ def main() -> int:
     log(f"[mnist] examples/s {mnist['examples_per_sec']:.1f}, ms per step "
         f"{mnist['ms_per_step']:.4f}, idle share {mnist['idle']:.3f}, "
         f"final test accuracy {mnist['accuracy']:.4f} ({card})")
+    conv = phase_conv(card)
+    log(f"[conv] resnet50 examples/s {conv['r50_eps']:.1f}, ms per step "
+        f"{conv['r50_ms']:.2f}, idle share {conv['r50_idle']:.3f}, peak "
+        f"memory {conv['r50_peak_mib']:.1f} MiB, share of the bf16 peak "
+        f"{conv['r50_peak_share']:.4f}; resnet20 examples/s "
+        f"{conv['r20_eps']:.1f}, eval accuracy {conv['r20_accuracy']:.4f}, "
+        f"card vs CPU {conv['r20_card_cpu']:.3e}; lenet examples/s "
+        f"{conv['lenet_eps']:.1f}, eval accuracy "
+        f"{conv['lenet_accuracy']:.4f} ({card})")
     rows = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"

@@ -7,6 +7,11 @@ rank::
         --train_steps 1000 --ckpt_dir D --save_steps 500
 
     python -m distributed_tensorflow_example_tpu_torch.cli.train \\
+        --model resnet50 --dtype bfloat16 --batch_size 128 \\
+        --optimizer momentum --learning_rate 0.05 --warmup_steps 5 \\
+        --train_steps 30
+
+    python -m distributed_tensorflow_example_tpu_torch.cli.train \\
         --model gpt --attention flash --attention_bwd fused \\
         --dtype bfloat16 --seq_len 512 --batch_size 8 --optimizer adamw \\
         --learning_rate 1e-3 --train_steps 20 --ckpt_dir D --save_steps 10
@@ -20,12 +25,16 @@ asked) picks the device; without CUDA, ``cuda`` exits with an error.
 ``--worker_hosts`` naming N workers, ``--task_index i`` trains as rank i
 of N (worker 0's address the rendezvous, NCCL on ``cuda``, gloo on the
 CPU): each rank takes its slice of every global batch and the sync step
-all-reduces the gradients. The port trains ``mlp`` on MNIST (IDX files
-under ``--data_dir``, else the synthetic set) and ``gpt`` and
-``gpt_tiny`` on the synthetic LM corpus or pre-tokenized ``.npy`` files,
-checkpoints into ``--ckpt_dir`` (a second run on the same directory
-resumes), evaluates at the end, and with ``--export_generator`` hands the
-trained GPT weights to the port's ``PredictServer``.
+all-reduces the gradients (and, for the batch-norm models under
+``--sync_mode auto``, the batch statistics). The port trains ``mlp`` and
+``lenet`` on MNIST (IDX files under ``--data_dir``, else the synthetic
+set), ``resnet20`` on CIFAR-10 (the binary batches under ``--data_dir``,
+else the synthetic set; ``--augment`` for the pad-4 crop and flip),
+``resnet50`` on synthetic ImageNet, and ``gpt`` and ``gpt_tiny`` on the
+synthetic LM corpus or pre-tokenized ``.npy`` files, checkpoints into
+``--ckpt_dir`` (a second run on the same directory resumes), evaluates at
+the end, and with ``--export_generator`` hands the trained GPT weights to
+the port's ``PredictServer``.
 """
 
 from __future__ import annotations
@@ -43,10 +52,14 @@ from ..utils.logging import get_logger
 
 log = get_logger("cli")
 
-#: the models the port trains, and the datasets it reads
+#: the models the port trains, and the datasets it reads (the dataset
+#: aliases are the reference's)
 LM_MODELS = ("gpt", "gpt_tiny")
-MNIST_DATASETS = ("mlp", "mnist")
-MODELS = ("mlp",) + LM_MODELS
+MNIST_DATASETS = ("mlp", "mnist", "lenet")
+CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
+IMAGENET_DATASETS = ("resnet50", "imagenet")
+MODELS = ("mlp", "lenet", "resnet20", "resnet50") + LM_MODELS
+DATASETS = MNIST_DATASETS + CIFAR_DATASETS + IMAGENET_DATASETS + LM_MODELS
 
 
 def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
@@ -78,19 +91,23 @@ def build_parser() -> argparse.ArgumentParser:
     a = p.add_argument
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
-    a("--model", default="mlp", help="mlp | gpt | gpt_tiny (the other "
-      "models of the reference arrive with later slices)")
+    a("--model", default="mlp", help="mlp | lenet | resnet20 | resnet50 | "
+      "gpt | gpt_tiny (the other models of the reference arrive with "
+      "later slices)")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
-      help="MNIST IDX files, or pre-tokenized train.npy/test.npy or "
-           "tokens.npy; omit for the synthetic set")
+      help="MNIST IDX files, CIFAR-10 binary batches, or pre-tokenized "
+           "train.npy/test.npy or tokens.npy; omit for the synthetic set "
+           "(ImageNet files: slice A5b)")
     a("--native", action="store_true", help="C++ loader (slice A5b)")
-    a("--streaming", action="store_true", help="slice A5")
-    a("--fast_decode", action="store_true", help="slice A5")
-    a("--augment", action="store_true", help="slice A5")
-    a("--label_offset", type=int, default=0, help="slice A5")
-    a("--max_per_class", type=int, default=None, help="slice A5")
+    a("--streaming", action="store_true", help="slice A5b")
+    a("--fast_decode", action="store_true", help="slice A5b")
+    a("--augment", action="store_true",
+      help="CIFAR pad-4 crop + flip on the train split (ImageNet: slice "
+           "A5b)")
+    a("--label_offset", type=int, default=0, help="slice A5b")
+    a("--max_per_class", type=int, default=None, help="slice A5b")
     a("--seq_len", type=int, default=128,
       help="sequence length (must be <= the model's max_len)")
     a("--batch_size", type=int, default=128, help="GLOBAL batch size")
@@ -121,14 +138,14 @@ def build_parser() -> argparse.ArgumentParser:
                       ("--moe_every", int), ("--moe_aux_weight", float),
                       ("--moe_router_z_weight", float),
                       ("--moe_jitter", float)):
-        a(flag, type=typ, default=None, help="MoE models (slice A5)")
+        a(flag, type=typ, default=None, help="MoE models (slice A5b)")
     a("--lm_loss_impl", default=None, choices=["full", "chunked", "fused"],
       help="LM-head loss (chunked, fused: slice A3c-3)")
     a("--lm_loss_vocab_block", type=int, default=None, help="slice A3c-3")
     a("--token_accuracy_every_n", type=int, default=1, help="slice A3c-3")
     a("--lm_loss_chunk", type=int, default=None, help="slice A3c-3")
     a("--label_smoothing", type=float, default=0.0,
-      help="image classifiers (slice A5)")
+      help="training-target smoothing of the image classifiers")
     a("--grad_clip_norm", type=float, default=0.0,
       help="global-norm gradient clipping (0 disables)")
     a("--grad_clip_value", type=float, default=0.0,
@@ -148,22 +165,24 @@ def build_parser() -> argparse.ArgumentParser:
     a("--gen_pad_id", type=int, default=0)
     a("--gen_ragged", action="store_true")
     a("--gen_weight_quant", default="off", choices=["off", "int8"])
-    a("--warm_start", default=None, help="slice A5")
-    a("--warm_start_map", default="", help="slice A5")
-    a("--ema_decay", type=float, default=0.0, help="slice A5")
-    a("--ema_debias", action="store_true", help="slice A5")
+    a("--warm_start", default=None, help="slice A5b")
+    a("--warm_start_map", default="", help="slice A5b")
+    a("--ema_decay", type=float, default=0.0, help="slice A5b")
+    a("--ema_debias", action="store_true", help="slice A5b")
     a("--moment_dtype", default="float32", choices=["float32", "bfloat16"],
-      help="bfloat16: slice A5")
+      help="bfloat16: slice A5b")
     a("--accum_steps", type=int, default=1)
     a("--dtype", default="float32", choices=["float32", "bfloat16"])
     a("--param_dtype", default="float32", choices=["float32", "bfloat16"])
     a("--bn_stats_dtype", default="float32",
-      choices=["float32", "bfloat16"], help="conv models (slice A5)")
+      choices=["float32", "bfloat16"],
+      help="batch-statistic reduction dtype of the ResNets")
     a("--mesh", default="",
       help="axis sizes; the port takes data=-1 or data=<ranks> (one "
            "replica per rank; sharded axes: slice A6)")
     a("--sync_mode", default="auto", choices=["auto", "shard_map"],
-      help="the same step for models without cross-example statistics")
+      help="auto: batch norm over the global batch (sync-BN); "
+           "shard_map: over each rank's batch")
     a("--attention", default="xla", choices=["xla", "flash"],
       help="flash = the hand-written Hopper kernels")
     a("--attention_block_q", type=int, default=0,
@@ -241,6 +260,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         on_anomaly=args.on_anomaly,
         max_anomalies=args.max_anomalies,
         seed=args.seed,
+        label_smoothing=args.label_smoothing,
+        bn_stats_dtype=args.bn_stats_dtype,
         dtype=args.dtype,
         param_dtype=args.param_dtype,
         attention_impl=args.attention,
@@ -252,7 +273,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         data=DataConfig(dataset=args.dataset or args.model,
                         data_dir=args.data_dir,
                         batch_size=args.batch_size, seed=args.seed,
-                        seq_len=args.seq_len),
+                        augment=args.augment, seq_len=args.seq_len),
         optimizer=OptimizerConfig(
             name=args.optimizer, learning_rate=args.learning_rate,
             momentum=args.momentum, weight_decay=args.weight_decay,
@@ -404,30 +425,39 @@ def _num_workers(args) -> int:
     return len(parse_hosts(args.worker_hosts)) or 1
 
 
+def _slice_of(name: str) -> str:
+    """The slice that brings a model or dataset the port lacks."""
+    if name in ("bert", "bert_tiny", "bert_large"):
+        return "A3c-3"
+    return "A6" if name.startswith("pipe_") else "A5b"
+
+
 def _later_slice(args) -> list[tuple[str, bool, str]]:
     """(what, set?, slice) for every knob the port does not carry yet."""
     from ..train.trainer import one_replica_per_rank
     mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
-    model_slice = ("A3c-3" if args.model in ("bert", "bert_tiny",
-                                             "bert_large") else
-                   "A6" if args.model.startswith("pipe_") else "A5")
+    dataset = args.dataset or args.model
+    imagenet = dataset in IMAGENET_DATASETS
     return [
-        (f"--model {args.model}", args.model not in MODELS, model_slice),
-        (f"--dataset {args.dataset}",
-         args.dataset not in (None,) + MNIST_DATASETS + LM_MODELS, "A5"),
+        (f"--model {args.model}", args.model not in MODELS,
+         _slice_of(args.model)),
+        (f"--dataset {dataset}", dataset not in DATASETS,
+         _slice_of(dataset)),
         ("--native", args.native, "A5b"),
-        ("--streaming", args.streaming, "A5"),
-        ("--fast_decode", args.fast_decode, "A5"),
-        ("--augment", args.augment, "A5"),
-        ("--label_offset", args.label_offset != 0, "A5"),
-        ("--max_per_class", args.max_per_class is not None, "A5"),
+        ("--streaming", args.streaming, "A5b"),
+        ("--fast_decode", args.fast_decode, "A5b"),
+        ("--augment on ImageNet", args.augment and imagenet, "A5b"),
+        ("--label_offset", args.label_offset != 0, "A5b"),
+        ("--max_per_class", args.max_per_class is not None, "A5b"),
+        ("--data_dir for ImageNet (the folder and TFRecord readers)",
+         imagenet and bool(args.data_dir), "A5b"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
         (f"--optimizer {args.optimizer}",
          args.optimizer in ("lars", "lamb", "adafactor"), "A3c-3"),
-        ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5"),
-        ("--ema_decay", args.ema_decay != 0.0, "A5"),
-        ("--ema_debias", args.ema_debias, "A5"),
+        ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5b"),
+        ("--ema_decay", args.ema_decay != 0.0, "A5b"),
+        ("--ema_debias", args.ema_debias, "A5b"),
         (f"--lm_loss_impl {args.lm_loss_impl}",
          args.lm_loss_impl in ("chunked", "fused"), "A3c-3"),
         ("--lm_loss_chunk", bool(args.lm_loss_chunk), "A3c-3"),
@@ -437,9 +467,8 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
          "A3c-3"),
         ("--export_dir (the forward's serving artifact)",
          args.export_dir is not None, "A4"),
-        ("--warm_start", args.warm_start is not None, "A5"),
-        ("--warm_start_map", bool(args.warm_start_map), "A5"),
-        ("--bn_stats_dtype", args.bn_stats_dtype != "float32", "A5"),
+        ("--warm_start", args.warm_start is not None, "A5b"),
+        ("--warm_start_map", bool(args.warm_start_map), "A5b"),
         (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
          f"{_num_workers(args)} rank(s))",
          not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
@@ -476,8 +505,8 @@ def refuse_later_slices(args) -> None:
     for what, on, slice_ in _later_slice(args):
         if on:
             raise SystemExit(f"{what} arrives with slice {slice_} of the "
-                             "port; the port trains mlp, gpt and gpt_tiny, "
-                             "one replica per rank")
+                             "port; the port trains " + ", ".join(MODELS)
+                             + ", one replica per rank")
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):
         if getattr(args, flag):
@@ -492,12 +521,26 @@ def refuse_later_slices(args) -> None:
 
 
 def load_dataset(cfg: TrainConfig, model=None):
-    """(train_arrays, eval_arrays): MNIST for the MLP (``x`` flat 784,
-    ``y`` int32), the LM corpus for the causal-LM models."""
+    """(train_arrays, eval_arrays): MNIST for the MLP and LeNet (``x`` flat
+    784, ``y`` int32), CIFAR-10 for ResNet-20 and synthetic ImageNet for
+    ResNet-50 (``x`` NHWC f32 in [0, 1]), the LM corpus for the causal-LM
+    models."""
     name = cfg.data.dataset
-    if name in MNIST_DATASETS:
-        from ..data.mnist import get_mnist
-        d = get_mnist(cfg.data.data_dir, cfg.data.synthetic)
+    if cfg.data.augment and name not in (CIFAR_DATASETS
+                                         + IMAGENET_DATASETS):
+        raise SystemExit(
+            f"--augment is an image-training recipe; dataset {name!r} "
+            "has no augmentation pipeline")
+    if name in MNIST_DATASETS + CIFAR_DATASETS + IMAGENET_DATASETS:
+        if name in MNIST_DATASETS:
+            from ..data.mnist import get_mnist
+            d = get_mnist(cfg.data.data_dir, cfg.data.synthetic)
+        elif name in CIFAR_DATASETS:
+            from ..data.cifar import get_cifar10
+            d = get_cifar10(cfg.data.data_dir, cfg.data.synthetic)
+        else:
+            from ..data.imagenet import get_imagenet
+            d = get_imagenet(cfg.data.data_dir, cfg.data.synthetic)
         return ({"x": d["train_x"], "y": d["train_y"]},
                 {"x": d["test_x"], "y": d["test_y"]})
     if name not in LM_MODELS:
@@ -569,9 +612,14 @@ def _train(args, cfg: TrainConfig, device, ctx) -> int:
                 f"--gen_top_k {args.gen_top_k} exceeds the model's "
                 f"vocab_size {model.cfg.vocab_size}")
     train_arrays, eval_arrays = load_dataset(cfg, model)
+    train_transform = None
+    if cfg.data.augment and cfg.data.dataset in CIFAR_DATASETS:
+        from ..data.cifar import make_augment_transform
+        train_transform = make_augment_transform(cfg.data.seed)
     trainer = Trainer(model, cfg, train_arrays, eval_arrays, device=device,
                       process_index=ctx.process_index,
-                      num_processes=ctx.num_processes)
+                      num_processes=ctx.num_processes,
+                      train_transform=train_transform)
     with trainer:
         state, summary = trainer.train()
 

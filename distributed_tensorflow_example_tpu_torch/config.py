@@ -1,14 +1,14 @@
 """Config dataclasses (port of ``distributed_tensorflow_example_tpu/
-config.py``, the fields GPT and MLP construction, generation, the sync
-training step and the ``Trainer`` read).
+config.py``, the fields GPT, MLP, LeNet and ResNet construction,
+generation, the sync training step and the ``Trainer`` read).
 
 Field names and defaults are the reference's, so a config reads the same
 in both packages. The fields of a later slice are absent (warm start,
 best-checkpoint tracking, async and sharded saves, early stop, fault
 injection, the summary, histogram, profiler, step-timing and trace
-sinks, the image, BERT and MoE knobs), or refused by the ``Trainer``
-when set: a sharded mesh axis, ``steps_per_loop > 1`` and
-``on_anomaly="rollback"``.
+sinks, the streaming and ImageNet-reader, BERT and MoE knobs), or
+refused by the ``Trainer`` when set: a sharded mesh axis,
+``steps_per_loop > 1`` and ``on_anomaly="rollback"``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class DataConfig:
     shuffle: bool = True
     seed: int = 0
     synthetic: bool = False         # force synthetic data even if data_dir set
+    augment: bool = False           # CIFAR pad-4 crop + flip (train split)
     prefetch: int = 2               # host-side prefetch depth
     seq_len: int = 128
     vocab_size: int = 30522
@@ -62,8 +63,8 @@ class OptimizerConfig:
     total_steps: int = 0            # for schedules; 0 => constant
     grad_clip_norm: float = 0.0     # 0 disables
     grad_clip_value: float = 0.0    # elementwise |g| clip; 0 disables
-    moment_dtype: str = "float32"   # bfloat16 arrives with slice A5
-    ema_decay: float = 0.0          # > 0 (shadow-param EMA): slice A5
+    moment_dtype: str = "float32"   # bfloat16 arrives with slice A5b
+    ema_decay: float = 0.0          # > 0 (shadow-param EMA): slice A5b
 
 
 @dataclasses.dataclass
@@ -145,6 +146,7 @@ class TrainConfig:
                                      # lm_loss_chunk is set
     lm_loss_chunk: int | None = None  # seq chunk of the chunked LM loss
     seed: int = 0
+    label_smoothing: float = 0.0     # image classifiers' training targets
     dtype: str = "float32"           # compute dtype: float32 | bfloat16
     param_dtype: str = "float32"
     attention_impl: str = "xla"      # xla | flash (hand-written kernel)
@@ -154,6 +156,7 @@ class TrainConfig:
     attention_block_k: int = 0
     attention_bwd_block: int = 0
     attention_bwd: str = "split"     # split | fused (backward variant)
+    bn_stats_dtype: str = "float32"  # BN batch-statistic reduction dtype
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

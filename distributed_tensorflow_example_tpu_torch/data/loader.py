@@ -3,7 +3,8 @@ adapted copy of ``distributed_tensorflow_example_tpu/data/loader.py``).
 
 Determinism contract: with the same seed the *global* batch sequence is
 the same whatever the process count (each process takes its contiguous
-slice of every global batch), and it is the reference's batch for batch,
+slice of every global batch, or with ``microbatches`` its contiguous
+slice of each microbatch), and it is the reference's batch for batch,
 bit for bit. The native C++ loader arrives with slice A5b.
 """
 
@@ -30,6 +31,11 @@ class ShardedLoader:
       drop_remainder: keep batches full.
       transform: optional ``transform(batch, epoch, global_indices) ->
         batch``; its randomness must key on (seed, epoch, global index).
+      microbatches: the global batch is taken as this many consecutive
+        microbatches, and the process's batch is its slice of each, in
+        order: so the process's i-th microbatch is its share of the
+        global i-th (what the sync step's ``auto`` mode needs when batch
+        norm takes statistics per microbatch over the ranks).
     """
 
     def __init__(self, arrays: Batch, global_batch: int, *,
@@ -37,11 +43,11 @@ class ShardedLoader:
                  shuffle: bool = True, seed: int = 0,
                  drop_remainder: bool = True,
                  transform: Callable[[Batch, int, np.ndarray], Batch]
-                 | None = None):
-        if global_batch % num_processes:
+                 | None = None, microbatches: int = 1):
+        if global_batch % (num_processes * microbatches):
             raise ValueError(
                 f"global_batch {global_batch} not divisible by "
-                f"{num_processes} processes")
+                f"{num_processes} processes x {microbatches} microbatches")
         self.arrays = arrays
         self.keys = sorted(arrays)
         self.n = len(arrays[self.keys[0]])
@@ -56,6 +62,7 @@ class ShardedLoader:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.transform = transform
+        self.microbatches = microbatches
         self.epoch = 0
 
     @property
@@ -74,9 +81,11 @@ class ShardedLoader:
             gidx = idx[g0:g0 + self.global_batch]
             if len(gidx) < self.global_batch and self.drop_remainder:
                 return
-            # this process's contiguous slice of the global batch
-            l0 = self.process_index * self.local_batch
-            lidx = gidx[l0:l0 + self.local_batch]
+            # this process's contiguous slice of each microbatch
+            m = self.local_batch // self.microbatches
+            lidx = gidx.reshape(self.microbatches, -1)[
+                :, self.process_index * m:(self.process_index + 1) * m
+            ].reshape(-1)
             batch = {k: self.arrays[k][lidx] for k in self.keys}
             if self.transform is not None:
                 batch = self.transform(batch, epoch, lidx)

@@ -16,6 +16,17 @@ def resolve_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def generator(seed: int | torch.Generator, device=None) -> torch.Generator:
+    """An init's generator: ``seed`` itself when it is one, else a new
+    generator on ``device`` (``cuda`` by default) seeded with it."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    from ..runtime.device import resolve_device
+    gen = torch.Generator(device=resolve_device(device))
+    gen.manual_seed(int(seed))
+    return gen
+
+
 def cast_floating(tree, dtype: torch.dtype):
     """Cast floating-point leaves of a nested dict to ``dtype`` (integer
     and bool leaves untouched)."""

@@ -19,7 +19,7 @@ from ..config import TrainConfig
 from ..ops import losses, nn
 from ..runtime.device import resolve_device
 from ..utils.pytree import flatten_dict
-from .base import (cast_floating, classification_eval_metrics,
+from .base import (cast_floating, classification_eval_metrics, generator,
                    register_model, resolve_dtype)
 
 
@@ -45,11 +45,7 @@ class MLP:
     def init(self, seed: int | torch.Generator = 0, device=None) -> dict:
         """Seeded random parameters on ``device`` (``cuda`` by default;
         a generator brings its own device)."""
-        if isinstance(seed, torch.Generator):
-            gen = seed
-        else:
-            gen = torch.Generator(device=resolve_device(device))
-            gen.manual_seed(int(seed))
+        gen = generator(seed, device)
         return cast_floating({
             "fc1": nn.dense_init(gen, self.in_dim, self.hidden),
             "fc2": nn.dense_init(gen, self.hidden, self.num_classes),

@@ -12,12 +12,15 @@ rendezvous address, so tests meet without fixed ports.
 One process (no cluster, or one worker) initializes nothing, and every
 helper here is then a no-op, so the same trainer runs on one card or on
 many. The collectives the sync step and the checkpoint ring need live
-here too: the mean all-reduce, the broadcast from rank 0 and the
-barrier.
+here too: the mean all-reduce, the broadcast from rank 0, the barrier,
+and the differentiable mean of batch norm's statistics over the ranks
+(sync-BN), switched on by :func:`cross_rank_batch_stats`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import datetime
 
@@ -169,3 +172,46 @@ def broadcast_int(value: int | None) -> int | None:
     dist.broadcast(t, src=0)
     got = int(t.item())
     return None if got < 0 else got
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean over the ranks, whose backward is the same mean of the
+    cotangent. Rank r's loss reads the mean through every rank's input,
+    and the sync step later averages the ranks' gradients: so each rank
+    hands its input the ranks' mean cotangent, and the averaged gradient
+    is that of the mean loss over the global batch."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce_mean([x])[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_mean([g])[0]
+
+
+#: whether batch statistics are averaged over the ranks here
+_CROSS_RANK_STATS: contextvars.ContextVar = contextvars.ContextVar(
+    "cross_rank_batch_stats", default=False)
+
+
+@contextlib.contextmanager
+def cross_rank_batch_stats():
+    """Inside, :func:`batch_stats_mean` averages over every rank: the
+    reference's ``auto`` mode, which normalises over the global batch.
+    The sync step enters it around the forward and backward of a step;
+    with one rank it is inert."""
+    token = _CROSS_RANK_STATS.set(process_count() > 1)
+    try:
+        yield
+    finally:
+        _CROSS_RANK_STATS.reset(token)
+
+
+def batch_stats_mean(stats: torch.Tensor) -> torch.Tensor:
+    """Per-channel batch statistics of this rank -> their mean over the
+    ranks inside :func:`cross_rank_batch_stats` (one all-reduce forward,
+    one backward), or ``stats`` unchanged outside it."""
+    if not _CROSS_RANK_STATS.get():
+        return stats
+    return _MeanOverRanks.apply(stats)

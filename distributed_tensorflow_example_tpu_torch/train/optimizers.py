@@ -25,7 +25,7 @@ tensor, or anything ``torch.as_tensor`` takes) returning an f32 tensor.
 Ported: sgd, momentum, adam and adamw, the eight decay schedules with
 linear warmup, the global-norm and elementwise clips and the weight-decay
 mask. lars, lamb and adafactor arrive with slice A3c-3; bf16 moments and
-the parameter EMA with slice A5: they raise.
+the parameter EMA with slice A5b: they raise.
 """
 
 from __future__ import annotations
@@ -339,12 +339,12 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
     weights), as the reference chains them."""
     if cfg.moment_dtype == "bfloat16":
         raise NotImplementedError("moment_dtype='bfloat16' arrives with "
-                                  "slice A5; the port keeps f32 moments")
+                                  "slice A5b; the port keeps f32 moments")
     if cfg.moment_dtype != "float32":
         raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
     if cfg.ema_decay > 0:
         raise NotImplementedError("ema_decay (the parameter EMA) arrives "
-                                  "with slice A5")
+                                  "with slice A5b")
     sched = make_schedule(cfg)
     parts: list[Transform] = []
     if cfg.grad_clip_norm > 0:

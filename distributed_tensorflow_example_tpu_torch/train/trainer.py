@@ -82,6 +82,8 @@ class Trainer:
       device: ``cuda`` (default) or ``cpu``.
       process_index/num_processes: this rank's coordinates (default: the
         ``torch.distributed`` group's, or 0 of 1 without one).
+      train_transform: the loader's per-batch ``transform(batch, epoch,
+        global_indices)`` for the training set (the CIFAR augmentation).
     """
 
     def __init__(self, model, config: TrainConfig,
@@ -90,7 +92,8 @@ class Trainer:
                  *, hooks: list[hooks_lib.Hook] | None = None,
                  device: str | torch.device | None = None,
                  process_index: int | None = None,
-                 num_processes: int | None = None):
+                 num_processes: int | None = None,
+                 train_transform=None):
         self.process_index = (distributed.process_index()
                               if process_index is None else process_index)
         self.num_processes = (distributed.process_count()
@@ -101,6 +104,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.train_arrays = train_arrays
         self.eval_arrays = eval_arrays
+        self.train_transform = train_transform
         self.tx = make_optimizer(config.optimizer)
         self._schedule = make_schedule(config.optimizer)
         self.sync = SyncReplicas(model.loss, self.tx, config.mesh,
@@ -201,7 +205,9 @@ class Trainer:
                            prefetch=d.prefetch, start_step=start_step,
                            process_index=self.process_index,
                            num_processes=self.num_processes,
-                           shuffle=d.shuffle, seed=d.seed)
+                           shuffle=d.shuffle, seed=d.seed,
+                           transform=self.train_transform,
+                           microbatches=self.sync.loader_microbatches)
 
     # ------------------------------------------------------------------
     def train(self) -> tuple[TrainState, dict[str, Any]]:

@@ -840,3 +840,26 @@ def test_mnist_example_trains_on_the_card(cuda, tmp_path, capsys):
     m = re.search(r"final test accuracy: ([\d.]+)", out)
     assert m and float(m.group(1)) >= 0.95, out
     assert "ckpt-200.npz" in sorted(os.listdir(tmp_path / "ck"))
+
+
+def test_f32_conv_on_the_card_is_not_tf32(cuda):
+    """An f32 ``ops.nn.conv2d`` on the card, with cuDNN's TF32 flag at its
+    default (True): output and gradients within 1e-5 of the largest
+    value of an f64 evaluation on the CPU (a sum of 3*3*64 products),
+    where TF32's 10-bit mantissa would put ~1e-3 there."""
+    from distributed_tensorflow_example_tpu_torch.ops import nn
+    assert torch.backends.cudnn.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 32, 32, 64, generator=gen)
+    w = torch.randn(3, 3, 64, 64, generator=gen)
+    ct = torch.randn(8, 16, 16, 64, generator=gen)
+    outs = {}
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        xs = x.to(dev, dt).requires_grad_(True)
+        ws = w.to(dev, dt).requires_grad_(True)
+        y = nn.conv2d({"kernel": ws}, xs, stride=2)
+        outs[dev if dev == "cpu" else "cuda"] = (y,) + torch.autograd.grad(
+            y, [xs, ws], ct.to(dev, dt))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        err = (got.double().cpu() - want).abs().max()
+        assert err <= 1e-5 * want.abs().max(), err

@@ -351,9 +351,9 @@ def test_make_optimizer_matches_optax(kw):
 def test_optimizers_of_later_slices_are_refused():
     for kw, exc, match in ((dict(name="lamb"), NotImplementedError, "A3c"),
                            (dict(moment_dtype="bfloat16"),
-                            NotImplementedError, "A5"),
+                            NotImplementedError, "A5b"),
                            (dict(ema_decay=0.999), NotImplementedError,
-                            "A5"),
+                            "A5b"),
                            (dict(name="rmsprop"), ValueError, "unknown"),
                            (dict(wd_mask="odd"), ValueError, "wd_mask")):
         with pytest.raises(exc, match=match):
