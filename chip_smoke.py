@@ -6,8 +6,10 @@ step and then through its training CLI (``cli/train.py`` -> ``Trainer``
 generation over HTTP through the port's entry points, without and with
 the continuous-batching engine, and checks the kernels carried each
 path; then it trains the source's MNIST MLP through the port's copy of
-the reference example and through the CLI, and last its convolutional
-models (LeNet, ResNet-20, ResNet-50) through the CLI.
+the reference example and through the CLI, its convolutional models
+(LeNet, ResNet-20, ResNet-50) through the CLI, and last BERT's masked LM
+(BERT-base, bert_large, bert_tiny) on the flash kernels' non-causal
+path.
 
     python3 chip_smoke.py
 
@@ -27,7 +29,10 @@ training phase (one step's grads through the flash
 kernels against the plain attention's, then 20 AdamW steps of
 full-width GPT-small through ``SyncReplicas`` with launch counts, the
 loss curve, ms per step, tokens/s, peak memory and the device idle share
-of one step), the CLI phase (20 steps of the training CLI with the fused
+of one step; then GPT-small's LM head under ``--lm_loss_impl`` full,
+chunked and fused: step-1 losses, ms per step, peak memory, the head's
+device time against a traced step's), the CLI phase (20 steps of the
+training CLI with the fused
 backward and a checkpoint ring, a resume to 30 with a generator export
 served once, a 5-step split-backward run against it; launch counts, the
 loss curve, ms per step, save and restore times, peak memory and the
@@ -52,7 +57,16 @@ kernel on their path: full-width ResNet-50 in bf16 at batch 128 with a
 ring, a resume and a top-5 eval, its examples/s, ms per step, peak
 memory, idle share and share of the bf16 peak; ResNet-20 with
 ``--augment`` to an eval bar and 20 f32 card steps against 20 CPU steps;
-LeNet to 0.95), a ``{"kernels":
+LeNet to 0.95), the BERT phase (B1, B2a/B2b and B3 non-causal with
+trailing pads against their plain versions at BERT-base's shape;
+BERT-base, config 5 at its preset, in bf16 with LAMB through the CLI:
+30 steps with a ring, a resume to 40, the eval, exact launch counts;
+sequences/s, tokens/s, ms per step, peak memory, idle share and share
+of the bf16 peak of a Trainer run; a padded fixture's step under flash
+and plain attention against an f32 oracle, then 10 CLI steps; the fused
+backward, ``--remat full|dots``, the fused head, lars and seq 512, a
+few steps each; bert_large's step time; bert_tiny card against CPU), a
+``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
 before that line; without CUDA (or outside the repository) it exits
@@ -1276,6 +1290,8 @@ def phase_train(card: str) -> dict:
     if failed:
         raise SystemExit("the training phase failed: " + "; ".join(failed))
     phase_train_profile(sync, state, batch, card)
+    del sync, state, batch
+    phase_train_lm_head(card)
     return launches
 
 
@@ -2530,11 +2546,13 @@ def _train_flops(model, hw: int) -> float:
     return 3 * total[0]
 
 
-def _cli_run(argv: list[str], label: str, failed: list, card: str):
+def _cli_run(argv: list[str], label: str, failed: list, card: str, *,
+             tag: str = "conv", want: dict | None = None):
     """``cli.main(argv)`` with every kernel's count set to 0 before and
-    read after (none may launch: no hand-written kernel is on this
-    path); returns (rc, the trainer's and hooks' log lines, the metrics
-    records, peak device memory in MiB)."""
+    read after: each must equal ``want``, or with no ``want`` none may
+    launch (no hand-written kernel is on the conv path); returns (rc,
+    the trainer's and hooks' log lines, the metrics records, peak device
+    memory in MiB)."""
     from distributed_tensorflow_example_tpu_torch.cli import train as cli
     tap = _LogTap()
     for name in ("dtx.hooks", "dtx.trainer", "dtx.cli"):
@@ -2555,12 +2573,15 @@ def _cli_run(argv: list[str], label: str, failed: list, card: str):
     peak = torch.cuda.max_memory_allocated() / 2**20
     with open(metrics) as f:
         recs = [json.loads(line) for line in f]
-    log(f"[conv {label}] rc {rc} in {wall:.1f} s, peak device memory "
-        f"{peak:.1f} MiB ({card})")
+    log(f"[{tag} {label}] rc {rc} in {wall:.1f} s, peak device memory "
+        f"{peak:.1f} MiB" + (f", launches {launches}" if want else "")
+        + f" ({card})")
     if rc != 0:
         failed.append(f"{label}: main returned {rc}")
-    if any(launches.values()):
+    if want is None and any(launches.values()):
         failed.append(f"{label}: a kernel launched: {launches}")
+    if want is not None and launches != want:
+        failed.append(f"{label}: launches {launches}, want {want}")
     return rc, list(tap.lines), recs, peak
 
 
@@ -2770,6 +2791,654 @@ def phase_conv(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# BERT phase: BASELINE.json config 5 through cli/train.py, non-causal flash
+# ---------------------------------------------------------------------------
+
+# config 5 at the registered preset (12 layers, hidden 768, 12 heads, FFN
+# 3072, vocab 30522, 20 predictions a sequence), bf16 compute, the flash
+# kernels non-causal under the key-pad mask, LAMB
+BERT_ARGV = ["--model", "bert", "--device", "cuda", "--dtype",
+             "bfloat16", "--attention", "flash", "--optimizer",
+             "lamb", "--learning_rate", "2e-3", "--warmup_steps", "5",
+             "--weight_decay", "0.01", "--batch_size", "64", "--seq_len",
+             "128", "--seed", "0"]
+BERT_B, BERT_S, BERT_EVAL, BERT_LAYERS = 64, 128, 256, 12
+BERT_VOCAB = 30522
+BERT_LONG_B, BERT_LONG_S = 16, 512
+BERT_LEVER_STEPS = 6
+BERT_LARGE_B, BERT_LARGE_STEPS = 32, 5
+# 20 f32 LAMB steps (lr 1e-3, batch 32, no dropout) of BERT-tiny on the
+# card against the CPU from one checkpoint: the runs differ only in
+# summation order (TF32 is off for f32 matmuls); four runs on the H100
+# read at most 1.4e-7 of the loss over the 20 steps
+TINY_CARD_CPU_LOSS_RTOL = 1e-5
+# the padded BERT-base step (bf16) against the same model in f32: each
+# leaf within TRAIN_GRAD_REL_TOL of its f32 gradient, save the
+# attention's q and k leaves whose f32 gradient is under BERT_QK_SHARE of
+# the global norm, which are held to BERT_QK_FLOOR of the global norm: at
+# random init the deepest layers' post-LN token states nearly coincide,
+# dp - D cancels in ds = p (dp - D), and a bf16 flash backward (D =
+# rowsum(dO * O) from the bf16 O) keeps little of those leaves' gradient,
+# as the reference's Pallas kernels do (probes/flash_bwd_precision.py).
+# On the H100 (the same bits in every run) flash is off by 2e-5 to 5.2e-5
+# of the global norm on every layer's q and k kernels, past 5e-2 of the
+# leaf from layer 6 (7.1e-2, share 4.9e-4) to layer 11 (2.7x, share
+# 1.9e-5); layer 5 (share 1.0e-3) reads 2.4e-2. The floor is twice the
+# worst reading
+BERT_QK_SHARE = 1e-3
+BERT_QK_FLOOR = 1e-4
+# GPT-small's LM head (8 x 512, bf16 operands, f32 logits): full,
+# chunked and fused compute one function, their step-1 losses part only
+# by the f32 summation order of the logits' GEMMs (cuBLAS splits a
+# 30522-wide product otherwise than 2048-wide blocks), ~1e-6
+GPT_HEAD_LOSS_RTOL = 1e-4
+
+
+def bert_flash_case(gen) -> None:
+    """B1, B2a and B2b at BERT-base's shape (B=64, S=128, H=12, D=64),
+    NON-causal, key masks with TRAILING pads (BERT's layout) and one row
+    all PAD, against their plain versions; B3 bitwise equal to B2a and
+    B2b on the same inputs. A row with every key masked gives zero
+    output and zero dq; a masked key gets zero dk and dv; a padded query
+    still attends to its row's valid keys."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        flash_attention as fa
+    dev = torch.device("cuda")
+    b, s, h, d = BERT_B, BERT_S, 12, 64
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(4))
+    lens = torch.randint(s // 4, s + 1, (b,), generator=gen)
+    lens[0], lens[-1] = s, 0
+    mask = (torch.arange(s)[None, :] < lens[:, None]).to(torch.int32).to(dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=False)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, mask)
+    args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
+    dq = fa.flash_attention_bwd_dq(*args, causal=False)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=False)
+    fq, fk, fv = fa.flash_attention_bwd_fused(*args, causal=False)
+    dq_ref = fa.flash_attention_bwd_dq_plain(*args)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    live = lens > 0
+    rel = row_rel_err(o[live], o_ref[live])
+    lse_err = (lse[live] - lse_ref[live]).abs().max().item()
+    dead_o = o[~live].float().abs().max().item()
+    dead_dq = dq[~live].float().abs().max().item()
+    masked = (mask == 0)[:, :, None, None]
+    dead_kv = max((g.float().abs() * masked).max().item() for g in (dk, dv))
+    g_rel = max(grad_row_rel_err(g[live], r[live]) for g, r in
+                ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)))
+    bits = all(torch.equal(a, c) for a, c in ((fq, dq), (fk, dk), (fv, dv)))
+    finite = all(torch.isfinite(x).all().item() for x in (o, dq, dk, dv))
+    ok = (rel <= FLASH_ROW_REL_TOL and lse_err <= FLASH_LSE_TOL
+          and g_rel <= FLASH_BWD_ROW_REL_TOL and dead_o == 0
+          and dead_dq == 0 and dead_kv == 0 and bits and finite)
+    log(f"[bert flash B={b} S={s} H={h}, non-causal, trailing pads, row "
+        f"{b - 1} all PAD] B1 worst row rel err {rel:.3e} (tol "
+        f"{FLASH_ROW_REL_TOL}), lse {lse_err:.3e} (tol {FLASH_LSE_TOL}); "
+        f"B2a/B2b worst grad row rel err {g_rel:.3e} (tol "
+        f"{FLASH_BWD_ROW_REL_TOL}); all-PAD row max|o| {dead_o}, max|dq| "
+        f"{dead_dq}, masked keys max|dk|,|dv| {dead_kv} (must be 0); B3 "
+        f"bitwise B2a/B2b {bits}; finite {finite}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the flash kernels fail BERT's non-causal, "
+                         "trailing-pad case")
+
+
+def _bert_train_flops(model) -> float:
+    """Training FLOPs of one sequence of BERT at BERT_S: 3 x the forward's
+    multiply-adds x 2 of every dense layer (from the shapes the code
+    gives them, one forward traced) and of the tied MLM decoder over
+    max_predictions positions, plus the flash kernels' matmuls over the
+    whole [S, S] (non-causal) as the reference's
+    ``attention_train_flops`` counts them: 2 forward and 7 split-backward
+    [S, D] x [D, S] products."""
+    from distributed_tensorflow_example_tpu_torch.ops import nn
+    c = model.cfg
+    total = [0.0]
+    dense = nn.dense
+
+    def dense_rec(params, x, **kw):
+        total[0] += 2.0 * params["kernel"].numel() * (x.numel()
+                                                      // x.shape[-1])
+        return dense(params, x, **kw)
+
+    params = model.init(0)
+    batch = {k: torch.as_tensor(v[:1, :BERT_S], device="cuda")
+             for k, v in model.dummy_batch(1).items()}
+    nn.dense = dense_rec
+    try:
+        with torch.no_grad():
+            model.apply(params, {}, batch)
+    finally:
+        nn.dense = dense
+    decoder = 2.0 * c.max_predictions * c.hidden * c.vocab_size
+    attention = (2 + 7) * 2.0 * BERT_S ** 2 * c.hidden * c.layers
+    return 3 * (total[0] + decoder) + attention
+
+
+class _CountStep:
+    """A Trainer hook that reads the kernels' launch counts over one step:
+    set to 0 after step ``at``, read after step ``at + 1``."""
+
+    every_steps = 0
+
+    def __init__(self, at: int):
+        self.at, self.read, self.counts = at, None, {}
+
+    def begin(self, trainer):
+        pass
+
+    def wants_metrics(self, step):
+        return False
+
+    def after_step(self, trainer, step, metrics):
+        if step == self.at:
+            self.read = _reset_launches()
+        elif step == self.at + 1 and self.read is not None:
+            self.counts = self.read()
+
+    def end(self, trainer):
+        pass
+
+
+def _launches_want(layers: int, steps: int, eval_batches: int, *,
+                   bwd: str = "split", fwd_per_step: int = 1) -> dict:
+    """The exact launch counts of a BERT CLI run: per step B1 once a
+    layer (twice under remat) and the split (B2a, B2b) or fused (B3)
+    backward once a layer; B1 once a layer for each eval batch."""
+    split = bwd == "split"
+    return {"flash_attention_fwd": layers * (steps * fwd_per_step
+                                             + eval_batches),
+            "flash_attention_bwd_dq": layers * steps * split,
+            "flash_attention_bwd_dkv": layers * steps * split,
+            "flash_attention_bwd_fused": layers * steps * (not split),
+            "decode_attention": 0, "paged_decode_attention": 0,
+            "paged_decode_attention_int8": 0}
+
+
+def _padded_fixture(path: str, n_train: int, n_test: int,
+                    vocab: int) -> None:
+    """``train.npy``/``test.npy`` of synthetic-corpus rows (S=128) cut to
+    random lengths with trailing PAD, the first train row all PAD."""
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import (
+        PAD, synthetic_corpus)
+    os.makedirs(path, exist_ok=True)
+    for name, n, seed in (("train", n_train, 11), ("test", n_test, 12)):
+        seqs = synthetic_corpus(n, BERT_S, vocab, seed)
+        lens = np.random.RandomState(seed).randint(BERT_S // 4, BERT_S + 1,
+                                                   n)
+        if name == "train":
+            lens[0] = 0
+        for i, n_tok in enumerate(lens):
+            seqs[i, n_tok:] = PAD
+        np.save(os.path.join(path, f"{name}.npy"), seqs)
+
+
+def _bert_grad_gate(grads: dict, g32: dict, total) -> tuple[list, list]:
+    """(leaves over the gate, leaves held to the floor) of one path's
+    gradients against the f32 oracle ``g32`` (global norm ``total``): each
+    leaf within TRAIN_GRAD_REL_TOL of its f32 gradient, the attention's q
+    and k leaves under BERT_QK_SHARE of the global norm within
+    BERT_QK_FLOOR of the global norm; the key biases (a zero gradient)
+    are held apart."""
+    bad, floored = [], []
+    for key, ref in g32.items():
+        if key.endswith("attn/k/bias"):
+            continue
+        ref = ref.float()
+        n = ref.norm()
+        err = (grads[key].float() - ref).norm()
+        share = (n / total).item()
+        qk = "/attn/q/" in key or "/attn/k/" in key
+        if qk and share < BERT_QK_SHARE:
+            floored.append(key)
+            ok = err <= max(TRAIN_GRAD_REL_TOL * n, BERT_QK_FLOOR * total)
+        else:
+            ok = err <= TRAIN_GRAD_REL_TOL * n
+        if not ok:
+            bad.append(key)
+    return bad, floored
+
+
+def _bert_flash_vs_xla(argv: list[str], data_dir: str, failed: list) -> None:
+    """One step's loss and gradients of BERT-base (bf16, dropout off) on
+    the first BERT_B rows of the padded fixture (an all-PAD row among
+    them) under the flash kernels and under the plain einsum attention,
+    from one state, each held to the same model in f32 (plain attention,
+    f32 matmuls) as the oracle by :func:`_bert_grad_gate`; the
+    attention's key biases, whose gradient is 0, within
+    TRAIN_ZERO_GRAD_SHARE of the global norm. A control must fail the
+    gate: the flash gradients with every layer's attention q leaves
+    zeroed (a lost dq). Every output and gradient finite."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    model = get_model("bert", cfg)
+    plain = get_model("bert", cfg.replace(attention_impl="xla"))
+    oracle = get_model("bert", cfg.replace(attention_impl="xla",
+                                           dtype="float32"))
+    params = model.init(0)
+    tr, _ = get_bert_data(data_dir, vocab_size=model.cfg.vocab_size,
+                          seq_len=BERT_S,
+                          max_predictions=model.cfg.max_predictions)
+    batch = {k: torch.as_tensor(v[:BERT_B], device="cuda")
+             for k, v in tr.items()}
+    with torch.no_grad():
+        outs = [m.encode(params, batch) for m in (model, plain)]
+    finite = all(torch.isfinite(o).all().item() for o in outs)
+    out_rel = ((outs[0].float() - outs[1].float()).norm()
+               / outs[1].float().norm()).item()
+    lf, gf = _loss_and_grads(model, params, batch)
+    lx, gx = _loss_and_grads(plain, params, batch)
+    l32, g32 = _loss_and_grads(oracle, params, batch)
+    finite = finite and np.isfinite(lf) and all(
+        torch.isfinite(g).all().item() for g in (*gf.values(),
+                                                 *gx.values()))
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in g32.values()))
+    zero = max((g[k].float().norm() / total).item() for g in (gf, gx)
+               for k in g32 if k.endswith("attn/k/bias"))
+    bad_f, floored = _bert_grad_gate(gf, g32, total)
+    bad_x, _ = _bert_grad_gate(gx, g32, total)
+    control = {k: torch.zeros_like(g) if "/attn/q/" in k else g
+               for k, g in gf.items()}
+    bad_c, _ = _bert_grad_gate(control, g32, total)
+    floor_share = torch.sqrt(sum((g32[k].float() ** 2).sum()
+                                 for k in floored)) / total
+    log(f"[bert padded] one step from one state (bf16, dropout off, "
+        f"{int((batch['attention_mask'] == 0).sum())} padded tokens, row 0 "
+        f"all PAD), each path against the f32 einsum attention: loss flash "
+        f"{lf:.5f}, xla {lx:.5f}, f32 {l32:.5f} (tol {TRAIN_LOSS_TOL}); "
+        f"sequence output flash vs xla ||d|| / ||xla|| {out_rel:.3e}; key "
+        f"biases ||g|| / global norm {zero:.3e} (tol "
+        f"{TRAIN_ZERO_GRAD_SHARE}); every output and gradient finite "
+        f"{finite}; leaves over the gate: flash {bad_f}, xla {bad_x}; "
+        f"{len(floored)} of {len(g32)} leaves (q and k under "
+        f"{BERT_QK_SHARE} of the global norm, together "
+        f"{floor_share.item():.2e} of it) held to {BERT_QK_FLOOR} of the "
+        f"global norm, the rest to {TRAIN_GRAD_REL_TOL} of the leaf; "
+        f"control (flash with every attn/q leaf zeroed): {len(bad_c)} "
+        f"leaves over the gate (must be > 0)")
+    t = total.item()
+    for i in range(model.cfg.layers):
+        parts = []
+        for w in ("q", "k"):
+            key = f"layer_{i}/attn/{w}/kernel"
+            ref = g32[key].float()
+            n = ref.norm().item()
+            ef = (gf[key].float() - ref).norm().item()
+            ex = (gx[key].float() - ref).norm().item()
+            parts.append(f"{w} share {n / t:.2e}, flash off by {ef / t:.2e} "
+                         f"({ef / n:.2e} of the leaf), xla {ex / t:.2e} "
+                         f"({ex / n:.2e})")
+        log(f"[bert padded]   layer_{i}/attn kernels, of the global norm: "
+            + "; ".join(parts))
+    if (bad_f or bad_x or not bad_c or zero > TRAIN_ZERO_GRAD_SHARE
+            or not finite or abs(lf - l32) > TRAIN_LOSS_TOL
+            or out_rel > TRAIN_GRAD_REL_TOL):
+        failed.append("padded BERT: flash or xla off the f32 oracle, the "
+                      "control passed, or a value is not finite")
+
+
+def phase_bert(card: str) -> dict:
+    """BASELINE.json config 5, BERT-base MLM, at its registered preset
+    (nothing cut: 12 layers, hidden 768, vocab 30522, 20 predictions),
+    bf16 compute, through the port's CLI on the flash kernels'
+    non-causal path, LAMB: 30 steps of 64 x 128 synthetic tokens with a
+    ring of 2, a resume to 40 and the final eval; a Trainer of the same
+    argv timed over steps 11-30 (sequences/s, tokens/s), step 32 traced
+    (idle share, launches, B1/B2a/B2b 12 each), its share of the bf16
+    peak. Then the padded non-causal path (a fixture with trailing PAD
+    and an all-PAD row: flash against xla, 10 CLI steps), the levers
+    (``--attention_bwd fused``, ``--remat full|dots``, ``--lm_loss_impl
+    fused``, ``--optimizer lars``: each a few steps, the loss falling,
+    the launch counts exact), one seq-512 run, bert_large's step time,
+    and bert_tiny on the card against the CPU."""
+    from torch.autograd import DeviceType
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager)
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.config import (
+        OptimizerConfig, TrainConfig)
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.data.loader import \
+        make_loader
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.models.bert import (
+        Bert, BertConfig)
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+        make_optimizer
+    from distributed_tensorflow_example_tpu_torch.train.state import \
+        param_count
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    failed: list[str] = []
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    bert_flash_case(torch.Generator().manual_seed(128))
+    eval_batches = -(-BERT_EVAL // BERT_B)
+
+    # BERT-base through the CLI: 30 steps, a ring of 2, a resume to 40
+    ck, m = os.path.join(tmp, "bert"), os.path.join(tmp, "bert.jsonl")
+    base = BERT_ARGV + ["--ckpt_dir", ck, "--save_steps", "10",
+                        "--max_to_keep", "2", "--metrics_path", m]
+    _, lines, _, peak1 = _cli_run(
+        base + ["--train_steps", "30", "--log_every_steps", "5"],
+        "steps 1-30", failed, card, tag="bert",
+        want=_launches_want(BERT_LAYERS, 30, eval_batches))
+    curve = _step_metrics(lines)
+    ring1 = _ring(ck)
+    _, lines2, _, _ = _cli_run(
+        base + ["--train_steps", "40", "--log_every_steps", "10"],
+        "resume to 40", failed, card, tag="bert",
+        want=_launches_want(BERT_LAYERS, 10, eval_batches))
+    ring2 = _ring(ck)
+    ev = _final_eval(lines2)
+    losses = [curve[s]["loss"] for s in sorted(curve)]
+    log("[bert] loss at steps " + " ".join(
+        f"{s}:{curve[s]['loss']:.4f}" for s in sorted(curve))
+        + ", mlm_accuracy at steps " + " ".join(
+            f"{s}:{curve[s]['mlm_accuracy']:.4f}" for s in sorted(curve))
+        + f"; ring after 30 {ring1}, after 40 {ring2} (verified); final "
+        f"eval {ev} ({card})")
+    if sorted(curve) != list(range(5, 31, 5)) \
+            or not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        failed.append(f"bert loss curve {curve}")
+    if ring1 != [20, 30] or ring2 != [30, 40] or not any(
+            "restored checkpoint at step 30" in x for x in lines2):
+        failed.append(f"bert ring {ring1} then {ring2}, or no resume")
+    if "mlm_accuracy" not in ev or not np.isfinite(ev.get("loss", np.nan)):
+        failed.append(f"bert final eval {ev}")
+
+    # speed: a Trainer of the same argv, steps 11-30 timed, step 32 traced
+    # and its launches counted
+    args = cli.build_parser().parse_args(
+        BERT_ARGV + ["--train_steps", "32", "--log_every_steps", "100"])
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, _ = cli.load_dataset(cfg, model)
+    flops = _bert_train_flops(model) * BERT_B
+    window, prof, count = _Window(10, 30), _ProfileStep(31), _CountStep(31)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Trainer(model, cfg, train, None, hooks=[window, prof, count]) as tr:
+        state, _ = tr.train()
+    n_params = param_count(state.params)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = window.wall / 20 * 1e3
+    seqs = BERT_B * 20 / window.wall
+    bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+    kernels = [e for e in prof.prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    idle = 1 - busy / (prof.wall * 1e3) if kernels else float("nan")
+    log(f"[bert] BERT-base {n_params} params (f32), bf16 compute: steps "
+        f"11-30 of a Trainer run: {ms:.2f} ms per step, {seqs:.1f} "
+        f"sequences/s, {seqs * BERT_S:.0f} tokens/s ({BERT_B} x {BERT_S}); "
+        f"peak device memory {peak:.1f} MiB (CLI run {peak1:.1f}); "
+        f"training FLOPs {flops / 1e12:.3f} TFLOP a step, {bound_ms:.3f} ms "
+        f"at the bf16 peak: {bound_ms / ms:.4f} of it ({card})")
+    want_step = {k: v for k, v in _launches_want(BERT_LAYERS, 1, 0).items()}
+    if count.counts != want_step:
+        failed.append(f"bert traced step launches {count.counts}, want "
+                      f"{want_step}")
+    if kernels:
+        log(f"[bert profile] one Trainer step (32) traced: "
+            f"{prof.wall * 1e3:.1f} ms, device busy {busy:.2f} ms in "
+            f"{n_launch} kernel launches: idle share {idle:.3f}; the "
+            f"port's kernels in it: {count.counts} ({card})")
+        ours = [e for e in kernels if "flash_" in e.key]
+        for e in sorted(kernels, key=_device_us, reverse=True)[:10] + ours:
+            log(f"[bert profile]   {_device_us(e) / 1e3:8.3f} ms "
+                f" {e.count:5d}x  {e.key[:90]}")
+        host = [e for e in prof.prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:6]:
+            log(f"[bert profile]   host {e.self_cpu_time_total / 1e3:8.3f} "
+                f"ms self  {e.count:5d}x  {e.key[:70]}")
+    else:
+        log("[bert profile] the profiler saw no device time: idle share "
+            "not measured")
+    out.update(ms=ms, seqs=seqs, tokens=seqs * BERT_S, peak_mib=peak,
+               idle=idle, peak_share=bound_ms / ms, launches=n_launch)
+    del model, train, tr, state
+    gc.collect()
+
+    # the padded, non-causal path: flash against xla, then 10 CLI steps
+    fixture = os.path.join(tmp, "padded")
+    _padded_fixture(fixture, n_train=640, n_test=BERT_B, vocab=BERT_VOCAB)
+    _bert_flash_vs_xla(BERT_ARGV, fixture, failed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, lines, _, _ = _cli_run(
+        BERT_ARGV + ["--data_dir", fixture, "--train_steps", "10",
+                  "--log_every_steps", "5", "--metrics_path",
+                  os.path.join(tmp, "padded.jsonl")],
+        "padded data, 10 steps", failed, card, tag="bert",
+        want=_launches_want(BERT_LAYERS, 10, 1))
+    curve = _step_metrics(lines)
+    log(f"[bert padded] loss at steps " + " ".join(
+        f"{s}:{curve[s]['loss']:.4f}" for s in sorted(curve))
+        + f"; final eval {_final_eval(lines)}")
+    if sorted(curve) != [5, 10] or curve[10]["loss"] >= curve[5]["loss"] \
+            or not all(np.isfinite(list(curve[s].values())).all()
+                       for s in curve):
+        failed.append(f"bert padded loss curve {curve}")
+
+    # the levers: a few steps each, the loss falling, launches exact
+    n = BERT_LEVER_STEPS
+    for label, extra, want in (
+            ("--attention_bwd fused", ["--attention_bwd", "fused"],
+             _launches_want(BERT_LAYERS, n, eval_batches, bwd="fused")),
+            ("--remat full", ["--remat", "full"],
+             _launches_want(BERT_LAYERS, n, eval_batches, fwd_per_step=2)),
+            ("--remat dots", ["--remat", "dots"],
+             _launches_want(BERT_LAYERS, n, eval_batches, fwd_per_step=2)),
+            ("--lm_loss_impl fused", ["--lm_loss_impl", "fused"],
+             _launches_want(BERT_LAYERS, n, eval_batches)),
+            ("--optimizer lars", ["--optimizer", "lars", "--learning_rate",
+                                  "5.0", "--momentum", "0.9"],
+             _launches_want(BERT_LAYERS, n, eval_batches)),
+            (f"seq {BERT_LONG_S}, batch {BERT_LONG_B}",
+             ["--seq_len", str(BERT_LONG_S), "--batch_size",
+              str(BERT_LONG_B)],
+             _launches_want(BERT_LAYERS, n, -(-BERT_EVAL // BERT_LONG_B)))):
+        mpath = os.path.join(tmp, "lever.jsonl")
+        if os.path.exists(mpath):
+            os.unlink(mpath)
+        _, lines, recs, peak = _cli_run(
+            BERT_ARGV + extra + ["--train_steps", str(n),
+                                 "--log_every_steps", "3",
+                                 "--metrics_path", mpath],
+            label, failed, card, tag="bert", want=want)
+        curve = _step_metrics(lines)
+        rates = [r for r in recs if "sec_per_step" in r]
+        step_ms = rates[-1]["sec_per_step"] * 1e3 if rates else float("nan")
+        log(f"[bert {label}] loss at steps " + " ".join(
+            f"{s}:{curve[s]['loss']:.4f}" for s in sorted(curve))
+            + f"; {step_ms:.2f} ms per step over steps 4-{n} (host clock at "
+            f"the log cadence); peak {peak:.1f} MiB ({card})")
+        if sorted(curve) != [3, 6] or not curve[6]["loss"] < curve[3]["loss"]:
+            failed.append(f"bert {label}: loss curve {curve}")
+        if label.startswith("seq"):
+            out.update(long_ms=step_ms)
+
+    # bert_large: 5 timed SyncReplicas steps
+    lcfg = TrainConfig(model="bert_large", dtype="bfloat16",
+                       attention_impl="flash", seed=0,
+                       optimizer=OptimizerConfig(name="lamb",
+                                                 learning_rate=1e-3))
+    lcfg.data.seq_len = BERT_S
+    large = get_model("bert_large", lcfg)
+    lsync = SyncReplicas(large.loss, make_optimizer(lcfg.optimizer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lstate = lsync.init(large.init, seed=0)
+    ltr, _ = get_bert_data(None, vocab_size=large.cfg.vocab_size,
+                           seq_len=BERT_S,
+                           max_predictions=large.cfg.max_predictions,
+                           synthetic=True, num_train=BERT_LARGE_B,
+                           num_test=1)
+    lbatch = {k: torch.as_tensor(v, device="cuda") for k, v in ltr.items()}
+    lstate, lm = lsync.step(lstate, lbatch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lvals = []
+    for _ in range(BERT_LARGE_STEPS):
+        lstate, lm = lsync.step(lstate, lbatch)
+        lvals.append(lm["loss"])
+    torch.cuda.synchronize()
+    lms = (time.perf_counter() - t0) / BERT_LARGE_STEPS * 1e3
+    lpeak = torch.cuda.max_memory_allocated() / 2**20
+    lvals = [float(x) for x in lvals]
+    log(f"[bert_large] {param_count(lstate.params)} params, 24 layers, "
+        f"hidden 1024, bf16, LAMB, batch {BERT_LARGE_B} x {BERT_S}: "
+        f"{lms:.2f} ms per step over {BERT_LARGE_STEPS} steps (host clock, "
+        f"one sync at each end), {BERT_LARGE_B * BERT_S / lms * 1e3:.0f} "
+        f"tokens/s; loss {' '.join(f'{x:.4f}' for x in lvals)}; peak "
+        f"{lpeak:.1f} MiB ({card})")
+    if not all(np.isfinite(lvals)):
+        failed.append(f"bert_large losses {lvals}")
+    out.update(large_ms=lms, large_peak_mib=lpeak)
+    del large, lsync, lstate, lbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bert_tiny: 20 f32 steps on the card against 20 on the CPU
+    tiny = Bert(BertConfig(**{**BertConfig.tiny().__dict__, "dropout": 0.0}))
+    syncs = {dev: SyncReplicas(tiny.loss, make_optimizer(OptimizerConfig(
+        name="lamb", learning_rate=1e-3, weight_decay=0.01)), device=dev)
+        for dev in ("cuda", "cpu")}
+    tstate = syncs["cuda"].init(tiny.init, seed=0)
+    bridge = CheckpointManager(os.path.join(tmp, "tiny_bridge"))
+    bridge.save(tstate)
+    cstate = bridge.restore(syncs["cpu"].init(tiny.init, seed=1))
+    tarr, _ = get_bert_data(None, vocab_size=1000, seq_len=64,
+                            max_predictions=8, synthetic=True,
+                            num_train=640, num_test=1)
+    batches = make_loader(tarr, 32, seed=0)
+    rels = []
+    for _ in range(20):
+        b = next(batches)
+        tstate, mt = syncs["cuda"].step(tstate, b)
+        cstate, mc = syncs["cpu"].step(cstate, b)
+        rels.append(abs(float(mt["loss"]) - float(mc["loss"]))
+                    / float(mc["loss"]))
+    log(f"[bert_tiny] 20 f32 LAMB steps (batch 32, no dropout), card "
+        f"against CPU from one checkpoint: loss relative difference a step "
+        + " ".join(f"{r:.1e}" for r in rels)
+        + f" (tol {TINY_CARD_CPU_LOSS_RTOL})")
+    if not max(rels) <= TINY_CARD_CPU_LOSS_RTOL:
+        failed.append(f"bert_tiny card vs CPU losses differ by {rels}")
+    out.update(tiny_card_cpu=max(rels))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit("the BERT phase failed: " + "; ".join(failed))
+    return out
+
+
+def phase_train_lm_head(card: str) -> None:
+    """GPT-small's LM head at the training shape (8 x 512, bf16 compute,
+    flash attention, AdamW) under ``--lm_loss_impl`` full, chunked (128)
+    and fused: for each, the step-1 loss (the three within
+    GPT_HEAD_LOSS_RTOL), ms per step over 3 steps (host clock), peak
+    device memory, the device-busy time of one traced step, and the
+    head's own device time (its forward and backward alone on the same
+    shapes, traced) as a share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_tensorflow_example_tpu_torch.config import (
+        OptimizerConfig, TrainConfig)
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.ops import losses
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+        make_optimizer
+
+    def busy_ms(fn) -> float:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(_device_us(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+
+    rs = np.random.RandomState(2)
+    first = {}
+    for impl, chunk in (("full", None), ("chunked", 128), ("fused", None)):
+        cfg = TrainConfig(model="gpt", dtype="bfloat16",
+                          attention_impl="flash", seed=0, lm_loss_impl=impl,
+                          lm_loss_chunk=chunk, optimizer=OptimizerConfig(
+                              name="adamw", learning_rate=1e-3))
+        cfg.data.seq_len = TRAIN_S
+        model = get_model("gpt", cfg)
+        c = model.cfg
+        ids = np.random.RandomState(2).randint(
+            0, c.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)
+        batch = {"input_ids": torch.as_tensor(ids, device="cuda"),
+                 "attention_mask": torch.ones((TRAIN_B, TRAIN_S),
+                                              dtype=torch.int32,
+                                              device="cuda")}
+        sync = SyncReplicas(model.loss, make_optimizer(cfg.optimizer))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = sync.init(model.init, seed=0)
+        state, met = sync.step(state, batch)
+        first[impl] = float(met["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            state, met = sync.step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        step_busy = busy_ms(lambda: sync.step(state, batch))
+        table = state.params["wte"]["table"].detach().requires_grad_()
+        h = torch.randn((TRAIN_B, TRAIN_S, c.hidden), device="cuda",
+                        dtype=torch.bfloat16, requires_grad=True)
+        tgt = torch.as_tensor(rs.randint(0, c.vocab_size,
+                                         (TRAIN_B, TRAIN_S)), device="cuda")
+        w = torch.ones((TRAIN_B, TRAIN_S), device="cuda")
+
+        def head():
+            loss, _ = losses.lm_head_xent(
+                h, table, tgt, w, impl=impl, seq_chunk=chunk or 0,
+                dtype=torch.bfloat16)
+            loss.backward()
+        head()
+        head_busy = busy_ms(head)
+        busy = (f"one traced step device busy {step_busy:.2f} ms, the head's "
+                f"forward and backward alone {head_busy:.2f} ms: "
+                f"{head_busy / step_busy:.3f} of it" if step_busy else
+                "the profiler saw no device time: busy not measured")
+        log(f"[train lm head {impl}{f' {chunk}' if chunk else ''}] GPT-small "
+            f"{TRAIN_B} x {TRAIN_S}, vocab {c.vocab_size}: step-1 loss "
+            f"{first[impl]:.6f}; {ms:.2f} ms per step (3 steps, host "
+            f"clock); {busy}; peak device memory {peak:.1f} MiB ({card})")
+        del model, sync, state, table, h
+    ref = first["full"]
+    worst = max(abs(v - ref) / ref for v in first.values())
+    log(f"[train lm head] step-1 losses {first}: worst relative difference "
+        f"from full {worst:.2e} (tol {GPT_HEAD_LOSS_RTOL})")
+    if worst > GPT_HEAD_LOSS_RTOL:
+        raise SystemExit("the LM-head impls disagree at step 1")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -2846,6 +3515,15 @@ def main() -> int:
         f"{mnist['ms_per_step']:.4f}, idle share {mnist['idle']:.3f}, "
         f"final test accuracy {mnist['accuracy']:.4f} ({card})")
     conv = phase_conv(card)
+    bert = phase_bert(card)
+    log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
+        f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
+        f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "
+        f"share of the bf16 peak {bert['peak_share']:.4f}; seq "
+        f"{BERT_LONG_S} {bert['long_ms']:.2f} ms per step; bert_large "
+        f"{bert['large_ms']:.2f} ms per step, peak "
+        f"{bert['large_peak_mib']:.1f} MiB; bert_tiny card vs CPU "
+        f"{bert['tiny_card_cpu']:.2e} ({card})")
     log(f"[conv] resnet50 examples/s {conv['r50_eps']:.1f}, ms per step "
         f"{conv['r50_ms']:.2f}, idle share {conv['r50_idle']:.3f}, peak "
         f"memory {conv['r50_peak_mib']:.1f} MiB, share of the bf16 peak "

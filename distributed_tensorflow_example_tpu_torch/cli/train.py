@@ -12,6 +12,11 @@ rank::
         --train_steps 30
 
     python -m distributed_tensorflow_example_tpu_torch.cli.train \\
+        --model bert --dtype bfloat16 --attention flash \\
+        --optimizer lamb --learning_rate 1e-3 --batch_size 64 \\
+        --seq_len 128 --train_steps 30
+
+    python -m distributed_tensorflow_example_tpu_torch.cli.train \\
         --model gpt --attention flash --attention_bwd fused \\
         --dtype bfloat16 --seq_len 512 --batch_size 8 --optimizer adamw \\
         --learning_rate 1e-3 --train_steps 20 --ckpt_dir D --save_steps 10
@@ -30,8 +35,11 @@ all-reduces the gradients (and, for the batch-norm models under
 ``lenet`` on MNIST (IDX files under ``--data_dir``, else the synthetic
 set), ``resnet20`` on CIFAR-10 (the binary batches under ``--data_dir``,
 else the synthetic set; ``--augment`` for the pad-4 crop and flip),
-``resnet50`` on synthetic ImageNet, and ``gpt`` and ``gpt_tiny`` on the
-synthetic LM corpus or pre-tokenized ``.npy`` files, checkpoints into
+``resnet50`` on synthetic ImageNet, ``gpt`` and ``gpt_tiny`` on the
+synthetic LM corpus or pre-tokenized ``.npy`` files, and ``bert``,
+``bert_large`` and ``bert_tiny`` (masked LM) on the same tokens, masked
+(a raw-text corpus with a ``vocab.txt`` arrives with slice A5b);
+checkpoints into
 ``--ckpt_dir`` (a second run on the same directory resumes), evaluates at
 the end, and with ``--export_generator`` hands the trained GPT weights to
 the port's ``PredictServer``.
@@ -55,11 +63,13 @@ log = get_logger("cli")
 #: the models the port trains, and the datasets it reads (the dataset
 #: aliases are the reference's)
 LM_MODELS = ("gpt", "gpt_tiny")
+BERT_MODELS = ("bert", "bert_large", "bert_tiny")
 MNIST_DATASETS = ("mlp", "mnist", "lenet")
 CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
 IMAGENET_DATASETS = ("resnet50", "imagenet")
-MODELS = ("mlp", "lenet", "resnet20", "resnet50") + LM_MODELS
-DATASETS = MNIST_DATASETS + CIFAR_DATASETS + IMAGENET_DATASETS + LM_MODELS
+MODELS = ("mlp", "lenet", "resnet20", "resnet50") + LM_MODELS + BERT_MODELS
+DATASETS = (MNIST_DATASETS + CIFAR_DATASETS + IMAGENET_DATASETS + LM_MODELS
+            + BERT_MODELS)
 
 
 def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
@@ -92,14 +102,14 @@ def build_parser() -> argparse.ArgumentParser:
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
     a("--model", default="mlp", help="mlp | lenet | resnet20 | resnet50 | "
-      "gpt | gpt_tiny (the other models of the reference arrive with "
-      "later slices)")
+      "gpt | gpt_tiny | bert | bert_large | bert_tiny (the MoE and "
+      "pipeline models of the reference arrive with later slices)")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
       help="MNIST IDX files, CIFAR-10 binary batches, or pre-tokenized "
            "train.npy/test.npy or tokens.npy; omit for the synthetic set "
-           "(ImageNet files: slice A5b)")
+           "(ImageNet files, a vocab.txt text corpus: slice A5b)")
     a("--native", action="store_true", help="C++ loader (slice A5b)")
     a("--streaming", action="store_true", help="slice A5b")
     a("--fast_decode", action="store_true", help="slice A5b")
@@ -119,7 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--optimizer", default="sgd", type=str.lower,
       choices=["sgd", "momentum", "adam", "adamw", "lars", "lamb",
                "adafactor"],
-      help="base optimizer (lars, lamb, adafactor: slice A3c-3)")
+      help="base optimizer (lars/lamb: the large-batch layer-wise trust "
+           "ratio; adafactor: slice A3c-3b)")
     a("--momentum", type=float, default=0.9)
     a("--weight_decay", type=float, default=0.0)
     a("--wd_mask", default="exclude_1d", choices=["exclude_1d", "all"])
@@ -140,10 +151,20 @@ def build_parser() -> argparse.ArgumentParser:
                       ("--moe_jitter", float)):
         a(flag, type=typ, default=None, help="MoE models (slice A5b)")
     a("--lm_loss_impl", default=None, choices=["full", "chunked", "fused"],
-      help="LM-head loss (chunked, fused: slice A3c-3)")
-    a("--lm_loss_vocab_block", type=int, default=None, help="slice A3c-3")
-    a("--token_accuracy_every_n", type=int, default=1, help="slice A3c-3")
-    a("--lm_loss_chunk", type=int, default=None, help="slice A3c-3")
+      help="LM-head loss: full = the [.., V] f32 logits; chunked = "
+           "sequence chunks recomputed in the backward (gpt; needs "
+           "--lm_loss_chunk); fused = blockwise over the vocab, no [.., V] "
+           "logits in either direction (default: full, or chunked when "
+           "--lm_loss_chunk is set)")
+    a("--lm_loss_vocab_block", type=int, default=None,
+      help="vocab tile of --lm_loss_impl fused (0: 2048)")
+    a("--token_accuracy_every_n", type=int, default=1,
+      help="gpt: the token_accuracy argmax only every n-th step (the "
+           "others publish -1.0); refused with --lm_loss_impl fused")
+    a("--lm_loss_chunk", type=int, default=None,
+      help="gpt: sequence chunk of the chunked LM loss (divides seq_len)")
+    a("--mlm_mask_prob", type=float, default=0.15,
+      help="bert: share of the maskable positions masked")
     a("--label_smoothing", type=float, default=0.0,
       help="training-target smoothing of the image classifiers")
     a("--grad_clip_norm", type=float, default=0.0,
@@ -197,7 +218,8 @@ def build_parser() -> argparse.ArgumentParser:
       help="a JAX key implementation: the port draws dropout from torch "
            "generators and takes only the default")
     a("--remat", default="none", choices=["none", "full", "dots"],
-      help="slice A3c-3")
+      help="recompute each transformer layer in the backward: full keeps "
+           "the layer's input only, dots also the dense layers' outputs")
     a("--ckpt_dir", default=None)
     a("--save_steps", type=int, default=0)
     a("--save_secs", type=float, default=0.0)
@@ -255,6 +277,9 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         train_steps=args.train_steps,
         lm_loss_impl=args.lm_loss_impl,
         lm_loss_chunk=args.lm_loss_chunk,
+        lm_loss_vocab_block=args.lm_loss_vocab_block,
+        token_accuracy_every_n=args.token_accuracy_every_n,
+        remat=args.remat,
         eval_every_steps=args.eval_every_steps,
         steps_per_loop=args.steps_per_loop,
         on_anomaly=args.on_anomaly,
@@ -273,7 +298,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         data=DataConfig(dataset=args.dataset or args.model,
                         data_dir=args.data_dir,
                         batch_size=args.batch_size, seed=args.seed,
-                        augment=args.augment, seq_len=args.seq_len),
+                        augment=args.augment, seq_len=args.seq_len,
+                        mlm_mask_prob=args.mlm_mask_prob),
         optimizer=OptimizerConfig(
             name=args.optimizer, learning_rate=args.learning_rate,
             momentum=args.momentum, weight_decay=args.weight_decay,
@@ -299,36 +325,6 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
                                 metrics_path=args.metrics_path,
                                 check_nans=args.check_nans),
     )
-
-
-def _lm_loss_lever_checks(args) -> None:
-    """The reference's ``lm_loss_settings`` rules on the two levers the
-    port's config does not carry (both of slice A3c), with its
-    messages."""
-    block, every = args.lm_loss_vocab_block, args.token_accuracy_every_n
-    impl = args.lm_loss_impl
-    if block is not None and block < 0:
-        raise ValueError(f"lm_loss_vocab_block={block} must be >= 0")
-    if every < 1:
-        raise ValueError(
-            f"token_accuracy_every_n={every} must be >= 1 (1 = the "
-            "default per-step argmax)")
-    if block and impl != "fused":
-        raise ValueError(
-            f"lm_loss_vocab_block={block} tunes the fused vocab scan "
-            f"and requires lm_loss_impl='fused', got {impl!r}")
-    if every != 1 and impl == "fused":
-        raise ValueError(
-            f"token_accuracy_every_n={every} skips the full/chunked "
-            "paths' per-step argmax; the fused path computes accuracy "
-            "inside the same vocab scan at no extra cost — drop the "
-            "knob (a silently ignored knob is worse than an error)")
-    if every != 1 and args.accum_steps > 1:
-        raise ValueError(
-            f"token_accuracy_every_n={every} does not compose with "
-            f"accum_steps={args.accum_steps}: the loss runs once per "
-            "MICROBATCH, so the cadence counter would tick per "
-            "microbatch")
 
 
 def _validate_like_the_reference(parser, args) -> TrainConfig:
@@ -373,7 +369,6 @@ def _validate_like_the_reference(parser, args) -> TrainConfig:
     try:
         flash_attention_kwargs(cfg)
         lm_loss_settings(cfg)
-        _lm_loss_lever_checks(args)
         anomaly_settings(cfg)
     except ValueError as e:
         raise SystemExit(str(e))
@@ -427,8 +422,6 @@ def _num_workers(args) -> int:
 
 def _slice_of(name: str) -> str:
     """The slice that brings a model or dataset the port lacks."""
-    if name in ("bert", "bert_tiny", "bert_large"):
-        return "A3c-3"
     return "A6" if name.startswith("pipe_") else "A5b"
 
 
@@ -453,18 +446,10 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
          imagenet and bool(args.data_dir), "A5b"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
-        (f"--optimizer {args.optimizer}",
-         args.optimizer in ("lars", "lamb", "adafactor"), "A3c-3"),
+        ("--optimizer adafactor", args.optimizer == "adafactor", "A3c-3b"),
         ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5b"),
         ("--ema_decay", args.ema_decay != 0.0, "A5b"),
         ("--ema_debias", args.ema_debias, "A5b"),
-        (f"--lm_loss_impl {args.lm_loss_impl}",
-         args.lm_loss_impl in ("chunked", "fused"), "A3c-3"),
-        ("--lm_loss_chunk", bool(args.lm_loss_chunk), "A3c-3"),
-        ("--lm_loss_vocab_block", args.lm_loss_vocab_block is not None,
-         "A3c-3"),
-        ("--token_accuracy_every_n", args.token_accuracy_every_n != 1,
-         "A3c-3"),
         ("--export_dir (the forward's serving artifact)",
          args.export_dir is not None, "A4"),
         ("--warm_start", args.warm_start is not None, "A5b"),
@@ -472,7 +457,6 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
         (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
          f"{_num_workers(args)} rank(s))",
          not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
-        (f"--remat {args.remat}", args.remat != "none", "A3c-3"),
         ("--keep_best_metric", args.keep_best_metric is not None, "A3c-4"),
         ("--async_save", args.async_save, "A3c-4"),
         ("--sharded_save", args.sharded_save, "A3c-4"),
@@ -524,7 +508,8 @@ def load_dataset(cfg: TrainConfig, model=None):
     """(train_arrays, eval_arrays): MNIST for the MLP and LeNet (``x`` flat
     784, ``y`` int32), CIFAR-10 for ResNet-20 and synthetic ImageNet for
     ResNet-50 (``x`` NHWC f32 in [0, 1]), the LM corpus for the causal-LM
-    models."""
+    models, and the same tokens masked for BERT (the vocab and
+    ``max_predictions`` from the model, so data and logits agree)."""
     name = cfg.data.dataset
     if cfg.data.augment and name not in (CIFAR_DATASETS
                                          + IMAGENET_DATASETS):
@@ -543,19 +528,38 @@ def load_dataset(cfg: TrainConfig, model=None):
             d = get_imagenet(cfg.data.data_dir, cfg.data.synthetic)
         return ({"x": d["train_x"], "y": d["train_y"]},
                 {"x": d["test_x"], "y": d["test_y"]})
-    if name not in LM_MODELS:
+    if name not in LM_MODELS + BERT_MODELS:
         raise SystemExit(f"dataset {name!r} arrives with a later slice of "
                          "the port")
-    from ..data.bert_data import get_lm_data
-    gcfg = getattr(model, "cfg", None)
-    vocab = gcfg.vocab_size if gcfg else cfg.data.vocab_size
-    if gcfg and cfg.data.seq_len > gcfg.max_len:
+    from ..data.bert_data import get_bert_data, get_lm_data
+    mcfg = getattr(model, "cfg", None)
+    vocab = mcfg.vocab_size if mcfg else cfg.data.vocab_size
+    if mcfg and cfg.data.seq_len > mcfg.max_len:
         raise SystemExit(
             f"--seq_len {cfg.data.seq_len} exceeds the model's "
-            f"max_len {gcfg.max_len}")
-    return get_lm_data(cfg.data.data_dir, vocab_size=vocab,
-                       seq_len=cfg.data.seq_len,
-                       synthetic=cfg.data.synthetic)
+            f"max_len {mcfg.max_len}")
+    if name in LM_MODELS:
+        return get_lm_data(cfg.data.data_dir, vocab_size=vocab,
+                           seq_len=cfg.data.seq_len,
+                           synthetic=cfg.data.synthetic)
+    d = cfg.data.data_dir
+    has_npy = d and any(os.path.exists(os.path.join(d, f))
+                        for f in ("train.npy", "tokens.npy"))
+    if (d and os.path.exists(os.path.join(d, "vocab.txt")) and not has_npy
+            and not cfg.data.synthetic):
+        raise SystemExit(
+            f"{d!r} is a raw-text corpus with a vocab.txt: tokenizing it "
+            "(data/bert_text.py) arrives with slice A5b of the port; pass "
+            "pre-tokenized train.npy/test.npy or tokens.npy")
+    tr, te = get_bert_data(
+        d, vocab_size=vocab, seq_len=cfg.data.seq_len,
+        max_predictions=mcfg.max_predictions if mcfg else 20,
+        mask_prob=cfg.data.mlm_mask_prob, synthetic=cfg.data.synthetic)
+    if mcfg and tr["input_ids"].shape[1] > mcfg.max_len:
+        raise SystemExit(
+            f"dataset sequence length {tr['input_ids'].shape[1]} "
+            f"exceeds the model's max_len {mcfg.max_len}")
+    return tr, te
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,12 +1,12 @@
 """Config dataclasses (port of ``distributed_tensorflow_example_tpu/
-config.py``, the fields GPT, MLP, LeNet and ResNet construction,
+config.py``, the fields GPT, BERT, MLP, LeNet and ResNet construction,
 generation, the sync training step and the ``Trainer`` read).
 
 Field names and defaults are the reference's, so a config reads the same
 in both packages. The fields of a later slice are absent (warm start,
 best-checkpoint tracking, async and sharded saves, early stop, fault
 injection, the summary, histogram, profiler, step-timing and trace
-sinks, the streaming and ImageNet-reader, BERT and MoE knobs), or
+sinks, the streaming and ImageNet-reader and MoE knobs), or
 refused by the ``Trainer`` when set: a sharded mesh axis,
 ``steps_per_loop > 1`` and ``on_anomaly="rollback"``.
 """
@@ -35,13 +35,15 @@ class DataConfig:
     prefetch: int = 2               # host-side prefetch depth
     seq_len: int = 128
     vocab_size: int = 30522
+    mlm_mask_prob: float = 0.15     # BERT: share of positions masked
 
 
 @dataclasses.dataclass
 class OptimizerConfig:
     """Base-optimizer knobs (``train/optimizers.py`` reads them)."""
 
-    name: str = "sgd"               # sgd | momentum | adam | adamw
+    name: str = "sgd"               # sgd | momentum | adam | adamw |
+                                    # lars | lamb (adafactor: A3c-3b)
     learning_rate: float = 0.5
     momentum: float = 0.9
     weight_decay: float = 0.0
@@ -141,10 +143,14 @@ class TrainConfig:
     steps_per_loop: int = 1          # > 1: slice A3c-2b
     on_anomaly: str = "halt"         # halt | skip (rollback: A3c-4)
     max_anomalies: int = 10          # anomaly budget for skip
-    lm_loss_impl: str | None = None  # full (chunked, fused: A3c-3);
-                                     # None = "full", or "chunked" when
+    lm_loss_impl: str | None = None  # full | chunked | fused; None =
+                                     # "full", or "chunked" when
                                      # lm_loss_chunk is set
     lm_loss_chunk: int | None = None  # seq chunk of the chunked LM loss
+    lm_loss_vocab_block: int | None = None  # fused: vocab tile (0 = the
+                                            # default, 2048)
+    token_accuracy_every_n: int = 1  # gpt: the token_accuracy argmax every
+                                     # n-th step (others publish -1.0)
     seed: int = 0
     label_smoothing: float = 0.0     # image classifiers' training targets
     dtype: str = "float32"           # compute dtype: float32 | bfloat16
@@ -157,6 +163,8 @@ class TrainConfig:
     attention_bwd_block: int = 0
     attention_bwd: str = "split"     # split | fused (backward variant)
     bn_stats_dtype: str = "float32"  # BN batch-statistic reduction dtype
+    remat: str = "none"              # none | full | dots: recompute each
+                                     # transformer layer in the backward
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -236,22 +244,59 @@ def anomaly_settings(cfg: TrainConfig) -> dict:
     return {"policy": cfg.on_anomaly, "budget": cfg.max_anomalies}
 
 
-def lm_loss_settings(cfg: TrainConfig) -> tuple[str, int]:
-    """Validated ``(impl, chunk)`` from ``lm_loss_impl``/``lm_loss_chunk``,
-    with the reference's rules: ``None`` resolves to "full", or to
-    "chunked" when a chunk is set; a chunked impl without a chunk, a chunk
-    beside another impl, or a negative chunk raise."""
-    impl, chunk = cfg.lm_loss_impl, cfg.lm_loss_chunk
+def lm_loss_settings(cfg: TrainConfig) -> dict:
+    """Validated, resolved LM-head loss settings from the ``lm_loss_*`` and
+    ``token_accuracy_every_n`` knobs: ``{"impl", "chunk", "vocab_block",
+    "accuracy_every_n"}``, the reference's dict. ``impl=None`` resolves to
+    "full", or to "chunked" when a chunk is set. Raises ValueError, with
+    the reference's rules and messages, on values no path could honor or
+    on a knob another knob would silently ignore."""
+    impl = cfg.lm_loss_impl
+    chunk = cfg.lm_loss_chunk
+    block = cfg.lm_loss_vocab_block
+    every = cfg.token_accuracy_every_n
     if impl is not None and impl not in LM_LOSS_IMPLS:
         raise ValueError(f"lm_loss_impl must be one of {LM_LOSS_IMPLS}, "
                          f"got {impl!r}")
     if chunk is not None and chunk < 0:
         raise ValueError(f"lm_loss_chunk={chunk} must be >= 0")
+    if block is not None and block < 0:
+        raise ValueError(f"lm_loss_vocab_block={block} must be >= 0")
+    if every < 1:
+        raise ValueError(
+            f"token_accuracy_every_n={every} must be >= 1 (1 = the "
+            "default per-step argmax)")
     if impl == "chunked" and not chunk:
-        raise ValueError("lm_loss_impl='chunked' needs lm_loss_chunk > 0 "
-                         "(the chunk size; it must divide seq_len)")
+        raise ValueError(
+            "lm_loss_impl='chunked' needs lm_loss_chunk > 0 (the chunk "
+            "size; it must divide seq_len)")
     if chunk and impl not in (None, "chunked"):
-        raise ValueError(f"lm_loss_chunk={chunk} conflicts with "
-                         f"lm_loss_impl={impl!r}: the chunk is the "
-                         "'chunked' impl's lever")
-    return impl or ("chunked" if chunk else "full"), chunk or 0
+        raise ValueError(
+            f"lm_loss_chunk={chunk} conflicts with lm_loss_impl="
+            f"{impl!r}: the chunk is the 'chunked' impl's lever (fused "
+            "never materializes the logits the chunk recompute bounds; "
+            "full materializes them whole)")
+    if block and impl != "fused":
+        raise ValueError(
+            f"lm_loss_vocab_block={block} tunes the fused vocab scan "
+            f"and requires lm_loss_impl='fused', got {impl!r}")
+    if every != 1 and impl == "fused":
+        raise ValueError(
+            f"token_accuracy_every_n={every} skips the full/chunked "
+            "paths' per-step argmax; the fused path computes accuracy "
+            "inside the same vocab scan at no extra cost — drop the "
+            "knob (a silently ignored knob is worse than an error)")
+    if every != 1 and cfg.sync.accum_steps > 1:
+        raise ValueError(
+            f"token_accuracy_every_n={every} does not compose with "
+            f"accum_steps={cfg.sync.accum_steps}: the loss runs once "
+            "per MICROBATCH, so the cadence counter would tick per "
+            "microbatch and the microbatch-mean of metrics would "
+            "average real accuracies with the -1.0 skipped sentinel "
+            "into a number that is neither")
+    return {
+        "impl": impl or ("chunked" if chunk else "full"),
+        "chunk": chunk or 0,
+        "vocab_block": block or 0,
+        "accuracy_every_n": every,
+    }

@@ -1,12 +1,16 @@
-"""Causal-LM token data (an adapted copy of the LM part of
+"""Token data of the language models (an adapted copy of
 ``distributed_tensorflow_example_tpu/data/bert_data.py``): the synthetic
-bigram corpus and pre-tokenized ``.npy`` files, packed as
-``{input_ids, attention_mask}``. numpy only; the arrays are the
-reference's bit for bit.
+bigram corpus and pre-tokenized ``.npy`` files, packed for the causal LM
+as ``{input_ids, attention_mask}`` or masked for BERT's MLM in the
+static-shape layout (``max_predictions`` slots a sequence)::
 
-Special ids follow the bert-base-uncased convention ([PAD]=0, [CLS]=101,
-[SEP]=102, [MASK]=103). TFRecord token files and the BERT MLM masking
-arrive with later slices.
+    input_ids, token_type_ids, attention_mask: [N, S] int32
+    masked_positions, masked_labels: [N, M] int32; masked_weights: [N, M] f32
+
+numpy only; the arrays are the reference's bit for bit. Special ids
+follow the bert-base-uncased convention ([PAD]=0, [CLS]=101, [SEP]=102,
+[MASK]=103). TFRecord token files and the raw-text pipeline
+(``data/bert_text.py``, a vocab.txt corpus) arrive with slice A5b.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 from ..utils.logging import get_logger
 
 PAD, CLS, SEP, MASK = 0, 101, 102, 103
+_SPECIALS = (PAD, CLS, SEP, MASK)
 _FIRST_REGULAR = 110            # ids below this are reserved/special
 
 
@@ -46,6 +51,61 @@ def synthetic_corpus(num_seqs: int = 2048, seq_len: int = 128,
         seqs[:, j] = cur
     seqs[:, -1] = SEP
     return seqs
+
+
+def apply_mlm_masking(seqs: np.ndarray, *, vocab_size: int,
+                      max_predictions: int = 20, mask_prob: float = 0.15,
+                      seed: int = 0,
+                      specials: tuple[int, ...] | None = None,
+                      pad: int = PAD, mask: int = MASK,
+                      first_regular: int = _FIRST_REGULAR
+                      ) -> dict[str, np.ndarray]:
+    """The canonical BERT masking in the static-shape layout: of the
+    maskable positions (not a special id) a share ``mask_prob`` (at least
+    one, at most ``max_predictions``) is chosen, and of those 80% become
+    [MASK], 10% a random regular token and 10% stay. A row with nothing
+    maskable (all PAD) gets no predictions: weight 0 in every slot."""
+    if specials is None:
+        specials = _SPECIALS
+    rs = np.random.RandomState(seed)
+    n, s = seqs.shape
+    m = max_predictions
+
+    # vectorized: a random key per position, the non-maskable ones pushed
+    # to the back, each row's first k of the sorted keys taken
+    maskable = ~np.isin(seqs, specials)
+    cand_counts = maskable.sum(axis=1)
+    k = np.minimum.reduce([
+        np.full(n, m),
+        cand_counts,
+        np.maximum(1, np.round(cand_counts * mask_prob).astype(np.int64)),
+    ])
+    k = np.where(cand_counts == 0, 0, k)      # all-PAD rows: no predictions
+
+    keys = rs.rand(n, s) + np.where(maskable, 0.0, 10.0)
+    order = np.argsort(keys, axis=1)[:, :m].astype(np.int32)   # [n, m]
+    sel = np.arange(m)[None, :] < k[:, None]                    # validity
+    positions = np.where(sel, order, 0).astype(np.int32)
+    orig = np.take_along_axis(seqs, positions, axis=1)
+    labels = np.where(sel, orig, 0).astype(np.int32)
+    weights = sel.astype(np.float32)
+
+    decide = rs.rand(n, m)
+    rand_tok = rs.randint(first_regular, vocab_size, size=(n, m))
+    new_tok = np.where(decide < 0.8, mask,
+                       np.where(decide < 0.9, rand_tok, orig)).astype(np.int32)
+    input_ids = seqs.copy()
+    rows = np.broadcast_to(np.arange(n)[:, None], (n, m))[sel]
+    input_ids[rows, positions[sel]] = new_tok[sel]
+
+    return {
+        "input_ids": input_ids.astype(np.int32),
+        "token_type_ids": np.zeros((n, s), np.int32),
+        "attention_mask": (seqs != pad).astype(np.int32),
+        "masked_positions": positions,
+        "masked_labels": labels,
+        "masked_weights": weights,
+    }
 
 
 def load_tokenized(data_dir: str) -> tuple[np.ndarray, np.ndarray]:
@@ -78,6 +138,23 @@ def _load_seqs(data_dir, seq_len, vocab_size, synthetic,
         return train_seqs, test_seqs
     return (synthetic_corpus(num_train, seq_len, vocab_size, seed),
             synthetic_corpus(num_test, seq_len, vocab_size, seed + 1))
+
+
+def get_bert_data(data_dir: str | None, *, vocab_size: int = 30522,
+                  seq_len: int = 128, max_predictions: int = 20,
+                  mask_prob: float = 0.15, synthetic: bool = False,
+                  num_train: int = 2048, num_test: int = 256,
+                  seed: int = 0) -> tuple[dict, dict]:
+    """MLM batches (train, eval) in the layout above, from pre-tokenized
+    files or the synthetic corpus; the masks draw from ``seed + 2``
+    (train) and ``seed + 3`` (eval), as in the reference."""
+    train_seqs, test_seqs = _load_seqs(data_dir, seq_len, vocab_size,
+                                       synthetic, num_train, num_test,
+                                       seed)
+    kw = dict(vocab_size=vocab_size, max_predictions=max_predictions,
+              mask_prob=mask_prob)
+    return (apply_mlm_masking(train_seqs, seed=seed + 2, **kw),
+            apply_mlm_masking(test_seqs, seed=seed + 3, **kw))
 
 
 def get_lm_data(data_dir: str | None, *, vocab_size: int = 30522,

@@ -31,10 +31,16 @@ dequantizes one layer at a time inside the step.
 Training: :meth:`GPT.loss` is the next-token loss the sync step
 differentiates (``(loss, ({"token_accuracy"}, extras))``, padding carries
 no loss), with dropout after the embeddings, the attention output and the
-FFN output when ``train`` and a ``torch.Generator`` are given; with
-``attention_impl="flash"`` every layer's attention is the differentiable
-flash kernel pair (B1 forward, B2a/B2b backward). The LM head is
-``ops/losses.py`` ``lm_head_xent`` with ``impl="full"``.
+FFN output when ``train`` and a ``torch.Generator`` are given (its seed
+is the key each layer folds its index into, as in ``models/bert.py``);
+with ``attention_impl="flash"`` every layer's attention is the
+differentiable flash kernel pair (B1 forward, B2a/B2b backward). The LM
+head is ``ops/losses.py`` ``lm_head_xent``: ``full``, ``chunked`` or
+``fused``. ``remat`` recomputes each layer in the backward as BERT's
+does. ``accuracy_every_n`` > 1 computes the token-accuracy argmax on
+every n-th step only (the others publish -1.0), counted by
+``extras["lm_step"]``, an f32 counter that ticks once a step and is part
+of the checkpoint.
 
 Numerics follow the reference: bf16 matmuls with f32 accumulation, f32
 layernorm statistics (eps 1e-6), f32 softmax, tanh-approximated GELU,
@@ -57,8 +63,8 @@ from ..ops.cuda.decode_attention import decode_attention as decode_attn
 from ..ops.cuda.paged_decode_attention import \
     paged_decode_attention as paged_decode_attn
 from ..runtime.device import resolve_device
-from ..utils.pytree import flatten_dict
-from .base import cast_floating, register_model, resolve_dtype
+from .base import (cast_floating, check_remat, checked_params, key_mask,
+                   register_model, remat_call, resolve_dtype)
 
 
 def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -86,8 +92,8 @@ class GPTConfig:
     max_len: int = 1024
     dropout: float = 0.1
     #: LM-loss strategy (ops/losses.py lm_head_xent): "full" materializes
-    #: the [B, S, vocab] f32 logits; "chunked" and "fused" arrive with
-    #: slice A3c-3
+    #: the [B, S, vocab] f32 logits, "chunked" a sequence chunk at a time,
+    #: "fused" a vocab block at a time
     loss_impl: str = "full"
     #: seq chunk for loss_impl="chunked" (> 0 with "full" is the legacy
     #: spelling of "chunked", as in the reference)
@@ -134,18 +140,6 @@ def _check_loss_levers(cfg: GPTConfig) -> None:
             f"{cfg.loss_impl!r}")
 
 
-def _key_mask(mask, ids: torch.Tensor) -> torch.Tensor:
-    """[B, S] key validity (nonzero = attend; None = all valid) as the
-    contiguous int32 tensor on ``ids``' device that the flash kernel reads:
-    converted once per forward, not once per layer."""
-    if mask is None:
-        return torch.ones(ids.shape, dtype=torch.int32, device=ids.device)
-    mask = torch.as_tensor(mask, device=ids.device)
-    if mask.dtype != torch.int32:
-        mask = (mask != 0).to(torch.int32)
-    return mask.contiguous()
-
-
 class GPT:
     name = "gpt"
 
@@ -153,24 +147,26 @@ class GPT:
                  attention_impl: str = "xla",
                  param_dtype=torch.float32,
                  attention_kwargs: dict | None = None,
-                 accuracy_every_n: int = 1):
+                 accuracy_every_n: int = 1, remat: str = "none"):
         if cfg.hidden % cfg.heads:
             raise ValueError(f"hidden {cfg.hidden} is not a multiple of "
                              f"heads {cfg.heads}")
         if attention_impl not in ("xla", "flash"):
             raise ValueError(f"attention_impl must be xla/flash, got "
                              f"{attention_impl!r}")
+        check_remat(remat)
         _check_loss_levers(cfg)
         if accuracy_every_n < 1:
             raise ValueError(f"token_accuracy_every_n={accuracy_every_n} "
                              "must be >= 1")
-        if accuracy_every_n != 1:
-            # the cadence counter lives in TrainState.extras and is ticked
-            # by the trainer's step, which arrives with slice A3c-3
-            raise NotImplementedError(
-                f"token_accuracy_every_n={accuracy_every_n}: the every-n "
-                "accuracy cadence arrives with slice A3c-3; the port computes "
-                "token_accuracy every step")
+        if accuracy_every_n != 1 and cfg.loss_impl == "fused":
+            raise ValueError(
+                f"token_accuracy_every_n={accuracy_every_n} skips the "
+                "full/chunked paths' per-step argmax; lm_loss_impl="
+                "'fused' computes accuracy inside the same vocab scan "
+                "at no extra cost — drop the knob")
+        self.accuracy_every_n = accuracy_every_n
+        self.remat = remat
         self.cfg = cfg
         self.dtype = dtype
         self.param_dtype = param_dtype
@@ -199,8 +195,13 @@ class GPT:
         out["ln_f/scale"] = out["ln_f/bias"] = (c.hidden,)
         return out
 
-    def init(self, seed: int | torch.Generator = 0, device=None) -> dict:
-        """Seeded random parameters on ``device`` (``cuda`` by default)."""
+    def init(self, seed: int | torch.Generator = 0, device=None):
+        """Seeded random parameters on ``device`` (``cuda`` by default);
+        with ``accuracy_every_n`` > 1, ``(params, {"lm_step": 0.0})``:
+        the cadence counter is state, so it is checkpointed, and a run
+        that turns the knob on over an older checkpoint fails at restore
+        ("checkpoint missing leaf 'extras/lm_step'"), as in the
+        reference."""
         c = self.cfg
         if isinstance(seed, torch.Generator):
             gen = seed
@@ -227,7 +228,10 @@ class GPT:
                 },
             }
         params["ln_f"] = nn.layernorm_init(c.hidden, device=dev)
-        return cast_floating(params, self.param_dtype)
+        params = cast_floating(params, self.param_dtype)
+        if self.accuracy_every_n != 1:
+            return params, {"lm_step": torch.zeros((), device=dev)}
+        return params
 
     # ------------------------------------------------------------------
     def _qkv(self, ap, h):
@@ -245,18 +249,13 @@ class GPT:
         f = nn.gelu(f.float()).to(self.dtype)
         return nn.dense(lp["ffn"]["out"], f, dtype=self.dtype)
 
-    def _use_dropout(self, gen, train: bool) -> bool:
-        return train and self.cfg.dropout > 0 and gen is not None
-
-    def _layer(self, lp, h, mask, gen=None, *, train: bool = False,
-               return_kv: bool = False):
+    def _layer(self, lp, h, mask, key=None, *, return_kv: bool = False):
         """Pre-LN decoder block over the full (causal) sequence: ONE body
         for training, the forward and the prefill, which also yields this
         layer's (k, v) for the decode cache. Dropout on the attention and
-        FFN outputs when ``train`` and ``gen`` is given."""
+        FFN outputs with the masks of ``key`` (None: no dropout)."""
         c = self.cfg
         b, s, _ = h.shape
-        drop = self._use_dropout(gen, train)
         q, k, v = self._qkv(lp["attn"], nn.layernorm(lp["ln1"], h))
         ctx = multi_head_attention(
             q, k, v, mask=mask[:, None, None, :], causal=True,
@@ -264,35 +263,31 @@ class GPT:
             flash_kwargs=self.attention_kwargs or None)
         a = nn.dense(lp["attn"]["o"], ctx.reshape(b, s, c.hidden),
                      dtype=self.dtype)
-        if drop:
-            a = nn.dropout(gen, a, c.dropout, train=True)
-        h = h + a.to(h.dtype)
+        h = h + nn.keyed_dropout(key, 1, a, c.dropout).to(h.dtype)
         f = self._ffn(lp, nn.layernorm(lp["ln2"], h))
-        if drop:
-            f = nn.dropout(gen, f, c.dropout, train=True)
-        h = h + f.to(h.dtype)
+        h = h + nn.keyed_dropout(key, 2, f, c.dropout).to(h.dtype)
         return (h, (k, v)) if return_kv else h
 
-    def _embed(self, params, ids, pos_ids, gen=None, train: bool = False):
+    def _embed(self, params, ids, pos_ids, key=None):
         h = (nn.embedding(params["wte"], ids)
              + nn.embedding(params["wpe"], pos_ids))
-        h = h.to(self.dtype)
-        if self._use_dropout(gen, train):
-            h = nn.dropout(gen, h, self.cfg.dropout, train=True)
-        return h
+        return nn.keyed_dropout(key, 1000, h.to(self.dtype), self.cfg.dropout)
 
     def encode(self, params, batch, gen=None, train: bool = False):
         """[B, S] token ids (``batch["input_ids"]``, optional
         ``attention_mask``) -> [B, S, hidden] after the final layernorm.
-        ``gen`` draws the dropout masks when ``train``."""
+        ``gen`` gives the dropout key when ``train``."""
         ids = torch.as_tensor(batch["input_ids"],
                               device=params["wte"]["table"].device)
         b, s = ids.shape
-        mask = _key_mask(batch.get("attention_mask"), ids)
+        mask = key_mask(batch.get("attention_mask"), ids)
+        key = nn.dropout_key(gen, self.cfg.dropout, train)
         h = self._embed(params, ids,
-                        torch.arange(s, device=ids.device)[None], gen, train)
+                        torch.arange(s, device=ids.device)[None], key)
         for i in range(self.cfg.layers):
-            h = self._layer(params[f"layer_{i}"], h, mask, gen, train=train)
+            lkey = None if key is None else nn.fold_in(key, i)
+            h = remat_call(self.remat, self._layer, params[f"layer_{i}"], h,
+                           mask, lkey)
         return nn.layernorm(params["ln_f"], h)
 
     def lm_logits(self, params, h):
@@ -334,13 +329,29 @@ class GPT:
     def loss(self, params, extras, batch, gen=None):
         """The training loss: next-token prediction, position t predicts
         token t+1, padding (``attention_mask == 0``) carries no loss.
-        Returns ``(loss, ({"token_accuracy": acc}, extras))``, the
-        framework's loss signature. Dropout draws from ``gen`` (none when
-        it is None)."""
+        Returns ``(loss, ({"token_accuracy": acc, LOSS_WEIGHT: tokens},
+        extras))``, the framework's loss signature (the sync step drops
+        the weight from the metrics). Dropout keys come from ``gen`` (none
+        when it is None). With ``accuracy_every_n`` > 1 and the counter
+        in ``extras``, the argmax runs only when ``lm_step`` is a
+        multiple of n (else the accuracy is -1.0), and the new extras
+        carry ``lm_step + 1``."""
         targets, w = self._targets(params, batch)
         h = self.encode(params, batch, gen, train=True)
-        loss, acc = self._lm_loss(params, h, targets, w)
-        return loss, ({"token_accuracy": acc}, extras)
+        every = self.accuracy_every_n
+        step = (extras.get("lm_step")
+                if every != 1 and isinstance(extras, dict) else None)
+        weight = {losses.LOSS_WEIGHT: w.sum()}
+        if every == 1 or self.cfg.loss_impl == "fused" or step is None:
+            loss, acc = self._lm_loss(params, h, targets, w)
+            return loss, ({"token_accuracy": acc, **weight}, extras)
+        # the branch is taken on the host: the counter is read after the
+        # forward is queued, so the card keeps working while the host
+        # waits for the previous step's update
+        on = bool(torch.remainder(step, float(every)) == 0)
+        loss, acc = self._lm_loss(params, h, targets, w, accuracy=on)
+        return loss, ({"token_accuracy": acc, **weight},
+                      {**extras, "lm_step": step + 1.0})
 
     @torch.no_grad()
     def eval_metrics(self, params, extras, batch) -> dict:
@@ -364,7 +375,7 @@ class GPT:
         returning per-layer K/V padded to ``total_len`` slots. Returns
         (hidden [B,S,hid] post-ln_f, caches {layer_i: {k, v}: [B,T,H,D]})."""
         _, s = ids.shape
-        mask = _key_mask(mask, ids)
+        mask = key_mask(mask, ids)
         if pos_ids is None:
             pos_ids = torch.arange(s, device=ids.device)[None]
         h = self._embed(params, ids, pos_ids)
@@ -859,19 +870,7 @@ def params_from_numpy(model: GPT, tree, device=None) -> dict:
     port's params on ``device`` (``cuda`` by default). Same layouts on
     both sides, so nothing is transposed. Raises on a missing, unknown
     or mis-shaped key."""
-    params = ckpt.from_numpy(tree, resolve_device(device))
-    flat = flatten_dict(params)
-    want = model.param_shapes()
-    missing = sorted(set(want) - set(flat))
-    unknown = sorted(set(flat) - set(want))
-    if missing or unknown:
-        raise ValueError(f"GPT params mismatch: missing {missing[:8]}, "
-                         f"unknown {unknown[:8]}")
-    for k, shape in want.items():
-        if tuple(flat[k].shape) != shape:
-            raise ValueError(f"param {k!r} has shape {tuple(flat[k].shape)}"
-                             f", the config wants {shape}")
-    return params
+    return checked_params("GPT", model.param_shapes(), tree, device)
 
 
 def params_to_numpy(params) -> dict[str, np.ndarray]:
@@ -885,11 +884,15 @@ def _make(config: TrainConfig, cfg: GPTConfig, *,
     if config_vocab:
         cfg.vocab_size = config.data.vocab_size
     cfg.max_len = max(cfg.max_len, config.data.seq_len)
-    cfg.loss_impl, cfg.loss_chunk = lm_loss_settings(config)
+    ls = lm_loss_settings(config)
+    cfg.loss_impl = ls["impl"]
+    cfg.loss_chunk = ls["chunk"]
+    cfg.loss_vocab_block = ls["vocab_block"]
     return GPT(cfg, dtype=resolve_dtype(config.dtype),
                attention_impl=config.attention_impl,
                param_dtype=resolve_dtype(config.param_dtype),
-               attention_kwargs=flash_attention_kwargs(config))
+               attention_kwargs=flash_attention_kwargs(config),
+               accuracy_every_n=ls["accuracy_every_n"], remat=config.remat)
 
 
 @register_model("gpt")

@@ -17,10 +17,9 @@ import torch
 from ..ckpt import checkpoint as ckpt
 from ..config import TrainConfig
 from ..ops import losses, nn
-from ..runtime.device import resolve_device
-from ..utils.pytree import flatten_dict
-from .base import (cast_floating, classification_eval_metrics, generator,
-                   register_model, resolve_dtype)
+from .base import (cast_floating, checked_params,
+                   classification_eval_metrics, generator, register_model,
+                   resolve_dtype)
 
 
 class MLP:
@@ -85,19 +84,7 @@ def params_from_numpy(model: MLP, tree, device=None) -> dict:
     or as uint16 under ``__bf16__/``) -> the port's params on ``device``
     (``cuda`` by default). Raises on a missing, unknown or mis-shaped
     key."""
-    params = ckpt.from_numpy(tree, resolve_device(device))
-    flat = flatten_dict(params)
-    want = model.param_shapes()
-    missing = sorted(set(want) - set(flat))
-    unknown = sorted(set(flat) - set(want))
-    if missing or unknown:
-        raise ValueError(f"MLP params mismatch: missing {missing}, "
-                         f"unknown {unknown}")
-    for k, shape in want.items():
-        if tuple(flat[k].shape) != shape:
-            raise ValueError(f"param {k!r} has shape {tuple(flat[k].shape)}"
-                             f", the model wants {shape}")
-    return params
+    return checked_params("MLP", model.param_shapes(), tree, device)
 
 
 def params_to_numpy(params) -> dict[str, np.ndarray]:

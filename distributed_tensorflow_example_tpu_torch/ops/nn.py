@@ -315,6 +315,49 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
+_GOLDEN = 0x9E3779B97F4A7C15
+_M64 = 2**64 - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new dropout key from ``key`` and ``data`` (splitmix64 of the
+    pair), the counterpart of ``jax.random.fold_in``: a pure function of
+    host integers, so a layer's masks depend on its key alone, never on
+    how many draws came before (``torch.utils.checkpoint`` restores only
+    the default generators, and a recomputed layer must draw the same
+    masks again)."""
+    z = (key + (data + 1) * _GOLDEN) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def keyed_generator(key: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``key`` (no device sync)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key)
+    return gen
+
+
+def dropout_key(gen: torch.Generator | None, rate: float,
+                train: bool) -> int | None:
+    """A forward's dropout key: the seed of its generator ``gen``, or None
+    when no dropout applies (not training, a zero rate, no generator)."""
+    if not (train and rate > 0 and gen is not None):
+        return None
+    return gen.initial_seed()
+
+
+def keyed_dropout(key: int | None, salt: int, x: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Training dropout with the masks of ``fold_in(key, salt)``; the
+    identity when ``key`` is None (no dropout)."""
+    if key is None:
+        return x
+    gen = keyed_generator(fold_in(key, salt), x.device)
+    return dropout(gen, x, rate, train=True)
+
+
 def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
             train: bool) -> torch.Tensor:
     """Inverted dropout, the reference's rule: in training each element is

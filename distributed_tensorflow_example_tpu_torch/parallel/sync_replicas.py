@@ -39,6 +39,18 @@ splits its batch into consecutive blocks, so under ``auto`` its batch
 must hold its share of each global microbatch in turn: the loader's
 ``microbatches=`` layout, whose count :attr:`SyncReplicas.
 loader_microbatches` gives (the Trainer passes it).
+A loss that is a weighted token mean (GPT's next-token loss, BERT's MLM
+loss) reports its total weight in its aux metrics under
+:data:`~..ops.losses.LOSS_WEIGHT`. Under ``auto`` over N ranks the step
+then scales each rank's gradients, loss and aux metrics of each
+(micro)batch by the rank's share of the weight, W_r over the ranks'
+mean weight (one small all-reduce a microbatch), so the ranks' mean is
+the weighted mean over the global (micro)batch (the reference's
+``auto``, a loss over the whole sharded batch) even where the ranks'
+shares hold different numbers of tokens; the microbatches' means are
+then averaged as they are, as the reference's scan does. ``shard_map``
+takes the plain mean of the ranks' means, as the reference's ``pmean``
+does.
 ``multi_step`` arrives with slice A3c-2b and raises; a data axis wider
 than the ranks (several cards to a process) or a sharded axis with slice
 A6.
@@ -58,6 +70,7 @@ from typing import Any, Callable
 import torch
 
 from ..config import MeshShape, SyncConfig
+from ..ops.losses import LOSS_WEIGHT
 from ..runtime import distributed
 from ..runtime.device import resolve_device
 from ..train.optimizers import Transform, apply_updates, global_norm
@@ -89,7 +102,8 @@ def _split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
 
 
 def _value_and_grad(loss_fn: LossFn, params: dict, extras, batch, gen):
-    """(grads in ``flatten_dict`` order, loss, aux, new_extras)."""
+    """(grads in ``flatten_dict`` order, loss, aux, new_extras); ``aux``
+    may hold the loss's :data:`LOSS_WEIGHT`."""
     flat = {k: v.detach().requires_grad_(True)
             for k, v in flatten_dict(params).items()}
     loss, (aux, new_extras) = loss_fn(unflatten_dict(flat), extras, batch,
@@ -102,17 +116,38 @@ def _value_and_grad(loss_fn: LossFn, params: dict, extras, batch, gen):
     return grads, loss.detach(), aux, new_extras
 
 
+def _token_share(weight: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a weighted token mean over the ranks: its
+    weight W_r over the ranks' mean weight (a rank's mean is
+    S_r / max(W_r, 1), so the ranks' mean of the scaled means is
+    sum_r S_r / sum_r W_r); 1 where no rank has a token, so the plain
+    mean stands and a skipped metric's -1.0 stays -1.0."""
+    w = weight.detach().float()
+    mean_w = distributed.all_reduce_mean([w])[0]
+    some = mean_w > 0
+    return torch.where(some, w / torch.where(some, mean_w, 1.0), 1.0)
+
+
 def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
-                       accum_steps: int):
+                       accum_steps: int, weigh: bool = False):
     """Gradients (+ loss/aux/extras) with optional microbatch
     accumulation: the microbatches' gradients summed in order, then
     divided, and their loss and aux metrics averaged, as the reference's
-    scan does. ``gens``: one generator per microbatch."""
-    if accum_steps <= 1:
-        return _value_and_grad(loss_fn, params, extras, batch, gens[0])
+    scan does. ``gens``: one generator per microbatch. ``weigh``: scale
+    each microbatch's gradients, loss and aux metrics by the rank's
+    :func:`_token_share` of its loss's :data:`LOSS_WEIGHT` (a loss
+    without one is left as it is)."""
     gsum, lsum, auxes, ex = None, 0.0, [], extras
     for mb, gen in zip(_split_microbatches(batch, accum_steps), gens):
         g, loss, aux, ex = _value_and_grad(loss_fn, params, ex, mb, gen)
+        weight = aux.pop(LOSS_WEIGHT, None)
+        if weigh and weight is not None:
+            c = _token_share(weight)
+            g = [x * c.to(x.dtype) for x in g]
+            loss = loss * c
+            aux = {k: v * c for k, v in aux.items()}
+        if accum_steps <= 1:
+            return g, loss, aux, ex
         gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
         lsum = lsum + loss
         auxes.append(aux)
@@ -237,7 +272,8 @@ class SyncReplicas:
         with stats:
             grads, loss, aux, new_extras = _grads_and_metrics(
                 self.loss_fn, state.params, state.extras, batch, gens,
-                self.sync.accum_steps)
+                self.sync.accum_steps,
+                weigh=self.sync.mode == "auto" and self.num_replicas > 1)
         if self.num_replicas > 1:
             grads, loss, aux, new_extras = self._mean_over_ranks(
                 grads, loss, aux, new_extras)

@@ -14,7 +14,11 @@ operations so the port's updates match the reference's at f32 rounding:
   eps)`` with ``eps = 1e-8`` and ``eps_root = 0``;
 - ``add_decayed_weights``: ``u + wd p`` on the masked leaves;
 - ``scale_by_learning_rate``: ``-lr(count) u``, ``count`` being the number
-  of updates applied before this one.
+  of updates applied before this one;
+- ``scale_by_trust_ratio``: ``u * coeff ||p|| / (||u|| + eps)`` a leaf,
+  1 where either norm is 0 (LARS and LAMB);
+- ``masked``: the inner transform on the masked leaves only, the others
+  passed through unchanged (optax's ``wrappers.masked``).
 
 Every state is a tuple, dict or list of tensors on the parameters'
 device, counts included, so a step runs with no host sync and a caller
@@ -22,10 +26,10 @@ can keep a state unchanged with ``torch.where`` (the sync step's
 anomaly guard). Schedules are functions of a step count (an int32
 tensor, or anything ``torch.as_tensor`` takes) returning an f32 tensor.
 
-Ported: sgd, momentum, adam and adamw, the eight decay schedules with
-linear warmup, the global-norm and elementwise clips and the weight-decay
-mask. lars, lamb and adafactor arrive with slice A3c-3; bf16 moments and
-the parameter EMA with slice A5b: they raise.
+Ported: sgd, momentum, adam, adamw, lars and lamb, the eight decay
+schedules with linear warmup, the global-norm and elementwise clips and
+the weight-decay mask. adafactor arrives with slice A3c-3b, bf16 moments
+and the parameter EMA with slice A5b: they raise.
 """
 
 from __future__ import annotations
@@ -119,9 +123,49 @@ def add_decayed_weights(weight_decay: float, mask=None) -> Transform:
     return _stateless(fn)
 
 
-def scale_by_adam() -> Transform:
+def masked(inner: Transform, mask) -> Transform:
+    """``inner`` on the leaves ``mask(params)`` selects (None: all), the
+    others passed through; ``inner`` must be stateless (the trust ratio
+    is), so the state is empty as optax's ``MaskedState`` of an empty
+    inner state is in a checkpoint."""
+    if mask is None:
+        return inner
+
+    def fn(updates, params):
+        keep = mask(params)
+        sel = [i for i, m in enumerate(keep) if m]
+        out, _ = inner.update([updates[i] for i in sel], (),
+                              [params[i] for i in sel])
+        new = list(updates)
+        for i, u in zip(sel, out):
+            new[i] = u
+        return new
+    return _stateless(fn)
+
+
+def scale_by_trust_ratio(trust_coefficient: float = 1.0,
+                         eps: float = 0.0) -> Transform:
+    """optax's rule, a leaf: ``u * coeff ||p|| / (||u|| + eps)``, the
+    ratio 1 where ``||p||`` or ``||u||`` is 0."""
+    def fn(updates, params):
+        if params is None:
+            raise ValueError("scale_by_trust_ratio needs params in update")
+        out = []
+        for u, p in zip(updates, params):
+            pn = torch.linalg.vector_norm(p)
+            un = torch.linalg.vector_norm(u)
+            ratio = trust_coefficient * pn / (un + eps)
+            ratio = torch.where((pn == 0) | (un == 0),
+                                torch.ones((), dtype=p.dtype,
+                                           device=p.device), ratio)
+            out.append(u * ratio)
+        return out
+    return _stateless(fn)
+
+
+def scale_by_adam(eps: float = 1e-8) -> Transform:
     """optax's defaults: b1 0.9, b2 0.999, eps 1e-8, eps_root 0."""
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1, b2 = 0.9, 0.999
 
     def init(params):
         return {"count": _count(params),
@@ -183,6 +227,28 @@ def adam(schedule: Schedule) -> Transform:
 def adamw(schedule: Schedule, weight_decay: float, mask=None) -> Transform:
     return chain(scale_by_adam(), add_decayed_weights(weight_decay, mask),
                  scale_by_learning_rate(schedule))
+
+
+def lamb(schedule: Schedule, weight_decay: float = 0.0,
+         mask=None) -> Transform:
+    """optax's lamb: Adam moments with eps 1e-6 -> decayed weights on the
+    masked leaves -> the trust ratio on every leaf -> the learning
+    rate."""
+    return chain(scale_by_adam(eps=1e-6),
+                 add_decayed_weights(weight_decay, mask),
+                 scale_by_trust_ratio(), scale_by_learning_rate(schedule))
+
+
+def lars(schedule: Schedule, weight_decay: float = 0.0, mask=None,
+         momentum: float = 0.9, trust_coefficient: float = 0.001
+         ) -> Transform:
+    """optax's lars: decayed weights -> the trust ratio (coefficient
+    0.001) on the masked leaves -> the learning rate -> the momentum
+    trace, so the trace accumulates steps already scaled by -lr. One
+    mask serves the decay and the trust ratio (None: every leaf)."""
+    return chain(add_decayed_weights(weight_decay, mask),
+                 masked(scale_by_trust_ratio(trust_coefficient), mask),
+                 scale_by_learning_rate(schedule), trace(momentum))
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +403,12 @@ def _wd_mask(cfg: OptimizerConfig):
 def make_optimizer(cfg: OptimizerConfig) -> Transform:
     """clip-by-global-norm -> clip-by-value -> the optimizer (+ decayed
     weights), as the reference chains them."""
+    name = cfg.name.lower()
+    if cfg.moment_dtype == "bfloat16" and name in ("lars", "lamb"):
+        what = "accumulator dtype" if name == "lars" else "mu_dtype"
+        raise ValueError(
+            f"moment_dtype=bfloat16 is not supported for {name} (optax."
+            f"{name} exposes no {what}); the flag would be a silent no-op")
     if cfg.moment_dtype == "bfloat16":
         raise NotImplementedError("moment_dtype='bfloat16' arrives with "
                                   "slice A5b; the port keeps f32 moments")
@@ -351,7 +423,6 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
         parts.append(clip_by_global_norm(cfg.grad_clip_norm))
     if cfg.grad_clip_value > 0:
         parts.append(clip(cfg.grad_clip_value))
-    name = cfg.name.lower()
     mask = _wd_mask(cfg)
     if name == "sgd":
         parts.append(sgd(sched))
@@ -361,12 +432,18 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
         parts.append(adam(sched))
     elif name == "adamw":
         parts.append(adamw(sched, cfg.weight_decay, mask))
-    elif name in ("lars", "lamb", "adafactor"):
-        raise NotImplementedError(f"optimizer {name!r} arrives with slice "
-                                  f"A3c-3; the port has sgd, momentum, adam "
-                                  f"and adamw")
+    elif name == "lars":
+        # the biases and norm scales stay out of the decay AND the trust
+        # ratio under the default wd_mask; "all" applies both everywhere
+        parts.append(lars(sched, cfg.weight_decay, mask, cfg.momentum))
+    elif name == "lamb":
+        parts.append(lamb(sched, cfg.weight_decay, mask))
+    elif name == "adafactor":
+        raise NotImplementedError("optimizer 'adafactor' arrives with slice "
+                                  "A3c-3b; the port has sgd, momentum, adam, "
+                                  "adamw, lars and lamb")
     else:
         raise ValueError(f"unknown optimizer {cfg.name!r}")
-    if cfg.weight_decay > 0 and name != "adamw":
+    if cfg.weight_decay > 0 and name not in ("adamw", "lars", "lamb"):
         parts.insert(-1, add_decayed_weights(cfg.weight_decay, mask))
     return chain(*parts)

@@ -512,8 +512,9 @@ def _to_f64(state):
         getattr(state, part)) for part in ("params", "extras", "opt_state")})
 
 
-def _resnet20_trajectories(tmp_path, accum: int):
-    """5 f32 momentum-SGD steps of ResNet-20 (lr 0.01, momentum 0.9) on
+def _resnet20_trajectories(tmp_path, accum: int,
+                           opt=lambda mod: _momentum(mod, 0.01)):
+    """5 f32 steps of ResNet-20 (``opt``: momentum SGD, lr 0.01) on
     global batches of 16 synthetic CIFAR images from the same loader,
     from the reference's initial state bridged through its npz
     checkpoint: the reference's ``SyncReplicas`` on one CPU device, the
@@ -525,7 +526,7 @@ def _resnet20_trajectories(tmp_path, accum: int):
     arrays = {"x": d["train_x"], "y": d["train_y"]}
     jm = jresnet._make_resnet20(jconfig.TrainConfig())
     jsync = JSyncReplicas(jm.loss, jopt.make_optimizer(
-        _momentum(jconfig, 0.01)), local_mesh(1),
+        opt(jconfig)), local_mesh(1),
         sync=jconfig.SyncConfig(accum_steps=accum))
     js = jsync.init(jm.init, seed=0)
     bridge = str(tmp_path / "bridge")
@@ -537,7 +538,7 @@ def _resnet20_trajectories(tmp_path, accum: int):
     runs = {}
     for name, model, cast in (("f32", tm, None), ("f64", t64, _to_f64)):
         sync = SyncReplicas(model.loss, topt.make_optimizer(
-            _momentum(tconfig, 0.01)), device="cpu",
+            opt(tconfig)), device="cpu",
             sync=tconfig.SyncConfig(accum_steps=accum))
         st, restored = tckpt.restore_or_init(
             tckpt.CheckpointManager(bridge), sync.init, tm.init, seed=1)
@@ -606,6 +607,38 @@ def test_resnet20_momentum_trajectory_matches_reference(tmp_path, accum):
                 TRAJ_REF_TOL[part] * move[k], k
             assert np.abs(got[k] - oracle[k]).max() <= 0.1 * top, k
             assert np.abs(got[k] - want[k]).max() <= 0.1 * top, k
+
+
+def _lars(wd_mask):
+    return lambda mod: mod.OptimizerConfig(
+        name="lars", learning_rate=0.1, weight_decay=1e-4, wd_mask=wd_mask)
+
+
+@pytest.mark.parametrize("wd_mask", ["exclude_1d", "all"])
+def test_resnet20_lars_trajectory_matches_reference(tmp_path, wd_mask):
+    """5 f32 LARS steps of ResNet-20 (lr 0.1, decay 1e-4 and the trust
+    ratio, coefficient 0.001, on the leaves of ``wd_mask``, then -lr,
+    then the momentum trace), held as the momentum trajectory is: the
+    losses within 2e-4 relative of the reference's and of the port's
+    f64 run, each param against its own move (the f64 run's) within
+    TRAJ_REF_TOL for both packages (batch norm's f32 gradients stand off
+    by a few percent of a leaf in each), and within 0.1 of the largest
+    move of any param from the f64 run and from the reference. (At lr
+    1.0 the port's own f32 and f64 runs part by 1.7e-3 of the loss by
+    step 5: small-batch batch-norm training amplifies f32 rounding.)"""
+    init, (l32, got), (l64, oracle), (jl, want) = _resnet20_trajectories(
+        tmp_path, 1, _lars(wd_mask))
+    np.testing.assert_allclose(l32, l64, rtol=2e-4)
+    np.testing.assert_allclose(l32, jl, rtol=2e-4)
+    assert sorted(got) == sorted(want) == sorted(oracle)
+    keys = [k for k in oracle if k.startswith("params/")]
+    move = {k: np.abs(oracle[k] - init[k]).max() for k in keys}
+    top = max(move.values())
+    for k in keys:
+        for run in (got, want):
+            assert np.abs(run[k] - oracle[k]).max() <= \
+                TRAJ_REF_TOL["params/"] * move[k], k
+        assert np.abs(got[k] - want[k]).max() <= 0.1 * top, k
 
 
 # ---------------------------------------------------------------------------

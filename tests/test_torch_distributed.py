@@ -197,6 +197,73 @@ def test_two_ranks_equal_one_rank_on_the_same_global_batch(tmp_path):
                                                    f"ckpt-{STEPS}.npz"]
 
 
+#: the language models' ranks against one rank: LAMB and AdamW divide
+#: by each element's own RMS, so an element whose gradient is ~0 moves by
+#: a fraction of an lr when summation order differs; params are held to
+#: a tenth of the lr elementwise, the attention's key biases (a zero
+#: gradient up to rounding, by the softmax's shift invariance) to 2 lr a
+#: step
+LM_STEPS = 4
+
+
+@pytest.mark.parametrize("model,accum", [
+    ("bert_tiny", 1), ("gpt_tiny", 1), ("bert_tiny", 2), ("gpt_tiny", 2)],
+    ids=["bert_tiny", "gpt_tiny", "bert_tiny-accum2", "gpt_tiny-accum2"])
+def test_two_ranks_equal_one_rank_language_models(tmp_path, model, accum):
+    """2 gloo ranks against 1 rank on the same global batches of 8
+    sequences with trailing PAD, so the ranks' shares hold different
+    numbers of tokens (``tests/_torch_sync_worker.py``: BERT-tiny under
+    LAMB, GPT-tiny under AdamW with the accuracy argmax every 2nd step;
+    no dropout), 4 steps from one checkpoint: under ``auto`` the step
+    weights each rank by its loss's token count, so the loss and
+    accuracy are the global batch's (rtol 1e-5 / atol 1e-6), the -1.0
+    sentinel of a skipped step passes through unchanged, GPT's
+    ``extras/lm_step`` ticks once a step on both ranks, and the params
+    match as ``LM_STEPS``' note says. With ``accum_steps=2`` each rank
+    holds its share of each global microbatch of 4 (the loader's
+    ``microbatches`` layout), the ranks' shares of a microbatch are
+    weighted by their token counts and the two microbatches' means
+    averaged, as the one rank's step (and the reference's ``auto``)
+    does; GPT's accuracy then runs every step (the reference refuses
+    the cadence with accumulation)."""
+    import _torch_sync_worker as worker
+    global_batch, make_data, opt, make_model, acc_key = worker.SETUPS[model]
+    m = worker.gpt_tiny_model(accum) if model == "gpt_tiny" else make_model()
+    sync = SyncReplicas(m.loss, topt.make_optimizer(opt), device="cpu",
+                        sync=tconfig.SyncConfig(accum_steps=accum))
+    bridge = str(tmp_path / "bridge")
+    tckpt.CheckpointManager(bridge).save(sync.init(m.init, seed=0))
+    r0, r1 = _spawn_sync_ranks(tmp_path / "ranks", bridge, model=model,
+                               steps=LM_STEPS, accum=accum)
+    state, restored = tckpt.restore_or_init(tckpt.CheckpointManager(bridge),
+                                            sync.init, m.init, seed=1)
+    assert restored
+    batches = tloader.make_loader(make_data(), global_batch, seed=0)
+    losses, accs = [], []
+    for _ in range(LM_STEPS):
+        state, met = sync.step(state, next(batches))
+        losses.append(float(met["loss"]))
+        accs.append(float(met[acc_key]))
+    for r in (r0, r1):
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5)
+        np.testing.assert_allclose(r["accs"], accs, rtol=1e-5, atol=1e-6)
+    if model == "gpt_tiny" and accum == 1:
+        assert accs[1] == accs[3] == -1.0 and accs[0] >= 0.0
+        assert r0["accs"][1] == r1["accs"][3] == -1.0
+        for r in (r0, r1):
+            assert float(r["extras/lm_step"]) == LM_STEPS
+    one = {k: v.detach().numpy() for k, v in
+           flatten_dict(state.params).items()}
+    p0, p1 = _params(r0), _params(r1)
+    assert sorted(p0) == sorted(one)
+    lr = opt.learning_rate
+    for k in one:
+        np.testing.assert_array_equal(p0[k], p1[k], err_msg=k)
+        atol = 2 * lr * LM_STEPS if k.endswith("attn/k/bias") else 0.1 * lr
+        np.testing.assert_allclose(p0[k], one[k], rtol=0, atol=atol,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("mode", ["auto", "shard_map"])
 def test_two_ranks_match_reference_two_device_mesh(tmp_path, mode):
     """2 port ranks against the reference's ``SyncReplicas`` on a

@@ -251,6 +251,41 @@ def test_flash_bwd_kernels_match_plain(cuda, s, causal):
         assert dq[1, :pad].abs().max().item() == 0
 
 
+@pytest.mark.parametrize("b,s,d", [(64, 128, 64), (3, 200, 128)])
+def test_flash_kernels_non_causal_with_trailing_pads(cuda, b, s, d):
+    """BERT's layout: non-causal, each row's keys valid up to its length
+    and PAD after it (row 0 full, the last row all PAD). B1 and B2a/B2b
+    match their plain versions on the rows with a valid key; a padded
+    query still attends to its row's keys (its output is not zero); the
+    all-PAD row gives zero output and zero dq; a masked key gets zero dk
+    and dv; B3 equals B2a/B2b bit for bit on the same inputs."""
+    gen = torch.Generator().manual_seed(b + s + d)
+    h = 12 if d == 64 else 4
+    q, k, v, do = (_randn(gen, (b, s, h, d), cuda) for _ in range(4))
+    lens = torch.randint(s // 4, s, (b,), generator=gen)
+    lens[0], lens[-1] = s, 0
+    mask = (torch.arange(s)[None, :] < lens[:, None]).to(torch.int32).to(cuda)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=False)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, mask)
+    args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
+    got = _split(args, False)
+    want = _split_plain(args, False)
+    fused = fa.flash_attention_bwd_fused(*args, causal=False)
+    torch.cuda.synchronize()
+    live = lens > 0
+    assert _row_rel_err(o[live], o_ref[live]) <= FLASH_ROW_REL_TOL
+    assert (lse[live] - lse_ref[live]).abs().max().item() <= 1e-3
+    assert o[1, lens[1]:].abs().amax(dim=(-2, -1)).min().item() > 0
+    assert o[-1].abs().max().item() == 0 and got[0][-1].abs().max() == 0
+    dead = (mask == 0)[:, :, None, None]
+    for g in got[1:]:
+        assert (g.float().abs() * dead).max().item() == 0
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _grad_row_err(g[live], r[live]) <= FLASH_BWD_ROW_REL_TOL
+    assert all(torch.equal(x, y) for x, y in zip(fused, got))
+
+
 def test_flash_bwd_kernels_head_dim_128_and_no_mask(cuda):
     gen = torch.Generator().manual_seed(11)
     q, k, v, do = (_randn(gen, (1, 200, 4, 128), cuda) for _ in range(4))

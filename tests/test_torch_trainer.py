@@ -436,18 +436,21 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 # pair them with a knob that is still refused. A data axis of 2 in one
 # rank would need two cards in one process (A6). The conv models train
 # too (tests/test_torch_conv.py): the row that named resnet20 names a
-# model still to come, and ImageNet's readers and knobs name A5b.
+# model still to come, and ImageNet's readers and knobs name A5b. BERT,
+# lars/lamb, the fused and chunked LM heads and --remat train too
+# (tests/test_torch_bert.py): their rows name what stays refused around
+# them (a vocab.txt corpus, adafactor, the MoE and pipeline BERTs).
 LATER = [
     (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
-    (["--model", "bert_tiny"], "A3c-3"),
+    (["--model", "bert_tiny", "--data_dir", "VOCAB"], "A5b"),
     (["--model", "moe_bert_tiny"], "A5b"),
     (["--model", "pipe_bert_tiny"], "A6"),
-    (["--optimizer", "lamb"], "A3c-3"),
-    (["--lm_loss_impl", "fused"], "A3c-3"),
+    (["--optimizer", "adafactor"], "A3c-3b"),
+    (["--model", "moe_bert"], "A5b"),
     (["--steps_per_loop", "2"], "A3c-2b"),
     (["--mesh", "data=2"], "A6"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
-    (["--remat", "full"], "A3c-3"),
+    (["--model", "pipe_moe_bert_tiny"], "A6"),
     (["--async_save"], "A3c-4"),
     (["--sharded_save"], "A3c-4"),
     (["--keep_best_metric", "loss"], "A3c-4"),
@@ -478,10 +481,16 @@ LATER = [
 def test_cli_refuses_a_later_slice_before_any_work(tmp_path, extra,
                                                    slice_):
     """A knob of a later slice exits naming its slice before the model,
-    the data or the checkpoint directory is touched."""
+    the data or the checkpoint directory is touched (a raw-text BERT
+    corpus, ``VOCAB``: a directory holding only a vocab.txt, exits
+    before any token is read)."""
     ck = str(tmp_path / "ck")
+    vocab = tmp_path / "vocab"
+    vocab.mkdir()
+    (vocab / "vocab.txt").write_text("[PAD]\n[CLS]\n")
     extra = [ck if x == "CKPT" else str(tmp_path / "exp")
-             if x == "EXPORT" else x for x in extra]
+             if x == "EXPORT" else str(vocab) if x == "VOCAB" else x
+             for x in extra]
     argv = ["--model", "gpt_tiny", "--device", "cpu", "--train_steps",
             "1"] + extra
     with pytest.raises(SystemExit, match=f"slice {slice_}"):
