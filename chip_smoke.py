@@ -7,9 +7,10 @@ generation over HTTP through the port's entry points, without and with
 the continuous-batching engine, and checks the kernels carried each
 path; then it trains the source's MNIST MLP through the port's copy of
 the reference example and through the CLI, its convolutional models
-(LeNet, ResNet-20, ResNet-50) through the CLI, and last BERT's masked LM
+(LeNet, ResNet-20, ResNet-50) through the CLI, BERT's masked LM
 (BERT-base, bert_large, bert_tiny) on the flash kernels' non-causal
-path.
+path, and last the rest of GPT-small's training (adafactor, sync and
+async saves, rollback, the best checkpoint, the observability sinks).
 
     python3 chip_smoke.py
 
@@ -65,7 +66,14 @@ sequences/s, tokens/s, ms per step, peak memory, idle share and share
 of the bf16 peak of a Trainer run; a padded fixture's step under flash
 and plain attention against an f32 oracle, then 10 CLI steps; the fused
 backward, ``--remat full|dots``, the fused head, lars and seq 512, a
-few steps each; bert_large's step time; bert_tiny card against CPU), a
+few steps each; bert_large's step time; bert_tiny card against CPU), the
+train-rest phase (GPT-small through ``cli/train.py`` and its
+``Trainer``: adafactor against AdamW, state bytes, peak memory and step
+time; 40 steps with no, sync and async saves, each save step's host
+time and the steps inside the writes' window; rollback after a NaN step
+against an uninterrupted run, bitwise; ``--eval_only --eval_best``
+against the logged eval; the TensorBoard, summary, histogram,
+step-timing, profiler and trace sinks; launch counts each), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -3439,6 +3447,426 @@ def phase_train_lm_head(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+REST_ARGV = ["--model", "gpt", "--device", "cuda", "--attention", "flash",
+             "--dtype", "bfloat16", "--seq_len", str(TRAIN_S),
+             "--batch_size", str(TRAIN_B), "--learning_rate", "1e-3",
+             "--warmup_steps", "5", "--grad_clip_norm", "1.0", "--seed", "0"]
+REST_LAYERS = 12
+REST_EVAL_BATCHES = -(-256 // TRAIN_B)     # get_lm_data's 256 eval rows
+#: the adafactor run's loss must fall by this share from step 10 to 30
+#: (an H100 run fell 25%, 6.99 to 5.27)
+REST_MIN_LOSS_DROP = 0.10
+#: adafactor's chain on GPT-small's parameters, on the card against the
+#: CPU from the same parameters and gradients: steps, and each leaf's
+#: largest update difference over its largest update (f32 means over up
+#: to 23.4M elements, the token embedding's, summed in another order on
+#: each device)
+REST_ADAFACTOR_STEPS, REST_ADAFACTOR_RTOL = 3, 1e-5
+#: --eval_only's printed metrics against the eval the training run logged
+#: at the best step: the same forward on the same restored bits; the print
+#: rounds to 6 decimals (half a unit: 5e-7), and 1e-6 of the value more
+#: is allowed for a library kernel that picks another summation order
+REST_EVAL_ROUND, REST_EVAL_REL_TOL = 5e-7, 1e-6
+
+
+def _rest_want(steps: int, evals: int = 1) -> dict:
+    """The launches of ``steps`` GPT-small steps (split backward) and
+    ``evals`` full evals: B1 12 a step and 12 an eval batch, B2a and B2b
+    12 a step, nothing else."""
+    return {"flash_attention_fwd": REST_LAYERS * (
+                steps + evals * REST_EVAL_BATCHES),
+            "flash_attention_bwd_dq": REST_LAYERS * steps,
+            "flash_attention_bwd_dkv": REST_LAYERS * steps,
+            "flash_attention_bwd_fused": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+
+
+def _opt_state_bytes(path: str) -> int:
+    """Bytes of a checkpoint's optimizer-state leaves (what the run held
+    on the card, f32 and int32)."""
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import \
+        load_npz
+    return sum(v.nbytes for k, v in load_npz(path).items()
+               if k.startswith(("opt_state/", "__bf16__/opt_state/")))
+
+
+class _StepClock:
+    """A Trainer hook that syncs the card after every step and stamps the
+    host clock: ``times[n]`` ends step n (its hooks, a save included)."""
+
+    every_steps = 0
+
+    def __init__(self):
+        self.times: dict[int, float] = {}
+
+    def begin(self, trainer):
+        torch.cuda.synchronize()
+        self.times[trainer.start_step] = time.perf_counter()
+
+    def wants_metrics(self, step):
+        return False
+
+    def after_step(self, trainer, step, metrics):
+        torch.cuda.synchronize()
+        self.times[step] = time.perf_counter()
+
+    def end(self, trainer):
+        pass
+
+    def step_ms(self, step: int) -> float:
+        return (self.times[step] - self.times[step - 1]) * 1e3
+
+
+def _rest_trainer(argv: list[str], arrays_fn=None, hooks=()):
+    """The CLI's Trainer for ``REST_ARGV + argv`` (its config, model and
+    data, through ``cli/train.py``'s own functions), with extra hooks."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    args = cli.build_parser().parse_args(REST_ARGV + argv)
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, evals = cli.load_dataset(cfg, model)
+    if arrays_fn is not None:
+        train = arrays_fn(train)
+    return Trainer(model, cfg, train, evals, device=args.device,
+                   hooks=list(hooks))
+
+
+def _float_mask(arrays: dict) -> dict:
+    """The LM corpus with its attention mask as f32, the one float leaf
+    GPT takes: a ``step.nan`` fault poisons it (an integer-only batch is
+    refused, as in the reference)."""
+    return dict(arrays, attention_mask=arrays["attention_mask"].astype(
+        np.float32))
+
+
+def _adafactor_card_vs_cpu(argv: list[str]) -> float:
+    """The worst leaf's relative update difference of ``argv``'s optimizer
+    (the CLI's chain: the global-norm clip, the warmup schedule, adafactor)
+    over :data:`REST_ADAFACTOR_STEPS` steps on GPT-small's seeded
+    parameters, on the card against the CPU, the gradients drawn from a
+    numpy seed: the factored leaves (the embeddings and the 768-wide
+    matrices) and the unfactored ones (biases, norm scales)."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import (
+        apply_updates, make_optimizer)
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+        tree_leaves
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    cpu = tree_leaves(get_model(cfg.model, cfg).init(0, device="cpu"))
+    params = {"cpu": cpu, "cuda": [p.to("cuda") for p in cpu]}
+    opt = make_optimizer(cfg.optimizer)
+    state = {d: opt.init(ps) for d, ps in params.items()}
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for _ in range(REST_ADAFACTOR_STEPS):
+        grads = [torch.from_numpy(rng.standard_normal(
+            p.shape, dtype=np.float32) * 1e-2) for p in cpu]
+        ups = {}
+        for d in params:
+            g = [x.to(d) for x in grads]
+            ups[d], state[d] = opt.update(g, state[d], params[d])
+            params[d] = apply_updates(params[d], ups[d])
+        for uc, ug in zip(ups["cpu"], ups["cuda"]):
+            # a zero update (the warmup's first step) must stay zero
+            diff, scale = (float((ug.cpu() - uc).abs().max()),
+                           float(uc.abs().max()))
+            worst = max(worst, diff / scale if scale else
+                        (0.0 if diff == 0 else float("inf")))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_rest(card: str) -> None:
+    """The rest of training on full-width GPT-small (bf16 compute, f32
+    params, flash attention with the split backward, dropout 0.1, the
+    synthetic LM corpus, 8 x 512 tokens a step; only the step count cut),
+    through ``cli/train.py`` and its ``Trainer``:
+
+    (a) 30 steps of ``--optimizer adafactor --momentum 0`` against 30 of
+        AdamW, each with ``--eval_every_steps 10``, ``--keep_best_metric
+        loss --keep_best_mode min`` and ``--step_timing``: the loss falls,
+        the optimizer state's bytes (from the run's checkpoint) and peak
+        memory of each, the step's p50 over steps 12-30 (each step to its
+        device sync, saves and evals outside); and adafactor's chain on
+        GPT-small's parameters, card against CPU over 3 steps;
+    (b) 40 steps with ``--save_steps 10``: no save, sync, ``--async_save``,
+        each step synced and stamped: the host ms of each save step, and
+        the median ms of the steps inside the async writes' window against
+        the same steps of the run without saves; both rings equal;
+    (c) ``--fault_spec step.nan:step=15 --on_anomaly rollback --save_steps
+        10`` over 30 steps (the mask as f32, see :func:`_float_mask`):
+        restored step 10, anomaly_count 1, final params ``torch.equal`` to
+        an uninterrupted run's;
+    (d) ``--eval_only --eval_best`` on (a)'s adafactor directory: the
+        printed metrics equal the eval the run logged at the best step;
+    (e) one 20-step run with ``--tb_logdir``, ``--summary_every_steps``,
+        ``--param_histograms_every_steps``, ``--step_timing``,
+        ``--profile_dir``/``--profile_steps`` and ``--trace_path``: each
+        file parses, every event record's masked CRC32C checks (the port's
+        reader), the step-timing records counted.
+
+    Every run's kernel launches are set to 0 before it and read after:
+    B1, B2a and B2b exactly as :func:`_rest_want` counts."""
+    import contextlib
+    import io
+
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager, load_npz)
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.obs import trace
+    from distributed_tensorflow_example_tpu_torch.utils import tb_events
+
+    failed: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    tag = "train rest"
+
+    # (a) adafactor against AdamW, and (d) --eval_best
+    res = {}
+    # adafactor's steps are relative to each parameter's RMS: its usual
+    # learning rate is ten times AdamW's
+    for opt, extra in (("adafactor", ["--momentum", "0",
+                                      "--learning_rate", "1e-2"]),
+                       ("adamw", [])):
+        ck = os.path.join(tmp, opt)
+        metrics = os.path.join(tmp, f"{opt}.jsonl")
+        _, _, recs, peak = _cli_run(
+            REST_ARGV + ["--optimizer", opt, "--train_steps", "30",
+                         "--ckpt_dir", ck, "--eval_every_steps", "10",
+                         "--keep_best_metric", "loss", "--keep_best_mode",
+                         "min", "--log_every_steps", "10",
+                         "--summary_every_steps", "10", "--step_timing",
+                         "--metrics_path", metrics] + extra,
+            f"(a) {opt}", failed, card, tag=tag, want=_rest_want(30, 3))
+        losses = {r["step"]: r["loss"] for r in recs if "loss" in r}
+        evals = {r["step"]: r["eval"] for r in recs if "eval" in r}
+        # the steps alone, each to its device sync: the window's saves
+        # and evals stay out (StepTimingHook, records at 11, 21, 30)
+        p50s = [r["step_timing_ms"]["p50"] for r in recs
+                if "step_timing_ms" in r]
+        ms = float(np.mean(p50s[1:])) if len(p50s) > 1 else float("nan")
+        res[opt] = dict(peak=peak, ms=ms, losses=losses, evals=evals,
+                        state=_opt_state_bytes(
+                            CheckpointManager(ck).checkpoint_path(30)),
+                        ck=ck, extra=extra)
+        log(f"[{tag} (a)] {opt}: loss {losses.get(10, float('nan')):.4f} "
+            f"(10) {losses.get(20, float('nan')):.4f} (20) "
+            f"{losses.get(30, float('nan')):.4f} (30); optimizer state "
+            f"{res[opt]['state'] / 2**20:.2f} MiB; peak device memory "
+            f"{peak:.1f} MiB; step p50 {ms:.2f} ms over steps 12-30 "
+            f"(each synced; {[round(x, 2) for x in p50s]} a record) "
+            f"({card})")
+    a, w = res["adafactor"], res["adamw"]
+    log(f"[{tag} (a)] adafactor against AdamW: optimizer state "
+        f"{a['state'] / 2**20:.2f} vs {w['state'] / 2**20:.2f} MiB "
+        f"({(w['state'] - a['state']) / 2**30:.3f} GiB less), peak "
+        f"{a['peak']:.1f} vs {w['peak']:.1f} MiB "
+        f"({(w['peak'] - a['peak']) / 1024:.3f} GiB less), "
+        f"{a['ms']:.2f} vs {w['ms']:.2f} ms per step ({card})")
+    la = a["losses"]
+    if not (10 in la and 30 in la
+            and la[30] < (1 - REST_MIN_LOSS_DROP) * la[10]):
+        failed.append(f"(a) adafactor's loss did not fall by "
+                      f"{REST_MIN_LOSS_DROP:.0%}: {la}")
+    rel = _adafactor_card_vs_cpu(REST_ARGV + ["--optimizer", "adafactor"]
+                                 + a["extra"])
+    log(f"[{tag} (a)] adafactor's chain on GPT-small's parameters, "
+        f"{REST_ADAFACTOR_STEPS} steps on the card against the CPU: worst "
+        f"leaf's update difference over its largest update {rel:.2e} "
+        f"(tol {REST_ADAFACTOR_RTOL})")
+    if not rel <= REST_ADAFACTOR_RTOL:
+        failed.append(f"(a) adafactor on the card against the CPU: {rel}")
+    best = CheckpointManager(a["ck"]).best_step()
+    buf = io.StringIO()
+    read = _reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(REST_ARGV + ["--optimizer", "adafactor", "--ckpt_dir",
+                                   a["ck"], "--eval_only", "--eval_best"]
+                      + a["extra"])
+    launches = read()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    logged = a["evals"].get(best, {})
+    excess = max((abs(out[k] - v) - REST_EVAL_ROUND - REST_EVAL_REL_TOL
+                  * abs(v) for k, v in logged.items() if k in out),
+                 default=float("inf"))
+    log(f"[{tag} (d)] --eval_only --eval_best: rc {rc}, best step {best}, "
+        f"printed {out}, logged {logged}: worst excess over "
+        f"{REST_EVAL_ROUND} + {REST_EVAL_REL_TOL} x |value| {excess:.2e}; "
+        f"launches {launches}")
+    if rc != 0 or out.get("step") != best or excess > 0 \
+            or set(out) - {"step"} != set(logged):
+        failed.append(f"(d) --eval_best printed {out}, the run logged "
+                      f"{logged} at best step {best}")
+    if launches != dict(_rest_want(0), flash_attention_fwd=REST_LAYERS
+                        * REST_EVAL_BATCHES):
+        failed.append(f"(d) launches {launches}")
+    for opt in res:
+        shutil.rmtree(res[opt]["ck"], ignore_errors=True)
+
+    # (b) sync and async saves against no save
+    rec = trace.recorder()
+    clocks, windows, rings = {}, {}, {}
+    for label, extra in (("none", []),
+                         ("sync", ["--save_steps", "10"]),
+                         ("async", ["--save_steps", "10", "--async_save"])):
+        ck = os.path.join(tmp, f"saves_{label}")
+        clock = _StepClock()
+        tr = _rest_trainer(["--optimizer", "adamw", "--train_steps", "40",
+                            "--log_every_steps", "40"]
+                           + (["--ckpt_dir", ck] + extra if extra else []),
+                           hooks=[clock])
+        gc.collect()
+        torch.cuda.empty_cache()
+        read = _reset_launches()
+        rec.start()
+        with tr:
+            tr.train()
+        spans = rec.drain("training")
+        rec.stop()
+        launches = read()
+        if launches != _rest_want(40):
+            failed.append(f"(b) {label}: launches {launches}")
+        clocks[label] = clock
+        windows[label] = [(t0, t1) for _, lane, name, t0, t1, _ in spans
+                          if name == "checkpoint_write"]
+        if extra:
+            rings[label] = ck
+    saves = (10, 20, 30, 40)
+    for label in ("sync", "async"):
+        c = clocks[label]
+        inside = [n for n in range(2, 41) if n not in saves and any(
+            c.times[n - 1] < t1 and c.times[n] > t0
+            for t0, t1 in windows[label])]
+        med = float(np.median([c.step_ms(n) for n in inside])) \
+            if inside else float("nan")
+        base = float(np.median([clocks["none"].step_ms(n)
+                                for n in inside])) if inside else \
+            float("nan")
+        writes = [round((t1 - t0) * 1e3, 1) for t0, t1 in windows[label]]
+        log(f"[{tag} (b)] {label} saves: host ms of save steps "
+            + ", ".join(f"{n}: {c.step_ms(n):.1f}" for n in saves)
+            + f" (no-save run: "
+            + ", ".join(f"{clocks['none'].step_ms(n):.1f}" for n in saves)
+            + f"); writes {writes} ms; {len(inside)} steps inside the "
+            f"write windows {inside}: median {med:.2f} ms against "
+            f"{base:.2f} ms for the same steps without saves ({card})")
+    ms_none = float(np.median([clocks["none"].step_ms(n)
+                               for n in range(2, 41)]))
+    log(f"[{tag} (b)] the no-save run: median {ms_none:.2f} ms per step "
+        f"(synced every step) ({card})")
+    steps_sync, steps_async = (CheckpointManager(rings[k]).all_steps()
+                               for k in ("sync", "async"))
+    if steps_sync != steps_async or not steps_sync:
+        failed.append(f"(b) rings {steps_sync} vs {steps_async}")
+    for step in steps_sync:
+        x = load_npz(CheckpointManager(rings["sync"]).checkpoint_path(step))
+        y = load_npz(CheckpointManager(rings["async"]).checkpoint_path(step))
+        bad = [k for k in x if not np.array_equal(x[k], y[k])]
+        if sorted(x) != sorted(y) or bad:
+            failed.append(f"(b) step {step}: sync and async rings differ "
+                          f"at {bad[:3]}")
+    log(f"[{tag} (b)] rings {steps_sync}: sync and async checkpoints "
+        "restore to equal arrays" if not any(f.startswith("(b) step")
+                                             for f in failed) else
+        f"[{tag} (b)] rings differ")
+    for ck in rings.values():
+        shutil.rmtree(ck, ignore_errors=True)
+
+    # (c) rollback against an uninterrupted run
+    finals = {}
+    for label, extra in (("uninterrupted", []),
+                         ("rollback", ["--fault_spec", "step.nan:step=15",
+                                       "--on_anomaly", "rollback"])):
+        ck = os.path.join(tmp, f"rb_{label}")
+        tap = _LogTap()
+        logging.getLogger("dtx.trainer").addHandler(tap)
+        tr = _rest_trainer(["--optimizer", "adamw", "--train_steps", "30",
+                            "--log_every_steps", "5"]
+                           + (["--ckpt_dir", ck, "--save_steps", "10"]
+                              + extra if extra else []),
+                           arrays_fn=_float_mask)
+        read = _reset_launches()
+        try:
+            with tr:
+                state, summary = tr.train()
+        finally:
+            logging.getLogger("dtx.trainer").removeHandler(tap)
+        launches = read()
+        replayed = 5 if extra else 0       # steps 11-15 again
+        if launches != _rest_want(30 + replayed):
+            failed.append(f"(c) {label}: launches {launches}")
+        finals[label] = (state, summary, [x for x in tap.lines
+                                          if "rollback" in x])
+        shutil.rmtree(ck, ignore_errors=True)
+    s_ref, _, _ = finals["uninterrupted"]
+    s_rb, sum_rb, lines = finals["rollback"]
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+        flatten_dict
+    ref_p, rb_p = flatten_dict(s_ref.params), flatten_dict(s_rb.params)
+    unequal = [k for k in ref_p if not torch.equal(ref_p[k], rb_p[k])]
+    count = int(sum_rb["final_metrics"]["anomaly_count"])
+    log(f"[{tag} (c)] rollback: {lines}; final step {s_rb.step}, "
+        f"anomaly_count {count}; params torch.equal to the uninterrupted "
+        f"run's: {not unequal} ({len(unequal)} leaves differ)")
+    if count != 1 or s_rb.step != 30 or not any(
+            "restored verified checkpoint step 10" in x for x in lines):
+        failed.append(f"(c) rollback: {lines}, anomaly_count {count}")
+    if unequal:
+        worst = max(float((ref_p[k] - rb_p[k]).abs().max())
+                    for k in unequal)
+        failed.append(f"(c) {len(unequal)} leaves differ from the "
+                      f"uninterrupted run's (worst {worst:.3e}): "
+                      f"{unequal[:3]}")
+
+    # (e) the observability sinks
+    obs = os.path.join(tmp, "obs")
+    tb, prof = os.path.join(obs, "tb"), os.path.join(obs, "prof")
+    trace_path = os.path.join(obs, "trace.json")
+    metrics = os.path.join(obs, "m.jsonl")
+    t0 = time.perf_counter()
+    _, _, recs, _ = _cli_run(
+        REST_ARGV + ["--optimizer", "adamw", "--train_steps", "20",
+                     "--log_every_steps", "5", "--metrics_path", metrics,
+                     "--tb_logdir", tb, "--summary_every_steps", "5",
+                     "--param_histograms_every_steps", "20",
+                     "--step_timing", "--profile_dir", prof,
+                     "--profile_steps", "5,6", "--trace_path", trace_path],
+        "(e) sinks", failed, card, tag=tag, want=_rest_want(20))
+    wall = time.perf_counter() - t0
+    timing = [r for r in recs if "step_timing_ms" in r]
+    events, = [os.path.join(tb, f) for f in os.listdir(tb)]
+    n_records = sum(1 for _ in tb_events.read_records(events))
+    scalars = tb_events.read_scalars(events)
+    with open(os.path.join(prof, "trace-steps-5-6.json")) as f:
+        prof_events = json.load(f)["traceEvents"]
+    with open(trace_path) as f:
+        lanes = {e["args"]["name"] for e in json.load(f)["traceEvents"]
+                 if e["name"] == "thread_name"}
+    log(f"[{tag} (e)] {wall:.1f} s; event file {n_records} records, every "
+        f"CRC checked, {len(scalars)} scalars; step-timing records "
+        f"{len(timing)} ("
+        + ", ".join(f"step {r['step']}: n {r['step_timing_ms']['n']}, p50 "
+                    f"{r['step_timing_ms']['p50']:.2f} ms"
+                    for r in timing)
+        + f"); profiler trace {len(prof_events)} events; trace lanes "
+        f"{sorted(lanes)} ({card})")
+    if len(timing) != 4 or sum(r["step_timing_ms"]["n"]
+                               for r in timing) != 19:
+        failed.append(f"(e) step-timing records {timing}")
+    if not any(t == "loss" for _, t, _, _ in scalars) or not prof_events \
+            or lanes != {"data", "step"}:
+        failed.append(f"(e) sinks: {len(scalars)} scalars, "
+                      f"{len(prof_events)} profiler events, lanes {lanes}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit("the train-rest phase failed: " + "; ".join(failed))
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -3516,6 +3944,7 @@ def main() -> int:
         f"final test accuracy {mnist['accuracy']:.4f} ({card})")
     conv = phase_conv(card)
     bert = phase_bert(card)
+    phase_train_rest(card)
     log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
         f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
         f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "

@@ -26,26 +26,32 @@ filesystem they share), as in the reference: only rank 0 writes, and
 every rank meets the others at a barrier after each save;
 ``restore_or_init`` takes rank 0's decision (the newest step that
 verifies, or a fresh init) on every rank, and rank 0 then broadcasts the
-whole state, so every rank starts from the same bits. Async and sharded
-saves, ``save_best`` and ``discard_steps_above`` arrive with slice
-A3c-4.
+whole state, so every rank starts from the same bits. Async saves (one
+writer thread), the ``best`` record (``save_best``, kept out of ring
+rotation), rollback's ``discard_steps_above`` and the ``ckpt.write``,
+``ckpt.commit`` and ``ckpt.read`` fault seams are the reference's;
+sharded saves arrive with slice A6.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import tempfile
+import threading
 import time
 import zipfile
 import zlib
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
-from ..runtime import distributed
+from ..obs.trace import span
+from ..runtime import distributed, faults
 from ..utils.logging import get_logger
 from ..utils.pytree import flatten_dict, unflatten_dict
 
@@ -62,7 +68,7 @@ DEFAULTABLE_LEAVES = ("anomaly_count",)
 #: in the layout of a threefry2x32 key ([hi, lo] uint32)
 _KEY_DATA, _KEY_IMPL = "__prngkey__/rng", "__prngimpl__/rng"
 _THREEFRY = "threefry2x32"
-_A3C = "arrives with slice A3c-4"
+_A6 = "arrive with slice A6"
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64,
@@ -315,18 +321,34 @@ class CheckpointManager:
     """Write and restore ``ckpt-<step>.npz`` with a ``max_to_keep`` ring
     and the reference's ``checkpoint`` state file (rank 0 is the writer).
     ``keep_every_n_hours`` pins one checkpoint outside the ring every N
-    hours, as TF's Saver did."""
+    hours, as TF's Saver did; the ``best`` record (:meth:`save_best`)
+    survives rotation too.
+
+    With ``async_save`` the host gather stays on the calling thread (every
+    leaf copied off the card before ``save`` returns, so the next step
+    may run) and one writer thread does the npz write, the CRCs, the
+    fsync, the rename and the ring commit. A new save first waits for the
+    previous write; a write error surfaces at the next :meth:`save` or
+    :meth:`wait` (``close``, ``restore``, ``all_steps``)."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 5,
                  keep_every_n_hours: float = 0.0, async_save: bool = False,
                  sharded: bool = False):
-        if async_save:
-            raise NotImplementedError(f"async checkpoint saves {_A3C}")
         if sharded:
-            raise NotImplementedError(f"sharded checkpoints {_A3C}")
+            raise NotImplementedError(
+                "sharded checkpoints (per-rank shard files) arrive with "
+                "slice A6, with the sharded state they write")
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.keep_every_n_hours = keep_every_n_hours
+        # _lock serializes writes and state-file edits; _pending_lock
+        # guards the one pending write's future
+        self._lock = threading.Lock()
+        self._pending_lock = threading.Lock()
+        self._pending: Future | None = None
+        self._executor = (ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ckpt-writer")
+            if async_save else None)
         # the keep-forever clock starts now: the first interval must pass
         # before a checkpoint is pinned
         self._last_kept_forever = time.time()
@@ -360,6 +382,7 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{PREFIX}-{step}.shards.json")
 
     def all_steps(self) -> list[int]:
+        self.wait()                # an async write may not have landed
         st = self._state()
         steps = []
         best = [st["best"]["path"]] if st.get("best") else []
@@ -375,25 +398,78 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- save -------------------------------------------------------------
+    def wait(self) -> None:
+        """Block until a pending async write has landed (no-op when none
+        is); raises the writer's exception, once."""
+        with self._pending_lock:
+            pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        """Drain the writer thread and release it; a pending write error
+        surfaces here, after the thread is released."""
+        try:
+            self.wait()
+        finally:
+            if self._executor is not None:
+                self._executor.shutdown(wait=True)
+
+    def _snapshot(self, state) -> dict[str, np.ndarray]:
+        """The state as host arrays the writer thread may read while the
+        caller trains on: a card's leaves are copied off it here (the copy
+        waits for the step that made them); a CPU state's arrays would
+        share the tensors' storage, so an async save copies them."""
+        arrays = state_arrays(state)
+        if self._executor is not None and state.anomaly_count.device.type \
+                == "cpu":
+            arrays = {k: np.array(v, copy=True) for k, v in arrays.items()}
+        return arrays
+
     def save(self, state, step: int | None = None) -> str | None:
         """Write ``ckpt-<step>.npz`` (default: the state's step), commit it
         to the state file and rotate the ring; every rank then waits at a
-        barrier. Returns the path on rank 0, None on the others."""
+        barrier. Returns the path on rank 0, None on the others. With
+        ``async_save`` the write is queued behind the previous one (whose
+        error, if any, this call raises)."""
         if step is None:
             step = int(state.step)
         path = None
         if self.is_writer:
-            path = self.checkpoint_path(step)
-            self._atomic_npz(state_arrays(state), path)
-            self._commit(os.path.basename(path))
+            arrays = self._snapshot(state)
+            if self._executor is not None:
+                # drain the previous write (surfacing its error exactly
+                # once) and queue this one under one lock hold
+                with self._pending_lock:
+                    pending, self._pending = self._pending, None
+                    if pending is not None:
+                        pending.result()
+                    self._pending = self._executor.submit(
+                        self._write, arrays, step)
+                path = self.checkpoint_path(step)
+            else:
+                path = self._write(arrays, step)
         distributed.barrier()
         return path
 
+    def _write(self, arrays: dict[str, np.ndarray], step: int) -> str:
+        """The npz write and the ring commit, on the checkpoint writer's
+        trace lane (the caller's thread, or the async writer's)."""
+        with self._lock, span("checkpoint_write", process="training",
+                              lane="checkpoint_writer", step=step):
+            path = self.checkpoint_path(step)
+            self._atomic_npz(arrays, path)
+            self._commit(os.path.basename(path))
+            return path
+
     def _atomic_npz(self, arrays: dict[str, np.ndarray], path: str) -> None:
         """npz with the CRC record, written to a temp file, fsynced, then
-        renamed; the directory is fsynced so the rename persists."""
+        renamed; the directory is fsynced so the rename persists. The
+        ``ckpt.write`` fault seam raises before the write or, with
+        ``corrupt=``, damages the landed file."""
         if CRC_KEY in arrays:
             raise ValueError(f"{CRC_KEY!r} is reserved")
+        rule = faults.inject("ckpt.write", detail=f"writing {path!r}")
         payload = dict(arrays)
         payload[CRC_KEY] = np.frombuffer(json.dumps(
             {k: crc32_of(np.asarray(v)) for k, v in arrays.items()}
@@ -414,11 +490,29 @@ class CheckpointManager:
             os.fsync(dirfd)
         finally:
             os.close(dirfd)
+        if rule is not None:
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                if rule.corrupt == "truncate":
+                    f.truncate(max(1, int(size * 0.6)))
+                else:                          # zero: overwrite a span
+                    f.seek(size // 3)
+                    f.write(b"\0" * max(1, size // 3))
+            log.warning("fault injected: %s landed file %r damaged",
+                        rule.describe(), path)
+
+    def _remove_victim(self, base: str) -> None:
+        path = os.path.join(self.directory, base)
+        if os.path.exists(path):
+            os.remove(path)
 
     def _commit(self, base: str) -> None:
         """Record ``base`` in the state file and rotate the ring (the
         reference's rules: a step lives in one list, kept-forever stays
-        so)."""
+        so, the best checkpoint leaves the ring but its file stays). The
+        ``ckpt.commit`` fault seam raises before the state file changes,
+        so a failed commit leaves the previous ring whole."""
+        faults.inject("ckpt.commit", detail=f"committing {base!r}")
         st = self._state()
         now = time.time()
         if base in st["all_model_checkpoint_paths"]:
@@ -435,26 +529,93 @@ class CheckpointManager:
         else:
             st["all_model_checkpoint_paths"].append(base)
         st["latest"] = base
-        # the 'best' checkpoint (written by the reference) survives
-        # rotation: it leaves the ring list but its file stays
         while len(st["all_model_checkpoint_paths"]) > self.max_to_keep:
             victim = st["all_model_checkpoint_paths"].pop(0)
-            path = os.path.join(self.directory, victim)
-            if (victim != (st.get("best") or {}).get("path")
-                    and os.path.exists(path)):
-                os.remove(path)
+            if victim != (st.get("best") or {}).get("path"):
+                self._remove_victim(victim)
         self._write_state(st)
 
     def save_best(self, state, step: int, metric_value: float, *,
                   mode: str = "max") -> bool:
-        raise NotImplementedError(f"best-checkpoint tracking {_A3C}")
+        """Save ``state`` as the new best iff ``metric_value`` improves on
+        the recorded best (tf.estimator BestExporter parity); a NaN value
+        never does. The best checkpoint survives ring rotation until a
+        better one supersedes it; a superseded best no list names is
+        deleted. Every rank calls it (rank 0's verdict is broadcast, and
+        the save meets at its barrier). Returns True when this step
+        became the best."""
+        if mode not in ("max", "min"):
+            raise ValueError(f"keep_best mode must be max|min, got {mode!r}")
+        self.wait()
+        value = float(metric_value)
+        best = self._state().get("best")
+        if math.isnan(value):
+            improved = False
+        elif best is None or math.isnan(best["value"]):
+            improved = True
+        else:
+            improved = (value > best["value"] if mode == "max"
+                        else value < best["value"])
+        improved = bool(distributed.broadcast_int(int(improved)))
+        if not improved:
+            return False
+        self.save(state, step)
+        if not self.is_writer:
+            return True
+        self.wait()                      # the async write lands first
+        with self._lock:
+            st = self._state()
+            old = st.get("best")
+            base = os.path.basename(self.checkpoint_path(step))
+            st["best"] = {"path": base, "step": int(step), "value": value}
+            if (old and old["path"] != base
+                    and old["path"] not in st["all_model_checkpoint_paths"]
+                    and old["path"] not in st.get("kept_forever", [])):
+                self._remove_victim(old["path"])
+            self._write_state(st)
+        return True
 
-    def close(self) -> None:
-        """Nothing to drain: every save is written before it returns
-        (async saves arrive with slice A3c-4)."""
+    def best_step(self) -> int | None:
+        """Step of the best checkpoint (None when none is recorded)."""
+        self.wait()
+        best = self._state().get("best")
+        return int(best["step"]) if best else None
 
     def discard_steps_above(self, step: int) -> list[int]:
-        raise NotImplementedError(f"discard_steps_above (rollback) {_A3C}")
+        """Delete every checkpoint newer than ``step`` (rank 0; returns the
+        discarded steps): rollback's truncation, so a restart cannot
+        resume the trajectory the rollback rejected. The best record is
+        cleared when it names a discarded step."""
+        if not self.is_writer:
+            return []
+        self.wait()
+        with self._lock:
+            st = self._state()
+            discarded: list[int] = []
+
+            def keep(base: str) -> bool:
+                m = re.search(rf"{PREFIX}-(\d+)\.(npz|shards\.json)$", base)
+                if m and int(m.group(1)) > step:
+                    discarded.append(int(m.group(1)))
+                    self._remove_victim(base)
+                    return False
+                return True
+
+            st["all_model_checkpoint_paths"] = [
+                b for b in st["all_model_checkpoint_paths"] if keep(b)]
+            st["kept_forever"] = [b for b in st.get("kept_forever", [])
+                                  if keep(b)]
+            best = st.get("best")
+            if best and int(best.get("step", -1)) > step:
+                keep(best["path"])
+                st["best"] = None
+            if st["latest"] and not os.path.exists(
+                    os.path.join(self.directory, st["latest"])):
+                remaining = (st["all_model_checkpoint_paths"]
+                             + st.get("kept_forever", []))
+                st["latest"] = remaining[-1] if remaining else None
+            self._write_state(st)
+        return sorted(set(discarded))
 
     # -- integrity --------------------------------------------------------
     def verify_step(self, step: int) -> None:
@@ -466,13 +627,14 @@ class CheckpointManager:
             _read_npz(path, keep=False)
             return
         if os.path.exists(self.shard_anchor_path(step)):
-            raise NotImplementedError(f"sharded checkpoints {_A3C}")
+            raise NotImplementedError(f"sharded checkpoints {_A6}")
         raise FileNotFoundError(
             f"no checkpoint at step {step} under {self.directory!r}")
 
     def latest_valid_step(self, max_step: int | None = None) -> int | None:
         """Newest step whose checkpoint verifies, walking newest to oldest
-        and logging each corrupt one it skips."""
+        and logging each corrupt one it skips; ``max_step`` bounds the
+        walk (rollback restores at or before the last clean step)."""
         steps = self.all_steps()
         if max_step is not None:
             steps = [s for s in steps if s <= max_step]
@@ -488,11 +650,13 @@ class CheckpointManager:
     # -- restore ----------------------------------------------------------
     def restore(self, template, step: int | None = None,
                 max_step: int | None = None):
-        """Load ``step`` (default: the newest that verifies) into the
-        template's structure and devices. With ``step=None`` a corrupt
-        checkpoint is logged and the next older one restored; when every
-        candidate is corrupt, CorruptCheckpointError. FileNotFoundError
-        when nothing exists."""
+        """Load ``step`` (default: the newest that verifies, at or before
+        ``max_step``) into the template's structure and devices, after any
+        pending async write. With ``step=None`` a corrupt checkpoint is
+        logged and the next older one restored; when every candidate is
+        corrupt, CorruptCheckpointError. FileNotFoundError when nothing
+        exists."""
+        self.wait()
         if step is not None:
             return self._restore_step(template, step)
         steps = self.all_steps()
@@ -521,29 +685,46 @@ class CheckpointManager:
             "remains")
 
     def _restore_step(self, template, step: int):
+        faults.inject("ckpt.read", detail=f"restoring step {step}")
         path = self.checkpoint_path(step)
         if os.path.exists(path):
             return state_from_arrays(template, load_npz(path))
         if os.path.exists(self.shard_anchor_path(step)):
-            raise NotImplementedError(f"sharded checkpoints {_A3C}")
+            raise NotImplementedError(f"sharded checkpoints {_A6}")
         raise FileNotFoundError(path)
 
 
-def _agreed_latest_step(manager: CheckpointManager) -> int | None:
-    """Rank 0's newest step that verifies, on every rank. The decision
-    must be one: a rank that restored while another initialized would
-    run another loop and hang at the first all-reduce. Every rank checks
-    that it can see the chosen file (the directory must be shared)."""
-    local = manager.latest_valid_step() if manager.is_writer else None
+def _agreed_step(manager: CheckpointManager, local: int | None,
+                 what: str) -> int | None:
+    """Rank 0's ``local`` step on every rank, each rank checking that it
+    can see the chosen file (the directory must be shared)."""
     step = distributed.broadcast_int(local)
     if step is not None and not os.path.exists(
             manager.checkpoint_path(step)):
         raise FileNotFoundError(
-            f"rank {distributed.process_index()} cannot read checkpoint "
-            f"step {step} that rank 0 will restore: the checkpoint "
-            f"directory {manager.directory!r} must be a filesystem shared "
-            "by all ranks")
+            f"rank {distributed.process_index()} cannot read {what} "
+            f"step {step} that rank 0 chose: the checkpoint directory "
+            f"{manager.directory!r} must be a filesystem shared by all "
+            "ranks")
     return step
+
+
+def _agreed_latest_step(manager: CheckpointManager,
+                        max_step: int | None = None) -> int | None:
+    """Rank 0's newest step that verifies (at or before ``max_step``), on
+    every rank. The decision must be one: a rank that restored while
+    another initialized would run another loop and hang at the first
+    all-reduce."""
+    local = (manager.latest_valid_step(max_step) if manager.is_writer
+             else None)
+    return _agreed_step(manager, local, "checkpoint")
+
+
+def _agreed_best_step(manager: CheckpointManager) -> int | None:
+    """Rank 0's best step, on every rank (the contract of
+    :func:`_agreed_latest_step`, for the best record)."""
+    return _agreed_step(manager, manager.best_step() if manager.is_writer
+                        else None, "best checkpoint")
 
 
 def restore_or_init(manager: CheckpointManager | None, init_fn, *args,

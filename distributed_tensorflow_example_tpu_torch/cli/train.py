@@ -40,9 +40,16 @@ synthetic LM corpus or pre-tokenized ``.npy`` files, and ``bert``,
 ``bert_large`` and ``bert_tiny`` (masked LM) on the same tokens, masked
 (a raw-text corpus with a ``vocab.txt`` arrives with slice A5b);
 checkpoints into
-``--ckpt_dir`` (a second run on the same directory resumes), evaluates at
-the end, and with ``--export_generator`` hands the trained GPT weights to
-the port's ``PredictServer``.
+``--ckpt_dir`` (a second run on the same directory resumes; ``--async_save``
+writes on a background thread, ``--keep_best_metric`` keeps the best
+eval's checkpoint), evaluates at the end (or every
+``--eval_every_steps``, with ``--early_stop_metric``), and with
+``--export_generator`` hands the trained GPT weights to the port's
+``PredictServer``. ``--eval_only`` evaluates a checkpoint without
+training (the latest, ``--eval_step N`` or ``--eval_best``) and prints
+one JSON line. ``--on_anomaly rollback`` and ``--fault_spec``, the
+TensorBoard, summary and histogram sinks, ``--step_timing``, the
+``torch.profiler`` hook and ``--trace_path`` are the reference's.
 """
 
 from __future__ import annotations
@@ -130,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
       choices=["sgd", "momentum", "adam", "adamw", "lars", "lamb",
                "adafactor"],
       help="base optimizer (lars/lamb: the large-batch layer-wise trust "
-           "ratio; adafactor: slice A3c-3b)")
+           "ratio; adafactor: factored second moments, --momentum 0 for "
+           "the least memory)")
     a("--momentum", type=float, default=0.9)
     a("--weight_decay", type=float, default=0.0)
     a("--wd_mask", default="exclude_1d", choices=["exclude_1d", "all"])
@@ -224,39 +232,64 @@ def build_parser() -> argparse.ArgumentParser:
     a("--save_steps", type=int, default=0)
     a("--save_secs", type=float, default=0.0)
     a("--max_to_keep", type=int, default=5)
-    a("--keep_best_metric", default=None, help="slice A3c-4")
+    a("--keep_best_metric", default=None,
+      help="eval metric whose best checkpoint is kept out of ring "
+           "rotation (needs eval data and --ckpt_dir)")
     a("--keep_best_mode", default="max", choices=["max", "min"])
     a("--keep_checkpoint_every_n_hours", type=float, default=0.0)
-    a("--async_save", action="store_true", help="slice A3c-4")
-    a("--sharded_save", action="store_true", help="slice A3c-4")
+    a("--async_save", action="store_true",
+      help="write checkpoints on a background thread (the copy to the "
+           "host stays on the step)")
+    a("--sharded_save", action="store_true", help="slice A6")
     a("--log_every_steps", type=int, default=100)
-    a("--summary_every_steps", type=int, default=0, help="slice A3c-4")
+    a("--summary_every_steps", type=int, default=0,
+      help="scalar-summary cadence to the metrics sinks (0 disables)")
     a("--param_histograms_every_steps", type=int, default=0,
-      help="slice A3c-4")
+      help="weight-histogram cadence (HistogramProtos to --tb_logdir, "
+           "summary stats to the JSONL; 0 disables)")
     a("--metrics_path", default=None)
-    a("--tb_logdir", default=None, help="slice A3c-4")
+    a("--tb_logdir", default=None,
+      help="write TensorBoard event files here (no TensorFlow needed)")
     a("--eval_every_steps", type=int, default=0)
-    a("--early_stop_metric", default=None, help="slice A3c-4")
+    a("--early_stop_metric", default=None,
+      help="stop when this eval metric stops improving (needs "
+           "--eval_every_steps)")
     a("--early_stop_patience", type=int, default=3)
     a("--early_stop_mode", default="max", choices=["max", "min"])
-    a("--eval_only", action="store_true", help="slice A3c-4")
-    a("--eval_step", type=int, default=None, help="slice A3c-4")
-    a("--eval_best", action="store_true", help="slice A3c-4")
+    a("--eval_only", action="store_true",
+      help="no training: restore the latest checkpoint from --ckpt_dir "
+           "(or --eval_step N, or --eval_best), evaluate, print one JSON "
+           "line, exit")
+    a("--eval_step", type=int, default=None,
+      help="checkpoint step to evaluate (--eval_only; default: latest)")
+    a("--eval_best", action="store_true",
+      help="with --eval_only: evaluate (and, with --export_generator, "
+           "export) the best checkpoint --keep_best_metric recorded")
     a("--seed", type=int, default=0)
     a("--on_anomaly", default="halt", choices=["halt", "skip", "rollback"],
-      help="halt | skip (rollback: slice A3c-4)")
+      help="non-finite loss or grad-norm: halt | skip (identity update) "
+           "| rollback (restore the last verified checkpoint, replay)")
     a("--max_anomalies", type=int, default=10)
-    a("--fault_spec", default="", help="slice A3c-4")
+    a("--fault_spec", default="",
+      help="fault injection rules (runtime/faults.py grammar), e.g. "
+           "'ckpt.write:step=2;loader.next:p=0.01'")
     a("--check_nans", action="store_true",
       help="stop on a non-finite loss (a host sync every step)")
-    a("--debug_checks", action="store_true", help="slice A3c-4")
-    a("--debug_nans", action="store_true", help="slice A3c-4")
-    a("--profiler_port", type=int, default=0, help="slice A3c-4")
-    a("--profile_dir", default=None, help="slice A3c-4")
-    a("--profile_steps", default=None, help="slice A3c-4")
-    a("--step_timing", action="store_true", help="slice A3c-4")
-    a("--trace_path", default=None, help="slice A3c-4")
-    a("--trace_buffer_events", type=int, default=65536, help="slice A3c-4")
+    a("--debug_checks", action="store_true", help="slice A3c-4b")
+    a("--debug_nans", action="store_true", help="slice A3c-4b")
+    a("--profiler_port", type=int, default=0, help="slice A3c-4b")
+    a("--profile_dir", default=None,
+      help="torch.profiler Chrome traces of --profile_steps land here")
+    a("--profile_steps", default=None,
+      help="start,stop step range for the profiler hook")
+    a("--step_timing", action="store_true",
+      help="per-step device-time percentiles to the metrics JSONL (a "
+           "device sync every step)")
+    a("--trace_path", default=None,
+      help="dump the training loop's span lanes (data, step, checkpoint, "
+           "rollback) as Chrome trace JSON here when training ends")
+    a("--trace_buffer_events", type=int, default=65536,
+      help="span ring bound for --trace_path (oldest drop first)")
     return p
 
 
@@ -272,6 +305,10 @@ def parse_mesh(spec: str) -> MeshShape | None:
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
     """The TrainConfig of the fields the port carries."""
+    profile_steps = None
+    if args.profile_steps:
+        a, b = args.profile_steps.split(",")
+        profile_steps = (int(a), int(b))
     return TrainConfig(
         model=args.model,
         train_steps=args.train_steps,
@@ -281,9 +318,13 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         token_accuracy_every_n=args.token_accuracy_every_n,
         remat=args.remat,
         eval_every_steps=args.eval_every_steps,
+        early_stop_metric=args.early_stop_metric,
+        early_stop_patience=args.early_stop_patience,
+        early_stop_mode=args.early_stop_mode,
         steps_per_loop=args.steps_per_loop,
         on_anomaly=args.on_anomaly,
         max_anomalies=args.max_anomalies,
+        fault_spec=args.fault_spec,
         seed=args.seed,
         label_smoothing=args.label_smoothing,
         bn_stats_dtype=args.bn_stats_dtype,
@@ -318,12 +359,22 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         sync=SyncConfig(accum_steps=args.accum_steps, mode=args.sync_mode),
         checkpoint=CheckpointConfig(
             directory=args.ckpt_dir, max_to_keep=args.max_to_keep,
+            keep_best_metric=args.keep_best_metric,
+            keep_best_mode=args.keep_best_mode,
             save_steps=args.save_steps, save_secs=args.save_secs,
             keep_checkpoint_every_n_hours=(
-                args.keep_checkpoint_every_n_hours)),
-        obs=ObservabilityConfig(log_every_steps=args.log_every_steps,
-                                metrics_path=args.metrics_path,
-                                check_nans=args.check_nans),
+                args.keep_checkpoint_every_n_hours),
+            async_save=args.async_save),
+        obs=ObservabilityConfig(
+            log_every_steps=args.log_every_steps,
+            metrics_path=args.metrics_path, tb_logdir=args.tb_logdir,
+            profile_steps=profile_steps, profile_dir=args.profile_dir,
+            check_nans=args.check_nans,
+            summary_every_steps=args.summary_every_steps,
+            param_histograms_every_steps=(
+                args.param_histograms_every_steps),
+            step_timing=args.step_timing, trace_path=args.trace_path,
+            trace_buffer_events=args.trace_buffer_events),
     )
 
 
@@ -370,10 +421,11 @@ def _validate_like_the_reference(parser, args) -> TrainConfig:
         flash_attention_kwargs(cfg)
         lm_loss_settings(cfg)
         anomaly_settings(cfg)
+        if cfg.fault_spec:
+            from ..runtime import faults
+            faults.parse_spec(cfg.fault_spec, seed=cfg.seed)
     except ValueError as e:
         raise SystemExit(str(e))
-    except NotImplementedError:
-        pass                        # refused below, naming its slice
     if args.export_generator and not args.model.startswith("gpt"):
         raise SystemExit(
             f"--export_generator is a causal-LM knob (gpt/gpt_tiny), "
@@ -446,7 +498,6 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
          imagenet and bool(args.data_dir), "A5b"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
-        ("--optimizer adafactor", args.optimizer == "adafactor", "A3c-3b"),
         ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5b"),
         ("--ema_decay", args.ema_decay != 0.0, "A5b"),
         ("--ema_debias", args.ema_debias, "A5b"),
@@ -457,29 +508,11 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
         (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
          f"{_num_workers(args)} rank(s))",
          not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
-        ("--keep_best_metric", args.keep_best_metric is not None, "A3c-4"),
-        ("--async_save", args.async_save, "A3c-4"),
-        ("--sharded_save", args.sharded_save, "A3c-4"),
-        ("--summary_every_steps", args.summary_every_steps != 0, "A3c-4"),
-        ("--param_histograms_every_steps",
-         args.param_histograms_every_steps != 0, "A3c-4"),
-        ("--tb_logdir", args.tb_logdir is not None, "A3c-4"),
-        ("--early_stop_metric", args.early_stop_metric is not None,
-         "A3c-4"),
-        ("--eval_only", args.eval_only, "A3c-4"),
-        ("--eval_step", args.eval_step is not None, "A3c-4"),
-        ("--eval_best", args.eval_best, "A3c-4"),
-        ("--on_anomaly rollback", args.on_anomaly == "rollback", "A3c-4"),
-        ("--fault_spec", bool(args.fault_spec), "A3c-4"),
-        ("--debug_checks", args.debug_checks, "A3c-4"),
-        ("--debug_nans", args.debug_nans, "A3c-4"),
-        ("--profiler_port", args.profiler_port != 0, "A3c-4"),
-        ("--profile_dir", args.profile_dir is not None, "A3c-4"),
-        ("--profile_steps", args.profile_steps is not None, "A3c-4"),
-        ("--step_timing", args.step_timing, "A3c-4"),
-        ("--trace_path", args.trace_path is not None, "A3c-4"),
-        ("--trace_buffer_events", args.trace_buffer_events != 65536,
-         "A3c-4"),
+        ("--sharded_save (per-rank shard files of a sharded state)",
+         args.sharded_save, "A6"),
+        ("--debug_checks", args.debug_checks, "A3c-4b"),
+        ("--debug_nans", args.debug_nans, "A3c-4b"),
+        ("--profiler_port", args.profiler_port != 0, "A3c-4b"),
     ]
 
 
@@ -624,6 +657,8 @@ def _train(args, cfg: TrainConfig, device, ctx) -> int:
                       process_index=ctx.process_index,
                       num_processes=ctx.num_processes,
                       train_transform=train_transform)
+    if args.eval_only:
+        return _eval_only(args, cfg, model, trainer, ctx)
     with trainer:
         state, summary = trainer.train()
 
@@ -633,6 +668,46 @@ def _train(args, cfg: TrainConfig, device, ctx) -> int:
     log.info("done: step=%d wall=%.1fs steps/sec=%.2f",
              summary["final_step"], summary["wall_time_sec"],
              summary["steps_per_sec"])
+    _maybe_export(args, cfg, model, state, ctx)
+    return 0
+
+
+def _eval_only(args, cfg, model, trainer, ctx) -> int:
+    """``--eval_only``: restore the step every rank agrees on (rank 0's
+    latest that verifies, ``--eval_step``, or with ``--eval_best`` the
+    best record), evaluate it, print one JSON line ``{"step": ...,
+    <metric>: ...}`` and export from it with ``--export_generator``."""
+    import json
+
+    from ..ckpt.checkpoint import _agreed_best_step, _agreed_latest_step
+    if trainer.eval_arrays is None:
+        raise SystemExit("--eval_only: no eval split for this dataset")
+    with trainer:
+        if args.eval_best:
+            if args.eval_step is not None:
+                raise SystemExit(
+                    "--eval_best and --eval_step are exclusive")
+            step = _agreed_best_step(trainer.ckpt_manager)
+            if step is None:
+                raise SystemExit(
+                    "--eval_best: no best checkpoint recorded under "
+                    f"{args.ckpt_dir!r} (train with --keep_best_metric "
+                    "first)")
+        else:
+            step = (args.eval_step if args.eval_step is not None
+                    else _agreed_latest_step(trainer.ckpt_manager))
+        if step is None:
+            raise SystemExit(
+                f"--eval_only: no checkpoint under {args.ckpt_dir!r}")
+        template = trainer.sync.init(model.init, seed=cfg.seed)
+        try:
+            state = trainer.ckpt_manager.restore(template, step=step)
+        except FileNotFoundError as e:
+            raise SystemExit(f"--eval_only: {e}")
+        metrics = trainer.evaluate(state)
+    print(json.dumps({"step": int(state.step),
+                      **{k: round(float(v), 6)
+                         for k, v in metrics.items()}}), flush=True)
     _maybe_export(args, cfg, model, state, ctx)
     return 0
 

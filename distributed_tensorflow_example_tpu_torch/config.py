@@ -4,11 +4,9 @@ generation, the sync training step and the ``Trainer`` read).
 
 Field names and defaults are the reference's, so a config reads the same
 in both packages. The fields of a later slice are absent (warm start,
-best-checkpoint tracking, async and sharded saves, early stop, fault
-injection, the summary, histogram, profiler, step-timing and trace
-sinks, the streaming and ImageNet-reader and MoE knobs), or
-refused by the ``Trainer`` when set: a sharded mesh axis,
-``steps_per_loop > 1`` and ``on_anomaly="rollback"``.
+sharded saves, the debug checks, the streaming and ImageNet-reader and
+MoE knobs), or refused by the ``Trainer`` when set: a sharded mesh axis
+and ``steps_per_loop > 1``.
 """
 
 from __future__ import annotations
@@ -43,7 +41,9 @@ class OptimizerConfig:
     """Base-optimizer knobs (``train/optimizers.py`` reads them)."""
 
     name: str = "sgd"               # sgd | momentum | adam | adamw |
-                                    # lars | lamb (adafactor: A3c-3b)
+                                    # lars | lamb | adafactor (factored
+                                    # 2nd moments; momentum=0 -> the
+                                    # memory-frugal T5 setup)
     learning_rate: float = 0.5
     momentum: float = 0.9
     weight_decay: float = 0.0
@@ -109,18 +109,35 @@ class CheckpointConfig:
 
     directory: str | None = None
     max_to_keep: int = 5
+    keep_best_metric: str | None = None  # eval metric tracked for the
+                                         # 'best' checkpoint (needs eval
+                                         # data)
+    keep_best_mode: str = "max"          # max (accuracy) | min (loss)
     save_steps: int = 0             # save every N steps (0 disables)
     save_secs: float = 0.0          # save every T seconds (0 disables)
     keep_checkpoint_every_n_hours: float = 0.0
+    async_save: bool = False        # write on a background thread
 
 
 @dataclasses.dataclass
 class ObservabilityConfig:
-    """Logging, metrics and NaN-check knobs."""
+    """Logging, metrics, summaries, profiling and tracing knobs."""
 
     log_every_steps: int = 100
     metrics_path: str | None = None   # JSONL sink; None => stdout only
+    tb_logdir: str | None = None      # TensorBoard event-file sink
+    profile_steps: tuple[int, int] | None = None  # [start, stop) steps
+    profile_dir: str | None = None    # torch.profiler Chrome traces
     check_nans: bool = False          # NanTensorHook analogue
+    summary_every_steps: int = 0      # scalar summary cadence (0 disables)
+    param_histograms_every_steps: int = 0  # weight-histogram cadence
+                                           # (pulls the params to the host)
+    step_timing: bool = False         # per-dispatch device-time records;
+                                      # a device sync every step
+    trace_path: str | None = None     # dump the training-loop lanes
+                                      # (data / step / checkpoint /
+                                      # rollback) as Chrome trace JSON
+    trace_buffer_events: int = 65536  # span ring bound for trace_path
 
 
 @dataclasses.dataclass
@@ -140,9 +157,17 @@ class TrainConfig:
         default_factory=ObservabilityConfig)
     train_steps: int = 1000
     eval_every_steps: int = 0        # 0 => eval only at the end
+    early_stop_metric: str | None = None  # stop when this eval metric
+                                          # stops improving (needs
+                                          # eval_every_steps)
+    early_stop_patience: int = 3     # evals without improvement
+    early_stop_mode: str = "max"     # max (accuracy) | min (loss)
     steps_per_loop: int = 1          # > 1: slice A3c-2b
-    on_anomaly: str = "halt"         # halt | skip (rollback: A3c-4)
-    max_anomalies: int = 10          # anomaly budget for skip
+    on_anomaly: str = "halt"         # halt | skip | rollback (restore the
+                                     # last verified checkpoint, replay)
+    max_anomalies: int = 10          # anomaly budget for skip/rollback
+    fault_spec: str = ""             # fault injection (runtime/faults.py
+                                     # grammar); empty = inert
     lm_loss_impl: str | None = None  # full | chunked | fused; None =
                                      # "full", or "chunked" when
                                      # lm_loss_chunk is set
@@ -209,11 +234,11 @@ ANOMALY_POLICIES = ("halt", "skip", "rollback")
 
 
 def anomaly_settings(cfg: TrainConfig) -> dict:
-    """Validated anomaly settings, the reference's rules: ValueError on a
-    policy no path could honor (an unknown policy, a negative budget,
-    rollback without a checkpoint cadence, ``check_nans`` beside a
-    policy other than halt). The port has halt and skip: rollback raises
-    NotImplementedError after the reference's checks."""
+    """Validated self-healing settings, the reference's rules:
+    ValueError on a policy no path could honor (an unknown policy, a
+    negative budget, rollback without a checkpoint cadence,
+    ``check_nans`` beside a policy other than halt). The fault spec's
+    grammar is ``runtime.faults.parse_spec``'s to check."""
     if cfg.on_anomaly not in ANOMALY_POLICIES:
         raise ValueError(f"on_anomaly must be one of {ANOMALY_POLICIES}, "
                          f"got {cfg.on_anomaly!r}")
@@ -237,11 +262,8 @@ def anomaly_settings(cfg: TrainConfig) -> dict:
             "only: under skip/rollback an anomalous step's metrics "
             "publish the -1.0 skipped sentinel, so the hook could never "
             "fire (a silently ignored knob is worse than an error)")
-    if cfg.on_anomaly == "rollback":
-        raise NotImplementedError(
-            "on_anomaly='rollback' arrives with slice A3c-4; the port's "
-            "Trainer has halt and skip")
-    return {"policy": cfg.on_anomaly, "budget": cfg.max_anomalies}
+    return {"policy": cfg.on_anomaly, "budget": cfg.max_anomalies,
+            "fault_spec": cfg.fault_spec}
 
 
 def lm_loss_settings(cfg: TrainConfig) -> dict:

@@ -5,7 +5,9 @@ Determinism contract: with the same seed the *global* batch sequence is
 the same whatever the process count (each process takes its contiguous
 slice of every global batch, or with ``microbatches`` its contiguous
 slice of each microbatch), and it is the reference's batch for batch,
-bit for bit. The native C++ loader arrives with slice A5b.
+bit for bit. A fault registry's ``loader.next`` seam
+(``runtime/faults.py``) wraps the batch iterator. The native C++ loader
+arrives with slice A5b.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import threading
 from typing import Any, Callable, Iterator
 
 import numpy as np
+
+from ..runtime import faults
 
 Batch = dict[str, np.ndarray]
 
@@ -162,6 +166,9 @@ def make_loader(arrays: Batch, global_batch: int, *, prefetch: int = 0,
     batches an uninterrupted run would have."""
     loader = ShardedLoader(arrays, global_batch, **kw)
     it = _fast_forward(loader, iter(loader), start_step)
+    # the 'loader.next' fault seam (runtime/faults.py): the iterator
+    # itself when no fault registry is installed
+    it = faults.guard_iterator(it)
     return PrefetchIterator(it, prefetch) if prefetch > 0 else it
 
 

@@ -1,8 +1,8 @@
-"""Request-scoped tracing: the span API and a bounded ring-buffer
-recorder (an adapted copy of the part of
+"""Request-scoped tracing: the span API, a bounded ring-buffer recorder
+and its Chrome/Perfetto export (an adapted copy of the part of
 ``distributed_tensorflow_example_tpu/obs/trace.py`` the generation engine
-calls; the Perfetto export, trace contexts and the ``/trace/*`` routes
-arrive with the HTTP/observability slice).
+and the trainer call; trace contexts and the ``/trace/*`` routes arrive
+with the HTTP/observability slice).
 
 - :func:`span` — ``with span("prefill", lane="slot0", request_id=rid):``
   records one complete event into the process recorder. When tracing is
@@ -11,7 +11,9 @@ arrive with the HTTP/observability slice).
 - :func:`add_span` — a retroactive span with explicit
   ``time.perf_counter()`` stamps (queue-wait is only known at admission).
 - :class:`TraceRecorder` — a bounded ring (oldest events drop first;
-  ``events_dropped`` counts them) of (process, lane, name, t0, t1, args).
+  ``events_dropped`` counts them) of (process, lane, name, t0, t1, args);
+  :meth:`TraceRecorder.to_chrome` dumps it as trace-event JSON through
+  :class:`ChromeTraceWriter` (lanes become threads).
 """
 
 from __future__ import annotations
@@ -19,6 +21,53 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from typing import Any
+
+
+class ChromeTraceWriter:
+    """Builds a chrome://tracing / Perfetto trace-event JSON dict: name
+    processes and threads with :meth:`pid` / :meth:`tid` (one metadata
+    event per name), one :meth:`complete` per "X" event, then
+    :meth:`to_dict`."""
+
+    def __init__(self):
+        self.events: list[dict[str, Any]] = []
+        self._pids: dict[str, int] = {}
+        self._tids: dict[tuple[int, str], int] = {}
+
+    def pid(self, process_name: str) -> int:
+        p = self._pids.get(process_name)
+        if p is None:
+            p = len(self._pids) + 1
+            self._pids[process_name] = p
+            self.events.append({"ph": "M", "pid": p,
+                                "name": "process_name",
+                                "args": {"name": process_name}})
+        return p
+
+    def tid(self, pid: int, thread_name: str) -> int:
+        key = (pid, thread_name)
+        t = self._tids.get(key)
+        if t is None:
+            t = sum(1 for (p, _) in self._tids if p == pid) + 1
+            self._tids[key] = t
+            self.events.append({"ph": "M", "pid": pid, "tid": t,
+                                "name": "thread_name",
+                                "args": {"name": thread_name}})
+        return t
+
+    def complete(self, *, pid: int, tid: int, name: str, ts_us: float,
+                 dur_us: float, args: dict | None = None) -> None:
+        ev: dict[str, Any] = {"ph": "X", "pid": pid, "tid": tid,
+                              "name": name, "ts": ts_us,
+                              # Perfetto drops true-zero durations
+                              "dur": max(dur_us, 0.001)}
+        if args:
+            ev["args"] = args
+        self.events.append(ev)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"traceEvents": self.events, "displayTimeUnit": "ms"}
 
 
 class TraceRecorder:
@@ -76,6 +125,25 @@ class TraceRecorder:
                 self._buf.extend(keep)
         return sorted(items, key=lambda it: it[3])
 
+    def to_chrome(self) -> dict[str, Any]:
+        """The ring's spans as trace-event JSON, sorted by start time
+        (callable while armed), with the drop count in ``metadata``."""
+        with self._lock:
+            items = sorted(self._buf, key=lambda it: it[3])
+            t0 = self._t0
+            dropped = self.events_dropped
+        w = ChromeTraceWriter()
+        for process, lane, name, s, e, args in items:
+            pid = w.pid(process)
+            tid = w.tid(pid, lane)
+            w.complete(pid=pid, tid=tid, name=name,
+                       ts_us=(s - t0) * 1e6, dur_us=(e - s) * 1e6,
+                       args=args)
+        out = w.to_dict()
+        out["metadata"] = {"events_dropped": dropped,
+                           "max_events": self.max_events}
+        return out
+
 
 class _NoopSpan:
     """The disabled fast path: one shared instance, enter/exit do
@@ -120,6 +188,15 @@ _recorder = TraceRecorder()
 
 
 def recorder() -> TraceRecorder:
+    return _recorder
+
+
+def ensure_capacity(max_events: int) -> TraceRecorder:
+    """The process recorder, replaced by one of ``max_events`` unless a
+    capture is armed (its owner's spans must not be discarded)."""
+    global _recorder
+    if _recorder.max_events != max_events and not _recorder.enabled:
+        _recorder = TraceRecorder(max_events)
     return _recorder
 
 

@@ -161,17 +161,28 @@ def broadcast_(tensors: list[torch.Tensor]) -> None:
         dist.broadcast(t, src=0)
 
 
+def _broadcast_scalar(value, dtype: torch.dtype):
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([value], dtype=dtype, device=device)
+    dist.broadcast(t, src=0)
+    return t.item()
+
+
 def broadcast_int(value: int | None) -> int | None:
     """Rank 0's ``value`` (an int >= 0 or None) on every rank."""
     if process_count() == 1:
         return value
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if dist.get_backend() == "nccl" else torch.device("cpu"))
-    t = torch.tensor([-1 if value is None else int(value)],
-                     dtype=torch.int64, device=device)
-    dist.broadcast(t, src=0)
-    got = int(t.item())
+    got = int(_broadcast_scalar(-1 if value is None else int(value),
+                                torch.int64))
     return None if got < 0 else got
+
+
+def broadcast_float(value: float) -> float:
+    """Rank 0's ``value`` (NaN included) on every rank, as f64."""
+    if process_count() == 1:
+        return float(value)
+    return float(_broadcast_scalar(float(value), torch.float64))
 
 
 class _MeanOverRanks(torch.autograd.Function):

@@ -7,7 +7,7 @@ A worker's constructor brings up the ``torch.distributed`` process group through
 rendezvous; one worker initializes nothing. A ``ps`` task's ``join()``
 logs the no-PS notice and returns, so the reference's ``if job_name ==
 "ps": server.join()`` pattern exits 0; a worker has nothing to join. The
-profiler service (``profiler_port``) arrives with slice A3c-4.
+profiler service (``profiler_port``) arrives with slice A3c-4b.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ class Server:
         if profiler_port:
             raise NotImplementedError("the profiler service "
                                       "(--profiler_port) arrives with "
-                                      "slice A3c-4")
+                                      "slice A3c-4b")
         self.role = resolve_legacy_role(self.cluster, job_name, task_index)
         self._context: distributed.DistributedContext | None = None
         if self.role.should_run:

@@ -2,8 +2,10 @@
 copy of ``distributed_tensorflow_example_tpu/train/hooks.py``):
 :class:`StopAtStepHook`, :class:`LoggingHook`, :class:`StepCounterHook`,
 :class:`CheckpointSaverHook` (step- and time-based),
-:class:`AnomalyPolicyHook` (halt and skip), :class:`NanHook` and
-:class:`PreemptionHook` (SIGTERM: save, then exit).
+:class:`AnomalyPolicyHook` (halt, skip and rollback), :class:`NanHook`,
+:class:`SummaryHook`, :class:`ParamHistogramHook`,
+:class:`StepTimingHook`, :class:`ProfilerHook` (``torch.profiler``
+Chrome traces) and :class:`PreemptionHook` (SIGTERM: save, then exit).
 
 Every rank runs the hooks; their side effects are the chief's (rank 0),
 as in the reference: it alone logs the metrics and the rates, and the
@@ -11,17 +13,18 @@ checkpoint manager has it alone write. ``after_step`` may return True to
 ask for a stop. Hooks that need metric values declare ``every_steps``;
 the trainer reads the device metrics to the host only on steps where
 some hook wants them, so the other steps queue without a host sync. The
-summary, histogram, profiler, step-timing and global-step-waiter hooks
-arrive with slice A3c-4.
+global-step waiter (a no-op under sync training) is not ported.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import time
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..ckpt.checkpoint import CheckpointManager
 from ..obs.trace import span
@@ -151,32 +154,33 @@ class CheckpointSaverHook(Hook):
         if step != trainer.start_step and self._last_saved_step != step:
             self._save(trainer, step)
             self._last_saved_step = step
+        self.manager.wait()        # async writes land before the run ends
 
 
 class AnomalyPolicyHook(Hook):
-    """The ``on_anomaly`` policy: ``halt`` or ``skip``.
+    """The ``on_anomaly`` policy: ``halt``, ``skip`` or ``rollback``.
 
     Detection is on the device (the sync step keeps a cumulative
     ``anomaly_count`` in the state and applies the identity update on a
     non-finite step), so this hook adds no host sync: it reads the count
     at the metrics cadence the LoggingHook already pays. ``halt`` stops
     the run on a new anomaly; ``skip`` keeps training until more than
-    ``max_anomalies`` anomalous steps were seen in this run. Rollback
-    arrives with slice A3c-4.
+    ``max_anomalies`` anomalous steps were seen in this run; ``rollback``
+    (same budget) asks the trainer to restore the last verified
+    checkpoint at or before the last step known clean and replay, so the
+    anomalous window is redone rather than kept with its skipped updates.
     """
 
     def __init__(self, policy: str, max_anomalies: int,
                  every_steps: int = 100):
-        if policy == "rollback":
-            raise NotImplementedError("anomaly policy 'rollback' arrives "
-                                      "with slice A3c-4")
-        if policy not in ("halt", "skip"):
+        if policy not in ("halt", "skip", "rollback"):
             raise ValueError(f"unknown anomaly policy {policy!r}")
         self.policy = policy
         self.max_anomalies = max_anomalies
         self.every_steps = max(1, every_steps)
         self.observed = 0       # device-counter watermark (cumulative)
         self.baseline = 0       # counter value when this run began
+        self.last_clean_step = 0
 
     def begin(self, trainer):
         # the budget covers this run: anomalies a restored checkpoint
@@ -184,6 +188,7 @@ class AnomalyPolicyHook(Hook):
         self.observed = self.baseline = (
             int(trainer.state.anomaly_count)
             if trainer.state is not None else 0)
+        self.last_clean_step = int(getattr(trainer, "start_step", 0) or 0)
 
     def _summary(self, step: int, total: int) -> str:
         return (f"anomaly policy {self.policy!r}: {total} anomalous "
@@ -200,6 +205,9 @@ class AnomalyPolicyHook(Hook):
         if reg is not None:
             reg.gauge("train_anomaly_count").set(count)
         if count <= self.observed:
+            # every step up to here is finite: a rollback must not land
+            # past this point
+            self.last_clean_step = step
             return
         self.observed = count
         total = count - self.baseline
@@ -211,8 +219,16 @@ class AnomalyPolicyHook(Hook):
             log.error("%s Budget --max_anomalies=%d EXCEEDED — halting.",
                       self._summary(step, total), self.max_anomalies)
             return True
-        log.warning("%s Continuing (%d/%d of the anomaly budget spent).",
-                    self._summary(step, total), total, self.max_anomalies)
+        if self.policy == "skip":
+            log.warning("%s Continuing (%d/%d of the anomaly budget "
+                        "spent).", self._summary(step, total), total,
+                        self.max_anomalies)
+            return
+        log.warning("%s Requesting rollback to the last verified "
+                    "checkpoint at or before clean step %d (%d/%d of the "
+                    "anomaly budget spent).", self._summary(step, total),
+                    self.last_clean_step, total, self.max_anomalies)
+        trainer.request_rollback(before_step=self.last_clean_step)
 
 
 class NanHook(Hook):
@@ -225,6 +241,147 @@ class NanHook(Hook):
         loss = (metrics or {}).get("loss")
         if loss is not None and not np.isfinite(loss):
             raise FloatingPointError(f"non-finite loss {loss} at step {step}")
+
+
+class SummaryHook(Hook):
+    """Write the step's scalar metrics to the metrics sinks (JSONL and
+    TensorBoard) every N steps (SummarySaverHook parity). The logger
+    belongs to its creator."""
+
+    def __init__(self, metrics_logger: MetricsLogger, every_steps: int = 100):
+        self.metrics_logger = metrics_logger
+        self.every_steps = every_steps
+
+    def after_step(self, trainer, step, metrics):
+        if metrics is None or not self.wants_metrics(step):
+            return
+        self.metrics_logger.log({"step": step, **metrics})
+
+
+class ParamHistogramHook(Hook):
+    """Parameter histograms every N steps (``tf.summary.histogram`` on the
+    trainable variables): summary stats to the JSONL, HistogramProtos to
+    TensorBoard. Rank 0 logs: every rank holds the same replica."""
+
+    def __init__(self, metrics_logger: MetricsLogger, every_steps: int):
+        self.metrics_logger = metrics_logger
+        self.every_steps = every_steps
+
+    def wants_metrics(self, step: int) -> bool:
+        return False          # reads trainer.state, never step metrics
+
+    def after_step(self, trainer, step, metrics):
+        if self.every_steps <= 0 or step % self.every_steps \
+                or not _is_chief():
+            return
+        from ..utils.pytree import flatten_dict
+        for key, leaf in flatten_dict(trainer.state.params).items():
+            self.metrics_logger.log_histogram(
+                step, "params/" + key,
+                leaf.detach().float().cpu().numpy())
+
+
+class StepTimingHook(Hook):
+    """Per-dispatch times (the WorkerCacheLogger analogue): the Trainer
+    times each step from its call to a ``torch.cuda.synchronize`` of the
+    device (``last_dispatch_ms``), and every ``every_steps`` dispatches
+    this hook writes their percentiles to the metrics JSONL. The first
+    dispatch (cold caches, allocator growth) is kept out of the stats
+    and reported as ``first_dispatch_ms``. Syncing every step drains the
+    dispatch queue: opt-in via ``--step_timing``."""
+
+    def __init__(self, metrics_logger: MetricsLogger | None,
+                 every_steps: int = 100):
+        self.every_steps = every_steps
+        self.metrics_logger = metrics_logger
+        self._times_ms: list[float] = []
+        self._first_ms: float | None = None
+        self.last_record: dict | None = None
+
+    def after_step(self, trainer, step, metrics):
+        dt_ms = getattr(trainer, "last_dispatch_ms", None)
+        if dt_ms is None:
+            return
+        if self._first_ms is None:
+            self._first_ms = dt_ms
+            return
+        self._times_ms.append(dt_ms)
+        if len(self._times_ms) >= max(1, self.every_steps):
+            self._emit(step)
+
+    def _emit(self, step: int) -> None:
+        if not self._times_ms:
+            return
+        arr = np.asarray(self._times_ms)
+        rec: dict[str, Any] = {"step": step, "step_timing_ms": {
+            "n": int(arr.size),
+            "steps_per_dispatch": 1,
+            "mean": float(arr.mean()),
+            "p50": float(np.percentile(arr, 50)),
+            "p90": float(np.percentile(arr, 90)),
+            "p99": float(np.percentile(arr, 99)),
+            "max": float(arr.max()),
+            "first_dispatch_ms": float(self._first_ms),
+        }}
+        self.last_record = rec
+        self._times_ms.clear()
+        if _is_chief():
+            log.info("step %d: dispatch p50=%.3fms p99=%.3fms (n=%d)",
+                     step, rec["step_timing_ms"]["p50"],
+                     rec["step_timing_ms"]["p99"], arr.size)
+            if self.metrics_logger:
+                self.metrics_logger.log(rec)
+
+    def end(self, trainer):
+        # flush the residue, so a short run still yields a record
+        self._emit(int(trainer.state.step))
+
+    def wants_metrics(self, step):
+        return False
+
+
+class ProfilerHook(Hook):
+    """A ``torch.profiler`` trace of steps (start, stop] (the profiler
+    starts after step ``start`` and stops after step ``stop``), written
+    by rank 0 into ``profile_dir`` as Chrome trace JSON
+    (``trace-steps-<start>-<stop>.json``)."""
+
+    def __init__(self, profile_dir: str, start_step: int, stop_step: int):
+        self.profile_dir = profile_dir
+        self.start_step = start_step
+        self.stop_step = stop_step
+        self._prof = None
+
+    def _stop(self) -> None:
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(
+            self.profile_dir,
+            f"trace-steps-{self.start_step}-{self.stop_step}.json")
+        prof.export_chrome_trace(path)
+        log.info("profiler trace: %s", path)
+
+    def after_step(self, trainer, step, metrics):
+        if not _is_chief():
+            return
+        if self._prof is None and self.start_step <= step < self.stop_step:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if trainer.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+        elif self._prof is not None and step >= self.stop_step:
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+            self._stop()
+
+    def end(self, trainer):
+        if self._prof is not None:
+            self._stop()
+
+    def wants_metrics(self, step):
+        return False
 
 
 class PreemptionHook(Hook):

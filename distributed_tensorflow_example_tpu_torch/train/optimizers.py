@@ -26,10 +26,11 @@ can keep a state unchanged with ``torch.where`` (the sync step's
 anomaly guard). Schedules are functions of a step count (an int32
 tensor, or anything ``torch.as_tensor`` takes) returning an f32 tensor.
 
-Ported: sgd, momentum, adam, adamw, lars and lamb, the eight decay
-schedules with linear warmup, the global-norm and elementwise clips and
-the weight-decay mask. adafactor arrives with slice A3c-3b, bf16 moments
-and the parameter EMA with slice A5b: they raise.
+Ported: sgd, momentum, adam, adamw, lars, lamb and adafactor (optax's
+chain: factored second moments, block-RMS clip, parameter-RMS scaling,
+an optional momentum average), the eight decay schedules with linear
+warmup, the global-norm and elementwise clips and the weight-decay mask.
+bf16 moments and the parameter EMA arrive with slice A5b: they raise.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import OptimizerConfig
@@ -199,13 +201,17 @@ def trace(decay: float) -> Transform:
     return Transform(init, update)
 
 
-def scale_by_learning_rate(schedule: Schedule) -> Transform:
-    """``-lr(count) u``; the count is the updates applied before."""
+def scale_by_learning_rate(schedule: Schedule,
+                           flip_sign: bool = True) -> Transform:
+    """``-lr(count) u`` (``lr(count) u`` without ``flip_sign``); the count
+    is the updates applied before."""
+    m = -1 if flip_sign else 1
+
     def init(params):
         return {"count": _count(params)}
 
     def update(updates, state, params=None):
-        step_size = -1 * schedule(state["count"])
+        step_size = m * schedule(state["count"])
         out = [step_size.to(g.dtype) * g for g in updates]
         return out, {"count": _safe_increment(state["count"])}
 
@@ -249,6 +255,164 @@ def lars(schedule: Schedule, weight_decay: float = 0.0, mask=None,
     return chain(add_decayed_weights(weight_decay, mask),
                  masked(scale_by_trust_ratio(trust_coefficient), mask),
                  scale_by_learning_rate(schedule), trace(momentum))
+
+
+#: optax adafactor's defaults: a leaf factors when its second-largest
+#: axis is at least this long
+MIN_DIM_SIZE_TO_FACTOR = 128
+#: the factored moments' decay is ``1 - (count + 1)^-FACTORED_DECAY_RATE``
+FACTORED_DECAY_RATE = 0.8
+#: added to ``g^2`` (not to the RMS)
+FACTORED_EPSILON = 1e-30
+#: the floor of each parameter's RMS in ``scale_by_param_block_rms``
+PARAM_SCALE_FLOOR = 1e-3
+
+
+def _factored_dims(shape) -> tuple[int, int] | None:
+    """optax's rule: the two largest axes (numpy's argsort order), when
+    the second largest is at least ``MIN_DIM_SIZE_TO_FACTOR``."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _ema_f32(old: torch.Tensor, new: torch.Tensor,
+             decay: torch.Tensor) -> torch.Tensor:
+    """``decay old + (1 - decay) new`` with an f32 decay, cast back to
+    ``old``'s dtype (optax's promotion)."""
+    return (decay * old.float() + (1.0 - decay) * new.float()).to(old.dtype)
+
+
+def scale_by_factored_rms() -> Transform:
+    """optax's ``scale_by_factored_rms``: a leaf whose two largest axes
+    ``d1 <= d0`` factor keeps a row statistic (``g^2 + eps`` averaged over
+    ``d0``) and a column statistic (over ``d1``), each a decaying mean
+    with rate ``1 - (count + 1)^-FACTORED_DECAY_RATE``; the update is ``g`` over
+    their rank-1 estimate of the RMS. Other leaves keep the full ``v``.
+    Each leaf holds all three slots, the unused ones as ``[1]`` zeros,
+    so the state's keys are the reference's."""
+
+    def init(params):
+        st = {"count": _count(params), "v_row": [], "v_col": [], "v": []}
+        for p in params:
+            dims = _factored_dims(tuple(p.shape))
+            one = p.new_zeros((1,))
+            if dims is None:
+                st["v_row"].append(one)
+                st["v_col"].append(one.clone())
+                st["v"].append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                st["v_row"].append(p.new_zeros(
+                    shape[:d0] + shape[d0 + 1:]))
+                st["v_col"].append(p.new_zeros(
+                    shape[:d1] + shape[d1 + 1:]))
+                st["v"].append(one)
+        return st
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_factored_rms needs params in update")
+        t = (state["count"] + 1).float()
+        decay = 1.0 - t ** (-FACTORED_DECAY_RATE)
+        out, v_row, v_col, v = [], [], [], []
+        for g, vr, vc, vf, p in zip(updates, state["v_row"],
+                                    state["v_col"], state["v"], params):
+            dims = _factored_dims(tuple(p.shape))
+            grad_sqr = g * g + FACTORED_EPSILON
+            if dims is None:
+                new_v = _ema_f32(vf, grad_sqr, decay)
+                out.append(g * new_v ** -0.5)
+                v_row.append(vr)
+                v_col.append(vc)
+                v.append(new_v)
+                continue
+            d1, d0 = dims
+            new_vr = _ema_f32(vr, grad_sqr.mean(dim=d0), decay)
+            new_vc = _ema_f32(vc, grad_sqr.mean(dim=d1), decay)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = new_vr.mean(dim=reduced_d1, keepdim=True)
+            row_factor = (new_vr / row_col_mean) ** -0.5
+            col_factor = new_vc ** -0.5
+            out.append(g * row_factor.unsqueeze(d0)
+                       * col_factor.unsqueeze(d1))
+            v_row.append(new_vr)
+            v_col.append(new_vc)
+            v.append(vf)
+        return out, {"count": _safe_increment(state["count"]),
+                     "v_row": v_row, "v_col": v_col, "v": v}
+
+    return Transform(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> Transform:
+    """Each leaf over ``max(1, rms(u) / threshold)``."""
+    def fn(updates, params):
+        return [u / torch.clamp_min(torch.sqrt(torch.mean(u * u))
+                                    / threshold, 1.0) for u in updates]
+    return _stateless(fn)
+
+
+def scale_by_param_block_rms() -> Transform:
+    """Each leaf times its parameter's RMS, floored at
+    ``PARAM_SCALE_FLOOR``."""
+    def fn(updates, params):
+        if params is None:
+            raise ValueError("scale_by_param_block_rms needs params")
+        out = []
+        for u, p in zip(updates, params):
+            rms = torch.sqrt(torch.mean(p * p))
+            out.append(u * torch.where(
+                rms <= PARAM_SCALE_FLOOR,
+                torch.full_like(rms, PARAM_SCALE_FLOOR), rms))
+        return out
+    return _stateless(fn)
+
+
+def ema(decay: float) -> Transform:
+    """optax's ``ema`` without debiasing: ``(1 - decay) u + decay e``, the
+    update is the new average (f32 accumulators)."""
+    def init(params):
+        return {"count": _count(params),
+                "ema": [torch.zeros_like(p, dtype=torch.float32)
+                        for p in params]}
+
+    def update(updates, state, params=None):
+        new = [(1 - decay) * g + decay * e
+               for g, e in zip(updates, state["ema"])]
+        return new, {"count": _safe_increment(state["count"]),
+                     "ema": [x.float() for x in new]}
+
+    return Transform(init, update)
+
+
+def scale(step_size: float) -> Transform:
+    return _stateless(lambda updates, params: [step_size * u
+                                               for u in updates])
+
+
+def adafactor(schedule: Schedule, momentum: float | None = None,
+              weight_decay_rate: float | None = None, mask=None
+              ) -> Transform:
+    """optax's adafactor at its defaults: factored RMS scaling -> block
+    RMS clip at 1 -> the learning rate (no sign flip) -> times each
+    parameter's RMS -> the momentum average (when ``momentum``) -> the
+    decayed weights (a constant per-step rate, not scaled by the
+    schedule) -> ``scale(-1)``."""
+    parts = [scale_by_factored_rms(),
+             clip_by_block_rms(1.0),
+             scale_by_learning_rate(schedule, flip_sign=False),
+             scale_by_param_block_rms()]
+    if momentum is not None:
+        parts.append(ema(momentum))
+    if weight_decay_rate is not None:
+        parts.append(add_decayed_weights(weight_decay_rate, mask))
+    parts.append(scale(-1))
+    return chain(*parts)
 
 
 # ---------------------------------------------------------------------------
@@ -439,11 +603,14 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
     elif name == "lamb":
         parts.append(lamb(sched, cfg.weight_decay, mask))
     elif name == "adafactor":
-        raise NotImplementedError("optimizer 'adafactor' arrives with slice "
-                                  "A3c-3b; the port has sgd, momentum, adam, "
-                                  "adamw, lars and lamb")
+        # the weight decay here is adafactor's constant per-step rate,
+        # not scaled by the schedule as adamw's is
+        parts.append(adafactor(
+            sched, momentum=cfg.momentum if cfg.momentum > 0 else None,
+            weight_decay_rate=cfg.weight_decay or None, mask=mask))
     else:
         raise ValueError(f"unknown optimizer {cfg.name!r}")
-    if cfg.weight_decay > 0 and name not in ("adamw", "lars", "lamb"):
+    if cfg.weight_decay > 0 and name not in ("adamw", "lars", "lamb",
+                                             "adafactor"):
         parts.insert(-1, add_decayed_weights(cfg.weight_decay, mask))
     return chain(*parts)

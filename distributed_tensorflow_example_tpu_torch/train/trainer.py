@@ -11,16 +11,30 @@ Under N ranks of a ``torch.distributed`` group each rank takes its slice
 of every global batch (the loader's ``process_index``/``num_processes``)
 and the sync step all-reduces the gradients. The loop queues steps
 without a host sync: device metrics are read to the host only on steps
-where some hook asks (``wants_metrics``). ``steps_per_loop > 1`` arrives
-with slice A3c-2b, sharded mesh axes with A6 and rollback with A3c-4,
-and raise; early stop, best-checkpoint tracking, warm start and the
-summary, histogram, profiler, step-timing and trace sinks have no config
-field in the port yet.
+where some hook asks (``wants_metrics``).
+
+The self-healing path is the reference's: a ``fault_spec`` arms the
+injection seams (``runtime/faults.py``) for the Trainer's life, a
+``step.*`` fault poisons the host batch of its global step, and
+``on_anomaly="rollback"`` restores the last verified checkpoint at or
+before the last clean step, keeps the anomaly count, discards the
+rejected checkpoints and fast-forwards the loader to the restored step.
+Dropout draws from generators seeded by the state's seed and the step,
+so a replayed window draws the same masks. An eval cadence feeds the
+best-checkpoint record (``keep_best_metric``) and early stop (its state
+in ``early_stop.json`` beside the checkpoints, rank 0's verdict on every
+rank). ``step_timing`` times each step to a device sync;
+``trace_path`` dumps the data, step, checkpoint and rollback lanes as
+Chrome trace JSON. ``steps_per_loop > 1`` arrives with slice A3c-2b and
+sharded mesh axes with A6, and raise; warm start arrives with A5b.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
 import sys
 import time
 from typing import Any, Iterator
@@ -28,13 +42,15 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
-from ..ckpt.checkpoint import CheckpointManager, restore_or_init
+from ..ckpt.checkpoint import (CheckpointManager, _agreed_latest_step,
+                               restore_or_init)
 from ..config import MeshShape, TrainConfig, anomaly_settings
 from ..data.loader import make_loader
+from ..obs import trace as obs_trace
 from ..obs.registry import Registry
-from ..obs.trace import add_span
+from ..obs.trace import add_span, span
 from ..parallel.sync_replicas import SyncReplicas
-from ..runtime import distributed
+from ..runtime import distributed, faults
 from ..runtime.device import resolve_device
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsLogger
@@ -66,7 +82,7 @@ def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
     if config.steps_per_loop > 1:
         raise NotImplementedError("steps_per_loop > 1 arrives with slice "
                                   "A3c-2b")
-    anomaly_settings(config)          # rollback raises there
+    anomaly_settings(config)
 
 
 class Trainer:
@@ -107,6 +123,9 @@ class Trainer:
         self.train_transform = train_transform
         self.tx = make_optimizer(config.optimizer)
         self._schedule = make_schedule(config.optimizer)
+        self._rollback_pending = False
+        self._rollback_before: int | None = None
+        self._faults_installed = False
         self.sync = SyncReplicas(model.loss, self.tx, config.mesh,
                                  sync=config.sync,
                                  anomaly_policy=config.on_anomaly,
@@ -120,6 +139,9 @@ class Trainer:
             "train_steps_total", "optimizer steps completed")
         self._c_ckpt_saves = self.registry.counter(
             "train_checkpoints_saved_total", "checkpoint saves issued")
+        self._c_rollbacks = self.registry.counter(
+            "train_rollbacks_total",
+            "anomaly rollbacks performed (on_anomaly='rollback')")
         self._g_anomalies = self.registry.gauge(
             "train_anomaly_count",
             "cumulative on-device anomaly count (observed at the "
@@ -129,19 +151,51 @@ class Trainer:
             "host time blocked on the data loader per step")
         self._h_dispatch = self.registry.histogram(
             "train_dispatch_seconds",
-            "host time to enqueue one step (the device runs behind it)")
+            "host time to enqueue one step (device time only with "
+            "step_timing)")
 
         ck = config.checkpoint
         self.ckpt_manager = (
             CheckpointManager(ck.directory, max_to_keep=ck.max_to_keep,
                               keep_every_n_hours=(
-                                  ck.keep_checkpoint_every_n_hours))
+                                  ck.keep_checkpoint_every_n_hours),
+                              async_save=ck.async_save)
             if ck.directory else None)
         self.metrics_logger = MetricsLogger(config.obs.metrics_path,
+                                            tb_logdir=config.obs.tb_logdir,
                                             registry=self.registry)
         self.state: TrainState | None = None
         self.start_step = 0
+        self.last_dispatch_ms: float | None = None
         self.hooks = self._default_hooks() + list(hooks or [])
+
+        if config.early_stop_metric:
+            if self.eval_arrays is None or not config.eval_every_steps:
+                raise ValueError(
+                    "early_stop_metric needs eval data AND "
+                    "eval_every_steps > 0 (improvement is judged at the "
+                    "eval cadence)")
+            if config.early_stop_mode not in ("max", "min"):
+                raise ValueError("early_stop_mode must be max|min, got "
+                                 f"{config.early_stop_mode!r}")
+            if config.early_stop_patience < 1:
+                raise ValueError("early_stop_patience must be >= 1")
+        self._early_best: float | None = None
+        self._early_misses = 0
+        self._last_eval: tuple[int, dict] | None = None
+        if ck.keep_best_metric and (self.eval_arrays is None
+                                    or self.ckpt_manager is None):
+            raise ValueError(
+                "keep_best_metric needs eval data and a checkpoint "
+                "directory (missing: "
+                + ("eval data" if self.eval_arrays is None
+                   else "checkpoint.directory") + ")")
+        # the fault spec arms the injection seams process-wide until
+        # close(), once nothing above can refuse the config
+        if config.fault_spec:
+            faults.install(faults.parse_spec(config.fault_spec,
+                                             seed=config.seed))
+            self._faults_installed = True
 
     # ------------------------------------------------------------------
     def _default_hooks(self) -> list[hooks_lib.Hook]:
@@ -163,14 +217,27 @@ class Trainer:
         if every:
             hs.append(hooks_lib.AnomalyPolicyHook(
                 cfg.on_anomaly, cfg.max_anomalies, every_steps=every))
+        if cfg.obs.summary_every_steps:
+            hs.append(hooks_lib.SummaryHook(self.metrics_logger,
+                                            cfg.obs.summary_every_steps))
+        if cfg.obs.param_histograms_every_steps:
+            hs.append(hooks_lib.ParamHistogramHook(
+                self.metrics_logger,
+                cfg.obs.param_histograms_every_steps))
         if cfg.obs.check_nans:
             hs.append(hooks_lib.NanHook())
+        if cfg.obs.step_timing:
+            hs.append(hooks_lib.StepTimingHook(self.metrics_logger,
+                                               cfg.obs.log_every_steps))
         if self.ckpt_manager and (cfg.checkpoint.save_steps
                                   or cfg.checkpoint.save_secs):
             hs.append(hooks_lib.CheckpointSaverHook(
                 self.ckpt_manager, save_steps=cfg.checkpoint.save_steps,
                 save_secs=cfg.checkpoint.save_secs))
             hs.append(hooks_lib.PreemptionHook())
+        if cfg.obs.profile_steps and cfg.obs.profile_dir:
+            hs.append(hooks_lib.ProfilerHook(cfg.obs.profile_dir,
+                                             *cfg.obs.profile_steps))
         return hs
 
     def learning_rate_at(self, step: int) -> float:
@@ -188,6 +255,8 @@ class Trainer:
         self.start_step = int(state.step)
         if restored:
             log.info("restored checkpoint at step %d", self.start_step)
+            if self.config.early_stop_metric:
+                self._early_stop_load()   # patience survives preemption
         else:
             log.info("initialized fresh state: %d params",
                      param_count(state.params))
@@ -224,7 +293,17 @@ class Trainer:
         stop = step >= self.config.train_steps
         device_metrics: dict | None = None
         t_start = time.perf_counter()
+        # step_timing: each step is timed from its call to a device sync
+        timing = self.config.obs.step_timing
+        cuda = self.device.type == "cuda"
+        self.last_dispatch_ms = None
+        self._rollback_pending = False
+        fault_reg = faults.active()
         loader = None
+        trace_path = self.config.obs.trace_path
+        if trace_path:
+            obs_trace.ensure_capacity(
+                self.config.obs.trace_buffer_events).start()
         try:
             # begin() inside the try: a failing begin still runs every
             # hook's end() (PreemptionHook restores signal handlers there)
@@ -238,6 +317,10 @@ class Trainer:
                 self._h_data_wait.observe(t_d1 - t_d0)
                 add_span("data_wait", t_d0, t_d1, process="training",
                          lane="data", step=step)
+                if fault_reg is not None:
+                    # step.* faults poison the host batch that produces
+                    # the matching global step; the step is untouched
+                    host_batch = fault_reg.poison_batch(host_batch, step + 1)
                 t_s0 = time.perf_counter()
                 state, device_metrics = self.sync.step(state, host_batch)
                 t_s1 = time.perf_counter()
@@ -245,6 +328,11 @@ class Trainer:
                 self._h_dispatch.observe(t_s1 - t_s0)
                 add_span("step_dispatch", t_s0, t_s1, process="training",
                          lane="step", step=step)
+                if timing:
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                    self.last_dispatch_ms = (time.perf_counter()
+                                             - t_s0) * 1e3
                 self._c_steps.inc()
                 self.state = state
 
@@ -256,6 +344,16 @@ class Trainer:
                     if h.after_step(self, step, host_metrics):
                         stop = True
 
+                if self._rollback_pending and not stop:
+                    rolled = self._perform_rollback(step, loader)
+                    if rolled is None:
+                        stop = True            # nothing valid to restore
+                    else:
+                        # this iteration's eval would measure the state
+                        # just discarded
+                        state, step, loader = rolled
+                        continue
+
                 if (self.config.eval_every_steps
                         and step % self.config.eval_every_steps == 0
                         and self.eval_arrays is not None):
@@ -263,7 +361,11 @@ class Trainer:
                     log.info("eval @ step %d: %s", step,
                              {k: round(v, 4) for k, v in ev.items()})
                     self.metrics_logger.log({"step": step, "eval": ev})
-            if self.device.type == "cuda":   # the last step has run
+                    self._maybe_save_best(state, step, ev)
+                    self._last_eval = (step, ev)
+                    if self._early_stop_hit(step, ev):
+                        stop = True
+            if cuda:                         # the last step has run
                 torch.cuda.synchronize(self.device)
             wall = time.perf_counter() - t_start
         finally:
@@ -281,6 +383,14 @@ class Trainer:
                     log.exception("hook %s end() failed", type(h).__name__)
                     if end_error is None:
                         end_error = e
+            if trace_path:
+                rec = obs_trace.recorder()
+                rec.stop()
+                if self.process_index == 0:
+                    with open(trace_path, "w") as f:
+                        json.dump(rec.to_chrome(), f)
+                    log.info("training trace: %s (%d spans)", trace_path,
+                             rec.spans_recorded)
             if end_error is not None and not in_flight:
                 raise end_error
 
@@ -293,13 +403,167 @@ class Trainer:
             summary["final_metrics"] = {k: float(v)
                                         for k, v in device_metrics.items()}
         if self.eval_arrays is not None:
-            summary["eval"] = self.evaluate(state)
+            if self._last_eval is not None and self._last_eval[0] == step:
+                # the loop just evaluated this step
+                summary["eval"] = self._last_eval[1]
+            else:
+                summary["eval"] = self.evaluate(state)
+                self._maybe_save_best(state, step, summary["eval"])
         return state, summary
 
     # ------------------------------------------------------------------
+    def request_rollback(self, before_step: int | None = None) -> None:
+        """Restore the last verified checkpoint at the next step boundary,
+        at or before ``before_step`` (the last step known clean), so the
+        replay redoes the anomalous window. Every rank observes the same
+        device-computed count at the same cadence, so every rank asks
+        together with the same cap."""
+        self._rollback_pending = True
+        self._rollback_before = before_step
+
+    def _perform_rollback(self, step: int, old_loader=None):
+        """Restore the newest verified checkpoint at or before the clean
+        step and fast-forward the data to it. Returns ``(state, step,
+        loader)``, or None when no verified checkpoint is in range."""
+        self._rollback_pending = False
+        with span("rollback", process="training", lane="rollback",
+                  at_step=step):
+            return self._perform_rollback_inner(step, old_loader)
+
+    def _perform_rollback_inner(self, step: int, old_loader=None):
+        if old_loader is not None and hasattr(old_loader, "close"):
+            old_loader.close()
+        before = self._rollback_before
+        mgr = self.ckpt_manager
+        mgr.wait()
+        # run accounting, not model state: the budget keeps charging
+        # across the restore, or a divergence loop would never spend it
+        pre_count = self.state.anomaly_count
+        if self.num_processes > 1:
+            target = _agreed_latest_step(mgr, max_step=before)
+            if target is None:
+                log.error("rollback requested at step %d but no verified "
+                          "checkpoint at or before clean step %s exists "
+                          "under %r — halting", step, before, mgr.directory)
+                return None
+            state = mgr.restore(self.state, step=target)
+        else:
+            try:
+                state = mgr.restore(self.state, step=None, max_step=before)
+            except FileNotFoundError as e:   # CorruptCheckpointError too
+                log.error("rollback requested at step %d but no verified "
+                          "checkpoint at or before clean step %s exists "
+                          "under %r (%s) — halting",
+                          step, before, mgr.directory, e)
+                return None
+            target = int(state.step)
+        state = state.replace(anomaly_count=pre_count)
+        self.state = state
+        # checkpoints newer than the target hold the rejected trajectory:
+        # a restart must not resume it
+        discarded = mgr.discard_steps_above(target)
+        if discarded:
+            log.warning("rollback: discarded rejected-trajectory "
+                        "checkpoint step(s) %s", discarded)
+        loader = self._loader(start_step=target)
+        self._c_rollbacks.inc()
+        log.warning("rollback: restored verified checkpoint step %d "
+                    "(training was at step %d); data stream "
+                    "fast-forwarded to match", target, step)
+        return state, target, loader
+
+    # early-stop progress survives preemption in a file beside the
+    # checkpoints (host-side floats, not state leaves)
+    def _early_stop_path(self) -> str | None:
+        d = self.config.checkpoint.directory
+        return os.path.join(d, "early_stop.json") if d else None
+
+    def _early_stop_save(self) -> None:
+        path = self._early_stop_path()
+        if path is None or self.process_index != 0:
+            return
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"best": self._early_best,
+                       "misses": self._early_misses}, f)
+        os.replace(tmp, path)
+
+    def _early_stop_load(self) -> None:
+        path = self._early_stop_path()
+        if path is None or not os.path.exists(path):
+            return
+        with open(path) as f:
+            st = json.load(f)
+        self._early_best = st.get("best")
+        self._early_misses = int(st.get("misses", 0))
+        log.info("early-stop state restored: best=%s misses=%d",
+                 self._early_best, self._early_misses)
+
+    def _early_stop_hit(self, step: int, ev: dict) -> bool:
+        """stop_if_no_decrease_hook parity: True once the tracked eval
+        metric has gone ``early_stop_patience`` evals without improving
+        (a NaN eval improves on nothing). Rank 0's value decides on
+        every rank."""
+        metric = self.config.early_stop_metric
+        if not metric:
+            return False
+        if metric not in ev:
+            raise ValueError(
+                f"early_stop_metric={metric!r} is not an eval metric "
+                f"(eval produced {sorted(ev)})")
+        value = distributed.broadcast_float(float(ev[metric]))
+        better = (not math.isnan(value)) and (
+            self._early_best is None
+            or (value > self._early_best
+                if self.config.early_stop_mode == "max"
+                else value < self._early_best))
+        if better:
+            self._early_best = value
+            self._early_misses = 0
+            self._early_stop_save()
+            return False
+        self._early_misses += 1
+        self._early_stop_save()
+        if self._early_misses >= self.config.early_stop_patience:
+            log.info("early stop at step %d: %s did not improve for %d "
+                     "evals (best %s)", step, metric,
+                     self._early_misses, self._early_best)
+            return True
+        return False
+
+    def _maybe_save_best(self, state: TrainState, step: int,
+                         ev: dict) -> None:
+        """BestExporter parity: track the best eval metric and keep its
+        checkpoint out of ring rotation."""
+        metric = self.config.checkpoint.keep_best_metric
+        if not metric or self.ckpt_manager is None:
+            return
+        if metric not in ev:
+            raise ValueError(
+                f"keep_best_metric={metric!r} is not an eval metric "
+                f"(eval produced {sorted(ev)})")
+        if self.ckpt_manager.save_best(
+                state, step, float(ev[metric]),
+                mode=self.config.checkpoint.keep_best_mode):
+            log.info("new best %s=%.6f at step %d", metric,
+                     float(ev[metric]), step)
+
+    # ------------------------------------------------------------------
     def close(self) -> None:
-        """Release the metrics file."""
-        self.metrics_logger.close()
+        """Release what the Trainer owns: the metrics sinks, an installed
+        fault registry and the checkpoint writer. A pending async-save
+        error surfaces from the checkpoint manager's close, after the
+        others are released."""
+        try:
+            self.metrics_logger.close()
+        finally:
+            try:
+                if self._faults_installed:
+                    faults.install(None)
+                    self._faults_installed = False
+            finally:
+                if self.ckpt_manager is not None:
+                    self.ckpt_manager.close()
 
     def __enter__(self) -> "Trainer":
         return self

@@ -385,16 +385,14 @@ def test_cli_bert_tiny_ring_resume_and_levers(tmp_path):
 
 
 @pytest.mark.parametrize("extra,frag", [
-    (["--optimizer", "adafactor"], "slice A3c-3b"),
     (["--lm_loss_chunk", "8"], "causal-LM knob"),
     (["--lm_loss_impl", "chunked"], "needs lm_loss_chunk"),
     (["--token_accuracy_every_n", "2"], "causal-LM knob"),
     (["--seq_len", "4096", "--model", "bert_tiny"], None),
 ])
 def test_cli_bert_refusals(tmp_path, extra, frag):
-    """What the port refuses for BERT, and where: adafactor names its
-    slice; the chunked head's chunk and the accuracy cadence are the
-    causal LM's (the reference's messages); a sequence past bert_tiny's
+    """What the port refuses for BERT, and where: the chunked head's
+    chunk and the accuracy cadence are the causal LM's (the reference's messages); a sequence past bert_tiny's
     positions grows its table (as the reference's factory does), so it
     trains."""
     argv = ["--model", "bert_tiny", "--device", "cpu", "--train_steps",

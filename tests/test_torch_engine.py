@@ -533,7 +533,7 @@ def test_decode_fault_heals_by_redispatch_and_spans_record(pair, dirs):
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("ckpt.write:step=1", "unknown fault site"),
+    ("router.probe:step=1", "unknown fault site"),
     ("engine.prefill", "exactly one trigger"),
     ("engine.prefill:step=0", "1-based"),
     ("engine.prefill:p=2", r"\(0, 1\]"),

@@ -62,12 +62,21 @@ ENGINE_MODULES = tuple(
     f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
         "obs.registry", "obs.trace", "runtime.faults", "serving_batch",
         "ops.cuda.paged_decode_attention"))
+#: the modules of the rest of training (adafactor, best checkpoints, async
+#: saves, rollback, the fault seams and the summary, timing, profiler and
+#: trace sinks), named likewise
+TRAINING_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "utils.tb_events", "utils.metrics", "ckpt.checkpoint",
+        "train.hooks", "train.trainer", "train.optimizers", "data.loader",
+        "cli.train"))
 
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
     assert set(ENGINE_MODULES) <= set(mods), mods
+    assert set(TRAINING_MODULES) <= set(mods), mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -178,10 +178,8 @@ def test_ring_keeps_max_to_keep_and_skips_corrupt_files(tmp_path):
     assert mgr.latest_valid_step() is None
     with pytest.raises(tckpt.CorruptCheckpointError, match="every"):
         mgr.restore(template)
-    with pytest.raises(NotImplementedError, match="A3c"):
-        tckpt.CheckpointManager(str(tmp_path), async_save=True)
-    with pytest.raises(NotImplementedError, match="A3c"):
-        mgr.save_best(state, 4, 1.0)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tckpt.CheckpointManager(str(tmp_path), sharded=True)
 
 
 def _jax_state(steps=2, seed=0):
@@ -439,29 +437,27 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 # model still to come, and ImageNet's readers and knobs name A5b. BERT,
 # lars/lamb, the fused and chunked LM heads and --remat train too
 # (tests/test_torch_bert.py): their rows name what stays refused around
-# them (a vocab.txt corpus, adafactor, the MoE and pipeline BERTs).
+# them (a vocab.txt corpus, the MoE and pipeline BERTs). adafactor, the
+# best checkpoint, async saves, early stop, --eval_only, rollback, fault
+# specs and the summary, TensorBoard, timing, profiler and trace sinks
+# train too (tests/test_torch_ckpt_best.py, test_torch_self_healing.py,
+# test_torch_eval_timing.py, test_torch_tb_events.py,
+# test_torch_adafactor.py; LIFTED below): of their slices only the debug
+# tools (A3c-4b) and sharded saves (A6) stay refused.
 LATER = [
     (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
     (["--model", "bert_tiny", "--data_dir", "VOCAB"], "A5b"),
     (["--model", "moe_bert_tiny"], "A5b"),
     (["--model", "pipe_bert_tiny"], "A6"),
-    (["--optimizer", "adafactor"], "A3c-3b"),
     (["--model", "moe_bert"], "A5b"),
     (["--steps_per_loop", "2"], "A3c-2b"),
     (["--mesh", "data=2"], "A6"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
     (["--model", "pipe_moe_bert_tiny"], "A6"),
-    (["--async_save"], "A3c-4"),
-    (["--sharded_save"], "A3c-4"),
-    (["--keep_best_metric", "loss"], "A3c-4"),
-    (["--early_stop_metric", "loss"], "A3c-4"),
-    (["--summary_every_steps", "5"], "A3c-4"),
-    (["--tb_logdir", "tb"], "A3c-4"),
-    (["--step_timing"], "A3c-4"),
-    (["--eval_only", "--ckpt_dir", "CKPT"], "A3c-4"),
-    (["--fault_spec", "ckpt.write:step=1"], "A3c-4"),
-    (["--ckpt_dir", "CKPT", "--save_steps", "1", "--on_anomaly",
-      "rollback"], "A3c-4"),
+    (["--sharded_save"], "A6"),
+    (["--debug_checks"], "A3c-4b"),
+    (["--debug_nans"], "A3c-4b"),
+    (["--profiler_port", "6006"], "A3c-4b"),
     (["--warm_start", "w"], "A5b"),
     (["--moment_dtype", "bfloat16"], "A5b"),
     (["--ema_decay", "0.9"], "A5b"),
@@ -496,6 +492,39 @@ def test_cli_refuses_a_later_slice_before_any_work(tmp_path, extra,
     with pytest.raises(SystemExit, match=f"slice {slice_}"):
         tcli.main(argv)
     assert not os.path.exists(ck)
+
+
+# every flag the rest-of-training slice (A3c-3b, A3c-4) ported
+LIFTED = [
+    ["--optimizer", "adafactor"],
+    ["--keep_best_metric", "loss"],
+    ["--async_save"],
+    ["--summary_every_steps", "5"],
+    ["--param_histograms_every_steps", "5"],
+    ["--tb_logdir", "tb"],
+    ["--early_stop_metric", "loss"],
+    ["--eval_only"],
+    ["--eval_step", "3"],
+    ["--eval_best"],
+    ["--on_anomaly", "rollback"],
+    ["--fault_spec", "ckpt.write:step=1"],
+    ["--profile_dir", "prof"],
+    ["--profile_steps", "2,4"],
+    ["--step_timing"],
+    ["--trace_path", "trace.json"],
+    ["--trace_buffer_events", "128"],
+]
+
+
+@pytest.mark.parametrize("extra", LIFTED,
+                         ids=lambda v: v[0].lstrip("-"))
+def test_cli_no_longer_refuses_a_lifted_flag(extra):
+    """A flag of the rest-of-training slice parses and sets no later-slice
+    refusal (each one trains in the test files named above LATER)."""
+    args = tcli.build_parser().parse_args(
+        ["--model", "gpt_tiny", "--device", "cpu"] + extra)
+    assert [what for what, on, _ in tcli._later_slice(args) if on] == []
+    tcli.refuse_later_slices(args)
 
 
 def test_cli_refuses_the_tile_levers_and_jax_key_impls(tmp_path):
