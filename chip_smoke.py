@@ -9,8 +9,10 @@ path; then it trains the source's MNIST MLP through the port's copy of
 the reference example and through the CLI, its convolutional models
 (LeNet, ResNet-20, ResNet-50) through the CLI, BERT's masked LM
 (BERT-base, bert_large, bert_tiny) on the flash kernels' non-causal
-path, and last the rest of GPT-small's training (adafactor, sync and
-async saves, rollback, the best checkpoint, the observability sinks).
+path, the rest of GPT-small's training (adafactor, sync and async
+saves, rollback, the best checkpoint, the observability sinks), and
+last GPT-small's speculative decoding, chunked prefill and SLO knobs
+over HTTP and training's debug tools.
 
     python3 chip_smoke.py
 
@@ -73,7 +75,18 @@ time; 40 steps with no, sync and async saves, each save step's host
 time and the steps inside the writes' window; rollback after a NaN step
 against an uninterrupted run, bitwise; ``--eval_only --eval_best``
 against the logged eval; the TensorBoard, summary, histogram,
-step-timing, profiler and trace sinks; launch counts each), a
+step-timing, profiler and trace sinks; launch counts each), the spec
+and chunk phase (GPT-small exported with ``spec_tokens=4`` and
+``prefill_chunk=128``: the verify step alone, B5 and B6 on 8 x 4 query
+rows against their plain versions, exact launches; 8 concurrent greedy
+requests over HTTP spec on against off: agreement, accept rate, tokens/s
+and ms per shared dispatch each way; a 512-token prompt admitted while 7
+slots decode, chunked against monolithic: the largest decode stall each
+way; spec on int8 pools; an infeasible ``deadline_ms`` answered 429),
+the debug-tools phase (GPT-small through ``cli/train.py``:
+``--debug_checks`` under a ``step.nan`` fault, its cost a step, the
+step's counted FLOPs beside the closed form, ``--debug_nans``, one
+``--profiler_port`` capture), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -3867,6 +3880,577 @@ def phase_train_rest(card: str) -> None:
         raise SystemExit("the train-rest phase failed: " + "; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# speculative verify, chunked prefill and the SLO knobs (slice A2c)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+CHUNK_TOKENS = 128
+#: the verify step's written K/V, kernel path against plain path, per
+#: (slot, layer) row of H*D values: layer 0's rows are bitwise equal (the
+#: same inputs); a deeper layer's come from hidden states that already
+#: went through the attention of the layers below it, where the kernel
+#: and the plain version round the bf16 probabilities differently (a
+#: couple of bf16 ulps of an output, DECODE_ROW_REL_TOL's reasoning), so
+#: the limit is a few ulps of the row's largest value
+VERIFY_KV_ROW_REL_TOL = 5e-2
+
+
+class _StallRecorder:
+    """Stands in for an engine's ``serving_decode_stall_seconds``
+    histogram: keeps every observed gap (the registry keeps only bucket
+    counts) and passes it on."""
+
+    def __init__(self, hist):
+        self.hist = hist
+        self.samples: list[float] = []
+
+    def observe(self, v: float) -> None:
+        self.samples.append(v)
+        self.hist.observe(v)
+
+
+def _repeating_prompts(rs, vocab: int) -> list:
+    """8 ragged prompts built of a short random pattern repeated, so that
+    prompt lookup finds n-grams to draft from."""
+    out = []
+    for _ in range(ENGINE_SLOTS):
+        pattern = rs.randint(0, vocab, (int(rs.randint(4, 33)),))
+        n = int(rs.randint(PROMPT_LEN // 4, PROMPT_LEN + 1))
+        out.append(np.resize(pattern, n).astype(np.int32))
+    return out
+
+
+def _verify_program(model, params, gen, card: str) -> None:
+    """(a) The verify step alone on 8 rows x 4 lanes (one row at width 2,
+    one at width 1) over pools of the engine's geometry: B5 (or B6 over
+    int8 pools) at the expanded shape, 32 query rows sharing 8 tables,
+    against its plain version; then the whole step through the kernels
+    against the plain attention: exact launches (12 a dispatch), live
+    lanes' logits, every slot no live lane writes bitwise unchanged,
+    layer 0's written rows bitwise equal, deeper layers' to
+    VERIFY_KV_ROW_REL_TOL."""
+    from distributed_tensorflow_example_tpu_torch.models.gpt import \
+        quantize_kv_rows
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        paged_decode_attention as pa
+    c, dev = model.cfg, torch.device("cuda")
+    hd = c.hidden // c.heads
+    b, bs = ENGINE_SLOTS, PAGED_SHAPE["bs"]
+    nb = -(-(PROMPT_LEN + MAX_NEW) // bs)
+    n = 1 + b * nb
+    bt = ((torch.randperm(n - 1, generator=gen) + 1)[:b * nb]
+          .reshape(b, nb).to(torch.int32))
+    pos = torch.randint(PROMPT_LEN // 4, PROMPT_LEN + MAX_NEW - SPEC_K,
+                        (b,), generator=gen, dtype=torch.int32)
+    n_tok = torch.tensor([4, 4, 4, 2, 1, 4, 4, 4], dtype=torch.int32)
+    tok = torch.randint(0, c.vocab_size, (b, SPEC_K), generator=gen,
+                        dtype=torch.int32)
+    pad = torch.zeros(b, dtype=torch.int32)
+    alive = torch.ones(b, dtype=torch.int32)
+    written = torch.zeros((n, bs), dtype=torch.bool)
+    for r in range(b):
+        for j in range(int(n_tok[r])):
+            p = int(pos[r]) + j
+            written[int(bt[r, p // bs]), p % bs] = True
+    written = written.to(dev)
+    stacked = model.stack_decode_params(params)
+    shape = (c.layers, n, bs, c.heads, hd)
+    kf, vf = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+              for _ in range(2))
+    rows = (bt.repeat_interleave(SPEC_K, 0).contiguous().to(dev),
+            (pos[:, None] + torch.arange(SPEC_K)).reshape(-1).to(dev),
+            torch.zeros(b * SPEC_K, dtype=torch.int32, device=dev))
+    args = [t.to(dev) for t in (bt, tok, pos, pad, alive, n_tok)]
+    for quant in (False, True):
+        name = "paged_decode_attention" + ("_int8" if quant else "")
+        if quant:
+            (kq, ks), (vq, vs) = quantize_kv_rows(kf), quantize_kv_rows(vf)
+            pools = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            pools = {"k": kf, "v": vf}
+        sc = ({"k_scale": pools["k_scale"][0], "v_scale": pools["v_scale"][0]}
+              if quant else {})
+        q = torch.randn((b * SPEC_K, c.heads, hd), generator=gen).to(
+            dev, torch.bfloat16)
+        kw = dict(block_tables=rows[0], pos=rows[1], pad=rows[2], **sc)
+        o = pa.paged_decode_attention(q, pools["k"][0], pools["v"][0], **kw)
+        o_ref = pa.xla_paged_decode_attention(q, pools["k"][0],
+                                              pools["v"][0], **kw)
+        r_attn = row_rel_err(o, o_ref)
+        tol = PAGED_INT8_ROW_REL_TOL if quant else PAGED_ROW_REL_TOL
+        pk = {k: v.clone() for k, v in pools.items()}
+        pp = {k: v.clone() for k, v in pools.items()}
+        torch.cuda.synchronize()
+        read = _reset_launches()
+        lg_k, _ = model.decode_verify_batched_paged(params, stacked, pk,
+                                                    *args)
+        torch.cuda.synchronize()
+        launches = read()
+        lg_p, _ = model.decode_verify_batched_paged(
+            params, stacked, pp, *args, decode_attention="xla")
+        torch.cuda.synchronize()
+        want = {k: 0 for k in launches}
+        want[name] = c.layers
+        lane = torch.arange(SPEC_K)[None, :] < n_tok[:, None]
+        lerr = (lg_k - lg_p).abs()[lane.to(dev)].max().item()
+        same_rest = all(
+            torch.equal(x[:, ~written], pools[k][:, ~written])
+            for d in (pk, pp) for k, x in d.items())
+        same_l0 = all(torch.equal(pk[k][0][written], pp[k][0][written])
+                      for k in pk)
+
+        def rows_of(d, k):
+            x = d[k][1:][:, written]                 # [L-1, W, H, D]
+            if quant:
+                s = d[k + "_scale"][1:][:, written]
+                x = x.float() * s[..., None, None]
+            return x.float().reshape(-1, c.heads * hd)
+
+        kv_rel = max(row_rel_err(rows_of(pk, k), rows_of(pp, k))
+                     for k in ("k", "v"))
+        log(f"[spec verify {'int8' if quant else 'bf16'}] {name} at the "
+            f"verify shape ({b} x {SPEC_K} = {b * SPEC_K} query rows over "
+            f"{b} tables): worst row {r_attn:.3e} (tol {tol}); the verify "
+            f"step through the kernels vs the plain attention: launches "
+            f"{launches} (want {c.layers} of {name}), live lanes' logits "
+            f"max abs err {lerr:.3e} (tol {ENGINE_LOGIT_TOL}), unwritten "
+            f"slots bitwise unchanged {same_rest}, layer-0 written rows "
+            f"bitwise equal {same_l0}, deeper layers' written rows worst "
+            f"{kv_rel:.3e} (tol {VERIFY_KV_ROW_REL_TOL}) ({card})")
+        if (r_attn > tol or launches != want or lerr > ENGINE_LOGIT_TOL
+                or not same_rest or not same_l0
+                or kv_rel > VERIFY_KV_ROW_REL_TOL):
+            raise SystemExit(f"the verify step disagrees on {name}")
+        del pk, pp, pools
+    del kf, vf
+
+
+def _dispatch_costs(model, params, gen, card: str) -> dict:
+    """What one engine dispatch costs on its own, outside a wave: an
+    8-row decode step, an 8 x 4 verify step, the last 128-token chunk of
+    a 512-token prompt (its window the prompt's 32 blocks) and the whole
+    512-token paged prefill, on bf16 pools of the engine's geometry. For
+    each, the wall time of one call and its sync (median of 20: the stall
+    a live decoder sees), the device time of one call (:func:`device_ms`)
+    and the three kernels that take most of it."""
+    c, dev = model.cfg, torch.device("cuda")
+    hd = c.hidden // c.heads
+    b, bs = ENGINE_SLOTS, PAGED_SHAPE["bs"]
+    nb = -(-(PROMPT_LEN + MAX_NEW) // bs)
+    n = 1 + b * nb
+    bt = ((torch.randperm(n - 1, generator=gen) + 1).reshape(b, nb)
+          .to(dev, torch.int32))
+    pos = torch.randint(PROMPT_LEN // 4, PROMPT_LEN + MAX_NEW - SPEC_K,
+                        (b,), generator=gen, dtype=torch.int32).to(dev)
+    tok = torch.randint(0, c.vocab_size, (b, SPEC_K), generator=gen,
+                        dtype=torch.int32).to(dev)
+    pad = torch.zeros(b, dtype=torch.int32, device=dev)
+    alive = torch.ones(b, dtype=torch.int32, device=dev)
+    n_tok = torch.full((b,), SPEC_K, dtype=torch.int32, device=dev)
+    shape = (c.layers, n, bs, c.heads, hd)
+    pools = {k: torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+             for k in ("k", "v")}
+    stacked = model.stack_decode_params(params)
+    ids = torch.randint(0, c.vocab_size, (1, PROMPT_LEN),
+                        generator=gen).to(dev)
+    mask = torch.ones_like(ids)
+    row = bt[0, :PROMPT_LEN // bs]
+    start = PROMPT_LEN - CHUNK_TOKENS
+    calls = {
+        "decode": lambda: model.decode_step_batched_paged(
+            params, stacked, pools, bt, tok[:, 0], pos, pad, alive),
+        "verify": lambda: model.decode_verify_batched_paged(
+            params, stacked, pools, bt, tok, pos, pad, alive, n_tok),
+        "chunk": lambda: model.paged_prefill_chunk(
+            params, ids[:, start:], mask[:, start:], start, pools["k"],
+            pools["v"], row, row[start // bs:]),
+        "prefill": lambda: model.paged_prefill(
+            params, ids, mask, pools["k"], pools["v"], row),
+    }
+    what = {"decode": f"decode step ({b} rows)",
+            "verify": f"verify step ({b} x {SPEC_K} rows)",
+            "chunk": f"{CHUNK_TOKENS}-token chunk at slot {start}",
+            "prefill": f"{PROMPT_LEN}-token paged prefill"}
+    out = {}
+    with torch.no_grad():
+        for key, fn in calls.items():
+            walls = []
+            for i in range(24):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 4:
+                    walls.append(time.perf_counter() - t0)
+            parts: dict = {}
+            dev_ms = device_ms(fn, [()], iters=8, warmup=1, by_kernel=parts)
+            wall = float(np.median(walls)) * 1e3
+            top = ", ".join(f"{k[:48]} {v:.3f}" for k, v in sorted(
+                parts.items(), key=lambda kv: -kv[1])[:3])
+            log(f"[spec dispatch] {what[key]}: wall {wall:.3f} ms a call "
+                f"(median of {len(walls)}), device {dev_ms:.3f} ms, device "
+                f"idle share {1 - dev_ms / wall:.3f}; largest kernels (ms): "
+                f"{top} ({card})")
+            out[key] = {"wall": wall, "device": dev_ms}
+    log(f"[spec dispatch] verify over decode: wall "
+        f"{out['verify']['wall'] / out['decode']['wall']:.3f}x, device "
+        f"{out['verify']['device'] / out['decode']['device']:.3f}x; one "
+        f"chunk over the whole prefill: wall "
+        f"{out['chunk']['wall'] / out['prefill']['wall']:.3f}x, device "
+        f"{out['chunk']['device'] / out['prefill']['device']:.3f}x ({card})")
+    del pools
+    return out
+
+
+def _spec_wave(srv, label: str, prompts: list, card: str,
+               layers: int) -> dict:
+    """One wave of concurrent greedy requests through ``srv``, with every
+    kernel's launch count set to 0 just before it and read just after,
+    and the engine's counters over the same window; the paged kernel must
+    have run 12 launches a shared dispatch (B5, or B6 on an int8 pool),
+    and the flash forward 12 a monolithic prefill."""
+    eng = srv.engine
+    keys = ("decode_steps", "verify_steps", "spec_proposed", "spec_accepted",
+            "prefills", "prefill_chunks", "tokens_out")
+    s0 = eng.stats()
+    n = len(prompts)
+    results, lat = [None] * n, [0.0] * n
+    torch.cuda.synchronize()
+    read = _reset_launches()
+    wall = _post_rows(srv, prompts, results, lat)
+    launches = read()
+    s1 = eng.stats()
+    d = {k: s1[k] - s0[k] for k in keys}
+    steps = d["decode_steps"] + d["verify_steps"]
+    kernel = ("paged_decode_attention_int8"
+              if eng.sw.kv_cache_dtype == "int8"
+              else "paged_decode_attention")
+    want = {k: 0 for k in launches}
+    want[kernel] = layers * steps
+    want["flash_attention_fwd"] = layers * d["prefills"]
+    toks = sum(len(r) for r in results)
+    rate = d["spec_accepted"] / max(d["spec_proposed"], 1)
+    log(f"[spec {label}] {n} concurrent requests: {d['prefills']} "
+        f"prefills, {d['prefill_chunks']} prefill chunks, "
+        f"{d['decode_steps']} decode + {d['verify_steps']} verify "
+        f"dispatches, drafts proposed {d['spec_proposed']} accepted "
+        f"{d['spec_accepted']} (accept rate {rate:.4f}); launches "
+        f"{launches}; wave {wall * 1e3:.1f} ms, {toks / wall:.1f} tokens/s, "
+        f"wave average {wall / max(steps, 1) * 1e3:.2f} ms per shared "
+        f"dispatch (prefills and HTTP included), latency "
+        f"p50 {sorted(lat)[n // 2] * 1e3:.1f} ms ({card})")
+    if launches != want:
+        raise SystemExit(f"spec {label}: launches {launches}, want {want}")
+    for out in results:
+        if len(out) != MAX_NEW:
+            raise SystemExit(f"spec {label}: bad generation {out[:8]}...")
+    return {"results": results, "launches": launches, "steps": steps,
+            "wall": wall, "toks": toks, "accept_rate": rate, **d}
+
+
+def _stall_run(srv, shorts: list, long_prompt, card: str,
+               label: str) -> dict:
+    """(c) 7 short requests decode; once all 7 are live, the 512-token
+    prompt arrives. Returns the largest decode stall any live slot saw
+    from its arrival on (the gaps between shared dispatches), the prefill
+    chunks its admission took, and every request's tokens."""
+    import threading
+    eng = srv.engine
+    rec = _StallRecorder(eng._h_decode_stall)
+    eng._h_decode_stall = rec
+    results, lat = [None] * len(shorts), [0.0] * len(shorts)
+    toks0 = eng.stats()["tokens_out"]
+    t = threading.Thread(target=_post_rows,
+                         args=(srv, shorts, results, lat))
+    t.start()
+    t0 = time.monotonic()
+    while eng.stats()["live_slots"] < len(shorts) \
+            or eng.stats()["tokens_out"] - toks0 < 4 * len(shorts):
+        if time.monotonic() - t0 > 120:
+            raise SystemExit(f"stall {label}: the short requests never "
+                             "all went live")
+        time.sleep(0.002)
+    s0 = eng.stats()
+    rec.samples.clear()
+    body, sec = post(srv.port, srv.name,
+                     {"inputs": {"input_ids": [long_prompt.tolist()]}})
+    t.join(600)
+    s1 = eng.stats()
+    chunks = s1["prefill_chunks"] - s0["prefill_chunks"]
+    prefills = s1["prefills"] - s0["prefills"]
+    worst = max(rec.samples)
+    log(f"[spec stall {label}] a {long_prompt.size}-token prompt admitted "
+        f"while {len(shorts)} slots decode: {prefills} prefills, {chunks} "
+        f"prefill chunks; serving_decode_stall_seconds max "
+        f"{worst * 1e3:.2f} ms, p50 {np.median(rec.samples) * 1e3:.2f} ms "
+        f"over {len(rec.samples)} gaps; its latency {sec * 1e3:.1f} ms "
+        f"({card})")
+    return {"results": results + [body["generations"][0]], "max": worst,
+            "chunks": chunks, "prefills": prefills}
+
+
+def phase_spec_chunk(card: str) -> dict:
+    """Speculative verify and chunked prefill on GPT-small at full width
+    (bf16, flash prefill, 16-slot paged blocks, prompts up to 512, 128 new
+    tokens, 8 slots), exported with ``spec_tokens=4`` and
+    ``prefill_chunk=128``: (a) the verify step alone, kernel against
+    plain, float and int8 pools, and each kind of dispatch's own wall and
+    device time (:func:`_dispatch_costs`); (b) 8 concurrent greedy requests over
+    HTTP, spec on against off; (c) a 512-token prompt admitted while 7
+    slots decode, chunked against monolithic; (d) spec on int8 pools;
+    (e) an infeasible ``deadline_ms`` answered 429. Returns the B5 and B6
+    launches of the spec-on waves."""
+    import urllib.error
+    from distributed_tensorflow_example_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.serving import \
+        export_generator
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(model="gpt", dtype="bfloat16", attention_impl="flash")
+    model = get_model("gpt", cfg)
+    c = model.cfg
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(7)
+    _verify_program(model, params, gen, card)
+    costs = _dispatch_costs(model, params, gen, card)
+    bs = PAGED_SHAPE["bs"]
+    per_row = -(-(PROMPT_LEN + MAX_NEW) // bs)
+    num_blocks = 1 + 2 * ENGINE_SLOTS * per_row
+    rs = np.random.RandomState(5)
+    prompts = _repeating_prompts(rs, c.vocab_size)
+    shorts = [rs.randint(0, c.vocab_size, (int(rs.randint(32, 97)),))
+              .astype(np.int32) for _ in range(ENGINE_SLOTS - 1)]
+    long_prompt = rs.randint(0, c.vocab_size, (PROMPT_LEN,)).astype(np.int32)
+    warm = [rs.randint(0, c.vocab_size, (PROMPT_LEN,)).astype(np.int32)]
+    kw = dict(prompt_len=PROMPT_LEN, max_new_tokens=MAX_NEW, ragged=True,
+              stepwise=True, slots=ENGINE_SLOTS, paged=True, block_size=bs,
+              num_blocks=num_blocks, spec_tokens=SPEC_K,
+              prefill_chunk=CHUNK_TOKENS)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d, d8 = os.path.join(tmp, "spec"), os.path.join(tmp, "spec_int8")
+        export_generator(model, params, d, **kw)
+        export_generator(model, params, d8, kv_cache_dtype="int8", **kw)
+        waves = {}
+        for label, spec in (("off", 0), ("on", SPEC_K)):
+            with PredictServer(d, scheduler="on", port=0, prefix_cache=False,
+                               spec_tokens=spec) as srv:
+                _post_rows(srv, warm, [None], [0.0])            # warm-up
+                waves[label] = _spec_wave(srv, f"bf16 spec {label}", prompts,
+                                          card, c.layers)
+                if spec:
+                    # (e) the decode EMA is seeded: a deadline the measured
+                    # rate cannot meet is shed now, 429 + Retry-After
+                    try:
+                        post(srv.port, srv.name, {"inputs": {
+                            "input_ids": [prompts[0].tolist()]},
+                            "deadline_ms": 50})
+                        raise SystemExit("an infeasible deadline_ms was "
+                                         "served")
+                    except urllib.error.HTTPError as e:
+                        err = json.loads(e.read()).get("error", "")
+                        ra = e.headers.get("Retry-After")
+                        log(f"[spec deadline] deadline_ms 50 for {MAX_NEW} "
+                            f"tokens: HTTP {e.code}, Retry-After {ra} s: "
+                            f"{err[:90]} ({card})")
+                        if e.code != 429 or ra is None or "shed" not in err:
+                            raise SystemExit("an infeasible deadline was "
+                                             "not shed with 429")
+                    shed = srv.engine.stats()["shed_infeasible"]
+                    if shed != 1:
+                        raise SystemExit(f"shed_infeasible {shed}, want 1")
+        on, off = waves["on"], waves["off"]
+        agree = _agreement(on["results"], off["results"])
+        log(f"[spec] bf16 spec on vs off: greedy token agreement "
+            f"{agree:.4f} (floor {ENGINE_AGREEMENT_FLOOR}), accept rate "
+            f"{on['accept_rate']:.4f}, shared dispatches {on['steps']} vs "
+            f"{off['steps']}, tokens/s {on['toks'] / on['wall']:.1f} vs "
+            f"{off['toks'] / off['wall']:.1f}, wave average ms per shared "
+            f"dispatch "
+            f"{on['wall'] / on['steps'] * 1e3:.2f} vs "
+            f"{off['wall'] / off['steps'] * 1e3:.2f} ({card})")
+        if agree < ENGINE_AGREEMENT_FLOOR or on["verify_steps"] < 1 \
+                or on["spec_accepted"] < 1:
+            raise SystemExit("speculative decoding did not verify drafts "
+                             "or disagrees with spec off")
+        stalls = {}
+        for label, chunk in (("monolithic", 0), ("chunked", CHUNK_TOKENS)):
+            with PredictServer(d, scheduler="on", port=0, prefix_cache=False,
+                               prefill_chunk_tokens=chunk) as srv:
+                _post_rows(srv, warm, [None], [0.0])            # warm-up
+                stalls[label] = _stall_run(srv, shorts, long_prompt, card,
+                                           label)
+        mono, chunked = stalls["monolithic"], stalls["chunked"]
+        cagree = _agreement(chunked["results"], mono["results"])
+        want_chunks = -(-PROMPT_LEN // CHUNK_TOKENS)
+        log(f"[spec stall] max decode stall chunked {chunked['max'] * 1e3:.2f}"
+            f" ms vs monolithic {mono['max'] * 1e3:.2f} ms; chunks for the "
+            f"long prompt {chunked['chunks']} (want {want_chunks}); greedy "
+            f"token agreement chunked vs monolithic {cagree:.4f} (floor "
+            f"{ENGINE_AGREEMENT_FLOOR}) ({card})")
+        if (chunked["chunks"] != want_chunks or chunked["prefills"]
+                or mono["chunks"] or mono["prefills"] != 1
+                or cagree < ENGINE_AGREEMENT_FLOOR):
+            raise SystemExit("chunked prefill did not run as asked, or "
+                             "disagrees with the monolithic prefill")
+        with PredictServer(d8, scheduler="on", port=0, prefix_cache=False,
+                           spec_tokens=SPEC_K) as srv:
+            _post_rows(srv, warm, [None], [0.0])                # warm-up
+            q8 = _spec_wave(srv, "int8 KV spec on", prompts, card, c.layers)
+        qagree = _agreement(q8["results"], off["results"])
+        log(f"[spec int8] int8 KV spec on vs bf16 spec off: greedy token "
+            f"agreement {qagree:.4f} (floor {INT8_MIN_AGREEMENT}, the int8 "
+            f"drift gate) ({card})")
+        if qagree < INT8_MIN_AGREEMENT or q8["verify_steps"] < 1:
+            raise SystemExit("int8 speculation failed its drift gate")
+    out.update(b5=on["launches"]["paged_decode_attention"],
+               b6=q8["launches"]["paged_decode_attention_int8"],
+               accept_rate=on["accept_rate"], stall_mono=mono["max"],
+               stall_chunked=chunked["max"], dispatch=costs)
+    log(f"[spec] phase done in {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training's debug tools (slice A3c-4b)
+# ---------------------------------------------------------------------------
+
+def _gpt_train_flops(c, b: int, s: int) -> tuple[float, float]:
+    """(all matmul FLOPs of one training step, the attention products'
+    share of them) of GPT on [b, s]: three times the forward's (the
+    backward takes two products a product), the attention over all s²
+    pairs as the plain path computes it."""
+    n = b * s
+    attn = c.layers * 2 * 2 * b * s * s * c.hidden
+    fwd = (c.layers * (2 * n * c.hidden * 4 * c.hidden
+                       + 2 * 2 * n * c.hidden * c.intermediate)
+           + 2 * n * c.hidden * c.vocab_size + attn)
+    return 3.0 * fwd, 3.0 * attn
+
+
+def phase_debug_tools(card: str) -> None:
+    """GPT-small through ``cli/train.py`` with the debug tools:
+    ``--debug_checks`` under a ``step.nan`` fault raises naming the step
+    and the leaf; ``--step_timing`` runs with and without
+    ``--debug_checks`` (the checks' cost a step; the step's counted FLOPs
+    beside the closed form, whose gap is the flash kernels' products,
+    which ``FlopCounterMode`` cannot see through ``ctypes``); a few steps
+    under ``--debug_nans``; one capture through ``--profiler_port``."""
+    import socket
+    import threading
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    t_phase = time.perf_counter()
+    # ``step.nan`` poisons the one float leaf, the mask (as in
+    # phase_train_rest's rollback)
+    t = _rest_trainer(["--train_steps", "4", "--debug_checks",
+                       "--log_every_steps", "0", "--fault_spec",
+                       "step.nan:step=3"], arrays_fn=_float_mask)
+    try:
+        with t:
+            t.train()
+        raise SystemExit("--debug_checks let a NaN step through")
+    except FloatingPointError as e:
+        msg = str(e)
+    log(f"[debug checks] step.nan at step 3: FloatingPointError: "
+        f"{msg[:200]} ({card})")
+    if "at step 3 in " not in msg or "grads/" not in msg:
+        raise SystemExit("--debug_checks did not name the step and leaf")
+    steps, every = 12, 11
+    timing = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("plain", []), ("debug_checks",
+                                             ["--debug_checks"])):
+            path = os.path.join(tmp, f"{label}.jsonl")
+            read = _reset_launches()
+            rc = cli.main(REST_ARGV + [
+                "--train_steps", str(steps), "--step_timing",
+                "--log_every_steps", str(every), "--metrics_path", path]
+                + extra)
+            launches = read()
+            recs = [json.loads(line) for line in open(path)]
+            rec = [r for r in recs if "step_timing_ms" in r][0]
+            timing[label] = rec
+            want = _rest_want(steps)
+            log(f"[debug timing {label}] step p50 "
+                f"{rec['step_timing_ms']['p50']:.2f} ms (n "
+                f"{rec['step_timing_ms']['n']}); launches {launches} "
+                f"({card})")
+            if rc != 0 or launches != want:
+                raise SystemExit(f"{label} run: rc {rc}, launches "
+                                 f"{launches}, want {want}")
+    flops = timing["plain"]["step_cost_analysis"]["flops"]
+    model = get_model("gpt", cli.config_from_args(
+        cli.build_parser().parse_args(REST_ARGV)))
+    total, attn = _gpt_train_flops(model.cfg, TRAIN_B, TRAIN_S)
+    gap = abs(flops - (total - attn)) / (total - attn)
+    p_plain = timing["plain"]["step_timing_ms"]["p50"]
+    p_chk = timing["debug_checks"]["step_timing_ms"]["p50"]
+    log(f"[debug cost] step_cost_analysis flops {flops:.6e} beside the "
+        f"closed form {total:.6e}, of which the attention products "
+        f"{attn:.6e} (run by the flash kernels, which the counter cannot "
+        f"see through ctypes): counted vs closed form less attention "
+        f"{gap:.2e} (tol 1e-2); --debug_checks costs "
+        f"{p_chk - p_plain:.2f} ms a step ({p_chk:.2f} vs {p_plain:.2f} "
+        f"ms p50) ({card})")
+    if gap > 1e-2:
+        raise SystemExit("step_cost_analysis does not match the closed "
+                         "form less the attention products")
+    t0 = time.perf_counter()
+    rc = cli.main(REST_ARGV + ["--train_steps", "3", "--debug_nans",
+                               "--log_every_steps", "0"])
+    nan_s = time.perf_counter() - t0
+    log(f"[debug nans] 3 GPT-small steps and the eval under --debug_nans: "
+        f"rc {rc}, {nan_s:.1f} s; anomaly mode after the run "
+        f"{torch.is_anomaly_enabled()} ({card})")
+    if rc != 0 or torch.is_anomaly_enabled():
+        raise SystemExit("--debug_nans run failed or left anomaly mode on")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as prof:
+        done = {}
+        th = threading.Thread(target=lambda: done.update(rc=cli.main(
+            REST_ARGV + ["--train_steps", "10", "--log_every_steps", "0",
+                         "--profiler_port", str(port), "--profile_dir",
+                         prof])))
+        th.start()
+        t0 = time.monotonic()
+        while True:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                       timeout=5).read()
+                break
+            except OSError:
+                if time.monotonic() - t0 > 120:
+                    raise SystemExit("the profiler listener never came up")
+                time.sleep(0.01)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/capture?steps=2&timeout_s=300",
+            data=b"", method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got = json.loads(r.read())
+        th.join(600)
+        with open(got["path"]) as f:
+            events = json.load(f)["traceEvents"]
+        marks = sorted({e["name"] for e in events
+                        if e.get("name", "").startswith("train_step#")})
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        log(f"[debug profiler] POST /capture?steps=2 on port {port}: steps "
+            f"{got['steps']}, marks {marks}, {len(events)} events, "
+            f"{len(kernels)} device kernels; run rc {done.get('rc')} "
+            f"({card})")
+        if done.get("rc") != 0 or len(marks) != 2:
+            raise SystemExit("the profiler capture did not trace 2 steps")
+    log(f"[debug] phase done in {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -3945,6 +4529,8 @@ def main() -> int:
     conv = phase_conv(card)
     bert = phase_bert(card)
     phase_train_rest(card)
+    spec = phase_spec_chunk(card)
+    phase_debug_tools(card)
     log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
         f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
         f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "
@@ -3997,13 +4583,13 @@ def main() -> int:
                    "paged_decode_attention.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
-         "launches": engine["launches"], **paged},
+         "launches": engine["launches"] + spec["b5"], **paged},
         {"name": "paged_decode_attention_int8", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "paged_decode_attention_int8.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
-         "launches": engine["launches_int8"], **paged_int8},
+         "launches": engine["launches_int8"] + spec["b6"], **paged_int8},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -48,13 +48,19 @@ eval's checkpoint), evaluates at the end (or every
 ``PredictServer``. ``--eval_only`` evaluates a checkpoint without
 training (the latest, ``--eval_step N`` or ``--eval_best``) and prints
 one JSON line. ``--on_anomaly rollback`` and ``--fault_spec``, the
-TensorBoard, summary and histogram sinks, ``--step_timing``, the
-``torch.profiler`` hook and ``--trace_path`` are the reference's.
+TensorBoard, summary and histogram sinks, ``--step_timing`` (with the
+first step's FLOPs), the ``torch.profiler`` hook and ``--trace_path`` are
+the reference's. The debug tools are their torch counterparts:
+``--debug_checks`` raises naming the first non-finite loss or gradient,
+``--debug_nans`` runs autograd's anomaly mode with NaN checks, and
+``--profiler_port`` opens a loopback listener whose ``POST
+/capture?steps=N`` traces the next N steps.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -275,9 +281,17 @@ def build_parser() -> argparse.ArgumentParser:
            "'ckpt.write:step=2;loader.next:p=0.01'")
     a("--check_nans", action="store_true",
       help="stop on a non-finite loss (a host sync every step)")
-    a("--debug_checks", action="store_true", help="slice A3c-4b")
-    a("--debug_nans", action="store_true", help="slice A3c-4b")
-    a("--profiler_port", type=int, default=0, help="slice A3c-4b")
+    a("--debug_checks", action="store_true",
+      help="raise FloatingPointError naming the step and the first "
+           "non-finite loss, aux metric or gradient leaf (one host sync a "
+           "step; debugging only)")
+    a("--debug_nans", action="store_true",
+      help="autograd anomaly mode with NaN checks: the first backward op "
+           "that returns a NaN raises, with its forward's traceback")
+    a("--profiler_port", type=int, default=0,
+      help="loopback capture listener on this port + the rank: POST "
+           "/capture?steps=N traces the next N steps and answers with the "
+           "Chrome trace's path (into --profile_dir, else a temp dir)")
     a("--profile_dir", default=None,
       help="torch.profiler Chrome traces of --profile_steps land here")
     a("--profile_steps", default=None,
@@ -369,7 +383,8 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             log_every_steps=args.log_every_steps,
             metrics_path=args.metrics_path, tb_logdir=args.tb_logdir,
             profile_steps=profile_steps, profile_dir=args.profile_dir,
-            check_nans=args.check_nans,
+            check_nans=args.check_nans, debug_checks=args.debug_checks,
+            debug_nans=args.debug_nans,
             summary_every_steps=args.summary_every_steps,
             param_histograms_every_steps=(
                 args.param_histograms_every_steps),
@@ -510,9 +525,6 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
          not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
         ("--sharded_save (per-rank shard files of a sharded state)",
          args.sharded_save, "A6"),
-        ("--debug_checks", args.debug_checks, "A3c-4b"),
-        ("--debug_nans", args.debug_nans, "A3c-4b"),
-        ("--profiler_port", args.profiler_port != 0, "A3c-4b"),
     ]
 
 
@@ -619,19 +631,43 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         raise SystemExit(str(e))
     try:
-        ctx = Server(cluster, args.job_name, args.task_index,
-                     device=device).context
+        server = Server(cluster, args.job_name, args.task_index,
+                        profiler_port=args.profiler_port or None,
+                        device=device)
     except NotImplementedError as e:
         raise SystemExit(str(e))
+    ctx = server.context
     try:
-        return _train(args, cfg, device, ctx)
+        with debug_nans(cfg.obs.debug_nans):
+            return _train(args, cfg, device, ctx, server.profiler)
     finally:
+        server.close()
         if ctx.is_distributed:
             distributed.shutdown()
 
 
-def _train(args, cfg: TrainConfig, device, ctx) -> int:
-    """Model, data, the Trainer's run and the export, as this rank."""
+@contextlib.contextmanager
+def debug_nans(on: bool):
+    """``--debug_nans``, the counterpart of the reference's
+    ``jax_debug_nans``: autograd's anomaly mode with NaN checks for the
+    run (every backward node's outputs, a custom ``autograd.Function``'s
+    such as the flash kernels' included, are checked, and the first NaN
+    raises with the forward's traceback), restored afterwards."""
+    if not on:
+        yield
+        return
+    import torch
+    prev = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(*prev)
+
+
+def _train(args, cfg: TrainConfig, device, ctx, profiler=None) -> int:
+    """Model, data, the Trainer's run and the export, as this rank
+    (``profiler``: the ``--profiler_port`` service, or None)."""
     from ..models import get_model
     from ..train.trainer import Trainer
 
@@ -656,7 +692,8 @@ def _train(args, cfg: TrainConfig, device, ctx) -> int:
     trainer = Trainer(model, cfg, train_arrays, eval_arrays, device=device,
                       process_index=ctx.process_index,
                       num_processes=ctx.num_processes,
-                      train_transform=train_transform)
+                      train_transform=train_transform,
+                      profiler_service=profiler)
     if args.eval_only:
         return _eval_only(args, cfg, model, trainer, ctx)
     with trainer:

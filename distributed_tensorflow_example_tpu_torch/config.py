@@ -4,8 +4,8 @@ generation, the sync training step and the ``Trainer`` read).
 
 Field names and defaults are the reference's, so a config reads the same
 in both packages. The fields of a later slice are absent (warm start,
-sharded saves, the debug checks, the streaming and ImageNet-reader and
-MoE knobs), or refused by the ``Trainer`` when set: a sharded mesh axis
+sharded saves, the streaming and ImageNet-reader and MoE knobs), or
+refused by the ``Trainer`` when set: a sharded mesh axis
 and ``steps_per_loop > 1``.
 """
 
@@ -129,6 +129,11 @@ class ObservabilityConfig:
     profile_steps: tuple[int, int] | None = None  # [start, stop) steps
     profile_dir: str | None = None    # torch.profiler Chrome traces
     check_nans: bool = False          # NanTensorHook analogue
+    debug_checks: bool = False        # raise on a non-finite loss, aux
+                                      # metric or gradient (a host sync
+                                      # every step)
+    debug_nans: bool = False          # autograd anomaly mode with NaN
+                                      # checks on every backward output
     summary_every_steps: int = 0      # scalar summary cadence (0 disables)
     param_histograms_every_steps: int = 0  # weight-histogram cadence
                                            # (pulls the params to the host)

@@ -19,14 +19,18 @@ tensors): one slab per generation, no per-step copies.
 
 Serving engine steps: :meth:`GPT.decode_step_batched` (per-row depths
 over a slab pool, the slab decode kernel), :meth:`GPT.paged_prefill`
-(a left-aligned prompt written in whole blocks through a block-table row)
-and :meth:`GPT.decode_step_batched_paged` (per-row depths read and written
-through block tables, the paged decode kernel). They too write their
-pools in place. Both take int8 pools with per-token-slot f32 scales: each
-K/V row is quantized on write (:func:`quantize_kv_rows`) and the decode
-step attends through the int8 kernel. ``weight_quant="int8"`` stores the
-decode layers' four matmul kernels as per-output-channel int8 and
-dequantizes one layer at a time inside the step.
+(a left-aligned prompt written in whole blocks through a block-table row),
+:meth:`GPT.paged_prefill_chunk` (one block-aligned chunk of it, the prior
+chunks read back through the table), :meth:`GPT.decode_step_batched_paged`
+(per-row depths read and written through block tables, the paged decode
+kernel) and :meth:`GPT.decode_verify_batched_paged` (speculative decoding's
+K-token verify: K lanes of a row as K rows of the paged kernel sharing one
+block-table row). They too write their pools in place. The paged ones
+take int8 pools with per-token-slot f32 scales: each K/V row is quantized
+on write (:func:`quantize_kv_rows`) and the decode steps attend through
+the int8 kernel. ``weight_quant="int8"`` stores the decode layers' four
+matmul kernels as per-output-channel int8 and dequantizes one layer at a
+time inside the step.
 
 Training: :meth:`GPT.loss` is the next-token loss the sync step
 differentiates (``(loss, ({"token_accuracy"}, extras))``, padding carries
@@ -631,6 +635,100 @@ class GPT:
         return logits, k_pool, v_pool, k_scale, v_scale
 
     @torch.no_grad()
+    def paged_prefill_chunk(self, params, input_ids, chunk_mask, start,
+                            k_pool, v_pool, table_row, chunk_blocks, *,
+                            k_scale=None, v_scale=None):
+        """ONE ``C``-token slice of a left-aligned paged prefill: the SLO
+        scheduler's bounded-stall admission. Only the tokens at logical
+        slots ``start .. start+C-1`` run; the prior chunks' K/V are read
+        back from the pool through ``table_row``, so the engine can run
+        shared decode steps between a long prompt's chunks.
+
+        ``input_ids``/``chunk_mask``: [1, C] (mask 1 = real token,
+        left-aligned: only a prompt's last chunk is ragged); ``start``:
+        the chunk's first logical slot (block-aligned); ``table_row``:
+        [NB_p] int32, the slot's whole prompt-capacity block run (the
+        context window); ``chunk_blocks``: [C / Bs] int32, the physical
+        blocks this chunk writes (entries past the prompt's run name the
+        null block 0, never read). The chunk's K/V are written into whole
+        blocks first (quantized on write with ``k_scale``/``v_scale``, as
+        :meth:`paged_prefill` writes), then the window is gathered back
+        and attended with the reference's causal and validity mask by the
+        plain attention (the reference's ``impl="xla"``). Returns
+        ``(logits [1, V] of the chunk's last real token, k_pool,
+        v_pool)``, plus ``k_scale, v_scale`` for int8 pools, all written
+        in place. Only the last chunk's logits matter: they are the
+        request's first sample point.
+
+        With a float pool the chunks compose to :meth:`paged_prefill`'s
+        function (the softmax over the gathered window differs from the
+        monolithic one only by exactly-zero masked terms); the bits agree
+        where both take the same attention, so on the card, where the
+        monolithic prefill runs the flash kernel, they agree to its
+        tolerance. An int8 pool re-reads prior chunks dequantized, which
+        the monolithic prefill never does: it rides the drift gate."""
+        c = self.cfg
+        dev = params["wte"]["table"].device
+        ids = torch.as_tensor(input_ids, device=dev)
+        cw = ids.shape[1]
+        bs = k_pool.shape[2]
+        table_row = torch.as_tensor(table_row, device=dev).long()
+        chunk_blocks = torch.as_tensor(chunk_blocks, device=dev).long()
+        nb_c = chunk_blocks.shape[0]
+        total = table_row.shape[0] * bs
+        start = int(start)
+        cm = torch.as_tensor(chunk_mask, device=dev) != 0
+        ids = torch.where(cm, ids, torch.zeros_like(ids))
+        # masked lanes clip, so the position table is read in range
+        lanes = torch.arange(cw, device=dev)
+        h = self._embed(params, ids,
+                        (start + lanes).clamp(0, c.max_len - 1)[None])
+        # key validity over the window: slots before the chunk hold prior
+        # chunks' real tokens, slots inside it follow its mask, later
+        # slots were never written; query lane j sees slots <= start + j
+        slots = torch.arange(total, device=dev)
+        in_chunk = (slots >= start) & (slots < start + cw)
+        kv_valid = (slots < start) | (
+            in_chunk & cm[0][(slots - start).clamp(0, cw - 1)])
+        mask4 = (kv_valid[None, :]
+                 & (slots[None, :] <= (start + lanes)[:, None]))[None, None]
+        hd = self.head_dim
+        for i in range(c.layers):
+            lp = params[f"layer_{i}"]
+            q, k, v = self._qkv(lp["attn"], nn.layernorm(lp["ln1"], h))
+            ctx_kv = []
+            for pool, spool, x in ((k_pool[i], None if k_scale is None
+                                    else k_scale[i], k),
+                                   (v_pool[i], None if v_scale is None
+                                    else v_scale[i], v)):
+                # this chunk's K/V first: the gather below must already
+                # see lanes 0..j-1's keys
+                if spool is None:
+                    pool[chunk_blocks] = x[0].reshape(
+                        nb_c, bs, c.heads, hd).to(pool.dtype)
+                    g = pool[table_row]
+                else:
+                    xq, xs = quantize_kv_rows(x[0])        # [C,H,D] / [C]
+                    pool[chunk_blocks] = xq.reshape(nb_c, bs, c.heads, hd)
+                    spool[chunk_blocks] = xs.reshape(nb_c, bs)
+                    g = (pool[table_row].float()
+                         * spool[table_row][..., None, None])
+                ctx_kv.append(g.reshape(1, total, c.heads, hd)
+                              .to(self.dtype))
+            ctx = multi_head_attention(q, *ctx_kv, mask=mask4, impl="xla")
+            a = nn.dense(lp["attn"]["o"], ctx.reshape(1, cw, c.hidden),
+                         dtype=self.dtype)
+            h = h + a.to(h.dtype)
+            f = self._ffn(lp, nn.layernorm(lp["ln2"], h))
+            h = h + f.to(h.dtype)
+        h = nn.layernorm(params["ln_f"], h)
+        last = (cm.sum() - 1).clamp(min=0)
+        logits = self.lm_logits(params, h[:, last][:, None])[:, 0]
+        if k_scale is None:
+            return logits, k_pool, v_pool
+        return logits, k_pool, v_pool, k_scale, v_scale
+
+    @torch.no_grad()
     def decode_step_batched_paged(self, params, stacked, pools, block_tables,
                                   tok, pos, pad, alive=None,
                                   decode_attention: str | None = None):
@@ -641,9 +739,13 @@ class GPT:
         or its plain version). ``pools``: ``{"k"/"v": [L, N, Bs, H, D]}``,
         written in place; ``block_tables``: [B, NB] int32. The engine
         makes every written block uniquely owned (copy-on-write happens on
-        the host before the step); a dead row's table points at the null
-        block, where its gated write rewrites the bytes it read. Returns
-        (logits [B, V] f32, pools).
+        the host before the step). A dead row, and a row whose ``pos`` lies
+        past its table's ``NB * Bs`` slots (attention clips it to the last
+        one), writes nothing of its own: its gated write rewrites the
+        bytes it reads in the null block 0, so no slot is named twice with
+        two values in one write (the reference writes such a row through
+        its table, where a verify step's lanes at the end of a row land on
+        their live lane's slot). Returns (logits [B, V] f32, pools).
 
         int8 pools: ``pools`` also carries ``"k_scale"``/``"v_scale"``
         ([L, N, Bs] f32). The new row is quantized on write
@@ -655,13 +757,20 @@ class GPT:
         bt = torch.as_tensor(block_tables, device=tok.device).to(torch.int32)
         nb = bt.shape[1]
         impl = decode_attention or "auto"
-        pos, pad, alive, pos_ids = self._row_inputs(tok, pos, pad, alive,
+        pos_raw = torch.as_tensor(pos, device=tok.device).to(torch.int32)
+        pos, pad, alive, pos_ids = self._row_inputs(tok, pos_raw, pad, alive,
                                                     nb * bs - 1)
         h = self._embed(params, tok[:, None], pos_ids[:, None])[:, 0]
         rows = torch.arange(tok.shape[0], device=tok.device)
-        pbid = bt[rows, pos // bs].long()                # [B] physical
+        # only a live row inside its capacity writes its own slot; any
+        # other row (a dead row, a verify step's gated lane, a lane that
+        # the clip would put on a live lane's slot) rewrites the bytes it
+        # reads in the null block 0, so the one index_put never holds two
+        # different values for one slot (CUDA orders no duplicate write)
+        write = alive & (pos_raw >= 0) & (pos_raw <= nb * bs - 1)
+        pbid = torch.where(write, bt[rows, pos // bs], 0).long()  # physical
         off = (pos % bs).long()
-        live = alive[:, None, None]
+        live = write[:, None, None]
 
         def attend(i, q, k, v):
             ck, cv = pools["k"][i], pools["v"][i]
@@ -676,12 +785,53 @@ class GPT:
             for pool, spool, x in ((ck, cks, k), (cv, cvs, v)):
                 xq, xs = quantize_kv_rows(x)
                 pool[pbid, off] = torch.where(live, xq, pool[pbid, off])
-                spool[pbid, off] = torch.where(alive, xs, spool[pbid, off])
+                spool[pbid, off] = torch.where(write, xs, spool[pbid, off])
             return paged_decode_attn(q, ck, cv, block_tables=bt, pos=pos,
                                      pad=pad, k_scale=cks, v_scale=cvs,
                                      impl=impl)
 
         return self._stacked_layers(params, stacked, h, attend), pools
+
+    @torch.no_grad()
+    def decode_verify_batched_paged(self, params, stacked, pools,
+                                    block_tables, tok, pos, pad, alive,
+                                    n_tok, decode_attention: str | None = None):
+        """K-token VERIFY step of speculative decoding: row b carries
+        ``tok[b] = [anchor, draft_1, ..., draft_{K-1}]``, the anchor being
+        the token a plain step would dispatch. Lane j writes its K/V at
+        logical slot ``pos[b] + j`` through row b's table, and its logits
+        predict the token at ``pos[b] + j + 1``; the host accepts the
+        longest draft prefix that matches the greedy chain and rewinds
+        ``pos`` past the rest.
+
+        It is :meth:`decode_step_batched_paged` over ROW-EXPANDED inputs:
+        lane (b, j) becomes a row at ``pos[b] + j`` that shares row b's
+        block table, so attention runs B·K rows through the paged kernel
+        (B5, or B6 over int8 pools). Each layer writes every row's K/V
+        before attending, so lane j's window already holds lanes
+        0..j-1's keys, the state a sequential dispatch of the same tokens
+        leaves. ``tok``: [B, K] int32; ``pos``/``pad``/``alive``: [B];
+        ``n_tok``: [B] in [1, K]: lanes ``j >= n_tok[b]`` are write-gated
+        like dead rows (their logits are computed and ignored), which is
+        how draftless and sampled rows ride the dispatch at width 1.
+        Returns (logits [B, K, V] f32, pools written in place)."""
+        dev = params["wte"]["table"].device
+        tok = torch.as_tensor(tok, device=dev)
+        b, kk = tok.shape
+        lanes = torch.arange(kk, dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(pos, device=dev).to(torch.int32)
+        n_tok = torch.as_tensor(n_tok, device=dev).to(torch.int32)
+        alive = torch.as_tensor(alive, device=dev) != 0
+        pad_e = torch.as_tensor(pad, device=dev).to(torch.int32) \
+            .repeat_interleave(kk)
+        alive_e = (alive[:, None] & (lanes[None, :] < n_tok[:, None]))
+        bt_e = torch.as_tensor(block_tables, device=dev).to(torch.int32) \
+            .repeat_interleave(kk, dim=0)
+        logits, pools = self.decode_step_batched_paged(
+            params, stacked, pools, bt_e, tok.reshape(-1),
+            (pos[:, None] + lanes[None, :]).reshape(-1), pad_e,
+            alive_e.reshape(-1), decode_attention=decode_attention)
+        return logits.reshape(b, kk, -1), pools
 
     def ragged_prefill(self, params, input_ids, prompt_mask, total_len: int):
         """Ragged-prompt prefill: right-pack every row's real tokens

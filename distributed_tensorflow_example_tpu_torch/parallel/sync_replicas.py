@@ -51,6 +51,15 @@ shares hold different numbers of tokens; the microbatches' means are
 then averaged as they are, as the reference's scan does. ``shard_map``
 takes the plain mean of the ranks' means, as the reference's ``pmean``
 does.
+``debug_checks=True`` is the counterpart of the reference's
+``checkify.float_checks``: before the anomaly guard and the optimizer,
+the step checks its loss, its aux metrics and every gradient leaf (one
+host sync a step, for debugging) and raises ``FloatingPointError`` naming
+the global step and the first non-finite leaf. :meth:`counted_step` runs
+a step under ``torch.utils.flop_counter.FlopCounterMode`` and keeps its
+FLOP count in ``last_cost_analysis``, the counterpart of the reference's
+``precompile`` cost analysis (``--step_timing``'s
+``step_cost_analysis``).
 ``multi_step`` arrives with slice A3c-2b and raises; a data axis wider
 than the ranks (several cards to a process) or a sharded axis with slice
 A6.
@@ -200,8 +209,14 @@ class SyncReplicas:
     def __init__(self, loss_fn: LossFn, tx: Transform, mesh=None, *,
                  sync: SyncConfig | None = None,
                  anomaly_policy: str = "halt",
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 debug_checks: bool = False):
         self.loss_fn = loss_fn
+        #: check every step's loss, aux metrics and gradients for a
+        #: non-finite value and raise (one host sync a step)
+        self.debug_checks = bool(debug_checks)
+        #: ``{"flops": F}`` of one step, set by :meth:`counted_step`
+        self.last_cost_analysis: dict | None = None
         self.tx = tx
         self.sync = sync or SyncConfig()
         if anomaly_policy not in ("halt", "skip", "rollback"):
@@ -277,7 +292,47 @@ class SyncReplicas:
         if self.num_replicas > 1:
             grads, loss, aux, new_extras = self._mean_over_ranks(
                 grads, loss, aux, new_extras)
+        if self.debug_checks:
+            self._check_finite(state, grads, loss, aux)
         return self._update(state, grads, loss, aux, new_extras)
+
+    def counted_step(self, state: TrainState, batch: dict):
+        """:meth:`step` under ``torch.utils.flop_counter.FlopCounterMode``:
+        the step's FLOPs go to ``last_cost_analysis`` as ``{"flops": F}``
+        (the reference's ``precompile`` records XLA's cost analysis of
+        the compiled step). The counter sees the aten ops the step
+        dispatches, forward, backward and update: matmuls, convolutions
+        and attention products, not elementwise ops. Like XLA's count,
+        which cannot see inside a Pallas call, it cannot see a kernel
+        launched through ``ctypes``: on the card the flash kernels' work
+        is missing from it. The reference's ``bytes accessed`` and
+        ``optimal_seconds`` have no counterpart here and are left out."""
+        from torch.utils.flop_counter import FlopCounterMode
+        with FlopCounterMode(display=False) as counter:
+            out = self.step(state, batch)
+        self.last_cost_analysis = {"flops": float(counter.get_total_flops())}
+        return out
+
+    @staticmethod
+    def _check_finite(state: TrainState, grads, loss, aux) -> None:
+        """``debug_checks``: raise ``FloatingPointError`` when the step's
+        loss, an aux metric or a gradient leaf holds a NaN or an inf,
+        naming the global step and the first such leaf (in that order;
+        gradients in the params' pytree order). One host sync."""
+        names = (["loss"] + [f"aux/{k}" for k in aux]
+                 + [f"grads/{k}" for k in flatten_dict(state.params)])
+        values = [loss, *aux.values(), *grads]
+        bad = torch.stack([~torch.isfinite(v).all() for v in values])
+        if not bool(bad.any()):
+            return
+        hits = [n for n, b in zip(names, bad.tolist()) if b]
+        n_grads = sum(n.startswith("grads/") for n in hits)
+        raise FloatingPointError(
+            f"debug_checks: non-finite value at step "
+            f"{int(state.step) + 1} in {hits[0]} ({len(hits)} of "
+            f"{len(names)} leaves non-finite, {n_grads} of {len(grads)} "
+            f"gradients: {', '.join(hits[:4])}"
+            f"{', ...' if len(hits) > 4 else ''})")
 
     @staticmethod
     def _mean_over_ranks(grads, loss, aux, extras):

@@ -20,8 +20,13 @@ decode steps (monolithic and stepwise) from int8 layer weights;
 ``kv_cache_dtype="int8"`` gives a paged export int8 K/V pools with f32
 per-token-slot scale pools beside them (``cache_k_scale``/
 ``cache_v_scale``). Every loader validates the quant metadata first
-(:func:`validate_quant_meta`). Speculative verify and chunked prefill
-arrive with a later slice.
+(:func:`validate_quant_meta`). A paged export also takes
+``spec_tokens=K`` (the K-token speculative-verify step,
+:meth:`StepwiseGenerator.verify`) and ``prefill_chunk=C`` (the chunked
+prefill, :meth:`StepwiseGenerator.prefill_chunk`): the port's artifact
+holds no programs, so both are recorded in the ``stepwise`` block and run
+the model's own ``decode_verify_batched_paged`` and
+``paged_prefill_chunk``.
 """
 
 from __future__ import annotations
@@ -45,8 +50,6 @@ _META = "export.json"
 #: quant metadata schema version recorded in every generator export; the
 #: loaders refuse an artifact that claims a newer one (the reference's value)
 QUANT_SCHEMA = 1
-
-_LATER = "arrives with a later slice of the port"
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -123,11 +126,13 @@ def export_generator(model: GPT, params, out_dir: str, *,
     compute dtype), ``"bf16"``, or ``"int8"`` (paged only: int8 K/V pools
     plus [L, N, Bs] f32 scale pools, quantized on write); ``pool_bytes``
     counts only the K/V payload, so int8 holds twice the bf16 blocks at
-    equal bytes."""
-    for name, on in (("spec_tokens", spec_tokens),
-                     ("prefill_chunk", prefill_chunk)):
-        if on:
-            raise NotImplementedError(f"export_generator {name}: {_LATER}")
+    equal bytes.
+
+    ``spec_tokens=K`` (K >= 2, paged only) records the speculative-verify
+    step of K lanes a row; ``prefill_chunk=C`` (a positive multiple of
+    ``block_size``, paged only) the chunked prefill of C tokens a chunk,
+    clamped to the prompt's whole blocks. Both land in the ``stepwise``
+    block, where the engine reads them."""
     weight_quant = _normalize_weight_quant(weight_quant)
     cache_dtype, kv_quant = _normalize_kv_cache_dtype(kv_cache_dtype,
                                                       model.dtype)
@@ -157,11 +162,36 @@ def export_generator(model: GPT, params, out_dir: str, *,
                              "byte budget)")
         if pool_bytes < 1:
             raise ValueError(f"pool_bytes must be >= 1, got {pool_bytes}")
+    if spec_tokens:
+        if spec_tokens < 2:
+            raise ValueError(
+                f"spec_tokens must be 0 (off) or >= 2 (one anchor token + "
+                f"at least one draft lane per verify dispatch), got "
+                f"{spec_tokens}")
+        if not paged:
+            raise ValueError(
+                "spec_tokens exports the K-token verify step over the "
+                "block-paged pool (draft rejection rewinds per-row pos "
+                "through the block tables) — export with paged=True, or "
+                "drop the knob")
+    if prefill_chunk:
+        if not paged:
+            raise ValueError(
+                "prefill_chunk exports the chunked prefill over the "
+                "block-paged pool (chunks fill whole blocks through the "
+                "table) — export with paged=True, or drop the knob")
+        if prefill_chunk < 1 or prefill_chunk % block_size:
+            raise ValueError(
+                f"prefill_chunk must be a positive multiple of "
+                f"block_size={block_size} (chunks tile the left-aligned "
+                f"layout block-granularly), got {prefill_chunk}")
     step_meta = (_stepwise_meta(model, prompt_len=prompt_len,
                                 max_new_tokens=max_new_tokens, slots=slots,
                                 paged=paged, block_size=block_size,
                                 num_blocks=num_blocks, pool_bytes=pool_bytes,
-                                cache_dtype=cache_dtype, kv_quant=kv_quant)
+                                cache_dtype=cache_dtype, kv_quant=kv_quant,
+                                spec_tokens=spec_tokens,
+                                prefill_chunk=prefill_chunk)
                  if stepwise else None)
     arrays = params_to_numpy(params)
     os.makedirs(out_dir, exist_ok=True)
@@ -207,12 +237,15 @@ def export_generator(model: GPT, params, out_dir: str, *,
 def _stepwise_meta(model: GPT, *, prompt_len: int, max_new_tokens: int,
                    slots: int, paged: bool, block_size: int,
                    num_blocks: int | None, pool_bytes: int | None,
-                   cache_dtype: torch.dtype, kv_quant: bool) -> dict:
+                   cache_dtype: torch.dtype, kv_quant: bool,
+                   spec_tokens: int = 0, prefill_chunk: int = 0) -> dict:
     """The reference's ``stepwise`` metadata block (``serving.py``
     ``_export_stepwise`` / ``_export_stepwise_paged``): the pool the
     engine allocates once, and the block geometry of a paged pool. An
     int8 pool adds the scale pools' shape and dtype, and its
-    ``block_bytes`` counts their rows."""
+    ``block_bytes`` counts their rows. A paged pool records the verify
+    width and the chunk width (clamped to the prompt's whole blocks, as
+    the reference clamps the exported chunk)."""
     if slots < 1:
         raise ValueError(f"slots must be >= 1, got {slots}")
     c = model.cfg
@@ -255,7 +288,9 @@ def _stepwise_meta(model: GPT, *, prompt_len: int, max_new_tokens: int,
                 block_size=block_size, num_blocks=num_blocks,
                 blocks_per_slot=blocks_per_slot,
                 prompt_blocks=prompt_blocks, layout="left_aligned",
-                block_bytes=block_bytes)
+                block_bytes=block_bytes, spec_tokens=int(spec_tokens),
+                prefill_chunk=min(int(prefill_chunk),
+                                  prompt_blocks * block_size))
     if kv_quant:
         meta.update(kv_scale_shape=[c.layers, num_blocks, block_size],
                     kv_scale_dtype="float32")
@@ -382,7 +417,9 @@ class StepwiseGenerator:
     """A loaded stepwise generator export for the continuous-batching
     engine (``serving_batch.GenerationEngine``), with the reference's dict
     interface: :meth:`make_pool` once, then :meth:`prefill` per admission
-    and :meth:`decode` per shared step. Inputs are host arrays plus the
+    (or :meth:`prefill_chunk` per chunk, with chunked prefill) and
+    :meth:`decode` per shared step (or :meth:`verify`, when a slot
+    drafted under speculation). Inputs are host arrays plus the
     pool's ``cache_*`` tensors (``cache_k``/``cache_v``, and
     ``cache_k_scale``/``cache_v_scale`` beside an int8 pool); each call
     writes the pool IN PLACE on the device (where the reference donates
@@ -409,9 +446,12 @@ class StepwiseGenerator:
         #: pool's float dtype
         self.kv_cache_dtype: str = str(
             step_meta.get("kv_cache_dtype", step_meta["cache_dtype"]))
-        #: the port exports neither a verify nor a chunked-prefill program
-        self.spec_tokens: int = 0
-        self.prefill_chunk_tokens: int = 0
+        #: K of the speculative-verify step (0: the export has none, and
+        #: the engine runs spec-off)
+        self.spec_tokens: int = int(step_meta.get("spec_tokens", 0))
+        #: C of the chunked prefill (0: none, the engine runs unchunked)
+        self.prefill_chunk_tokens: int = int(
+            step_meta.get("prefill_chunk", 0))
         self._total = int(step_meta["max_context"])
         self._stacked = self.model.stack_decode_params(
             self.params, weight_quant=self.meta.get("weight_quant"))
@@ -474,15 +514,35 @@ class StepwiseGenerator:
         return {"logits": logits.cpu().numpy(), "pad": pad.cpu().numpy(),
                 "cache_k": ck, "cache_v": cv}
 
+    def _pools(self, feats: dict) -> dict:
+        """The model's pool dict out of the feature dict's ``cache_*``."""
+        pools = {"k": feats["cache_k"], "v": feats["cache_v"]}
+        if self._quant:
+            pools.update(k_scale=feats["cache_k_scale"],
+                         v_scale=feats["cache_v_scale"])
+        return pools
+
+    def _result(self, logits: torch.Tensor, pools: dict) -> dict:
+        """Host f32 logits beside the pool under its ``cache_*`` names."""
+        out = {"logits": logits.cpu().numpy(), "cache_k": pools["k"],
+               "cache_v": pools["v"]}
+        if self._quant:
+            out.update(cache_k_scale=pools["k_scale"],
+                       cache_v_scale=pools["v_scale"])
+        return out
+
+    def _check_shape(self, feats: dict, name: str, want: tuple) -> None:
+        got = tuple(np.shape(feats[name]))
+        if got != want:
+            raise ValueError(f"{name} shape {got} != {want}, the shape "
+                             f"this artifact's stepwise block gives it")
+
     def decode(self, feats: dict) -> dict:
         """One shared decode step for every slot: ``tok``/``pos``/``pad``/
         ``alive`` [slots] (plus ``block_tables`` [slots, NB] on a paged
         pool). Returns ``logits`` [slots, V] (host f32) plus the pool."""
         m = self.model
-        pools = {"k": feats["cache_k"], "v": feats["cache_v"]}
-        if self._quant:
-            pools.update(k_scale=feats["cache_k_scale"],
-                         v_scale=feats["cache_v_scale"])
+        pools = self._pools(feats)
         args = (self._t(feats["tok"]), self._t(feats["pos"]),
                 self._t(feats["pad"]), self._t(feats["alive"]))
         if self.paged:
@@ -492,12 +552,58 @@ class StepwiseGenerator:
         else:
             logits, pools = m.decode_step_batched(self.params, self._stacked,
                                                   pools, *args)
-        out = {"logits": logits.cpu().numpy(), "cache_k": pools["k"],
-               "cache_v": pools["v"]}
-        if self._quant:
-            out.update(cache_k_scale=pools["k_scale"],
-                       cache_v_scale=pools["v_scale"])
-        return out
+        return self._result(logits, pools)
+
+    def verify(self, feats: dict) -> dict:
+        """The K-token speculative-verify dispatch: ``tok`` [slots,
+        spec_tokens], ``pos``/``pad``/``alive``/``n_tok`` [slots] and
+        ``block_tables`` [slots, NB]. Returns ``logits`` [slots, K, V]
+        (host f32) plus the pool. Only on artifacts exported with
+        ``spec_tokens >= 2``."""
+        if not self.spec_tokens:
+            raise ValueError(
+                "this artifact was exported without a verify step "
+                "(spec_tokens=0) — re-export with export_generator("
+                "..., spec_tokens=K) to enable speculative decoding")
+        m = self.step_meta
+        slots = int(m["slots"])
+        self._check_shape(feats, "tok", (slots, self.spec_tokens))
+        self._check_shape(feats, "n_tok", (slots,))
+        self._check_shape(feats, "block_tables",
+                          (slots, int(m["blocks_per_slot"])))
+        logits, pools = self.model.decode_verify_batched_paged(
+            self.params, self._stacked, self._pools(feats),
+            self._t(feats["block_tables"]), self._t(feats["tok"]),
+            self._t(feats["pos"]), self._t(feats["pad"]),
+            self._t(feats["alive"]), self._t(feats["n_tok"]))
+        return self._result(logits, pools)
+
+    def prefill_chunk(self, feats: dict) -> dict:
+        """One C-token chunked-prefill dispatch: ``input_ids``/
+        ``chunk_mask`` [1, C], ``start`` (scalar), ``table_row``
+        [prompt_blocks] and ``chunk_blocks`` [C / block_size]. Returns
+        ``logits`` [1, V] (host f32) plus the pool. Only on artifacts
+        exported with ``prefill_chunk=C``."""
+        if not self.prefill_chunk_tokens:
+            raise ValueError(
+                "this artifact was exported without a chunked prefill "
+                "(prefill_chunk=0) — re-export with export_generator("
+                "..., prefill_chunk=C) to enable chunked prefill")
+        m = self.step_meta
+        cw = self.prefill_chunk_tokens
+        for name, want in (("input_ids", (1, cw)), ("chunk_mask", (1, cw)),
+                           ("table_row", (int(m["prompt_blocks"]),)),
+                           ("chunk_blocks", (cw // int(m["block_size"]),))):
+            self._check_shape(feats, name, want)
+        pools = self._pools(feats)
+        scales = ({"k_scale": pools["k_scale"], "v_scale": pools["v_scale"]}
+                  if self._quant else {})
+        out = self.model.paged_prefill_chunk(
+            self.params, self._t(feats["input_ids"]),
+            self._t(feats["chunk_mask"]), int(feats["start"]),
+            pools["k"], pools["v"], self._t(feats["table_row"]),
+            self._t(feats["chunk_blocks"]), **scales)
+        return self._result(out[0], pools)
 
 
 def load_stepwise(directory: str, device=None) -> StepwiseGenerator:

@@ -30,14 +30,25 @@ evicted), a watchdog heartbeat, graceful drain, priority admission and
 the brownout shedding ladder. A full queue raises :class:`QueueFullError`
 (HTTP 429 + a measured ``Retry-After``).
 
+Speculative decoding (``spec_tokens=K`` over an export with the verify
+step): each live greedy slot drafts with a host-side
+:class:`NgramDrafter` (prompt lookup over its own context), and a shared
+step where any slot drafted dispatches the K-token verify step instead of
+the single-token one; draftless rows ride it at width 1. The exact greedy
+rejection rule keeps greedy output equal to spec-off decoding; a
+rejection rewinds the slot's ``pos``. Chunked prefill
+(``prefill_chunk_tokens=C`` over an export with the chunked prefill): a
+cold admission parks its slot and the scheduler feeds one block-aligned
+chunk a loop iteration, between shared decode steps, so a long prompt
+stalls live decoders for one chunk at a time (the
+``serving_decode_stall_seconds`` histogram).
+
 What differs from the reference: the port's pools are torch tensors that
-the stepwise calls update in place on the device, so copy-on-write is an
-in-place block copy and no call consumes the pool (``_pool_alive`` stays
-true). The speculative-verify and chunked-prefill programs are not
-exported by the port yet: an engine built with ``spec_tokens`` or
-``prefill_chunk_tokens`` raises (their code paths stay in the copy,
-unreachable, for the later slice). The ``:predict`` micro-batcher arrives
-with the HTTP/observability slice.
+the stepwise calls (the verify and chunk steps included) update in place
+on the device, so copy-on-write is an in-place block copy and no call
+consumes the pool: ``_pool_alive`` stays true, and every failed dispatch
+takes the quarantine path. The ``:predict`` micro-batcher arrives with the
+HTTP/observability slice.
 """
 
 from __future__ import annotations
@@ -1214,11 +1225,6 @@ class GenerationEngine:
         # scheduler thread after each shared step — a plain float so
         # submit threads can read it without touching _live
         self._steps_to_free_hint: float = 1.0
-        if spec_tokens or prefill_chunk_tokens:
-            raise NotImplementedError(
-                "spec_tokens / prefill_chunk_tokens need the verify and "
-                "chunked-prefill programs, which arrive with a later "
-                "slice of the port")
         # ---- speculative decoding (round 16) ------------------------
         if spec_tokens < 0 or spec_tokens == 1:
             raise ValueError(

@@ -21,8 +21,33 @@ capacity, per-request ``max_new``/``temperature``/``top_k``/``top_p``/
 with ``Retry-After``. ``scheduler="off"`` runs one ``generate`` per
 request behind a single-flight lock: the parity oracle of the engine.
 Both run on the server's device (``cuda`` by default). Client mistakes
-answer 400, a failure while generating 500. ``:predict``, ``/metrics``,
-tracing routes, drain, cancel and deadlines arrive with a later slice.
+answer 400, a failure while generating 500.
+
+The engine's knobs, as in the reference:
+
+- ``--spec_tokens K`` arms speculative decoding over an export with the
+  verify step (``export_generator(..., spec_tokens=K)``); over one
+  without it the server warns and serves spec-off, and a K wider than the
+  export's is clamped to it. The payload's ``spec_tokens`` opts one
+  request out (0) or caps it lower.
+- ``--prefill_chunk_tokens C`` arms chunked prefill over an export with
+  ``prefill_chunk`` (auto-off and clamp the same way). On an H100 a
+  chunk, like the whole prefill, is bound by its host launches, and it
+  stalls live decoders as long as the whole flash-kernel prefill or
+  longer, so chunking does not yet cut the stall there.
+- ``deadline_ms`` in the payload (or ``--default_deadline_ms``) bounds a
+  request: expiry answers 504. ``priority`` (``interactive`` | ``batch``
+  | ``best_effort``, default ``--default_priority``) orders admission,
+  with aging (``priority_aging_ms``). Under ``--shed_policy auto`` the
+  brownout ladder and the deadline-feasibility shed answer 429 with a
+  measured ``Retry-After`` (``ShedError`` is a ``QueueFullError``).
+- ``GET /healthz`` carries the saturation fields (``queue_age_s``,
+  ``queue_limit``, ``pressure``, ``saturated``); ``--stall_after_s``
+  sets when it reports ``stalled``.
+
+Under ``scheduler="off"`` the engine-only payload knobs answer 400.
+``:predict``, ``/metrics``, the tracing routes, drain and ``/cancel``
+arrive with the HTTP/observability slice.
 """
 
 from __future__ import annotations
@@ -36,13 +61,36 @@ from typing import Any
 import numpy as np
 
 from .serving import has_stepwise, load_servable, load_stepwise
-from .serving_batch import GenerationEngine, QueueFullError
+from .serving_batch import (DeadlineExceededError, GenerationEngine,
+                            QueueFullError, RequestCancelledError)
+from .utils.logging import get_logger
+
+log = get_logger("serving")
 
 
 class _ServerFault(Exception):
     """A failure while generating (device error, out of memory, ...): a
     500 even when the underlying type is ValueError/TypeError, the types
     the request-validation path maps to 400."""
+
+
+def _effective_width(flag: str, asked: int, exported: int, export_dir: str,
+                     what: str, knob: str) -> int:
+    """The reference's auto-off and clamp rules for an engine knob that
+    asks for an optimization: an export without the step serves with the
+    knob off, one narrower than asked serves at its own width, each with
+    a warning (the knob is an optimization, not a contract)."""
+    if asked and not exported:
+        log.warning("%s %d requested but %r carries no %s — it is "
+                    "disabled for this server; re-export with "
+                    "export_generator(..., %s) to enable it", flag, asked,
+                    export_dir, what, knob)
+        return 0
+    if asked > exported:
+        log.warning("%s %d exceeds this export's width %d — clamping to "
+                    "%d", flag, asked, exported, exported)
+        return exported
+    return asked
 
 
 class PredictServer:
@@ -56,7 +104,12 @@ class PredictServer:
     def __init__(self, export_dir: str, *, scheduler: str = "auto",
                  port: int = 0, device=None, host: str = "127.0.0.1",
                  name: str | None = None, max_queue: int = 64,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, default_deadline_ms: int = 0,
+                 stall_after_s: float = 10.0, spec_tokens: int = 0,
+                 prefill_chunk_tokens: int = 0,
+                 default_priority: str = "interactive",
+                 shed_policy: str = "auto",
+                 priority_aging_ms: int = 2000):
         if scheduler not in ("auto", "on", "off"):
             raise ValueError(f"scheduler must be auto/on/off, got "
                              f"{scheduler!r}")
@@ -76,8 +129,20 @@ class PredictServer:
         if scheduler == "on":
             sw = load_stepwise(export_dir, device)
             self.meta, self.device = sw.meta, sw.device
+            spec_tokens = _effective_width(
+                "--spec_tokens", spec_tokens, sw.spec_tokens, export_dir,
+                "verify step", "spec_tokens=K")
+            prefill_chunk_tokens = _effective_width(
+                "--prefill_chunk_tokens", prefill_chunk_tokens,
+                sw.prefill_chunk_tokens, export_dir, "chunked prefill",
+                "prefill_chunk=C")
             self.engine = GenerationEngine(
-                sw, max_queue=max_queue, prefix_cache=prefix_cache).start()
+                sw, max_queue=max_queue, prefix_cache=prefix_cache,
+                default_deadline_ms=default_deadline_ms,
+                stall_after_s=stall_after_s, spec_tokens=spec_tokens,
+                prefill_chunk_tokens=prefill_chunk_tokens,
+                default_priority=default_priority, shed_policy=shed_policy,
+                priority_aging_ms=priority_aging_ms).start()
         else:
             self.servable = load_servable(export_dir, device)
             self.meta, self.device = self.servable.meta, self.servable.device
@@ -197,12 +262,6 @@ class PredictServer:
         the response carries ``request_ids`` and the per-request
         ``timings`` beside ``generations``."""
         self._check_prompt_lengths(payload)
-        for knob in ("deadline_ms", "priority"):
-            if payload.get(knob) is not None:
-                raise ValueError(
-                    f"{knob!r} arrives with a later slice of the port "
-                    "(the engine's deadline and priority admission are "
-                    "not served over HTTP yet)")
         rows = None
         if isinstance(payload.get("inputs"), dict):
             rows = payload["inputs"].get("input_ids")
@@ -248,9 +307,19 @@ class PredictServer:
               "temperature": knob("temperature", float),
               "top_k": knob("top_k", int),
               "top_p": knob("top_p", float),
-              # 0 opts out of drafting; > 0 is refused by the engine
-              # (speculative decoding arrives with a later slice)
+              # per-request latency budget (ms; the engine's default when
+              # absent): expiry retires the slot between steps, a 504
+              "deadline_ms": knob("deadline_ms", int),
+              # per-request speculative width: 0 opts out of drafting,
+              # 2..--spec_tokens caps it (> 0 on a spec-off server: 400)
               "spec_tokens": knob("spec_tokens", int)}
+        prio = payload.get("priority")
+        if prio is not None:
+            # the class set is validated by the engine on this thread
+            if not isinstance(prio, str):
+                raise ValueError(
+                    f"'priority' must be a string, got {prio!r}")
+            kw["priority"] = prio
         stop = payload.get("stop_sequences")
         if stop is not None:
             # shape/type validation happens in the engine's _make_request
@@ -289,6 +358,8 @@ class PredictServer:
             for h in handles:
                 if not h.done():
                     h.cancel()
+            if isinstance(e, (DeadlineExceededError, RequestCancelledError)):
+                raise                  # the handler maps these to 504/409
             if isinstance(e, (TimeoutError, RuntimeError)):
                 raise _ServerFault(f"{type(e).__name__}: {e}") from e
             raise
@@ -307,7 +378,8 @@ class PredictServer:
             raise ValueError("request body must be a JSON object")
         if self.engine is not None:
             return self._generate_scheduled(payload, request_id)
-        for knob in ("stop_sequences", "spec_tokens"):
+        for knob in ("stop_sequences", "spec_tokens", "deadline_ms",
+                     "priority"):
             if payload.get(knob) is not None:
                 raise ValueError(
                     f"{knob!r} requires the continuous-batching "
@@ -414,10 +486,17 @@ class PredictServer:
                     self._send(200, server.generate(
                         payload, self.headers.get("X-Request-Id") or None))
                 except QueueFullError as e:
-                    # bounded admission: tell the client WHEN to come back
+                    # bounded admission or a shed (ShedError): tell the
+                    # client WHEN to come back, from the measured rate
                     self._send(429, {"error": str(e)},
                                headers={"Retry-After":
                                         str(int(e.retry_after + 0.5))})
+                except DeadlineExceededError as e:
+                    # the request's own deadline_ms budget expired; its
+                    # slot and blocks are already back in the pool
+                    self._send(504, {"error": str(e)})
+                except RequestCancelledError as e:
+                    self._send(409, {"error": str(e)})
                 except _ServerFault as e:
                     self._send(500, {"error": str(e)})
                 except (ValueError, KeyError, TypeError) as e:
@@ -482,6 +561,48 @@ def main(argv=None) -> int:
                     help="engine admission queue bound (429 past it)")
     ap.add_argument("--prefix_cache", choices=("on", "off"), default="on",
                     help="paged exports: reuse cached prompt-prefix blocks")
+    ap.add_argument("--default_deadline_ms", type=int, default=0,
+                    help="latency budget of :generate requests that carry "
+                    "no deadline_ms of their own (0 = none); expiry "
+                    "retires the slot between steps, frees its cache "
+                    "blocks, and answers 504")
+    ap.add_argument("--spec_tokens", type=int, default=0,
+                    help="speculative decoding: verify up to K-1 "
+                    "self-drafted tokens per shared dispatch (needs an "
+                    "export with export_generator(..., spec_tokens=K); "
+                    "auto-off with a warning when the export lacks the "
+                    "verify step). Greedy output stays equal; 0 = off. "
+                    "A request's `spec_tokens` opts out (0) or caps lower")
+    ap.add_argument("--prefill_chunk_tokens", type=int, default=0,
+                    help="chunked prefill: feed cold prompts to the engine "
+                    "in block-aligned chunks of this many tokens, one a "
+                    "scheduler iteration between shared decode steps, so "
+                    "a long prompt stalls live decoders one chunk at a "
+                    "time (needs an export with export_generator(..., "
+                    "prefill_chunk=C); auto-off with a warning without "
+                    "it). On an H100 a chunk, like a whole prompt's "
+                    "prefill, is bound by its host launches and runs more "
+                    "of them than the flash-kernel prefill, so it stalls "
+                    "live decoders as long as the whole prefill or "
+                    "longer: chunking does not yet cut the stall. "
+                    "0 = off")
+    ap.add_argument("--default_priority",
+                    choices=("interactive", "batch", "best_effort"),
+                    default="interactive",
+                    help="admission class of :generate requests that carry "
+                    "no 'priority' of their own: orders the queue (class, "
+                    "earliest deadline, FIFO, with aging) and names the "
+                    "brownout rung that sheds the request")
+    ap.add_argument("--shed_policy", choices=("auto", "off"),
+                    default="auto",
+                    help="'auto': the pressure ladder (healthy -> "
+                    "shed_best_effort -> shed_batch -> interactive_only; "
+                    "429 + measured Retry-After per shed class) and the "
+                    "deadline-feasibility shed; 'off': only the blunt "
+                    "queue-full 429")
+    ap.add_argument("--stall_after_s", type=float, default=10.0,
+                    help="GET /healthz reports 'stalled' (503) once the "
+                    "scheduler heartbeat is older than this")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default cuda; pass "
                     "cpu to run without a GPU)")
@@ -489,7 +610,13 @@ def main(argv=None) -> int:
     srv = PredictServer(args.export_dir, scheduler=args.scheduler,
                         port=args.port, device=args.device, host=args.host,
                         name=args.name, max_queue=args.max_queue,
-                        prefix_cache=args.prefix_cache == "on")
+                        prefix_cache=args.prefix_cache == "on",
+                        default_deadline_ms=args.default_deadline_ms,
+                        stall_after_s=args.stall_after_s,
+                        spec_tokens=args.spec_tokens,
+                        prefill_chunk_tokens=args.prefill_chunk_tokens,
+                        default_priority=args.default_priority,
+                        shed_policy=args.shed_policy)
 
     def _graceful(signum, frame):
         # stop() must run off the serve_forever thread

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 import signal
+import tempfile
 import time
 from typing import Any
 
@@ -29,6 +30,7 @@ import torch
 from ..ckpt.checkpoint import CheckpointManager
 from ..obs.trace import span
 from ..runtime import distributed
+from ..runtime.server import CaptureRequest
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsLogger, RateTracker
 
@@ -296,6 +298,7 @@ class StepTimingHook(Hook):
         self.metrics_logger = metrics_logger
         self._times_ms: list[float] = []
         self._first_ms: float | None = None
+        self._cost_logged = False
         self.last_record: dict | None = None
 
     def after_step(self, trainer, step, metrics):
@@ -307,9 +310,9 @@ class StepTimingHook(Hook):
             return
         self._times_ms.append(dt_ms)
         if len(self._times_ms) >= max(1, self.every_steps):
-            self._emit(step)
+            self._emit(trainer, step)
 
-    def _emit(self, step: int) -> None:
+    def _emit(self, trainer, step: int) -> None:
         if not self._times_ms:
             return
         arr = np.asarray(self._times_ms)
@@ -323,6 +326,12 @@ class StepTimingHook(Hook):
             "max": float(arr.max()),
             "first_dispatch_ms": float(self._first_ms),
         }}
+        if not self._cost_logged:
+            # once: the FLOPs of the first step (SyncReplicas.counted_step)
+            cost = getattr(trainer.sync, "last_cost_analysis", None)
+            if cost:
+                rec["step_cost_analysis"] = cost
+                self._cost_logged = True
         self.last_record = rec
         self._times_ms.clear()
         if _is_chief():
@@ -334,51 +343,121 @@ class StepTimingHook(Hook):
 
     def end(self, trainer):
         # flush the residue, so a short run still yields a record
-        self._emit(int(trainer.state.step))
+        self._emit(trainer, int(trainer.state.step))
 
     def wants_metrics(self, step):
         return False
 
 
-class ProfilerHook(Hook):
-    """A ``torch.profiler`` trace of steps (start, stop] (the profiler
-    starts after step ``start`` and stops after step ``stop``), written
-    by rank 0 into ``profile_dir`` as Chrome trace JSON
-    (``trace-steps-<start>-<stop>.json``)."""
+#: the name of the zero-length profiler annotation a trace holds for each
+#: step it covers (``train_step#<global step>``)
+STEP_MARK = "train_step#"
 
-    def __init__(self, profile_dir: str, start_step: int, stop_step: int):
+
+class ProfilerHook(Hook):
+    """``torch.profiler`` traces of the captures it is asked for, written
+    into ``profile_dir`` as Chrome trace JSON
+    (``trace-steps-<start>-<stop>.json``, the profiler starting after
+    step ``start`` and stopping after step ``stop``). Each traced step
+    leaves a ``train_step#<step>`` annotation in the trace.
+
+    Captures come from one queue. The configured window (start, stop]
+    (``--profile_steps``) is queued on rank 0 when the run begins and is
+    due from step ``start`` until step ``stop``; ``service`` (a
+    :class:`~..runtime.server.ProfilerService`, the ``--profiler_port``
+    listener) adds its requests, each due at once for its next N steps.
+    Once no trace runs (after a trace stops, the same step), each step
+    moves at most one service request into the queue and traces the first
+    capture due; a trace's path and the steps
+    it really holds go back to the request. Without ``profile_dir`` the
+    traces go to a fresh temporary directory."""
+
+    def __init__(self, profile_dir: str | None, start_step: int = 0,
+                 stop_step: int = 0, service=None):
         self.profile_dir = profile_dir
-        self.start_step = start_step
-        self.stop_step = stop_step
+        self.service = service
+        self._configured = ((start_step, stop_step)
+                            if stop_step > start_step else None)
+        self._queue: list[CaptureRequest] = []
+        self._req: CaptureRequest | None = None   # the capture in flight
         self._prof = None
+        self._window = (0, 0)       # (start, stop] of the capture in flight
+        self._traced = (0, 0)       # its first and last traced step
+
+    def begin(self, trainer):
+        if self._configured is not None and _is_chief():
+            start, stop = self._configured
+            self._queue.append(CaptureRequest(stop - start, start=start))
+
+    def _due(self, step: int) -> CaptureRequest | None:
+        """Take the first queued capture due after ``step``; drop a
+        window the run has passed."""
+        if self.service is not None:
+            req = self.service.take()
+            if req is not None:
+                self._queue.append(req)
+        for req in list(self._queue):
+            if req.start is None or req.start <= step < req.start + req.steps:
+                self._queue.remove(req)
+                return req
+            if step >= req.start + req.steps:
+                self._queue.remove(req)
+                req.fail("the run passed the window before it was traced")
+        return None
+
+    def _begin(self, trainer, req: CaptureRequest, step: int) -> None:
+        start = step if req.start is None else req.start
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if trainer.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._req = req
+        self._window = (start, start + req.steps)
+        self._traced = (step + 1, step)
+        self._prof = torch.profiler.profile(activities=acts)
+        self._prof.__enter__()
 
     def _stop(self) -> None:
         prof, self._prof = self._prof, None
+        req, self._req = self._req, None
         prof.__exit__(None, None, None)
+        if self.profile_dir is None:
+            self.profile_dir = tempfile.mkdtemp(prefix="profiler-")
         os.makedirs(self.profile_dir, exist_ok=True)
-        path = os.path.join(
-            self.profile_dir,
-            f"trace-steps-{self.start_step}-{self.stop_step}.json")
-        prof.export_chrome_trace(path)
+        start, stop = self._window
+        path = os.path.join(self.profile_dir,
+                            f"trace-steps-{start}-{stop}.json")
+        try:
+            prof.export_chrome_trace(path)
+        except Exception as e:
+            req.fail(f"writing the trace failed: {e}")
+            raise
         log.info("profiler trace: %s", path)
+        first, last = self._traced
+        if last < first:
+            req.fail("training ended before the capture traced a step")
+        else:
+            req.finish(path=path, steps=[first, last])
 
     def after_step(self, trainer, step, metrics):
-        if not _is_chief():
-            return
-        if self._prof is None and self.start_step <= step < self.stop_step:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if trainer.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
-            self._prof.__enter__()
-        elif self._prof is not None and step >= self.stop_step:
+        if self._prof is not None:
+            with torch.profiler.record_function(f"{STEP_MARK}{step}"):
+                pass
+            self._traced = (self._traced[0], step)
+            if step < self._window[1]:
+                return
             if trainer.device.type == "cuda":
                 torch.cuda.synchronize(trainer.device)
             self._stop()
+        req = self._due(step)
+        if req is not None:
+            self._begin(trainer, req, step)
 
     def end(self, trainer):
         if self._prof is not None:
             self._stop()
+        queued, self._queue = self._queue, []
+        for req in queued:
+            req.fail("training ended before the capture was taken")
 
     def wants_metrics(self, step):
         return False

@@ -23,8 +23,11 @@ Dropout draws from generators seeded by the state's seed and the step,
 so a replayed window draws the same masks. An eval cadence feeds the
 best-checkpoint record (``keep_best_metric``) and early stop (its state
 in ``early_stop.json`` beside the checkpoints, rank 0's verdict on every
-rank). ``step_timing`` times each step to a device sync;
-``trace_path`` dumps the data, step, checkpoint and rollback lanes as
+rank). ``step_timing`` times each step to a device sync and counts the
+first step's FLOPs (``SyncReplicas.counted_step``); ``debug_checks``
+raises on a non-finite loss or gradient; a profiler service
+(``--profiler_port``) arms the profiler hook for the steps a capture asks
+for. ``trace_path`` dumps the data, step, checkpoint and rollback lanes as
 Chrome trace JSON. ``steps_per_loop > 1`` arrives with slice A3c-2b and
 sharded mesh axes with A6, and raise; warm start arrives with A5b.
 """
@@ -100,6 +103,8 @@ class Trainer:
         ``torch.distributed`` group's, or 0 of 1 without one).
       train_transform: the loader's per-batch ``transform(batch, epoch,
         global_indices)`` for the training set (the CIFAR augmentation).
+      profiler_service: a ``runtime.server.ProfilerService`` (the
+        ``--profiler_port`` listener) whose captures arm the profiler hook.
     """
 
     def __init__(self, model, config: TrainConfig,
@@ -109,7 +114,7 @@ class Trainer:
                  device: str | torch.device | None = None,
                  process_index: int | None = None,
                  num_processes: int | None = None,
-                 train_transform=None):
+                 train_transform=None, profiler_service=None):
         self.process_index = (distributed.process_index()
                               if process_index is None else process_index)
         self.num_processes = (distributed.process_count()
@@ -121,6 +126,7 @@ class Trainer:
         self.train_arrays = train_arrays
         self.eval_arrays = eval_arrays
         self.train_transform = train_transform
+        self.profiler_service = profiler_service
         self.tx = make_optimizer(config.optimizer)
         self._schedule = make_schedule(config.optimizer)
         self._rollback_pending = False
@@ -129,7 +135,8 @@ class Trainer:
         self.sync = SyncReplicas(model.loss, self.tx, config.mesh,
                                  sync=config.sync,
                                  anomaly_policy=config.on_anomaly,
-                                 device=self.device)
+                                 device=self.device,
+                                 debug_checks=config.obs.debug_checks)
 
         # the trainer's counters (hooks reach them through
         # ``trainer.registry``); registered up front so a run that never
@@ -235,9 +242,14 @@ class Trainer:
                 self.ckpt_manager, save_steps=cfg.checkpoint.save_steps,
                 save_secs=cfg.checkpoint.save_secs))
             hs.append(hooks_lib.PreemptionHook())
-        if cfg.obs.profile_steps and cfg.obs.profile_dir:
-            hs.append(hooks_lib.ProfilerHook(cfg.obs.profile_dir,
-                                             *cfg.obs.profile_steps))
+        # the profiler service (--profiler_port) arms the same hook for
+        # the steps a capture asks for
+        service = self.profiler_service
+        window = (cfg.obs.profile_steps
+                  if cfg.obs.profile_steps and cfg.obs.profile_dir else None)
+        if window or service is not None:
+            hs.append(hooks_lib.ProfilerHook(
+                cfg.obs.profile_dir, *(window or ()), service=service))
         return hs
 
     def learning_rate_at(self, step: int) -> float:
@@ -322,7 +334,14 @@ class Trainer:
                     # the matching global step; the step is untouched
                     host_batch = fault_reg.poison_batch(host_batch, step + 1)
                 t_s0 = time.perf_counter()
-                state, device_metrics = self.sync.step(state, host_batch)
+                if timing and self.sync.last_cost_analysis is None:
+                    # once a run: the step's FLOPs for step_timing's
+                    # record (the reference's precompile cost analysis)
+                    state, device_metrics = self.sync.counted_step(
+                        state, host_batch)
+                else:
+                    state, device_metrics = self.sync.step(state,
+                                                           host_batch)
                 t_s1 = time.perf_counter()
                 step += 1
                 self._h_dispatch.observe(t_s1 - t_s0)

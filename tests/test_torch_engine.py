@@ -12,7 +12,8 @@ invariant, slot reuse, EOS retirement, per-seed sampling, prefix reuse
 with zero prefill dispatches, copy-on-write, block exhaustion and
 pressure, the allocator units, and the HTTP layer (``:generate`` parity
 with ``scheduler="off"``, 429 on a full queue, ``/stats``). The spec and
-chunked-prefill paths are a later slice and are refused.
+chunked-prefill paths are held in ``tests/test_torch_spec.py`` and
+``tests/test_torch_slo.py``.
 """
 
 import json
@@ -488,8 +489,13 @@ def test_engine_close_fails_pending_and_refuses_later_slices(dirs):
         fut.result(timeout=5)
     with pytest.raises(RuntimeError, match="stopped"):
         eng.submit(_prompts(1, seed=9)[0])
-    for kw in (dict(spec_tokens=2), dict(prefill_chunk_tokens=BLOCK)):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    # speculation and chunked prefill are served since their slice
+    # landed (tests/test_torch_spec.py, test_torch_slo.py): over an export
+    # without the verify or chunk step the engine refuses them, naming
+    # the re-export, as the reference's engine does
+    for kw, frag in ((dict(spec_tokens=2), "no verify"),
+                     (dict(prefill_chunk_tokens=BLOCK), "prefill_chunk")):
+        with pytest.raises(ValueError, match=frag):
             _engine(dirs["paged"], **kw)
 
 
@@ -632,10 +638,12 @@ def test_http_429_and_validation(dirs):
              "max_new"),
             ({"inputs": {"input_ids": [[1, 2]], "bogus": [[1]]}},
              "unknown"),
+            # a spec-off engine refuses a request's spec width > 0
             ({"inputs": {"input_ids": [[1, 2]]}, "spec_tokens": 2},
-             "spec_tokens"),
-            ({"inputs": {"input_ids": [[1, 2]]}, "deadline_ms": 5},
-             "later slice"),
+             "speculative decoding is off"),
+            # deadline_ms is served; the engine refuses a negative one
+            ({"inputs": {"input_ids": [[1, 2]]}, "deadline_ms": -5},
+             "deadline_ms"),
             ({"inputs": {"input_ids": [[1, 2]],
                          "prompt_mask": [[0, 0]]}}, "real token"),
         ]:

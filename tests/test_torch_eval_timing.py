@@ -1,7 +1,8 @@
 """The port's eval cadence, early stop and step-timing, profiler and trace
-hooks, on the CPU: step-timing records (the reference's keys, less the
-compiled step's cost analysis, which eager PyTorch has no counterpart
-of), early stop (stops, validates, refuses an unknown metric, keeps its
+hooks, on the CPU: step-timing records (the reference's keys; the first
+record carries the step's FLOPs as ``step_cost_analysis``, counted by
+``FlopCounterMode`` where the reference reads XLA's cost analysis:
+``tests/test_torch_debug_tools.py`` holds the count), early stop (stops, validates, refuses an unknown metric, keeps its
 state across a resume, on every rank rank 0's value), the
 ``torch.profiler`` hook's Chrome trace, ``--trace_path``'s lanes (data,
 step, checkpoint, rollback) and its ring bound, and the CLI flags that
@@ -67,7 +68,10 @@ def test_step_timing_records(tmp_path):
                 "max", "first_dispatch_ms"):
         assert key in st, key
     assert st["p99"] >= st["p50"] > 0.0 and st["steps_per_dispatch"] == 1
-    assert not [r for r in recs if "step_cost_analysis" in r]
+    # the cost record rides the first timing record only, as in the
+    # reference
+    assert [r["step"] for r in recs if "step_cost_analysis" in r] == [5]
+    assert timing[0]["step_cost_analysis"]["flops"] > 0
     assert hook.last_record["step_timing_ms"] == timing[-1]["step_timing_ms"]
 
 

@@ -837,6 +837,79 @@ def test_paged_kernels_with_most_splits_empty(cuda, quant):
     assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernels_at_the_verify_shape(cuda, quant):
+    """Speculative verify's shape: 8 rows of 4 lanes become 32 query rows,
+    each lane's row sharing its row's block table at the next position.
+    One launch a call, against the plain version, and bitwise against a
+    second launch."""
+    gen = torch.Generator().manual_seed(23 + quant)
+    q, k, v, kw = _paged_any(gen, cuda, quant)
+    lanes = 4
+    bt = kw["block_tables"].cpu()
+    bt[bt == 0] = 1                      # the lanes' blocks are real
+    pos = kw["pos"].cpu().clamp(max=bt.shape[1] * 16 - lanes)
+    kw.update(block_tables=bt.repeat_interleave(lanes, 0).to(cuda),
+              pos=(pos[:, None] + torch.arange(lanes)).reshape(-1)
+              .to(torch.int32).to(cuda),
+              pad=kw["pad"].repeat_interleave(lanes))
+    q = _randn(gen, (8 * lanes,) + tuple(q.shape[1:]), cuda)
+    name = "launches_int8" if quant else "launches"
+    before = getattr(pa.paged_decode_attention, name)
+    o = pa.paged_decode_attention(q, k, v, **kw)
+    assert getattr(pa.paged_decode_attention, name) == before + 1
+    o2 = pa.paged_decode_attention(q, k, v, **kw)
+    o_ref = pa.xla_paged_decode_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    assert _row_rel_err(o, o_ref) <= PAGED_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_verify_step_runs_the_paged_kernels(cuda, quant):
+    """``GPT.decode_verify_batched_paged`` on the card (2 layers of 2
+    heads of 64, bf16): one paged-kernel launch a layer for all B·K
+    lanes, and the live lanes' logits within the engine's logit
+    tolerance of the plain attention's (``chip_smoke.py``'s, 0.08)."""
+    from distributed_tensorflow_example_tpu_torch.models.gpt import (
+        GPT, GPTConfig)
+    cfg = GPTConfig(vocab_size=512, hidden=128, layers=2, heads=2,
+                    intermediate=256, max_len=256, dropout=0.0)
+    model = GPT(cfg, dtype=torch.bfloat16)
+    params = model.init(0, device=cuda)
+    stacked = model.stack_decode_params(params)
+    gen = torch.Generator().manual_seed(29 + quant)
+    b, lanes, bs, nb = 4, 3, 16, 8
+    n = 1 + b * nb
+    shape = (cfg.layers, n, bs, cfg.heads, 64)
+    kf, vf = (_randn(gen, shape, cuda) for _ in range(2))
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv_rows(kf), quantize_kv_rows(vf)
+        pools = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        pools = {"k": kf, "v": vf}
+    bt = ((torch.randperm(n - 1, generator=gen) + 1).reshape(b, nb)
+          .to(torch.int32).to(cuda))
+    pos = torch.tensor([20, 60, 100, 125], dtype=torch.int32, device=cuda)
+    n_tok = torch.tensor([3, 2, 1, 3], dtype=torch.int32, device=cuda)
+    tok = torch.randint(0, cfg.vocab_size, (b, lanes), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    zero = torch.zeros(b, dtype=torch.int32, device=cuda)
+    alive = torch.ones(b, dtype=torch.int32, device=cuda)
+    name = "launches_int8" if quant else "launches"
+    before = getattr(pa.paged_decode_attention, name)
+    lg, _ = model.decode_verify_batched_paged(
+        params, stacked, {k_: x.clone() for k_, x in pools.items()}, bt, tok,
+        pos, zero, alive, n_tok)
+    assert getattr(pa.paged_decode_attention, name) == before + cfg.layers
+    lg_ref, _ = model.decode_verify_batched_paged(
+        params, stacked, {k_: x.clone() for k_, x in pools.items()}, bt, tok,
+        pos, zero, alive, n_tok, decode_attention="xla")
+    live = (torch.arange(lanes, device=cuda)[None, :] < n_tok[:, None])
+    torch.cuda.synchronize()
+    assert (lg - lg_ref).abs()[live].max().item() <= 0.08
+
+
 def test_int8_paged_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((2, 2, 64), device=cuda, dtype=torch.bfloat16)
     kp = torch.zeros((5, 16, 2, 64), device=cuda, dtype=torch.bfloat16)

@@ -248,11 +248,12 @@ def test_routes_and_malformed_json(greedy_server):
     dict(kv_cache_dtype="int8")])
 def test_export_refuses_later_slices(pair, tmp_path, knob):
     """The stepwise export (slab and paged) writes the reference's
-    ``stepwise`` metadata block; speculative verify and chunked prefill
-    still belong to a later slice and raise, writing nothing. The int8
-    knobs are served now: ``weight_quant`` lands in the metadata, and an
-    int8 KV pool on a monolithic (non-paged) export raises as in the
-    reference, writing nothing."""
+    ``stepwise`` metadata block. Speculative verify, chunked prefill and
+    an int8 KV pool are served over paged exports (the first two held in
+    ``tests/test_torch_spec.py`` and ``test_torch_slo.py``); on a
+    monolithic (non-paged) export each raises as in the reference,
+    naming ``paged=True`` and writing nothing. ``weight_quant`` lands in
+    the metadata."""
     _, _, tm, tp = pair
     kw = dict(prompt_len=P, max_new_tokens=NEW)
     if "weight_quant" in knob:
@@ -262,9 +263,7 @@ def test_export_refuses_later_slices(pair, tmp_path, knob):
         assert meta["weight_quant"] == "int8" and "stepwise" not in meta
         return
     if not knob.get("stepwise"):
-        exc, match = ((ValueError, "paged=True") if "kv_cache_dtype" in knob
-                      else (NotImplementedError, "later slice"))
-        with pytest.raises(exc, match=match):
+        with pytest.raises(ValueError, match="paged=True"):
             export_generator(tm, tp, str(tmp_path), **kw, **knob)
         assert not os.listdir(tmp_path)
         return

@@ -442,8 +442,9 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 # specs and the summary, TensorBoard, timing, profiler and trace sinks
 # train too (tests/test_torch_ckpt_best.py, test_torch_self_healing.py,
 # test_torch_eval_timing.py, test_torch_tb_events.py,
-# test_torch_adafactor.py; LIFTED below): of their slices only the debug
-# tools (A3c-4b) and sharded saves (A6) stay refused.
+# test_torch_adafactor.py; LIFTED below), and so do the debug tools
+# (tests/test_torch_debug_tools.py): of their slices only sharded saves
+# (A6) stay refused.
 LATER = [
     (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
     (["--model", "bert_tiny", "--data_dir", "VOCAB"], "A5b"),
@@ -455,9 +456,6 @@ LATER = [
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
     (["--model", "pipe_moe_bert_tiny"], "A6"),
     (["--sharded_save"], "A6"),
-    (["--debug_checks"], "A3c-4b"),
-    (["--debug_nans"], "A3c-4b"),
-    (["--profiler_port", "6006"], "A3c-4b"),
     (["--warm_start", "w"], "A5b"),
     (["--moment_dtype", "bfloat16"], "A5b"),
     (["--ema_decay", "0.9"], "A5b"),
@@ -494,7 +492,7 @@ def test_cli_refuses_a_later_slice_before_any_work(tmp_path, extra,
     assert not os.path.exists(ck)
 
 
-# every flag the rest-of-training slice (A3c-3b, A3c-4) ported
+# every flag the rest-of-training slices (A3c-3b, A3c-4, A3c-4b) ported
 LIFTED = [
     ["--optimizer", "adafactor"],
     ["--keep_best_metric", "loss"],
@@ -513,6 +511,10 @@ LIFTED = [
     ["--step_timing"],
     ["--trace_path", "trace.json"],
     ["--trace_buffer_events", "128"],
+    # the debug tools (A3c-4b)
+    ["--debug_checks"],
+    ["--debug_nans"],
+    ["--profiler_port", "6006"],
 ]
 
 
