@@ -11,8 +11,11 @@ the reference example and through the CLI, its convolutional models
 (BERT-base, bert_large, bert_tiny) on the flash kernels' non-causal
 path, the rest of GPT-small's training (adafactor, sync and async
 saves, rollback, the best checkpoint, the observability sinks), and
-last GPT-small's speculative decoding, chunked prefill and SLO knobs
-over HTTP and training's debug tools.
+GPT-small's speculative decoding, chunked prefill and SLO knobs over
+HTTP, training's debug tools, and last a single server's HTTP and
+operator surface (``:predict``, ``/metrics``, ``/trace/*``,
+``/stats/history``, cancel, drain, the flight recorder) and the serving
+chaos soak.
 
     python3 chip_smoke.py
 
@@ -86,7 +89,18 @@ way; spec on int8 pools; an infeasible ``deadline_ms`` answered 429),
 the debug-tools phase (GPT-small through ``cli/train.py``:
 ``--debug_checks`` under a ``step.nan`` fault, its cost a step, the
 step's counted FLOPs beside the closed form, ``--debug_nans``, one
-``--profiler_port`` capture), a
+``--profiler_port`` capture), the HTTP-ops phase (the MLP trained and
+exported with ``--export_dir``, 16 concurrent ``:predict`` clients
+through the MicroBatcher: answers bitwise a replay of their batch, the
+batcher's counters exact, latency and rows/s; BERT-base ``:predict`` at
+64 x 128: 12 flash launches a batch, logits against the plain
+attention's, rows/s; GPT-small paged ``:generate`` on a ``--metrics off
+--flight_recorder off`` server and an armed one: equal bytes and launch
+counts, tokens/s each, ``/metrics`` against ``/stats``, the trace routes,
+``/stats/history`` with SLO results, a cancel mid-decode, a fault-spec
+wedge's ``/healthz`` flip and incident bundle, a drain of 16 requests;
+``trace_summary`` of one profiled request; the ``serving_chaos``
+scenarios over bf16 and int8 pools), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -1528,6 +1542,10 @@ def phase_cli(card: str) -> dict:
     toks = np.asarray(out["generations"])
     log(f"[cli] exported generator served: :generate of 2 x 64 tokens "
         f"-> {toks.shape} in {secs * 1e3:.1f} ms")
+    # the server's flight recorder armed the span ring; its stop() must
+    # disarm it, or every later phase records spans
+    if trace.recorder().enabled:
+        failed.append("the stopped server left the span ring armed")
 
     if sorted(first) != list(range(1, 21)):
         failed.append(f"logged steps {sorted(first)}")
@@ -4451,6 +4469,719 @@ def phase_debug_tools(card: str) -> None:
         f"({card})")
 
 
+# ---------------------------------------------------------------------------
+# a single server's HTTP and operator surface (slice A4a)
+# ---------------------------------------------------------------------------
+
+# BERT-base :predict, flash (B1 non-causal) against the plain attention on
+# the same export and rows, bf16: the largest |logit difference| over the
+# batch, against the logits' spread (set before the first run at GPT-small's
+# LOGIT_TOL: both carry bf16 attention rounding through 12 layers)
+PREDICT_BERT_LOGIT_TOL = 0.1
+# the :predict shapes: BERT-base 64 rows x 128 tokens a wave, eight clients
+# of eight rows, one masked position a row (the [rows, 1, 30522] f32 logits
+# are what the JSON answer carries)
+PREDICT_BERT_B, PREDICT_BERT_S, PREDICT_BERT_M = 64, 128, 1
+PREDICT_BERT_WAVES = 3
+# the ops phase's GPT-small engine: prompts up to 128, 64 new tokens, 8 slots
+OPS_PROMPT, OPS_NEW, OPS_SLOTS = 128, 64, 8
+
+
+def http_json(port: int, path: str, payload=None, method: str = "GET",
+              headers: dict | None = None, timeout: float = 600
+              ) -> tuple[int, object, dict]:
+    """(status, parsed body, headers) of one request to the local server;
+    HTTP errors are answers too."""
+    import urllib.error
+    data = None if payload is None else json.dumps(payload).encode()
+    if method == "POST" and data is None:
+        data = b""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method,
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, code, hdr = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, code, hdr = e.read(), e.code, dict(e.headers)
+    text = raw.decode()
+    try:
+        return code, json.loads(text), hdr
+    except ValueError:
+        return code, text, hdr
+
+
+def _concurrent(n: int, fn) -> tuple[list, list, float]:
+    """Run ``fn(i)`` for i < n on n threads at once: (results, seconds
+    each, wall seconds). Raises on any failure."""
+    import threading
+    out, sec, errors = [None] * n, [0.0] * n, []
+
+    def worker(i):
+        t0 = time.perf_counter()
+        try:
+            out[i] = fn(i)
+        except Exception as e:
+            errors.append(f"{i}: {type(e).__name__}: {e}")
+        sec[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"concurrent requests failed: {errors[:4]}")
+    return out, sec, wall
+
+
+class _RecordingServable:
+    """Wraps the batcher's servable: every batch it runs (the padded
+    feature columns and the logits) is kept, so each answer can be held
+    bitwise to a replay of its own batch."""
+
+    def __init__(self, servable):
+        self.inner, self.batches = servable, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, cols):
+        preds = self.inner(cols)
+        self.batches.append(({k: np.array(v) for k, v in cols.items()},
+                             np.array(preds)))
+        return preds
+
+
+def _bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _predict_mlp(tmp: str, card: str) -> dict:
+    """(a) The source's workload trained, exported and served: MLP through
+    ``cli/train.py --export_dir``, 16 concurrent ``:predict`` clients of
+    1-8 rows through the MicroBatcher."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.serving import \
+        load_servable
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    d = os.path.join(tmp, "mlp_export")
+    t0 = time.perf_counter()
+    rc = cli.main(["--model", "mlp", "--device", "cuda", "--batch_size",
+                   "256", "--learning_rate", "0.5", "--train_steps", "200",
+                   "--log_every_steps", "100", "--export_dir", d])
+    log(f"[http mlp] cli.train --model mlp 200 steps + --export_dir: rc "
+        f"{rc} in {time.perf_counter() - t0:.1f} s; artifact "
+        f"{sorted(os.listdir(d))}")
+    if rc != 0 or not os.path.exists(os.path.join(d, "export.json")):
+        raise SystemExit("the MLP run did not export its forward")
+    rs = np.random.RandomState(11)
+    rows = [rs.rand(int(rs.randint(1, 9)), 784).astype(np.float32)
+            for _ in range(16)]
+    offline = load_servable(d)
+    with PredictServer(d, scheduler="on", port=0) as srv:
+        rec = _RecordingServable(srv.batcher.servable)
+        srv.batcher.servable = rec
+        path = f"/v1/models/{srv.name}:predict"
+        http_json(srv.port, path, {"instances": rows[0].tolist()},
+                  "POST")                                       # warm-up
+        rec.batches.clear()
+        b0 = srv.batcher.stats()
+        read = _reset_launches()
+
+        def client(i):
+            code, body, _ = http_json(srv.port, path,
+                                      {"inputs": {"x": rows[i].tolist()}},
+                                      "POST")
+            if code != 200:
+                raise RuntimeError(f"HTTP {code}: {body}")
+            return np.asarray(body["predictions"], np.float32)
+
+        answers, sec, wall = _concurrent(len(rows), client)
+        launches = read()
+        st = srv.batcher.stats()
+    n_rows = sum(len(r) for r in rows)
+    batches = st["batches"] - b0["batches"]
+    padded = st["padded_rows"] - b0["padded_rows"]
+    # place each request in the batch that ran it: its rows at some offset
+    # of the batch's columns, its answer bitwise those rows of the logits
+    real = [0] * len(rec.batches)
+    placed = 0
+    for x, ans in zip(rows, answers):
+        for j, (cols, preds) in enumerate(rec.batches):
+            xs = cols["x"]
+            off = next((o for o in range(len(xs) - len(x) + 1)
+                        if np.array_equal(xs[o:o + len(x)], x)), None)
+            if off is not None:
+                real[j] += len(x)
+                placed += np.array_equal(preds[off:off + len(x)], ans)
+                break
+    buckets_ok = all(len(cols["x"]) == _bucket(k)
+                     for k, (cols, _) in zip(real, rec.batches))
+    replay = all(np.array_equal(offline(cols), preds)
+                 for cols, preds in rec.batches)
+    solo = max(float(np.abs(offline({"x": x}) - ans).max())
+               for x, ans in zip(rows, answers))
+    bitwise = placed == len(rows) and replay and buckets_ok
+    pad_want = sum(_bucket(k) - k for k in real)
+    lat = sorted(sec)
+    log(f"[http mlp] 16 concurrent :predict clients, {n_rows} rows: "
+        f"{batches} micro-batches (recorded {len(rec.batches)}, real rows "
+        f"{real}), rows {st['rows'] - b0['rows']}, padded rows {padded} "
+        f"(want {pad_want}); answers bitwise the offline servable's on "
+        f"their own batch: {placed}/{len(rows)}, replays bitwise: "
+        f"{replay}; against one-request offline calls max abs err "
+        f"{solo:.3e}; request latency p50 {lat[len(lat) // 2] * 1e3:.2f} "
+        f"ms max {lat[-1] * 1e3:.2f} ms, {n_rows / wall:.1f} rows/s; "
+        f"batcher p50 {st['latency_p50_ms']} ms; launches {launches} "
+        f"({card})")
+    if (not bitwise or batches != len(rec.batches)
+            or st["rows"] - b0["rows"] != n_rows or sum(real) != n_rows
+            or padded != pad_want or any(launches.values()) or solo > 1e-4):
+        raise SystemExit("MicroBatcher :predict of the MLP export failed "
+                         "its checks")
+    return {"p50_ms": lat[len(lat) // 2] * 1e3, "max_ms": lat[-1] * 1e3,
+            "rows_per_s": n_rows / wall}
+
+
+def _predict_bert(tmp: str, card: str) -> dict:
+    """(b) BERT-base ``:predict`` at 64 x 128 (bf16, flash) from
+    ``export_model`` on its init params: B1 12 times a batch, logits
+    against the plain attention's on the same export, rows/s."""
+    from distributed_tensorflow_example_tpu_torch.config import (
+        DataConfig, TrainConfig)
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        export_model, load_servable)
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    cfg = TrainConfig(model="bert", dtype="bfloat16", attention_impl="flash",
+                      data=DataConfig(seq_len=PREDICT_BERT_S))
+    model = get_model("bert", cfg)
+    params = model.init(0)
+    B, S, M = PREDICT_BERT_B, PREDICT_BERT_S, PREDICT_BERT_M
+    rs = np.random.RandomState(12)
+
+    def batch(n):
+        lens = rs.randint(S // 2, S + 1, n)
+        lens[0] = S
+        mask = (np.arange(S)[None] < lens[:, None]).astype(np.int32)
+        return {"input_ids": (rs.randint(1, model.cfg.vocab_size, (n, S))
+                              * mask).astype(np.int32),
+                "token_type_ids": np.zeros((n, S), np.int32),
+                "attention_mask": mask,
+                "masked_positions": (rs.randint(0, S // 2, (n, M))
+                                     ).astype(np.int32)}
+
+    d = os.path.join(tmp, "bert_export")
+    t0 = time.perf_counter()
+    export_model(model, params, {}, d, sample_batch=batch(8))
+    del params
+    log(f"[http bert] export_model of BERT-base in "
+        f"{time.perf_counter() - t0:.2f} s")
+    waves = [batch(B) for _ in range(PREDICT_BERT_WAVES + 1)]
+    per = B // 8
+    with PredictServer(d, scheduler="on", port=0, batch_max_size=B,
+                       batch_max_wait_ms=50.0) as srv:
+        path = f"/v1/models/{srv.name}:predict"
+
+        def run_wave(w):
+            def client(i):
+                rows = {k: v[i * per:(i + 1) * per].tolist()
+                        for k, v in waves[w].items()}
+                code, body, _ = http_json(srv.port, path, {"inputs": rows},
+                                          "POST")
+                if code != 200:
+                    raise RuntimeError(f"HTTP {code}: {str(body)[:200]}")
+                return np.asarray(body["predictions"], np.float32)
+            return _concurrent(8, client)
+
+        run_wave(0)                                             # warm-up
+        b0 = srv.batcher.stats()["batches"]
+        read = _reset_launches()
+        walls, lats, answers = [], [], []
+        for w in range(1, PREDICT_BERT_WAVES + 1):
+            out, sec, wall = run_wave(w)
+            walls.append(wall)
+            lats += sec
+            answers.append(np.concatenate(out))
+        launches = read()
+        st = srv.batcher.stats()
+        batches = st["batches"] - b0
+    plain = load_servable(d)
+    plain.model.attention_impl = "xla"
+    err, spread = 0.0, 0.0
+    for w, got in enumerate(answers, start=1):
+        ref = plain(waves[w])
+        err = max(err, float(np.abs(got - ref).max()))
+        spread = max(spread, float(ref.std()))
+    del plain
+    lat = sorted(lats)
+    rows = B * PREDICT_BERT_WAVES
+    log(f"[http bert] BERT-base :predict, {PREDICT_BERT_WAVES} waves of 8 "
+        f"concurrent clients x {per} rows ({B} x {S}, {M} masked position a "
+        f"row): {batches} batches, B1 launches "
+        f"{launches['flash_attention_fwd']} (want 12 a batch: "
+        f"{12 * batches}), other kernels "
+        f"{ {k: v for k, v in launches.items() if k != 'flash_attention_fwd'} };"
+        f" logits vs plain attention max abs err {err:.3e} (tol "
+        f"{PREDICT_BERT_LOGIT_TOL}, logit std {spread:.3f}); "
+        f"{rows / sum(walls):.1f} rows/s, request latency p50 "
+        f"{lat[len(lat) // 2] * 1e3:.1f} ms max {lat[-1] * 1e3:.1f} ms; "
+        f"batcher p50 {st['latency_p50_ms']} ms ({card})")
+    others = {k: v for k, v in launches.items() if k != "flash_attention_fwd"}
+    if launches["flash_attention_fwd"] != 12 * batches or any(
+            others.values()) or err > PREDICT_BERT_LOGIT_TOL:
+        raise SystemExit("BERT :predict failed its checks")
+    return {"b1": launches["flash_attention_fwd"], "batches": batches,
+            "rows_per_s": rows / sum(walls),
+            "p50_ms": lat[len(lat) // 2] * 1e3, "max_ms": lat[-1] * 1e3,
+            "err": err}
+
+
+#: /stats field -> the registry metric it views (the counters and gauges
+#: /metrics must carry with the same value)
+STATS_METRICS = (
+    ("prefills", "serving_prefills_total"),
+    ("decode_steps", "serving_decode_steps_total"),
+    ("decode_slot_steps", "serving_decode_slot_steps_total"),
+    ("admissions", "serving_admissions_total"),
+    ("requests_done", "serving_requests_done_total"),
+    ("requests_failed", "serving_requests_failed_total"),
+    ("cancelled", "serving_cancelled_total"),
+    ("deadline_expired", "serving_deadline_expired_total"),
+    ("redispatches", "serving_redispatches_total"),
+    ("tokens_out", "serving_tokens_out_total"),
+    ("verify_steps", "serving_verify_steps_total"),
+    ("shed", "serving_shed_total"),
+    ("prefill_chunks", "serving_prefill_chunks_total"),
+    ("slo_served", "serving_slo_served_total"),
+    ("slo_good", "serving_slo_good_total"),
+    ("goodput_tokens", "serving_goodput_tokens_total"),
+    ("blocks_free", "serving_blocks_free"),
+    ("bytes_resident_peak", "serving_bytes_resident_peak"),
+    ("live_slots", "serving_live_slots"),
+    ("queue_depth", "serving_queue_depth"))
+
+
+def _gen_wave(srv, prompts: list, label: str, card: str) -> dict:
+    """One ``:generate`` of all ``prompts`` as the rows of one request
+    (one atomic admission wave), every launch count set to 0 just before
+    and read just after."""
+    eng = srv.engine
+    d0 = eng.decode_steps
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    code, body, _ = http_json(
+        srv.port, f"/v1/models/{srv.name}:generate",
+        {"inputs": {"input_ids": [p.tolist() for p in prompts]}}, "POST")
+    wall = time.perf_counter() - t0
+    launches = read()
+    if code != 200:
+        raise SystemExit(f"{label} wave: HTTP {code}: {str(body)[:300]}")
+    gens = body["generations"]
+    toks = sum(len(g) for g in gens)
+    # a --metrics off server counts nothing: its steps are B5's launches
+    steps = (eng.decode_steps - d0 if srv.registry.enabled else
+             launches["paged_decode_attention"] // eng.sw.model.cfg.layers)
+    log(f"[http ops {label}] {len(prompts)} rows in one :generate: "
+        f"{steps} shared decode steps, {toks} tokens in {wall * 1e3:.1f} ms, "
+        f"{toks / wall:.1f} tokens/s, launches {launches} ({card})")
+    return {"gens": gens, "launches": launches, "wall": wall, "toks": toks,
+            "steps": steps}
+
+
+def _wait_for(pred, what: str, timeout: float = 60.0) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"timed out waiting for {what}")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def _span_cost_us(n: int = 20000) -> dict:
+    """Host microseconds of one engine-style span (name, lane and a
+    request id), with the ring off and with it armed, over ``n`` spans
+    into a ring of its own; the process ring is restored after."""
+    from distributed_tensorflow_example_tpu_torch.obs import trace as obs_trace
+    old = obs_trace.recorder()
+    rec = obs_trace.set_recorder(obs_trace.TraceRecorder(n))
+    out = {}
+    try:
+        for label in ("off", "armed"):
+            if label == "armed":
+                rec.start()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                with obs_trace.span("decode_step", lane="scheduler",
+                                    request_id="r"):
+                    pass
+            out[label] = (time.perf_counter() - t0) / n * 1e6
+    finally:
+        rec.stop()
+        obs_trace.set_recorder(old)
+    return out
+
+
+def _ops_checks(srv, tmp: str, prompts: list, inc: str, card: str) -> dict:
+    """On the armed server: /metrics against /stats, /stats/history, a
+    cancel mid-decode, a fault-spec wedge, then a drain under a full
+    queue."""
+    import threading
+    from distributed_tensorflow_example_tpu_torch.obs import prom
+    from distributed_tensorflow_example_tpu_torch.runtime import faults
+    eng = srv.engine
+    # /metrics parsed against /stats, quiesced
+    _, stats, _ = http_json(srv.port, "/stats")
+    _, text, _ = http_json(srv.port, "/metrics")
+    page = prom.parse_snapshot(text)
+    gen = stats["generate"]
+    diff = {k: (gen[k], page[m]["value"]) for k, m in STATS_METRICS
+            if gen[k] != page[m]["value"]}
+    hist_lat = page["serving_request_latency_seconds"]["count"]
+    log(f"[http ops metrics] /metrics: {len(page)} metrics; {len(STATS_METRICS)}"
+        f" /stats fields against their metrics, mismatches {diff}; latency "
+        f"histogram count {hist_lat} vs requests_done "
+        f"{gen['requests_done']}")
+    if diff or hist_lat != gen["requests_done"]:
+        raise SystemExit("/metrics and /stats disagree")
+    _, hist, _ = http_json(srv.port, "/stats/history")
+    res = (hist.get("slo") or {}).get("results") or []
+    log(f"[http ops history] /stats/history: {len(hist['samples'])} samples, "
+        f"interval {hist['interval_s']} s; SLO results "
+        f"{[(r['class'], r['kind'], r['attainment'], r['burn_fast'], r['breach']) for r in res]}")
+    if len(hist["samples"]) < 2 or not res:
+        raise SystemExit("/stats/history holds no samples or SLO results")
+    # cancel mid-decode: the blocks come back at the next step boundary
+    free0 = eng.stats()["blocks_free"]
+    t_out = eng.stats()["tokens_out"]
+    holder = {}
+    th = threading.Thread(target=lambda: holder.update(r=http_json(
+        srv.port, f"/v1/models/{srv.name}:generate",
+        {"inputs": {"input_ids": [prompts[0].tolist()]}}, "POST",
+        headers={"X-Request-Id": "ops-cancel"})))
+    th.start()
+    _wait_for(lambda: eng.stats()["tokens_out"] >= t_out + 8,
+              "the cancel target decoding")
+    during = eng.stats()["blocks_free"]
+    t0 = time.perf_counter()
+    code, body, _ = http_json(srv.port, "/cancel/ops-cancel", method="POST")
+    back = _wait_for(lambda: eng.stats()["blocks_free"] == free0,
+                     "the cancelled request's blocks")
+    th.join(60)
+    waiter = holder["r"][0]
+    code2, _, _ = http_json(srv.port, "/cancel/ops-cancel", method="POST")
+    log(f"[http ops cancel] POST /cancel mid-decode: HTTP {code}; "
+        f"blocks_free {during} -> {free0} (before the request) in "
+        f"{back * 1e3:.2f} ms; the request's own waiter HTTP {waiter}; a "
+        f"second cancel HTTP {code2} ({card})")
+    if code != 200 or waiter != 409 or code2 != 404 \
+            or eng.stats()["blocks_free"] != free0:
+        raise SystemExit("cancel did not return the blocks exactly")
+    # a fault-spec wedge of the decode step: /healthz flips to stalled and
+    # the flight recorder writes one watchdog_stall bundle
+    eng.set_stall_after(0.5)
+    faults.install(faults.parse_spec("engine.decode_step:step=3:stall=2.5"))
+    try:
+        th = threading.Thread(target=lambda: holder.update(w=http_json(
+            srv.port, f"/v1/models/{srv.name}:generate",
+            {"inputs": {"input_ids": [prompts[1].tolist()]},
+             "max_new": 8}, "POST")))
+        th.start()
+        seen = []
+
+        def stalled():
+            code, h, _ = http_json(srv.port, "/healthz")
+            seen.append((code, h["status"]))
+            return h["status"] == "stalled"
+
+        flip = _wait_for(stalled, "/healthz to report stalled", 20.0)
+        th.join(60)
+    finally:
+        faults.install(None)
+    eng.set_stall_after(10.0)
+    code_h, h, _ = http_json(srv.port, "/healthz")
+    bundles = sorted(f for f in os.listdir(inc) if "watchdog_stall" in f)
+    with open(os.path.join(inc, bundles[0])) as f:
+        bundle = json.load(f)
+    log(f"[http ops wedge] engine.decode_step:step=3:stall=2.5: /healthz "
+        f"stalled after {flip * 1e3:.0f} ms ({len(seen)} polls, last "
+        f"{seen[-1]}), back to HTTP {code_h} {h['status']}; the request HTTP"
+        f" {holder['w'][0]}; watchdog_stall bundles {len(bundles)} (keys "
+        f"{sorted(bundle)[:12]}...) ({card})")
+    if len(bundles) != 1 or holder["w"][0] != 200 or code_h != 200 \
+            or "registry" not in bundle:
+        raise SystemExit("the wedge did not flip /healthz or write one "
+                         "incident bundle")
+    # drain under a full queue: 16 single-row requests on 8 slots, then
+    # stop(drain=True); a late admission answers 503
+    results = [None] * 16
+
+    def client(i):
+        results[i] = http_json(
+            srv.port, f"/v1/models/{srv.name}:generate",
+            {"inputs": {"input_ids": [prompts[i % len(prompts)].tolist()]}},
+            "POST")
+
+    done0 = eng.stats()["requests_done"]
+
+    def accepted() -> int:
+        h = eng.health()
+        return (h["queue_depth"] + h["inflight"]
+                + eng.stats()["requests_done"] - done0)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    # every request is queued or live before the drain: a request that
+    # reaches the engine after it is a new admission, answered 503
+    _wait_for(lambda: accepted() == 16, "all 16 requests accepted")
+    queued = eng.health()["queue_depth"]
+    stopper = threading.Thread(target=srv.stop)
+    stopper.start()
+    _wait_for(lambda: eng.health()["draining"], "the drain flag")
+    late = http_json(srv.port, f"/v1/models/{srv.name}:generate",
+                     {"inputs": {"input_ids": [prompts[0].tolist()]}},
+                     "POST")
+    for t in threads:
+        t.join(120)
+    stopper.join(120)
+    ok = sum(1 for r in results
+             if r and r[0] == 200 and len(r[1]["generations"][0]) == OPS_NEW)
+    log(f"[http ops drain] stop(drain=True) with {queued} of 16 queued "
+        f"behind {OPS_SLOTS} slots: {ok}/16 answered 200 with all "
+        f"{OPS_NEW} tokens; late admission HTTP {late[0]} Retry-After "
+        f"{late[2].get('Retry-After')}; drain_ms "
+        f"{eng.stats()['drain_ms']}; engine {eng.health()['status']} "
+        f"({card})")
+    if ok != 16 or late[0] != 503 or eng.health()["status"] != "dead":
+        raise SystemExit("the drain dropped a request or admitted a late one")
+    return {"cancel_ms": back * 1e3, "stall_ms": flip * 1e3}
+
+
+def _ops_profile(srv, prompt, c, card: str) -> dict:
+    """(d) ``utils/trace_summary.py`` over a ``torch.profiler`` capture of
+    one engine request."""
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_tensorflow_example_tpu_torch.utils import \
+        trace_summary
+    read = _reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        code, body, _ = http_json(
+            srv.port, f"/v1/models/{srv.name}:generate",
+            {"inputs": {"input_ids": [prompt.tolist()]}}, "POST")
+        torch.cuda.synchronize()
+    launches = read()
+    steps = launches["paged_decode_attention"] // c.layers
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"),
+                        "engine_request.json")
+    prof.export_chrome_trace(path)
+    s = trace_summary.summarize(path, top=5)["engine_request.json"]
+    dev = s.get("device") or {}
+    share = dev.get("families_share", {})
+    log(f"[http ops trace_summary] one engine request ({steps} decode "
+        f"steps): {s['events']} events; device busy {dev.get('busy_ms')} ms,"
+        f" families {dev.get('families_ms')}, kernels a family "
+        f"{dev.get('families_count')} (the wrappers counted B1 "
+        f"{launches['flash_attention_fwd']}, B5 "
+        f"{launches['paged_decode_attention']} launches of a split and a "
+        f"combine kernel each; the profiler may miss the first kernels of "
+        f"its window); B5 share of device time "
+        f"{share.get('B5', 0.0):.4f}; B1 share {share.get('B1', 0.0):.4f} "
+        f"({card})")
+    for ln in s["lanes"][:6]:
+        log(f"[http ops trace_summary]   lane {ln['lane'][:60]!r}: busy "
+            f"{ln['busy_ms']:.3f} ms (naive sum {ln['naive_ms']:.3f} ms), "
+            f"{ln['events']} events")
+    for o in s["top_ops"]:
+        log(f"[http ops trace_summary]   top op {o['ms']:9.3f} ms "
+            f"x{o['count']:<5d} [{o['family']}] {o['op'][:90]}")
+    if code != 200 or not dev or share.get("B5", 0.0) <= 0 \
+            or not dev["families_count"].get("B1"):
+        raise SystemExit("trace_summary saw no B5 decode or no B1 prefill")
+    return {"b5_share": share.get("B5", 0.0)}
+
+
+def _ops_chaos(card: str) -> dict:
+    """(e) The port's ``serving_chaos`` on the card: every scenario over
+    bf16 pools, then over int8 pools (B6)."""
+    from distributed_tensorflow_example_tpu_torch.experiments import \
+        serving_chaos
+    out = {}
+    for label, kv in (("bf16", None), ("int8", "int8")):
+        read = _reset_launches()
+        t0 = time.perf_counter()
+        res = serving_chaos.run_scenarios(list(serving_chaos.SCENARIOS),
+                                          seed=0, device="cuda",
+                                          kv_cache_dtype=kv)
+        launches = read()
+        failed = [r for r in res if not r["ok"]]
+        for r in res:
+            log(f"[http ops chaos {label}] {r['scenario']}: "
+                f"{'ok' if r['ok'] else 'FAILED'} — {r['detail'][:240]}")
+        log(f"[http ops chaos {label}] {len(res)} scenarios in "
+            f"{time.perf_counter() - t0:.1f} s, failed {len(failed)}; "
+            f"launches {launches} ({card})")
+        kernel = ("paged_decode_attention_int8" if kv
+                  else "paged_decode_attention")
+        if failed or not launches[kernel] \
+                or not launches["flash_attention_fwd"]:
+            raise SystemExit(f"serving_chaos {label} failed: "
+                             f"{[r['scenario'] for r in failed]}")
+        out[label] = launches
+    return out
+
+
+def phase_http_ops(card: str) -> dict:
+    """A single server's HTTP and operator surface: (a) the MLP trained,
+    exported with ``--export_dir`` and served through the MicroBatcher;
+    (b) BERT-base ``:predict`` on the flash forward; (c) GPT-small paged
+    ``:generate`` with the operator surface armed, against a
+    ``--metrics off --flight_recorder off`` server on the same wave, then
+    /metrics, /trace, /stats/history, cancel, a wedge and a drain; (d)
+    ``trace_summary`` over one profiled request; (e) ``serving_chaos``.
+    Returns the B1, B5 and B6 launches of its measured runs."""
+    from distributed_tensorflow_example_tpu_torch.config import TrainConfig
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.obs import trace as obs_trace
+    from distributed_tensorflow_example_tpu_torch.serving import \
+        export_generator
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    t_phase = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mlp = _predict_mlp(tmp, card)
+        bert = _predict_bert(tmp, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = get_model("gpt", TrainConfig(model="gpt", dtype="bfloat16",
+                                             attention_impl="flash"))
+        c = model.cfg
+        params = model.init(0)
+        bs = PAGED_SHAPE["bs"]
+        per_row = -(-(OPS_PROMPT + OPS_NEW) // bs)
+        d = os.path.join(tmp, "ops_paged")
+        export_generator(model, params, d, prompt_len=OPS_PROMPT,
+                         max_new_tokens=OPS_NEW, ragged=True, stepwise=True,
+                         slots=OPS_SLOTS, paged=True, block_size=bs,
+                         num_blocks=1 + 2 * OPS_SLOTS * per_row)
+        del params
+        rs = np.random.RandomState(13)
+        prompts = [rs.randint(0, c.vocab_size, (int(n),)).astype(np.int32)
+                   for n in rs.randint(OPS_PROMPT // 4, OPS_PROMPT + 1,
+                                       OPS_SLOTS)]
+        warm = [rs.randint(0, c.vocab_size, (OPS_PROMPT,)).astype(np.int32)]
+        def plain_server():
+            # --metrics off --flight_recorder off, with the span ring off
+            obs_trace.recorder().stop()
+            return PredictServer(d, scheduler="on", port=0,
+                                 prefix_cache=False, metrics=False,
+                                 flight_recorder=False)
+
+        # plain, armed, armed under /trace/start, plain again: each
+        # server in turn (the span ring is one a process)
+        waves = {}
+        with plain_server() as srv:
+            _gen_wave(srv, warm, "plain warm-up", card)
+            waves["plain A"] = _gen_wave(srv, prompts, "plain A", card)
+        inc = os.path.join(tmp, "incidents")
+        srv = PredictServer(
+            d, scheduler="on", port=0, prefix_cache=False,
+            incident_dir=inc, history_interval_s=0.25,
+            slo_spec="interactive:p95_ms=30000@0.9;all:availability=0.99",
+            request_log=os.path.join(tmp, "requests.jsonl")).start()
+        try:
+            _gen_wave(srv, warm, "armed warm-up", card)
+            waves["armed"] = _gen_wave(srv, prompts, "armed", card)
+            code, _, _ = http_json(srv.port, "/trace/start", method="POST")
+            waves["armed traced"] = _gen_wave(srv, prompts, "armed traced",
+                                              card)
+            _, chrome, _ = http_json(srv.port, "/trace/stop", method="POST")
+            _, exp1, _ = http_json(srv.port, "/trace/export")
+            _, exp2, _ = http_json(srv.port, "/trace/export")
+            names = sorted({s[2] for s in exp1["spans"]})
+            lanes = sorted({s[1] for s in exp1["spans"]})
+            log(f"[http ops trace] /trace/start HTTP {code}; /trace/stop "
+                f"{len(chrome['traceEvents'])} events; /trace/export "
+                f"{len(exp1['spans'])} spans, names {names}, {len(lanes)} "
+                f"lanes; a second export {len(exp2['spans'])} spans")
+            if code != 200 or not {"prefill", "decode_step"} <= set(names) \
+                    or exp2["spans"]:
+                raise SystemExit("the trace routes did not hold the "
+                                 "engine's spans, or export did not drain")
+            # the always-on ring's cost as a count: the spans a shared
+            # step records, times one span's host cost
+            tw = waves["armed traced"]
+            per_step = len(exp1["spans"]) / max(tw["steps"], 1)
+            cost = _span_cost_us()
+            step_us = tw["wall"] / max(tw["steps"], 1) * 1e6
+            extra = per_step * (cost["armed"] - cost["off"])
+            log(f"[http ops span cost] {len(exp1['spans'])} spans over "
+                f"{tw['steps']} shared steps = {per_step:.2f} a step; a "
+                f"span {cost['armed']:.3f} us armed, {cost['off']:.3f} us "
+                f"off; {extra:.1f} us a step of {step_us:.1f} us "
+                f"({extra / step_us:.5f} of a step's wall) ({card})")
+            ops = _ops_checks(srv, tmp, prompts, inc, card)
+            log_lines = sum(1 for _ in open(os.path.join(tmp,
+                                                         "requests.jsonl")))
+            log(f"[http ops request_log] {log_lines} JSONL events")
+        finally:
+            srv.kill()
+        del srv
+        gc.collect()
+        with plain_server() as srv:
+            _gen_wave(srv, warm, "plain warm-up", card)
+            waves["plain B"] = _gen_wave(srv, prompts, "plain B", card)
+            prof = _ops_profile(srv, prompts[0], c, card)
+        armed, plain = waves["armed"], waves["plain A"]
+        same = all(w["gens"] == plain["gens"] for w in waves.values())
+        eq_launch = all(w["launches"] == plain["launches"]
+                        for w in waves.values())
+        rate = {k: w["toks"] / w["wall"] for k, w in waves.items()}
+        log(f"[http ops armed vs plain] generations equal over the four "
+            f"waves: {same}; launches equal: {eq_launch} (B5 "
+            f"{[w['launches']['paged_decode_attention'] for w in waves.values()]}"
+            f"); tokens/s "
+            f"{ {k: round(v, 1) for k, v in rate.items()} } ({card})")
+        if not same or not eq_launch or armed["launches"][
+                "paged_decode_attention"] != c.layers * armed["steps"]:
+            raise SystemExit("the armed server is not byte- and "
+                             "dispatch-identical to the plain one")
+        obs_trace.recorder().stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+    chaos = _ops_chaos(card)
+    out.update(
+        b1=bert["b1"] + sum(w["launches"]["flash_attention_fwd"]
+                            for w in waves.values())
+        + chaos["bf16"]["flash_attention_fwd"]
+        + chaos["int8"]["flash_attention_fwd"],
+        b5=sum(w["launches"]["paged_decode_attention"]
+               for w in waves.values())
+        + chaos["bf16"]["paged_decode_attention"],
+        b6=chaos["int8"]["paged_decode_attention_int8"])
+    log(f"[http ops] :predict mlp p50 {mlp['p50_ms']:.2f} ms max "
+        f"{mlp['max_ms']:.2f} ms {mlp['rows_per_s']:.1f} rows/s; bert "
+        f"{bert['rows_per_s']:.1f} rows/s p50 {bert['p50_ms']:.1f} ms; "
+        f":generate tokens/s armed {rate['armed']:.1f} vs plain "
+        f"{rate['plain A']:.1f} / {rate['plain B']:.1f}; cancel returned blocks "
+        f"in {ops['cancel_ms']:.2f} ms; B5 share of a request's device time "
+        f"{prof['b5_share']:.4f}; phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -4502,6 +5233,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
+    t_last = [t_main]
+
+    def timed(label: str) -> None:
+        # each phase's wall, against the script's time limit
+        now = time.perf_counter()
+        log(f"[timing] {label} {now - t_last[0]:.1f} s (total "
+            f"{now - t_main:.1f} s)")
+        t_last[0] = now
+
     card = card_line()
     log(f"[device] {card} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s))")
@@ -4518,19 +5259,32 @@ def main() -> int:
         "flash_attention_bwd_dkv, flash_attention_bwd_fused, "
         "decode_attention, paged_decode_attention, "
         "paged_decode_attention_int8")
+    timed("build and kernel phases")
     train = phase_train(card)
+    timed("train")
     cli_run = phase_cli(card)
+    timed("cli")
     launches = phase_slice(card)
+    timed("slice")
     engine = phase_engine(card)
+    timed("engine")
     mnist = phase_mnist(card)
+    timed("mnist")
     log(f"[mnist] examples/s {mnist['examples_per_sec']:.1f}, ms per step "
         f"{mnist['ms_per_step']:.4f}, idle share {mnist['idle']:.3f}, "
         f"final test accuracy {mnist['accuracy']:.4f} ({card})")
     conv = phase_conv(card)
+    timed("conv")
     bert = phase_bert(card)
+    timed("bert")
     phase_train_rest(card)
+    timed("train_rest")
     spec = phase_spec_chunk(card)
+    timed("spec_chunk")
     phase_debug_tools(card)
+    timed("debug_tools")
+    http_ops = phase_http_ops(card)
+    timed("http_ops")
     log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
         f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
         f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "
@@ -4553,7 +5307,8 @@ def main() -> int:
                    "flash_attention_fwd.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
-         "launches": launches["flash_attention_fwd"], **flash},
+         "launches": launches["flash_attention_fwd"] + http_ops["b1"],
+         **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_dq.cu",
@@ -4583,13 +5338,15 @@ def main() -> int:
                    "paged_decode_attention.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
-         "launches": engine["launches"] + spec["b5"], **paged},
+         "launches": engine["launches"] + spec["b5"] + http_ops["b5"],
+         **paged},
         {"name": "paged_decode_attention_int8", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "paged_decode_attention_int8.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
-         "launches": engine["launches_int8"] + spec["b6"], **paged_int8},
+         "launches": engine["launches_int8"] + spec["b6"]
+         + http_ops["b6"], **paged_int8},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -43,9 +43,10 @@ checkpoints into
 ``--ckpt_dir`` (a second run on the same directory resumes; ``--async_save``
 writes on a background thread, ``--keep_best_metric`` keeps the best
 eval's checkpoint), evaluates at the end (or every
-``--eval_every_steps``, with ``--early_stop_metric``), and with
-``--export_generator`` hands the trained GPT weights to the port's
-``PredictServer``. ``--eval_only`` evaluates a checkpoint without
+``--eval_every_steps``, with ``--early_stop_metric``), and hands the
+trained weights to the port's ``PredictServer``: ``--export_dir`` writes
+the forward's artifact (``:predict``), ``--export_generator`` the GPT
+generator's (``:generate``). ``--eval_only`` evaluates a checkpoint without
 training (the latest, ``--eval_step N`` or ``--eval_best``) and prints
 one JSON line. ``--on_anomaly rollback`` and ``--fault_spec``, the
 TensorBoard, summary and histogram sinks, ``--step_timing`` (with the
@@ -186,7 +187,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--grad_clip_value", type=float, default=0.0,
       help="elementwise |g| clipping (0 disables)")
     a("--export_dir", default=None,
-      help="serving artifact of the trained forward (slice A4)")
+      help="write the trained forward's serving artifact (the port's "
+           "PredictServer serves it on :predict)")
     a("--export_generator", default=None, metavar="DIR",
       help="write a generator artifact (the port's PredictServer serves "
            "it) after training; gpt/gpt_tiny")
@@ -516,8 +518,6 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
         ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5b"),
         ("--ema_decay", args.ema_decay != 0.0, "A5b"),
         ("--ema_debias", args.ema_debias, "A5b"),
-        ("--export_dir (the forward's serving artifact)",
-         args.export_dir is not None, "A4"),
         ("--warm_start", args.warm_start is not None, "A5b"),
         ("--warm_start_map", bool(args.warm_start_map), "A5b"),
         (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
@@ -750,10 +750,19 @@ def _eval_only(args, cfg, model, trainer, ctx) -> int:
 
 
 def _maybe_export(args, cfg, model, state, ctx) -> None:
-    """``--export_generator``: the trained weights as a generator artifact
-    the port's ``PredictServer`` serves, written by rank 0 (every rank
-    holds the same weights)."""
-    if not args.export_generator or ctx.process_index != 0:
+    """The trained weights as the artifacts the port's ``PredictServer``
+    serves, written by rank 0 (every rank holds the same weights):
+    ``--export_dir`` the forward (``:predict``), ``--export_generator``
+    the causal LM's generator (``:generate``)."""
+    if ctx.process_index != 0:
+        return
+    if args.export_dir:
+        from ..serving import export_model
+        artifact = export_model(model, state.params, state.extras,
+                                args.export_dir,
+                                batch_size=min(8, cfg.data.batch_size))
+        log.info("exported servable: %s", artifact)
+    if not args.export_generator:
         return
     from ..serving import export_generator
     artifact = export_generator(

@@ -142,9 +142,15 @@ def register_model(name: str):
 
 
 def get_model(name: str, config: TrainConfig | None = None):
+    """The model ``name`` built from ``config``. The instance carries both
+    (``registry_name``, ``train_config``): ``serving.export_model``
+    records them so that a servable rebuilds the same model."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name](config or TrainConfig(model=name))
+    config = config or TrainConfig(model=name)
+    model = _REGISTRY[name](config)
+    model.registry_name, model.train_config = name, config
+    return model
 
 
 def list_models() -> list[str]:

@@ -308,6 +308,17 @@ class GPT:
         ``apply`` with ``train=False``."""
         return self.lm_logits(params, self.encode(params, batch)), extras
 
+    def dummy_batch(self, batch_size: int) -> dict[str, np.ndarray]:
+        """The reference's sample batch: the export's input signature."""
+        c = self.cfg
+        rs = np.random.RandomState(0)
+        s = min(128, c.max_len)
+        return {
+            "input_ids": rs.randint(0, c.vocab_size, (batch_size, s),
+                                    dtype=np.int32),
+            "attention_mask": np.ones((batch_size, s), np.int32),
+        }
+
     # ------------------------------------------------------------------
     def _lm_loss(self, params, h, targets, w, *, accuracy: bool = True):
         """Next-token loss + accuracy over encoded ``h`` [B, S, hid].

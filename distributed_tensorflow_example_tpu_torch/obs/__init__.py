@@ -1,2 +1,12 @@
-"""Observability of the port: the metrics registry and request-scoped
-trace spans (adapted copies of the reference's ``obs`` modules)."""
+"""Observability of the port (copies of the reference's ``obs`` modules,
+standard library only):
+
+- :mod:`.registry` — counters, gauges and fixed-bucket histograms with
+  one lock and atomic, mergeable snapshots;
+- :mod:`.prom` — a snapshot as Prometheus text (``GET /metrics``);
+- :mod:`.trace` — spans, the ring recorder, trace contexts;
+- :mod:`.timeseries` — the snapshot ring and its window queries
+  (``GET /stats/history``);
+- :mod:`.slo` — objectives, SLIs and multi-window burn rates;
+- :mod:`.flightrec` — rate-limited incident bundles.
+"""

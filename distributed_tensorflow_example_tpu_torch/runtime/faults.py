@@ -1,5 +1,5 @@
 """Deterministic fault injection at the training and generation-engine
-seams (an adapted copy of
+and HTTP seams (an adapted copy of
 ``distributed_tensorflow_example_tpu/runtime/faults.py``; the fleet
 router's seams arrive with their slice).
 
@@ -19,6 +19,8 @@ Spec grammar (``;``-separated rules, ``:``-separated fields)::
     engine.prefill:step=2                # 2nd prefill dispatch raises
     engine.admit:step=1                  # 1st admission fails
     pool.alloc:p=0.01                    # block allocator hiccups
+    http.read:step=1                     # 1st request body read fails
+    engine.decode_step:step=4:stall=3    # 4th decode dispatch wedges 3 s
 
 Fields: ``step=N`` fires on the site's Nth invocation (1-based; for the
 ``step.*`` sites the invocation index is the global training step) and is
@@ -27,7 +29,10 @@ each invocation with probability F from a stream seeded on (seed, site,
 invocation, attempt) — deterministic across reruns. ``raise=NAME`` picks
 the exception (OSError default; IOError/ValueError/RuntimeError allowed).
 ``corrupt=truncate|zero`` (``ckpt.write`` only) lets the write succeed,
-then damages the committed file. ``proc=K`` restricts a rule to rank K.
+then damages the committed file. ``stall=S`` (a port addition) raises
+nothing: the seam's thread sleeps S seconds and proceeds, a wedged call
+(the scheduler's watchdog sees it as a stall). ``proc=K`` restricts a
+rule to rank K.
 
 Inert by default: every seam calls :func:`inject` (or wraps through
 :func:`guard_iterator`), a single ``is None`` check when no registry is
@@ -53,7 +58,7 @@ log = get_logger("faults")
 SITES = ("ckpt.write", "ckpt.commit", "ckpt.read", "loader.next",
          "step.nan", "step.inf",
          "engine.prefill", "engine.decode_step", "engine.admit",
-         "pool.alloc")
+         "pool.alloc", "http.read")
 
 #: exceptions a rule may raise — an allowlist so a typo'd spec fails at
 #: parse time, not as a silent never-firing rule
@@ -75,6 +80,7 @@ class FaultRule:
     p: float | None = None         # else: per-invocation probability
     exc: str = "OSError"
     corrupt: str | None = None     # ckpt.write: damage the landed file
+    stall: float | None = None     # sleep this long instead of raising
     proc: int | None = None        # restrict to one rank
     fired: int = 0                 # one-shot bookkeeping for step= rules
 
@@ -86,6 +92,8 @@ class FaultRule:
             parts.append(f"p={self.p}")
         if self.corrupt:
             parts.append(f"corrupt={self.corrupt}")
+        elif self.stall:
+            parts.append(f"stall={self.stall:g}")
         else:
             parts.append(f"raise={self.exc}")
         if self.proc is not None:
@@ -137,6 +145,11 @@ def parse_spec(spec: str, *, seed: int = 0) -> "FaultRegistry":
                         f"corrupt={v!r} in {raw!r}: modes are "
                         f"{', '.join(CORRUPT_MODES)}")
                 rule.corrupt = v
+            elif k == "stall":
+                rule.stall = float(v)
+                if not rule.stall > 0.0:
+                    raise FaultSpecError(
+                        f"stall={v} in {raw!r} must be > 0 seconds")
             elif k == "proc":
                 rule.proc = int(v)
             else:
@@ -145,6 +158,9 @@ def parse_spec(spec: str, *, seed: int = 0) -> "FaultRegistry":
         if (rule.step is None) == (rule.p is None):
             raise FaultSpecError(
                 f"rule {raw!r} needs exactly one trigger: step=N or p=F")
+        if rule.corrupt and rule.stall:
+            raise FaultSpecError(
+                f"rule {raw!r} sets both corrupt= and stall=")
         if rule.corrupt and rule.site != "ckpt.write":
             raise FaultSpecError(
                 f"corrupt= only applies to ckpt.write (got {raw!r}): only "
@@ -219,12 +235,18 @@ class FaultRegistry:
                        detail: str = "", attempt: int = 0
                        ) -> FaultRule | None:
         """Raise the fired rule's exception; a ``corrupt=`` rule is
-        returned instead, for the caller to apply after its write."""
+        returned instead, for the caller to apply after its write, and a
+        ``stall=`` rule sleeps on the calling thread and returns None."""
         rule = self.check(site, index, attempt)
         if rule is None:
             return None
         if rule.corrupt:
             return rule
+        if rule.stall:
+            log.warning("fault injected: %s %s (stalling %.3gs)",
+                        rule.describe(), detail, rule.stall)
+            time.sleep(rule.stall)
+            return None
         log.warning("fault injected: %s %s", rule.describe(), detail)
         raise EXCEPTIONS[rule.exc](
             f"injected fault {rule.describe()} {detail}".strip())

@@ -1,15 +1,23 @@
-"""Generator export + loading (port of the generator half of
+"""Model export + loading (port of
 ``distributed_tensorflow_example_tpu/serving.py``).
 
-The reference bakes ``model.generate`` into a StableHLO artifact. The
-port's artifact is weights plus metadata, and the server runs the port's
-own model code, kernels included::
+The reference bakes the forward (``export_model``) or ``model.generate``
+(``export_generator``) into a StableHLO artifact. The port's artifact is
+weights plus metadata, and the server runs the port's own model code,
+kernels included::
 
     <dir>/params.npz    the parameters in the reference's npz format
                         (flat keys, per-array CRC32, bf16 as uint16)
-    <dir>/export.json   the reference's generator metadata keys (kind,
-                        input signature, shapes, sampling knobs) plus
-                        the model config needed to rebuild the model
+    <dir>/extras.npz    a forward's non-trained state (batch norm
+                        statistics), when it has any
+    <dir>/export.json   the reference's metadata keys (kind, input
+                        signature, param count, and the generator's
+                        shapes and sampling knobs) plus the model config
+                        needed to rebuild the model
+
+:func:`export_model` writes ``kind: "forward"``: the servable runs
+``model.apply(params, extras, features)`` with dropout off and returns
+the logits. :func:`export_generator` writes ``kind: "generator"``.
 
 ``stepwise=True`` adds the reference's ``stepwise`` metadata block, and
 :class:`StepwiseGenerator` serves it to the continuous-batching engine
@@ -45,7 +53,21 @@ from .models.gpt import GPT, GPTConfig, params_from_numpy, params_to_numpy
 from .runtime.device import resolve_device
 
 _PARAMS = "params.npz"
+_EXTRAS = "extras.npz"
 _META = "export.json"
+
+# label-side batch keys never consumed by ``apply`` (loss/eval only):
+# pruned from the serving signature so a servable takes features only
+_LABEL_KEYS = ("y", "masked_labels", "masked_weights", "__valid__")
+
+#: the TrainConfig fields the model factories read (``models/*.py``
+#: ``register_model``): with the registry name and the data's vocab and
+#: sequence length they rebuild an exported forward's model
+_MODEL_CONFIG_FIELDS = (
+    "dtype", "param_dtype", "attention_impl", "attention_bwd",
+    "attention_block_q", "attention_block_k", "attention_bwd_block",
+    "remat", "label_smoothing", "bn_stats_dtype", "lm_loss_impl",
+    "lm_loss_chunk", "lm_loss_vocab_block", "token_accuracy_every_n")
 
 #: quant metadata schema version recorded in every generator export; the
 #: loaders refuse an artifact that claims a newer one (the reference's value)
@@ -91,6 +113,83 @@ def _normalize_kv_cache_dtype(kv_cache_dtype, model_dtype: torch.dtype
         return torch.int8, True
     raise ValueError(f"kv_cache_dtype must be 'auto', 'bf16' or 'int8', "
                      f"got {kv_cache_dtype!r}")
+
+
+def serving_signature(batch: dict[str, Any]) -> dict[str, Any]:
+    """The feature-only view of a training batch."""
+    return {k: v for k, v in batch.items() if k not in _LABEL_KEYS}
+
+
+def _model_config(model) -> dict:
+    """The config ``models.get_model`` rebuilds ``model`` from. Only a
+    model built by ``get_model`` carries it, and only a model the port
+    has ported can be rebuilt: anything else raises naming its slice."""
+    from .models import list_models
+    name = getattr(model, "registry_name", None)
+    cfg = getattr(model, "train_config", None)
+    if name is None or cfg is None:
+        what = getattr(model, "name", type(model).__name__)
+        slice_ = "A6" if str(what).startswith("pipe_") else "A5b"
+        raise ValueError(
+            f"export_model: {what!r} was not built by models.get_model, "
+            f"so its config cannot be recorded (the port serves "
+            f"{', '.join(list_models())}; other models arrive with slice "
+            f"{slice_})")
+    return {"name": name,
+            **{f: getattr(cfg, f) for f in _MODEL_CONFIG_FIELDS},
+            "data": {"vocab_size": cfg.data.vocab_size,
+                     "seq_len": cfg.data.seq_len}}
+
+
+def _rebuild_model(model_config: dict):
+    """The model an export's ``model_config`` describes."""
+    from .config import DataConfig, TrainConfig
+    from .models import get_model
+    kw = dict(model_config)
+    name, data = kw.pop("name"), kw.pop("data")
+    return get_model(name, TrainConfig(model=name, data=DataConfig(**data),
+                                       **kw))
+
+
+def export_model(model, params, extras, out_dir: str, *,
+                 sample_batch: dict[str, Any] | None = None,
+                 batch_size: int = 8) -> str:
+    """Write a forward artifact of ``model.apply(params, extras, features,
+    train=False)``: the logits of any number of rows (batch-polymorphic,
+    as the reference's default export). ``sample_batch`` (default
+    ``model.dummy_batch(batch_size)``) fixes the input signature, labels
+    pruned. ``model`` must come from ``models.get_model``, whose name and
+    config the metadata records. Every rank may call it; rank 0 writes.
+    Returns the metadata path."""
+    from .runtime import distributed
+    model_config = _model_config(model)
+    batch = sample_batch or model.dummy_batch(batch_size)
+    features = serving_signature(batch)
+    path = os.path.join(out_dir, _META)
+    if distributed.process_index() != 0:
+        return path
+    arrays = ckpt.to_numpy(params)
+    os.makedirs(out_dir, exist_ok=True)
+    ckpt.save_npz(os.path.join(out_dir, _PARAMS), arrays)
+    if extras:
+        ckpt.save_npz(os.path.join(out_dir, _EXTRAS),
+                      ckpt.to_numpy(extras))
+    signature = {
+        k: {"shape": list(np.shape(v)), "dtype": str(np.asarray(v).dtype)}
+        for k, v in features.items()}
+    meta = {
+        "model": getattr(model, "name", type(model).__name__),
+        "kind": "forward",
+        "input_signature": signature,
+        "platforms": ["cuda", "cpu"],
+        "param_count": int(sum(np.size(a) for a in arrays.values())),
+        "torch_version": torch.__version__,
+        "batch_polymorphic": True,
+        "model_config": model_config,
+    }
+    with open(path, "w") as f:
+        json.dump(meta, f, indent=1)
+    return path
 
 
 def export_generator(model: GPT, params, out_dir: str, *,
@@ -344,10 +443,28 @@ def validate_quant_meta(meta: dict, *, where: str = "artifact") -> None:
                          f"{name!r}: {e}") from e
 
 
+def read_meta(directory: str) -> dict:
+    """An export's ``export.json``."""
+    with open(os.path.join(directory, _META)) as f:
+        return json.load(f)
+
+
+def _load_forward(directory: str, device) -> tuple[dict, Any, dict, dict]:
+    """(metadata, model, params, extras on ``device``) of a forward
+    export."""
+    meta = read_meta(directory)
+    model = _rebuild_model(meta["model_config"])
+    params = ckpt.from_numpy(ckpt.load_npz(os.path.join(directory,
+                                                        _PARAMS)), device)
+    extras_path = os.path.join(directory, _EXTRAS)
+    extras = (ckpt.from_numpy(ckpt.load_npz(extras_path), device)
+              if os.path.exists(extras_path) else {})
+    return meta, model, params, extras
+
+
 def _load_model(directory: str, device) -> tuple[dict, GPT, dict]:
     """(metadata, model, params on ``device``) of a generator export."""
-    with open(os.path.join(directory, _META)) as f:
-        meta = json.load(f)
+    meta = read_meta(directory)
     if meta.get("kind") != "generator":
         raise ValueError(f"{directory!r} holds no generator artifact "
                          f"(kind {meta.get('kind')!r})")
@@ -363,22 +480,41 @@ def _load_model(directory: str, device) -> tuple[dict, GPT, dict]:
 
 
 class ServableModel:
-    """A loaded generator export: ``servable(features, seed) -> tokens``.
-    The model is rebuilt from the metadata and its parameters are placed
-    on ``device`` (``cuda`` by default)."""
+    """A loaded export. A forward export: ``servable(features) -> logits``
+    (host numpy, f32). A generator export: ``servable(features, seed) ->
+    tokens``. The model is rebuilt from the metadata and its parameters
+    are placed on ``device`` (``cuda`` by default)."""
 
     def __init__(self, directory: str, device=None):
         self.directory = directory
         self.device = resolve_device(device)
-        self.meta, self.model, self.params = _load_model(directory,
-                                                         self.device)
+        self.extras: dict = {}
+        if read_meta(directory).get("kind") == "forward":
+            self.meta, self.model, self.params, self.extras = \
+                _load_forward(directory, self.device)
+        else:
+            self.meta, self.model, self.params = _load_model(directory,
+                                                             self.device)
+
+    @property
+    def kind(self) -> str:
+        return self.meta["kind"]
 
     @property
     def input_signature(self) -> dict:
         return self.meta["input_signature"]
 
+    def _forward(self, features: dict[str, np.ndarray]) -> np.ndarray:
+        feats = {k: torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in features.items()}
+        with torch.no_grad():
+            logits, _ = self.model.apply(self.params, self.extras, feats)
+        return logits.float().cpu().numpy()
+
     def __call__(self, features: dict[str, np.ndarray],
                  seed: int | None = None) -> np.ndarray:
+        if self.kind == "forward":
+            return self._forward(features)
         m = self.meta
         rng = None
         if m["temperature"] > 0.0:
@@ -407,8 +543,7 @@ def has_stepwise(directory: str) -> bool:
     """True when ``directory`` holds a generator export with the
     ``stepwise`` block a continuous-batching engine can drive."""
     try:
-        with open(os.path.join(directory, _META)) as f:
-            return bool(json.load(f).get("stepwise"))
+        return bool(read_meta(directory).get("stepwise"))
     except FileNotFoundError:
         return False
 

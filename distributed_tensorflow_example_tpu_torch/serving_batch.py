@@ -47,8 +47,11 @@ What differs from the reference: the port's pools are torch tensors that
 the stepwise calls (the verify and chunk steps included) update in place
 on the device, so copy-on-write is an in-place block copy and no call
 consumes the pool: ``_pool_alive`` stays true, and every failed dispatch
-takes the quarantine path. The ``:predict`` micro-batcher arrives with the
-HTTP/observability slice.
+takes the quarantine path.
+
+:class:`MicroBatcher` is the ``:predict`` path: dynamic micro-batching of
+forward rows into power-of-two buckets over one ``serving.ServableModel``
+of a forward export.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ import numpy as np
 from .obs.registry import SERVING_LATENCY_BUCKETS, Registry
 from .obs.trace import add_span, span
 from .runtime import faults
-from .serving import StepwiseGenerator, storage_dtype
+from .serving import ServableModel, StepwiseGenerator, storage_dtype
 from .utils.logging import get_logger
 
 log = get_logger("serving")
@@ -3250,3 +3253,222 @@ class GenerationEngine:
                 "cow_copies": c("serving_cow_copies_total"),
             })
         return out
+
+
+class MicroBatcher:
+    """Dynamic micro-batching for ``:predict`` requests.
+
+    Handler threads :meth:`submit` feature rows; a single batcher
+    thread gathers up to ``batch_max_size`` rows or
+    ``batch_max_wait_ms`` (whichever first), pads the gathered count
+    up to a power-of-two bucket (repeating the first row — the
+    framework's established pad convention, which also keeps a padded
+    BERT row live: a copy of a real row is never fully masked), runs
+    the servable ONCE,
+    and scatters the result rows back to the per-request futures.
+    Bucketing bounds the executable count to log2(batch_max_size)+1
+    shapes. Every forward export is batch-polymorphic, so any bucket is
+    a legal shape.
+    """
+
+    def __init__(self, servable: ServableModel, *,
+                 batch_max_size: int = 8, batch_max_wait_ms: float = 5.0,
+                 max_queue: int = 256, registry: Registry | None = None,
+                 process: str = "serving"):
+        self.process = str(process)
+        if batch_max_size < 1:
+            raise ValueError(f"batch_max_size must be >= 1, got "
+                             f"{batch_max_size}")
+        if batch_max_wait_ms < 0:
+            raise ValueError(f"batch_max_wait_ms must be >= 0, got "
+                             f"{batch_max_wait_ms}")
+        self.servable = servable
+        self.batch_max_size = batch_max_size
+        self.batch_max_wait_s = batch_max_wait_ms / 1e3
+        self.max_queue = max_queue
+        self._queue: deque[tuple[dict, int, Future, float]] = deque()
+        self._cond = threading.Condition()
+        self._running = False
+        self._thread: threading.Thread | None = None
+        # stats: registry-owned (shared with the engine's /metrics
+        # page when the server passes its registry in)
+        self.registry = registry if registry is not None else Registry(
+            namespace="serving")
+        self._c_batches = self.registry.counter(
+            "predict_batches_total", "micro-batch dispatches")
+        self._c_rows = self.registry.counter(
+            "predict_rows_total", "client rows served")
+        self._c_padded = self.registry.counter(
+            "predict_padded_rows_total",
+            "bucket-padding rows dispatched beyond client rows")
+        self._g_queue_depth = self.registry.gauge(
+            "predict_queue_depth", "requests waiting for a micro-batch")
+        self._h_latency = self.registry.histogram(
+            "predict_request_latency_seconds",
+            "submit-to-scatter request latency")
+        self._latencies: deque[float] = deque(maxlen=2048)
+        # queue-full Retry-After from MEASURED micro-batch wall time
+        # (the same estimator semantics the :generate path uses) — a
+        # 429 should tell the client when capacity actually frees, not
+        # a hard-coded guess
+        self._retry = RetryAfterEstimator()
+
+    @property
+    def batches(self) -> int:
+        return self._c_batches.value
+
+    @property
+    def rows(self) -> int:
+        return self._c_rows.value
+
+    @property
+    def padded_rows(self) -> int:
+        return self._c_padded.value
+
+    def start(self) -> "MicroBatcher":
+        with self._cond:
+            if self._running:
+                return self
+            self._running = True
+        self._thread = threading.Thread(target=self._loop,
+                                        name="predict-batcher",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def close(self, timeout: float = 10.0) -> None:
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():
+                # same contract as GenerationEngine.close: a batcher
+                # thread that never parks is loud, not silently leaked
+                raise EngineStalledError(
+                    f"predict-batcher thread failed to park within "
+                    f"{timeout:.1f}s of close() — wedged mid-dispatch "
+                    "(queued requests were NOT failed)")
+            self._thread = None
+        err = RuntimeError("predict batcher stopped")
+        with self._cond:
+            for _, _, fut, _ in self._queue:
+                fut.set_exception(err)
+            self._queue.clear()
+
+    def submit(self, feats: dict[str, np.ndarray], n: int) -> Future:
+        """Queue ``n`` rows of already-validated feature arrays."""
+        fut = Future()
+        with self._cond:
+            if not self._running:
+                raise RuntimeError("batcher is not running")
+            if len(self._queue) >= self.max_queue:
+                # steps_to_free=1: the next batch dispatch frees queue
+                # room; the queue ahead scales it into admission waves
+                raise QueueFullError(
+                    f"predict queue full ({self.max_queue} requests "
+                    "waiting)",
+                    retry_after=round(self._retry.estimate(
+                        1.0, queue_ahead=len(self._queue),
+                        slots=self.batch_max_size), 2))
+            self._queue.append((feats, n, fut, time.perf_counter()))
+            self._cond.notify_all()
+        return fut
+
+    def _gather(self) -> list[tuple[dict, int, Future, float]]:
+        """Admission: the first queued request opens a
+        ``batch_max_wait_ms`` window; whatever arrives inside it (up
+        to ``batch_max_size`` rows) shares the dispatch."""
+        with self._cond:
+            while self._running and not self._queue:
+                self._cond.wait(timeout=0.5)
+            if not self._running:
+                return []
+            deadline = time.monotonic() + self.batch_max_wait_s
+            taken = [self._queue.popleft()]
+            rows = taken[0][1]
+            while rows < self.batch_max_size:
+                if self._queue:
+                    nxt_rows = self._queue[0][1]
+                    if rows + nxt_rows > self.batch_max_size:
+                        break
+                    item = self._queue.popleft()
+                    taken.append(item)
+                    rows += item[1]
+                    continue
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(timeout=remaining)
+            return taken
+
+    def _bucket(self, n: int) -> int:
+        """Always a power of two — even an oversized single request
+        rounds UP, so the shape count stays log-bounded instead of
+        growing by one per odd row count."""
+        b = 1
+        while b < n:
+            b *= 2
+        return b
+
+    def _loop(self) -> None:
+        while True:
+            taken = self._gather()
+            if not taken:
+                with self._cond:
+                    if not self._running:
+                        return
+                continue
+            try:
+                self._run(taken)
+            except Exception as e:
+                for _, _, fut, _ in taken:
+                    fut.set_exception(e)
+
+    def _run(self, taken) -> None:
+        n_total = sum(n for _, n, _, _ in taken)
+        bucket = self._bucket(n_total)
+        keys = taken[0][0].keys()
+        cols = {k: np.concatenate([feats[k] for feats, _, _, _ in taken])
+                for k in keys}
+        if n_total < bucket:
+            cols = {k: np.concatenate(
+                [v, np.repeat(v[:1], bucket - n_total, axis=0)])
+                for k, v in cols.items()}
+        t0 = time.perf_counter()
+        with span("predict_batch", process=self.process,
+                  lane="batcher", rows=n_total,
+                  bucket=bucket):
+            preds = np.asarray(self.servable(cols))
+        self._retry.observe(time.perf_counter() - t0)
+        with self.registry.atomic():
+            self._c_batches.inc()
+            self._c_rows.inc(n_total)
+            self._c_padded.inc(bucket - n_total)
+        now = time.perf_counter()
+        off = 0
+        for feats, n, fut, t0 in taken:
+            self._h_latency.observe(now - t0)
+            self._latencies.append(now - t0)
+            fut.set_result(preds[off:off + n])
+            off += n
+
+    def metrics_snapshot(self) -> dict:
+        with self._cond:
+            self._g_queue_depth.set(len(self._queue))
+        return self.registry.snapshot()
+
+    def stats(self, snapshot: dict | None = None) -> dict:
+        snap = self.metrics_snapshot() if snapshot is None else snapshot
+        with self._cond:
+            lat = list(self._latencies)
+        return {
+            "queue_depth": snap["predict_queue_depth"]["value"],
+            "batches": snap["predict_batches_total"]["value"],
+            "rows": snap["predict_rows_total"]["value"],
+            "padded_rows": snap["predict_padded_rows_total"]["value"],
+            "batch_max_size": self.batch_max_size,
+            "latency_p50_ms": round(percentile(lat, 50) * 1e3, 2),
+            "latency_p95_ms": round(percentile(lat, 95) * 1e3, 2),
+            "latency_p99_ms": round(percentile(lat, 99) * 1e3, 2),
+        }

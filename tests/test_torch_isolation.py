@@ -72,11 +72,21 @@ TRAINING_MODULES = tuple(
         "cli.train"))
 
 
+#: the single server's operator surface (the predict path, the obs sinks,
+#: the chaos soak and the trace summary), named likewise
+SERVER_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "obs.prom", "obs.timeseries", "obs.slo", "obs.flightrec",
+        "serving_http", "utils.trace_summary",
+        "experiments.serving_chaos"))
+
+
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
     assert set(ENGINE_MODULES) <= set(mods), mods
     assert set(TRAINING_MODULES) <= set(mods), mods
+    assert set(SERVER_MODULES) <= set(mods), mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

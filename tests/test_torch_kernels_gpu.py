@@ -37,9 +37,11 @@ exactly 0, and a masked key gets dk and dv exactly 0. The fused kernel
 equal theirs bit for bit, and two of its launches agree bit for bit (its
 dq accumulation is ordered, not atomic).
 
-The last test runs the port's MNIST example on the card (no
-hand-written kernel on that path): it must train to the reference's
-0.95 test accuracy.
+One test runs the port's MNIST example on the card (no hand-written
+kernel on that path): it must train to the reference's 0.95 test
+accuracy. The last two serve through ``serving_http``: a BERT-base
+``:predict`` batch launches the flash forward once a layer, and an armed
+server's request launches the paged kernel as often as a plain one's.
 """
 
 import os
@@ -971,3 +973,100 @@ def test_f32_conv_on_the_card_is_not_tf32(cuda):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         err = (got.double().cpu() - want).abs().max()
         assert err <= 1e-5 * want.abs().max(), err
+
+
+def test_bert_predict_batch_launches_b1_once_a_layer(cuda, tmp_path):
+    """A forward export of BERT-base (12 layers of 12 heads of 64, bf16,
+    flash; BERT-tiny's heads of 32 are no flash width) served on
+    ``:predict`` through the MicroBatcher: one batch of 3 rows (bucket 4)
+    launches the flash forward exactly once a layer, and the logits stand
+    within the plain attention's (``chip_smoke.py``'s ``:predict`` limit,
+    0.1)."""
+    import json
+    import urllib.request
+
+    from distributed_tensorflow_example_tpu_torch.config import (
+        DataConfig, TrainConfig)
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        export_model, load_servable)
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    model = get_model("bert", TrainConfig(
+        model="bert", dtype="bfloat16", attention_impl="flash",
+        data=DataConfig(seq_len=64)))
+    assert model.cfg.hidden // model.cfg.heads == 64
+    gen = torch.Generator().manual_seed(3)
+    s = 64
+    lens = torch.tensor([s, 40, 17])
+    mask = (torch.arange(s)[None] < lens[:, None]).int()
+    feats = {"input_ids": (torch.randint(1, 1000, (3, s), generator=gen)
+                           * mask).int().numpy(),
+             "token_type_ids": torch.zeros((3, s), dtype=torch.int32).numpy(),
+             "attention_mask": mask.numpy(),
+             "masked_positions": torch.randint(0, 16, (3, 2),
+                                               generator=gen).int().numpy()}
+    d = str(tmp_path / "bert")
+    export_model(model, model.init(0, device=cuda), {}, d,
+                 sample_batch=feats)
+    with PredictServer(d, scheduler="on", port=0,
+                       batch_max_wait_ms=1.0) as srv:
+        before = fa.flash_attention_fwd.launches
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/models/{srv.name}:predict",
+            data=json.dumps({"inputs": {k: v.tolist() for k, v in
+                                        feats.items()}}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = torch.tensor(json.loads(r.read())["predictions"])
+        launches = fa.flash_attention_fwd.launches - before
+        stats = srv.batcher.stats()
+    assert stats["batches"] == 1 and stats["padded_rows"] == 1
+    assert launches == model.cfg.layers
+    plain = load_servable(d)
+    plain.model.attention_impl = "xla"
+    ref = torch.from_numpy(plain(feats))
+    assert (got - ref).abs().max().item() <= 0.1
+
+
+def test_armed_engine_request_launches_b5_as_a_plain_one(cuda, tmp_path):
+    """The same greedy request on a paged export (2 layers of 2 heads of
+    64, bf16) through a ``--metrics off --flight_recorder off`` server and
+    an armed one (metrics, the always-on span ring, history and SLO,
+    incident bundles): equal tokens, equal paged-kernel launches, one a
+    layer a decode step."""
+    import json
+    import urllib.request
+
+    from distributed_tensorflow_example_tpu_torch.models.gpt import (
+        GPT, GPTConfig)
+    from distributed_tensorflow_example_tpu_torch.obs import trace
+    from distributed_tensorflow_example_tpu_torch.serving import \
+        export_generator
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    cfg = GPTConfig(vocab_size=512, hidden=128, layers=2, heads=2,
+                    intermediate=256, max_len=64, dropout=0.0)
+    model = GPT(cfg, dtype=torch.bfloat16, attention_impl="flash")
+    d = str(tmp_path / "paged")
+    export_generator(model, model.init(0, device=cuda), d, prompt_len=16,
+                     max_new_tokens=12, ragged=True, stepwise=True, slots=4,
+                     paged=True, block_size=16, num_blocks=16)
+    runs = []
+    for kw in ({"metrics": False, "flight_recorder": False},
+               {"incident_dir": str(tmp_path / "inc"),
+                "history_interval_s": 0.1,
+                "slo_spec": "interactive:p95_ms=10000@0.9"}):
+        trace.recorder().stop()
+        with PredictServer(d, scheduler="on", port=0, **kw) as srv:
+            before = pa.paged_decode_attention.launches
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/v1/models/{srv.name}"
+                ":generate", data=json.dumps({"inputs": {"input_ids": [
+                    list(range(3, 14))]}}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                gens = json.loads(r.read())["generations"]
+            runs.append((gens, pa.paged_decode_attention.launches - before))
+    trace.recorder().stop()
+    (plain, n_plain), (armed, n_armed) = runs
+    assert plain == armed and len(plain[0]) == 12
+    assert n_plain == n_armed == cfg.layers * 11
