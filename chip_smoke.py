@@ -4482,7 +4482,7 @@ PREDICT_BERT_LOGIT_TOL = 0.1
 # of eight rows, one masked position a row (the [rows, 1, 30522] f32 logits
 # are what the JSON answer carries)
 PREDICT_BERT_B, PREDICT_BERT_S, PREDICT_BERT_M = 64, 128, 1
-PREDICT_BERT_WAVES = 3
+PREDICT_BERT_WAVES = 2
 # the ops phase's GPT-small engine: prompts up to 128, 64 new tokens, 8 slots
 OPS_PROMPT, OPS_NEW, OPS_SLOTS = 128, 64, 8
 
@@ -5182,6 +5182,448 @@ def phase_http_ops(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet: serving_router over in-process replicas on one card
+# ---------------------------------------------------------------------------
+
+#: the bench row's serving shape (``bench.py``'s ``gpt`` serving row, its
+#: ``run_router_mode`` leg included): GPT-small, 8 closed-loop clients x 4
+#: requests, prompts up to 128 tokens and up to 64 new, 8 slots, 16-slot
+#: blocks; the fleet leg 2 replicas hedging after 200 ms
+FLEET_CLIENTS, FLEET_REQUESTS = 8, 4
+FLEET_PROMPT, FLEET_NEW, FLEET_SLOTS = 128, 64, 8
+FLEET_REPLICAS, FLEET_HEDGE_MS = 2, 200
+#: device memory after a replica's crash, its restart and the fleet's
+#: close may stand at most this far above where it stood before the fleet
+#: started (cuBLAS workspaces cleared on both sides). One GPT-small
+#: replica holds ~0.8 GB (f32 weights, their bf16 decode copies, the
+#: pool), so a leaked replica, or a killed engine's pool, shows 10x over
+#: it; what may remain is allocator rounding and a handle's small state
+FLEET_MEM_BOUND_MIB = 64
+#: how long after the fleet's close the memory may take to come back
+FLEET_MEM_SETTLE_S = 15.0
+
+
+def _clear_workspaces() -> None:
+    """Drop the cuBLAS workspaces each thread's handle keeps (they count
+    in ``memory_allocated`` and outlive the thread)."""
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.synchronize()
+
+
+def _wave_rows(matrix: list) -> list:
+    """Each client's first request: one wave of concurrent requests."""
+    return [rows[0] for rows in matrix]
+
+
+def _profiled_wave(port: int, name: str, wave: list, label: str,
+                   card: str) -> dict:
+    """One wave of concurrent ``:generate`` requests (each its own client)
+    under ``torch.profiler``: wall, device busy (the kernels' device time;
+    every replica dispatches on the card's one default stream), idle
+    share, and the generations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def one(i):
+        prompt, m = wave[i]
+        code, body, _ = http_json(port, f"/v1/models/{name}:generate", {
+            "inputs": {"input_ids": [prompt.tolist()]}, "max_new": m},
+            "POST")
+        if code != 200:
+            raise RuntimeError(f"HTTP {code}: {body}")
+        return body
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, sec, wall = _concurrent(len(wave), one)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    idle = 1 - busy / (wall * 1e3) if kernels else float("nan")
+    toks = sum(len(b["generations"][0]) for b in out)
+    log(f"[fleet wave {label}] {len(wave)} concurrent requests traced: "
+        f"wall {wall * 1e3:.1f} ms, {toks / wall:.1f} tokens/s, device busy "
+        f"{busy:.1f} ms, idle share "
+        f"{idle:.3f}{'' if kernels else ' (not measured: no device time)'}; "
+        f"served_by {sorted(b.get('served_by', '-') for b in out)} ({card})")
+    return {"wall": wall, "busy": busy, "idle": idle,
+            "gens": [b["generations"][0] for b in out],
+            "trace_ids": [b.get("trace_id") for b in out]}
+
+
+def _fleet_leg(d: str, matrix: list, vocab: int, card: str) -> dict:
+    """(a) One traced wave through one replica for the device's idle share
+    (its server's first request also warms the process), then the bench
+    row's serving leg and its fleet leg over the same matrix:
+    ``serving_load.run_mode`` (one replica, scheduler on),
+    ``run_router_mode(replicas=2, hedge_after_ms=200)`` and the same
+    router without hedging, each with the kernels' counts set to 0 just
+    before it and read just after."""
+    from distributed_tensorflow_example_tpu_torch.experiments import \
+        serving_load as sl
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    layers = 12
+    wave = _wave_rows(matrix)
+    with PredictServer(d, scheduler="on", port=0) as srv:
+        # a warm-up prompt of its own (a prompt of the wave would be a
+        # cache hit)
+        http_json(srv.port, f"/v1/models/{srv.name}:generate", {
+            "inputs": {"input_ids": [_warm_prompt(vocab)]}, "max_new": 2},
+            "POST")
+        read = _reset_launches()
+        w_one = _profiled_wave(srv.port, srv.name, wave, "one replica",
+                               card)
+        l_w1 = read()
+    gc.collect()
+    read = _reset_launches()
+    one = sl.run_mode(d, matrix, scheduler="on", prompt_len=FLEET_PROMPT)
+    l_one = read()
+    gc.collect()
+    read = _reset_launches()
+    fleet = sl.run_router_mode(d, matrix, replicas=FLEET_REPLICAS,
+                               hedge_after_ms=FLEET_HEDGE_MS)
+    l_fleet = read()
+    gc.collect()
+    # the same fleet without hedging: what sharing the card costs apart
+    # from the hedges' duplicated work
+    read = _reset_launches()
+    plain = sl.run_router_mode(d, matrix, replicas=FLEET_REPLICAS,
+                               mode_name="router_no_hedge")
+    l_plain = read()
+    gc.collect()
+    n = FLEET_CLIENTS * FLEET_REQUESTS
+    for label, row, ln in (("one replica", one, l_one),
+                           (f"{FLEET_REPLICAS}-replica router", fleet,
+                            l_fleet),
+                           (f"{FLEET_REPLICAS}-replica router, no hedging",
+                            plain, l_plain)):
+        p95 = row.get("registry_p95_ms", row.get("fleet_registry_p95_ms"))
+        log(f"[fleet leg {label}] {row['requests']} requests, "
+            f"{row['tokens_per_s']:.2f} tokens/s, client p50 "
+            f"{row['latency_p50_ms']:.2f} ms p95 {row['latency_p95_ms']:.2f}"
+            f" ms, registry p95 {p95:.2f} ms; {row['prefills']} prefills, "
+            f"{row['decode_steps']} decode steps; launches {ln}; errors "
+            f"{len(row['errors'])} ({card})")
+    for row in (fleet, plain):
+        log(f"[fleet leg {row['mode']}] hedges {row['router_hedges']}, "
+            f"hedge wins {row['router_hedge_wins']}, retries "
+            f"{row['router_retries']}, failovers {row['router_failovers']},"
+            f" router requests {row['router_requests']}, served_by "
+            f"{row['served_by']}")
+    # B5: one launch a layer a shared decode step (every slot in one
+    # launch). B1: one launch a layer a prefill dispatch — the engine's
+    # admission runs the paged prefill (the flash forward) once a cold
+    # request and counts it in serving_prefills_total; a prefix-cache hit
+    # runs no prefill (its known tokens go through the decode step), and
+    # these legs chunk nothing
+    bad = []
+    for label, row, ln in (("one", one, l_one), ("fleet", fleet, l_fleet),
+                           ("fleet, no hedging", plain, l_plain)):
+        want = {"flash_attention_fwd": layers * row["prefills"],
+                "paged_decode_attention": layers * row["decode_steps"],
+                "paged_decode_attention_int8": 0, "decode_attention": 0,
+                **NO_BACKWARD}
+        if ln != want or row["errors"] or row["requests"] != n:
+            bad.append(f"{label}: launches {ln} want {want}, "
+                       f"{row['requests']} requests, errors "
+                       f"{row['errors'][:2]}")
+    for row in (fleet, plain):
+        if row["_gens"] != one["_gens"]:
+            bad.append(f"{row['mode']}: the router's generations differ "
+                       "from one replica's")
+        if row["router_requests"] != n:
+            bad.append(f"{row['mode']}: router_requests_total "
+                       f"{row['router_requests']} != {n}")
+    if bad:
+        raise SystemExit(f"fleet leg: {bad}")
+    for row in (one, fleet, plain):
+        for gens in row["_gens"]:
+            for g in gens:
+                if min(g, default=0) < 0 or max(g, default=0) >= vocab:
+                    raise SystemExit(f"bad fleet generation {g[:8]}")
+    log(f"[fleet leg] the router's {n} generations are byte-identical to "
+        f"one replica's; B5 = {layers} x merged decode steps and B1 = "
+        f"{layers} x merged prefills on every leg")
+    log(f"[fleet] one replica vs {FLEET_REPLICAS}-replica router: tokens/s "
+        f"{one['tokens_per_s']:.2f} vs {fleet['tokens_per_s']:.2f}, client "
+        f"p50 {one['latency_p50_ms']:.2f} vs {fleet['latency_p50_ms']:.2f} "
+        f"ms, p95 {one['latency_p95_ms']:.2f} vs "
+        f"{fleet['latency_p95_ms']:.2f} ms, registry p95 "
+        f"{one['registry_p95_ms']:.2f} vs "
+        f"{fleet['fleet_registry_p95_ms']:.2f} ms; hedges "
+        f"{fleet['router_hedges']} won {fleet['router_hedge_wins']}; "
+        f"without hedging {plain['tokens_per_s']:.2f} tokens/s, p50 "
+        f"{plain['latency_p50_ms']:.2f} ms, p95 "
+        f"{plain['latency_p95_ms']:.2f} ms ({card})")
+    total = {k: l_w1[k] + l_one[k] + l_fleet[k] + l_plain[k] for k in l_one}
+    return {"launches": total, "one": one, "fleet": fleet, "wave": w_one}
+
+
+def _warm_prompt(vocab: int) -> list:
+    return np.random.RandomState(7).randint(
+        0, vocab, (FLEET_PROMPT,)).astype(np.int32).tolist()
+
+
+def _fleet_chaos(card: str) -> dict:
+    """(b) The port's ``fleet_chaos`` on the card: the five scenarios over
+    bf16 pools, then over int8 pools (B6)."""
+    from distributed_tensorflow_example_tpu_torch.experiments import \
+        fleet_chaos
+    out = {}
+    for label, kv in (("bf16", None), ("int8", "int8")):
+        read = _reset_launches()
+        t0 = time.perf_counter()
+        res = fleet_chaos.run_scenarios(list(fleet_chaos.SCENARIOS),
+                                        seed=0, device="cuda",
+                                        kv_cache_dtype=kv)
+        launches = read()
+        failed = [r for r in res if not r["ok"]]
+        for r in res:
+            log(f"[fleet chaos {label}] {r['scenario']}: "
+                f"{'ok' if r['ok'] else 'FAILED'} — {r['detail'][:400]}")
+        log(f"[fleet chaos {label}] {len(res)} scenarios in "
+            f"{time.perf_counter() - t0:.1f} s, failed {len(failed)}; "
+            f"launches {launches} ({card})")
+        kernel = ("paged_decode_attention_int8" if kv
+                  else "paged_decode_attention")
+        if failed or not launches[kernel] \
+                or not launches["flash_attention_fwd"]:
+            raise SystemExit(f"fleet_chaos {label} failed: "
+                             f"{[r['scenario'] for r in failed]}")
+        out[label] = launches
+        gc.collect()
+    return out
+
+
+def _fleet_kill_and_trace(d: str, matrix: list, leg: dict, vocab: int,
+                          card: str) -> dict:
+    """A 2-replica fleet hedging after 200 ms: (a) one traced wave through
+    the router for the device's idle share, beside one replica's; (d) the
+    stitched ``GET /trace/fleet`` of that wave through ``trace_summary
+    --fleet``, one of its hedged requests (the loser cancelled) checked,
+    and one ``servetop --frames 1`` frame off the router's
+    ``/stats/history``; (c) replica0 killed mid-wave,
+    restarted, the fleet closed: device memory back within
+    :data:`FLEET_MEM_BOUND_MIB` of where it stood before the fleet
+    started, and the survivors' and the restarted replica's answers
+    clean."""
+    import contextlib
+    import io
+    import threading
+
+    from distributed_tensorflow_example_tpu_torch.obs import stitch
+    from distributed_tensorflow_example_tpu_torch.obs import trace as obs_trace
+    from distributed_tensorflow_example_tpu_torch.serving_router import \
+        InProcessFleet
+    from distributed_tensorflow_example_tpu_torch.tools import servetop
+    from distributed_tensorflow_example_tpu_torch.utils import \
+        trace_summary
+    _clear_workspaces()
+    before = torch.cuda.memory_allocated()
+    wave = _wave_rows(matrix)
+    ref = [gens[0] for gens in leg["one"]["_gens"]]
+    read = _reset_launches()
+    # prefix cache off: the kill wave repeats the traced wave's prompts,
+    # and an exact cache hit runs its last prompt token through the
+    # decode step (other bf16 rounding than the prefill's)
+    f = InProcessFleet(d, FLEET_REPLICAS, hedge_after_ms=FLEET_HEDGE_MS,
+                       server_kw={"history_interval_s": 0.5,
+                                  "prefix_cache": False})
+    try:
+        torch.cuda.synchronize()
+        footprint = torch.cuda.memory_allocated() - before
+        # each replica warmed directly (a comprehension: no local of the
+        # function may keep a server, and its device memory, alive)
+        [http_json(x.port, f"/v1/models/{x.name}:generate", {
+            "inputs": {"input_ids": [_warm_prompt(vocab)]}, "max_new": 2},
+            "POST") for x in f.servers]
+        w_one = leg["wave"]
+        w_fleet = _profiled_wave(f.port, f.name, wave, "router", card)
+        if w_fleet["gens"] != w_one["gens"]:
+            raise SystemExit("the traced router wave differs from one "
+                             "replica's")
+        log(f"[fleet wave] idle share one replica {w_one['idle']:.3f} vs "
+            f"the {FLEET_REPLICAS}-replica router {w_fleet['idle']:.3f}; "
+            f"device busy {w_one['busy']:.1f} vs {w_fleet['busy']:.1f} ms "
+            f"over a wave of {w_one['wall'] * 1e3:.1f} vs "
+            f"{w_fleet['wall'] * 1e3:.1f} ms ({card})")
+        # (d) the wave's long requests outlast 200 ms: each is hedged and
+        # its loser cancelled. The router records a cancel span once the
+        # loser's POST resolves, and /trace/fleet drains, so wait in the
+        # ring for one of the wave's traces to hold its cancel first
+        hedges = f.router.registry.snapshot()[
+            "router_hedges_total"]["value"]
+        tids = set(w_fleet["trace_ids"])
+        found: list = []
+
+        def cancelled() -> bool:
+            found[:] = [(s[5] or {}).get("trace_id") for s in
+                        obs_trace.recorder().tail(2048, process="router")
+                        if s[2] == "cancel"
+                        and (s[5] or {}).get("trace_id") in tids]
+            return bool(found)
+
+        _wait_for(cancelled, "a hedge loser's cancel span")
+        tid = found[0]
+        _, stitched, _ = http_json(f.port, "/trace/fleet")
+        mine = stitch.spans_for_trace(stitched, tid)
+        path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_fleet_"),
+                            "fleet_trace.json")
+        with open(path, "w") as fh:
+            json.dump(stitched, fh)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trace_summary.main(["--fleet", path])
+        for ln in buf.getvalue().splitlines():
+            log(f"[fleet trace_summary --fleet] {ln[:200]}")
+        procs = {e["pid"] for e in mine}
+        names = {e["name"] for e in mine}
+        log(f"[fleet trace] the wave's {hedges} hedges; trace {tid}: "
+            f"{len(mine)} spans in {len(procs)} process groups, "
+            f"{sorted(names)}")
+        if len(procs) < 3 or not {"request", "hedge", "forward_launch",
+                                  "cancel"} <= names:
+            raise SystemExit(f"the stitched hedged trace lacks a process "
+                             f"group or a span: {sorted(names)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            servetop.main(["--url", f"http://127.0.0.1:{f.port}",
+                           "--frames", "1"])
+        for ln in buf.getvalue().splitlines():
+            log(f"[fleet servetop] {ln}")
+        if "replica0" not in buf.getvalue():
+            raise SystemExit("servetop's frame shows no replica")
+        # (c) a wave in flight, replica0 killed under it
+        outs, errors = [None] * len(wave), []
+
+        def client(k):
+            try:
+                c, b, _ = http_json(f.port,
+                                    f"/v1/models/{f.name}:generate", {
+                                        "inputs": {"input_ids": [
+                                            wave[k][0].tolist()]},
+                                        "max_new": wave[k][1]}, "POST")
+                if c != 200:
+                    raise RuntimeError(f"HTTP {c}: {b}")
+                outs[k] = b
+            except Exception as e:
+                errors.append(f"{k}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(len(wave))]
+        for t in threads:
+            t.start()
+        eng0 = f.servers[0].engine
+        _wait_for(lambda: eng0.stats()["live_slots"] > 0,
+                  "replica0 decoding")
+        f.crash(0)
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        if errors or [o["generations"][0] for o in outs] != ref:
+            raise SystemExit(f"the wave across a kill: errors {errors[:3]},"
+                             " or bytes differ")
+        served = sorted(o["served_by"] for o in outs)
+        f.restart(0)
+        rep0 = f.router.replicas[0]
+        # the crash opened replica0's breaker: routing prefers closed
+        # breakers until the prober's half-open probe closes it
+        _wait_for(lambda: f.router.replica_states()["replica0"]
+                  == "healthy" and rep0.breaker.state == "closed",
+                  "the restarted replica healthy, its breaker closed")
+        # sequential requests: the idle tie-break sends each to replica0
+        after_restart = [http_json(f.port, f"/v1/models/{f.name}:generate",
+                                   {"inputs": {"input_ids": [
+                                       p.tolist()]}, "max_new": m},
+                                   "POST")[1] for p, m in wave[:2]]
+        if [o["generations"][0] for o in after_restart] != ref[:2] \
+                or "replica0" not in {o["served_by"] for o in after_restart}:
+            raise SystemExit("the restarted replica did not serve clean")
+        retries = f.router.registry.snapshot()[
+            "router_retries_total"]["value"]
+    finally:
+        f.close()
+    launches = read()
+    del f, eng0, rep0
+    # a closed engine's scheduler thread may still be ending its last
+    # dispatch: poll (bounded) for the memory to come back
+    t_close = time.perf_counter()
+    while True:
+        _clear_workspaces()
+        after = torch.cuda.memory_allocated()
+        if (after - before) / 2**20 <= FLEET_MEM_BOUND_MIB \
+                or time.perf_counter() - t_close > FLEET_MEM_SETTLE_S:
+            break
+        time.sleep(0.25)
+    settle = time.perf_counter() - t_close
+    delta = (after - before) / 2**20
+    log(f"[fleet kill] replica0 killed under a wave of {len(wave)}: 0 client"
+        f" errors, {retries} router retries, served_by {served}; restarted "
+        f"replica0 served {[o['served_by'] for o in after_restart]}; device "
+        f"memory before the fleet {before / 2**20:.1f} MiB, the running "
+        f"fleet {footprint / 2**20:.1f} MiB over it, after crash + restart +"
+        f" close {after / 2**20:.1f} MiB: {delta:+.1f} MiB (bound "
+        f"{FLEET_MEM_BOUND_MIB} MiB) {settle:.2f} s after the close "
+        f"({card})")
+    if delta > FLEET_MEM_BOUND_MIB:
+        raise SystemExit("device memory did not come back after the "
+                         "fleet's crash, restart and close")
+    return {"launches": launches, "delta_mib": delta}
+
+
+def phase_fleet(card: str) -> dict:
+    """The serving fleet on one card: (a) the bench row's serving leg and
+    its 2-replica router leg (GPT-small bf16, paged), byte parity and
+    exact launch counts, then a traced wave each; (b) the five fleet
+    chaos scenarios over bf16 and int8 pools; (c) memory after a kill,
+    a restart and the fleet's close; (d) a hedged request's stitched
+    trace through ``trace_summary --fleet`` and a ``servetop`` frame.
+    Returns the B1, B5 and B6 launches of its runs."""
+    from distributed_tensorflow_example_tpu_torch.experiments import \
+        serving_load as sl
+    t_phase = time.perf_counter()
+    sl._RUN.update(device="cuda", lockstep=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "fleet_paged")
+        t0 = time.perf_counter()
+        vocab = sl.build_export(d, prompt_len=FLEET_PROMPT,
+                                max_new=FLEET_NEW, slots=FLEET_SLOTS,
+                                model_name="gpt", paged=True,
+                                block_size=PAGED_SHAPE["bs"])
+        matrix = sl.make_requests(FLEET_CLIENTS, FLEET_REQUESTS,
+                                  prompt_len=FLEET_PROMPT,
+                                  max_new=FLEET_NEW, vocab=vocab, seed=0)
+        log(f"[fleet] GPT-small paged export in "
+            f"{time.perf_counter() - t0:.2f} s; matrix {FLEET_CLIENTS} "
+            f"clients x {FLEET_REQUESTS} requests, prompts "
+            f"{min(p.size for r in matrix for p, _ in r)}-"
+            f"{max(p.size for r in matrix for p, _ in r)} tokens, max_new "
+            f"{min(m for r in matrix for _, m in r)}-"
+            f"{max(m for r in matrix for _, m in r)}")
+        leg = _fleet_leg(d, matrix, vocab, card)
+        t_a = time.perf_counter()
+        kill = _fleet_kill_and_trace(d, matrix, leg, vocab, card)
+        t_cd = time.perf_counter()
+    chaos = _fleet_chaos(card)
+    parts = (leg["launches"], kill["launches"], chaos["bf16"],
+             chaos["int8"])
+    out = {"b1": sum(p["flash_attention_fwd"] for p in parts),
+           "b5": sum(p["paged_decode_attention"] for p in parts),
+           "b6": sum(p["paged_decode_attention_int8"] for p in parts)}
+    log(f"[fleet] phase done in {time.perf_counter() - t_phase:.1f} s "
+        f"((a) {t_a - t_phase:.1f} s, (c)+(d) {t_cd - t_a:.1f} s, (b) "
+        f"{time.perf_counter() - t_cd:.1f} s); launches B1 {out['b1']}, "
+        f"B5 {out['b5']}, B6 {out['b6']} ({card})")
+    return out
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -5285,6 +5727,8 @@ def main() -> int:
     timed("debug_tools")
     http_ops = phase_http_ops(card)
     timed("http_ops")
+    fleet = phase_fleet(card)
+    timed("fleet")
     log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
         f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
         f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "
@@ -5307,7 +5751,8 @@ def main() -> int:
                    "flash_attention_fwd.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
-         "launches": launches["flash_attention_fwd"] + http_ops["b1"],
+         "launches": launches["flash_attention_fwd"] + http_ops["b1"]
+         + fleet["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -5338,7 +5783,8 @@ def main() -> int:
                    "paged_decode_attention.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
-         "launches": engine["launches"] + spec["b5"] + http_ops["b5"],
+         "launches": engine["launches"] + spec["b5"] + http_ops["b5"]
+         + fleet["b5"],
          **paged},
         {"name": "paged_decode_attention_int8", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -5346,7 +5792,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "decode_attention.py:187",
          "launches": engine["launches_int8"] + spec["b6"]
-         + http_ops["b6"], **paged_int8},
+         + http_ops["b6"] + fleet["b6"], **paged_int8},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

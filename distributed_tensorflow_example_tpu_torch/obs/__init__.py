@@ -8,5 +8,7 @@ standard library only):
 - :mod:`.timeseries` — the snapshot ring and its window queries
   (``GET /stats/history``);
 - :mod:`.slo` — objectives, SLIs and multi-window burn rates;
-- :mod:`.flightrec` — rate-limited incident bundles.
+- :mod:`.flightrec` — rate-limited incident bundles;
+- :mod:`.stitch` — clock offsets and the stitched fleet timeline
+  (``GET /trace/fleet``).
 """

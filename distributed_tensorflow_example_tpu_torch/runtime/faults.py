@@ -1,7 +1,6 @@
 """Deterministic fault injection at the training and generation-engine
-and HTTP seams (an adapted copy of
-``distributed_tensorflow_example_tpu/runtime/faults.py``; the fleet
-router's seams arrive with their slice).
+HTTP and fleet seams (an adapted copy of
+``distributed_tensorflow_example_tpu/runtime/faults.py``).
 
 Spec grammar (``;``-separated rules, ``:``-separated fields)::
 
@@ -21,6 +20,16 @@ Spec grammar (``;``-separated rules, ``:``-separated fields)::
     pool.alloc:p=0.01                    # block allocator hiccups
     http.read:step=1                     # 1st request body read fails
     engine.decode_step:step=4:stall=3    # 4th decode dispatch wedges 3 s
+    router.probe:step=2                  # 2nd fleet health probe fails
+    router.forward:step=3                # 3rd forwarded request drops
+    replica.crash:step=3                 # 3rd forward KILLS its target
+
+The ``router.*``/``replica.*`` sites are the fleet seams:
+``router.probe`` fails a health probe, ``router.forward`` drops a
+forwarded request on the network floor, and ``replica.crash`` is the kill
+switch (the router's forward path hard-kills the targeted in-process
+replica and surfaces a connection error; ``experiments/fleet_chaos.py``
+drills it).
 
 Fields: ``step=N`` fires on the site's Nth invocation (1-based; for the
 ``step.*`` sites the invocation index is the global training step) and is
@@ -58,7 +67,8 @@ log = get_logger("faults")
 SITES = ("ckpt.write", "ckpt.commit", "ckpt.read", "loader.next",
          "step.nan", "step.inf",
          "engine.prefill", "engine.decode_step", "engine.admit",
-         "pool.alloc", "http.read")
+         "pool.alloc", "http.read",
+         "router.probe", "router.forward", "replica.crash")
 
 #: exceptions a rule may raise — an allowlist so a typo'd spec fails at
 #: parse time, not as a silent never-firing rule

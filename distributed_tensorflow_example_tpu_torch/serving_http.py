@@ -99,8 +99,9 @@ from .utils.logging import get_logger
 
 log = get_logger("serving")
 
-# the trace-lane process label of this server's spans, incidents and
-# history payloads
+# the default trace-lane process label of a server's spans, incidents
+# and history payloads (``process_name`` overrides it: in-process fleet
+# replicas each take their own)
 PROCESS = "serving"
 
 
@@ -167,7 +168,8 @@ class PredictServer:
                  slo_spec: str | None = None,
                  slo_fast_window_s: float = obs_slo.FAST_WINDOW_S,
                  slo_slow_window_s: float = obs_slo.SLOW_WINDOW_S,
-                 slo_burn_threshold: float = obs_slo.BURN_THRESHOLD):
+                 slo_burn_threshold: float = obs_slo.BURN_THRESHOLD,
+                 process_name: str | None = None):
         if scheduler not in ("auto", "on", "off"):
             raise ValueError(f"scheduler must be auto/on/off, got "
                              f"{scheduler!r}")
@@ -206,6 +208,7 @@ class PredictServer:
                 "arm the sampler to evaluate them")
         self.scheduler = scheduler
         self.kind = meta.get("kind")
+        self.process_name = process_name or PROCESS
         # one registry for the whole server (engine/batcher counters and
         # the HTTP-level ones); metrics=False disables every increment
         self.registry = Registry(enabled=metrics, namespace="serving")
@@ -232,7 +235,7 @@ class PredictServer:
         self._flightrec = None
         if flight_recorder and incident_dir:
             self._flightrec = FlightRecorder(
-                incident_dir, process=PROCESS,
+                incident_dir, process=self.process_name,
                 snapshot_fn=self._metrics_snapshot,
                 config={"scheduler": scheduler, "max_queue": max_queue,
                         "prefix_cache": prefix_cache, "metrics": metrics,
@@ -309,7 +312,7 @@ class PredictServer:
                 prefill_chunk_tokens=prefill_chunk_tokens,
                 default_priority=default_priority, shed_policy=shed_policy,
                 priority_aging_ms=priority_aging_ms,
-                process=PROCESS,
+                process=self.process_name,
                 flight_recorder=self._flightrec).start()
             if self._flightrec is not None:
                 # the bundle must name the knobs that actually run, after
@@ -326,7 +329,7 @@ class PredictServer:
                     self.servable, batch_max_size=batch_max_size,
                     batch_max_wait_ms=batch_max_wait_ms,
                     max_queue=max_queue, registry=self.registry,
-                    process=PROCESS).start()
+                    process=self.process_name).start()
         self.name = name or self.meta.get("model", "model")
         self._httpd = _Listener((host, port), self._make_handler())
         self.port = self._httpd.server_address[1]
@@ -711,7 +714,7 @@ class PredictServer:
         erode the ring) and evaluates over ring + it. Sampler off:
         ``{"enabled": false}`` with no samples, still a 200."""
         if self._sampler is None:
-            return {"enabled": False, "process": PROCESS,
+            return {"enabled": False, "process": self.process_name,
                     "clock": time.perf_counter(), "samples": [],
                     "slo": None}
         history = self._sampler.history() + [self._sampler.peek()]
@@ -720,7 +723,7 @@ class PredictServer:
             with self._slo_lock:
                 results = self._slo_results
         return obs_ts.to_payload(
-            history, enabled=True, process=PROCESS,
+            history, enabled=True, process=self.process_name,
             clock=time.perf_counter(), interval_s=self._sampler.interval_s,
             max_samples=self._sampler.max_samples,
             slo={"objectives": [o.to_dict()
@@ -750,8 +753,8 @@ class PredictServer:
         with the local perf_counter clock beside them. A second export
         returns only what was recorded since."""
         rec = obs_trace.recorder()
-        spans = rec.drain(process=PROCESS)
-        return {"process": PROCESS,
+        spans = rec.drain(process=self.process_name)
+        return {"process": self.process_name,
                 "clock": time.perf_counter(),
                 "spans": [[p, lane, name, t0, t1, args]
                           for p, lane, name, t0, t1, args in spans],

@@ -32,7 +32,10 @@ Usage::
         trace.json [--top 20] [--json]
 
 A directory argument summarizes every ``*.json`` under it, one section
-each. The fleet view (``--fleet``) arrives with the router.
+each. ``--fleet stitched.json`` reads a stitched ``GET /trace/fleet``
+export of the router instead (``obs/stitch.summarize_fleet``): spans,
+lanes and busy time per process, the span names, each trace id's spans,
+processes and end-to-end duration, and the applied clock offsets.
 """
 
 from __future__ import annotations
@@ -249,13 +252,41 @@ def format_text(summary: dict[str, Any]) -> str:
     return "\n".join(parts)
 
 
+def format_fleet(summary: dict[str, Any]) -> str:
+    parts = []
+    for p, rec in summary["processes"].items():
+        parts.append(f"process {p!r}: {rec['spans']} span(s), "
+                     f"busy={rec['busy_ms']}ms, lanes="
+                     f"{', '.join(rec['lanes'])}")
+    offs = summary.get("clock_offsets_s") or {}
+    if offs:
+        parts.append("clock offsets (s): " + " ".join(
+            f"{k}={v}" for k, v in sorted(offs.items())))
+    parts.append(f"span names: {', '.join(summary['span_names'])}")
+    for t, rec in summary["traces"].items():
+        parts.append(f"trace {t}: {rec['spans']} span(s) across "
+                     f"{', '.join(rec['processes'])}, "
+                     f"{rec['duration_ms']}ms end-to-end")
+    return "\n".join(parts)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trace", help="a Chrome trace or /trace/export JSON "
-                    "file, or a directory of them")
+                    "file, or a directory of them; with --fleet a "
+                    "stitched GET /trace/fleet JSON file")
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--fleet", action="store_true",
+                    help="summarize a STITCHED fleet trace "
+                    "(obs/stitch.py output)")
     args = ap.parse_args(argv)
+    if args.fleet:
+        from ..obs.stitch import summarize_fleet
+        with open(args.trace) as f:
+            s = summarize_fleet(json.load(f))
+        print(json.dumps(s, indent=1) if args.json else format_fleet(s))
+        return 0
     s = summarize(args.trace, top=args.top)
     print(json.dumps(s, indent=1) if args.json else format_text(s))
     return 0

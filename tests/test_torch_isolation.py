@@ -81,12 +81,21 @@ SERVER_MODULES = tuple(
         "experiments.serving_chaos"))
 
 
+#: the serving fleet (the router, the stitcher, servetop, the fleet chaos
+#: drills and the load harness), named likewise
+FLEET_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "obs.stitch", "serving_router", "tools.servetop",
+        "experiments.fleet_chaos", "experiments.serving_load"))
+
+
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
     assert set(ENGINE_MODULES) <= set(mods), mods
     assert set(TRAINING_MODULES) <= set(mods), mods
     assert set(SERVER_MODULES) <= set(mods), mods
+    assert set(FLEET_MODULES) <= set(mods), mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -340,6 +349,67 @@ def test_engine_entry_points_without_cuda_raise(no_cuda, tmp_path):
         assert srv.engine is not None
         out = srv.generate({"inputs": {"input_ids": [[1, 2, 3]]}})
     assert np.asarray(out["generations"]).shape == (1, 2)
+
+
+def test_fleet_runs_without_jax(tmp_path):
+    """A 2-replica router fleet serves a request in a process that holds
+    no JAX, and the router module itself loads no torch kernel."""
+    code = (
+        "import sys, json, urllib.request, torch\n"
+        "from distributed_tensorflow_example_tpu_torch.models.gpt import (\n"
+        "    GPT, GPTConfig)\n"
+        "from distributed_tensorflow_example_tpu_torch.serving import \\\n"
+        "    export_generator\n"
+        "from distributed_tensorflow_example_tpu_torch.serving_router \\\n"
+        "    import InProcessFleet\n"
+        f"m = GPT(GPTConfig(**{dataclasses.asdict(TINY)!r}))\n"
+        "p = m.init(0, device='cpu')\n"
+        f"export_generator(m, p, {str(tmp_path)!r}, prompt_len=4,\n"
+        "    max_new_tokens=2, stepwise=True, slots=2, paged=True,\n"
+        "    block_size=2)\n"
+        f"with InProcessFleet({str(tmp_path)!r}, 2,\n"
+        "        server_kw={'device': 'cpu'}) as f:\n"
+        "    req = urllib.request.Request(\n"
+        "        f'http://127.0.0.1:{f.port}/v1/models/{f.name}:generate',\n"
+        "        data=json.dumps({'inputs': {'input_ids': [[1, 2]]}})\n"
+        "        .encode())\n"
+        "    out = json.loads(urllib.request.urlopen(req, timeout=60)\n"
+        "                     .read())\n"
+        "print('SERVED', out['served_by'], len(out['generations'][0]))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "SERVED replica0 2" in out.stdout, out.stdout
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+
+
+def test_fleet_entry_points_without_cuda_raise(no_cuda, tmp_path):
+    """The fleet's replicas, the fleet chaos drills and the load harness
+    run on the card by default: without CUDA they raise; with
+    ``device="cpu"`` the fleet serves."""
+    from distributed_tensorflow_example_tpu_torch.experiments import (
+        fleet_chaos, serving_load)
+    from distributed_tensorflow_example_tpu_torch.serving_router import \
+        InProcessFleet
+    model = GPT(TINY)
+    params = model.init(0, device="cpu")
+    export_generator(model, params, str(tmp_path), prompt_len=4,
+                     max_new_tokens=2, stepwise=True, slots=2, paged=True,
+                     block_size=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InProcessFleet(str(tmp_path), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fleet_chaos.run_scenarios(["hedge_cancels_loser"], seed=0,
+                                  export_dir=str(tmp_path), vocab=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serving_load.main(["--smoke"])
+    with InProcessFleet(str(tmp_path), 2,
+                        server_kw={"device": "cpu"}) as fleet:
+        assert [s.device.type for s in fleet.servers] == ["cpu", "cpu"]
 
 
 def test_sync_replicas_without_cuda_raise(no_cuda):

@@ -39,9 +39,11 @@ dq accumulation is ordered, not atomic).
 
 One test runs the port's MNIST example on the card (no hand-written
 kernel on that path): it must train to the reference's 0.95 test
-accuracy. The last two serve through ``serving_http``: a BERT-base
-``:predict`` batch launches the flash forward once a layer, and an armed
-server's request launches the paged kernel as often as a plain one's.
+accuracy. The last three serve through ``serving_http``: a BERT-base
+``:predict`` batch launches the flash forward once a layer, an armed
+server's request launches the paged kernel as often as a plain one's, and
+a 2-replica router fleet serves one replica's bytes with one paged launch
+a layer a merged decode step.
 """
 
 import os
@@ -1070,3 +1072,32 @@ def test_armed_engine_request_launches_b5_as_a_plain_one(cuda, tmp_path):
     (plain, n_plain), (armed, n_armed) = runs
     assert plain == armed and len(plain[0]) == 12
     assert n_plain == n_armed == cfg.layers * 11
+
+
+def test_two_replica_fleet_serves_one_replicas_bytes(cuda, tmp_path):
+    """The same 8 concurrent greedy requests through one server and
+    through a 2-replica router fleet on one card (the port's
+    ``serving_load`` legs, 2 layers of 2 heads of 64, bf16, 16-slot
+    blocks): equal tokens, and the fleet's paged-kernel launches equal
+    one a layer a merged decode step."""
+    from distributed_tensorflow_example_tpu_torch.experiments import \
+        serving_load as sl
+    from distributed_tensorflow_example_tpu_torch.models.gpt import (
+        GPT, GPTConfig)
+    cfg = GPTConfig(vocab_size=512, hidden=128, layers=2, heads=2,
+                    intermediate=256, max_len=64, dropout=0.0)
+    model = GPT(cfg, dtype=torch.bfloat16, attention_impl="flash")
+    sl._RUN.update(device="cuda", lockstep=False)
+    d = str(tmp_path / "paged")
+    vocab = sl.build_export(d, prompt_len=16, max_new=12, slots=8,
+                            paged=True, block_size=16, model=model)
+    matrix = sl.make_requests(8, 2, prompt_len=16, max_new=12,
+                              vocab=vocab, seed=0)
+    one = sl.run_mode(d, matrix, scheduler="on", prompt_len=16)
+    before = pa.paged_decode_attention.launches
+    fleet = sl.run_router_mode(d, matrix, replicas=2, hedge_after_ms=200)
+    launches = pa.paged_decode_attention.launches - before
+    assert not one["errors"] and not fleet["errors"]
+    assert fleet["_gens"] == one["_gens"]
+    assert fleet["router_requests"] == fleet["requests"] == 16
+    assert launches == cfg.layers * fleet["decode_steps"] > 0
