@@ -12,10 +12,11 @@ the reference example and through the CLI, its convolutional models
 path, the rest of GPT-small's training (adafactor, sync and async
 saves, rollback, the best checkpoint, the observability sinks), and
 GPT-small's speculative decoding, chunked prefill and SLO knobs over
-HTTP, training's debug tools, and last a single server's HTTP and
-operator surface (``:predict``, ``/metrics``, ``/trace/*``,
-``/stats/history``, cancel, drain, the flight recorder) and the serving
-chaos soak.
+HTTP, training's debug tools, a single server's HTTP and operator
+surface (``:predict``, ``/metrics``, ``/trace/*``, ``/stats/history``,
+cancel, drain, the flight recorder) and the serving chaos soak, the
+serving fleet, and last MoE-BERT (``bench.py``'s expert row) through
+the CLI and ``:predict`` with the training-state knobs.
 
     python3 chip_smoke.py
 
@@ -100,7 +101,17 @@ counts, tokens/s each, ``/metrics`` against ``/stats``, the trace routes,
 ``/stats/history`` with SLO results, a cancel mid-decode, a fault-spec
 wedge's ``/healthz`` flip and incident bundle, a drain of 16 requests;
 ``trace_summary`` of one profiled request; the ``serving_chaos``
-scenarios over bf16 and int8 pools), a
+scenarios over bf16 and int8 pools), the fleet phase, the MoE phase
+(``bench.py``'s ``moe_bert`` row, 8 experts, top-1, capacity 1.25,
+AdamW, bf16, flash, 64 x 128, through ``cli/train.py``: exact launch
+counts, the loss falling, ``expert_load`` [8] in every JSONL row and no
+vector in the scalar sinks; ms a step, tokens/s, peak memory, the idle
+share and device ms by part (dispatch and combine, expert GEMMs, flash)
+of one traced step, the share of the bf16 peak on two FLOP bases; the
+top-1, top-2 and ``--remat dots`` legs; MoE-BERT-tiny on the card
+against the CPU; the run's static-batch export on ``:predict`` with the
+scheduler off and on; the parameter EMA against its closed form, bf16
+moments on GPT-small, a warm start from a BERT checkpoint), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -1585,12 +1596,16 @@ def phase_cli(card: str) -> dict:
 
 class _ProfileStep:
     """A Trainer hook that traces one step with ``torch.profiler``: it
-    starts after step ``at`` and stops after step ``at + 1``."""
+    starts after step ``at`` and stops after step ``at + 1``. With
+    ``cuda_only`` it records the device's kernels and no host operator,
+    which costs the host less a launch."""
 
     every_steps = 0
 
-    def __init__(self, at: int):
+    def __init__(self, at: int, cuda_only: bool = False, **profile_kw):
         self.at = at
+        self.cuda_only = cuda_only
+        self.profile_kw = profile_kw
         self.prof = None
         self.t0 = self.wall = 0.0
 
@@ -1604,8 +1619,10 @@ class _ProfileStep:
         from torch.profiler import ProfilerActivity, profile
         if step == self.at:
             torch.cuda.synchronize()
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
+            acts = [ProfilerActivity.CUDA]
+            if not self.cuda_only:
+                acts.append(ProfilerActivity.CPU)
+            self.prof = profile(activities=acts, **self.profile_kw)
             self.prof.__enter__()
             self.t0 = time.perf_counter()
         elif step == self.at + 1 and self.prof is not None:
@@ -1874,27 +1891,37 @@ def _post_rows(srv, prompts: list, results: list, lat: list) -> float:
     return wall
 
 
+def _launch_counts() -> dict:
+    """Every kernel's launch count as it stands ({kernel name:
+    launches})."""
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+
+
 def _reset_launches():
     """Set every kernel's launch count to 0; returns a function that reads
     them all ({kernel name: launches})."""
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
+    return _launch_counts
+
+
+def _counters() -> tuple:
+    """(kernel name, wrapper, counter attribute) of every kernel."""
     from distributed_tensorflow_example_tpu_torch.ops.cuda import (
         decode_attention as da, flash_attention as fa,
         paged_decode_attention as pa)
-    counters = (("flash_attention_fwd", fa.flash_attention_fwd, "launches"),
-                ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
-                 "launches"),
-                ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
-                 "launches"),
-                ("flash_attention_bwd_fused", fa.flash_attention_bwd_fused,
-                 "launches"),
-                ("decode_attention", da.decode_attention, "launches"),
-                ("paged_decode_attention", pa.paged_decode_attention,
-                 "launches"),
-                ("paged_decode_attention_int8", pa.paged_decode_attention,
-                 "launches_int8"))
-    for _, fn, attr in counters:
-        setattr(fn, attr, 0)
-    return lambda: {name: getattr(fn, attr) for name, fn, attr in counters}
+    return (("flash_attention_fwd", fa.flash_attention_fwd, "launches"),
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+             "launches"),
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+             "launches"),
+            ("flash_attention_bwd_fused", fa.flash_attention_bwd_fused,
+             "launches"),
+            ("decode_attention", da.decode_attention, "launches"),
+            ("paged_decode_attention", pa.paged_decode_attention,
+             "launches"),
+            ("paged_decode_attention_int8", pa.paged_decode_attention,
+             "launches_int8"))
 
 
 def _engine_wave(srv, label: str, prompts: list, card: str) -> dict:
@@ -5624,6 +5651,643 @@ def phase_fleet(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE phase: MoE-BERT (bench.py's moe_bert row) through the CLI and :predict
+# ---------------------------------------------------------------------------
+
+#: bench.py's moe_bert row: 8 experts, top-1, capacity 1.25, a MoE FFN
+#: every 2nd layer, aux weight 0.01, AdamW at lr 1e-4, bf16, flash, 64 x 128
+MOE_ARGV = ["--model", "moe_bert", "--device", "cuda", "--dtype",
+            "bfloat16", "--attention", "flash", "--optimizer", "adamw",
+            "--learning_rate", "1e-4", "--batch_size", "64", "--seq_len",
+            "128", "--moe_experts", "8", "--moe_top_k", "1",
+            "--moe_capacity_factor", "1.25", "--moe_every", "2",
+            "--moe_aux_weight", "0.01", "--seed", "0"]
+MOE_B, MOE_S, MOE_E, MOE_LAYERS = 64, 128, 8, 12
+MOE_STEPS = 10            # (a)'s CLI run
+MOE_TIMED = (3, 13)       # (a)'s Trainer run: steps 4-13 timed, 14-15 traced
+MOE_LEVER_STEPS = 6       # the top-1 / top-2 / --remat dots legs
+MOE_EXPORT_B = 8          # --export_dir's static batch
+MOE_PREDICT_ROWS = (1, 3, 8)
+# (b): one f32 MoE-BERT-tiny step (xla attention, dropout and jitter off)
+# on the card against the CPU's from the same weights: the two differ
+# only in f32 summation order (TF32 is off), ~1e-7 of each value through
+# two layers; the loss within 1e-5 relative, each metric within 1e-5,
+# each gradient leaf within 1e-4 of its largest value (the CPU tests'
+# port-against-reference tolerance), floored at 1e-3 of the largest
+# gradient of any leaf: the attention's key biases have a zero gradient
+# (softmax shift invariance), so theirs is rounding noise on both sides
+# (the first card run read 1.32 of such a leaf's own largest value); the
+# dispatch tensors equal
+MOE_TINY_GRAD_FLOOR = 1e-3
+MOE_TINY_LOSS_RTOL = 1e-5
+MOE_TINY_METRIC_TOL = 1e-5
+MOE_TINY_GRAD_TOL = 1e-4
+# (c): a :predict answer against the live model on the same padded batch,
+# on the same card and code: the same kernels at the same shapes, so
+# equal bits are expected; the limit only admits a rounding of the JSON
+MOE_PREDICT_TOL = 1e-6
+# (d): the EMA leaf against its closed form recomputed from the live
+# params' history with the same f32 operations (equal bits expected)
+MOE_EMA_TOL = 1e-6
+MOE_EMA_STEPS = 4
+
+
+def _moe_flops(model, b: int, s: int) -> tuple[float, float]:
+    """(training FLOPs of one step of ``b`` sequences of ``s`` tokens as
+    computed, the same with the routed work alone): BERT's dense layers,
+    MLM decoder and flash products (:func:`_bert_train_flops`, whose
+    traced forward sees only the dense layers) plus, for each MoE layer,
+    the router [T, D] x [D, E] and either the dense dispatch [E*C, T] x
+    [T, D], the experts' GEMMs over all E*C slots and the combine [T,
+    E*C] x [E*C, D] (as computed), or one expert FFN for each of the T x k
+    routed assignments (routed). A product runs 3 times a step (its
+    forward and the gradients of both operands), the dispatch twice: its
+    one-hot operand (argmax, one_hot, comparisons) takes no gradient, so
+    its backward computes the tokens' gradient alone."""
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    c = model.cfg
+    t = b * s
+    cap = moe.capacity_for(t, c.n_experts, c.capacity_factor)
+    n_moe = sum(model._is_moe_layer(i) for i in range(c.layers))
+    # a MoE layer's FFN calls no nn.dense: the traced count leaves it out
+    dense = _bert_train_flops(model) * b
+    router = 2.0 * t * c.hidden * c.n_experts
+    ffn = 2.0 * 2 * c.hidden * c.intermediate          # one token's FFN
+    one_hot = 2.0 * t * c.n_experts * cap * c.hidden   # dispatch or combine
+    computed = (3 * router + 2 * one_hot + 3 * one_hot
+                + 3 * c.n_experts * cap * ffn)
+    routed = 3 * (router + t * c.top_k * ffn)
+    return (dense + n_moe * computed, dense + n_moe * routed)
+
+
+def _device_total_us(evt) -> float:
+    """Device time of an operator and the kernels it launched."""
+    return (getattr(evt, "device_time_total", None)
+            or getattr(evt, "cuda_time_total", 0))
+
+
+def _moe_device_ms(prof, t: int, slots: int, n_experts: int) -> dict:
+    """Device ms of one traced step by part: the dispatch and combine
+    products (``aten::mm`` with a [T] and an [E*C] dimension), the
+    experts' GEMMs (``aten::bmm`` batched over E), the flash kernels, and
+    all kernels; None where the profiler gave no device time."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not kernels:
+        return {}
+    out = {"all": sum(_device_us(e) for e in kernels) / 1e3,
+           "launches": sum(e.count for e in kernels),
+           "flash": sum(_device_us(e) for e in kernels
+                        if "flash_" in e.key) / 1e3,
+           "dispatch_combine": 0.0, "experts": 0.0}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or e.key not in ("aten::mm",
+                                                             "aten::bmm"):
+            continue
+        shapes = [list(x) for x in (e.input_shapes or []) if x]
+        dims = {d for x in shapes for d in x}
+        if e.key == "aten::mm" and {t, slots} <= dims:
+            out["dispatch_combine"] += _device_total_us(e) / 1e3
+        elif e.key == "aten::bmm" and shapes and shapes[0][0] == n_experts:
+            out["experts"] += _device_total_us(e) / 1e3
+    return out
+
+
+def _moe_bench_row(tmp: str, failed: list, card: str) -> dict:
+    """(a) the bench row through the CLI (with (c)'s export), a timed and
+    traced Trainer run, and the top-1, top-2 and ``--remat dots`` legs."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    from distributed_tensorflow_example_tpu_torch.utils import tb_events
+    out: dict = {}
+    eval_batches = -(-BERT_EVAL // MOE_B)
+    m, tb = os.path.join(tmp, "moe.jsonl"), os.path.join(tmp, "tb")
+    export = os.path.join(tmp, "moe_export")
+    _, lines, recs, peak1 = _cli_run(
+        MOE_ARGV + ["--train_steps", str(MOE_STEPS), "--log_every_steps",
+                    "1", "--summary_every_steps", "1", "--metrics_path", m,
+                    "--tb_logdir", tb, "--export_dir", export],
+        f"{MOE_STEPS} steps", failed, card, tag="moe",
+        want=_launches_want(MOE_LAYERS, MOE_STEPS, eval_batches))
+    out["launches"] = _launch_counts()         # the run's, as it ended
+    curve = _step_metrics(lines)
+    rows = [r for r in recs if "expert_load" in r]
+    losses = [curve[s]["loss"] for s in sorted(curve)]
+    log("[moe] loss at steps " + " ".join(
+        f"{s}:{curve[s]['loss']:.4f}" for s in sorted(curve))
+        + "; dropped_token_fraction " + " ".join(
+            f"{r['dropped_token_fraction']:.4f}" for r in rows)
+        + f"; expert_load at step {MOE_STEPS} "
+        + (str([round(x, 4) for x in rows[-1]["expert_load"]]) if rows
+           else "none") + f"; final eval {_final_eval(lines)} ({card})")
+    if sorted(curve) != list(range(1, MOE_STEPS + 1)) \
+            or not all(np.isfinite(list(curve[s].values())).all()
+                       for s in curve) \
+            or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        failed.append(f"moe loss curve {curve}")
+    if [r["step"] for r in rows] != list(range(1, MOE_STEPS + 1)) or any(
+            not isinstance(r["expert_load"], list)
+            or len(r["expert_load"]) != MOE_E
+            or not all(0.0 <= x <= 1.0 for x in r["expert_load"])
+            or not 0.0 <= r["dropped_token_fraction"] < 1.0
+            or not all(np.isfinite(v) for k, v in r.items()
+                       if isinstance(v, float)) for r in rows):
+        failed.append(f"moe JSONL rows {rows[:2]}")
+    tags = set()
+    for name in os.listdir(tb):
+        tags |= {rec[1] for rec in tb_events.read_scalars(
+            os.path.join(tb, name))}
+    vec_logged = any(re.search(r"\bexpert_load=", x) for x in lines)
+    log(f"[moe] sinks: {len(rows)} JSONL rows with expert_load [{MOE_E}]; "
+        f"TensorBoard tags {sorted(t for t in tags if 'expert' in t)} "
+        f"(no vector); a vector in the log lines: {vec_logged}")
+    if "expert_load" in tags or "expert_load_max" not in tags or vec_logged:
+        failed.append(f"moe sinks: tags {sorted(tags)}, vector logged "
+                      f"{vec_logged}")
+    out["dropped_top1"] = float(np.mean([r["dropped_token_fraction"]
+                                         for r in rows]))
+
+    # a Trainer of the same argv: steps 4-13 timed one by one (a device
+    # sync after each), step 14 traced with shapes and its launches
+    # counted, step 15 traced plainly
+    args = cli.build_parser().parse_args(
+        MOE_ARGV + ["--train_steps", str(MOE_TIMED[1] + 2),
+                    "--log_every_steps", "100"])
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, _ = cli.load_dataset(cfg, model)
+    flops, routed = _moe_flops(model, MOE_B, MOE_S)
+    clock = _StepClock()
+    # step b + 1 traced with host operators and their shapes (the device
+    # ms by part), step b + 2 with the device's kernels alone (the idle
+    # share: recording host operators costs host time a launch)
+    prof = _ProfileStep(MOE_TIMED[1], record_shapes=True)
+    plain = _ProfileStep(MOE_TIMED[1] + 1, cuda_only=True)
+    count = _CountStep(MOE_TIMED[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Trainer(model, cfg, train, None,
+                 hooks=[clock, prof, plain, count]) as tr:
+        tr.train()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    a, b = MOE_TIMED
+    step_ms = sorted((clock.times[i] - clock.times[i - 1]) * 1e3
+                     for i in range(a + 1, b + 1))
+    ms = float(np.median(step_ms))
+    c = model.cfg
+    t = MOE_B * MOE_S
+    cap = moe.capacity_for(t, c.n_experts, c.capacity_factor)
+    parts = _moe_device_ms(prof.prof, t, c.n_experts * cap, c.n_experts)
+    busy = _moe_device_ms(plain.prof, t, c.n_experts * cap, c.n_experts)
+    idle = (1 - busy["all"] / (plain.wall * 1e3) if busy
+            else float("nan"))
+    # the same busy time over the untraced median step: the profiler's
+    # own host cost left out
+    idle_untraced = (1 - busy["all"] / ms if busy else float("nan"))
+    share = flops / PEAK_BF16_FLOPS * 1e3 / ms
+    share_routed = routed / PEAK_BF16_FLOPS * 1e3 / ms
+    log(f"[moe] MoE-BERT ({c.layers} layers, {c.n_experts} experts top-"
+        f"{c.top_k}, capacity factor {c.capacity_factor}: C = {cap} slots "
+        f"for T = {t} tokens; dispatch and combine [{t}, {c.n_experts}, "
+        f"{cap}] f32, {t * c.n_experts * cap * 4 / 1e6:.1f} MB each), bf16,"
+        f" flash, AdamW, {MOE_B} x {MOE_S}: steps {a + 1}-{b} of a Trainer "
+        f"run, median {ms:.2f} ms a step (min {step_ms[0]:.2f}, max "
+        f"{step_ms[-1]:.2f}), {t / ms * 1e3:.0f} tokens/s; peak device "
+        f"memory {peak:.1f} MiB (CLI run {peak1:.1f}); training FLOPs as "
+        f"computed {flops / 1e12:.3f} TFLOP a step (dispatch, combine and "
+        f"every expert slot counted): {share:.4f} of the bf16 peak; routed "
+        f"work alone {routed / 1e12:.3f} TFLOP: {share_routed:.4f} ({card})")
+    want_step = _launches_want(MOE_LAYERS, 1, 0)
+    if count.counts != want_step:
+        failed.append(f"moe traced step launches {count.counts}, want "
+                      f"{want_step}")
+    if parts and busy:
+        rest = parts["all"] - parts["dispatch_combine"] - parts["experts"] \
+            - parts["flash"]
+        log(f"[moe profile] Trainer step {b + 2} traced (kernels only): "
+            f"{plain.wall * 1e3:.1f} ms, device busy {busy['all']:.2f} ms in "
+            f"{busy['launches']} kernel launches: idle share {idle:.3f}, "
+            f"{idle_untraced:.3f} against the untraced median step; "
+            f"step {b + 1} traced with shapes: {prof.wall * 1e3:.1f} ms, "
+            f"busy {parts['all']:.2f} ms; device ms: dispatch and combine "
+            f"products "
+            f"{parts['dispatch_combine']:.2f}, expert GEMMs "
+            f"{parts['experts']:.2f}, flash kernels {parts['flash']:.2f}, "
+            f"the rest {rest:.2f}; launches {count.counts} ({card})")
+        from torch.autograd import DeviceType
+        kernels = [e for e in prof.prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+            log(f"[moe profile]   {_device_us(e) / 1e3:8.3f} ms "
+                f" {e.count:5d}x  {e.key[:90]}")
+    else:
+        log("[moe profile] the profiler saw no device time: idle share and "
+            "the device ms by part not measured")
+    out.update(ms=ms, tokens=t / ms * 1e3, peak_mib=peak, idle=idle,
+               idle_untraced=idle_untraced, share=share,
+               share_routed=share_routed, parts=parts)
+    del model, train, tr
+    gc.collect()
+
+    # the legs: a few steps each at the same cadence, launches exact
+    n = MOE_LEVER_STEPS
+    for label, extra, fwd in (("top-1", [], 1),
+                              ("top-2", ["--moe_top_k", "2"], 1),
+                              ("--remat dots", ["--remat", "dots"], 2)):
+        mpath = os.path.join(tmp, "lever.jsonl")
+        if os.path.exists(mpath):
+            os.unlink(mpath)
+        _, lines, recs, lpeak = _cli_run(
+            MOE_ARGV + extra + ["--train_steps", str(n), "--log_every_steps",
+                                "3", "--summary_every_steps", "3",
+                                "--metrics_path", mpath],
+            label, failed, card, tag="moe",
+            want=_launches_want(MOE_LAYERS, n, eval_batches,
+                                fwd_per_step=fwd))
+        rates = [r for r in recs if "sec_per_step" in r]
+        lms = rates[-1]["sec_per_step"] * 1e3 if rates else float("nan")
+        drop = [r["dropped_token_fraction"] for r in recs
+                if "dropped_token_fraction" in r]
+        log(f"[moe {label}] {lms:.2f} ms a step over steps 4-{n} (host "
+            f"clock at the log cadence); dropped_token_fraction at steps 3, "
+            f"{n}: {' '.join(f'{x:.4f}' for x in drop)}; peak {lpeak:.1f} "
+            f"MiB ({card})")
+        if len(drop) != 2 or not all(0.0 <= x < 1.0 for x in drop):
+            failed.append(f"moe {label}: dropped fractions {drop}")
+        out[label] = {"ms": lms, "dropped": float(np.mean(drop or [-1])),
+                      "peak_mib": lpeak}
+    out["export"] = export
+    return out
+
+
+def _moe_card_vs_cpu(failed: list, card: str) -> float:
+    """(b) one f32 MoE-BERT-tiny step on the card against the CPU's, same
+    weights through the bridge: loss, metrics, every gradient leaf, and
+    the dispatch tensors."""
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.models.moe import (
+        MoeBert, MoeBertConfig, params_from_numpy, params_to_numpy)
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, unflatten_dict)
+    model = MoeBert(MoeBertConfig(**{**MoeBertConfig.tiny().__dict__,
+                                     "dropout": 0.0, "jitter": 0.0}))
+    card_params = model.init(0)
+    arrays = params_to_numpy(card_params)
+    tr, _ = get_bert_data(None, vocab_size=1000, seq_len=64,
+                          max_predictions=8, synthetic=True, num_train=16,
+                          num_test=1)
+    taps: dict[str, list] = {"cuda": [], "cpu": []}
+    inner = moe._route
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = (card_params if dev == "cuda"
+                  else params_from_numpy(model, arrays, device="cpu"))
+
+        def tap(*a, dev=dev, **kw):
+            res = inner(*a, **kw)
+            taps[dev].append(res[0].cpu())
+            return res
+        moe._route = tap
+        try:
+            flat = {k: v.detach().requires_grad_() for k, v in
+                    flatten_dict(params).items()}
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in tr.items()}
+            loss, (met, _) = model.loss(unflatten_dict(flat), {}, batch)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        finally:
+            moe._route = inner
+        runs[dev] = (float(loss.detach()), {k: v.detach().cpu() for k, v in
+                                   met.items()},
+                     {k: g.cpu() for k, g in zip(flat, grads)})
+    (lc, mc, gc_), (lp, mp, gp) = runs["cuda"], runs["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    met_err = max(float((mc[k] - mp[k]).abs().max()) for k in mp)
+    top = max(float(g.abs().max()) for g in gp.values())
+    errs = {k: float((gc_[k] - gp[k]).abs().max())
+            / max(float(gp[k].abs().max()), MOE_TINY_GRAD_FLOOR * top)
+            for k in gp}
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
+    same = len(taps["cuda"]) == len(taps["cpu"]) == 1 and torch.equal(
+        taps["cuda"][0], taps["cpu"][0])
+    log(f"[moe tiny] one f32 MoE-BERT-tiny step (16 x 64, "
+        f"{model.cfg.n_experts} experts, capacity factor "
+        f"{model.cfg.capacity_factor}, no dropout "
+        f"or jitter), card against CPU from the same weights: loss rel "
+        f"{loss_rel:.2e} (tol {MOE_TINY_LOSS_RTOL}), metrics max abs "
+        f"{met_err:.2e} (tol {MOE_TINY_METRIC_TOL}), worst grad leaf "
+        f"{worst} {grad_err:.2e} of its largest value, floored at "
+        f"{MOE_TINY_GRAD_FLOOR} of the largest gradient (tol "
+        f"{MOE_TINY_GRAD_TOL}); "
+        f"dispatch tensors equal {same} ({card})")
+    if not (loss_rel <= MOE_TINY_LOSS_RTOL and met_err <= MOE_TINY_METRIC_TOL
+            and grad_err <= MOE_TINY_GRAD_TOL and same):
+        failed.append("moe tiny card vs CPU")
+    return grad_err
+
+
+def _moe_predict(export: str, failed: list, card: str) -> dict:
+    """(c) the bench row's export (static batch 8) through ``PredictServer``
+    with the scheduler off and on: 1, 3 and 8 rows against the live model
+    on the batch padded with row 0, 9 rows a 400, B1 12 a batch."""
+    from distributed_tensorflow_example_tpu_torch.serving import (
+        load_servable, read_meta)
+    from distributed_tensorflow_example_tpu_torch.serving_http import \
+        PredictServer
+    meta = read_meta(export)
+    sig = meta["input_signature"]
+    live = load_servable(export)
+    vocab = live.model.cfg.vocab_size
+    rs = np.random.RandomState(21)
+    s = sig["input_ids"]["shape"][1]
+    m = sig["masked_positions"]["shape"][1]
+    n9 = MOE_EXPORT_B + 1
+    lens = rs.randint(s // 2, s + 1, n9)
+    lens[0] = s
+    mask = (np.arange(s)[None] < lens[:, None]).astype(np.int32)
+    feats = {"input_ids": (rs.randint(1, vocab, (n9, s)) * mask).astype(
+                 np.int32),
+             "token_type_ids": np.zeros((n9, s), np.int32),
+             "attention_mask": mask,
+             "masked_positions": rs.randint(0, s // 2, (n9, m)).astype(
+                 np.int32)}
+    want = {}
+    for n in MOE_PREDICT_ROWS:
+        padded = {k: np.concatenate([v[:n], np.repeat(v[:1],
+                                                      MOE_EXPORT_B - n, 0)])
+                  for k, v in feats.items()}
+        want[n] = live(padded)[:n]
+    del live
+    gc.collect()
+    out: dict = {"batch_polymorphic": meta["batch_polymorphic"]}
+    b1 = 0
+    for scheduler in ("off", "on"):
+        with PredictServer(export, scheduler=scheduler, port=0,
+                           batch_max_wait_ms=1.0) as srv:
+            path = f"/v1/models/{srv.name}:predict"
+            read = _reset_launches()
+            err, wall = 0.0, 0.0
+            for n in MOE_PREDICT_ROWS:
+                t0 = time.perf_counter()
+                code, body, _ = http_json(srv.port, path, {"inputs": {
+                    k: v[:n].tolist() for k, v in feats.items()}}, "POST")
+                wall += time.perf_counter() - t0
+                got = (np.asarray(body["predictions"], np.float32)
+                       if code == 200 else None)
+                if got is None or got.shape != want[n].shape:
+                    failed.append(f"moe :predict {n} rows, scheduler "
+                                  f"{scheduler}: HTTP {code}")
+                    continue
+                err = max(err, float(np.abs(got - want[n]).max()))
+            code9, body9, _ = http_json(srv.port, path, {"inputs": {
+                k: v.tolist() for k, v in feats.items()}}, "POST")
+            launches = read()
+            static = (srv.batcher.static_batch if srv.batcher is not None
+                      else None)
+            padded_rows = (srv.batcher.padded_rows if srv.batcher is not None
+                           else None)
+        rows = sum(MOE_PREDICT_ROWS)
+        want_b1 = MOE_LAYERS * len(MOE_PREDICT_ROWS)
+        log(f"[moe :predict] scheduler {scheduler}: {MOE_PREDICT_ROWS} rows "
+            f"against the live model on the batch padded to {MOE_EXPORT_B} "
+            f"with row 0: max abs err {err:.3e} (tol {MOE_PREDICT_TOL}); "
+            f"{n9} rows -> HTTP {code9}; B1 launches "
+            f"{launches['flash_attention_fwd']} (want {want_b1}); batcher "
+            f"static batch {static}, padded rows {padded_rows}; "
+            f"{rows / wall:.1f} rows/s ({rows} rows in {wall:.2f} s, "
+            f"{m} x {vocab} f32 logits a row as JSON) ({card})")
+        others = {k: v for k, v in launches.items()
+                  if k != "flash_attention_fwd"}
+        if err > MOE_PREDICT_TOL or code9 != 400 \
+                or "static batch" not in str(body9) \
+                or launches["flash_attention_fwd"] != want_b1 \
+                or any(others.values()) \
+                or (scheduler == "on" and (static != MOE_EXPORT_B or
+                    padded_rows != sum(MOE_EXPORT_B - n
+                                       for n in MOE_PREDICT_ROWS))):
+            failed.append(f"moe :predict scheduler {scheduler}")
+        b1 += launches["flash_attention_fwd"]
+        out[f"rows_per_s_{scheduler}"] = rows / wall
+    out["b1"] = b1
+    if out["batch_polymorphic"] is not False:
+        failed.append("the moe_bert export is not static-batch")
+    return out
+
+
+class _LeafHistory:
+    """A Trainer hook that keeps a copy of one param leaf after every
+    step."""
+
+    every_steps = 0
+
+    def __init__(self, key: str):
+        self.key, self.values = key, []
+
+    def begin(self, trainer):
+        from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+            flatten_dict
+        self.values.append(flatten_dict(trainer.state.params)[self.key]
+                           .detach().clone())
+
+    def wants_metrics(self, step):
+        return False
+
+    def after_step(self, trainer, step, metrics):
+        from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+            flatten_dict
+        self.values.append(flatten_dict(trainer.state.params)[self.key]
+                           .detach().clone())
+
+    def end(self, trainer):
+        pass
+
+
+def _moe_training_state(tmp: str, failed: list, card: str) -> dict:
+    """(d) the EMA on moe_bert (eval on the shadow; a leaf against its
+    closed form), bf16 moments on GPT-small (state bytes, peak memory),
+    and moe_bert warm-started from a bert checkpoint."""
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import \
+        load_npz
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.config import (
+        OptimizerConfig, TrainConfig)
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas \
+        import SyncReplicas
+    from distributed_tensorflow_example_tpu_torch.train.optimizers import (
+        EmaState, find_ema_params, make_optimizer)
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, tree_leaves)
+    out: dict = {}
+
+    # the EMA: 4 steps with --ema_decay 0.999 --ema_debias
+    key = "layer_1/moe/router/kernel"
+    args = cli.build_parser().parse_args(
+        MOE_ARGV + ["--train_steps", str(MOE_EMA_STEPS), "--log_every_steps",
+                    "100", "--ema_decay", "0.999", "--ema_debias"])
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, test = cli.load_dataset(cfg, model)
+    hist = _LeafHistory(key)
+    with Trainer(model, cfg, train, test, hooks=[hist]) as tr:
+        state, summary = tr.train()
+        ev_live = tr.evaluate(state, use_ema=False)
+        ev_shadow = tr.evaluate(state, use_ema=True)
+    shadow = flatten_dict(find_ema_params(state.opt_state, state.params))[key]
+    closed = hist.values[0].float().clone()
+    for n, p in enumerate(hist.values[1:], start=1):
+        nn_ = torch.tensor(float(n), device="cuda")
+        d = torch.clamp_max((1.0 + nn_) / (10.0 + nn_), 0.999)
+        closed = closed * d + p.float() * (1.0 - d)
+    ema_err = float((shadow - closed).abs().max()
+                    / closed.abs().max())
+    moved = float((shadow - hist.values[-1].float()).abs().max())
+    log(f"[moe ema] {MOE_EMA_STEPS} steps, decay 0.999 with the debias ramp:"
+        f" {key} against its closed form from the live params' history "
+        f"{ema_err:.2e} of its largest value (tol {MOE_EMA_TOL}), shadow "
+        f"off the live leaf by {moved:.3e}; eval on the shadow "
+        f"{ {k: round(v, 6) for k, v in summary['eval'].items()} }, on the "
+        f"live params { {k: round(v, 6) for k, v in ev_live.items()} } "
+        f"({card})")
+    same = all(abs(summary["eval"][k] - v) <= 1e-6 * abs(v)
+               for k, v in ev_shadow.items())
+    if ema_err > MOE_EMA_TOL or not same \
+            or summary["eval"]["loss"] == ev_live["loss"] or not moved > 0:
+        failed.append("moe ema")
+    del model, train, test, tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 moments: GPT-small 8 x 512, AdamW, 3 steps each way
+    gcfg = TrainConfig(model="gpt", dtype="bfloat16", attention_impl="flash",
+                       seed=0)
+    gcfg.data.seq_len = TRAIN_S
+    gpt = get_model("gpt", gcfg)
+    ids = np.random.RandomState(3).randint(
+        0, gpt.cfg.vocab_size, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    batch = {"input_ids": torch.as_tensor(ids, device="cuda")}
+    for md in ("float32", "bfloat16"):
+        sync = SyncReplicas(gpt.loss, make_optimizer(OptimizerConfig(
+            name="adamw", learning_rate=1e-4, weight_decay=0.01,
+            moment_dtype=md)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = sync.init(gpt.init, seed=0)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(st.opt_state))
+        losses = []
+        for _ in range(3):
+            st, met = sync.step(st, batch)
+            losses.append(met["loss"])
+        losses = [float(x) for x in losses]
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"[moe bf16 moments] GPT-small {TRAIN_B} x {TRAIN_S}, AdamW, "
+            f"moment_dtype {md}: optimizer state {nbytes / 2**20:.2f} MiB, "
+            f"peak device memory {peak:.1f} MiB over 3 steps, losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)} ({card})")
+        if not all(np.isfinite(losses)):
+            failed.append(f"moe bf16 moments {md}: losses {losses}")
+        out[md] = {"state_mib": nbytes / 2**20, "peak_mib": peak}
+        del sync, st
+    del gpt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # warm start: a bert checkpoint saved here, then a fresh moe_bert
+    bert_dir = os.path.join(tmp, "bert_for_moe")
+    rc = cli.main(["--model", "bert", "--device", "cuda", "--dtype",
+                   "bfloat16", "--attention", "flash", "--optimizer", "sgd",
+                   "--learning_rate", "1e-3", "--batch_size", str(MOE_B),
+                   "--seq_len", str(MOE_S), "--train_steps", "1",
+                   "--log_every_steps", "0", "--ckpt_dir", bert_dir,
+                   "--save_steps", "1"])
+    bert = load_npz(os.path.join(bert_dir, "ckpt-1.npz"))
+    args = cli.build_parser().parse_args(
+        MOE_ARGV + ["--train_steps", "0", "--ema_decay", "0.999",
+                    "--warm_start", bert_dir, "--ckpt_dir",
+                    os.path.join(tmp, "moe_warm")])
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, _ = cli.load_dataset(cfg, model)
+    t0 = time.perf_counter()
+    with Trainer(model, cfg, train, None) as tr:
+        state = tr.initialize()
+        wall = time.perf_counter() - t0
+        fresh = flatten_dict(tr.sync.init(model.init, seed=cfg.seed).params)
+    flat = flatten_dict(state.params)
+    moe_keys = [k for k in flat if "/moe/" in k]
+    dense_equal = all(np.array_equal(flat[k].cpu().numpy(),
+                                     bert[f"params/{k}"])
+                      for k in flat if k not in moe_keys)
+    moe_fresh = all(torch.equal(flat[k], fresh[k]) for k in moe_keys)
+    ema = flatten_dict(find_ema_params(state.opt_state, state.params))
+    ema_state = [x for x in state.opt_state if isinstance(x, EmaState)]
+    anchored = all(torch.equal(ema[k], flat[k].float()) for k in flat) \
+        and int(ema_state[0]["count"]) == 0
+    log(f"[moe warm start] bert checkpoint (1 SGD step, rc {rc}) -> "
+        f"moe_bert in {wall:.2f} s: {len(flat) - len(moe_keys)} dense leaves "
+        f"byte-equal to the checkpoint {dense_equal}, {len(moe_keys)} MoE "
+        f"leaves fresh {moe_fresh}, step {state.step}, EMA re-anchored at "
+        f"the warmed params {anchored} ({card})")
+    if rc != 0 or not (dense_equal and moe_fresh and anchored
+                       and state.step == 0 and len(moe_keys) == 6 * 5):
+        failed.append("moe warm start")
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """MoE-BERT, ``bench.py``'s expert row (8 experts, top-1, capacity
+    1.25, MoE every 2nd layer, AdamW, bf16, flash, 64 x 128), on the
+    port: (a) 10 steps through the CLI (B1, B2a, B2b 12 a step each and
+    12 an eval batch; the loss falls; ``expert_load`` [8] in every JSONL
+    row, no vector in TensorBoard or the log), ms a step, tokens/s, peak
+    memory, the idle share and the device ms by part of one traced step,
+    the share of the bf16 peak on two FLOP bases; the top-1, top-2 and
+    ``--remat dots`` legs; (b) MoE-BERT-tiny on the card against the
+    CPU; (c) the run's static-batch export on ``:predict``, scheduler off
+    and on; (d) the EMA, bf16 moments on GPT-small, warm start from a
+    bert checkpoint. Returns the B1, B2a and B2b launches of (a) and
+    (c)."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        row = _moe_bench_row(tmp, failed, card)
+        t_a = time.perf_counter()
+        _moe_card_vs_cpu(failed, card)
+        t_b = time.perf_counter()
+        pred = _moe_predict(row["export"], failed, card)
+        t_c = time.perf_counter()
+        _moe_training_state(tmp, failed, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = row["launches"]
+    out = {"b1": launches["flash_attention_fwd"] + pred["b1"],
+           "b2a": launches["flash_attention_bwd_dq"],
+           "b2b": launches["flash_attention_bwd_dkv"]}
+    log(f"[moe] phase done in {time.perf_counter() - t_phase:.1f} s ((a) "
+        f"{t_a - t_phase:.1f} s, (b) {t_b - t_a:.1f} s, (c) {t_c - t_b:.1f}"
+        f" s, (d) {time.perf_counter() - t_c:.1f} s); launches B1 "
+        f"{out['b1']}, B2a {out['b2a']}, B2b {out['b2b']} ({card})")
+    if failed:
+        raise SystemExit("the MoE phase failed: " + "; ".join(failed))
+    return out
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -5729,6 +6393,8 @@ def main() -> int:
     timed("http_ops")
     fleet = phase_fleet(card)
     timed("fleet")
+    moe = phase_moe(card)
+    timed("moe")
     log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
         f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
         f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "
@@ -5752,20 +6418,22 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
-         + fleet["b1"],
+         + fleet["b1"] + moe["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_dq.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
-         "launches": train["flash_attention_bwd_dq"], **bwd_dq},
+         "launches": train["flash_attention_bwd_dq"] + moe["b2a"],
+         **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_dkv.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
-         "launches": train["flash_attention_bwd_dkv"], **bwd_dkv},
+         "launches": train["flash_attention_bwd_dkv"] + moe["b2b"],
+         **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_fused.cu",

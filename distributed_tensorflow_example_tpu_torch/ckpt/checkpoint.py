@@ -230,8 +230,9 @@ def _tree_rebuild(tree, prefix: str, param_keys: list[str],
     """``tree`` with every leaf replaced by ``leaf(key, old)``, keys as
     :func:`_tree_items` names them."""
     if isinstance(tree, Mapping):
-        return {k: _tree_rebuild(v, f"{prefix}/{k}", param_keys, leaf)
-                for k, v in tree.items()}
+        out = {k: _tree_rebuild(v, f"{prefix}/{k}", param_keys, leaf)
+               for k, v in tree.items()}
+        return out if type(tree) is dict else type(tree)(out)
     if isinstance(tree, tuple):
         return tuple(_tree_rebuild(v, f"{prefix}/{i}", param_keys, leaf)
                      for i, v in enumerate(tree))

@@ -17,6 +17,12 @@ rank::
         --seq_len 128 --train_steps 30
 
     python -m distributed_tensorflow_example_tpu_torch.cli.train \\
+        --model moe_bert --dtype bfloat16 --attention flash \\
+        --optimizer adamw --learning_rate 1e-4 --batch_size 64 \\
+        --seq_len 128 --train_steps 10 --summary_every_steps 1 \\
+        --metrics_path m.jsonl
+
+    python -m distributed_tensorflow_example_tpu_torch.cli.train \\
         --model gpt --attention flash --attention_bwd fused \\
         --dtype bfloat16 --seq_len 512 --batch_size 8 --optimizer adamw \\
         --learning_rate 1e-3 --train_steps 20 --ckpt_dir D --save_steps 10
@@ -37,8 +43,12 @@ set), ``resnet20`` on CIFAR-10 (the binary batches under ``--data_dir``,
 else the synthetic set; ``--augment`` for the pad-4 crop and flip),
 ``resnet50`` on synthetic ImageNet, ``gpt`` and ``gpt_tiny`` on the
 synthetic LM corpus or pre-tokenized ``.npy`` files, and ``bert``,
-``bert_large`` and ``bert_tiny`` (masked LM) on the same tokens, masked
-(a raw-text corpus with a ``vocab.txt`` arrives with slice A5b);
+``bert_large``, ``bert_tiny``, ``moe_bert`` and ``moe_bert_tiny`` (masked
+LM; the ``--moe_*`` routing knobs) on the same tokens, masked (a
+raw-text corpus with a ``vocab.txt`` arrives with slice A5b-2);
+``--warm_start`` takes a fresh run's params from a checkpoint (resume
+wins), ``--ema_decay`` keeps a parameter EMA that eval and the export
+use, ``--moment_dtype bfloat16`` stores the first moments in bf16;
 checkpoints into
 ``--ckpt_dir`` (a second run on the same directory resumes; ``--async_save``
 writes on a background thread, ``--keep_best_metric`` keeps the best
@@ -77,7 +87,8 @@ log = get_logger("cli")
 #: the models the port trains, and the datasets it reads (the dataset
 #: aliases are the reference's)
 LM_MODELS = ("gpt", "gpt_tiny")
-BERT_MODELS = ("bert", "bert_large", "bert_tiny")
+BERT_MODELS = ("bert", "bert_large", "bert_tiny", "moe_bert",
+               "moe_bert_tiny")
 MNIST_DATASETS = ("mlp", "mnist", "lenet")
 CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
 IMAGENET_DATASETS = ("resnet50", "imagenet")
@@ -116,22 +127,22 @@ def build_parser() -> argparse.ArgumentParser:
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
     a("--model", default="mlp", help="mlp | lenet | resnet20 | resnet50 | "
-      "gpt | gpt_tiny | bert | bert_large | bert_tiny (the MoE and "
-      "pipeline models of the reference arrive with later slices)")
+      "gpt | gpt_tiny | bert | bert_large | bert_tiny | moe_bert | "
+      "moe_bert_tiny (the pipeline models arrive with slice A6)")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
       help="MNIST IDX files, CIFAR-10 binary batches, or pre-tokenized "
            "train.npy/test.npy or tokens.npy; omit for the synthetic set "
-           "(ImageNet files, a vocab.txt text corpus: slice A5b)")
-    a("--native", action="store_true", help="C++ loader (slice A5b)")
-    a("--streaming", action="store_true", help="slice A5b")
-    a("--fast_decode", action="store_true", help="slice A5b")
+           "(ImageNet files, a vocab.txt text corpus: slice A5b-2)")
+    a("--native", action="store_true", help="C++ loader (slice A5b-2)")
+    a("--streaming", action="store_true", help="slice A5b-2")
+    a("--fast_decode", action="store_true", help="slice A5b-2")
     a("--augment", action="store_true",
       help="CIFAR pad-4 crop + flip on the train split (ImageNet: slice "
-           "A5b)")
-    a("--label_offset", type=int, default=0, help="slice A5b")
-    a("--max_per_class", type=int, default=None, help="slice A5b")
+           "A5b-2)")
+    a("--label_offset", type=int, default=0, help="slice A5b-2")
+    a("--max_per_class", type=int, default=None, help="slice A5b-2")
     a("--seq_len", type=int, default=128,
       help="sequence length (must be <= the model's max_len)")
     a("--batch_size", type=int, default=128, help="GLOBAL batch size")
@@ -164,7 +175,10 @@ def build_parser() -> argparse.ArgumentParser:
                       ("--moe_every", int), ("--moe_aux_weight", float),
                       ("--moe_router_z_weight", float),
                       ("--moe_jitter", float)):
-        a(flag, type=typ, default=None, help="MoE models (slice A5b)")
+        a(flag, type=typ, default=None,
+          help="moe_bert/moe_bert_tiny routing knob (default: the "
+               "model's: 8 experts, top-1, capacity 1.25, every 2nd "
+               "layer, aux weight 0.01, no z-loss, no jitter)")
     a("--lm_loss_impl", default=None, choices=["full", "chunked", "fused"],
       help="LM-head loss: full = the [.., V] f32 logits; chunked = "
            "sequence chunks recomputed in the backward (gpt; needs "
@@ -202,12 +216,22 @@ def build_parser() -> argparse.ArgumentParser:
     a("--gen_pad_id", type=int, default=0)
     a("--gen_ragged", action="store_true")
     a("--gen_weight_quant", default="off", choices=["off", "int8"])
-    a("--warm_start", default=None, help="slice A5b")
-    a("--warm_start_map", default="", help="slice A5b")
-    a("--ema_decay", type=float, default=0.0, help="slice A5b")
-    a("--ema_debias", action="store_true", help="slice A5b")
+    a("--warm_start", default=None,
+      help="checkpoint file or directory whose params initialize a fresh "
+           "run (tf.train.init_from_checkpoint; a checkpoint in "
+           "--ckpt_dir always wins)")
+    a("--warm_start_map", default="",
+      help="assignment map: 'ckpt_prefix:model_prefix' pairs, "
+           "comma-separated (default: the same paths); a ckpt_prefix "
+           "that matches no checkpoint key is an error")
+    a("--ema_decay", type=float, default=0.0,
+      help="shadow-param EMA decay (0 disables); eval and --export_dir "
+           "use the shadow")
+    a("--ema_debias", action="store_true",
+      help="the num_updates ramp: min(decay, (1+n)/(10+n))")
     a("--moment_dtype", default="float32", choices=["float32", "bfloat16"],
-      help="bfloat16: slice A5b")
+      help="storage dtype of the first moment (Adam mu, the momentum "
+           "trace); bf16 halves its bytes (refused for lars and lamb)")
     a("--accum_steps", type=int, default=1)
     a("--dtype", default="float32", choices=["float32", "bfloat16"])
     a("--param_dtype", default="float32", choices=["float32", "bfloat16"])
@@ -328,6 +352,13 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(
         model=args.model,
         train_steps=args.train_steps,
+        moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k,
+        moe_capacity_factor=args.moe_capacity_factor,
+        moe_every=args.moe_every,
+        moe_aux_weight=args.moe_aux_weight,
+        moe_router_z_weight=args.moe_router_z_weight,
+        moe_jitter=args.moe_jitter,
         lm_loss_impl=args.lm_loss_impl,
         lm_loss_chunk=args.lm_loss_chunk,
         lm_loss_vocab_block=args.lm_loss_vocab_block,
@@ -371,10 +402,12 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             grad_clip_norm=args.grad_clip_norm,
             grad_clip_value=args.grad_clip_value,
             moment_dtype=args.moment_dtype, ema_decay=args.ema_decay,
-            total_steps=args.train_steps),
+            ema_debias=args.ema_debias, total_steps=args.train_steps),
         sync=SyncConfig(accum_steps=args.accum_steps, mode=args.sync_mode),
         checkpoint=CheckpointConfig(
-            directory=args.ckpt_dir, max_to_keep=args.max_to_keep,
+            directory=args.ckpt_dir, warm_start=args.warm_start,
+            warm_start_map=args.warm_start_map,
+            max_to_keep=args.max_to_keep,
             keep_best_metric=args.keep_best_metric,
             keep_best_mode=args.keep_best_mode,
             save_steps=args.save_steps, save_secs=args.save_secs,
@@ -490,8 +523,9 @@ def _num_workers(args) -> int:
 
 
 def _slice_of(name: str) -> str:
-    """The slice that brings a model or dataset the port lacks."""
-    return "A6" if name.startswith("pipe_") else "A5b"
+    """The slice that brings a model or dataset the port lacks: the
+    pipeline models A6, the file readers A5b-2."""
+    return "A6" if name.startswith("pipe_") else "A5b-2"
 
 
 def _later_slice(args) -> list[tuple[str, bool, str]]:
@@ -505,21 +539,16 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
          _slice_of(args.model)),
         (f"--dataset {dataset}", dataset not in DATASETS,
          _slice_of(dataset)),
-        ("--native", args.native, "A5b"),
-        ("--streaming", args.streaming, "A5b"),
-        ("--fast_decode", args.fast_decode, "A5b"),
-        ("--augment on ImageNet", args.augment and imagenet, "A5b"),
-        ("--label_offset", args.label_offset != 0, "A5b"),
-        ("--max_per_class", args.max_per_class is not None, "A5b"),
+        ("--native", args.native, "A5b-2"),
+        ("--streaming", args.streaming, "A5b-2"),
+        ("--fast_decode", args.fast_decode, "A5b-2"),
+        ("--augment on ImageNet", args.augment and imagenet, "A5b-2"),
+        ("--label_offset", args.label_offset != 0, "A5b-2"),
+        ("--max_per_class", args.max_per_class is not None, "A5b-2"),
         ("--data_dir for ImageNet (the folder and TFRecord readers)",
-         imagenet and bool(args.data_dir), "A5b"),
+         imagenet and bool(args.data_dir), "A5b-2"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
-        ("--moment_dtype bfloat16", args.moment_dtype != "float32", "A5b"),
-        ("--ema_decay", args.ema_decay != 0.0, "A5b"),
-        ("--ema_debias", args.ema_debias, "A5b"),
-        ("--warm_start", args.warm_start is not None, "A5b"),
-        ("--warm_start_map", bool(args.warm_start_map), "A5b"),
         (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
          f"{_num_workers(args)} rank(s))",
          not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
@@ -553,8 +582,8 @@ def load_dataset(cfg: TrainConfig, model=None):
     """(train_arrays, eval_arrays): MNIST for the MLP and LeNet (``x`` flat
     784, ``y`` int32), CIFAR-10 for ResNet-20 and synthetic ImageNet for
     ResNet-50 (``x`` NHWC f32 in [0, 1]), the LM corpus for the causal-LM
-    models, and the same tokens masked for BERT (the vocab and
-    ``max_predictions`` from the model, so data and logits agree)."""
+    models, and the same tokens masked for BERT and MoE-BERT (the vocab
+    and ``max_predictions`` from the model, so data and logits agree)."""
     name = cfg.data.dataset
     if cfg.data.augment and name not in (CIFAR_DATASETS
                                          + IMAGENET_DATASETS):
@@ -594,8 +623,8 @@ def load_dataset(cfg: TrainConfig, model=None):
             and not cfg.data.synthetic):
         raise SystemExit(
             f"{d!r} is a raw-text corpus with a vocab.txt: tokenizing it "
-            "(data/bert_text.py) arrives with slice A5b of the port; pass "
-            "pre-tokenized train.npy/test.npy or tokens.npy")
+            "(data/bert_text.py) arrives with slice A5b-2 of the port; "
+            "pass pre-tokenized train.npy/test.npy or tokens.npy")
     tr, te = get_bert_data(
         d, vocab_size=vocab, seq_len=cfg.data.seq_len,
         max_predictions=mcfg.max_predictions if mcfg else 20,
@@ -753,12 +782,18 @@ def _maybe_export(args, cfg, model, state, ctx) -> None:
     """The trained weights as the artifacts the port's ``PredictServer``
     serves, written by rank 0 (every rank holds the same weights):
     ``--export_dir`` the forward (``:predict``), ``--export_generator``
-    the causal LM's generator (``:generate``)."""
+    the causal LM's generator (``:generate``); the EMA shadow when the
+    EMA is on (the tf export recipe used the EMA variables)."""
     if ctx.process_index != 0:
         return
+    params = None
+    if cfg.optimizer.ema_decay > 0:
+        from ..train.optimizers import find_ema_params
+        params = find_ema_params(state.opt_state, state.params)
+    params = params if params is not None else state.params
     if args.export_dir:
         from ..serving import export_model
-        artifact = export_model(model, state.params, state.extras,
+        artifact = export_model(model, params, state.extras,
                                 args.export_dir,
                                 batch_size=min(8, cfg.data.batch_size))
         log.info("exported servable: %s", artifact)
@@ -766,7 +801,7 @@ def _maybe_export(args, cfg, model, state, ctx) -> None:
         return
     from ..serving import export_generator
     artifact = export_generator(
-        model, state.params, args.export_generator,
+        model, params, args.export_generator,
         prompt_len=args.gen_prompt_len, max_new_tokens=args.gen_max_new,
         batch_size=args.gen_batch, temperature=args.gen_temperature,
         top_k=args.gen_top_k, top_p=args.gen_top_p, eos_id=args.gen_eos_id,

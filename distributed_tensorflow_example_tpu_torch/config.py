@@ -1,12 +1,12 @@
 """Config dataclasses (port of ``distributed_tensorflow_example_tpu/
 config.py``, the fields GPT, BERT, MLP, LeNet and ResNet construction,
-generation, the sync training step and the ``Trainer`` read).
+generation, the sync training step and the ``Trainer`` read, MoE-BERT's
+routing knobs, the parameter EMA, bf16 moments and warm start included).
 
 Field names and defaults are the reference's, so a config reads the same
-in both packages. The fields of a later slice are absent (warm start,
-sharded saves, the streaming and ImageNet-reader and MoE knobs), or
-refused by the ``Trainer`` when set: a sharded mesh axis
-and ``steps_per_loop > 1``.
+in both packages. The fields of a later slice are absent (sharded saves,
+the streaming and ImageNet-reader knobs), or refused by the ``Trainer``
+when set: a sharded mesh axis and ``steps_per_loop > 1``.
 """
 
 from __future__ import annotations
@@ -65,8 +65,14 @@ class OptimizerConfig:
     total_steps: int = 0            # for schedules; 0 => constant
     grad_clip_norm: float = 0.0     # 0 disables
     grad_clip_value: float = 0.0    # elementwise |g| clip; 0 disables
-    moment_dtype: str = "float32"   # bfloat16 arrives with slice A5b
-    ema_decay: float = 0.0          # > 0 (shadow-param EMA): slice A5b
+    moment_dtype: str = "float32"   # float32 | bfloat16: the first
+                                    # moment's storage dtype (Adam mu, the
+                                    # momentum trace, adafactor's momentum)
+    ema_decay: float = 0.0          # > 0 keeps a shadow-param EMA (f32,
+                                    # the chain's last link); eval and
+                                    # the export use the shadow
+    ema_debias: bool = False        # the num_updates ramp:
+                                    # min(decay, (1+n)/(10+n))
 
 
 @dataclasses.dataclass
@@ -108,6 +114,12 @@ class CheckpointConfig:
     file, restore-or-init (``ckpt/checkpoint.py``)."""
 
     directory: str | None = None
+    warm_start: str | None = None   # checkpoint file or directory whose
+                                    # params initialize a FRESH run
+                                    # (a checkpoint in ``directory``,
+                                    # i.e. resume, always wins)
+    warm_start_map: str = ""        # 'ckpt_prefix:model_prefix' pairs,
+                                    # comma-separated (assignment map)
     max_to_keep: int = 5
     keep_best_metric: str | None = None  # eval metric tracked for the
                                          # 'best' checkpoint (needs eval
@@ -183,6 +195,15 @@ class TrainConfig:
                                      # n-th step (others publish -1.0)
     seed: int = 0
     label_smoothing: float = 0.0     # image classifiers' training targets
+    # MoE-BERT knobs (moe_bert*): None keeps the model's default; the CLI
+    # refuses them for any other model
+    moe_experts: int | None = None       # experts a MoE layer
+    moe_top_k: int | None = None         # routed experts a token
+    moe_capacity_factor: float | None = None
+    moe_every: int | None = None         # a MoE FFN every k-th layer
+    moe_aux_weight: float | None = None  # load-balancing loss weight
+    moe_router_z_weight: float | None = None  # router z-loss weight
+    moe_jitter: float | None = None      # router noise U[1-j, 1+j], train
     dtype: str = "float32"           # compute dtype: float32 | bfloat16
     param_dtype: str = "float32"
     attention_impl: str = "xla"      # xla | flash (hand-written kernel)

@@ -10,7 +10,7 @@ static-shape layout (``max_predictions`` slots a sequence)::
 numpy only; the arrays are the reference's bit for bit. Special ids
 follow the bert-base-uncased convention ([PAD]=0, [CLS]=101, [SEP]=102,
 [MASK]=103). TFRecord token files and the raw-text pipeline
-(``data/bert_text.py``, a vocab.txt corpus) arrive with slice A5b.
+(``data/bert_text.py``, a vocab.txt corpus) arrive with slice A5b-2.
 """
 
 from __future__ import annotations

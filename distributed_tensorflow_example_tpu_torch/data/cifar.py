@@ -6,7 +6,7 @@ Real format (the ``cifar-10-batches-bin`` distribution): records of
 1 label byte + 3072 pixel bytes (CHW planar R, G, B, 32x32), 10000
 records per ``data_batch_N.bin`` / ``test_batch.bin`` file. Output is
 NHWC float32 in [0, 1], array for array the reference's. The
-reference's C++ reader (``--native``) arrives with slice A5b.
+reference's C++ reader (``--native``) arrives with slice A5b-2.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
 ImageNet-shaped (224x224x3, 1000 classes) class-conditional textures, so
 ResNet-50 trains and is measured without a dataset, array for array the
 reference's. The folder (PIL) and TFRecord readers and the streaming
-pipeline arrive with slice A5b.
+pipeline arrive with slice A5b-2.
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ def synthetic_imagenet(num_train: int = 512, num_test: int = 128,
 def get_imagenet(data_dir: str | None, synthetic: bool = False,
                  **synth_kw) -> dict[str, np.ndarray]:
     """The synthetic set; a real ``data_dir`` raises: the readers (and
-    their ``max_per_class`` bound) arrive with slice A5b."""
+    their ``max_per_class`` bound) arrive with slice A5b-2."""
     if data_dir and not synthetic:
         raise NotImplementedError(
-            f"reading ImageNet from {data_dir!r} arrives with slice A5b "
+            f"reading ImageNet from {data_dir!r} arrives with slice A5b-2 "
             "of the port; omit --data_dir for the synthetic set")
     return synthetic_imagenet(**synth_kw)

@@ -7,7 +7,7 @@ slice of every global batch, or with ``microbatches`` its contiguous
 slice of each microbatch), and it is the reference's batch for batch,
 bit for bit. A fault registry's ``loader.next`` seam
 (``runtime/faults.py``) wraps the batch iterator. The native C++ loader
-arrives with slice A5b.
+arrives with slice A5b-2.
 """
 
 from __future__ import annotations

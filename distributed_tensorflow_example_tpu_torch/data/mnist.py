@@ -7,8 +7,8 @@ a data directory is given: a 16-byte big-endian header ``magic, n, rows,
 cols``, then uint8 pixels; labels have an 8-byte header. Without one,
 :func:`synthetic_mnist` draws the reference's class-conditional sparse
 stroke prototypes, array for array the reference's. The reference's C++
-readers (``--native``) arrive with slice A5b; the numpy readers here give
-the same arrays.
+readers (``--native``) arrive with slice A5b-2; the numpy readers here
+give the same arrays.
 """
 
 from __future__ import annotations

@@ -36,7 +36,10 @@ rest, the attention included, as JAX's
 ``dots_with_no_batch_dims_saveable`` does. Under remat the flash
 forward runs twice a layer.
 
-The reference's tensor-parallel sharding rules belong to slice A6.
+The encoder layer is an attention half and an FFN tail
+(:meth:`Bert._attn_block`, :meth:`Bert._ffn_block`), which MoE-BERT
+(``models/moe.py``) shares. The reference's tensor-parallel sharding
+rules belong to slice A6.
 """
 
 from __future__ import annotations
@@ -221,19 +224,27 @@ class Bert:
         h = nn.layernorm(params["embed_ln"], h).to(self.dtype)
         return nn.keyed_dropout(key, 1000, h, c.dropout), mask
 
+    def _attn_block(self, lp, h, mask, key):
+        """MHA -> dropout -> add & LN: the attention half every encoder
+        layer shares (MoE-BERT swaps only the FFN half)."""
+        a = self._attend(lp["attn"], h, mask)
+        a = nn.keyed_dropout(key, 1, a, self.cfg.dropout)
+        return nn.layernorm(lp["attn_ln"], h + a.to(h.dtype))
+
+    def _ffn_block(self, lp, h, f, key):
+        """dropout -> add & LN, the tail applied to an FFN output ``f``."""
+        f = nn.keyed_dropout(key, 2, f, self.cfg.dropout)
+        return nn.layernorm(lp["ffn_ln"], h + f.to(h.dtype))
+
     def _layer(self, lp, h, mask, key):
         """One encoder layer: MHA -> dropout -> add & LN -> FFN (GELU) ->
         dropout -> add & LN. Its masks are those of ``key`` (None: no
         dropout), so :func:`remat_call` can recompute it."""
-        rate = self.cfg.dropout
-        a = self._attend(lp["attn"], h, mask)
-        a = nn.keyed_dropout(key, 1, a, rate)
-        h = nn.layernorm(lp["attn_ln"], h + a.to(h.dtype))
+        h = self._attn_block(lp, h, mask, key)
         f = nn.dense(lp["ffn"]["in"], h, dtype=self.dtype)
         f = nn.gelu(f.float()).to(self.dtype)
         f = nn.dense(lp["ffn"]["out"], f, dtype=self.dtype)
-        f = nn.keyed_dropout(key, 2, f, rate)
-        return nn.layernorm(lp["ffn_ln"], h + f.to(h.dtype))
+        return self._ffn_block(lp, h, f, key)
 
     def encode(self, params, batch, gen=None, train: bool = False):
         """[B, S] ids -> [B, S, hidden] sequence output. ``gen`` (with
@@ -349,7 +360,9 @@ def params_to_numpy(params) -> dict[str, np.ndarray]:
 
 
 def _make(config: TrainConfig, cfg: BertConfig, *,
-          config_vocab: bool = True) -> Bert:
+          config_vocab: bool = True, cls: type | None = None) -> Bert:
+    """One factory for every size and family (MoE-BERT passes ``cls``),
+    so the knobs reach each registered variant the same way."""
     if config_vocab:
         cfg.vocab_size = config.data.vocab_size
     # a long --seq_len grows the position table
@@ -357,11 +370,11 @@ def _make(config: TrainConfig, cfg: BertConfig, *,
     ls = lm_loss_settings(config)
     cfg.lm_loss_impl = ls["impl"]
     cfg.lm_loss_vocab_block = ls["vocab_block"]
-    return Bert(cfg, dtype=resolve_dtype(config.dtype),
-                attention_impl=config.attention_impl,
-                param_dtype=resolve_dtype(config.param_dtype),
-                remat=config.remat,
-                attention_kwargs=flash_attention_kwargs(config))
+    return (cls or Bert)(cfg, dtype=resolve_dtype(config.dtype),
+                         attention_impl=config.attention_impl,
+                         param_dtype=resolve_dtype(config.param_dtype),
+                         remat=config.remat,
+                         attention_kwargs=flash_attention_kwargs(config))
 
 
 @register_model("bert")

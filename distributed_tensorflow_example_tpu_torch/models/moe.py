@@ -1,0 +1,262 @@
+"""MoE-BERT: the BERT MLM encoder with Mixture-of-Experts FFN layers (port
+of ``distributed_tensorflow_example_tpu/models/moe.py``, the dense
+dispatch/combine path; ``bench.py``'s ``moe_bert`` row).
+
+Every ``moe_every``-th layer (offset ``moe_every - 1``) swaps its FFN for
+a Switch-style MoE block (``ops/moe.py``); the attention half and the
+dropout-add-LN tail are BERT's (:meth:`Bert._attn_block`,
+:meth:`Bert._ffn_block`), so the flash kernels run as in BERT: B1 once a
+layer a forward, B2a and B2b (or B3) once a layer a backward. The loss is
+the MLM loss plus ``aux_weight`` times the summed load-balancing losses
+plus ``router_z_weight`` times the summed router z-losses; the metrics
+are the reference's, the per-expert ``expert_load`` [E] vector among
+them (the Trainer writes vectors to the JSONL, its scalar hooks skip
+them).
+
+The forward depends on the batch: the experts' capacity is a function of
+the token count. :attr:`MoeBert.batch_dependent_forward` says so, and
+``serving.export_model`` then writes a static-batch artifact, as the
+reference's export falls back to one.
+
+Under N ranks each rank routes its own tokens (capacity from its local
+T) and the sync step takes the plain mean of the ranks' losses, metrics
+and gradients, as the reference's explicit EP step pmeans its members';
+the MLM loss reports no token weight here, so no rank's share is
+reweighed. Expert parallelism and the reference's ``sharding_rules``
+arrive with slice A6.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import TrainConfig
+from ..ops import moe, nn
+from .base import checked_params, generator, register_model, remat_call
+from .bert import Bert, BertConfig, _make
+from .bert import params_to_numpy as _bert_params_to_numpy
+
+
+@dataclasses.dataclass
+class MoeBertConfig(BertConfig):
+    n_experts: int = 8
+    top_k: int = 1
+    capacity_factor: float = 1.25
+    moe_every: int = 2            # a MoE FFN every k-th layer (offset k-1)
+    aux_weight: float = 0.01      # load-balancing loss weight
+    router_z_weight: float = 0.0  # ST-MoE router z-loss weight
+    jitter: float = 0.0           # router input noise U[1-j, 1+j], train
+
+    @classmethod
+    def tiny(cls) -> "MoeBertConfig":
+        return cls(vocab_size=1000, hidden=128, layers=2, heads=4,
+                   intermediate=256, max_len=128, max_predictions=8,
+                   n_experts=4, capacity_factor=2.0)
+
+
+class MoeBert(Bert):
+    name = "moe_bert"
+    #: the forward's arithmetic depends on the batch size (expert
+    #: capacity = f(token count)): its export is static-batch
+    batch_dependent_forward = True
+
+    def __init__(self, cfg: MoeBertConfig, dtype=torch.float32,
+                 attention_impl: str = "xla", param_dtype=torch.float32,
+                 remat: str = "none", attention_kwargs: dict | None = None):
+        super().__init__(cfg, dtype=dtype, attention_impl=attention_impl,
+                         param_dtype=param_dtype, remat=remat,
+                         attention_kwargs=attention_kwargs)
+        self.cfg: MoeBertConfig = cfg
+
+    def _is_moe_layer(self, i: int) -> bool:
+        return (i % self.cfg.moe_every) == (self.cfg.moe_every - 1)
+
+    # ------------------------------------------------------------------
+    def param_shapes(self) -> dict[str, tuple]:
+        c = self.cfg
+        out = super().param_shapes()
+        for i in range(c.layers):
+            if not self._is_moe_layer(i):
+                continue
+            p = f"layer_{i}"
+            for n in ("in/kernel", "in/bias", "out/kernel", "out/bias"):
+                del out[f"{p}/ffn/{n}"]
+            out[f"{p}/moe/router/kernel"] = (c.hidden, c.n_experts)
+            out[f"{p}/moe/w_in"] = (c.n_experts, c.hidden, c.intermediate)
+            out[f"{p}/moe/b_in"] = (c.n_experts, c.intermediate)
+            out[f"{p}/moe/w_out"] = (c.n_experts, c.intermediate, c.hidden)
+            out[f"{p}/moe/b_out"] = (c.n_experts, c.hidden)
+        return out
+
+    def init(self, seed: int | torch.Generator = 0, device=None) -> dict:
+        """BERT's init, then each MoE layer's FFN replaced by a router and
+        stacked experts drawn from the same generator."""
+        c = self.cfg
+        gen = generator(seed, device)
+        params = super().init(gen)
+        for i in range(c.layers):
+            if self._is_moe_layer(i):
+                lp = params[f"layer_{i}"]
+                del lp["ffn"]
+                lp["moe"] = moe.moe_ffn_init(gen, c.n_experts, c.hidden,
+                                             c.intermediate,
+                                             param_dtype=self.param_dtype)
+        return params
+
+    # ------------------------------------------------------------------
+    def _moe_layer(self, lp, h, mask, key, jitter_key):
+        """One MoE encoder layer: MHA -> add & LN -> MoE FFN -> add & LN;
+        ``(h, aux)``. Its randomness is its keys' (dropout, router
+        jitter), so :func:`remat_call` can recompute it."""
+        c = self.cfg
+        h = self._attn_block(lp, h, mask, key)
+        f, aux = moe.moe_ffn(lp["moe"], h, n_experts=c.n_experts,
+                             top_k=c.top_k,
+                             capacity_factor=c.capacity_factor,
+                             dtype=self.dtype, key=jitter_key,
+                             jitter=c.jitter)
+        return self._ffn_block(lp, h, f, key), aux
+
+    def encode_with_aux(self, params, batch, gen=None, train: bool = False):
+        """BERT's encoder with the MoE FFNs swapped in -> (sequence output,
+        aux): the load-balancing and z-losses summed over the MoE layers,
+        ``dropped_fraction`` and ``expert_load`` their mean. Router
+        jitter runs only in training with a generator: its key is the
+        layer's (the step generator's seed folded with the layer index)
+        folded with 3, as the reference folds its layer key."""
+        c = self.cfg
+        key = nn.dropout_key(gen, c.dropout, train)
+        jkey = (gen.initial_seed()
+                if train and c.jitter > 0 and gen is not None else None)
+        h, mask = self._embed(params, batch, key)
+        dev = h.device
+        total = {
+            "lb_loss": torch.zeros((), device=dev),
+            "z_loss": torch.zeros((), device=dev),
+            "dropped_fraction": torch.zeros((), device=dev),
+            "expert_load": torch.zeros((c.n_experts,), device=dev),
+        }
+        n_moe = 0
+        for i in range(c.layers):
+            lp = params[f"layer_{i}"]
+            lkey = None if key is None else nn.fold_in(key, i)
+            if self._is_moe_layer(i):
+                jk = (None if jkey is None
+                      else nn.fold_in(nn.fold_in(jkey, i), 3))
+                h, aux = remat_call(self.remat, self._moe_layer, lp, h, mask,
+                                    lkey, jk)
+                total = {k: v + aux[k] for k, v in total.items()}
+                n_moe += 1
+            else:
+                h = remat_call(self.remat, self._layer, lp, h, mask, lkey)
+        # the losses stay sums (each router is its own target); the
+        # visibility statistics become means
+        for k in ("dropped_fraction", "expert_load"):
+            total[k] = total[k] / max(1, n_moe)
+        return h, total
+
+    def encode(self, params, batch, gen=None, train: bool = False):
+        return self.encode_with_aux(params, batch, gen, train)[0]
+
+    def loss(self, params, extras, batch, gen=None):
+        """``(mlm + aux_weight * lb + router_z_weight * z, (metrics,
+        extras))``, the reference's metrics: ``mlm_accuracy``,
+        ``mlm_loss``, ``aux_loss``, ``router_z_loss``,
+        ``dropped_token_fraction``, ``expert_load`` [E] and its min and
+        max."""
+        seq_out, aux = self.encode_with_aux(params, batch, gen, train=True)
+        w = self._weights(batch, seq_out.device)
+        mlm, acc = self._mlm_loss_and_acc(params, seq_out, batch, w)
+        total = (mlm + self.cfg.aux_weight * aux["lb_loss"]
+                 + self.cfg.router_z_weight * aux["z_loss"])
+        load = aux["expert_load"]
+        metrics = {"mlm_accuracy": acc, "mlm_loss": mlm,
+                   "aux_loss": aux["lb_loss"],
+                   "router_z_loss": aux["z_loss"],
+                   "dropped_token_fraction": aux["dropped_fraction"],
+                   "expert_load": load,
+                   "expert_load_min": torch.min(load),
+                   "expert_load_max": torch.max(load)}
+        return total, (metrics, extras)
+
+
+# ---------------------------------------------------------------------------
+# weight bridge: the reference's flat npz keys <-> the port's params
+# ---------------------------------------------------------------------------
+
+def params_from_numpy(model: MoeBert, tree, device=None) -> dict:
+    """The reference's MoE-BERT params as numpy arrays keyed as its
+    checkpoint ``_flatten`` keys them (``layer_{i}/moe/{router/kernel,
+    w_in,b_in,w_out,b_out}`` on the MoE layers) -> the port's params on
+    ``device`` (``cuda`` by default). Raises on a missing, unknown or
+    mis-shaped key."""
+    return checked_params("MoE-BERT", model.param_shapes(), tree, device)
+
+
+def params_to_numpy(params) -> dict:
+    """The inverse bridge, in the reference's checkpoint layout."""
+    return _bert_params_to_numpy(params)
+
+
+def _apply_moe_overrides(cfg: MoeBertConfig,
+                         config: TrainConfig) -> MoeBertConfig:
+    """The ``--moe_*`` knobs, with the reference's checks and messages;
+    None keeps the model's default."""
+    if config.moe_experts is not None:
+        if config.moe_experts < 1:
+            raise ValueError(
+                f"moe_experts={config.moe_experts} must be >= 1")
+        cfg.n_experts = config.moe_experts
+    if config.moe_top_k is not None:
+        cfg.top_k = config.moe_top_k
+    if not 1 <= cfg.top_k <= cfg.n_experts:
+        # the combined result: --moe_experts alone can push n_experts
+        # below the model's default top_k
+        raise ValueError(
+            f"moe_top_k={cfg.top_k} must be in "
+            f"[1, n_experts={cfg.n_experts}]")
+    if config.moe_capacity_factor is not None:
+        if config.moe_capacity_factor <= 0:
+            raise ValueError(
+                f"moe_capacity_factor={config.moe_capacity_factor} "
+                "must be > 0 (capacity would clamp to 1 slot and drop "
+                "nearly every token)")
+        cfg.capacity_factor = config.moe_capacity_factor
+    if config.moe_every is not None:
+        if not 1 <= config.moe_every <= cfg.layers:
+            raise ValueError(
+                f"moe_every={config.moe_every} must be in [1, layers="
+                f"{cfg.layers}] (larger would yield zero MoE layers)")
+        cfg.moe_every = config.moe_every
+    if config.moe_aux_weight is not None:
+        if config.moe_aux_weight < 0:
+            raise ValueError(
+                f"moe_aux_weight={config.moe_aux_weight} must be >= 0")
+        cfg.aux_weight = config.moe_aux_weight
+    if config.moe_router_z_weight is not None:
+        if config.moe_router_z_weight < 0:
+            raise ValueError(f"moe_router_z_weight="
+                             f"{config.moe_router_z_weight} must be >= 0")
+        cfg.router_z_weight = config.moe_router_z_weight
+    if config.moe_jitter is not None:
+        if not 0 <= config.moe_jitter < 1:
+            raise ValueError(
+                f"moe_jitter={config.moe_jitter} must be in [0, 1) "
+                "(multiplicative noise amplitude)")
+        cfg.jitter = config.moe_jitter
+    return cfg
+
+
+@register_model("moe_bert")
+def _make_moe_bert(config: TrainConfig) -> MoeBert:
+    return _make(config, _apply_moe_overrides(MoeBertConfig(), config),
+                 cls=MoeBert)
+
+
+@register_model("moe_bert_tiny")
+def _make_moe_bert_tiny(config: TrainConfig) -> MoeBert:
+    # tiny keeps its own small vocab
+    return _make(config, _apply_moe_overrides(MoeBertConfig.tiny(), config),
+                 config_vocab=False, cls=MoeBert)

@@ -203,7 +203,10 @@ class SyncReplicas:
     ``loader_microbatches`` microbatches). ``metrics`` are device
     tensors (``loss``, ``grad_norm`` — the global norm before clipping —,
     the loss's aux metrics and ``anomaly_count``), the same on every
-    rank; reading them is the caller's host sync.
+    rank; reading them is the caller's host sync. An aux metric may be a
+    vector (MoE-BERT's per-expert load): the microbatch mean, the mean
+    over the ranks, the skipped step's -1.0 fill and ``debug_checks``
+    take it element by element.
     """
 
     def __init__(self, loss_fn: LossFn, tx: Transform, mesh=None, *,

@@ -17,7 +17,11 @@ kernels included::
 
 :func:`export_model` writes ``kind: "forward"``: the servable runs
 ``model.apply(params, extras, features)`` with dropout off and returns
-the logits. :func:`export_generator` writes ``kind: "generator"``.
+the logits, for any number of rows, or, for a model whose forward
+depends on the batch size (MoE-BERT), for exactly the exported batch
+(``batch_polymorphic: false``; :class:`ServableModel` pads fewer rows
+up to it with the first row and truncates the answer).
+:func:`export_generator` writes ``kind: "generator"``.
 
 ``stepwise=True`` adds the reference's ``stepwise`` metadata block, and
 :class:`StepwiseGenerator` serves it to the continuous-batching engine
@@ -51,6 +55,9 @@ from .ckpt import checkpoint as ckpt
 from .models.base import resolve_dtype
 from .models.gpt import GPT, GPTConfig, params_from_numpy, params_to_numpy
 from .runtime.device import resolve_device
+from .utils.logging import get_logger
+
+log = get_logger("serving")
 
 _PARAMS = "params.npz"
 _EXTRAS = "extras.npz"
@@ -67,7 +74,9 @@ _MODEL_CONFIG_FIELDS = (
     "dtype", "param_dtype", "attention_impl", "attention_bwd",
     "attention_block_q", "attention_block_k", "attention_bwd_block",
     "remat", "label_smoothing", "bn_stats_dtype", "lm_loss_impl",
-    "lm_loss_chunk", "lm_loss_vocab_block", "token_accuracy_every_n")
+    "lm_loss_chunk", "lm_loss_vocab_block", "token_accuracy_every_n",
+    "moe_experts", "moe_top_k", "moe_capacity_factor", "moe_every",
+    "moe_aux_weight", "moe_router_z_weight", "moe_jitter")
 
 #: quant metadata schema version recorded in every generator export; the
 #: loaders refuse an artifact that claims a newer one (the reference's value)
@@ -123,18 +132,18 @@ def serving_signature(batch: dict[str, Any]) -> dict[str, Any]:
 def _model_config(model) -> dict:
     """The config ``models.get_model`` rebuilds ``model`` from. Only a
     model built by ``get_model`` carries it, and only a model the port
-    has ported can be rebuilt: anything else raises naming its slice."""
+    has ported can be rebuilt: anything else raises naming the slice
+    that brings the models the port lacks (the pipeline models, A6)."""
     from .models import list_models
     name = getattr(model, "registry_name", None)
     cfg = getattr(model, "train_config", None)
     if name is None or cfg is None:
         what = getattr(model, "name", type(model).__name__)
-        slice_ = "A6" if str(what).startswith("pipe_") else "A5b"
         raise ValueError(
             f"export_model: {what!r} was not built by models.get_model, "
             f"so its config cannot be recorded (the port serves "
-            f"{', '.join(list_models())}; other models arrive with slice "
-            f"{slice_})")
+            f"{', '.join(list_models())}; the pipeline models arrive "
+            "with slice A6)")
     return {"name": name,
             **{f: getattr(cfg, f) for f in _MODEL_CONFIG_FIELDS},
             "data": {"vocab_size": cfg.data.vocab_size,
@@ -158,13 +167,25 @@ def export_model(model, params, extras, out_dir: str, *,
     train=False)``: the logits of any number of rows (batch-polymorphic,
     as the reference's default export). ``sample_batch`` (default
     ``model.dummy_batch(batch_size)``) fixes the input signature, labels
-    pruned. ``model`` must come from ``models.get_model``, whose name and
-    config the metadata records. Every rank may call it; rank 0 writes.
-    Returns the metadata path."""
+    pruned. A model whose forward depends on the batch size
+    (``batch_dependent_forward``: MoE capacity is a function of the token
+    count) gives a static-batch artifact (``batch_polymorphic: false``):
+    it serves exactly the sample batch's rows, as the reference's export
+    falls back to one where its symbolic trace fails. ``model`` must come
+    from ``models.get_model``, whose name and config the metadata
+    records. Every rank may call it; rank 0 writes. Returns the metadata
+    path."""
     from .runtime import distributed
     model_config = _model_config(model)
     batch = sample_batch or model.dummy_batch(batch_size)
     features = serving_signature(batch)
+    batch_polymorphic = not getattr(model, "batch_dependent_forward", False)
+    if not batch_polymorphic:
+        log.warning(
+            "batch-polymorphic export impossible (computation depends on "
+            "the batch size); exporting static batch %d — the servable "
+            "accepts exactly that instance count",
+            len(next(iter(features.values()))))
     path = os.path.join(out_dir, _META)
     if distributed.process_index() != 0:
         return path
@@ -184,7 +205,7 @@ def export_model(model, params, extras, out_dir: str, *,
         "platforms": ["cuda", "cpu"],
         "param_count": int(sum(np.size(a) for a in arrays.values())),
         "torch_version": torch.__version__,
-        "batch_polymorphic": True,
+        "batch_polymorphic": batch_polymorphic,
         "model_config": model_config,
     }
     with open(path, "w") as f:
@@ -513,8 +534,28 @@ class ServableModel:
 
     def __call__(self, features: dict[str, np.ndarray],
                  seed: int | None = None) -> np.ndarray:
+        """The answer for ``features``' rows. A static-batch artifact runs
+        at its exported batch only: fewer rows are padded with copies of
+        the first (a copy of a real row is never fully masked) and the
+        answer is truncated to them; more rows are a ValueError."""
+        n = len(next(iter(features.values())))
+        b = static_batch(self.meta)
+        if b is not None and n != b:
+            if n > b:
+                raise ValueError(
+                    f"this artifact was exported with a static batch of "
+                    f"{b} instances; got {n} (requests up to {b} are "
+                    "padded server-side)")
+            features = {k: np.concatenate([np.asarray(v),
+                                           np.repeat(np.asarray(v)[:1],
+                                                     b - n, 0)])
+                        for k, v in features.items()}
         if self.kind == "forward":
-            return self._forward(features)
+            return self._forward(features)[:n]
+        return self._generate(features, seed)[:n]
+
+    def _generate(self, features: dict[str, np.ndarray],
+                  seed: int | None) -> np.ndarray:
         m = self.meta
         rng = None
         if m["temperature"] > 0.0:
@@ -533,6 +574,14 @@ class ServableModel:
             eos_id=m["eos_id"], pad_id=m["pad_id"], prompt_mask=mask,
             rng=rng, weight_quant=m.get("weight_quant"))
         return toks.cpu().numpy()
+
+
+def static_batch(meta: dict) -> int | None:
+    """The exported batch of a static-batch artifact (a generator export,
+    MoE-BERT's forward: ``batch_polymorphic: false``), else None."""
+    if meta.get("batch_polymorphic", True):
+        return None
+    return int(next(iter(meta["input_signature"].values()))["shape"][0])
 
 
 def load_servable(directory: str, device=None) -> ServableModel:

@@ -77,7 +77,8 @@ import numpy as np
 from .obs.registry import SERVING_LATENCY_BUCKETS, Registry
 from .obs.trace import add_span, span
 from .runtime import faults
-from .serving import ServableModel, StepwiseGenerator, storage_dtype
+from .serving import (ServableModel, StepwiseGenerator, static_batch,
+                      storage_dtype)
 from .utils.logging import get_logger
 
 log = get_logger("serving")
@@ -3267,8 +3268,11 @@ class MicroBatcher:
     the servable ONCE,
     and scatters the result rows back to the per-request futures.
     Bucketing bounds the executable count to log2(batch_max_size)+1
-    shapes. Every forward export is batch-polymorphic, so any bucket is
-    a legal shape.
+    shapes. A static-batch export (MoE-BERT's: its capacity depends on
+    the token count) runs at its exported batch, its one legal shape:
+    ``batch_max_size`` is capped there, the servable pads each dispatch
+    up to it, and those padding rows count in
+    ``predict_padded_rows_total``.
     """
 
     def __init__(self, servable: ServableModel, *,
@@ -3283,6 +3287,10 @@ class MicroBatcher:
             raise ValueError(f"batch_max_wait_ms must be >= 0, got "
                              f"{batch_max_wait_ms}")
         self.servable = servable
+        #: the export's batch when it is static-batch, else None
+        self.static_batch = static_batch(servable.meta)
+        if self.static_batch is not None:
+            batch_max_size = min(batch_max_size, self.static_batch)
         self.batch_max_size = batch_max_size
         self.batch_max_wait_s = batch_max_wait_ms / 1e3
         self.max_queue = max_queue
@@ -3405,7 +3413,10 @@ class MicroBatcher:
     def _bucket(self, n: int) -> int:
         """Always a power of two — even an oversized single request
         rounds UP, so the shape count stays log-bounded instead of
-        growing by one per odd row count."""
+        growing by one per odd row count; a static-batch export's one
+        batch (the servable pads to it)."""
+        if self.static_batch is not None:
+            return self.static_batch
         b = 1
         while b < n:
             b *= 2
@@ -3431,7 +3442,7 @@ class MicroBatcher:
         keys = taken[0][0].keys()
         cols = {k: np.concatenate([feats[k] for feats, _, _, _ in taken])
                 for k in keys}
-        if n_total < bucket:
+        if n_total < bucket and self.static_batch is None:
             cols = {k: np.concatenate(
                 [v, np.repeat(v[:1], bucket - n_total, axis=0)])
                 for k, v in cols.items()}

@@ -90,7 +90,8 @@ from .obs import trace as obs_trace
 from .obs.flightrec import FlightRecorder
 from .obs.registry import Registry
 from .runtime import faults
-from .serving import has_stepwise, load_servable, load_stepwise, read_meta
+from .serving import (has_stepwise, load_servable, load_stepwise, read_meta,
+                      static_batch)
 from .serving_batch import (DeadlineExceededError, DrainingError,
                             EngineStalledError, GenerationEngine,
                             MicroBatcher, QueueFullError,
@@ -413,21 +414,15 @@ class PredictServer:
         n = counts.pop()
         if n == 0:
             raise ValueError("request contains zero instances")
-        if not self.meta.get("batch_polymorphic", True):
-            # static-batch artifact (a generator export): pad up to the
-            # exported batch
-            # (repeating the first instance) and truncate the answer;
-            # more instances than the export's batch is the client's error
-            b_exp = next(iter(sig.values()))["shape"][0]
-            if n > b_exp:
-                raise ValueError(
-                    f"this artifact was exported with a static batch of "
-                    f"{b_exp} instances; got {n} (requests up to {b_exp} "
-                    "are padded server-side)")
-            if n < b_exp:
-                out = {k: np.concatenate([v, np.repeat(v[:1], b_exp - n,
-                                                       0)])
-                       for k, v in out.items()}
+        b_exp = static_batch(self.meta)
+        if b_exp is not None and n > b_exp:
+            # a static-batch artifact (a generator export, MoE-BERT's
+            # forward) pads fewer instances up to its batch itself; more
+            # is the client's error
+            raise ValueError(
+                f"this artifact was exported with a static batch of "
+                f"{b_exp} instances; got {n} (requests up to {b_exp} "
+                "are padded server-side)")
         return out, n
 
     def _execute(self, feats, seed=None) -> np.ndarray:
@@ -448,9 +443,9 @@ class PredictServer:
             feats, n = self._feature_arrays(payload)
             preds = self.batcher.submit(feats, n).result(timeout=300)
             return {"predictions": np.asarray(preds).tolist()}
-        feats, n = self._feature_arrays(payload)
+        feats, _ = self._feature_arrays(payload)
         logits = self._execute(feats)
-        return {"predictions": logits[:n].tolist()}
+        return {"predictions": logits.tolist()}
 
     def _prompt_limit(self) -> int | None:
         """The exported prompt capacity (explicit metadata; the input
@@ -633,7 +628,7 @@ class PredictServer:
                     "scheduler (this server runs scheduler='off'; the "
                     "monolithic generator cannot honor it)")
         self._check_prompt_lengths(payload)
-        feats, n = self._feature_arrays(payload)
+        feats, _ = self._feature_arrays(payload)
         pm = feats.get("prompt_mask")
         if pm is not None and not np.all(np.sum(pm != 0, axis=1) > 0):
             # an all-masked row would prefill over an empty key set and
@@ -649,7 +644,7 @@ class PredictServer:
                 raise ValueError(f"'seed' must be an int64-range integer, "
                                  f"got {seed!r}")
         toks = self._execute(feats, seed)
-        return {"generations": toks[:n].tolist()}
+        return {"generations": toks.tolist()}
 
     # -- operator surface ----------------------------------------------
     def _metrics_snapshot(self) -> dict:

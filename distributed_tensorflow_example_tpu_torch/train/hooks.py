@@ -54,7 +54,8 @@ class Hook:
 
 
 class LoggingHook(Hook):
-    """Log the step's metrics every N steps (LoggingTensorHook parity)."""
+    """Log the step's scalar metrics every N steps (LoggingTensorHook
+    parity)."""
 
     def __init__(self, every_steps: int = 100):
         self.every_steps = every_steps
@@ -63,7 +64,10 @@ class LoggingHook(Hook):
         if metrics is None or not self.wants_metrics(step) \
                 or not _is_chief():
             return
-        body = " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+        # a vector metric (MoE-BERT's expert_load) is the JSONL's, not
+        # the log line's
+        body = " ".join(f"{k}={v:.6g}" for k, v in metrics.items()
+                        if np.ndim(v) == 0)
         log.info("step %d: %s", step, body)
 
 
@@ -246,9 +250,10 @@ class NanHook(Hook):
 
 
 class SummaryHook(Hook):
-    """Write the step's scalar metrics to the metrics sinks (JSONL and
-    TensorBoard) every N steps (SummarySaverHook parity). The logger
-    belongs to its creator."""
+    """Write the step's metrics to the metrics sinks every N steps
+    (SummarySaverHook parity): the JSONL takes every metric, vectors as
+    lists; TensorBoard takes the scalars. The logger belongs to its
+    creator."""
 
     def __init__(self, metrics_logger: MetricsLogger, every_steps: int = 100):
         self.metrics_logger = metrics_logger

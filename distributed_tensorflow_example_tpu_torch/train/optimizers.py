@@ -18,7 +18,15 @@ operations so the port's updates match the reference's at f32 rounding:
 - ``scale_by_trust_ratio``: ``u * coeff ||p|| / (||u|| + eps)`` a leaf,
   1 where either norm is 0 (LARS and LAMB);
 - ``masked``: the inner transform on the masked leaves only, the others
-  passed through unchanged (optax's ``wrappers.masked``).
+  passed through unchanged (optax's ``wrappers.masked``);
+- ``moment_dtype``: the first moment (Adam's ``mu``, the momentum trace,
+  adafactor's momentum average) is stored in that dtype, and, as in
+  optax, only the stored copy is rounded: the step's update reads the
+  f32 moment it just computed. ``nu`` and the factored moments stay
+  f32 (their parameters' dtype);
+- ``params_ema``: the parameter EMA as the chain's last link (f32
+  shadows started at the initial params, ``tf.train.
+  ExponentialMovingAverage``'s ``num_updates`` ramp under ``debias``).
 
 Every state is a tuple, dict or list of tensors on the parameters'
 device, counts included, so a step runs with no host sync and a caller
@@ -29,8 +37,8 @@ tensor, or anything ``torch.as_tensor`` takes) returning an f32 tensor.
 Ported: sgd, momentum, adam, adamw, lars, lamb and adafactor (optax's
 chain: factored second moments, block-RMS clip, parameter-RMS scaling,
 an optional momentum average), the eight decay schedules with linear
-warmup, the global-norm and elementwise clips and the weight-decay mask.
-bf16 moments and the parameter EMA arrive with slice A5b: they raise.
+warmup, the global-norm and elementwise clips, the weight-decay mask,
+bf16 first moments and the parameter EMA.
 """
 
 from __future__ import annotations
@@ -165,18 +173,43 @@ def scale_by_trust_ratio(trust_coefficient: float = 1.0,
     return _stateless(fn)
 
 
-def scale_by_adam(eps: float = 1e-8) -> Transform:
-    """optax's defaults: b1 0.9, b2 0.999, eps 1e-8, eps_root 0."""
+def _scale(c: float, x: torch.Tensor) -> torch.Tensor:
+    """``c * x`` with ``c`` first rounded to ``x``'s dtype, as JAX treats
+    a weak-typed Python scalar (torch would multiply a bf16 ``x`` by the
+    f32 value of ``c``): a bf16 moment decays by the bf16 decay, as
+    optax's does."""
+    if x.dtype != torch.float32:
+        c = float(torch.tensor(c, dtype=x.dtype))
+    return c * x
+
+
+def _zeros(params: Tensors, dtype) -> Tensors:
+    """A zero moment a parameter, in ``dtype`` (None: the parameter's)."""
+    return [torch.zeros_like(p, dtype=dtype) for p in params]
+
+
+def _stored(moments: Tensors, dtype) -> Tensors:
+    """The moments as the state keeps them (``optax.tree.cast``: None
+    keeps their dtype)."""
+    return moments if dtype is None else [m.to(dtype) for m in moments]
+
+
+def scale_by_adam(eps: float = 1e-8,
+                  mu_dtype: torch.dtype | None = None) -> Transform:
+    """optax's defaults: b1 0.9, b2 0.999, eps 1e-8, eps_root 0. ``mu``
+    is stored in ``mu_dtype`` (None: the parameter's dtype); the update
+    reads the unrounded ``mu``."""
     b1, b2 = 0.9, 0.999
 
     def init(params):
-        return {"count": _count(params),
-                "mu": [torch.zeros_like(p) for p in params],
-                "nu": [torch.zeros_like(p) for p in params]}
+        return {"count": _count(params), "mu": _zeros(params, mu_dtype),
+                "nu": _zeros(params, None)}
 
     def update(updates, state, params=None):
-        mu = [(1 - b1) * g + b1 * m for g, m in zip(updates, state["mu"])]
-        nu = [(1 - b2) * (g * g) + b2 * n
+        # b1 * m in m's dtype (a bf16 mu), promoted by the f32 term
+        mu = [_scale(1 - b1, g) + _scale(b1, m)
+              for g, m in zip(updates, state["mu"])]
+        nu = [_scale(1 - b2, g * g) + _scale(b2, n)
               for g, n in zip(updates, state["nu"])]
         count = _safe_increment(state["count"])
         c = count.float()
@@ -184,19 +217,21 @@ def scale_by_adam(eps: float = 1e-8) -> Transform:
         bc2 = 1 - torch.pow(_f32(b2).to(c.device), c)
         out = [(m / bc1) / (torch.sqrt(n / bc2) + eps)
                for m, n in zip(mu, nu)]
-        return out, {"count": count, "mu": mu, "nu": nu}
+        return out, {"count": count, "mu": _stored(mu, mu_dtype), "nu": nu}
 
     return Transform(init, update)
 
 
-def trace(decay: float) -> Transform:
-    """Momentum: ``t = g + decay t``, the update is the new trace."""
+def trace(decay: float,
+          accumulator_dtype: torch.dtype | None = None) -> Transform:
+    """Momentum: ``t = g + decay t``, the update is the new trace (stored
+    in ``accumulator_dtype``; None: the parameter's dtype)."""
     def init(params):
-        return {"trace": [torch.zeros_like(p) for p in params]}
+        return {"trace": _zeros(params, accumulator_dtype)}
 
     def update(updates, state, params=None):
-        new = [g + decay * t for g, t in zip(updates, state["trace"])]
-        return new, {"trace": new}
+        new = [g + _scale(decay, t) for g, t in zip(updates, state["trace"])]
+        return new, {"trace": _stored(new, accumulator_dtype)}
 
     return Transform(init, update)
 
@@ -218,20 +253,25 @@ def scale_by_learning_rate(schedule: Schedule,
     return Transform(init, update)
 
 
-def sgd(schedule: Schedule, momentum: float | None = None) -> Transform:
+def sgd(schedule: Schedule, momentum: float | None = None,
+        accumulator_dtype: torch.dtype | None = None) -> Transform:
     """optax's sgd: (trace or identity) then the learning rate, so the
     state has optax's layout (the checkpoint keys name its positions)."""
-    first = (trace(momentum) if momentum is not None
+    first = (trace(momentum, accumulator_dtype) if momentum is not None
              else _stateless(lambda updates, params: updates))
     return chain(first, scale_by_learning_rate(schedule))
 
 
-def adam(schedule: Schedule) -> Transform:
-    return chain(scale_by_adam(), scale_by_learning_rate(schedule))
+def adam(schedule: Schedule, mu_dtype: torch.dtype | None = None
+         ) -> Transform:
+    return chain(scale_by_adam(mu_dtype=mu_dtype),
+                 scale_by_learning_rate(schedule))
 
 
-def adamw(schedule: Schedule, weight_decay: float, mask=None) -> Transform:
-    return chain(scale_by_adam(), add_decayed_weights(weight_decay, mask),
+def adamw(schedule: Schedule, weight_decay: float, mask=None,
+          mu_dtype: torch.dtype | None = None) -> Transform:
+    return chain(scale_by_adam(mu_dtype=mu_dtype),
+                 add_decayed_weights(weight_decay, mask),
                  scale_by_learning_rate(schedule))
 
 
@@ -373,19 +413,19 @@ def scale_by_param_block_rms() -> Transform:
     return _stateless(fn)
 
 
-def ema(decay: float) -> Transform:
+def ema(decay: float,
+        accumulator_dtype: torch.dtype = torch.float32) -> Transform:
     """optax's ``ema`` without debiasing: ``(1 - decay) u + decay e``, the
-    update is the new average (f32 accumulators)."""
+    update is the new average, stored in ``accumulator_dtype``."""
     def init(params):
         return {"count": _count(params),
-                "ema": [torch.zeros_like(p, dtype=torch.float32)
-                        for p in params]}
+                "ema": _zeros(params, accumulator_dtype)}
 
     def update(updates, state, params=None):
-        new = [(1 - decay) * g + decay * e
+        new = [_scale(1 - decay, g) + _scale(decay, e)
                for g, e in zip(updates, state["ema"])]
         return new, {"count": _safe_increment(state["count"]),
-                     "ema": [x.float() for x in new]}
+                     "ema": _stored(new, accumulator_dtype)}
 
     return Transform(init, update)
 
@@ -396,23 +436,107 @@ def scale(step_size: float) -> Transform:
 
 
 def adafactor(schedule: Schedule, momentum: float | None = None,
-              weight_decay_rate: float | None = None, mask=None
-              ) -> Transform:
+              weight_decay_rate: float | None = None, mask=None,
+              dtype_momentum: torch.dtype = torch.float32) -> Transform:
     """optax's adafactor at its defaults: factored RMS scaling -> block
     RMS clip at 1 -> the learning rate (no sign flip) -> times each
-    parameter's RMS -> the momentum average (when ``momentum``) -> the
-    decayed weights (a constant per-step rate, not scaled by the
-    schedule) -> ``scale(-1)``."""
+    parameter's RMS -> the momentum average (when ``momentum``, stored in
+    ``dtype_momentum``) -> the decayed weights (a constant per-step rate,
+    not scaled by the schedule) -> ``scale(-1)``."""
     parts = [scale_by_factored_rms(),
              clip_by_block_rms(1.0),
              scale_by_learning_rate(schedule, flip_sign=False),
              scale_by_param_block_rms()]
     if momentum is not None:
-        parts.append(ema(momentum))
+        parts.append(ema(momentum, dtype_momentum))
     if weight_decay_rate is not None:
         parts.append(add_decayed_weights(weight_decay_rate, mask))
     parts.append(scale(-1))
     return chain(*parts)
+
+
+class EmaState(dict):
+    """:func:`params_ema`'s state, ``{"count", "ema"}`` (the reference's
+    ``EmaState`` fields, so its checkpoint keys): a dict of its own type,
+    which :func:`find_ema_params` tells from adafactor's momentum
+    average (optax's ``EmaState`` has the same fields)."""
+
+
+def params_ema(decay: float, debias: bool = False) -> Transform:
+    """``tf.train.ExponentialMovingAverage`` as the chain's LAST link (it
+    reads the final updates to see the post-step params): f32 shadows of
+    every parameter, started at the initial params, updated as ``e d +
+    p' (1 - d)`` with ``p'`` the step's new params; ``debias`` ramps
+    ``d = min(decay, (1 + n) / (10 + n))`` over the applied updates
+    ``n``. The updates pass through unchanged. The shadows ride in the
+    optimizer state: the anomaly guard keeps them on a skipped step, and
+    the checkpoint writes them."""
+
+    def init(params):
+        return EmaState(count=_count(params),
+                        ema=[p.detach().float().clone() for p in params])
+
+    def update(updates, state, params=None):
+        if params is None:
+            raise ValueError("params_ema needs params in update")
+        new_params = apply_updates(params, updates)
+        count = state["count"] + 1
+        if debias:
+            n = count.float()
+            d = torch.clamp_max((1.0 + n) / (10.0 + n), decay)
+        else:
+            d = torch.full((), decay, dtype=torch.float32,
+                           device=count.device)
+        shadows = [e * d + p.float() * (1.0 - d)
+                   for e, p in zip(state["ema"], new_params)]
+        return updates, EmaState(count=count, ema=shadows)
+
+    return Transform(init, update)
+
+
+def _ema_states(opt_state) -> list[EmaState]:
+    """Every :class:`EmaState` in an optimizer state, in order."""
+    if isinstance(opt_state, EmaState):
+        return [opt_state]
+    if isinstance(opt_state, dict):
+        kids = opt_state.values()
+    elif isinstance(opt_state, (list, tuple)):
+        kids = opt_state
+    else:
+        return []
+    return [s for kid in kids for s in _ema_states(kid)]
+
+
+def reset_ema(opt_state, params: dict):
+    """``opt_state`` with every EMA shadow re-anchored at ``params`` and
+    its count at 0: for params replaced outside the optimizer (warm
+    start), since the shadows snapshotted the discarded init. The
+    shadows are new f32 copies, never views of the params."""
+    from ..utils.pytree import flatten_dict
+    leaves = list(flatten_dict(params).values())
+
+    def fix(tree):
+        if isinstance(tree, EmaState):
+            return EmaState(
+                count=torch.zeros_like(tree["count"]),
+                ema=[p.detach().float().clone() for p in leaves])
+        if isinstance(tree, dict):
+            return {k: fix(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(fix(v) for v in tree)
+        return tree
+
+    return fix(opt_state)
+
+
+def find_ema_params(opt_state, params: dict) -> dict | None:
+    """The shadow params of an optimizer state, nested as ``params`` (f32
+    whatever the params' dtype), or None when the EMA is off."""
+    from ..utils.pytree import flatten_dict, unflatten_dict
+    found = _ema_states(opt_state)
+    if not found:
+        return None
+    return unflatten_dict(dict(zip(flatten_dict(params), found[0]["ema"])))
 
 
 # ---------------------------------------------------------------------------
@@ -564,23 +688,22 @@ def _wd_mask(cfg: OptimizerConfig):
     raise ValueError(f"unknown wd_mask {cfg.wd_mask!r}")
 
 
+#: ``moment_dtype`` -> the first moment's storage dtype
+_MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def make_optimizer(cfg: OptimizerConfig) -> Transform:
     """clip-by-global-norm -> clip-by-value -> the optimizer (+ decayed
-    weights), as the reference chains them."""
+    weights) -> the parameter EMA, as the reference chains them."""
     name = cfg.name.lower()
+    if cfg.moment_dtype not in _MOMENT_DTYPES:
+        raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
     if cfg.moment_dtype == "bfloat16" and name in ("lars", "lamb"):
         what = "accumulator dtype" if name == "lars" else "mu_dtype"
         raise ValueError(
             f"moment_dtype=bfloat16 is not supported for {name} (optax."
             f"{name} exposes no {what}); the flag would be a silent no-op")
-    if cfg.moment_dtype == "bfloat16":
-        raise NotImplementedError("moment_dtype='bfloat16' arrives with "
-                                  "slice A5b; the port keeps f32 moments")
-    if cfg.moment_dtype != "float32":
-        raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
-    if cfg.ema_decay > 0:
-        raise NotImplementedError("ema_decay (the parameter EMA) arrives "
-                                  "with slice A5b")
+    mdt = _MOMENT_DTYPES[cfg.moment_dtype]
     sched = make_schedule(cfg)
     parts: list[Transform] = []
     if cfg.grad_clip_norm > 0:
@@ -591,11 +714,12 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
     if name == "sgd":
         parts.append(sgd(sched))
     elif name == "momentum":
-        parts.append(sgd(sched, momentum=cfg.momentum))
+        parts.append(sgd(sched, momentum=cfg.momentum,
+                         accumulator_dtype=mdt))
     elif name == "adam":
-        parts.append(adam(sched))
+        parts.append(adam(sched, mu_dtype=mdt))
     elif name == "adamw":
-        parts.append(adamw(sched, cfg.weight_decay, mask))
+        parts.append(adamw(sched, cfg.weight_decay, mask, mu_dtype=mdt))
     elif name == "lars":
         # the biases and norm scales stay out of the decay AND the trust
         # ratio under the default wd_mask; "all" applies both everywhere
@@ -607,10 +731,15 @@ def make_optimizer(cfg: OptimizerConfig) -> Transform:
         # not scaled by the schedule as adamw's is
         parts.append(adafactor(
             sched, momentum=cfg.momentum if cfg.momentum > 0 else None,
-            weight_decay_rate=cfg.weight_decay or None, mask=mask))
+            weight_decay_rate=cfg.weight_decay or None, mask=mask,
+            dtype_momentum=mdt))
     else:
         raise ValueError(f"unknown optimizer {cfg.name!r}")
     if cfg.weight_decay > 0 and name not in ("adamw", "lars", "lamb",
                                              "adafactor"):
         parts.insert(-1, add_decayed_weights(cfg.weight_decay, mask))
+    if cfg.ema_decay > 0:
+        # the last link: it sees the final updates, so the shadows track
+        # the post-step params
+        parts.append(params_ema(cfg.ema_decay, debias=cfg.ema_debias))
     return chain(*parts)

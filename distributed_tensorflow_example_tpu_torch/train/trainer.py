@@ -28,8 +28,13 @@ first step's FLOPs (``SyncReplicas.counted_step``); ``debug_checks``
 raises on a non-finite loss or gradient; a profiler service
 (``--profiler_port``) arms the profiler hook for the steps a capture asks
 for. ``trace_path`` dumps the data, step, checkpoint and rollback lanes as
-Chrome trace JSON. ``steps_per_loop > 1`` arrives with slice A3c-2b and
-sharded mesh axes with A6, and raise; warm start arrives with A5b.
+Chrome trace JSON. A fresh run with ``checkpoint.warm_start`` takes the
+params its assignment map selects from that checkpoint (resume always
+wins) and re-anchors the parameter EMA's shadows there; with the EMA on,
+eval runs on the shadows. Host metrics are floats, and a vector metric
+(MoE-BERT's per-expert load) a list: the JSONL takes it, the scalar
+hooks skip it. ``steps_per_loop > 1`` arrives with slice A3c-2b and
+sharded mesh axes with A6, and raise.
 """
 
 from __future__ import annotations
@@ -58,10 +63,18 @@ from ..runtime.device import resolve_device
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsLogger
 from . import hooks as hooks_lib
-from .optimizers import make_optimizer, make_schedule
+from .optimizers import find_ema_params, make_optimizer, make_schedule
 from .state import TrainState, param_count
 
 log = get_logger("trainer")
+
+
+def _host_metric(v):
+    """A device metric as a JSON-ready host value: a scalar becomes a
+    float, a vector (MoE-BERT's per-expert load) a list."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return float(v) if np.ndim(v) == 0 else np.asarray(v).tolist()
 
 
 def one_replica_per_rank(mesh: MeshShape, num_processes: int) -> bool:
@@ -272,6 +285,25 @@ class Trainer:
         else:
             log.info("initialized fresh state: %d params",
                      param_count(state.params))
+            if self.config.checkpoint.warm_start:
+                state = self._warm_start(state)
+        return state
+
+    def _warm_start(self, state: TrainState) -> TrainState:
+        """``tf.train.init_from_checkpoint`` on a fresh init: the params
+        the map selects come from the warm-start checkpoint (the step and
+        the optimizer state stay fresh), and any EMA shadow is re-anchored
+        at them (it snapshotted the discarded init). Every rank reads the
+        same file, so the ranks stay equal."""
+        from ..ckpt.warm_start import parse_assignment_map, warm_start
+        from .optimizers import reset_ema
+        ck = self.config.checkpoint
+        params, report = warm_start(state.params, ck.warm_start,
+                                    parse_assignment_map(ck.warm_start_map))
+        state = state.replace(params=params,
+                              opt_state=reset_ema(state.opt_state, params))
+        self.state = state
+        log.info("%s (from %s)", report, ck.warm_start)
         return state
 
     def _loader(self, start_step: int | None = None
@@ -357,7 +389,7 @@ class Trainer:
 
                 host_metrics = None
                 if any(h.wants_metrics(step) for h in self.hooks):
-                    host_metrics = {k: float(v)
+                    host_metrics = {k: _host_metric(v)
                                     for k, v in device_metrics.items()}
                 for h in self.hooks:
                     if h.after_step(self, step, host_metrics):
@@ -419,7 +451,7 @@ class Trainer:
             "steps_per_sec": (step - self.start_step) / wall if wall else 0.0,
         }
         if device_metrics is not None:
-            summary["final_metrics"] = {k: float(v)
+            summary["final_metrics"] = {k: _host_metric(v)
                                         for k, v in device_metrics.items()}
         if self.eval_arrays is not None:
             if self._last_eval is not None and self._last_eval[0] == step:
@@ -591,12 +623,28 @@ class Trainer:
         self.close()
 
     # ------------------------------------------------------------------
-    def evaluate(self, state: TrainState) -> dict[str, float]:
+    def evaluate(self, state: TrainState, batch_size: int | None = None,
+                 use_ema: bool | None = None) -> dict[str, float]:
         """Forward-only metrics over the eval set, no dropout, in batches
-        of the training batch size. The tail batch is padded with copies
-        of its first row and masked out by a ``__valid__`` row mask, as in
-        the reference; each batch's metrics weigh by its real rows."""
-        bs = self.config.data.batch_size
+        of ``batch_size`` (default: the training batch size). The tail
+        batch is padded with copies of its first row and masked out by a
+        ``__valid__`` row mask, as in the reference; each batch's metrics
+        weigh by its real rows. With ``ema_decay`` on, eval runs on the
+        EMA shadows (``use_ema=False``: the live params; ``use_ema=True``
+        without an EMA raises)."""
+        params = state.params
+        explicit = use_ema is not None
+        if use_ema is None:
+            use_ema = self.config.optimizer.ema_decay > 0
+        if use_ema:
+            ema = find_ema_params(state.opt_state, state.params)
+            if ema is not None:
+                params = ema
+            elif explicit:
+                raise ValueError(
+                    "use_ema=True but the optimizer state holds no EMA "
+                    "shadow (ema_decay is 0 for this run)")
+        bs = batch_size or self.config.data.batch_size
         n = len(next(iter(self.eval_arrays.values())))
         totals: dict[str, float] = {}
         count = 0
@@ -612,7 +660,7 @@ class Trainer:
             batch["__valid__"] = mask
             placed = {k: torch.as_tensor(v, device=self.device)
                       for k, v in batch.items()}
-            out = self.model.eval_metrics(state.params, state.extras, placed)
+            out = self.model.eval_metrics(params, state.extras, placed)
             for k, v in out.items():
                 totals[k] = totals.get(k, 0.0) + float(v) * m
             count += m

@@ -6,7 +6,8 @@ One JSON object per record, the reference's format; stdout only when no
 path is given. With ``tb_logdir`` the same records also go to a
 TensorBoard event file (``utils/tb_events.py``): every numeric field of a
 record that carries a ``step`` becomes a scalar, one-level-nested dicts
-flatten to ``outer/inner`` tags. Rank 0 writes, as the reference's
+flatten to ``outer/inner`` tags, and a vector field (a list: MoE-BERT's
+``expert_load``) stays the JSONL's. Rank 0 writes, as the reference's
 process 0 does.
 """
 

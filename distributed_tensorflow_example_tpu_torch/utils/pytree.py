@@ -38,10 +38,13 @@ def unflatten_dict(flat: Mapping[str, Any]) -> dict[str, Any]:
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts, lists and tuples (``rest``:
-    trees of the same structure, their leaves passed alongside)."""
+    trees of the same structure, their leaves passed alongside); each
+    container keeps its type."""
     if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
+        out = {k: tree_map(fn, v, *(r[k] for r in rest))
+               for k, v in tree.items()}
+        # a dict subclass (an optimizer state's tag) keeps its type
+        return out if type(tree) is dict else type(tree)(out)
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))

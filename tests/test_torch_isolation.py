@@ -89,6 +89,13 @@ FLEET_MODULES = tuple(
         "experiments.fleet_chaos", "experiments.serving_load"))
 
 
+#: MoE-BERT and the training-state knobs (the MoE FFN, the model, warm
+#: start), named likewise
+MOE_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "ops.moe", "models.moe", "ckpt.warm_start"))
+
+
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20, mods
@@ -96,6 +103,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(TRAINING_MODULES) <= set(mods), mods
     assert set(SERVER_MODULES) <= set(mods), mods
     assert set(FLEET_MODULES) <= set(mods), mods
+    assert set(MOE_MODULES) <= set(mods), mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -432,6 +440,69 @@ def test_sync_replicas_without_cuda_raise(no_cuda):
     ids = np.arange(16, dtype=np.int32).reshape(2, 8)
     state, met = sync.step(state, {"input_ids": ids})
     assert state.step == 1 and int(met["anomaly_count"]) == 0
+
+
+def test_moe_bert_trains_warm_starts_and_serves_without_jax(tmp_path):
+    """``cli/train.main`` trains moe_bert_tiny on the CPU with the EMA and
+    bf16 moments, warm-started from a bert_tiny run, exports the static
+    forward and serves it, in a process that holds no JAX."""
+    common = ["--device", "cpu", "--batch_size", "4", "--seq_len", "16",
+              "--optimizer", "adamw", "--learning_rate", "1e-3",
+              "--train_steps", "2", "--log_every_steps", "0"]
+    bert, exp = str(tmp_path / "bert"), str(tmp_path / "exp")
+    code = (
+        "import sys\n"
+        "from distributed_tensorflow_example_tpu_torch.cli.train import "
+        "main\n"
+        "from distributed_tensorflow_example_tpu_torch.serving_http import "
+        "PredictServer\n"
+        f"a = main(['--model', 'bert_tiny'] + {common!r} + ['--ckpt_dir', "
+        f"{bert!r}, '--save_steps', '2'])\n"
+        f"b = main(['--model', 'moe_bert_tiny'] + {common!r} + [\n"
+        "    '--ema_decay', '0.9', '--ema_debias', '--moment_dtype',\n"
+        f"    'bfloat16', '--warm_start', {bert!r}, '--export_dir', "
+        f"{exp!r}])\n"
+        f"with PredictServer({exp!r}, port=0, device='cpu',\n"
+        "                   scheduler='on') as srv:\n"
+        "    ids = [[5, 6, 7, 8]] * 2\n"
+        "    out = srv.predict({'inputs': {'input_ids': [r * 32 for r in "
+        "ids],\n"
+        "        'token_type_ids': [[0] * 128] * 2,\n"
+        "        'attention_mask': [[1] * 128] * 2,\n"
+        "        'masked_positions': [list(range(8))] * 2}})\n"
+        "print('RC', a, b, len(out['predictions']),\n"
+        "      srv.batcher.static_batch)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "RC 0 0 2 4" in out.stdout, out.stdout
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+    assert "warm-start:" in out.stderr
+
+
+def test_moe_entry_points_without_cuda_raise(no_cuda):
+    """MoE-BERT's init and bridge land on the card by default: without
+    CUDA they raise; with ``device="cpu"`` they build on the CPU."""
+    from distributed_tensorflow_example_tpu_torch.models.moe import (
+        MoeBert, MoeBertConfig)
+    from distributed_tensorflow_example_tpu_torch.models.moe import \
+        params_from_numpy as moe_from_numpy
+    from distributed_tensorflow_example_tpu_torch.models.moe import \
+        params_to_numpy as moe_to_numpy
+    model = MoeBert(MoeBertConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init(0)
+    params = model.init(0, device="cpu")
+    assert params["layer_1"]["moe"]["w_in"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe_from_numpy(model, moe_to_numpy(params))
+    assert moe_from_numpy(model, moe_to_numpy(params),
+                          device="cpu")["layer_1"]["moe"]["router"][
+        "kernel"].device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

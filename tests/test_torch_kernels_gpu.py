@@ -43,7 +43,8 @@ accuracy. The last three serve through ``serving_http``: a BERT-base
 ``:predict`` batch launches the flash forward once a layer, an armed
 server's request launches the paged kernel as often as a plain one's, and
 a 2-replica router fleet serves one replica's bytes with one paged launch
-a layer a merged decode step.
+a layer a merged decode step. The MoE-BERT test holds one step on the
+card to the flash launches a layer and, in f32, to the CPU's step.
 """
 
 import os
@@ -1101,3 +1102,68 @@ def test_two_replica_fleet_serves_one_replicas_bytes(cuda, tmp_path):
     assert fleet["_gens"] == one["_gens"]
     assert fleet["router_requests"] == fleet["requests"] == 16
     assert launches == cfg.layers * fleet["decode_steps"] > 0
+
+
+def test_moe_bert_step_launches_the_flash_kernels_and_matches_cpu(cuda):
+    """One MoE-BERT step (2 layers of 2 heads of 64, 4 experts, the MoE
+    FFN on layer 1) on the card: with flash attention in bf16 it launches
+    B1, B2a and B2b once a layer; in f32 with the plain attention its
+    loss, dispatch tensors and every gradient equal the CPU's on the same
+    weights (f32 summation order: the loss within 1e-5 relative, each
+    leaf within 1e-4 of its largest value, floored at 1e-3 of the largest
+    gradient for the attention's key biases, whose gradient is zero but
+    for rounding)."""
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.models.moe import (
+        MoeBert, MoeBertConfig, params_from_numpy, params_to_numpy)
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, unflatten_dict)
+    cfg = dict(MoeBertConfig.tiny().__dict__, heads=2, dropout=0.0)
+    tr, _ = get_bert_data(None, vocab_size=1000, seq_len=64,
+                          max_predictions=8, synthetic=True, num_train=16,
+                          num_test=1)
+    flash = MoeBert(MoeBertConfig(**cfg), dtype=torch.bfloat16,
+                    attention_impl="flash")
+    params = unflatten_dict({k: v.requires_grad_() for k, v in
+                             flatten_dict(flash.init(0)).items()})
+    before = [fn.launches for fn in (fa.flash_attention_fwd,
+                                     fa.flash_attention_bwd_dq,
+                                     fa.flash_attention_bwd_dkv)]
+    loss, _ = flash.loss(params, {}, {k: torch.as_tensor(v, device=cuda)
+                                      for k, v in tr.items()})
+    loss.backward()
+    after = [fn.launches for fn in (fa.flash_attention_fwd,
+                                    fa.flash_attention_bwd_dq,
+                                    fa.flash_attention_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    assert torch.isfinite(loss)
+
+    plain = MoeBert(MoeBertConfig(**cfg))
+    arrays = params_to_numpy(plain.init(0))
+    inner, taps, runs = moe._route, [], []
+    for dev in ("cuda", "cpu"):
+        flat = {k: v.requires_grad_() for k, v in flatten_dict(
+            params_from_numpy(plain, arrays, device=dev)).items()}
+
+        def tap(*a, **kw):
+            res = inner(*a, **kw)
+            taps.append(res[0].cpu())
+            return res
+        moe._route = tap
+        try:
+            loss, _ = plain.loss(unflatten_dict(flat), {}, {
+                k: torch.as_tensor(v, device=dev) for k, v in tr.items()})
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        finally:
+            moe._route = inner
+        runs.append((float(loss.detach()),
+                     {k: g.cpu() for k, g in zip(flat, grads)}))
+    (lc, gc), (lp, gp) = runs
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    assert len(taps) == 2 and torch.equal(taps[0], taps[1])
+    top = max(float(g.abs().max()) for g in gp.values())
+    for k in gp:
+        size = max(float(gp[k].abs().max()), 1e-3 * top)
+        assert float((gc[k] - gp[k]).abs().max()) <= 1e-4 * size, k

@@ -370,10 +370,10 @@ def test_optimizers_of_later_slices_are_refused():
                             ValueError, "not supported for lamb"),
                            (dict(name="lars", moment_dtype="bfloat16"),
                             ValueError, "not supported for lars"),
-                           (dict(moment_dtype="bfloat16"),
-                            NotImplementedError, "A5b"),
-                           (dict(ema_decay=0.999), NotImplementedError,
-                            "A5b"),
+                           (dict(moment_dtype="float16"), ValueError,
+                            "unknown moment_dtype"),
+                           (dict(name="lamb", moment_dtype="float16"),
+                            ValueError, "unknown moment_dtype"),
                            (dict(name="rmsprop"), ValueError, "unknown"),
                            (dict(wd_mask="odd"), ValueError, "wd_mask")):
         with pytest.raises(exc, match=match):

@@ -444,29 +444,34 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 # test_torch_eval_timing.py, test_torch_tb_events.py,
 # test_torch_adafactor.py; LIFTED below), and so do the debug tools
 # (tests/test_torch_debug_tools.py): of their slices only sharded saves
-# (A6) stay refused.
+# (A6) stay refused. MoE-BERT, the parameter EMA, bf16 moments and warm
+# start train too (tests/test_torch_moe.py, test_torch_ema.py,
+# test_torch_warm_start.py): their rows pair them with a knob that stays
+# refused, the file readers of slice A5b-2 or the pipeline models of A6
+# (the slice's regex "A5b" matches "A5b-2").
 LATER = [
     (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
     (["--model", "bert_tiny", "--data_dir", "VOCAB"], "A5b"),
-    (["--model", "moe_bert_tiny"], "A5b"),
+    (["--model", "moe_bert_tiny", "--native"], "A5b"),
     (["--model", "pipe_bert_tiny"], "A6"),
-    (["--model", "moe_bert"], "A5b"),
+    (["--model", "moe_bert", "--streaming"], "A5b"),
     (["--steps_per_loop", "2"], "A3c-2b"),
     (["--mesh", "data=2"], "A6"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
     (["--model", "pipe_moe_bert_tiny"], "A6"),
     (["--sharded_save"], "A6"),
-    (["--warm_start", "w"], "A5b"),
-    (["--moment_dtype", "bfloat16"], "A5b"),
-    (["--ema_decay", "0.9"], "A5b"),
+    (["--warm_start", "w", "--fast_decode"], "A5b"),
+    (["--moment_dtype", "bfloat16", "--max_per_class", "5"], "A5b"),
+    (["--ema_decay", "0.9", "--label_offset", "-1"], "A5b"),
     (["--streaming"], "A5b"),
     (["--max_per_class", "5"], "A5b"),
     (["--label_offset", "-1"], "A5b"),
     (["--augment", "--model", "resnet50"], "A5b"),
     (["--data_dir", "IMAGENET", "--model", "resnet50"], "A5b"),
-    # --export_dir itself is lifted (A4a): exporting a model the port
-    # lacks still refuses, naming that model's slice
-    (["--export_dir", "EXPORT", "--model", "moe_bert_tiny"], "A5b"),
+    # --export_dir itself is lifted (A4a), and moe_bert_tiny exports
+    # (static-batch): exporting a model the port lacks still refuses,
+    # naming that model's slice
+    (["--export_dir", "EXPORT", "--model", "pipe_moe_bert_tiny"], "A6"),
     (["--worker_hosts", "w0:1,w1:1", "--steps_per_loop", "2"], "A3c-2b"),
 ]
 
