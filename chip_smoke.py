@@ -15,8 +15,11 @@ GPT-small's speculative decoding, chunked prefill and SLO knobs over
 HTTP, training's debug tools, a single server's HTTP and operator
 surface (``:predict``, ``/metrics``, ``/trace/*``, ``/stats/history``,
 cancel, drain, the flight recorder) and the serving chaos soak, the
-serving fleet, and last MoE-BERT (``bench.py``'s expert row) through
-the CLI and ``:predict`` with the training-state knobs.
+serving fleet, MoE-BERT (``bench.py``'s expert row) through the CLI
+and ``:predict`` with the training-state knobs, and last the file
+readers: the C++ loader against the Python loader on MNIST, CIFAR-10
+and BERT-base, TFRecord shards, the training chaos soak and ImageNet's
+refusal without Pillow.
 
     python3 chip_smoke.py
 
@@ -111,7 +114,18 @@ of one traced step, the share of the bf16 peak on two FLOP bases; the
 top-1, top-2 and ``--remat dots`` legs; MoE-BERT-tiny on the card
 against the CPU; the run's static-batch export on ``:predict`` with the
 scheduler off and on; the parameter EMA against its closed form, bf16
-moments on GPT-small, a warm start from a BERT checkpoint), a
+moments on GPT-small, a warm start from a BERT checkpoint), the
+readers phase (MNIST at its own size, 60,000 + 10,000 IDX images,
+through ``cli/train.py`` at the ``mnist_mlp`` row, batch 8192, with
+``--native`` and without: checkpoints equal bit for bit, each loader's
+host ms a batch alone, then ms a step, the data wait a step and the idle
+share in Trainer runs; CIFAR-10 at its own size: the C++ parser's arrays
+equal numpy's, ResNet-20 ``--native`` equal to the Python loader;
+BERT-base 64 x 128 ``--native``: exact launches, equal checkpoints; 64
+MB of TFRecord token shards: the C++ index with CRC checks against the
+Python scan, a flipped byte refused on every path; the training chaos
+soak's 7 scenarios; ImageNet with Pillow blocked refused naming it,
+and two streaming ResNet-50 steps where Pillow imports), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -1595,15 +1609,17 @@ def phase_cli(card: str) -> dict:
 
 
 class _ProfileStep:
-    """A Trainer hook that traces one step with ``torch.profiler``: it
-    starts after step ``at`` and stops after step ``at + 1``. With
-    ``cuda_only`` it records the device's kernels and no host operator,
-    which costs the host less a launch."""
+    """A Trainer hook that traces with ``torch.profiler``: it starts after
+    step ``at`` and stops after step ``until`` (``at + 1``: one step).
+    With ``cuda_only`` it records the device's kernels and no host
+    operator, which costs the host less a launch."""
 
     every_steps = 0
 
-    def __init__(self, at: int, cuda_only: bool = False, **profile_kw):
+    def __init__(self, at: int, cuda_only: bool = False,
+                 until: int | None = None, **profile_kw):
         self.at = at
+        self.until = at + 1 if until is None else until
         self.cuda_only = cuda_only
         self.profile_kw = profile_kw
         self.prof = None
@@ -1625,7 +1641,7 @@ class _ProfileStep:
             self.prof = profile(activities=acts, **self.profile_kw)
             self.prof.__enter__()
             self.t0 = time.perf_counter()
-        elif step == self.at + 1 and self.prof is not None:
+        elif step == self.until and self.prof is not None:
             torch.cuda.synchronize()
             self.wall = time.perf_counter() - self.t0
             self.prof.__exit__(None, None, None)
@@ -2556,13 +2572,17 @@ LENET_STEPS = 200
 
 class _Window:
     """A Trainer hook that times steps ``a + 1 .. b`` on the host clock,
-    with a device sync after step ``a`` and after step ``b``."""
+    with a device sync after step ``a`` and after step ``b``. It also
+    stamps the host clock after every step between (no sync) and reads
+    the Trainer's data-wait total at both ends."""
 
     every_steps = 0
 
     def __init__(self, a: int, b: int):
         self.a, self.b = a, b
         self.t0 = self.wall = 0.0
+        self.t: dict[int, float] = {}
+        self.wait: dict[int, float] = {}
 
     def begin(self, trainer):
         pass
@@ -2573,13 +2593,26 @@ class _Window:
     def after_step(self, trainer, step, metrics):
         if step in (self.a, self.b):
             torch.cuda.synchronize()
+            self.wait[step] = trainer._h_data_wait._sum
             if step == self.a:
                 self.t0 = time.perf_counter()
             else:
                 self.wall = time.perf_counter() - self.t0
+        if self.a <= step <= self.b:
+            self.t[step] = time.perf_counter()
 
     def end(self, trainer):
         pass
+
+    def steps(self) -> dict:
+        """{ms: the mean step, median_ms: the median step interval,
+        wait_ms: the data wait a step} over steps a + 1 .. b."""
+        n = self.b - self.a
+        steps = [(self.t[s] - self.t[s - 1]) * 1e3
+                 for s in range(self.a + 1, self.b + 1)]
+        return {"ms": self.wall * 1e3 / n,
+                "median_ms": float(np.median(steps)),
+                "wait_ms": (self.wait[self.b] - self.wait[self.a]) * 1e3 / n}
 
 
 def _train_flops(model, hw: int) -> float:
@@ -6288,6 +6321,433 @@ def phase_moe(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# readers phase: the file readers, the C++ loader and the training chaos soak
+# ---------------------------------------------------------------------------
+
+# bench.py's mnist_mlp row (BASELINE.json config 1 at its bench batch):
+# the MLP, global batch 8192, SGD at lr 0.5, f32
+READERS_MNIST_ARGV = ["--model", "mlp", "--device", "cuda", "--batch_size",
+                      "8192", "--optimizer", "sgd", "--learning_rate", "0.5",
+                      "--seed", "0"]
+READERS_MNIST_STEPS = 30     # the gate: 7 batches an epoch, into epoch 5
+# the timed Trainer runs: steps 1-10 warm up, 11-50 are timed on the host
+# clock (a sync at each end), 51-60 are traced for the idle share
+READERS_WARM, READERS_TIMED, READERS_TRACED = 10, 50, 60
+READERS_LOADER_BATCHES = 40  # each loader alone, batches timed
+READERS_CIFAR_ARGV = ["--model", "resnet20", "--device", "cuda",
+                      "--batch_size", "128", "--optimizer", "momentum",
+                      "--learning_rate", "0.05", "--seed", "0"]
+READERS_CIFAR_STEPS = 5
+READERS_BERT_STEPS = 5
+READERS_TFRECORD_SHARDS, READERS_TFRECORD_MB = 4, 64
+
+
+def _ckpt_arrays(ckpt_dir: str, step: int) -> dict:
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import \
+        CheckpointManager
+    with np.load(CheckpointManager(ckpt_dir).checkpoint_path(step)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _same_arrays(a: dict, b: dict) -> list[str]:
+    """The keys whose arrays differ (dtype, shape or any bit)."""
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if a[k].dtype != b[k].dtype
+            or a[k].shape != b[k].shape or a[k].tobytes() != b[k].tobytes()]
+
+
+def _loader_gate(argv: list[str], steps: int, label: str, tmp: str,
+                 failed: list, card: str, want: dict | None = None,
+                 ) -> dict:
+    """``argv`` through the CLI with ``--native`` and without, ``steps``
+    steps each, a checkpoint at the last: the two checkpoints must be
+    equal bit for bit. Returns the launches of both runs, summed."""
+    runs, launches = {}, {}
+    for name, extra in (("native", ["--native"]), ("python", [])):
+        ck = os.path.join(tmp, f"{label}_{name}")
+        metrics = os.path.join(tmp, f"{label}_{name}.jsonl")
+        t0 = time.perf_counter()
+        rc, lines, _, _ = _cli_run(
+            argv + ["--train_steps", str(steps), "--ckpt_dir", ck,
+                    "--save_steps", str(steps), "--log_every_steps", "1",
+                    "--metrics_path", metrics] + extra,
+            f"{label} {name}", failed, card, tag="readers", want=want)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            return {}
+        runs[name] = _ckpt_arrays(ck, steps)
+        for k, v in _launch_counts().items():      # this run's, as read
+            launches[k] = launches.get(k, 0) + v
+        loss = [round(m["loss"], 5) for _, m in
+                sorted(_step_metrics(lines).items())]
+        log(f"[readers {label}] {name} loader: {steps} steps through the "
+            f"CLI in {wall:.1f} s, loss {loss}, final eval "
+            f"{_final_eval(lines)} ({card})")
+        if len(loss) != steps or not all(np.isfinite(loss)):
+            failed.append(f"{label} {name}: loss {loss}")
+    diff = _same_arrays(runs["native"], runs["python"])
+    log(f"[readers {label}] checkpoints after {steps} steps, native "
+        f"against the Python loader: {len(runs['native'])} arrays, "
+        f"{'equal bit for bit' if not diff else f'differ in {diff[:5]}'}")
+    if diff:
+        failed.append(f"{label}: --native changed the params: {diff[:5]}")
+    return launches
+
+
+def _write_mnist_idx(d: str) -> None:
+    """MNIST at its own size, 60,000 train and 10,000 test 28 x 28 uint8
+    IDX files, the pixels of the synthetic set (seed 0) scaled to bytes."""
+    import struct
+    from distributed_tensorflow_example_tpu_torch.data.mnist import \
+        synthetic_mnist
+    m = synthetic_mnist(60000, 10000, seed=0)
+    for img, lbl, x, y in (
+            ("train-images-idx3-ubyte", "train-labels-idx1-ubyte",
+             m["train_x"], m["train_y"]),
+            ("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte",
+             m["test_x"], m["test_y"])):
+        with open(os.path.join(d, img), "wb") as f:
+            f.write(struct.pack(">IIII", 2051, len(x), 28, 28))
+            f.write(np.round(x * 255).astype(np.uint8).tobytes())
+        with open(os.path.join(d, lbl), "wb") as f:
+            f.write(struct.pack(">II", 2049, len(y)))
+            f.write(y.astype(np.uint8).tobytes())
+
+
+def _loader_alone_ms(arrays: dict, native: bool) -> float:
+    """Host ms a batch of the loader alone (no step, no prefetch thread):
+    the Python gather or the C++ ring's batch copied out."""
+    from distributed_tensorflow_example_tpu_torch.data import loader, \
+        native as native_mod
+    batch = int(READERS_MNIST_ARGV[READERS_MNIST_ARGV.index(
+        "--batch_size") + 1])
+    src = (native_mod.NativeLoader(arrays, batch, seed=0) if native
+           else loader.ShardedLoader(arrays, batch, seed=0))
+    it = iter(src)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(READERS_LOADER_BATCHES):
+        next(it)
+    ms = (time.perf_counter() - t0) * 1e3 / READERS_LOADER_BATCHES
+    if native:
+        it.close()
+    return ms
+
+
+def _mnist_timed(argv: list[str], native: bool) -> dict:
+    """One Trainer run of the CLI's configuration for ``argv`` (its model
+    and data through ``cli/train.py``'s own functions, no eval): the
+    step window, the data wait and the traced window's idle share."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+    args = cli.build_parser().parse_args(
+        argv + ["--train_steps", str(READERS_TRACED), "--log_every_steps",
+                "1000"] + (["--native"] if native else []))
+    cfg = cli.config_from_args(args)
+    model = get_model(cfg.model, cfg)
+    train, _ = cli.load_dataset(cfg, model)
+    from torch.autograd import DeviceType
+    clock = _Window(READERS_WARM, READERS_TIMED)
+    prof = _ProfileStep(READERS_TIMED, cuda_only=True, until=READERS_TRACED)
+    with Trainer(model, cfg, train, None, device="cuda",
+                 hooks=[clock, prof]) as tr:
+        tr.train()
+    out = clock.steps()
+    busy = (sum(_device_us(e) for e in prof.prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3
+            if prof.prof is not None else 0.0)
+    # NaN: the profiler saw no device time
+    out["busy_ms"], out["idle"] = (
+        (busy / (READERS_TRACED - READERS_TIMED),
+         1 - busy / (prof.wall * 1e3)) if busy > 0
+        else (float("nan"), float("nan")))
+    return out
+
+
+def _readers_mnist(tmp: str, failed: list, card: str) -> dict:
+    """(a): MNIST at its own size through ``cli/train.py`` at the
+    ``mnist_mlp`` bench row with ``--native`` and without: equal params;
+    each loader's host ms a batch alone, then ms a step (mean and median
+    of steps 11-50), the data wait a step and the idle share of steps
+    51-60 in Trainer runs, Python, native, native, Python."""
+    from distributed_tensorflow_example_tpu_torch.data.mnist import \
+        get_mnist
+    d = os.path.join(tmp, "mnist")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    _write_mnist_idx(d)
+    t_parse, parsed = {}, {}
+    for native in (True, False):
+        t1 = time.perf_counter()
+        parsed[native] = get_mnist(d, native=native)
+        t_parse[native] = (time.perf_counter() - t1) * 1e3
+    m = parsed[False]
+    diff = _same_arrays(parsed[True], m)
+    if diff:
+        failed.append(f"mnist: the C++ parsers' arrays differ in {diff}")
+    log(f"[readers mnist] IDX files written in {time.perf_counter() - t0:.1f}"
+        f" s; get_mnist {t_parse[True]:.1f} ms with the C++ parsers, "
+        f"{t_parse[False]:.1f} ms with numpy ({card})")
+    argv = READERS_MNIST_ARGV + ["--data_dir", d]
+    _loader_gate(argv, READERS_MNIST_STEPS, "mnist", tmp, failed, card)
+    arrays = {"x": m["train_x"], "y": m["train_y"]}
+    alone = {n: _loader_alone_ms(arrays, n) for n in (False, True)}
+    runs = {True: [], False: []}
+    for native in (False, True, True, False):
+        runs[native].append(_mnist_timed(argv, native))
+    out = {}
+    for native, name in ((True, "native"), (False, "python")):
+        rs = runs[native]
+        out[name] = {"alone_ms": alone[native],
+                     **{k: [r[k] for r in rs] for k in rs[0]}}
+        log(f"[readers mnist] {name} loader: {alone[native]:.3f} host ms a "
+            f"batch alone; in the Trainer (2 runs) "
+            + "; ".join(f"ms a step {r['ms']:.3f} (median "
+                        f"{r['median_ms']:.3f}), data wait "
+                        f"{r['wait_ms']:.3f} ms a step, device busy "
+                        f"{r['busy_ms']:.4f} ms a step, idle share "
+                        f"{r['idle']:.3f}" for r in rs) + f" ({card})")
+    return out
+
+
+def _readers_cifar(tmp: str, failed: list, card: str) -> None:
+    """(b): CIFAR-10 at its own size (5 x 10,000 train and 10,000 test
+    records of random bytes, seed 1): the C++ parser's arrays equal the
+    numpy parser's byte for byte; ResNet-20 (f32) through the CLI with
+    ``--native`` and without ends on equal params (cuDNN held to its
+    deterministic algorithms for both runs: only the loader may differ)."""
+    from distributed_tensorflow_example_tpu_torch.data import cifar, native
+    d = os.path.join(tmp, "cifar")
+    os.makedirs(d)
+    rs = np.random.RandomState(1)
+    names = [f"data_batch_{i}.bin" for i in range(1, 6)] + ["test_batch.bin"]
+    for name in names:
+        rec = np.empty((10000, 3073), np.uint8)
+        rec[:, 0] = rs.randint(0, 10, 10000)
+        rec[:, 1:] = rs.randint(0, 256, (10000, 3072))
+        rec.tofile(os.path.join(d, name))
+    t_n = t_p = 0.0
+    for name in names:
+        p = os.path.join(d, name)
+        t0 = time.perf_counter()
+        nx, ny = native.read_cifar_bin(p)
+        t1 = time.perf_counter()
+        px, py = cifar.read_cifar_bin(p)
+        t_n += t1 - t0
+        t_p += time.perf_counter() - t1
+        if (nx.dtype, nx.shape, ny.dtype) != (px.dtype, px.shape, py.dtype) \
+                or nx.tobytes() != px.tobytes() \
+                or ny.tobytes() != py.tobytes():
+            failed.append(f"cifar: the C++ parser differs on {name}")
+    log(f"[readers cifar] 6 files of 10,000 records: C++ parser "
+        f"{t_n * 1e3:.1f} ms, numpy {t_p * 1e3:.1f} ms, arrays "
+        f"{'equal byte for byte' if not failed else 'DIFFERENT'} ({card})")
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        _loader_gate(READERS_CIFAR_ARGV + ["--data_dir", d],
+                     READERS_CIFAR_STEPS, "cifar", tmp, failed, card)
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det, bench
+
+
+def _readers_tfrecord(tmp: str, failed: list, card: str) -> None:
+    """(d): token-record shards (512-token ``input_ids`` rows, seed 2) of
+    64 MB in all: the C++ index (with CRC checks) equals the Python
+    header scan, every CRC verifies, the rows read back, and a record
+    with one byte flipped raises on every path."""
+    from distributed_tensorflow_example_tpu_torch.data import (native,
+                                                                tfrecord)
+    d = os.path.join(tmp, "tfrecord")
+    os.makedirs(d)
+    rows = np.random.RandomState(2).randint(0, 30522, size=(512, 512))
+    enc = [tfrecord.encode_example({"input_ids": r}) for r in rows]
+    per = -(-READERS_TFRECORD_MB * 2**20 // READERS_TFRECORD_SHARDS
+            // (sum(map(len, enc)) / len(enc) + 16))
+    paths = []
+    t0 = time.perf_counter()
+    for s in range(READERS_TFRECORD_SHARDS):
+        p = os.path.join(d, f"train-{s:05d}-of-{READERS_TFRECORD_SHARDS:05d}"
+                         ".tfrecord")
+        with tfrecord.TFRecordWriter(p) as w:
+            for i in range(int(per)):
+                w.write(enc[(s * int(per) + i) % len(enc)])
+        paths.append(p)
+    mb = sum(os.path.getsize(p) for p in paths) / 2**20
+    t_w = time.perf_counter() - t0
+    t_n = t_p = t_v = 0.0
+    n = 0
+    for p in paths:
+        t0 = time.perf_counter()
+        offs, lens = native.tfrecord_index(p, verify=True)
+        t1 = time.perf_counter()
+        po, pl = tfrecord.index_record_offsets(p)
+        t2 = time.perf_counter()
+        k = sum(1 for _ in tfrecord.tfrecord_iterator(p, verify=True))
+        t_v += time.perf_counter() - t2
+        t_n += t1 - t0
+        t_p += t2 - t1
+        n += len(offs)
+        if not (np.array_equal(offs, po) and np.array_equal(lens, pl)
+                and k == len(offs)):
+            failed.append(f"tfrecord: the indexes of {p} differ")
+    back = tfrecord.load_token_records(paths[:1])
+    if not np.array_equal(back, rows[np.arange(len(back)) % len(rows)]):
+        failed.append("tfrecord: token rows did not read back")
+    log(f"[readers tfrecord] {READERS_TFRECORD_SHARDS} shards, {mb:.1f} MB, "
+        f"{n} records written in {t_w:.1f} s; C++ index with CRC checks "
+        f"{t_n * 1e3:.1f} ms ({mb / t_n / 1024:.2f} GB/s, warm file cache), "
+        f"Python header scan {t_p * 1e3:.1f} ms, Python iterator with CRC "
+        f"checks {t_v * 1e3:.1f} ms; indexes equal, {len(back)} rows read "
+        f"back ({card})")
+    p = paths[0]
+    po, _ = tfrecord.index_record_offsets(p)
+    with open(p, "r+b") as f:
+        f.seek(int(po[1]) + 10)
+        b = f.read(1)
+        f.seek(int(po[1]) + 10)
+        f.write(bytes([b[0] ^ 0x01]))
+    raised = []
+    for what, fn in (("C++ index", lambda: native.tfrecord_index(
+            p, verify=True)),
+                     ("iterator", lambda: list(tfrecord.tfrecord_iterator(p))),
+                     ("TFRecordFile", lambda: tfrecord.TFRecordFile(p))):
+        try:
+            fn()
+        except ValueError as e:
+            raised.append(f"{what}: {e}")
+        else:
+            failed.append(f"tfrecord: a flipped byte passed the {what}")
+    log("[readers tfrecord] one byte flipped in record 1: " + "; ".join(
+        raised))
+
+
+def _readers_imagenet(tmp: str, failed: list, card: str) -> None:
+    """(f): with Pillow unimportable (blocked here for one call, as on a
+    machine without it) a real ImageNet folder stops ``cli/train.py
+    --streaming`` naming Pillow, before any step, never training on the
+    synthetic set; where Pillow imports, two streaming steps of
+    ResNet-50 (bf16, ``--augment``) on a small JPEG folder."""
+    import importlib.util
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("PIL", "transformers", "tensorflow")}
+    log(f"[readers imagenet] importable on this machine: {have}")
+    d = os.path.join(tmp, "imagenet")
+    metrics = os.path.join(tmp, "imagenet.jsonl")
+    argv = ["--model", "resnet50", "--device", "cuda", "--dtype",
+            "bfloat16", "--data_dir", d, "--streaming", "--batch_size", "4",
+            "--train_steps", "2", "--log_every_steps", "1",
+            "--metrics_path", metrics]
+    rs = np.random.RandomState(3)
+    for split, n in (("train", 4), ("val", 1)):
+        for c in range(3):
+            cdir = os.path.join(d, split, f"n0{c}")
+            os.makedirs(cdir)
+            for i in range(n):
+                with open(os.path.join(cdir, f"{i}.JPEG"), "wb") as f:
+                    f.write(_jpeg(rs) if have["PIL"] else rs.bytes(64))
+    saved = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
+    sys.modules.update(dict.fromkeys(saved))     # None: the import fails
+    code = 0
+    try:
+        cli.main(argv)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    ok = isinstance(code, str) and "Pillow" in code \
+        and not os.path.exists(metrics)
+    log(f"[readers imagenet] Pillow blocked: --streaming over a folder "
+        f"exits with {code!r} ({'as it must' if ok else 'WRONG'})")
+    if not ok:
+        failed.append(f"imagenet without Pillow: exit {code!r}")
+    if not have["PIL"]:
+        return
+    rc, lines, _, _ = _cli_run(argv + ["--augment"], "imagenet streaming",
+                               failed, card, tag="readers")
+    loss = [m["loss"] for _, m in sorted(_step_metrics(lines).items())]
+    if rc != 0 or len(loss) != 2 or not all(np.isfinite(loss)):
+        failed.append(f"imagenet streaming: rc {rc}, loss {loss}")
+
+
+def _jpeg(rs) -> bytes:
+    """A 96 x 80 JPEG of random pixels."""
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(rs.randint(0, 255, (96, 80, 3), dtype=np.uint8)).save(
+        buf, format="JPEG")
+    return buf.getvalue()
+
+
+def phase_readers(card: str) -> dict:
+    """The file readers on the card (slice A5b-2): (a) MNIST at its own
+    size through the CLI at the ``mnist_mlp`` bench row with the C++
+    loader (``--native``) and the Python loader: equal params, host ms a
+    batch, ms a step, the idle share; (b) CIFAR-10 at its own size: the
+    C++ parser's arrays equal numpy's, ResNet-20 ``--native`` equal to
+    the Python loader; (c) BERT-base at 64 x 128 ``--native`` against the
+    Python loader: B1, B2a and B2b 12 a step, equal params; (d) TFRecord
+    token shards of 64 MB: the C++ index against the Python scan, CRCs,
+    a flipped byte; (e) the training chaos soak's 7 scenarios; (f)
+    ImageNet with Pillow blocked refused naming it, and where Pillow
+    imports two streaming steps. Returns (c)'s launches and (a)'s
+    figures."""
+    t_phase = time.perf_counter()
+    failed: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_readers_")
+    marks = []
+    try:
+        mnist = _readers_mnist(tmp, failed, card)
+        marks.append(time.perf_counter())
+        _readers_cifar(tmp, failed, card)
+        marks.append(time.perf_counter())
+        eval_batches = -(-BERT_EVAL // BERT_B)
+        bert = _loader_gate(BERT_ARGV, READERS_BERT_STEPS, "bert", tmp,
+                            failed, card, want=_launches_want(
+                                BERT_LAYERS, READERS_BERT_STEPS,
+                                eval_batches))
+        marks.append(time.perf_counter())
+        _readers_tfrecord(tmp, failed, card)
+        marks.append(time.perf_counter())
+        from distributed_tensorflow_example_tpu_torch.experiments import \
+            chaos_soak
+        for r in chaos_soak.run_scenarios(list(chaos_soak.SCENARIOS),
+                                          seed=0, steps=20, device="cuda"):
+            log(f"[readers chaos] {json.dumps(r)}")
+            if not r["ok"]:
+                failed.append(f"chaos soak {r['scenario']}: {r['detail']}")
+        marks.append(time.perf_counter())
+        _readers_imagenet(tmp, failed, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = [t_phase] + marks + [time.perf_counter()]
+    out = {"b1": bert.get("flash_attention_fwd", 0),
+           "b2a": bert.get("flash_attention_bwd_dq", 0),
+           "b2b": bert.get("flash_attention_bwd_dkv", 0), "mnist": mnist}
+    log(f"[readers] phase done in {t[-1] - t[0]:.1f} s ("
+        + ", ".join(f"({c}) {b - a:.1f} s" for c, a, b in
+                    zip("abcdef", t, t[1:])) + f"); launches B1 {out['b1']}, "
+        f"B2a {out['b2a']}, B2b {out['b2b']} ({card})")
+    if failed:
+        raise SystemExit("the readers phase failed: " + "; ".join(failed))
+    return out
+
+
 def _device_us(evt) -> float:
     return (getattr(evt, "self_device_time_total", None)
             or getattr(evt, "self_cuda_time_total", 0))
@@ -6395,6 +6855,15 @@ def main() -> int:
     timed("fleet")
     moe = phase_moe(card)
     timed("moe")
+    readers = phase_readers(card)
+    timed("readers")
+    log("[readers] MNIST at the mnist_mlp row (batch 8192), two Trainer "
+        "runs a loader: " + "; ".join(
+            f"{k} loader {v['alone_ms']:.3f} host ms a batch alone, ms a "
+            "step (median) " + " / ".join(f"{x:.3f}" for x in v["median_ms"])
+            + ", data wait " + " / ".join(f"{x:.3f}" for x in v["wait_ms"])
+            + " ms, idle share " + " / ".join(f"{x:.3f}" for x in v["idle"])
+            for k, v in readers["mnist"].items()) + f" ({card})")
     log(f"[bert] BERT-base {bert['seqs']:.1f} sequences/s, "
         f"{bert['tokens']:.0f} tokens/s, {bert['ms']:.2f} ms per step, idle "
         f"share {bert['idle']:.3f}, peak memory {bert['peak_mib']:.1f} MiB, "
@@ -6418,21 +6887,23 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
-         + fleet["b1"] + moe["b1"],
+         + fleet["b1"] + moe["b1"] + readers["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_dq.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
-         "launches": train["flash_attention_bwd_dq"] + moe["b2a"],
+         "launches": train["flash_attention_bwd_dq"] + moe["b2a"]
+         + readers["b2a"],
          **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_dkv.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
-         "launches": train["flash_attention_bwd_dkv"] + moe["b2b"],
+         "launches": train["flash_attention_bwd_dkv"] + moe["b2b"]
+         + readers["b2b"],
          **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"

@@ -41,11 +41,16 @@ all-reduces the gradients (and, for the batch-norm models under
 ``lenet`` on MNIST (IDX files under ``--data_dir``, else the synthetic
 set), ``resnet20`` on CIFAR-10 (the binary batches under ``--data_dir``,
 else the synthetic set; ``--augment`` for the pad-4 crop and flip),
-``resnet50`` on synthetic ImageNet, ``gpt`` and ``gpt_tiny`` on the
-synthetic LM corpus or pre-tokenized ``.npy`` files, and ``bert``,
-``bert_large``, ``bert_tiny``, ``moe_bert`` and ``moe_bert_tiny`` (masked
-LM; the ``--moe_*`` routing knobs) on the same tokens, masked (a
-raw-text corpus with a ``vocab.txt`` arrives with slice A5b-2);
+``resnet50`` on ImageNet (a folder tree or TFRecord shards under
+``--data_dir``, decoded eagerly or, with ``--streaming``, per batch on a
+thread pool with ``--augment``, ``--fast_decode``, ``--label_offset``;
+``--max_per_class`` caps the eager decode; else the synthetic set),
+``gpt`` and ``gpt_tiny`` on the synthetic LM corpus or pre-tokenized
+``.npy`` or TFRecord files, and ``bert``, ``bert_large``, ``bert_tiny``,
+``moe_bert`` and ``moe_bert_tiny`` (masked LM; the ``--moe_*`` routing
+knobs) on the same tokens, masked, or on a raw-text corpus with its
+``vocab.txt``; ``--native`` takes the C++ loader and parsers
+(``data/native.py``) and stops when its library cannot be built;
 ``--warm_start`` takes a fresh run's params from a checkpoint (resume
 wins), ``--ema_decay`` keeps a parameter EMA that eval and the export
 use, ``--moment_dtype bfloat16`` stores the first moments in bf16;
@@ -93,8 +98,6 @@ MNIST_DATASETS = ("mlp", "mnist", "lenet")
 CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
 IMAGENET_DATASETS = ("resnet50", "imagenet")
 MODELS = ("mlp", "lenet", "resnet20", "resnet50") + LM_MODELS + BERT_MODELS
-DATASETS = (MNIST_DATASETS + CIFAR_DATASETS + IMAGENET_DATASETS + LM_MODELS
-            + BERT_MODELS)
 
 
 def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
@@ -132,17 +135,29 @@ def build_parser() -> argparse.ArgumentParser:
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
-      help="MNIST IDX files, CIFAR-10 binary batches, or pre-tokenized "
-           "train.npy/test.npy or tokens.npy; omit for the synthetic set "
-           "(ImageNet files, a vocab.txt text corpus: slice A5b-2)")
-    a("--native", action="store_true", help="C++ loader (slice A5b-2)")
-    a("--streaming", action="store_true", help="slice A5b-2")
-    a("--fast_decode", action="store_true", help="slice A5b-2")
+      help="MNIST IDX files, CIFAR-10 binary batches, an ImageNet folder "
+           "tree or TFRecord shards, pre-tokenized train.npy/test.npy, "
+           "tokens.npy or TFRecords, or a text corpus with its vocab.txt; "
+           "omit for the synthetic set")
+    a("--native", action="store_true",
+      help="the C++ loader and parsers (built with g++ on first use; "
+           "the run stops when the library cannot be built)")
+    a("--streaming", action="store_true",
+      help="decode-per-batch streaming input pipeline (bounded memory; "
+           "ImageNet-scale folder trees and TFRecord shards)")
+    a("--fast_decode", action="store_true",
+      help="JPEG DCT-domain downscale decode for the streaming train "
+           "split (pixels deviate slightly from the plain decode)")
     a("--augment", action="store_true",
-      help="CIFAR pad-4 crop + flip on the train split (ImageNet: slice "
-           "A5b-2)")
-    a("--label_offset", type=int, default=0, help="slice A5b-2")
-    a("--max_per_class", type=int, default=None, help="slice A5b-2")
+      help="training augmentation (train split only): ImageNet "
+           "random-resized crop + flip (requires --streaming) or CIFAR "
+           "pad-4 crop + flip")
+    a("--label_offset", type=int, default=0,
+      help="TFRecord image shards: added to every label (tf-slim ImageNet "
+           "writes 1-indexed labels: pass -1)")
+    a("--max_per_class", type=int, default=None,
+      help="cap eagerly decoded images per class (ImageNet folder "
+           "loading; the full train split is ~770 GB as f32)")
     a("--seq_len", type=int, default=128,
       help="sequence length (must be <= the model's max_len)")
     a("--batch_size", type=int, default=128, help="GLOBAL batch size")
@@ -386,7 +401,11 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         data=DataConfig(dataset=args.dataset or args.model,
                         data_dir=args.data_dir,
                         batch_size=args.batch_size, seed=args.seed,
-                        augment=args.augment, seq_len=args.seq_len,
+                        native=args.native, seq_len=args.seq_len,
+                        max_per_class=args.max_per_class,
+                        label_offset=args.label_offset,
+                        streaming=args.streaming, augment=args.augment,
+                        fast_decode=args.fast_decode,
                         mlm_mask_prob=args.mlm_mask_prob),
         optimizer=OptimizerConfig(
             name=args.optimizer, learning_rate=args.learning_rate,
@@ -522,31 +541,15 @@ def _num_workers(args) -> int:
     return len(parse_hosts(args.worker_hosts)) or 1
 
 
-def _slice_of(name: str) -> str:
-    """The slice that brings a model or dataset the port lacks: the
-    pipeline models A6, the file readers A5b-2."""
-    return "A6" if name.startswith("pipe_") else "A5b-2"
-
-
 def _later_slice(args) -> list[tuple[str, bool, str]]:
     """(what, set?, slice) for every knob the port does not carry yet."""
     from ..train.trainer import one_replica_per_rank
     mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
     dataset = args.dataset or args.model
-    imagenet = dataset in IMAGENET_DATASETS
     return [
-        (f"--model {args.model}", args.model not in MODELS,
-         _slice_of(args.model)),
-        (f"--dataset {dataset}", dataset not in DATASETS,
-         _slice_of(dataset)),
-        ("--native", args.native, "A5b-2"),
-        ("--streaming", args.streaming, "A5b-2"),
-        ("--fast_decode", args.fast_decode, "A5b-2"),
-        ("--augment on ImageNet", args.augment and imagenet, "A5b-2"),
-        ("--label_offset", args.label_offset != 0, "A5b-2"),
-        ("--max_per_class", args.max_per_class is not None, "A5b-2"),
-        ("--data_dir for ImageNet (the folder and TFRecord readers)",
-         imagenet and bool(args.data_dir), "A5b-2"),
+        # the pipeline models (pipe_mlp, pipe_bert, pipe_moe_bert, ...)
+        (f"--model {args.model}", args.model.startswith("pipe_"), "A6"),
+        (f"--dataset {dataset}", dataset.startswith("pipe_"), "A6"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
         (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
@@ -578,33 +581,111 @@ def refuse_later_slices(args) -> None:
             "--seed and the step")
 
 
-def load_dataset(cfg: TrainConfig, model=None):
-    """(train_arrays, eval_arrays): MNIST for the MLP and LeNet (``x`` flat
-    784, ``y`` int32), CIFAR-10 for ResNet-20 and synthetic ImageNet for
-    ResNet-50 (``x`` NHWC f32 in [0, 1]), the LM corpus for the causal-LM
-    models, and the same tokens masked for BERT and MoE-BERT (the vocab
-    and ``max_predictions`` from the model, so data and logits agree)."""
+def bert_vocab_file(data_dir: str | None) -> str | None:
+    """The corpus's vocab.txt when ``data_dir`` is a raw-text BERT corpus
+    (what sends it through the text pipeline), else None."""
+    if not data_dir:
+        return None
+    p = os.path.join(data_dir, "vocab.txt")
+    return p if os.path.exists(p) else None
+
+
+def _imagenet_val(data_dir: str, label_offset: int = 0) -> dict:
+    """The eager val split: TFRecord shards when there are any, else the
+    folder tree (``label_offset`` must match the train side's)."""
+    from ..data.tfrecord import split_shards
+    if split_shards(data_dir, "val"):
+        from ..data.imagenet import load_imagenet_tfrecords
+        return load_imagenet_tfrecords(data_dir, "val",
+                                       label_offset=label_offset)
+    from ..data.imagenet import load_imagenet_folder
+    return load_imagenet_folder(data_dir, "val")
+
+
+def _image_dataset(cfg: TrainConfig, name: str, eval_only: bool):
+    """(train, eval) of the image classifiers: MNIST, CIFAR-10 or
+    ImageNet, the train side a streaming source under ``--streaming``
+    and None for ImageNet files under ``eval_only``."""
+    data = cfg.data
+    native = data.native
+    imagenet_files = (name in IMAGENET_DATASETS and data.data_dir
+                      and not data.synthetic)
+    if imagenet_files:
+        # real images never fall back to the synthetic set
+        from ..data.imagenet import require_pil
+        try:
+            require_pil()
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+    if eval_only and imagenet_files:
+        v = _imagenet_val(data.data_dir, data.label_offset)
+        return None, {"x": v["val_x"], "y": v["val_y"]}
+    if name in MNIST_DATASETS:
+        from ..data.mnist import get_mnist
+        d = get_mnist(data.data_dir, data.synthetic, native=native)
+    elif name in CIFAR_DATASETS:
+        from ..data.cifar import get_cifar10
+        d = get_cifar10(data.data_dir, data.synthetic, native=native)
+    else:
+        if data.streaming and not data.synthetic:
+            if not data.data_dir:
+                raise SystemExit("--streaming requires --data_dir")
+            # the train split streams (decoded per batch, bounded memory);
+            # the eval split stays eager and uncapped, as on the eager
+            # path. Both splits find TFRecord shards or a folder tree
+            from ..data.streaming import StreamingSource
+            train_src = StreamingSource(
+                data.data_dir, "train", max_per_class=data.max_per_class,
+                augment=data.augment, fast_decode=data.fast_decode,
+                label_offset=data.label_offset)
+            v = _imagenet_val(data.data_dir, data.label_offset)
+            return train_src, {"x": v["val_x"], "y": v["val_y"]}
+        for flag, on in (("--augment", data.augment),
+                         ("--fast_decode", data.fast_decode)):
+            if on:
+                # eager arrays are decoded once: both knobs act in the
+                # streaming pipeline's per-batch decode
+                raise SystemExit(
+                    f"{flag} is not supported with --synthetic"
+                    if data.synthetic or not data.data_dir
+                    else f"{flag} requires --streaming")
+        if imagenet_files:
+            from ..data.tfrecord import split_shards
+            if split_shards(data.data_dir, "train"):
+                raise SystemExit(
+                    "TFRecord ImageNet shards stream per batch — pass "
+                    "--streaming (the eager path would decode the whole "
+                    "train split into RAM)")
+        from ..data.imagenet import get_imagenet
+        d = get_imagenet(data.data_dir, data.synthetic,
+                         max_per_class=data.max_per_class)
+    return ({"x": d["train_x"], "y": d["train_y"]},
+            {"x": d["test_x"], "y": d["test_y"]})
+
+
+def load_dataset(cfg: TrainConfig, model=None, eval_only: bool = False):
+    """(train, eval): MNIST for the MLP and LeNet (``x`` flat 784, ``y``
+    int32), CIFAR-10 for ResNet-20 and ImageNet for ResNet-50 (``x`` NHWC
+    f32 in [0, 1]), the LM corpus for the causal-LM models, and the same
+    tokens masked, or a raw-text corpus tokenized and masked, for BERT and
+    MoE-BERT (the vocab and ``max_predictions`` from the model, so data
+    and logits agree). The train side is batch-keyed arrays, or for
+    ``--streaming`` ImageNet a ``StreamingSource``; ``eval_only`` skips
+    ImageNet's train split (None)."""
     name = cfg.data.dataset
     if cfg.data.augment and name not in (CIFAR_DATASETS
                                          + IMAGENET_DATASETS):
         raise SystemExit(
             f"--augment is an image-training recipe; dataset {name!r} "
             "has no augmentation pipeline")
+    if cfg.data.fast_decode and name not in IMAGENET_DATASETS:
+        raise SystemExit(
+            f"--fast_decode is a JPEG decode knob (streaming ImageNet); "
+            f"dataset {name!r} does not decode JPEGs")
     if name in MNIST_DATASETS + CIFAR_DATASETS + IMAGENET_DATASETS:
-        if name in MNIST_DATASETS:
-            from ..data.mnist import get_mnist
-            d = get_mnist(cfg.data.data_dir, cfg.data.synthetic)
-        elif name in CIFAR_DATASETS:
-            from ..data.cifar import get_cifar10
-            d = get_cifar10(cfg.data.data_dir, cfg.data.synthetic)
-        else:
-            from ..data.imagenet import get_imagenet
-            d = get_imagenet(cfg.data.data_dir, cfg.data.synthetic)
-        return ({"x": d["train_x"], "y": d["train_y"]},
-                {"x": d["test_x"], "y": d["test_y"]})
+        return _image_dataset(cfg, name, eval_only)
     if name not in LM_MODELS + BERT_MODELS:
-        raise SystemExit(f"dataset {name!r} arrives with a later slice of "
-                         "the port")
+        raise SystemExit(f"dataset {name!r} not wired into the CLI yet")
     from ..data.bert_data import get_bert_data, get_lm_data
     mcfg = getattr(model, "cfg", None)
     vocab = mcfg.vocab_size if mcfg else cfg.data.vocab_size
@@ -617,17 +698,33 @@ def load_dataset(cfg: TrainConfig, model=None):
                            seq_len=cfg.data.seq_len,
                            synthetic=cfg.data.synthetic)
     d = cfg.data.data_dir
+    max_pred = mcfg.max_predictions if mcfg else 20
+    vocab_txt = bert_vocab_file(d)
     has_npy = d and any(os.path.exists(os.path.join(d, f))
                         for f in ("train.npy", "tokens.npy"))
-    if (d and os.path.exists(os.path.join(d, "vocab.txt")) and not has_npy
-            and not cfg.data.synthetic):
-        raise SystemExit(
-            f"{d!r} is a raw-text corpus with a vocab.txt: tokenizing it "
-            "(data/bert_text.py) arrives with slice A5b-2 of the port; "
-            "pass pre-tokenized train.npy/test.npy or tokens.npy")
+    if vocab_txt and not has_npy and not cfg.data.synthetic:
+        # a raw-text corpus and its vocab.txt: tokenize, pack, mask. The
+        # .npy files win when both are there (the vocab likely made them).
+        # The embedding table must cover every id: checked before a
+        # possibly huge corpus is tokenized
+        with open(vocab_txt) as f:
+            n_vocab = sum(1 for _ in f)
+        if n_vocab > vocab:
+            raise SystemExit(
+                f"vocab.txt has {n_vocab} tokens but the model's "
+                f"vocab_size is {vocab} (ids beyond the embedding "
+                "table would index past it). The *_tiny models pin "
+                "their own small vocab: shrink the vocab or use a "
+                "full-size model")
+        from ..data.bert_text import get_bert_text_data
+        tr, te, _ = get_bert_text_data(
+            d, vocab_txt, seq_len=cfg.data.seq_len,
+            max_predictions=max_pred, mask_prob=cfg.data.mlm_mask_prob,
+            seed=cfg.data.seed)
+        return tr, te
     tr, te = get_bert_data(
         d, vocab_size=vocab, seq_len=cfg.data.seq_len,
-        max_predictions=mcfg.max_predictions if mcfg else 20,
+        max_predictions=max_pred,
         mask_prob=cfg.data.mlm_mask_prob, synthetic=cfg.data.synthetic)
     if mcfg and tr["input_ids"].shape[1] > mcfg.max_len:
         raise SystemExit(
@@ -713,7 +810,8 @@ def _train(args, cfg: TrainConfig, device, ctx, profiler=None) -> int:
             raise SystemExit(
                 f"--gen_top_k {args.gen_top_k} exceeds the model's "
                 f"vocab_size {model.cfg.vocab_size}")
-    train_arrays, eval_arrays = load_dataset(cfg, model)
+    train_arrays, eval_arrays = load_dataset(cfg, model,
+                                             eval_only=args.eval_only)
     train_transform = None
     if cfg.data.augment and cfg.data.dataset in CIFAR_DATASETS:
         from ..data.cifar import make_augment_transform

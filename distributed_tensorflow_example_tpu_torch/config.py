@@ -23,14 +23,29 @@ class DataConfig:
     language model reads."""
 
     dataset: str = "mnist"          # the CLI sets the model's name
-    data_dir: str | None = None     # IDX or pre-tokenized .npy files;
+    data_dir: str | None = None     # directory of real files;
                                     # None => the synthetic set
     batch_size: int = 128           # GLOBAL batch size
     shuffle: bool = True
     seed: int = 0
     synthetic: bool = False         # force synthetic data even if data_dir set
-    augment: bool = False           # CIFAR pad-4 crop + flip (train split)
     prefetch: int = 2               # host-side prefetch depth
+    native: bool = False            # C++ loader and parsers (data/native.py);
+                                    # raises when the library cannot build
+    max_per_class: int | None = None  # cap eager folder-tree decode (ImageNet)
+    label_offset: int = 0           # TFRecord image shards: added to
+                                    # every label (tf-slim ImageNet
+                                    # writes 1-indexed labels: pass -1)
+    streaming: bool = False         # decode-per-batch thread-pool pipeline
+                                    # (data/streaming.py) instead of the
+                                    # eager whole-split decode (ImageNet)
+    fast_decode: bool = False       # JPEG DCT-domain downscale decode
+                                    # (streaming ImageNet; the pixels
+                                    # deviate slightly from the plain decode)
+    augment: bool = False           # training augmentation, train split
+                                    # only: ImageNet random-resized crop +
+                                    # flip (streaming path), CIFAR pad-4
+                                    # crop + flip (loader transform)
     seq_len: int = 128
     vocab_size: int = 30522
     mlm_mask_prob: float = 0.15     # BERT: share of positions masked

@@ -9,8 +9,9 @@ static-shape layout (``max_predictions`` slots a sequence)::
 
 numpy only; the arrays are the reference's bit for bit. Special ids
 follow the bert-base-uncased convention ([PAD]=0, [CLS]=101, [SEP]=102,
-[MASK]=103). TFRecord token files and the raw-text pipeline
-(``data/bert_text.py``, a vocab.txt corpus) arrive with slice A5b-2.
+[MASK]=103). Pre-tokenized files are ``.npy`` arrays or TFRecords of
+``tf.train.Example`` records (``data/tfrecord.py``); a raw-text corpus
+with its ``vocab.txt`` goes through ``data/bert_text.py``.
 """
 
 from __future__ import annotations
@@ -109,8 +110,11 @@ def apply_mlm_masking(seqs: np.ndarray, *, vocab_size: int,
 
 
 def load_tokenized(data_dir: str) -> tuple[np.ndarray, np.ndarray]:
-    """Pre-tokenized [N,S] int32 arrays: ``train.npy`` + ``test.npy``, or a
-    single ``tokens.npy`` split 95/5."""
+    """Pre-tokenized [N,S] int32 arrays: ``train.npy`` + ``test.npy``, a
+    single ``tokens.npy`` split 95/5, or TFRecords of ``tf.train.Example``
+    records carrying an ``input_ids`` Int64List, the BERT
+    create_pretraining_data format (``train*.tfrecord`` +
+    ``test*.tfrecord``, or any ``*.tfrecord`` split 95/5)."""
     tr, te = (os.path.join(data_dir, f) for f in ("train.npy", "test.npy"))
     if os.path.exists(tr) and os.path.exists(te):
         return np.load(tr).astype(np.int32), np.load(te).astype(np.int32)
@@ -119,8 +123,20 @@ def load_tokenized(data_dir: str) -> tuple[np.ndarray, np.ndarray]:
         toks = np.load(single).astype(np.int32)
         cut = max(1, int(len(toks) * 0.95))
         return toks[:cut], toks[cut:]
+    from .tfrecord import find_tfrecords, load_token_records
+    train_recs = find_tfrecords(data_dir, "train")
+    test_recs = find_tfrecords(data_dir, "test")
+    if train_recs and test_recs:
+        return (load_token_records(train_recs),
+                load_token_records(test_recs))
+    any_recs = find_tfrecords(data_dir)
+    if any_recs:
+        toks = load_token_records(any_recs)
+        cut = max(1, int(len(toks) * 0.95))
+        return toks[:cut], toks[cut:]
     raise FileNotFoundError(
-        f"no train.npy/test.npy or tokens.npy under {data_dir!r}")
+        f"no train.npy/test.npy, tokens.npy, or *.tfrecord under "
+        f"{data_dir!r}")
 
 
 def _load_seqs(data_dir, seq_len, vocab_size, synthetic,

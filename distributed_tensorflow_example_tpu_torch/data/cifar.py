@@ -5,8 +5,9 @@ pad-4 crop + flip augmentation (an adapted copy of
 Real format (the ``cifar-10-batches-bin`` distribution): records of
 1 label byte + 3072 pixel bytes (CHW planar R, G, B, 32x32), 10000
 records per ``data_batch_N.bin`` / ``test_batch.bin`` file. Output is
-NHWC float32 in [0, 1], array for array the reference's. The
-reference's C++ reader (``--native``) arrives with slice A5b-2.
+NHWC float32 in [0, 1], array for array the reference's. With
+``native`` (``--native``) the files parse in C++ (``data/native.py``)
+into the same arrays, byte for byte.
 """
 
 from __future__ import annotations
@@ -32,17 +33,23 @@ def read_cifar_bin(path: str) -> tuple[np.ndarray, np.ndarray]:
     return imgs.astype(np.float32) / 255.0, labels
 
 
-def load_cifar10(data_dir: str) -> dict[str, np.ndarray]:
+def load_cifar10(data_dir: str, native: bool = False
+                 ) -> dict[str, np.ndarray]:
     """The five train batches and the test batch under ``data_dir`` (or
-    its ``cifar-10-batches-bin`` subdirectory)."""
+    its ``cifar-10-batches-bin`` subdirectory); ``native``: the C++
+    parser, raising when its library cannot be built."""
     sub = os.path.join(data_dir, "cifar-10-batches-bin")
     root = sub if os.path.isdir(sub) else data_dir
+    read = read_cifar_bin
+    if native:
+        from . import native as native_mod
+        read = native_mod.read_cifar_bin
     xs, ys = [], []
     for f in _TRAIN_FILES:
-        x, y = read_cifar_bin(os.path.join(root, f))
+        x, y = read(os.path.join(root, f))
         xs.append(x)
         ys.append(y)
-    vx, vy = read_cifar_bin(os.path.join(root, _TEST_FILE))
+    vx, vy = read(os.path.join(root, _TEST_FILE))
     return {"train_x": np.concatenate(xs), "train_y": np.concatenate(ys),
             "test_x": vx, "test_y": vy}
 
@@ -65,9 +72,9 @@ def synthetic_cifar10(num_train: int = 4096, num_test: int = 512,
 
 
 def get_cifar10(data_dir: str | None, synthetic: bool = False,
-                **synth_kw) -> dict[str, np.ndarray]:
+                native: bool = False, **synth_kw) -> dict[str, np.ndarray]:
     if data_dir and not synthetic:
-        return load_cifar10(data_dir)
+        return load_cifar10(data_dir, native)
     return synthetic_cifar10(**synth_kw)
 
 

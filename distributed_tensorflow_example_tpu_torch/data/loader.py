@@ -5,9 +5,10 @@ Determinism contract: with the same seed the *global* batch sequence is
 the same whatever the process count (each process takes its contiguous
 slice of every global batch, or with ``microbatches`` its contiguous
 slice of each microbatch), and it is the reference's batch for batch,
-bit for bit. A fault registry's ``loader.next`` seam
-(``runtime/faults.py``) wraps the batch iterator. The native C++ loader
-arrives with slice A5b-2.
+bit for bit. ``make_loader(native=True)`` takes the C++ loader
+(``data/native.py``) instead, with the same batch sequence. A fault
+registry's ``loader.next`` seam (``runtime/faults.py``) wraps the batch
+iterator.
 """
 
 from __future__ import annotations
@@ -19,8 +20,10 @@ from typing import Any, Callable, Iterator
 import numpy as np
 
 from ..runtime import faults
+from ..utils.logging import get_logger
 
 Batch = dict[str, np.ndarray]
+log = get_logger("loader")
 
 
 class ShardedLoader:
@@ -135,6 +138,11 @@ class PrefetchIterator:
             self._err = e
         finally:
             self._put(self._done)
+            # end the source now, not when it is collected: a native
+            # loader's generator stops its C++ threads on close
+            close = getattr(self._it, "close", None)
+            if close is not None:
+                close()
 
     def __iter__(self):
         return self
@@ -159,12 +167,31 @@ class PrefetchIterator:
 
 
 def make_loader(arrays: Batch, global_batch: int, *, prefetch: int = 0,
-                start_step: int = 0, **kw) -> Iterator[Batch]:
+                native: bool = False, start_step: int = 0,
+                **kw) -> Iterator[Batch]:
     """A batch iterator (:class:`ShardedLoader`, behind a
     :class:`PrefetchIterator` when ``prefetch > 0``). ``start_step``
     fast-forwards the sequence, so a restored run consumes exactly the
-    batches an uninterrupted run would have."""
-    loader = ShardedLoader(arrays, global_batch, **kw)
+    batches an uninterrupted run would have.
+
+    ``native=True`` takes the C++ loader (``data/native.NativeLoader``, any
+    N-array batch), which yields the same batches, and raises when its
+    library cannot be built or loaded. Its batches too go through the
+    :class:`PrefetchIterator`, so that their copy out of the C++ ring runs
+    off the training thread. A batch ``transform`` (augmentation) needs
+    the Python path: with one, ``native`` is bypassed, as in the
+    reference.
+    """
+    if native and arrays and kw.get("transform") is not None:
+        log.info("native loader bypassed: a batch transform "
+                 "(augmentation) needs the Python path")
+        native = False
+    if native and arrays:
+        from .native import NativeLoader
+        kw.pop("transform", None)        # None here
+        loader = NativeLoader(arrays, global_batch, **kw)
+    else:
+        loader = ShardedLoader(arrays, global_batch, **kw)
     it = _fast_forward(loader, iter(loader), start_step)
     # the 'loader.next' fault seam (runtime/faults.py): the iterator
     # itself when no fault registry is installed
@@ -172,7 +199,7 @@ def make_loader(arrays: Batch, global_batch: int, *, prefetch: int = 0,
     return PrefetchIterator(it, prefetch) if prefetch > 0 else it
 
 
-def _fast_forward(loader: ShardedLoader, it: Iterator[Batch],
+def _fast_forward(loader, it: Iterator[Batch],
                   start_step: int) -> Iterator[Batch]:
     if start_step <= 0:
         return it

@@ -6,9 +6,9 @@ The real ``train-images-idx3-ubyte`` (plain or ``.gz``) files parse when
 a data directory is given: a 16-byte big-endian header ``magic, n, rows,
 cols``, then uint8 pixels; labels have an 8-byte header. Without one,
 :func:`synthetic_mnist` draws the reference's class-conditional sparse
-stroke prototypes, array for array the reference's. The reference's C++
-readers (``--native``) arrive with slice A5b-2; the numpy readers here
-give the same arrays.
+stroke prototypes, array for array the reference's. With ``native``
+(``--native``) plain files parse in C++ (``data/native.py``) into the
+same arrays as the numpy readers here.
 """
 
 from __future__ import annotations
@@ -51,12 +51,23 @@ def read_idx_labels(path: str) -> np.ndarray:
     return np.frombuffer(buf, np.uint8)
 
 
-def load_mnist(data_dir: str) -> dict[str, np.ndarray]:
+def _reader_pair(path: str, native: bool):
+    """The C++ parsers for a plain file under ``native`` (raising when the
+    library cannot be built), the numpy ones otherwise and for ``.gz``."""
+    if native and os.path.exists(path):
+        from . import native as native_mod
+        return native_mod.read_idx_images, native_mod.read_idx_labels
+    return read_idx_images, read_idx_labels
+
+
+def load_mnist(data_dir: str, native: bool = False) -> dict[str, np.ndarray]:
     """{'train_x', 'train_y', 'test_x', 'test_y'}: x in [0, 1] f32
     flattened to 784 (the reference's input shape), y int32."""
     def split(img, lbl):
-        x = read_idx_images(os.path.join(data_dir, img))
-        y = read_idx_labels(os.path.join(data_dir, lbl))
+        ip = os.path.join(data_dir, img)
+        read_imgs, read_lbls = _reader_pair(ip, native)
+        x = read_imgs(ip)
+        y = read_lbls(os.path.join(data_dir, lbl))
         return (x.reshape(len(x), -1).astype(np.float32) / 255.0,
                 y.astype(np.int32))
 
@@ -90,10 +101,10 @@ def synthetic_mnist(num_train: int = 8192, num_test: int = 1024,
 
 
 def get_mnist(data_dir: str | None, synthetic: bool = False,
-              **synth_kw) -> dict[str, np.ndarray]:
+              native: bool = False, **synth_kw) -> dict[str, np.ndarray]:
     """Real MNIST when ``data_dir`` is given (raising when its files are
     missing: training on synthetic data instead would falsify an
-    accuracy claim), synthetic otherwise."""
+    accuracy claim; ``native``: the C++ parsers), synthetic otherwise."""
     if data_dir and not synthetic:
-        return load_mnist(data_dir)
+        return load_mnist(data_dir, native)
     return synthetic_mnist(**synth_kw)

@@ -109,7 +109,9 @@ class Trainer:
       model: a model with ``init(gen)``, ``loss`` and ``eval_metrics``.
       config: TrainConfig.
       train_arrays/eval_arrays: batch-keyed numpy arrays (the whole
-        sets: each rank takes its slice of every global batch).
+        sets: each rank takes its slice of every global batch);
+        ``train_arrays`` may instead be a source with ``make_loader``
+        (``data/streaming.StreamingSource``), which the Trainer closes.
       hooks: extra hooks appended after the default set.
       device: ``cuda`` (default) or ``cpu``.
       process_index/num_processes: this rank's coordinates (default: the
@@ -314,8 +316,18 @@ class Trainer:
         if start_step is None:
             start_step = self.start_step
         d = self.config.data
+        if hasattr(self.train_arrays, "make_loader"):
+            # a streaming source (data/streaming.StreamingSource): batches
+            # are decoded when needed instead of held in memory
+            return self.train_arrays.make_loader(
+                d.batch_size, start_step=start_step,
+                process_index=self.process_index,
+                num_processes=self.num_processes, shuffle=d.shuffle,
+                seed=d.seed, prefetch=d.prefetch,
+                microbatches=self.sync.loader_microbatches)
         return make_loader(self.train_arrays, d.batch_size,
-                           prefetch=d.prefetch, start_step=start_step,
+                           prefetch=d.prefetch, native=d.native,
+                           start_step=start_step,
                            process_index=self.process_index,
                            num_processes=self.num_processes,
                            shuffle=d.shuffle, seed=d.seed,
@@ -602,9 +614,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def close(self) -> None:
         """Release what the Trainer owns: the metrics sinks, an installed
-        fault registry and the checkpoint writer. A pending async-save
-        error surfaces from the checkpoint manager's close, after the
-        others are released."""
+        fault registry, a streaming source's decode pool and the
+        checkpoint writer. A pending async-save error surfaces from the
+        checkpoint manager's close, after the others are released."""
         try:
             self.metrics_logger.close()
         finally:
@@ -612,6 +624,8 @@ class Trainer:
                 if self._faults_installed:
                     faults.install(None)
                     self._faults_installed = False
+                if hasattr(self.train_arrays, "close"):
+                    self.train_arrays.close()
             finally:
                 if self.ckpt_manager is not None:
                     self.ckpt_manager.close()

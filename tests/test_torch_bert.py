@@ -406,8 +406,12 @@ def test_cli_bert_refusals(tmp_path, extra, frag):
 
 
 def test_cli_vocab_txt_corpus_names_its_slice(tmp_path):
-    (tmp_path / "vocab.txt").write_text("[PAD]\n[CLS]\n")
-    with pytest.raises(SystemExit, match="slice A5b"):
+    """A vocab.txt directory is a raw-text corpus (data/bert_text.py,
+    tests/test_torch_bert_text.py): one past the model's vocab stops the
+    run before anything is tokenized; tokens.npy beside it wins."""
+    (tmp_path / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[CLS]"] + ["w"] * 1000))
+    with pytest.raises(SystemExit, match="vocab.txt has 1002 tokens"):
         tcli.main(["--model", "bert_tiny", "--device", "cpu",
                    "--train_steps", "1", "--data_dir", str(tmp_path)])
     np.save(tmp_path / "tokens.npy", padded_seqs(20, 32))

@@ -695,7 +695,8 @@ def test_synthetic_sets_and_augmentation_equal_reference():
     at its 224 shape), ``get_cifar10``/``get_imagenet`` without files,
     and ``augment_batch`` through the loader's transform, per process
     and epoch: bitwise the reference's arrays. ``get_imagenet`` with a
-    data directory names slice A5b."""
+    missing data directory raises as the reference's does (the readers:
+    ``tests/test_torch_imagenet_readers.py``)."""
     for kw in ({}, dict(num_train=100, num_test=20, seed=3, noise=0.2)):
         g, w = tcifar.synthetic_cifar10(**kw), jcifar.synthetic_cifar10(**kw)
         assert sorted(g) == sorted(w)
@@ -713,8 +714,9 @@ def test_synthetic_sets_and_augmentation_equal_reference():
     w = jimagenet.get_imagenet(None, num_train=2, num_test=1,
                                num_classes=5, image_size=32)
     assert np.array_equal(g["train_x"], w["train_x"])
-    with pytest.raises(NotImplementedError, match="slice A5b"):
-        timagenet.get_imagenet("/nonexistent/imagenet")
+    for mod in (timagenet, jimagenet):
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
+            mod.get_imagenet("/nonexistent/imagenet")
     assert np.array_equal(tcifar.get_cifar10(None, num_train=8,
                                              num_test=2)["train_x"],
                           jcifar.synthetic_cifar10(8, 2)["train_x"])

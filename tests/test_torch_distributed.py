@@ -584,7 +584,8 @@ REFUSALS = {
                         NotImplementedError, "A6"),
     "sync-two-replicas-one-rank": (_sync_refusal(2), NotImplementedError,
                                    "A6"),
-    "cli-native": (_cli_refusal(["--native"]), SystemExit, "A5b"),
+    "cli-native": (_cli_refusal(["--native", "--sharded_save"]),
+                   SystemExit, "A6"),
 }
 
 

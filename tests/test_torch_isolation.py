@@ -96,7 +96,23 @@ MOE_MODULES = tuple(
         "ops.moe", "models.moe", "ckpt.warm_start"))
 
 
+#: the file readers (TFRecord, the C++ loader, the ImageNet readers and
+#: the streaming pipeline, the text corpus, the TF checkpoint import and
+#: the training chaos soak), named likewise
+READER_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "data.tfrecord", "data.native", "data.imagenet", "data.streaming",
+        "data.bert_text", "ckpt.tf_import", "experiments.chaos_soak"))
+#: imported only inside the functions that decode, tokenize or read a TF
+#: checkpoint: the card's machine has none of them
+OPTIONAL = ("PIL", "transformers", "tensorflow")
+
+
 def test_importing_every_module_loads_no_jax():
+    """Every port module imports in a process where JAX, the reference
+    package, Pillow, transformers and TensorFlow cannot be imported (an
+    import hook refuses them and records the attempt): none loads, none
+    is even tried."""
     mods = _port_modules()
     assert len(mods) >= 20, mods
     assert set(ENGINE_MODULES) <= set(mods), mods
@@ -104,18 +120,29 @@ def test_importing_every_module_loads_no_jax():
     assert set(SERVER_MODULES) <= set(mods), mods
     assert set(FLEET_MODULES) <= set(mods), mods
     assert set(MOE_MODULES) <= set(mods), mods
+    assert set(READER_MODULES) <= set(mods), mods
+    blocked = FORBIDDEN + OPTIONAL
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.abc, sys\n"
+        "tried = []\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {blocked!r}:\n"
+        "            tried.append(name)\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
-        "print('FORBIDDEN', bad)\n")
+        f"{blocked!r})\n"
+        "print('FORBIDDEN', bad)\n"
+        "print('TRIED', sorted(set(tried)))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "FORBIDDEN []" in out.stdout, out.stdout
+    assert "TRIED []" in out.stdout, out.stdout
 
 
 def test_quantized_paths_run_without_jax(tmp_path):

@@ -44,7 +44,9 @@ accuracy. The last three serve through ``serving_http``: a BERT-base
 server's request launches the paged kernel as often as a plain one's, and
 a 2-replica router fleet serves one replica's bytes with one paged launch
 a layer a merged decode step. The MoE-BERT test holds one step on the
-card to the flash launches a layer and, in f32, to the CPU's step.
+card to the flash launches a layer and, in f32, to the CPU's step. The
+last runs BERT-base through the CLI with the C++ loader (``--native``)
+and without: the same launches and the same checkpoint, bit for bit.
 """
 
 import os
@@ -1167,3 +1169,38 @@ def test_moe_bert_step_launches_the_flash_kernels_and_matches_cpu(cuda):
     for k in gp:
         size = max(float(gp[k].abs().max()), 1e-3 * top)
         assert float((gc[k] - gp[k]).abs().max()) <= 1e-4 * size, k
+
+
+def test_native_loader_bert_run_equals_the_python_loaders(cuda, tmp_path):
+    """``cli.train --model bert`` (BERT-base, bf16, flash, 16 x 128) with
+    ``--native`` (the C++ loader, built from the port's source) and
+    without: B2a and B2b launch 12 a step, B1 as often in both runs, and
+    the checkpoints after 3 steps are equal bit for bit (the flash
+    kernels, the sort-based embedding backward and cuBLAS are
+    deterministic at fixed shapes)."""
+    import glob
+
+    import numpy as np
+
+    from distributed_tensorflow_example_tpu_torch.cli import train as tcli
+    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+           fa.flash_attention_bwd_dkv)
+    runs = {}
+    for name, extra in (("native", ["--native"]), ("python", [])):
+        ck = str(tmp_path / name)
+        before = [fn.launches for fn in fns]
+        assert tcli.main(["--model", "bert", "--dtype", "bfloat16",
+                          "--attention", "flash", "--optimizer", "lamb",
+                          "--learning_rate", "1e-3", "--batch_size", "16",
+                          "--seq_len", "128", "--train_steps", "3",
+                          "--ckpt_dir", ck, "--save_steps", "3",
+                          "--log_every_steps", "1"] + extra) == 0
+        launches = [fn.launches - b for fn, b in zip(fns, before)]
+        (path,) = glob.glob(os.path.join(ck, "*-3.npz"))
+        with np.load(path) as z:
+            runs[name] = (launches, {k: z[k] for k in z.files})
+    (ln, an), (lp, ap) = runs["native"], runs["python"]
+    assert ln == lp and ln[1] == ln[2] == 36 and ln[0] >= 36
+    assert sorted(an) == sorted(ap)
+    for k in an:
+        assert np.array_equal(an[k], ap[k]), k

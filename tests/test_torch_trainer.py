@@ -447,27 +447,35 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 # (A6) stay refused. MoE-BERT, the parameter EMA, bf16 moments and warm
 # start train too (tests/test_torch_moe.py, test_torch_ema.py,
 # test_torch_warm_start.py): their rows pair them with a knob that stays
-# refused, the file readers of slice A5b-2 or the pipeline models of A6
-# (the slice's regex "A5b" matches "A5b-2").
+# refused, the pipeline models of A6 or the K-step dispatch of A3c-2b.
+# The file readers and their knobs train too (tests/test_torch_{native_
+# loader,imagenet_readers,streaming,bert_text}.py; LIFTED below): their
+# rows pair them with a knob of A6 or A3c-2b, which is refused before
+# the data (a raw-text BERT corpus, an ImageNet folder) is read.
 LATER = [
     (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
-    (["--model", "bert_tiny", "--data_dir", "VOCAB"], "A5b"),
-    (["--model", "moe_bert_tiny", "--native"], "A5b"),
+    (["--model", "bert_tiny", "--data_dir", "VOCAB", "--steps_per_loop",
+      "2"], "A3c-2b"),
+    (["--model", "moe_bert_tiny", "--native", "--mesh", "data=2"], "A6"),
     (["--model", "pipe_bert_tiny"], "A6"),
-    (["--model", "moe_bert", "--streaming"], "A5b"),
+    (["--model", "moe_bert", "--streaming", "--sharded_save"], "A6"),
     (["--steps_per_loop", "2"], "A3c-2b"),
     (["--mesh", "data=2"], "A6"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
     (["--model", "pipe_moe_bert_tiny"], "A6"),
     (["--sharded_save"], "A6"),
-    (["--warm_start", "w", "--fast_decode"], "A5b"),
-    (["--moment_dtype", "bfloat16", "--max_per_class", "5"], "A5b"),
-    (["--ema_decay", "0.9", "--label_offset", "-1"], "A5b"),
-    (["--streaming"], "A5b"),
-    (["--max_per_class", "5"], "A5b"),
-    (["--label_offset", "-1"], "A5b"),
-    (["--augment", "--model", "resnet50"], "A5b"),
-    (["--data_dir", "IMAGENET", "--model", "resnet50"], "A5b"),
+    (["--warm_start", "w", "--fast_decode", "--max_inflight_steps", "1"],
+     "A3c-2b"),
+    (["--moment_dtype", "bfloat16", "--max_per_class", "5",
+      "--sharded_save"], "A6"),
+    (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "model=2"],
+     "A6"),
+    (["--streaming", "--model", "pipe_mlp"], "A6"),
+    (["--max_per_class", "5", "--steps_per_loop", "4"], "A3c-2b"),
+    (["--label_offset", "-1", "--dataset", "pipe_bert"], "A6"),
+    (["--augment", "--model", "resnet50", "--sharded_save"], "A6"),
+    (["--data_dir", "IMAGENET", "--model", "resnet50", "--mesh",
+      "data=2"], "A6"),
     # --export_dir itself is lifted (A4a), and moe_bert_tiny exports
     # (static-batch): exporting a model the port lacks still refuses,
     # naming that model's slice
@@ -524,6 +532,14 @@ LIFTED = [
     ["--profiler_port", "6006"],
     # the forward's serving artifact (A4a)
     ["--export_dir", "exp"],
+    # the file readers (A5b-2)
+    ["--native"],
+    ["--streaming"],
+    ["--fast_decode"],
+    ["--label_offset", "-1"],
+    ["--max_per_class", "5"],
+    ["--augment", "--model", "resnet50"],
+    ["--data_dir", "IMAGENET", "--model", "resnet50"],
 ]
 
 
