@@ -125,7 +125,16 @@ BERT-base 64 x 128 ``--native``: exact launches, equal checkpoints; 64
 MB of TFRecord token shards: the C++ index with CRC checks against the
 Python scan, a flipped byte refused on every path; the training chaos
 soak's 7 scenarios; ImageNet with Pillow blocked refused naming it,
-and two streaming ResNet-50 steps where Pillow imports), a
+and two streaming ResNet-50 steps where Pillow imports), the examples
+phase (the port's copies of ``examples/finetune_export.py`` and
+``examples/train_and_generate.py`` at their defaults: accuracies above
+0.9, greedy and sampled generation, no kernel launched, as gpt_tiny's
+heads of 32 fit none), the sharded phase (a one-rank NCCL group runs the
+eight named collectives on CUDA tensors; GPT-small 8 x 512 on the flash
+kernels through ``cli/train.py`` with ``--sharded_save``, 10 steps then
+a restart from the anchor to 15, equal bit for bit to an uninterrupted
+sharded run and a monolithic one; step ms, write ms, peak memory, exact
+launches), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -3686,12 +3695,12 @@ def phase_train_rest(card: str) -> None:
         memory of each, the step's p50 over steps 12-30 (each step to its
         device sync, saves and evals outside); and adafactor's chain on
         GPT-small's parameters, card against CPU over 3 steps;
-    (b) 40 steps with ``--save_steps 10``: no save, sync, ``--async_save``,
+    (b) 20 steps with ``--save_steps 10``: no save, sync, ``--async_save``,
         each step synced and stamped: the host ms of each save step, and
         the median ms of the steps inside the async writes' window against
         the same steps of the run without saves; both rings equal;
     (c) ``--fault_spec step.nan:step=15 --on_anomaly rollback --save_steps
-        10`` over 30 steps (the mask as f32, see :func:`_float_mask`):
+        10`` over 20 steps (the mask as f32, see :func:`_float_mask`):
         restored step 10, anomaly_count 1, final params ``torch.equal`` to
         an uninterrupted run's;
     (d) ``--eval_only --eval_best`` on (a)'s adafactor directory: the
@@ -3807,8 +3816,8 @@ def phase_train_rest(card: str) -> None:
                          ("async", ["--save_steps", "10", "--async_save"])):
         ck = os.path.join(tmp, f"saves_{label}")
         clock = _StepClock()
-        tr = _rest_trainer(["--optimizer", "adamw", "--train_steps", "40",
-                            "--log_every_steps", "40"]
+        tr = _rest_trainer(["--optimizer", "adamw", "--train_steps", "20",
+                            "--log_every_steps", "20"]
                            + (["--ckpt_dir", ck] + extra if extra else []),
                            hooks=[clock])
         gc.collect()
@@ -3820,17 +3829,17 @@ def phase_train_rest(card: str) -> None:
         spans = rec.drain("training")
         rec.stop()
         launches = read()
-        if launches != _rest_want(40):
+        if launches != _rest_want(20):
             failed.append(f"(b) {label}: launches {launches}")
         clocks[label] = clock
         windows[label] = [(t0, t1) for _, lane, name, t0, t1, _ in spans
                           if name == "checkpoint_write"]
         if extra:
             rings[label] = ck
-    saves = (10, 20, 30, 40)
+    saves = (10, 20)
     for label in ("sync", "async"):
         c = clocks[label]
-        inside = [n for n in range(2, 41) if n not in saves and any(
+        inside = [n for n in range(2, 21) if n not in saves and any(
             c.times[n - 1] < t1 and c.times[n] > t0
             for t0, t1 in windows[label])]
         med = float(np.median([c.step_ms(n) for n in inside])) \
@@ -3847,7 +3856,7 @@ def phase_train_rest(card: str) -> None:
             f"write windows {inside}: median {med:.2f} ms against "
             f"{base:.2f} ms for the same steps without saves ({card})")
     ms_none = float(np.median([clocks["none"].step_ms(n)
-                               for n in range(2, 41)]))
+                               for n in range(2, 21)]))
     log(f"[{tag} (b)] the no-save run: median {ms_none:.2f} ms per step "
         f"(synced every step) ({card})")
     steps_sync, steps_async = (CheckpointManager(rings[k]).all_steps()
@@ -3876,7 +3885,7 @@ def phase_train_rest(card: str) -> None:
         ck = os.path.join(tmp, f"rb_{label}")
         tap = _LogTap()
         logging.getLogger("dtx.trainer").addHandler(tap)
-        tr = _rest_trainer(["--optimizer", "adamw", "--train_steps", "30",
+        tr = _rest_trainer(["--optimizer", "adamw", "--train_steps", "20",
                             "--log_every_steps", "5"]
                            + (["--ckpt_dir", ck, "--save_steps", "10"]
                               + extra if extra else []),
@@ -3889,7 +3898,7 @@ def phase_train_rest(card: str) -> None:
             logging.getLogger("dtx.trainer").removeHandler(tap)
         launches = read()
         replayed = 5 if extra else 0       # steps 11-15 again
-        if launches != _rest_want(30 + replayed):
+        if launches != _rest_want(20 + replayed):
             failed.append(f"(c) {label}: launches {launches}")
         finals[label] = (state, summary, [x for x in tap.lines
                                           if "rollback" in x])
@@ -3904,7 +3913,7 @@ def phase_train_rest(card: str) -> None:
     log(f"[{tag} (c)] rollback: {lines}; final step {s_rb.step}, "
         f"anomaly_count {count}; params torch.equal to the uninterrupted "
         f"run's: {not unequal} ({len(unequal)} leaves differ)")
-    if count != 1 or s_rb.step != 30 or not any(
+    if count != 1 or s_rb.step != 20 or not any(
             "restored verified checkpoint step 10" in x for x in lines):
         failed.append(f"(c) rollback: {lines}, anomaly_count {count}")
     if unequal:
@@ -6795,6 +6804,217 @@ def phase_profile(model, params, ids_t, card: str) -> None:
             f"{e.key[:90]}")
 
 
+def phase_examples(card: str) -> dict:
+    """The port's copies of the repo's two other example scripts on the
+    card at their defaults: ``examples/finetune_export.py`` (the MNIST MLP
+    pretrained 60 steps, a warm-started fine-tune of 40 with the EMA, the
+    EMA weights exported and served by ``load_servable``) and
+    ``examples/train_and_generate.py`` (gpt_tiny 60 steps, a restore,
+    greedy, sampled, nucleus and ragged generation). gpt_tiny's heads of
+    32 fit no hand-written kernel and the reference takes XLA there too,
+    so the script asks for the plain attention: every kernel counter
+    stays 0, as for the MLP."""
+    import contextlib
+    import io
+    from distributed_tensorflow_example_tpu_torch.examples import (
+        finetune_export, train_and_generate)
+    failed: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    read = _reset_launches()
+    t0 = time.perf_counter()
+    out = finetune_export.run(os.path.join(tmp, "ft"))
+    t_ft = time.perf_counter() - t0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_and_generate.main(["--workdir", os.path.join(tmp, "lm")])
+    t_lm = time.perf_counter() - t0
+    launches = read()
+    text = buf.getvalue()
+    accs = (out["pretrain_eval"]["accuracy"], out["finetune_eval"]["accuracy"],
+            out["servable_accuracy_16"])
+    if min(accs) <= 0.9:
+        failed.append(f"finetune_export accuracies {accs}")
+    if not os.path.exists(out["artifact"]):
+        failed.append("finetune_export wrote no artifact")
+    trained = re.search(r"trained to step (\d+): perplexity ([\d.]+), "
+                        r"token accuracy ([\d.]+)", text)
+    if rc != 0 or trained is None or "greedy :" not in text \
+            or "sampled:" not in text or "attention: xla" not in text:
+        failed.append(f"train_and_generate rc {rc}: {text[-400:]!r}")
+    if any(launches.values()):
+        failed.append(f"kernel launches {launches} (want none)")
+    log(f"[examples] finetune_export: pretrain eval accuracy {accs[0]:.4f}, "
+        f"fine-tune {accs[1]:.4f}, servable on 16 rows {accs[2]:.4f}, "
+        f"{t_ft:.1f} s; train_and_generate: "
+        + (f"step {trained.group(1)}, perplexity {trained.group(2)}, "
+           f"token accuracy {trained.group(3)}" if trained else "no summary")
+        + f", {t_lm:.1f} s; kernel launches {sum(launches.values())} "
+        f"({card})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit("the examples phase failed: " + "; ".join(failed))
+    return {"accuracies": accs}
+
+
+def _nccl_collectives(failed: list) -> None:
+    """(a) of :func:`phase_sharded`: a one-rank NCCL group on this card
+    runs the eight named collectives on CUDA tensors against their
+    definitions over a one-member axis (each returns its input's values;
+    the untiled gather and all-to-all stack or unstack one slice). One
+    rank proves the plumbing (the group, the mesh's groups, every call's
+    arguments on the backend), not traffic between cards."""
+    import socket
+    import torch.distributed as dist
+    from distributed_tensorflow_example_tpu_torch.config import MeshShape
+    from distributed_tensorflow_example_tpu_torch.parallel import \
+        collectives as C
+    from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
+        build_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshShape(data=1))
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(4, 8, device="cuda", generator=g)
+        y = torch.randn(1, 3, device="cuda", generator=g)
+        kw = {"mesh": mesh}
+        got = {
+            "axis_size": C.axis_size("data", **kw) == 1,
+            "all_reduce_sum": torch.equal(C.all_reduce_sum(x, "data", **kw),
+                                          x),
+            "all_reduce_mean": torch.equal(
+                C.all_reduce_mean(x, "data", **kw), x),
+            "all_gather": torch.equal(
+                C.all_gather(x, "data", axis=1, **kw), x) and torch.equal(
+                C.all_gather(x, "data", axis=0, tiled=False, **kw), x[None]),
+            "reduce_scatter_mean": torch.equal(C.reduce_scatter_mean(
+                x, "data", scatter_axis=1, **kw), x),
+            "ppermute_ring_shift": torch.equal(C.ppermute_ring_shift(
+                x, "data", shift=1, **kw), x),
+            "all_to_all": torch.equal(C.all_to_all(
+                x, "data", split_axis=0, concat_axis=1, **kw), x)
+            and torch.equal(C.all_to_all(y, "data", split_axis=0,
+                                         concat_axis=0, tiled=False, **kw),
+                            y),
+            "broadcast_one_to_all": torch.equal(C.broadcast_one_to_all(
+                x, "data", src=0, **kw), x),
+        }
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    bad = [k for k, ok in got.items() if not ok]
+    if backend != "nccl" or bad:
+        failed.append(f"(a) collectives on {backend}: {bad} differ")
+    log(f"[sharded (a)] one-rank {backend} group: the eight collectives "
+        "on CUDA tensors equal their definitions "
+        f"({len(got) - len(bad)} of {len(got)}); all_reduce, all_gather, "
+        "reduce_scatter_tensor, all_to_all_single and broadcast ran on "
+        "NCCL, axis_size and a one-member ring shift need no call. One "
+        "rank proves the plumbing, not traffic between cards")
+
+
+def phase_sharded(card: str) -> dict:
+    """The fsdp slice's card checks. (a) :func:`_nccl_collectives`. (b)
+    GPT-small at 8 x 512 with the flash kernels (split backward), AdamW,
+    through ``cli/train.py``'s Trainer: 10 steps with ``--sharded_save``,
+    then a restart from that run's ``ckpt-10.shards.json`` anchor for 5
+    more; its step-15 checkpoint must equal, bit for bit, an
+    uninterrupted 15-step run's with ``--sharded_save`` and one with
+    monolithic saves. One card is one rank, so the state is whole (fsdp
+    1) and the shard set holds one file; the sharded format, its anchor
+    and its restore are what run. Reports the step ms (median of steps
+    2-14, each synced), each save's write ms and the peak memory. (c)
+    The kernel launches of (b), exact, for the kernels line."""
+    from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import (
+        CheckpointManager, load_npz)
+    from distributed_tensorflow_example_tpu_torch.obs import trace
+    failed: list[str] = []
+    _nccl_collectives(failed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    runs = [("first 10", "a", ["--train_steps", "10", "--save_steps", "10",
+                               "--sharded_save"]),
+            ("resumed to 15", "a", ["--train_steps", "15", "--save_steps",
+                                    "15", "--sharded_save"]),
+            ("whole 15", "b", ["--train_steps", "15", "--save_steps", "15",
+                               "--sharded_save"]),
+            ("monolithic 15", "c", ["--train_steps", "15", "--save_steps",
+                                    "15"])]
+    rec = trace.recorder()
+    info = {}
+    read = _reset_launches()
+    for label, d, extra in runs:
+        clock = _StepClock()
+        tr = _rest_trainer(["--optimizer", "adamw", "--log_every_steps", "5",
+                            "--ckpt_dir", os.path.join(tmp, d)] + extra,
+                           hooks=[clock])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec.start()
+        with tr:
+            tr.train()
+        spans = rec.drain("training")
+        rec.stop()
+        info[label] = {
+            "start": tr.start_step, "clock": clock,
+            "peak": torch.cuda.max_memory_allocated() / 2**20,
+            "writes": [round((t1 - t0) * 1e3, 1) for _, _, name, t0, t1, _
+                       in spans if name == "checkpoint_write"]}
+        del tr
+    launches = read()
+    want = {k: sum(_rest_want(n)[k] for n in (10, 5, 15, 15))
+            for k in _rest_want(1)}
+    if launches != want:
+        failed.append(f"(b) launches {launches}, want {want}")
+    if info["resumed to 15"]["start"] != 10:
+        failed.append(f"(b) the restart began at step "
+                      f"{info['resumed to 15']['start']}, not 10")
+    names = sorted(os.listdir(os.path.join(tmp, "a")))
+    for f in ("ckpt-10.shards.json", "ckpt-15.shards.json",
+              "ckpt-15.shard-0-of-1.npz"):
+        if f not in names:
+            failed.append(f"(b) {f} missing: {names}")
+    resumed = CheckpointManager(os.path.join(tmp, "a")).sharded_arrays(15)
+    whole = CheckpointManager(os.path.join(tmp, "b")).sharded_arrays(15)
+    mono = load_npz(CheckpointManager(os.path.join(tmp, "c")
+                                      ).checkpoint_path(15))
+    for other, what in ((whole, "uninterrupted"), (mono, "monolithic")):
+        bad = sorted(k for k in other if k not in resumed
+                     or not np.array_equal(resumed[k], other[k]))
+        if bad or sorted(resumed) != sorted(other):
+            failed.append(f"(b) the resumed state differs from the {what} "
+                          f"run's at {bad[:3]}")
+    med = {k: float(np.median([info[k]["clock"].step_ms(n)
+                               for n in range(2, 15)]))
+           for k in ("whole 15", "monolithic 15")}
+    log("[sharded (b)] GPT-small 8 x 512 flash, AdamW: 10 steps with "
+        "--sharded_save, restarted from ckpt-10.shards.json to 15: the "
+        "step-15 state equals the uninterrupted sharded run's and the "
+        "monolithic run's bit for bit"
+        + (" (FAILED)" if any(f.startswith("(b) the") for f in failed)
+           else "")
+        + "; ms a step (median of steps 2-14, synced): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + "; write ms a save: "
+        + ", ".join(f"{k} {v['writes']}" for k, v in info.items())
+        + "; peak MiB: "
+        + ", ".join(f"{k} {v['peak']:.1f}" for k, v in info.items())
+        + f" ({card})")
+    log(f"[sharded (c)] launches of (b): {launches} ({card})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    if failed:
+        raise SystemExit("the sharded phase failed: " + "; ".join(failed))
+    return {"b1": launches["flash_attention_fwd"],
+            "b2a": launches["flash_attention_bwd_dq"],
+            "b2b": launches["flash_attention_bwd_dkv"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6857,6 +7077,10 @@ def main() -> int:
     timed("moe")
     readers = phase_readers(card)
     timed("readers")
+    phase_examples(card)
+    timed("examples")
+    sharded = phase_sharded(card)
+    timed("sharded")
     log("[readers] MNIST at the mnist_mlp row (batch 8192), two Trainer "
         "runs a loader: " + "; ".join(
             f"{k} loader {v['alone_ms']:.3f} host ms a batch alone, ms a "
@@ -6887,7 +7111,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
-         + fleet["b1"] + moe["b1"] + readers["b1"],
+         + fleet["b1"] + moe["b1"] + readers["b1"] + sharded["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -6895,7 +7119,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
          "launches": train["flash_attention_bwd_dq"] + moe["b2a"]
-         + readers["b2a"],
+         + readers["b2a"] + sharded["b2a"],
          **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -6903,7 +7127,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
          "launches": train["flash_attention_bwd_dkv"] + moe["b2b"]
-         + readers["b2b"],
+         + readers["b2b"] + sharded["b2b"],
          **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"

@@ -29,12 +29,29 @@ verifies, or a fresh init) on every rank, and rank 0 then broadcasts the
 whole state, so every rank starts from the same bits. Async saves (one
 writer thread), the ``best`` record (``save_best``, kept out of ring
 rotation), rollback's ``discard_steps_above`` and the ``ckpt.write``,
-``ckpt.commit`` and ``ckpt.read`` fault seams are the reference's;
-sharded saves arrive with slice A6.
+``ckpt.commit`` and ``ckpt.read`` fault seams are the reference's.
+
+Sharded mode (``sharded=True``, the reference's format, so either
+package restores the other's): instead of gathering every leaf to rank
+0, each rank writes the pieces it owns to its own
+``ckpt-N.shard-<p>-of-<P>.npz``, with the piece index (each leaf's
+dtype, global shape and the start and shape of each piece) as JSON under
+``__shardmeta__``; after a barrier rank 0 writes the small
+``ckpt-N.shards.json`` anchor and commits it to the ring. A rank owns
+its pieces of the sharded leaves where its ``data`` coordinate is 0 (the
+reference's ``replica_id == 0`` shards), and rank 0 the whole leaves.
+Restore reads selectively: a rank reads only its piece of a sharded
+leaf when a saved piece has its bounds, and otherwise assembles the leaf
+from its pieces and cuts its own (a restore onto another mesh). The
+format is detected per step, so a run may switch modes across restarts,
+and a same-step save in the other format supersedes the old one.
+A sharded state (``TrainState.layout``) saved monolithically is gathered
+over ``fsdp`` first, on every rank.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -68,7 +85,8 @@ DEFAULTABLE_LEAVES = ("anomaly_count",)
 #: in the layout of a threefry2x32 key ([hi, lo] uint32)
 _KEY_DATA, _KEY_IMPL = "__prngkey__/rng", "__prngimpl__/rng"
 _THREEFRY = "threefry2x32"
-_A6 = "arrive with slice A6"
+#: reserved npz key of a shard file: JSON piece index
+SHARD_META_KEY = "__shardmeta__"
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64,
@@ -82,7 +100,8 @@ _NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
 
 class CorruptCheckpointError(FileNotFoundError):
     """An npz whose members fail their CRC32 or disagree with the CRC
-    record (same contract as the reference's error of this name)."""
+    record, or a sharded checkpoint missing a shard file (same contract
+    as the reference's error of this name)."""
 
 
 def crc32_of(arr: np.ndarray) -> int:
@@ -200,6 +219,44 @@ def load_npz(path: str) -> dict[str, np.ndarray]:
     return _read_npz(path, keep=True)
 
 
+class _VerifiedNpz:
+    """An npz read member by member, each checked against the CRC record
+    as it is read: a sharded restore reads only the pieces it needs, and
+    every byte it reads is verified. Raises CorruptCheckpointError."""
+
+    def __init__(self, path: str):
+        self.path = path
+        try:
+            self._z = np.load(path, allow_pickle=False)
+            self._crcs = (json.loads(bytes(self._z[CRC_KEY]).decode())
+                          if CRC_KEY in self._z.files else None)
+        except (OSError, ValueError, zipfile.BadZipFile, zlib.error) as e:
+            raise CorruptCheckpointError(
+                f"unreadable npz {path!r}: {e}") from e
+        if self._crcs is not None and set(self._crcs) != set(self.files):
+            raise CorruptCheckpointError(
+                f"npz {path!r} members do not match its CRC record")
+
+    @property
+    def files(self) -> list[str]:
+        return [k for k in self._z.files if k != CRC_KEY]
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        try:
+            v = self._z[key]
+        except (OSError, ValueError, zipfile.BadZipFile, zlib.error) as e:
+            raise CorruptCheckpointError(
+                f"npz {self.path!r} member {key!r} unreadable: {e}") from e
+        if self._crcs is not None and crc32_of(v) != self._crcs.get(key):
+            raise CorruptCheckpointError(
+                f"npz {self.path!r} member {key!r} fails CRC32 "
+                "verification")
+        return v
+
+    def close(self) -> None:
+        self._z.close()
+
+
 # ---------------------------------------------------------------------------
 # TrainState <-> the reference's flat keys
 # ---------------------------------------------------------------------------
@@ -252,10 +309,39 @@ def _state_leaves(state) -> dict[str, torch.Tensor]:
     return out
 
 
+def _pieces(state) -> dict[str, str]:
+    """{state key: param key} of the leaves that are this rank's pieces
+    of a sharded state (its sharded params and their per-parameter
+    optimizer leaves); empty for a whole state."""
+    layout = getattr(state, "layout", None)
+    if layout is None:
+        return {}
+    pkeys = list(flatten_dict(state.params))
+    out = {f"params/{k}": k for k in pkeys if layout.dims[k] is not None}
+    keyed = _tree_items(layout.map_per_param(state.opt_state,
+                                             lambda k, v: (k, v)),
+                        "opt_state", pkeys)
+    for key, item in keyed:
+        if isinstance(item, tuple) and layout.leaf_shards(*item):
+            out[key] = item[0]
+    return out
+
+
+def _whole_leaves(state) -> dict[str, torch.Tensor]:
+    """:func:`_state_leaves` with every piece of a sharded state gathered
+    over ``fsdp`` into its whole leaf (a collective: every rank calls
+    it)."""
+    leaves = _state_leaves(state)
+    for key, pkey in _pieces(state).items():
+        leaves[key] = state.layout.gather(pkey, leaves[key])
+    return leaves
+
+
 def state_arrays(state) -> dict[str, np.ndarray]:
     """A TrainState as the reference's flat checkpoint arrays (bf16 leaves
-    as uint16 under ``__bf16__/``)."""
-    out = to_numpy(_state_leaves(state))
+    as uint16 under ``__bf16__/``); a sharded state's pieces are gathered
+    first, so every rank must call it."""
+    out = to_numpy(_whole_leaves(state))
     out["step"] = np.asarray(state.step, np.int32)
     seed = int(state.seed) % 2**64
     out[_KEY_DATA] = np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
@@ -266,12 +352,108 @@ def state_arrays(state) -> dict[str, np.ndarray]:
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 
 
+# ---------------------------------------------------------------------------
+# sharded mode: pieces and their index (the reference's format)
+# ---------------------------------------------------------------------------
+
+def _piece_key(leaf_key: str, start) -> str:
+    return leaf_key + "::" + "_".join(str(int(s)) for s in start)
+
+
+def _host_piece(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A tensor as a host array and its dtype's name (bf16 as uint16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _owned_pieces(state) -> tuple[dict[str, np.ndarray], dict]:
+    """This rank's pieces of a TrainState and their index: ``(pieces,
+    meta)``, ``pieces`` by npz key (``<leaf>::<start>``), ``meta`` by
+    leaf: kind, dtype, global shape and the (start, shape) of each piece
+    written here. A rank owns its pieces of the sharded leaves where its
+    ``data`` coordinate is 0; rank 0 owns the whole leaves, the step and
+    the PRNG key."""
+    rank0 = distributed.process_index() == 0
+    layout = state.layout
+    cut = _pieces(state)
+    pieces: dict[str, np.ndarray] = {}
+    meta: dict[str, dict] = {}
+
+    def add(key, arr, dtype, shape, start, kind="array", **extra):
+        pk = _piece_key(key, start)
+        pieces[pk] = arr
+        meta[key] = {"kind": kind, "dtype": dtype, "shape": list(shape),
+                     **extra, "pieces": [{"key": pk, "start": list(start),
+                                          "shape": list(arr.shape)}]}
+
+    for key, t in _state_leaves(state).items():
+        if key in cut:
+            if layout.mesh.coords["data"] == 0:
+                arr, dtype = _host_piece(t)
+                bounds = layout.bounds(cut[key])
+                add(key, arr, dtype, layout.shapes[cut[key]],
+                    [a for a, _ in bounds])
+        elif rank0:
+            arr, dtype = _host_piece(t)
+            add(key, arr, dtype, arr.shape, [0] * arr.ndim)
+    if rank0:
+        add("step", np.asarray(state.step, np.int32), "int32", (), ())
+        seed = int(state.seed) % 2**64
+        add("rng", np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32),
+            "uint32", (2,), (0,), kind="prngkey", impl=_THREEFRY)
+    return pieces, meta
+
+
+def _merge_metas(loads: Mapping[str, "_VerifiedNpz"]) -> dict[str, dict]:
+    """Every shard file's piece index merged into one leaf map; each piece
+    gains the ``file`` it lives in."""
+    merged: dict[str, dict] = {}
+    for p, z in loads.items():
+        for key, entry in json.loads(bytes(z[SHARD_META_KEY]).decode()
+                                     ).items():
+            tgt = merged.setdefault(key, {**entry, "pieces": []})
+            tgt["pieces"].extend({**pc, "file": p}
+                                 for pc in entry["pieces"])
+    return merged
+
+
+def _leaf_from_pieces(key: str, entry: dict,
+                      loads: Mapping[str, "_VerifiedNpz"]) -> np.ndarray:
+    """A whole leaf assembled from its saved pieces (bf16 as uint16)."""
+    shape = tuple(entry["shape"])
+    dtype = (np.dtype(np.uint16) if entry["dtype"] == "bfloat16"
+             else np.dtype(entry["dtype"]))
+    out = np.empty(shape, dtype)
+    covered = 0
+    for pc in entry["pieces"]:
+        sl = tuple(slice(a, a + d) for a, d in zip(pc["start"], pc["shape"]))
+        out[sl] = loads[pc["file"]][pc["key"]]
+        covered += math.prod(pc["shape"])
+    if covered < math.prod(shape):
+        raise ValueError(
+            f"sharded checkpoint does not cover leaf {key!r} of shape "
+            f"{shape}: {covered} elements present — missing shard files?")
+    return out
+
+
+def _wanted(template) -> dict[str, tuple]:
+    """{state key: bounds} of a sharded template's pieces."""
+    return {k: template.layout.bounds(pk)
+            for k, pk in _pieces(template).items()}
+
+
 def state_from_arrays(template, arrays: Mapping[str, np.ndarray]):
     """``template`` (a TrainState) with every leaf read from ``arrays``
     (reference keys), on the template's devices. Shapes and dtypes must
     match the template's, as in the reference: a checkpoint restores at
     the ``param_dtype`` it was written with. The step and the seed come
-    from the checkpoint."""
+    from the checkpoint. A piece of a sharded template is cut from the
+    whole leaf at its bounds (an array already cut to them, which a
+    sharded restore reads alone, is taken as it is)."""
+    pieces = _pieces(template)
 
     def leaf(key: str, t: torch.Tensor) -> torch.Tensor:
         bf16 = BF16_PREFIX + key in arrays
@@ -283,6 +465,11 @@ def state_from_arrays(template, arrays: Mapping[str, np.ndarray]):
             return torch.zeros_like(t)
         else:
             raise KeyError(f"checkpoint missing leaf {key!r}")
+        if key in pieces:
+            layout = template.layout
+            if tuple(arr.shape) == layout.shapes[pieces[key]]:
+                arr = arr[tuple(slice(a, b)
+                                for a, b in layout.bounds(pieces[key]))]
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf {key!r} shape {arr.shape} != "
                              f"template {tuple(t.shape)}")
@@ -335,11 +522,16 @@ class CheckpointManager:
     def __init__(self, directory: str, *, max_to_keep: int = 5,
                  keep_every_n_hours: float = 0.0, async_save: bool = False,
                  sharded: bool = False):
-        if sharded:
-            raise NotImplementedError(
-                "sharded checkpoints (per-rank shard files) arrive with "
-                "slice A6, with the sharded state they write")
+        if sharded and async_save and distributed.process_count() > 1:
+            # the sharded commit barriers across the ranks after their
+            # writes: on the writer thread it would interleave with the
+            # training loop's collectives
+            raise ValueError(
+                "sharded=True with async_save is only supported with one "
+                "rank: the commit barrier across ranks cannot run on the "
+                "writer thread")
         self.directory = directory
+        self.sharded = sharded
         self.max_to_keep = max_to_keep
         self.keep_every_n_hours = keep_every_n_hours
         # _lock serializes writes and state-file edits; _pending_lock
@@ -381,6 +573,10 @@ class CheckpointManager:
 
     def shard_anchor_path(self, step: int) -> str:
         return os.path.join(self.directory, f"{PREFIX}-{step}.shards.json")
+
+    def _anchor_exists(self, step: int) -> bool:
+        return (os.path.exists(self.checkpoint_path(step))
+                or os.path.exists(self.shard_anchor_path(step)))
 
     def all_steps(self) -> list[int]:
         self.wait()                # an async write may not have landed
@@ -435,9 +631,13 @@ class CheckpointManager:
         error, if any, this call raises)."""
         if step is None:
             step = int(state.step)
+        if self.sharded:
+            return self._save_sharded(state, step)
         path = None
+        # a sharded state's pieces are gathered on every rank
+        arrays = (self._snapshot(state)
+                  if self.is_writer or state.layout is not None else None)
         if self.is_writer:
-            arrays = self._snapshot(state)
             if self._executor is not None:
                 # drain the previous write (surfacing its error exactly
                 # once) and queue this one under one lock hold
@@ -503,6 +703,13 @@ class CheckpointManager:
                         rule.describe(), path)
 
     def _remove_victim(self, base: str) -> None:
+        """Delete a rotated-out checkpoint: for a sharded one, its anchor
+        and every shard file of its step."""
+        m = re.search(rf"{PREFIX}-(\d+)\.shards\.json$", base)
+        if m:
+            for f in glob.glob(os.path.join(
+                    self.directory, f"{PREFIX}-{m.group(1)}.shard-*.npz")):
+                os.remove(f)
         path = os.path.join(self.directory, base)
         if os.path.exists(path):
             os.remove(path)
@@ -521,6 +728,21 @@ class CheckpointManager:
         was_kept = base in st.get("kept_forever", [])
         if was_kept:
             st["kept_forever"].remove(base)
+        # a save of this step in the other format supersedes the old one:
+        # its anchor (and shard files) go, so a stale ckpt-N.npz cannot
+        # shadow a newer ckpt-N.shards.json at restore
+        m = re.search(rf"{PREFIX}-(\d+)\.(npz|shards\.json)$", base)
+        if m:
+            other = (f"{PREFIX}-{m.group(1)}."
+                     + ("shards.json" if m.group(2) == "npz" else "npz"))
+            if other in st["all_model_checkpoint_paths"]:
+                st["all_model_checkpoint_paths"].remove(other)
+            if other in st.get("kept_forever", []):
+                st["kept_forever"].remove(other)
+                was_kept = True      # kept-forever follows the step
+            if other == (st.get("best") or {}).get("path"):
+                st["best"]["path"] = base
+            self._remove_victim(other)
         if was_kept or (self.keep_every_n_hours > 0 and
                         now - self._last_kept_forever
                         >= self.keep_every_n_hours * 3600):
@@ -567,7 +789,10 @@ class CheckpointManager:
         with self._lock:
             st = self._state()
             old = st.get("best")
-            base = os.path.basename(self.checkpoint_path(step))
+            base = os.path.basename(
+                self.checkpoint_path(step)
+                if os.path.exists(self.checkpoint_path(step))
+                else self.shard_anchor_path(step))
             st["best"] = {"path": base, "step": int(step), "value": value}
             if (old and old["path"] != base
                     and old["path"] not in st["all_model_checkpoint_paths"]
@@ -627,10 +852,11 @@ class CheckpointManager:
         if os.path.exists(path):
             _read_npz(path, keep=False)
             return
-        if os.path.exists(self.shard_anchor_path(step)):
-            raise NotImplementedError(f"sharded checkpoints {_A6}")
-        raise FileNotFoundError(
-            f"no checkpoint at step {step} under {self.directory!r}")
+        if not os.path.exists(self.shard_anchor_path(step)):
+            raise FileNotFoundError(
+                f"no checkpoint at step {step} under {self.directory!r}")
+        for p in self._shard_files(step):
+            _read_npz(p, keep=False)
 
     def latest_valid_step(self, max_step: int | None = None) -> int | None:
         """Newest step whose checkpoint verifies, walking newest to oldest
@@ -691,17 +917,130 @@ class CheckpointManager:
         if os.path.exists(path):
             return state_from_arrays(template, load_npz(path))
         if os.path.exists(self.shard_anchor_path(step)):
-            raise NotImplementedError(f"sharded checkpoints {_A6}")
+            return state_from_arrays(
+                template, self.sharded_arrays(step, _wanted(template)))
         raise FileNotFoundError(path)
+
+    # -- sharded mode -----------------------------------------------------
+    def _shard_files(self, step: int) -> list[str]:
+        """The shard files the anchor of ``step`` names; a missing one is
+        a CorruptCheckpointError."""
+        anchor = self.shard_anchor_path(step)
+        try:
+            with open(anchor) as f:
+                files = json.load(f)["files"]
+        except (OSError, ValueError, KeyError) as e:
+            raise CorruptCheckpointError(
+                f"checkpoint step {step} anchor {anchor!r} is unreadable "
+                f"({type(e).__name__}: {e})") from e
+        paths = [os.path.join(self.directory, b) for b in files]
+        missing = [os.path.basename(p) for p in paths
+                   if not os.path.exists(p)]
+        if missing:
+            raise CorruptCheckpointError(
+                f"sharded checkpoint step {step} is missing shard files "
+                f"{missing}: every shard must live on a filesystem every "
+                "rank can read")
+        return paths
+
+    def _save_sharded(self, state, step: int) -> str:
+        """Every rank writes the pieces it owns to its shard file; after a
+        barrier rank 0 writes the anchor and commits it (a torn save is
+        invisible: restore reads only a committed anchor); the ranks meet
+        again so none reads the state file before the commit."""
+        pieces, meta = _owned_pieces(state)
+        p, nprocs = distributed.process_index(), distributed.process_count()
+        base = f"{PREFIX}-{step}.shard-{p}-of-{nprocs}.npz"
+        shard_path = os.path.join(self.directory, base)
+        os.makedirs(self.directory, exist_ok=True)
+        pieces[SHARD_META_KEY] = np.frombuffer(json.dumps(meta).encode(),
+                                               dtype=np.uint8)
+        if self._executor is not None and state.anomaly_count.device.type \
+                == "cpu":
+            pieces = {k: np.array(v, copy=True) for k, v in pieces.items()}
+
+        def write_and_commit() -> str:
+            with self._lock, span("checkpoint_write", process="training",
+                                  lane="checkpoint_writer", step=step):
+                self._atomic_npz(pieces, shard_path)
+                distributed.barrier()
+                if self.is_writer:
+                    anchor = self.shard_anchor_path(step)
+                    tmp = anchor + ".tmp"
+                    with open(tmp, "w") as f:
+                        json.dump({"num_shards": nprocs, "step": step,
+                                   "files": [f"{PREFIX}-{step}.shard-{i}-"
+                                             f"of-{nprocs}.npz"
+                                             for i in range(nprocs)]}, f)
+                    os.replace(tmp, anchor)
+                    self._commit(os.path.basename(anchor))
+                distributed.barrier()
+                return shard_path
+
+        if self._executor is not None:       # one rank only (the ctor)
+            with self._pending_lock:
+                pending, self._pending = self._pending, None
+                if pending is not None:
+                    pending.result()
+                self._pending = self._executor.submit(write_and_commit)
+            return shard_path
+        return write_and_commit()
+
+    def sharded_arrays(self, step: int,
+                       wanted: Mapping[str, tuple] | None = None
+                       ) -> dict[str, np.ndarray]:
+        """The sharded checkpoint of ``step`` as flat arrays in the
+        monolithic layout (``__bf16__/`` keys, the PRNG key). A leaf in
+        ``wanted`` ({key: piece bounds}) is read alone when a saved piece
+        has exactly those bounds; every other leaf is assembled whole
+        from its pieces. Each member read is CRC-checked."""
+        loads = {p: _VerifiedNpz(p) for p in self._shard_files(step)}
+        try:
+            metas = _merge_metas(loads)
+            out: dict[str, np.ndarray] = {}
+            for key, entry in metas.items():
+                by_bounds = {tuple((a, a + d) for a, d in
+                                   zip(pc["start"], pc["shape"])): pc
+                             for pc in entry["pieces"]}
+                want = (wanted or {}).get(key)
+                if want is not None and want in by_bounds:
+                    pc = by_bounds[want]
+                    arr = loads[pc["file"]][pc["key"]]
+                else:
+                    arr = _leaf_from_pieces(key, entry, loads)
+                if entry["kind"] == "prngkey":
+                    out[_KEY_DATA] = arr
+                    if "impl" in entry:
+                        out[_KEY_IMPL] = np.frombuffer(
+                            entry["impl"].encode(), dtype=np.uint8)
+                elif entry["dtype"] == "bfloat16":
+                    out[BF16_PREFIX + key] = arr
+                else:
+                    out[key] = arr
+            return out
+        finally:
+            for z in loads.values():
+                z.close()
+
+
+def latest_checkpoint(directory: str) -> str | None:
+    """Path of the newest checkpoint (``tf.train.latest_checkpoint``
+    parity): its ``ckpt-N.npz``, or for a sharded one its
+    ``.shards.json`` anchor."""
+    mgr = CheckpointManager(directory)
+    step = mgr.latest_step()
+    if step is None:
+        return None
+    single = mgr.checkpoint_path(step)
+    return single if os.path.exists(single) else mgr.shard_anchor_path(step)
 
 
 def _agreed_step(manager: CheckpointManager, local: int | None,
                  what: str) -> int | None:
     """Rank 0's ``local`` step on every rank, each rank checking that it
-    can see the chosen file (the directory must be shared)."""
+    can see the chosen checkpoint (the directory must be shared)."""
     step = distributed.broadcast_int(local)
-    if step is not None and not os.path.exists(
-            manager.checkpoint_path(step)):
+    if step is not None and not manager._anchor_exists(step):
         raise FileNotFoundError(
             f"rank {distributed.process_index()} cannot read {what} "
             f"step {step} that rank 0 chose: the checkpoint directory "
@@ -746,6 +1085,15 @@ def restore_or_init(manager: CheckpointManager | None, init_fn, *args,
     state = init_fn(*args, **kwargs)
     if step is not None:
         state = manager.restore(state, step)
-    # params, optimizer state, extras and anomaly count, in place
-    distributed.broadcast_(list(_state_leaves(state).values()))
+    # params, optimizer state, extras and anomaly count, in place: the
+    # whole leaves from rank 0, a sharded leaf's pieces along ``data``
+    # from the rank at data coordinate 0 of the same fsdp column
+    cut = _pieces(state)
+    leaves = _state_leaves(state)
+    distributed.broadcast_([v for k, v in leaves.items() if k not in cut])
+    if cut:
+        from ..parallel import collectives
+        for k in cut:
+            leaves[k].copy_(collectives.broadcast_one_to_all(
+                leaves[k], "data", src=0, mesh=state.layout.mesh))
     return state, step is not None

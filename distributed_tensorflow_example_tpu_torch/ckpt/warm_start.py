@@ -11,8 +11,9 @@ key are hard errors, and PRNG-key leaves are never transplanted. A checkpoint wr
 either package warm-starts the port: its ``params/`` leaves are read by
 their flat keys, bf16 leaves from their ``__bf16__/`` uint16 form.
 
-The port writes monolithic ``ckpt-N.npz`` files; a sharded checkpoint
-(a ``.shards.json`` anchor) arrives with slice A6 and is refused.
+A sharded checkpoint (a ``ckpt-N.shards.json`` anchor and its shard
+files, written by either package) warm-starts too: each leaf is
+assembled whole from its pieces.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 
 from ..utils.pytree import flatten_dict, unflatten_dict
-from .checkpoint import BF16_PREFIX, PREFIX, STATE_FILE, _tensor, load_npz
+from .checkpoint import (BF16_PREFIX, PREFIX, STATE_FILE, CheckpointManager,
+                         _tensor, load_npz)
 
 #: npz key prefixes warm start never reads (random streams, shard index)
 _SKIPPED = ("__prngkey__/", "__prngimpl__/", "__shardmeta__")
@@ -54,13 +56,15 @@ def load_checkpoint_arrays(ckpt: str) -> dict[str, np.ndarray | torch.Tensor]:
     (numpy has no bf16), the others as numpy arrays; PRNG-key leaves are
     left out."""
     path = _checkpoint_path(ckpt)
-    if path.endswith(".shards.json"):
-        raise NotImplementedError(
-            f"{path!r} is a sharded checkpoint: reading per-rank shard "
-            "files arrives with slice A6 (the port writes monolithic npz "
-            "checkpoints)")
+    m = re.search(rf"{PREFIX}-(\d+)\.shards\.json$", path)
+    if m:
+        # the anchor's directory holds its shard files
+        arrays = CheckpointManager(os.path.dirname(path)).sharded_arrays(
+            int(m.group(1)))
+    else:
+        arrays = load_npz(path)
     out: dict = {}
-    for key, arr in load_npz(path).items():
+    for key, arr in arrays.items():
         if key.startswith(_SKIPPED):
             continue
         if key.startswith(BF16_PREFIX):

@@ -123,15 +123,16 @@ def build_parser() -> argparse.ArgumentParser:
     """The reference's flags (a later slice's are refused in
     :func:`main`) plus ``--device``."""
     p = argparse.ArgumentParser(
-        description="sync data-parallel trainer, one replica per rank "
-                    "(distributed-tensorflow-example parity CLI)")
+        description="sync data-parallel trainer, one rank a card over "
+                    "the data and fsdp axes (distributed-tensorflow-example "
+                    "parity CLI)")
     add_legacy_flags(p)
     a = p.add_argument
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
     a("--model", default="mlp", help="mlp | lenet | resnet20 | resnet50 | "
       "gpt | gpt_tiny | bert | bert_large | bert_tiny | moe_bert | "
-      "moe_bert_tiny (the pipeline models arrive with slice A6)")
+      "moe_bert_tiny (the pipeline models arrive with slice A6c)")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
@@ -254,8 +255,10 @@ def build_parser() -> argparse.ArgumentParser:
       choices=["float32", "bfloat16"],
       help="batch-statistic reduction dtype of the ResNets")
     a("--mesh", default="",
-      help="axis sizes; the port takes data=-1 or data=<ranks> (one "
-           "replica per rank; sharded axes: slice A6)")
+      help="axis sizes, e.g. data=2,fsdp=2: one rank a card, so they "
+           "multiply to the ranks; data and fsdp (params and optimizer "
+           "state sharded over it) train, model (slice A6a-2), seq (A6b), "
+           "pipe (A6c) and expert (A6d) are refused")
     a("--sync_mode", default="auto", choices=["auto", "shard_map"],
       help="auto: batch norm over the global batch (sync-BN); "
            "shard_map: over each rank's batch")
@@ -287,7 +290,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--async_save", action="store_true",
       help="write checkpoints on a background thread (the copy to the "
            "host stays on the step)")
-    a("--sharded_save", action="store_true", help="slice A6")
+    a("--sharded_save", action="store_true",
+      help="each rank writes its own shard file of the state "
+           "(ckpt-N.shard-<r>-of-<R>.npz) under a ckpt-N.shards.json anchor")
     a("--log_every_steps", type=int, default=100)
     a("--summary_every_steps", type=int, default=0,
       help="scalar-summary cadence to the metrics sinks (0 disables)")
@@ -430,6 +435,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
             keep_best_metric=args.keep_best_metric,
             keep_best_mode=args.keep_best_mode,
             save_steps=args.save_steps, save_secs=args.save_secs,
+            sharded=args.sharded_save,
             keep_checkpoint_every_n_hours=(
                 args.keep_checkpoint_every_n_hours),
             async_save=args.async_save),
@@ -543,21 +549,33 @@ def _num_workers(args) -> int:
 
 def _later_slice(args) -> list[tuple[str, bool, str]]:
     """(what, set?, slice) for every knob the port does not carry yet."""
-    from ..train.trainer import one_replica_per_rank
-    mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
     dataset = args.dataset or args.model
     return [
         # the pipeline models (pipe_mlp, pipe_bert, pipe_moe_bert, ...)
-        (f"--model {args.model}", args.model.startswith("pipe_"), "A6"),
-        (f"--dataset {dataset}", dataset.startswith("pipe_"), "A6"),
+        (f"--model {args.model}", args.model.startswith("pipe_"), "A6c"),
+        (f"--dataset {dataset}", dataset.startswith("pipe_"), "A6c"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
-        (f"--mesh {args.mesh} (a sharded axis, or more replicas than the "
-         f"{_num_workers(args)} rank(s))",
-         not one_replica_per_rank(mesh, _num_workers(args)), "A6"),
-        ("--sharded_save (per-rank shard files of a sharded state)",
-         args.sharded_save, "A6"),
     ]
+
+
+def _refuse_mesh(args) -> None:
+    """SystemExit for a mesh the port cannot train: a later slice's axis
+    (named), a mesh that is not one rank a card, or an optimizer that
+    reduces over whole leaves under fsdp > 1 (slice A6a-2)."""
+    from ..parallel.sync_replicas import resolve_mesh
+    from ..train.optimizers import WHOLE_LEAF_OPTIMIZERS
+    mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
+    try:
+        sizes = resolve_mesh(mesh, _num_workers(args))
+    except NotImplementedError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+    if (sizes["fsdp"] > 1 and args.sync_mode == "auto"
+            and args.optimizer in WHOLE_LEAF_OPTIMIZERS):
+        raise SystemExit(
+            f"--optimizer {args.optimizer} under --mesh {args.mesh}: its "
+            "trust ratio or block RMS reduces over whole parameters, and "
+            "sharded over fsdp it arrives with slice A6a-2")
 
 
 def refuse_later_slices(args) -> None:
@@ -567,7 +585,8 @@ def refuse_later_slices(args) -> None:
         if on:
             raise SystemExit(f"{what} arrives with slice {slice_} of the "
                              "port; the port trains " + ", ".join(MODELS)
-                             + ", one replica per rank")
+                             + ", one rank a card over data and fsdp")
+    _refuse_mesh(args)
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):
         if getattr(args, flag):
@@ -878,17 +897,20 @@ def _eval_only(args, cfg, model, trainer, ctx) -> int:
 
 def _maybe_export(args, cfg, model, state, ctx) -> None:
     """The trained weights as the artifacts the port's ``PredictServer``
-    serves, written by rank 0 (every rank holds the same weights):
+    serves, written by rank 0:
     ``--export_dir`` the forward (``:predict``), ``--export_generator``
     the causal LM's generator (``:generate``); the EMA shadow when the
-    EMA is on (the tf export recipe used the EMA variables)."""
-    if ctx.process_index != 0:
-        return
+    EMA is on (the tf export recipe used the EMA variables). A sharded
+    state's pieces are gathered first, on every rank."""
     params = None
     if cfg.optimizer.ema_decay > 0:
         from ..train.optimizers import find_ema_params
         params = find_ema_params(state.opt_state, state.params)
     params = params if params is not None else state.params
+    if state.layout is not None:
+        params = state.layout.full_params(params)
+    if ctx.process_index != 0:
+        return
     if args.export_dir:
         from ..serving import export_model
         artifact = export_model(model, params, state.extras,

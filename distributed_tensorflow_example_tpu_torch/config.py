@@ -4,9 +4,10 @@ generation, the sync training step and the ``Trainer`` read, MoE-BERT's
 routing knobs, the parameter EMA, bf16 moments and warm start included).
 
 Field names and defaults are the reference's, so a config reads the same
-in both packages. The fields of a later slice are absent (sharded saves,
-the streaming and ImageNet-reader knobs), or refused by the ``Trainer``
-when set: a sharded mesh axis and ``steps_per_loop > 1``.
+in both packages. The fields of a later slice are absent (the streaming
+and ImageNet-reader knobs), or refused by the ``Trainer`` when set: a
+``model``, ``seq``, ``pipe`` or ``expert`` mesh axis and
+``steps_per_loop > 1``.
 """
 
 from __future__ import annotations
@@ -104,9 +105,11 @@ class SyncConfig:
 
 @dataclasses.dataclass
 class MeshShape:
-    """Logical mesh axis sizes (the reference's). The port runs one
-    replica per rank: ``data`` is -1 or the number of ranks, every other
-    axis 1 (sharded axes arrive with slice A6)."""
+    """Logical mesh axis sizes (the reference's). The port runs one rank
+    a card, so the axes multiply to the number of ranks (one ``-1``
+    takes the rest). ``data`` and ``fsdp`` train (``fsdp`` shards the
+    params and their optimizer state); ``model`` (slice A6a-2), ``seq``
+    (A6b), ``pipe`` (A6c) and ``expert`` (A6d) stay at 1."""
 
     data: int = 1
     fsdp: int = 1
@@ -144,6 +147,8 @@ class CheckpointConfig:
     save_secs: float = 0.0          # save every T seconds (0 disables)
     keep_checkpoint_every_n_hours: float = 0.0
     async_save: bool = False        # write on a background thread
+    sharded: bool = False           # per-rank shard files under a
+                                    # ckpt-N.shards.json anchor
 
 
 @dataclasses.dataclass

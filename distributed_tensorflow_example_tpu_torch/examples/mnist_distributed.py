@@ -109,8 +109,8 @@ def main(argv=None) -> int:
 
     # -- tf.device(replica_device_setter(...)): no placement to set. Each
     #    rank keeps a full replica of the parameters on its own card
-    #    (pure sync-DP, the reference's topology); sharded placements
-    #    arrive with slice A6.
+    #    (pure sync-DP, the reference's topology); the fsdp placement is
+    #    cli/train.py's --mesh data=..,fsdp=.. (parallel/sharding.py).
 
     # -- model + loss: 784 -> hidden -> 10 softmax xent
     model = MLP(in_dim=784, hidden=flags.hidden_units, num_classes=10)

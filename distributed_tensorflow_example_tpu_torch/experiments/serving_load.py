@@ -612,6 +612,9 @@ def run_router_mode(export_dir: str, matrix, *, replicas: int = 2,
         "decode_steps": int(registry.get("serving_decode_steps_total",
                                          0)),
         "prefills": int(registry.get("serving_prefills_total", 0)),
+        # every copy a replica admitted: the requests plus the hedged
+        # and retried copies that reached a prefill before their cancel
+        "admissions": int(registry.get("serving_admissions_total", 0)),
         "router_requests": int(registry.get("router_requests_total",
                                             0)),
         "router_retries": int(registry.get("router_retries_total", 0)),

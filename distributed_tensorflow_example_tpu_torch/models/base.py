@@ -155,3 +155,13 @@ def get_model(name: str, config: TrainConfig | None = None):
 
 def list_models() -> list[str]:
     return sorted(_REGISTRY)
+
+
+class DefaultRulesMixin:
+    """Default placement: replicate, fsdp-shard big params when fsdp>1
+    (the reference's ``models/base.py`` mixin)."""
+
+    def sharding_rules(self, mesh_shape):
+        from ..parallel.sharding import ShardingRules
+        fsdp = getattr(mesh_shape, "fsdp", 1) if mesh_shape else 1
+        return ShardingRules(fsdp_axis_size=fsdp)

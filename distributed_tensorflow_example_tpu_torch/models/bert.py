@@ -38,8 +38,10 @@ forward runs twice a layer.
 
 The encoder layer is an attention half and an FFN tail
 (:meth:`Bert._attn_block`, :meth:`Bert._ffn_block`), which MoE-BERT
-(``models/moe.py``) shares. The reference's tensor-parallel sharding
-rules belong to slice A6.
+(``models/moe.py``) shares. :meth:`Bert.sharding_rules` carries the
+reference's tensor-parallel rules as data; the port's step trains them
+only with ``model`` at 1, where they are the fsdp fallback (Megatron TP
+is slice A6a-2).
 """
 
 from __future__ import annotations
@@ -90,6 +92,32 @@ class BertConfig:
 
 
 class Bert:
+    #: TP rules for the (non-stacked) embedding/MLM head — shared with
+    #: PipeBert's PP×TP rules in the reference
+    TP_EMBED_RULES: tuple = (
+        (r"embed/word/table", ("model", None)),   # vocab-sharded
+        (r"mlm/bias", ("model",)),
+    )
+
+    def sharding_rules(self, mesh_shape):
+        """Megatron-style TP + vocab-sharded embeddings; fsdp fallback."""
+        from ..parallel.mesh import AxisNames
+        from ..parallel.sharding import P, ShardingRules
+        M = AxisNames.MODEL
+        fsdp = getattr(mesh_shape, "fsdp", 1) if mesh_shape else 1
+        tp = getattr(mesh_shape, "model", 1) if mesh_shape else 1
+        if tp <= 1:
+            return ShardingRules(fsdp_axis_size=fsdp)
+        return ShardingRules(rules=[
+            (r"attn/(q|k|v)/kernel", P(None, M)),
+            (r"attn/(q|k|v)/bias", P(M)),
+            (r"attn/o/kernel", P(M, None)),
+            (r"ffn/in/kernel", P(None, M)),
+            (r"ffn/in/bias", P(M)),
+            (r"ffn/out/kernel", P(M, None)),
+            *((pat, P(*spec)) for pat, spec in self.TP_EMBED_RULES),
+        ], fsdp_axis_size=fsdp)
+
     name = "bert"
 
     def __init__(self, cfg: BertConfig, dtype=torch.float32,

@@ -145,6 +145,27 @@ def _check_loss_levers(cfg: GPTConfig) -> None:
 
 
 class GPT:
+    def sharding_rules(self, mesh_shape):
+        """Megatron TP, same shapes as Bert; vocab-sharded tied head (the
+        reference's rules, carried as data; with ``model`` at 1 they are
+        the fsdp fallback)."""
+        from ..parallel.mesh import AxisNames
+        from ..parallel.sharding import P, ShardingRules
+        M = AxisNames.MODEL
+        fsdp = getattr(mesh_shape, "fsdp", 1) if mesh_shape else 1
+        tp = getattr(mesh_shape, "model", 1) if mesh_shape else 1
+        if tp <= 1:
+            return ShardingRules(fsdp_axis_size=fsdp)
+        return ShardingRules(rules=[
+            (r"attn/(q|k|v)/kernel", P(None, M)),
+            (r"attn/(q|k|v)/bias", P(M)),
+            (r"attn/o/kernel", P(M, None)),
+            (r"ffn/in/kernel", P(None, M)),
+            (r"ffn/in/bias", P(M)),
+            (r"ffn/out/kernel", P(M, None)),
+            (r"\bwte/table", P(M, None)),       # vocab-sharded tied head
+        ], fsdp_axis_size=fsdp)
+
     name = "gpt"
 
     def __init__(self, cfg: GPTConfig, dtype=torch.float32,

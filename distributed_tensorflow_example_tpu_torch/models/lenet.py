@@ -14,11 +14,12 @@ import torch
 
 from ..config import TrainConfig
 from ..ops import losses, nn
-from .base import (cast_floating, classification_eval_metrics, generator,
-                   register_model, resolve_dtype)
+from .base import (DefaultRulesMixin, cast_floating,
+                   classification_eval_metrics, generator, register_model,
+                   resolve_dtype)
 
 
-class LeNet:
+class LeNet(DefaultRulesMixin):
     name = "lenet"
 
     def __init__(self, num_classes: int = 10, dropout_rate: float = 0.0,

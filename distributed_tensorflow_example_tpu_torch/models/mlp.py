@@ -17,12 +17,12 @@ import torch
 from ..ckpt import checkpoint as ckpt
 from ..config import TrainConfig
 from ..ops import losses, nn
-from .base import (cast_floating, checked_params,
+from .base import (DefaultRulesMixin, cast_floating, checked_params,
                    classification_eval_metrics, generator, register_model,
                    resolve_dtype)
 
 
-class MLP:
+class MLP(DefaultRulesMixin):
     name = "mlp"
 
     def __init__(self, in_dim: int = 784, hidden: int = 100,

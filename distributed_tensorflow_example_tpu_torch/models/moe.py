@@ -22,8 +22,9 @@ Under N ranks each rank routes its own tokens (capacity from its local
 T) and the sync step takes the plain mean of the ranks' losses, metrics
 and gradients, as the reference's explicit EP step pmeans its members';
 the MLM loss reports no token weight here, so no rank's share is
-reweighed. Expert parallelism and the reference's ``sharding_rules``
-arrive with slice A6.
+reweighed. :meth:`MoeBert.sharding_rules` carries the reference's
+expert and TP rules as data; expert parallelism itself (the token
+exchange over an ``expert`` axis) is slice A6d.
 """
 
 from __future__ import annotations
@@ -57,6 +58,30 @@ class MoeBertConfig(BertConfig):
 
 
 class MoeBert(Bert):
+    def sharding_rules(self, mesh_shape):
+        """Bert's Megatron TP rules + expert-sharded MoE weights (the
+        reference's: with ``expert`` and ``model`` at 1 they are Bert's,
+        the fsdp fallback)."""
+        from ..parallel.mesh import AxisNames
+        from ..parallel.sharding import P, ShardingRules
+        E = AxisNames.EXPERT
+        M = AxisNames.MODEL
+        base = super().sharding_rules(mesh_shape)
+        ep = getattr(mesh_shape, "expert", 1) if mesh_shape else 1
+        tp = getattr(mesh_shape, "model", 1) if mesh_shape else 1
+        e = E if ep > 1 else None
+        m = M if tp > 1 else None
+        if e is None and m is None:
+            return base
+        rules = [
+            (r"moe/w_in", P(e, None, m)),
+            (r"moe/b_in", P(e, m)),
+            (r"moe/w_out", P(e, m, None)),
+            (r"moe/b_out", P(e, None)),
+        ] + list(base.rules)
+        return ShardingRules(rules=rules,
+                             fsdp_axis_size=base.fsdp_axis_size)
+
     name = "moe_bert"
     #: the forward's arithmetic depends on the batch size (expert
     #: capacity = f(token count)): its export is static-batch

@@ -18,8 +18,9 @@ import torch
 
 from ..config import TrainConfig
 from ..ops import losses, nn
-from .base import (cast_floating, classification_eval_metrics, generator,
-                   register_model, resolve_dtype)
+from .base import (DefaultRulesMixin, cast_floating,
+                   classification_eval_metrics, generator, register_model,
+                   resolve_dtype)
 
 
 class _BasicBlock:
@@ -116,7 +117,7 @@ class _BottleneckBlock:
         return torch.relu(h + s), new
 
 
-class ResNet:
+class ResNet(DefaultRulesMixin):
     """Configurable ResNet. Two presets are registered below:
 
     - ``resnet20``: CIFAR stem (3x3/16, no maxpool), basic blocks [3,3,3],

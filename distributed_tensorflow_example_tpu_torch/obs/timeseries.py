@@ -53,9 +53,9 @@ class SnapshotSampler:
     serving path down.
 
     Thread model: :meth:`sample` is safe from any thread (ring
-    mutations under one lock); :meth:`start` runs it on a daemon
-    thread every ``interval_s`` (first capture immediately, so a
-    just-started server already has its zero baseline);
+    mutations under one lock); :meth:`start` takes the first capture
+    itself, so a just-started server already has its zero baseline, and
+    then runs it on a daemon thread every ``interval_s``;
     :meth:`stop` parks the thread promptly even mid-wait.
     """
 
@@ -115,17 +115,24 @@ class SnapshotSampler:
 
     # -- background cadence --------------------------------------------
     def start(self) -> "SnapshotSampler":
+        """Take the first capture on the calling thread, then one every
+        ``interval_s`` on a daemon thread: the zero baseline exists when
+        ``start`` returns, however late the thread first runs."""
         if self._thread is not None:
             return self
         self._stop.clear()
 
+        def capture():
+            try:
+                self.sample()
+            except Exception as e:      # noqa: BLE001 — keep sampling
+                log.warning("history sample failed: %s", e)
+
+        capture()
+
         def loop():
-            while not self._stop.is_set():
-                try:
-                    self.sample()
-                except Exception as e:  # noqa: BLE001 — keep sampling
-                    log.warning("history sample failed: %s", e)
-                self._stop.wait(self.interval_s)
+            while not self._stop.wait(self.interval_s):
+                capture()
 
         self._thread = threading.Thread(target=loop,
                                         name="snapshot-sampler",

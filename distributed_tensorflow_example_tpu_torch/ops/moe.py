@@ -29,8 +29,8 @@ U[1-j, 1+j) in training. Its draws come from a key (``ops/nn.py``
 layer that ``--remat`` recomputes draws the same noise again. The stream
 is torch's, not JAX's.
 
-The expert-parallel form (``moe_ffn_shard_map``, ``all_to_all``) arrives
-with slice A6.
+The expert-parallel form (``moe_ffn_shard_map``, the ``all_to_all`` of
+tokens over an ``expert`` axis) is slice A6d.
 """
 
 from __future__ import annotations

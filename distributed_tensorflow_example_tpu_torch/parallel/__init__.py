@@ -1,1 +1,32 @@
-"""Data-parallel training step of the port (one replica so far)."""
+"""Parallelism layer of the port: the mesh over ranks, the named
+collectives, the sharding rules and the sync-replica step (the
+reference's ``NamedSharding`` helpers, which need JAX's device arrays,
+have no counterpart: a rank holds its pieces as plain tensors)."""
+
+from .mesh import AxisNames, MeshConfig, build_mesh, local_mesh
+from .collectives import (
+    all_gather,
+    all_reduce_mean,
+    all_reduce_sum,
+    all_to_all,
+    ppermute_ring_shift,
+    reduce_scatter_mean,
+)
+from .sharding import (
+    ShardingRules,
+    batch_pspec,
+    replica_device_setter,
+    shard_batch,
+    shard_params,
+    state_shardings,
+)
+from .sync_replicas import SyncReplicas, make_sync_train_step
+
+__all__ = [
+    "AxisNames", "MeshConfig", "build_mesh", "local_mesh",
+    "all_gather", "all_reduce_mean", "all_reduce_sum", "all_to_all",
+    "ppermute_ring_shift", "reduce_scatter_mean",
+    "ShardingRules", "batch_pspec", "replica_device_setter", "shard_batch",
+    "shard_params", "state_shardings",
+    "SyncReplicas", "make_sync_train_step",
+]

@@ -60,9 +60,29 @@ a step under ``torch.utils.flop_counter.FlopCounterMode`` and keeps its
 FLOP count in ``last_cost_analysis``, the counterpart of the reference's
 ``precompile`` cost analysis (``--step_timing``'s
 ``step_cost_analysis``).
-``multi_step`` arrives with slice A3c-2b and raises; a data axis wider
-than the ranks (several cards to a process) or a sharded axis with slice
-A6.
+``multi_step`` arrives with slice A3c-2b and raises.
+
+The mesh is one rank a card (or a gloo CPU process): its axes multiply
+to the number of ranks, and a mesh that asks for more (several cards to
+a process) is refused. Of its axes ``data`` and ``fsdp`` may be wider
+than 1; ``model`` (slice A6a-2), ``seq`` (A6b), ``pipe`` (A6c) and
+``expert`` (A6d) are refused. The replicas are ``data`` × ``fsdp``.
+Under ``auto`` with ``fsdp`` > 1 the state is sharded as ZeRO-3 does it
+(:class:`~.sharding.ShardLayout`, by the model's
+:class:`~.sharding.ShardingRules`): :meth:`SyncReplicas.init` builds the
+whole state from the seed on every rank and keeps this rank's pieces of
+each sharded parameter and of its per-parameter optimizer leaves. A step
+gathers the sharded parameters over ``fsdp`` before the loss (the
+kernels see whole, contiguous tensors), takes the gradients of the
+rank's share of the batch, reduce-scatters each sharded gradient to its
+mean over ``fsdp`` and all-reduces it over ``data``, all-reduces the
+whole leaves' gradients over both, and updates the pieces; the global
+norm (the clip, the reported ``grad_norm``, the anomaly guard) sums its
+partial sums over ``fsdp`` (``optimizers.shard_reduction``). This is the
+program the reference's XLA compiles from its ``NamedSharding``.
+``shard_map`` keeps the parameters whole on every rank, as the
+reference's ``_shard_map_step`` (whose state is replicated, ``P()``)
+does: ``fsdp`` is then one more batch axis.
 
 The loss signature is the framework's::
 
@@ -82,9 +102,13 @@ from ..config import MeshShape, SyncConfig
 from ..ops.losses import LOSS_WEIGHT
 from ..runtime import distributed
 from ..runtime.device import resolve_device
-from ..train.optimizers import Transform, apply_updates, global_norm
+from ..train.optimizers import (Transform, apply_updates, global_norm,
+                                shard_reduction)
 from ..train.state import TrainState
 from ..utils.pytree import flatten_dict, tree_map, unflatten_dict
+from . import collectives
+from .mesh import AxisNames, Mesh, build_mesh, mesh_sizes
+from .sharding import ShardingRules, ShardLayout
 
 LossFn = Callable[..., tuple[torch.Tensor, tuple[dict, Any]]]
 
@@ -166,26 +190,54 @@ def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
     return grads, lsum / accum_steps, aux, ex
 
 
-def _replica_count(mesh, world: int) -> int:
-    """The replicas a ``mesh`` asks for (None or -1: one per rank; an int
-    or a ``MeshShape``'s data axis), refusing what one replica per rank
-    cannot give."""
-    if isinstance(mesh, MeshShape):
-        sharded = {k: v for k, v in mesh.as_dict().items()
-                   if k != "data" and v != 1}
-        if sharded:
+#: the mesh axes the port does not shard over yet, and their slices
+LATER_AXES = {
+    "model": "A6a-2 (Megatron tensor parallelism by the models' rules)",
+    "seq": "A6b (ring attention over a sequence axis)",
+    "pipe": "A6c (pipeline stages, the pipe_* models)",
+    "expert": "A6d (expert parallelism)",
+}
+#: the rule a mesh's size must keep
+ONE_RANK_A_CARD = ("the port runs one rank a card (one process a card, or "
+                   "a gloo CPU process): the mesh's axes must multiply to "
+                   "the number of ranks")
+
+
+def refuse_later_axes(mesh: MeshShape) -> None:
+    """NotImplementedError naming the slice of the first axis the port
+    does not shard over yet (any size but 1, a wildcard included)."""
+    for axis, cut in LATER_AXES.items():
+        v = getattr(mesh, axis)
+        if v != 1:
             raise NotImplementedError(
-                f"mesh axes {sharded} (sharded parameters or activations) "
-                "arrive with slice A6; the port's sync step replicates the "
-                "parameters, one replica per rank")
-        mesh = mesh.data
-    n = world if mesh is None or mesh == -1 else int(mesh)
-    if n != world:
+                f"mesh axis {axis}={v} arrives with slice {cut}; the port "
+                "shards over data and fsdp")
+
+
+def resolve_mesh(mesh, world: int) -> dict[str, int]:
+    """The axis sizes a ``mesh`` asks for over ``world`` ranks: None or
+    -1 puts every rank on ``data``, an int is the data axis, a
+    ``MeshShape`` its axes (one -1 wildcard allowed), a :class:`Mesh`
+    its own sizes. Refuses a later slice's axis (naming it) and a mesh
+    that is not one rank a card."""
+    if isinstance(mesh, Mesh):
+        sizes = dict(mesh.shape)
+        refuse_later_axes(MeshShape(**sizes))
+        if mesh.world != world:
+            raise NotImplementedError(
+                f"mesh over {mesh.world} rank(s) in a world of {world}: "
+                f"{ONE_RANK_A_CARD}")
+        return sizes
+    if not isinstance(mesh, MeshShape):
+        data = world if mesh is None or mesh == -1 else int(mesh)
+        mesh = MeshShape(data=data)
+    refuse_later_axes(mesh)
+    axes = mesh.as_dict()
+    if -1 not in axes.values() and mesh.total() != world:
         raise NotImplementedError(
-            f"{n} replicas over {world} rank(s): the port runs one replica "
-            "per rank (one card each); more cards to a process arrive "
-            "with slice A6")
-    return n
+            f"mesh {axes} asks for {mesh.total()} replica rank(s) over "
+            f"{world} rank(s): {ONE_RANK_A_CARD}")
+    return mesh_sizes(mesh, world)
 
 
 class SyncReplicas:
@@ -211,6 +263,7 @@ class SyncReplicas:
 
     def __init__(self, loss_fn: LossFn, tx: Transform, mesh=None, *,
                  sync: SyncConfig | None = None,
+                 rules: ShardingRules | None = None,
                  anomaly_policy: str = "halt",
                  device: str | torch.device | None = None,
                  debug_checks: bool = False):
@@ -229,13 +282,19 @@ class SyncReplicas:
         self.anomaly_policy = anomaly_policy
         if self.sync.mode not in ("auto", "shard_map"):
             raise ValueError(f"unknown sync mode {self.sync.mode!r}")
-        self.num_replicas = _replica_count(mesh, distributed.process_count())
+        sizes = resolve_mesh(mesh, distributed.process_count())
+        #: this rank's place in the mesh (its groups: the collectives')
+        self.mesh = build_mesh(MeshShape(**sizes))
+        self.num_replicas = sizes["data"] * sizes["fsdp"]
+        #: the placement rules (``shard_map`` keeps the params whole)
+        self.rules = (rules or ShardingRules(fsdp_axis_size=sizes["fsdp"])
+                      if self.sync.mode == "auto" else ShardingRules())
         if (self.sync.replicas_to_aggregate is not None
                 and self.sync.replicas_to_aggregate != self.num_replicas):
             raise ValueError(
                 f"replicas_to_aggregate={self.sync.replicas_to_aggregate} "
-                f"must equal the replica count ({self.num_replicas}, one "
-                "per rank): partial aggregation has no synchronous "
+                f"must equal the replica count ({self.num_replicas}, the "
+                "batch ranks): partial aggregation has no synchronous "
                 "analogue, as in the reference")
         if (self.sync.total_num_replicas is not None
                 and self.sync.total_num_replicas != self.num_replicas):
@@ -255,14 +314,37 @@ class SyncReplicas:
     def init(self, init_fn: Callable[[torch.Generator], Any], *,
              seed: int = 0) -> TrainState:
         """A TrainState from ``init_fn(gen)`` (params, or (params,
-        extras)), ``gen`` a generator on the device seeded with ``seed``."""
+        extras)), ``gen`` a generator on the device seeded with ``seed``.
+        On a sharded mesh every rank builds the whole state alike and
+        keeps its pieces (the state's ``layout``)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         out = init_fn(gen)
         params, extras = out if isinstance(out, tuple) else (out, {})
         params = tree_map(lambda x: x.to(self.device), params)
-        return TrainState.create(params=params, tx=self.tx, extras=extras,
-                                 seed=seed)
+        state = TrainState.create(params=params, tx=self.tx, extras=extras,
+                                  seed=seed)
+        if self.sync.mode != "auto":
+            return state
+        layout = ShardLayout.for_params(self.mesh, params, self.rules)
+        if not layout.sharded:
+            return state
+        return state.replace(
+            params=layout.shard_params(params),
+            opt_state=layout.map_per_param(
+                state.opt_state,
+                lambda k, v: (layout.local(k, v) if layout.leaf_shards(k, v)
+                              else v)),
+            layout=layout)
+
+    @staticmethod
+    def full_params(state: TrainState) -> dict:
+        """The state's params as whole tensors: gathered over ``fsdp``
+        from every rank's pieces on a sharded state (every rank must
+        call it then), the params themselves otherwise."""
+        if state.layout is None:
+            return state.params
+        return state.layout.full_params(state.params)
 
     def _to_device(self, batch: dict) -> dict:
         """Host arrays -> tensors on the device. On the card a host array
@@ -287,17 +369,53 @@ class SyncReplicas:
                 for i in range(max(1, self.sync.accum_steps))]
         stats = (distributed.cross_rank_batch_stats()
                  if self.sync.mode == "auto" else contextlib.nullcontext())
+        layout = state.layout
         with stats:
             grads, loss, aux, new_extras = _grads_and_metrics(
-                self.loss_fn, state.params, state.extras, batch, gens,
-                self.sync.accum_steps,
+                self.loss_fn, self.full_params(state), state.extras, batch,
+                gens, self.sync.accum_steps,
                 weigh=self.sync.mode == "auto" and self.num_replicas > 1)
-        if self.num_replicas > 1:
+        if layout is not None:
+            grads, loss, aux, new_extras = self._reduce_sharded(
+                layout, grads, loss, aux, new_extras)
+        elif self.num_replicas > 1:
             grads, loss, aux, new_extras = self._mean_over_ranks(
                 grads, loss, aux, new_extras)
-        if self.debug_checks:
-            self._check_finite(state, grads, loss, aux)
-        return self._update(state, grads, loss, aux, new_extras)
+        with shard_reduction(*self._reduction(layout)):
+            if self.debug_checks:
+                self._check_finite(state, grads, loss, aux)
+            return self._update(state, grads, loss, aux, new_extras)
+
+    def _reduction(self, layout):
+        """The ``shard_reduction`` of a state: its sharded flags and the
+        sum over ``fsdp``."""
+        if layout is None:
+            return [], None
+        return layout.flags(), (lambda t: collectives.all_reduce_sum(
+            t, AxisNames.FSDP, mesh=self.mesh))
+
+    def _reduce_sharded(self, layout, grads, loss, aux, extras):
+        """The ZeRO exchange: each sharded gradient reduce-scattered to
+        its mean over ``fsdp`` (this rank keeps its piece), then averaged
+        over ``data``; the whole leaves' gradients, the loss, the aux
+        metrics and the new extras averaged over every batch rank."""
+        dims = list(layout.dims.values())
+        out = list(grads)
+        for i, (g, d) in enumerate(zip(grads, dims)):
+            if d is None:
+                continue
+            g = collectives.reduce_scatter_mean(
+                g, AxisNames.FSDP, scatter_axis=d, mesh=self.mesh)
+            if self.mesh.shape[AxisNames.DATA] > 1:
+                g = collectives.all_reduce_mean(g, AxisNames.DATA,
+                                                mesh=self.mesh)
+            out[i] = g
+        whole = [i for i, d in enumerate(dims) if d is None]
+        got, loss, aux, extras = self._mean_over_ranks(
+            [grads[i] for i in whole], loss, aux, extras)
+        for i, g in zip(whole, got):
+            out[i] = g
+        return out, loss, aux, extras
 
     def counted_step(self, state: TrainState, batch: dict):
         """:meth:`step` under ``torch.utils.flop_counter.FlopCounterMode``:
@@ -326,6 +444,9 @@ class SyncReplicas:
                  + [f"grads/{k}" for k in flatten_dict(state.params)])
         values = [loss, *aux.values(), *grads]
         bad = torch.stack([~torch.isfinite(v).all() for v in values])
+        if state.layout is not None:
+            # a piece's NaN is every rank's: they raise together
+            bad = distributed.all_reduce_mean([bad.float()])[0] > 0
         if not bool(bad.any()):
             return
         hits = [n for n, b in zip(names, bad.tolist()) if b]

@@ -43,6 +43,8 @@ bf16 first moments and the parameter EMA.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Callable, NamedTuple
 
@@ -79,9 +81,62 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+class ShardReduction(NamedTuple):
+    """How the parameters lie over ranks during a sharded step: one flag
+    a parameter (its leaves here are pieces of the whole), and the sum
+    over the ranks that hold the pieces of one leaf (``reduce``)."""
+
+    sharded: list[bool]
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+
+
+#: the sharding of the step being updated (None: every leaf whole here)
+_SHARDS: contextvars.ContextVar = contextvars.ContextVar("shards",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def shard_reduction(sharded: list[bool],
+                    reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """Inside, a reduction over whole leaves (:func:`global_norm`) sums
+    the partial sums of the sharded leaves over their shard group, and
+    the transforms that reduce over one leaf refuse to run: on a piece
+    they would compute another number, with no error. The sharded sync
+    step enters it around its update."""
+    token = _SHARDS.set(ShardReduction(list(sharded), reduce)
+                        if any(sharded) else None)
+    try:
+        yield
+    finally:
+        _SHARDS.reset(token)
+
+
+def refuse_on_shards(what: str) -> None:
+    """Raise when a whole-leaf reduction would run on a piece."""
+    if _SHARDS.get() is not None:
+        raise NotImplementedError(
+            f"{what} reduces over a whole parameter and would compute it "
+            "on this rank's piece: under fsdp > 1 it arrives with slice "
+            "A6a-2")
+
+
 def global_norm(xs: Tensors) -> torch.Tensor:
-    """sqrt of the sum of every element's square (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(x * x) for x in xs))
+    """sqrt of the sum of every element's square (optax.global_norm).
+    Inside :func:`shard_reduction`, over the whole leaves: the sharded
+    leaves' squares are summed here, then over their shard group, and
+    added to the whole leaves' once."""
+    shards = _SHARDS.get()
+    if shards is None:
+        return torch.sqrt(sum(torch.sum(x * x) for x in xs))
+    if len(xs) != len(shards.sharded):
+        raise ValueError(f"global_norm over {len(xs)} leaves of "
+                         f"{len(shards.sharded)} sharded parameters")
+    part = [torch.sum(x * x) for x, s in zip(xs, shards.sharded) if s]
+    whole = [torch.sum(x * x) for x, s in zip(xs, shards.sharded) if not s]
+    total = shards.reduce(torch.stack(part).sum())
+    if whole:
+        total = total + torch.stack(whole).sum()
+    return torch.sqrt(total)
 
 
 def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
@@ -158,6 +213,7 @@ def scale_by_trust_ratio(trust_coefficient: float = 1.0,
     """optax's rule, a leaf: ``u * coeff ||p|| / (||u|| + eps)``, the
     ratio 1 where ``||p||`` or ``||u||`` is 0."""
     def fn(updates, params):
+        refuse_on_shards("scale_by_trust_ratio (LAMB, LARS)")
         if params is None:
             raise ValueError("scale_by_trust_ratio needs params in update")
         out = []
@@ -355,6 +411,7 @@ def scale_by_factored_rms() -> Transform:
         return st
 
     def update(updates, state, params=None):
+        refuse_on_shards("scale_by_factored_rms (adafactor)")
         if params is None:
             raise ValueError("scale_by_factored_rms needs params in update")
         t = (state["count"] + 1).float()
@@ -392,6 +449,7 @@ def scale_by_factored_rms() -> Transform:
 def clip_by_block_rms(threshold: float) -> Transform:
     """Each leaf over ``max(1, rms(u) / threshold)``."""
     def fn(updates, params):
+        refuse_on_shards("clip_by_block_rms (adafactor)")
         return [u / torch.clamp_min(torch.sqrt(torch.mean(u * u))
                                     / threshold, 1.0) for u in updates]
     return _stateless(fn)
@@ -401,6 +459,7 @@ def scale_by_param_block_rms() -> Transform:
     """Each leaf times its parameter's RMS, floored at
     ``PARAM_SCALE_FLOOR``."""
     def fn(updates, params):
+        refuse_on_shards("scale_by_param_block_rms (adafactor)")
         if params is None:
             raise ValueError("scale_by_param_block_rms needs params")
         out = []
@@ -692,10 +751,25 @@ def _wd_mask(cfg: OptimizerConfig):
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def make_optimizer(cfg: OptimizerConfig) -> Transform:
+#: the optimizers whose update reduces over a whole parameter (the
+#: trust ratio, adafactor's factored moments and block RMS): not yet
+#: made right on fsdp pieces
+WHOLE_LEAF_OPTIMIZERS = ("lars", "lamb", "adafactor")
+
+
+def make_optimizer(cfg: OptimizerConfig, *, fsdp: int = 1) -> Transform:
     """clip-by-global-norm -> clip-by-value -> the optimizer (+ decayed
-    weights) -> the parameter EMA, as the reference chains them."""
+    weights) -> the parameter EMA, as the reference chains them.
+    ``fsdp`` > 1 (parameters sharded over that many ranks) refuses the
+    optimizers that reduce over a whole leaf (:data:`WHOLE_LEAF_
+    OPTIMIZERS`); the global-norm clip and the reported gradient norm
+    sum their partial sums over the shard group instead."""
     name = cfg.name.lower()
+    if fsdp > 1 and name in WHOLE_LEAF_OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer {name!r} reduces over whole parameters (a trust "
+            "ratio or a block RMS a leaf): under fsdp > 1 it arrives with "
+            "slice A6a-2; adam, adamw, sgd and momentum train sharded")
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
     if cfg.moment_dtype == "bfloat16" and name in ("lars", "lamb"):

@@ -6,7 +6,10 @@ the device. ``step`` is a host int: it advances by one every step, the
 anomalous ones included, so the host knows it without a sync. The
 reference carries a JAX PRNG key; the port carries ``seed``, from which
 the sync step draws each step's dropout generator (the random streams
-are not the reference's).
+are not the reference's). Under a sharded mesh ``layout`` (a
+``parallel.sharding.ShardLayout``) says which leaves are this rank's
+pieces of the whole: its params and the per-parameter optimizer leaves
+of a sharded parameter. It is None when every leaf is whole.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ class TrainState:
     extras: Any                # non-trained model state ({} when unused)
     seed: int
     anomaly_count: torch.Tensor
+    layout: Any = None         # ShardLayout of a sharded state, else None
 
     @classmethod
     def create(cls, *, params: dict, tx, extras: Any = None,

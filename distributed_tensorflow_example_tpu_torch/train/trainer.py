@@ -34,7 +34,12 @@ wins) and re-anchors the parameter EMA's shadows there; with the EMA on,
 eval runs on the shadows. Host metrics are floats, and a vector metric
 (MoE-BERT's per-expert load) a list: the JSONL takes it, the scalar
 hooks skip it. ``steps_per_loop > 1`` arrives with slice A3c-2b and
-sharded mesh axes with A6, and raise.
+raises. The mesh is one rank a card over ``data`` and ``fsdp``; under
+``fsdp`` > 1 the state is sharded by the model's ``sharding_rules``
+(eval, warm start and the EMA's eval see the whole params, gathered),
+and ``checkpoint.sharded`` writes per-rank shard files. A ``model``,
+``seq``, ``pipe`` or ``expert`` axis wider than 1 raises naming its
+slice (A6a-2, A6b, A6c, A6d).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from ..data.loader import make_loader
 from ..obs import trace as obs_trace
 from ..obs.registry import Registry
 from ..obs.trace import add_span, span
-from ..parallel.sync_replicas import SyncReplicas
+from ..parallel.sync_replicas import SyncReplicas, resolve_mesh
 from ..runtime import distributed, faults
 from ..runtime.device import resolve_device
 from ..utils.logging import get_logger
@@ -77,24 +82,13 @@ def _host_metric(v):
     return float(v) if np.ndim(v) == 0 else np.asarray(v).tolist()
 
 
-def one_replica_per_rank(mesh: MeshShape, num_processes: int) -> bool:
-    """True for the meshes the port trains on: one replica per rank, so
-    every axis but data is 1 and data is -1 (all ranks) or the number of
-    ranks."""
-    axes = mesh.as_dict()
-    return axes.pop("data") in (-1, num_processes) and all(
-        v == 1 for v in axes.values())
-
-
 def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
     """Raise NotImplementedError naming its slice for a set knob the
-    port's Trainer does not carry yet (and the reference's ValueErrors
-    on anomaly settings no path could honor)."""
-    if not one_replica_per_rank(config.mesh, num_processes):
-        raise NotImplementedError(
-            f"mesh {config.mesh.as_dict()} (a sharded axis, or more "
-            "replicas than ranks) arrives with slice A6; the port trains "
-            "one replica per rank")
+    port's Trainer does not carry yet (a ``model``, ``seq``, ``pipe`` or
+    ``expert`` axis, ``steps_per_loop > 1``), or stating the rule of one
+    rank a card for a mesh wider than the ranks (and the reference's
+    ValueErrors on anomaly settings no path could honor)."""
+    resolve_mesh(config.mesh, num_processes)
     if config.steps_per_loop > 1:
         raise NotImplementedError("steps_per_loop > 1 arrives with slice "
                                   "A3c-2b")
@@ -142,13 +136,18 @@ class Trainer:
         self.eval_arrays = eval_arrays
         self.train_transform = train_transform
         self.profiler_service = profiler_service
-        self.tx = make_optimizer(config.optimizer)
+        mesh = MeshShape(**resolve_mesh(config.mesh, self.num_processes))
+        self.tx = make_optimizer(
+            config.optimizer,
+            fsdp=mesh.fsdp if config.sync.mode == "auto" else 1)
         self._schedule = make_schedule(config.optimizer)
         self._rollback_pending = False
         self._rollback_before: int | None = None
         self._faults_installed = False
+        rules = getattr(model, "sharding_rules", None)
         self.sync = SyncReplicas(model.loss, self.tx, config.mesh,
                                  sync=config.sync,
+                                 rules=rules(mesh) if rules else None,
                                  anomaly_policy=config.on_anomaly,
                                  device=self.device,
                                  debug_checks=config.obs.debug_checks)
@@ -181,7 +180,8 @@ class Trainer:
             CheckpointManager(ck.directory, max_to_keep=ck.max_to_keep,
                               keep_every_n_hours=(
                                   ck.keep_checkpoint_every_n_hours),
-                              async_save=ck.async_save)
+                              async_save=ck.async_save,
+                              sharded=ck.sharded)
             if ck.directory else None)
         self.metrics_logger = MetricsLogger(config.obs.metrics_path,
                                             tb_logdir=config.obs.tb_logdir,
@@ -300,8 +300,11 @@ class Trainer:
         from ..ckpt.warm_start import parse_assignment_map, warm_start
         from .optimizers import reset_ema
         ck = self.config.checkpoint
-        params, report = warm_start(state.params, ck.warm_start,
+        params, report = warm_start(self.sync.full_params(state),
+                                    ck.warm_start,
                                     parse_assignment_map(ck.warm_start_map))
+        if state.layout is not None:       # back to this rank's pieces
+            params = state.layout.shard_params(params)
         state = state.replace(params=params,
                               opt_state=reset_ema(state.opt_state, params))
         self.state = state
@@ -646,14 +649,15 @@ class Trainer:
         weigh by its real rows. With ``ema_decay`` on, eval runs on the
         EMA shadows (``use_ema=False``: the live params; ``use_ema=True``
         without an EMA raises)."""
-        params = state.params
+        params = self.sync.full_params(state)
         explicit = use_ema is not None
         if use_ema is None:
             use_ema = self.config.optimizer.ema_decay > 0
         if use_ema:
             ema = find_ema_params(state.opt_state, state.params)
             if ema is not None:
-                params = ema
+                params = (ema if state.layout is None
+                          else state.layout.full_params(ema))
             elif explicit:
                 raise ValueError(
                     "use_ema=True but the optimizer state holds no EMA "

@@ -1,0 +1,174 @@
+"""One rank of the port's sharded (fsdp) tests (imports no JAX).
+
+    python tests/_torch_fsdp_worker.py --rank R --world W \\
+        --init file:///tmp/rdv --tasks TASKS.json --out DIR
+
+Joins a gloo group through ``--init`` and runs the tasks of
+``TASKS.json`` in order, each writing ``DIR/<name>.rank<R>.npz``:
+
+- ``collectives``: the eight named collectives over the task's mesh, one
+  case each (inputs ``in/<case>`` stacked a rank on dim 0, outputs
+  ``out/<case>``);
+- ``train``: a model (``mlp`` or ``gpt_tiny`` dims, dropout off) under
+  the task's optimizer on the task's mesh, restored from the monolithic
+  checkpoint in ``bridge`` (the reference's step 0), for ``steps``
+  global batches from ``batches`` (each rank takes its share), writing
+  the per-step loss and grad norm, the whole final state (gathered),
+  each leaf's resident numel here, and, with ``save``, a sharded
+  checkpoint, restored again into a fresh template (``roundtrip``);
+- ``restore``: the sharded checkpoint at ``dir`` step ``step`` restored
+  into this mesh's template of the task's model and optimizer, written
+  whole;
+- ``cli``: after the other tasks the group is left and ``cli/train.py``
+  runs once per argv (each brings its own group up at worker 0's
+  address), with ``--worker_hosts`` and ``--task_index`` added.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from distributed_tensorflow_example_tpu_torch.ckpt import \
+    checkpoint as tckpt  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.config import (  # noqa: E402
+    MeshShape, OptimizerConfig)
+from distributed_tensorflow_example_tpu_torch.models.gpt import (  # noqa: E402,E501
+    GPT, GPTConfig)
+from distributed_tensorflow_example_tpu_torch.models.mlp import \
+    MLP  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.parallel import \
+    collectives as C  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
+    build_mesh  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
+    shard_batch  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import \
+    SyncReplicas  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.train.optimizers import \
+    make_optimizer  # noqa: E402
+
+torch.set_num_threads(1)
+
+#: gpt_tiny's dims (``GPTConfig.tiny``) with dropout off
+GPT_TINY = dict(vocab_size=1000, hidden=128, layers=2, heads=4,
+                intermediate=256, max_len=128, dropout=0.0)
+
+
+def model_of(name: str):
+    return MLP() if name == "mlp" else GPT(GPTConfig(**GPT_TINY))
+
+
+def _collectives(task, rank):
+    mesh = build_mesh(MeshShape(**task["mesh"]))
+    with np.load(task["inputs"]) as z:
+        ins = {k: torch.from_numpy(z[k][rank]) for k in z.files}
+    out = {}
+    for case in task["cases"]:
+        name, fn, axes = case["name"], case["fn"], case["axes"]
+        axes = tuple(axes) if isinstance(axes, list) else axes
+        x = ins[case["input"]]
+        if fn == "axis_size":
+            y = torch.tensor(C.axis_size(axes, mesh=mesh), dtype=x.dtype)
+        else:
+            y = getattr(C, fn)(x, axes, mesh=mesh, **case["kw"])
+        out[f"out/{name}"] = y.numpy()
+    return out
+
+
+def _sync(task, mesh):
+    model = model_of(task["model"])
+    tx = make_optimizer(OptimizerConfig(**task["opt"]), fsdp=mesh.fsdp)
+    return model, SyncReplicas(model.loss, tx, mesh, device="cpu",
+                               rules=model.sharding_rules(mesh))
+
+
+def _whole(state) -> dict:
+    """The state's whole arrays (gathered; every rank calls it)."""
+    return {f"state/{k}": v for k, v in tckpt.state_arrays(state).items()}
+
+
+def _train(task, rank):
+    mesh = MeshShape(**task["mesh"])
+    model, sync = _sync(task, mesh)
+    state, restored = tckpt.restore_or_init(
+        tckpt.CheckpointManager(task["bridge"]),
+        lambda: sync.init(model.init, seed=0))
+    assert restored, "the bridged step-0 checkpoint must restore"
+    losses, norms = [], []
+    with np.load(task["batches"]) as z:
+        keys = sorted({k.split("/", 1)[1] for k in z.files})
+        for i in range(task["steps"]):
+            batch = {k: z[f"{i}/{k}"] for k in keys}
+            state, met = sync.step(state, shard_batch(sync.mesh, batch))
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+    out = {"loss": np.asarray(losses), "grad_norm": np.asarray(norms),
+           **_whole(state)}
+    for k, v in tckpt._state_leaves(state).items():
+        out[f"numel/{k}"] = np.asarray(v.numel(), np.int64)
+    if task.get("save"):
+        mgr = tckpt.CheckpointManager(task["save"], sharded=True)
+        mgr.save(state)
+        back = mgr.restore(sync.init(model.init, seed=9))
+        same = [torch.equal(a, b) for a, b in zip(
+            tckpt._state_leaves(state).values(),
+            tckpt._state_leaves(back).values())]
+        out["roundtrip"] = np.asarray(all(same) and back.step == state.step
+                                      and back.seed == state.seed)
+    return out
+
+
+def _restore(task, rank):
+    mesh = MeshShape(**task["mesh"])
+    model, sync = _sync(task, mesh)
+    mgr = tckpt.CheckpointManager(task["dir"])
+    state = mgr.restore(sync.init(model.init, seed=7), task["step"])
+    return {"step": np.asarray(state.step), **_whole(state)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--init", required=True)
+    ap.add_argument("--tasks", required=True)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args()
+    with open(a.tasks) as f:
+        tasks = json.load(f)
+    dist.init_process_group("gloo", init_method=a.init, rank=a.rank,
+                            world_size=a.world)
+    runners = {"collectives": _collectives, "train": _train,
+               "restore": _restore}
+    for task in tasks:
+        if task["kind"] == "cli":
+            continue
+        out = runners[task["kind"]](task, a.rank)
+        np.savez(os.path.join(a.out, f"{task['name']}.rank{a.rank}.npz"),
+                 **out)
+    dist.destroy_process_group()
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    for task in tasks:
+        if task["kind"] != "cli":
+            continue
+        for argv, port in zip(task["argvs"], task["ports"]):
+            # worker 0's address is the rendezvous; the others' ports
+            # are never bound
+            hosts = ",".join(f"127.0.0.1:{port + r}"
+                             for r in range(a.world))
+            rc = cli.main(argv + ["--worker_hosts", hosts,
+                                  "--task_index", str(a.rank)])
+            assert rc == 0, (argv, rc)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -574,26 +574,33 @@ REFUSALS = {
                                SystemExit, "A3c-2b"),
     "trainer-steps_per_loop": (_trainer_refusal(steps_per_loop=2),
                                NotImplementedError, "A3c-2b"),
-    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "data=1,fsdp=2"]),
-                      SystemExit, "A6"),
+    # the fsdp axis trains (slice A6a): each row that named it pairs it
+    # with an axis that is still refused
+    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,model=2"]),
+                      SystemExit, "A6a-2"),
     "cli-mesh-model": (_cli_refusal(["--mesh", "model=2"]), SystemExit,
                        "A6"),
-    "trainer-mesh-fsdp": (_trainer_refusal(mesh=tconfig.MeshShape(fsdp=2)),
-                          NotImplementedError, "A6"),
+    "trainer-mesh-fsdp": (_trainer_refusal(
+        mesh=tconfig.MeshShape(fsdp=2, model=2)), NotImplementedError,
+        "A6a-2"),
     "sync-mesh-model": (_sync_refusal(tconfig.MeshShape(model=2)),
                         NotImplementedError, "A6"),
+    # more replicas than ranks is no later slice's: it breaks the rule of
+    # one rank a card, which the refusal states
     "sync-two-replicas-one-rank": (_sync_refusal(2), NotImplementedError,
-                                   "A6"),
-    "cli-native": (_cli_refusal(["--native", "--sharded_save"]),
-                   SystemExit, "A6"),
+                                   None),
+    "cli-native": (_cli_refusal(["--native", "--sharded_save", "--mesh",
+                                 "expert=2"]), SystemExit, "A6d"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_later_slices_stay_refused_naming_their_slice(name):
     """``multi_step``, ``--steps_per_loop 2``, ``--max_inflight_steps``
-    and the fsdp and model axes (or more replicas than ranks) are still
-    refused, each naming the slice that brings it."""
+    and the model and expert axes are still refused, each naming the
+    slice that brings it; more replicas than ranks states the rule of
+    one rank a card."""
     run, exc, slice_ = REFUSALS[name]
-    with pytest.raises(exc, match=f"slice {slice_}"):
+    with pytest.raises(exc, match=f"slice {slice_}" if slice_
+                       else "one rank a card"):
         run()

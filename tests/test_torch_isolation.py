@@ -103,6 +103,13 @@ READER_MODULES = tuple(
     f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
         "data.tfrecord", "data.native", "data.imagenet", "data.streaming",
         "data.bert_text", "ckpt.tf_import", "experiments.chaos_soak"))
+#: the fsdp axis (the mesh over ranks, the named collectives, the sharding
+#: rules) and the repo's two other example scripts, named likewise
+SHARDED_MODULES = tuple(
+    f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
+        "parallel.mesh", "parallel.collectives", "parallel.sharding",
+        "parallel.sync_replicas", "examples.finetune_export",
+        "examples.train_and_generate"))
 #: imported only inside the functions that decode, tokenize or read a TF
 #: checkpoint: the card's machine has none of them
 OPTIONAL = ("PIL", "transformers", "tensorflow")
@@ -121,6 +128,7 @@ def test_importing_every_module_loads_no_jax():
     assert set(FLEET_MODULES) <= set(mods), mods
     assert set(MOE_MODULES) <= set(mods), mods
     assert set(READER_MODULES) <= set(mods), mods
+    assert set(SHARDED_MODULES) <= set(mods), mods
     blocked = FORBIDDEN + OPTIONAL
     code = (
         "import importlib, importlib.abc, sys\n"
@@ -137,7 +145,7 @@ def test_importing_every_module_loads_no_jax():
         f"{blocked!r})\n"
         "print('FORBIDDEN', bad)\n"
         "print('TRIED', sorted(set(tried)))\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -176,7 +184,7 @@ def test_quantized_paths_run_without_jax(tmp_path):
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print('FORBIDDEN', bad)\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -222,7 +230,7 @@ def test_training_step_runs_without_jax():
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print('FORBIDDEN', bad)\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -260,7 +268,7 @@ def test_training_cli_runs_without_jax(tmp_path):
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print('FORBIDDEN', bad)\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -308,6 +316,36 @@ def test_mnist_example_runs_without_jax(tmp_path):
                                       "ckpt-40.npz"]
 
 
+def test_example_scripts_run_without_jax(tmp_path):
+    """The port's copies of ``examples/finetune_export.py`` (pretrain,
+    warm-started fine-tune with the EMA, export, ``load_servable``) and
+    ``examples/train_and_generate.py`` (gpt_tiny: train, restore,
+    generate) run on the CPU in a process that holds no JAX; both are in
+    the import walk."""
+    assert set(SHARDED_MODULES) <= set(_port_modules())
+    code = (
+        "import sys\n"
+        "from distributed_tensorflow_example_tpu_torch.examples import (\n"
+        "    finetune_export, train_and_generate)\n"
+        f"out = finetune_export.run({str(tmp_path / 'ft')!r}, 20, 10,\n"
+        "                          device='cpu')\n"
+        "print('ACC', out['servable_accuracy_16'] > 0.9)\n"
+        "rc = train_and_generate.main(['--workdir', "
+        f"{str(tmp_path / 'lm')!r}, '--train_steps', '4',\n"
+        "    '--new_tokens', '4', '--device', 'cpu'])\n"
+        "print('RC', rc)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('FORBIDDEN', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "ACC True" in out.stdout and "RC 0" in out.stdout, out.stdout
+    assert "greedy :" in out.stdout and "sampled:" in out.stdout
+    assert "FORBIDDEN []" in out.stdout, out.stdout
+
+
 def test_no_source_names_jax_or_the_jax_package():
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:
@@ -330,7 +368,7 @@ def test_no_module_imports_triton_or_builds_at_import():
         "import distributed_tensorflow_example_tpu_torch.serving_http\n"
         "import distributed_tensorflow_example_tpu_torch.serving_batch\n"
         "print('TRITON', 'triton' in sys.modules)\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert "TRITON False" in out.stdout, out.stderr

@@ -101,10 +101,14 @@ def ragged_prompts(n=SLOTS, seed=7):
 
 
 def run_engine(d, prompts, *, spec, max_new=MAX_NEW, **kw):
+    """Every request queued before the engine starts, so one admission
+    wave takes them all and the dispatch counts do not depend on how
+    the scheduler thread races the submitting one."""
     eng = GenerationEngine(load_stepwise(d, device="cpu"),
-                           prefix_cache=False, spec_tokens=spec).start()
+                           prefix_cache=False, spec_tokens=spec)
     try:
         handles = [eng.submit(p, max_new=max_new, **kw) for p in prompts]
+        eng.start()
         outs = [h.result(timeout=WAIT_S) for h in handles]
         stats = eng.stats()
         assert eng.blocks.in_use == 0, "blocks leaked past retirement"

@@ -491,7 +491,7 @@ def test_sync_replicas_nan_batch_is_the_identity_update(policy):
 
 def test_sync_replicas_refuses_what_a_later_slice_brings():
     """One replica per rank: shard_map is the same step as auto; more
-    replicas than ranks is a later slice's (A6), and
+    replicas than ranks breaks the rule of one rank a card, and
     replicas_to_aggregate other than the world size is the reference's
     ValueError."""
     tm = GPT(GPTConfig(**SMALL))
@@ -501,7 +501,7 @@ def test_sync_replicas_refuses_what_a_later_slice_brings():
     with pytest.raises(ValueError, match="replicas_to_aggregate"):
         SyncReplicas(tm.loss, tx, device="cpu",
                      sync=tconfig.SyncConfig(replicas_to_aggregate=2))
-    with pytest.raises(NotImplementedError, match="slice A6"):
+    with pytest.raises(NotImplementedError, match="one rank a card"):
         make_sync_train_step(tm.loss, tx, 4, device="cpu")
     with pytest.raises(ValueError, match="sync mode"):
         SyncReplicas(tm.loss, tx, sync=tconfig.SyncConfig(mode="ps"),

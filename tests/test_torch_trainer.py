@@ -178,8 +178,10 @@ def test_ring_keeps_max_to_keep_and_skips_corrupt_files(tmp_path):
     assert mgr.latest_valid_step() is None
     with pytest.raises(tckpt.CorruptCheckpointError, match="every"):
         mgr.restore(template)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tckpt.CheckpointManager(str(tmp_path), sharded=True)
+    # a sharded manager (slice A6a) reads the same ring and refuses alike
+    with pytest.raises(tckpt.CorruptCheckpointError, match="every"):
+        tckpt.CheckpointManager(str(tmp_path), sharded=True).restore(
+            template)
 
 
 def _jax_state(steps=2, seed=0):
@@ -432,7 +434,8 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 # --model mlp, --sync_mode shard_map and two worker hosts now train
 # (tests/test_torch_mnist.py, tests/test_torch_distributed.py): their rows
 # pair them with a knob that is still refused. A data axis of 2 in one
-# rank would need two cards in one process (A6). The conv models train
+# rank would need two cards in one process (refused: one rank a card).
+# The conv models train
 # too (tests/test_torch_conv.py): the row that named resnet20 names a
 # model still to come, and ImageNet's readers and knobs name A5b. BERT,
 # lars/lamb, the fused and chunked LM heads and --remat train too
@@ -456,37 +459,52 @@ LATER = [
     (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
     (["--model", "bert_tiny", "--data_dir", "VOCAB", "--steps_per_loop",
       "2"], "A3c-2b"),
-    (["--model", "moe_bert_tiny", "--native", "--mesh", "data=2"], "A6"),
-    (["--model", "pipe_bert_tiny"], "A6"),
-    (["--model", "moe_bert", "--streaming", "--sharded_save"], "A6"),
+    # the fsdp axis and sharded saves train (slice A6a,
+    # tests/test_torch_fsdp.py, test_torch_sharded_checkpoint.py): the
+    # rows that named them, or a data axis wider than the ranks (refused
+    # by the rule of one rank a card, no slice's), pair them with an axis
+    # that is still refused (a later --mesh wins)
+    (["--model", "moe_bert_tiny", "--native", "--mesh", "data=2",
+      "--mesh", "expert=2"], "A6d"),
+    (["--model", "pipe_bert_tiny"], "A6c"),
+    (["--model", "moe_bert", "--streaming", "--sharded_save", "--mesh",
+      "model=2"], "A6a-2"),
     (["--steps_per_loop", "2"], "A3c-2b"),
-    (["--mesh", "data=2"], "A6"),
+    (["--mesh", "data=2", "--mesh", "seq=2"], "A6b"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
-    (["--model", "pipe_moe_bert_tiny"], "A6"),
-    (["--sharded_save"], "A6"),
+    (["--model", "pipe_moe_bert_tiny"], "A6c"),
+    (["--sharded_save", "--mesh", "model=2"], "A6a-2", "sharded_save"),
     (["--warm_start", "w", "--fast_decode", "--max_inflight_steps", "1"],
      "A3c-2b"),
     (["--moment_dtype", "bfloat16", "--max_per_class", "5",
-      "--sharded_save"], "A6"),
+      "--sharded_save", "--mesh", "pipe=2"], "A6c"),
     (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "model=2"],
-     "A6"),
-    (["--streaming", "--model", "pipe_mlp"], "A6"),
+     "A6a-2"),
+    (["--streaming", "--model", "pipe_mlp"], "A6c"),
     (["--max_per_class", "5", "--steps_per_loop", "4"], "A3c-2b"),
-    (["--label_offset", "-1", "--dataset", "pipe_bert"], "A6"),
-    (["--augment", "--model", "resnet50", "--sharded_save"], "A6"),
+    (["--label_offset", "-1", "--dataset", "pipe_bert"], "A6c"),
+    (["--augment", "--model", "resnet50", "--sharded_save", "--mesh",
+      "expert=2"], "A6d"),
     (["--data_dir", "IMAGENET", "--model", "resnet50", "--mesh",
-      "data=2"], "A6"),
+      "data=2", "--mesh", "model=2"], "A6a-2"),
     # --export_dir itself is lifted (A4a), and moe_bert_tiny exports
     # (static-batch): exporting a model the port lacks still refuses,
     # naming that model's slice
-    (["--export_dir", "EXPORT", "--model", "pipe_moe_bert_tiny"], "A6"),
+    (["--export_dir", "EXPORT", "--model", "pipe_moe_bert_tiny"], "A6c"),
     (["--worker_hosts", "w0:1,w1:1", "--steps_per_loop", "2"], "A3c-2b"),
 ]
 
 
-@pytest.mark.parametrize("extra,slice_", LATER,
-                         ids=lambda v: v if isinstance(v, str) else
-                         "-".join(x.lstrip("-") for x in v[:2]))
+def _later_id(row) -> str:
+    """A row's test id: its first two flags, or the name it kept when a
+    lifted flag was paired with one still refused."""
+    return row[2] if len(row) > 2 else "-".join(
+        x.lstrip("-") for x in row[0][:2])
+
+
+
+@pytest.mark.parametrize("extra,slice_", [r[:2] for r in LATER],
+                         ids=[_later_id(r) for r in LATER])
 def test_cli_refuses_a_later_slice_before_any_work(tmp_path, extra,
                                                    slice_):
     """A knob of a later slice exits naming its slice before the model,

@@ -145,19 +145,24 @@ def test_bf16_checkpoint_leaves(tmp_path):
 
 def test_sharded_checkpoint_is_refused_naming_a6(tmp_path):
     """The reference's sharded save (a ``.shards.json`` anchor, which the
-    directory's state file names latest, and per-process shard files) is
-    refused, naming the slice that brings sharded checkpoints; the
-    reference reads the same directory."""
+    directory's state file names latest, and per-process shard files),
+    once refused naming slice A6, which brought sharded checkpoints,
+    warm-starts the port: every param leaf is assembled from its pieces
+    and lands bit for bit, as the reference reads the same directory."""
     jm = JMLP()
     jsync = JSyncReplicas(jm.loss, jopt.make_optimizer(JOptimizerConfig()),
                           local_mesh(1))
     js = jsync.init(jm.init, seed=0)
     d = str(tmp_path / "sh")
     jckpt.CheckpointManager(d, sharded=True).save(js, step=5)
-    with pytest.raises(NotImplementedError, match="slice A6"):
-        load_checkpoint_arrays(d)
-    with pytest.raises(NotImplementedError, match="slice A6"):
-        warm_start(MLP().init(0, device="cpu"), d)
+    want = jckpt._flatten(js.params)
+    arrays = load_checkpoint_arrays(d)
+    for k, v in want.items():
+        np.testing.assert_array_equal(arrays[f"params/{k}"], v, err_msg=k)
+    warmed, treport = warm_start(MLP().init(0, device="cpu"), d)
+    assert not treport.fresh and sorted(treport.restored) == sorted(want)
+    for k, v in flatten_dict(warmed).items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
     _, report = jws.warm_start(jsync.init(jm.init, seed=9).params, d)
     assert not report.fresh
 
