@@ -134,7 +134,15 @@ eight named collectives on CUDA tensors; GPT-small 8 x 512 on the flash
 kernels through ``cli/train.py`` with ``--sharded_save``, 10 steps then
 a restart from the anchor to 15, equal bit for bit to an uninterrupted
 sharded run and a monolithic one; step ms, write ms, peak memory, exact
-launches), a
+launches), the tensor-parallel phase (each of 2 ``model`` ranks' share of
+GPT-small at full width on this one card: its 6-head block through B1,
+B2a/B2b and B3 bit for bit the whole 12-head calls'; a GPT-small decoder
+layer and a BERT-base encoder layer in bf16, forward and backward, on
+the ranks' pieces through the port's TP code with the phase summing the
+row-parallel partials itself, against the whole layer and an f32 run of
+it, exact launches; the vocab-parallel fused head at V = 30522, hidden
+768, 8 x 512 tokens over 2 ranks against the whole fused head; TP over
+two cards is not run), a
 ``{"kernels":
 [...]}`` JSON line, the card line again, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -7015,6 +7023,370 @@ def phase_sharded(card: str) -> dict:
             "b2b": launches["flash_attention_bwd_dkv"]}
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model`` (slice A6a-2): each rank's share on one
+# card
+# ---------------------------------------------------------------------------
+
+#: phase_tp's tolerances. A rank's block of heads through a flash kernel
+#: is the same CTAs' work as in the whole call: bitwise. The layers in
+#: bf16: the TP layer sums its row-parallel partials in f32 and rounds
+#: once, as the whole layer's bf16 GEMM does, but its backward products
+#: return f32 where the whole layer's round to bf16, so the two differ by
+#: a few bf16 ulps (2^-8 each) of a row's largest value, more where two
+#: layernorms' backwards compound them (BERT's post-LN dh): held to
+#: TRAIN_GRAD_REL_TOL's 5e-2, the card's bf16 flash-against-xla gradient
+#: gate; the TP layer's error against the same layer in f32 must stay
+#: within twice the whole bf16 layer's (or 1e-2). The fused head: f32
+#: products of the same bf16 operands, summed in another order: 1e-5 of
+#: the loss, 1e-4 of a gradient row's largest value; the accuracy exact.
+TP_LAYER_ROW_REL_TOL = 5e-2
+TP_LAYER_F32_FLOOR = 1e-2
+TP_HEAD_LOSS_REL_TOL = 1e-5
+TP_HEAD_GRAD_ROW_REL_TOL = 1e-4
+TP_RANKS = 2
+
+
+class _RankShare:
+    """One of ``TP_RANKS`` ``model`` ranks on this one card: its head block
+    and vocab range as a bound ``ModelAxis`` gives them, with no
+    collective (the phase sums and gathers the ranks' partials itself)."""
+
+    size = TP_RANKS
+
+    def __init__(self, index: int):
+        self.index = index
+
+    def copy_to_model(self, x):
+        return x
+
+    def reduce_from_model(self, x):
+        return x
+
+
+def _tp_attention_blocks(gen) -> list[str]:
+    """(a) GPT-small's attention at B=8, S=512, 12 heads of 64, causal,
+    right pads: each rank's block of 6 heads through B1, then B2a/B2b,
+    then B3 against the same heads of the 12-head calls, bit for bit
+    (lse and Dsum sliced from the whole call's)."""
+    from distributed_tensorflow_example_tpu_torch.ops.cuda import \
+        flash_attention as fa
+    f = FLASH_SHAPE
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn((f["b"], f["s"], f["h"], f["d"]),
+                               generator=gen).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    mask = _right_pad_mask(gen, f["b"], f["s"], dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
+    dsum = fa.flash_attention_dsum(do, o)
+    args = (q, k, v, do, lse, dsum, mask)
+    dq = fa.flash_attention_bwd_dq(*args, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, causal=True)
+    fused = fa.flash_attention_bwd_fused(*args, causal=True)
+    bad = []
+    per = f["h"] // TP_RANKS
+    for r in range(TP_RANKS):
+        hs = slice(r * per, (r + 1) * per)
+        qr, kr, vr, dor = (x[:, :, hs].contiguous() for x in (q, k, v, do))
+        o_r, lse_r = fa.flash_attention_fwd(qr, kr, vr, mask, causal=True)
+        a = (qr, kr, vr, dor, lse[:, hs].contiguous(),
+             dsum[:, hs].contiguous(), mask)
+        dq_r = fa.flash_attention_bwd_dq(*a, causal=True)
+        dk_r, dv_r = fa.flash_attention_bwd_dkv(*a, causal=True)
+        fused_r = fa.flash_attention_bwd_fused(*a, causal=True)
+        pairs = {"B1 o": (o_r, o[:, :, hs]), "B1 lse": (lse_r, lse[:, hs]),
+                 "B2a dq": (dq_r, dq[:, :, hs]),
+                 "B2b dk": (dk_r, dk[:, :, hs]),
+                 "B2b dv": (dv_r, dv[:, :, hs])}
+        pairs.update({f"B3 {n}": (g, w[:, :, hs]) for n, g, w in
+                      zip(("dq", "dk", "dv"), fused_r, fused)})
+        bad += [f"rank {r} {n}" for n, (g, w) in pairs.items()
+                if not torch.equal(g, w)]
+    torch.cuda.synchronize()
+    log(f"[tp (a)] GPT-small attention {f['b']} x {f['s']}, {f['h']} heads "
+        f"of {f['d']}, causal: each of {TP_RANKS} ranks' {per}-head block "
+        "through B1, B2a/B2b and B3 equals the same heads of the whole "
+        "calls bit for bit" + (f" (FAILED: {bad})" if bad else ""))
+    return [f"(a) {b} differs" for b in bad]
+
+
+def _right_pad_mask(gen, b: int, s: int, dev) -> torch.Tensor:
+    """[B, S] int32 key mask whose rows end in up to S/4 pads (the
+    training layout); row 0 unpadded."""
+    pads = torch.randint(0, s // 4, (b,), generator=gen)
+    pads[0] = 0
+    mask = (torch.arange(s)[None, :] < (s - pads)[:, None]).to(torch.int32)
+    return mask.to(dev)
+
+
+def _tp_layer(model, pieces: list, h, mask, kind: str):
+    """One encoder or decoder layer over ``model`` ranks on this card:
+    each rank's column-parallel q/k/v on its head block (``_qkv`` of the
+    model bound to the rank), attention over those heads and its
+    row-parallel partial (``tensor_parallel.row_parallel_partial``), the
+    FFN on its columns likewise; the phase sums the partials (the
+    ``model`` all-reduce's work) and ``row_parallel_finish`` rounds once
+    and adds the replicated bias. Autograd through the sum is the
+    conjugate pair's: the partials share the sum's gradient, and the
+    replicated input's gradient adds up over the ranks' paths."""
+    from distributed_tensorflow_example_tpu_torch.ops import nn
+    from distributed_tensorflow_example_tpu_torch.ops.attention import \
+        multi_head_attention
+    from distributed_tensorflow_example_tpu_torch.parallel import \
+        tensor_parallel as tpar
+    b, s, _ = h.shape
+    dt = model.dtype
+    whole = pieces[0]
+    causal = kind == "gpt"
+
+    def attention(x):
+        parts = []
+        for r, lp in enumerate(pieces):
+            model.tp = _RankShare(r)
+            q, k, v = model._qkv(lp["attn"], x)
+            ctx = multi_head_attention(q, k, v, mask=mask[:, None, None, :],
+                                       causal=causal, impl="flash")
+            parts.append(tpar.row_parallel_partial(
+                lp["attn"]["o"], ctx.reshape(b, s, -1), dtype=dt))
+        model.tp = None
+        return tpar.row_parallel_finish(whole["attn"]["o"], sum(parts),
+                                        dtype=dt)
+
+    def ffn(x):
+        parts = []
+        for lp in pieces:
+            f = nn.dense(lp["ffn"]["in"], x, dtype=dt)
+            f = nn.gelu(f.float()).to(dt)
+            parts.append(tpar.row_parallel_partial(lp["ffn"]["out"], f,
+                                                   dtype=dt))
+        return tpar.row_parallel_finish(whole["ffn"]["out"], sum(parts),
+                                        dtype=dt)
+
+    if causal:                            # GPT: pre-LN
+        h = h + attention(nn.layernorm(whole["ln1"], h)).to(h.dtype)
+        return h + ffn(nn.layernorm(whole["ln2"], h)).to(h.dtype)
+    h = nn.layernorm(whole["attn_ln"], h + attention(h).to(h.dtype))
+    return nn.layernorm(whole["ffn_ln"], h + ffn(h).to(h.dtype))
+
+
+def _tp_layer_case(kind: str, gen, dev, b: int, s: int,
+                   cfg=None) -> tuple[dict, list]:
+    """(b) for one layer: the whole layer (``_layer`` of the unbound
+    model) and :func:`_tp_layer` on each rank's pieces (cut by
+    ``ShardLayout`` under the model's rules at ``model=2``), forward and
+    backward against the same upstream gradient, and the whole layer in
+    f32 (plain attention) as the oracle of both. Returns the TP layer's
+    row errors against the whole bf16 layer and against the f32 one, the
+    whole bf16 layer's against the f32 one ({what: row error} each), and
+    the TP path's launches."""
+    from distributed_tensorflow_example_tpu_torch.config import MeshShape
+    from distributed_tensorflow_example_tpu_torch.models.bert import (
+        Bert, BertConfig)
+    from distributed_tensorflow_example_tpu_torch.models.gpt import (
+        GPT, GPTConfig)
+    from distributed_tensorflow_example_tpu_torch.parallel.mesh import (
+        Mesh, mesh_sizes)
+    from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
+        ShardLayout
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, unflatten_dict)
+    dt = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    cls, cfg = ((GPT, cfg or GPTConfig.small()) if kind == "gpt"
+                else (Bert, cfg or BertConfig.base()))
+    model = cls(cfg, dtype=dt, attention_impl="flash")
+    f32 = cls(cfg, dtype=torch.float32, attention_impl="xla")
+    c = model.cfg
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    lp = params["layer_0"]
+    h = torch.randn((b, s, c.hidden), generator=gen).to(dev, dt)
+    g = torch.randn((b, s, c.hidden), generator=gen).to(dev, dt)
+    mask = _right_pad_mask(gen, b, s, dev)
+    rules = model.sharding_rules(MeshShape(model=TP_RANKS))
+    sizes = mesh_sizes(MeshShape(model=TP_RANKS), TP_RANKS)
+    layouts = [ShardLayout.for_params(Mesh(sizes, r, TP_RANKS), lp, rules)
+               for r in range(TP_RANKS)]
+
+    def leaves(tree):
+        return {k: v.detach().clone().requires_grad_(True)
+                for k, v in flatten_dict(tree).items()}
+
+    def whole_layer(m):
+        p = leaves(lp)
+        x = h.detach().to(m.dtype).clone().requires_grad_(True)
+        out = m._layer(unflatten_dict(p), x, mask, None)
+        (out.float() * g.float()).sum().backward()
+        return p, x, out
+
+    exact, hx, out_x = whole_layer(f32)
+    whole, hw, out_w = whole_layer(model)
+    flat = leaves(lp)                   # the replicated leaves, shared
+    cut = [{k: (v if lay.dims[k] is None else
+                lay.local(k, v.detach()).requires_grad_(True))
+            for k, v in flat.items()} for lay in layouts]
+    ht = h.clone().requires_grad_(True)
+    read = _reset_launches()
+    out_t = _tp_layer(model, [unflatten_dict(x) for x in cut], ht, mask,
+                      kind)
+    (out_t.float() * g.float()).sum().backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read()
+
+    def errs(ref_out, ref_h, ref):
+        """Each output's row error against one reference run."""
+        out = {"out": row_rel_err(out_t, ref_out),
+               "dh": grad_row_rel_err(ht.grad, ref_h.grad)}
+        for k, w in ref.items():
+            d = layouts[0].dims[k]
+            got = (flat[k].grad if d is None
+                   else torch.cat([x[k].grad for x in cut], dim=d))
+            if k == "attn/k/bias":
+                # softmax shift invariance: its gradient is rounding
+                # noise, held absolutely to the query bias gradient's size
+                out[k] = ((got.float() - w.grad.float()).abs().max()
+                          / ref["attn/q/bias"].grad.abs().max()).item()
+            else:
+                out[k] = grad_row_rel_err(got, w.grad)
+        return out
+
+    own = {"out": row_rel_err(out_w, out_x),
+           "dh": grad_row_rel_err(hw.grad, hx.grad)}
+    own.update({k: grad_row_rel_err(whole[k].grad, w.grad)
+                for k, w in exact.items() if k != "attn/k/bias"})
+    return errs(out_w, hw, whole), errs(out_x, hx, exact), own, launches
+
+
+def _tp_fused_head(gen, dev, n: int, hidden: int, vocab: int,
+                   block: int = 0) -> dict:
+    """(c) The vocab-parallel fused head: the whole fused head
+    (``FusedLinearXent``, bf16 operands) against each rank's online pass
+    over its vocab rows (``_fused_fwd_pass``), the statistics stacked in
+    rank order and combined (``_combine_fused``: the phase's gather),
+    then each rank's backward (``_fused_bwd_pass``) against the combined
+    logz, the ranks' ``dh`` summed by the phase. Returns the loss's
+    relative error, both accuracies and the gradients' row errors."""
+    from distributed_tensorflow_example_tpu_torch.ops import losses as L
+    dt = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    # f32 hidden states of bf16 values (the final layernorm's f32 output
+    # as the head rounds it): dh comes back in f32 on both sides
+    h = torch.randn((n, hidden), generator=gen).to(dev, dt).float()
+    table = (0.02 * torch.randn((vocab, hidden), generator=gen)).to(dev)
+    labels = torch.randint(0, vocab, (n,), generator=gen).to(
+        dev, torch.int32)
+    w = (torch.rand((n,), generator=gen) > 0.1).float().to(dev)
+    block = block or L.DEFAULT_VOCAB_BLOCK
+    with torch.no_grad():
+        # every other token labelled with its argmax: an accuracy near
+        # 0.5 that any argmax off by a row would move
+        _, top = L.fused_linear_xent(h, table, labels, vocab_block=block,
+                                     dtype=dt)
+    labels[::2] = top[::2]
+    hw = h.clone().requires_grad_(True)
+    tw = table.clone().requires_grad_(True)
+    nll, pred = L.fused_linear_xent(hw, tw, labels, vocab_block=block,
+                                    dtype=dt)
+    loss_w, acc_w = L.weighted_token_mean(nll, (pred == labels).float(), w)
+    loss_w.backward()
+    per = vocab // TP_RANKS
+    hc, stats, idx = h.to(dt), [], []
+    for r in range(TP_RANKS):
+        m, s, picked, best, best_idx = L._fused_fwd_pass(
+            hc, table[r * per:(r + 1) * per].to(dt), None,
+            labels - r * per, block)
+        stats.append(torch.stack([m, s, picked, best]))
+        idx.append(best_idx + r * per)
+    nll_t, pred_t, logz = L._combine_fused(torch.stack(stats),
+                                           torch.stack(idx))
+    loss_t, acc_t = L.weighted_token_mean(nll_t, (pred_t == labels).float(),
+                                          w)
+    gw = w / torch.clamp_min(w.sum(), 1.0)          # d loss / d nll
+    dh = torch.zeros_like(h)
+    dtab = []
+    for r in range(TP_RANKS):
+        dh_r, dt_r, _ = L._fused_bwd_pass(h, table[r * per:(r + 1) * per],
+                                          None, labels - r * per, logz, gw,
+                                          block, dt)
+        dh = dh + dh_r
+        dtab.append(dt_r)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    loss_t, loss_w = float(loss_t), float(loss_w.detach())
+    return {"loss": abs(loss_t - loss_w) / abs(loss_w),
+            "acc": (float(acc_t), float(acc_w)),
+            "dh": grad_row_rel_err(dh, hw.grad),
+            "dtable": grad_row_rel_err(torch.cat(dtab), tw.grad)}
+
+
+def phase_tp(card: str) -> dict:
+    """Megatron tensor parallelism over ``model`` (slice A6a-2) on the one
+    card, each of 2 ranks' share at full width; TP across two cards (two
+    NCCL ranks) is not run here (one card). (a)
+    :func:`_tp_attention_blocks`. (b) One GPT-small decoder layer and one
+    BERT-base encoder layer in bf16 at 8 x 512, forward and backward
+    (:func:`_tp_layer_case`): the summed output and every piece's and
+    replicated leaf's gradient against the whole layer's, to
+    ``TP_LAYER_ROW_REL_TOL``; the flash kernels launched on the ranks'
+    6-head blocks, exact counts. (c) The fused head at V = 30522, hidden
+    768, 8 x 512 tokens over 2 ranks (:func:`_tp_fused_head`). Returns
+    (b)'s launches for the kernels line."""
+    gen = torch.Generator().manual_seed(22)
+    dev = torch.device("cuda")
+    failed = _tp_attention_blocks(gen)
+    launches = {}
+    for kind in ("gpt", "bert"):
+        t0 = time.perf_counter()
+        err, vs32, own, got = _tp_layer_case(kind, gen, dev,
+                                             FLASH_SHAPE["b"],
+                                             FLASH_SHAPE["s"])
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        worst = max(err, key=err.get)
+        if err[worst] > TP_LAYER_ROW_REL_TOL or not np.isfinite(
+                err[worst]):
+            failed.append(f"(b) {kind} {worst}: {err[worst]:.3e}")
+        worse = [k for k in own
+                 if vs32[k] > max(2 * own[k], TP_LAYER_F32_FLOOR)]
+        if worse:
+            failed.append(f"(b) {kind} against f32: {worse}")
+        w32 = max(own, key=lambda k: vs32[k])
+        log(f"[tp (b)] {kind} layer 8 x 512 bf16 over 2 ranks (the phase "
+            f"sums the row-parallel partials): against the whole bf16 "
+            f"layer, output row error {err['out']:.3e}, dh "
+            f"{err['dh']:.3e}, the worst of {len(err) - 2} param "
+            f"gradients {worst} {err[worst]:.3e} (tolerance "
+            f"{TP_LAYER_ROW_REL_TOL}); against the layer in f32, TP / "
+            f"whole bf16: output {vs32['out']:.3e} / {own['out']:.3e}, dh "
+            f"{vs32['dh']:.3e} / {own['dh']:.3e}, worst {w32} "
+            f"{vs32[w32]:.3e} / {own[w32]:.3e}; launches "
+            f"{ {k: v for k, v in got.items() if v} }; "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+    want = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 4,
+            "flash_attention_bwd_dkv": 4}
+    if any(launches.get(k) != n for k, n in want.items()):
+        failed.append(f"(b) launches {launches}, want {want}")
+    head = _tp_fused_head(gen, dev, FLASH_SHAPE["b"] * FLASH_SHAPE["s"],
+                          768, 30522)
+    if head["loss"] > TP_HEAD_LOSS_REL_TOL:
+        failed.append(f"(c) loss off by {head['loss']:.3e}")
+    if head["acc"][0] != head["acc"][1]:
+        failed.append(f"(c) accuracy {head['acc']}")
+    for k in ("dh", "dtable"):
+        if head[k] > TP_HEAD_GRAD_ROW_REL_TOL:
+            failed.append(f"(c) {k} row error {head[k]:.3e}")
+    log(f"[tp (c)] fused head V=30522 hidden 768, 4096 tokens over 2 "
+        f"ranks (15261 rows each, every other token labelled with its "
+        f"argmax): loss relative error {head['loss']:.3e} "
+        f"(tolerance {TP_HEAD_LOSS_REL_TOL}), accuracy {head['acc'][0]:.6f}"
+        f" / whole {head['acc'][1]:.6f}, dh row error {head['dh']:.3e}, "
+        f"table gradient row error {head['dtable']:.3e} (tolerance "
+        f"{TP_HEAD_GRAD_ROW_REL_TOL}) ({card})")
+    if failed:
+        raise SystemExit("the tp phase failed: " + "; ".join(failed))
+    return {"b1": launches["flash_attention_fwd"],
+            "b2a": launches["flash_attention_bwd_dq"],
+            "b2b": launches["flash_attention_bwd_dkv"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7081,6 +7453,8 @@ def main() -> int:
     timed("examples")
     sharded = phase_sharded(card)
     timed("sharded")
+    tp = phase_tp(card)
+    timed("tp")
     log("[readers] MNIST at the mnist_mlp row (batch 8192), two Trainer "
         "runs a loader: " + "; ".join(
             f"{k} loader {v['alone_ms']:.3f} host ms a batch alone, ms a "
@@ -7111,7 +7485,8 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
-         + fleet["b1"] + moe["b1"] + readers["b1"] + sharded["b1"],
+         + fleet["b1"] + moe["b1"] + readers["b1"] + sharded["b1"]
+         + tp["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -7119,7 +7494,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
          "launches": train["flash_attention_bwd_dq"] + moe["b2a"]
-         + readers["b2a"] + sharded["b2a"],
+         + readers["b2a"] + sharded["b2a"] + tp["b2a"],
          **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -7127,7 +7502,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
          "launches": train["flash_attention_bwd_dkv"] + moe["b2b"]
-         + readers["b2b"] + sharded["b2b"],
+         + readers["b2b"] + sharded["b2b"] + tp["b2b"],
          **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"

@@ -38,15 +38,18 @@ package restores the other's): instead of gathering every leaf to rank
 dtype, global shape and the start and shape of each piece) as JSON under
 ``__shardmeta__``; after a barrier rank 0 writes the small
 ``ckpt-N.shards.json`` anchor and commits it to the ring. A rank owns
-its pieces of the sharded leaves where its ``data`` coordinate is 0 (the
-reference's ``replica_id == 0`` shards), and rank 0 the whole leaves.
+its piece of a sharded leaf where it sits at coordinate 0 on every axis
+that does not split that leaf (the reference's ``replica_id == 0``
+shards: an ``fsdp`` piece's owners have ``data`` and ``model`` at 0, a
+``model`` piece's ``data`` and ``fsdp``), so each piece is written once;
+rank 0 owns the whole leaves.
 Restore reads selectively: a rank reads only its piece of a sharded
 leaf when a saved piece has its bounds, and otherwise assembles the leaf
 from its pieces and cuts its own (a restore onto another mesh). The
 format is detected per step, so a run may switch modes across restarts,
 and a same-step save in the other format supersedes the old one.
 A sharded state (``TrainState.layout``) saved monolithically is gathered
-over ``fsdp`` first, on every rank.
+over ``fsdp`` and ``model`` first, on every rank.
 """
 
 from __future__ import annotations
@@ -329,7 +332,7 @@ def _pieces(state) -> dict[str, str]:
 
 def _whole_leaves(state) -> dict[str, torch.Tensor]:
     """:func:`_state_leaves` with every piece of a sharded state gathered
-    over ``fsdp`` into its whole leaf (a collective: every rank calls
+    over its axis into its whole leaf (a collective: every rank calls
     it)."""
     leaves = _state_leaves(state)
     for key, pkey in _pieces(state).items():
@@ -373,8 +376,9 @@ def _owned_pieces(state) -> tuple[dict[str, np.ndarray], dict]:
     """This rank's pieces of a TrainState and their index: ``(pieces,
     meta)``, ``pieces`` by npz key (``<leaf>::<start>``), ``meta`` by
     leaf: kind, dtype, global shape and the (start, shape) of each piece
-    written here. A rank owns its pieces of the sharded leaves where its
-    ``data`` coordinate is 0; rank 0 owns the whole leaves, the step and
+    written here. A rank owns its piece of a sharded leaf where it sits
+    at coordinate 0 on every axis that does not split the leaf
+    (``ShardLayout.owns``); rank 0 owns the whole leaves, the step and
     the PRNG key."""
     rank0 = distributed.process_index() == 0
     layout = state.layout
@@ -391,7 +395,7 @@ def _owned_pieces(state) -> tuple[dict[str, np.ndarray], dict]:
 
     for key, t in _state_leaves(state).items():
         if key in cut:
-            if layout.mesh.coords["data"] == 0:
+            if layout.owns(cut[key]):
                 arr, dtype = _host_piece(t)
                 bounds = layout.bounds(cut[key])
                 add(key, arr, dtype, layout.shapes[cut[key]],
@@ -1086,14 +1090,17 @@ def restore_or_init(manager: CheckpointManager | None, init_fn, *args,
     if step is not None:
         state = manager.restore(state, step)
     # params, optimizer state, extras and anomaly count, in place: the
-    # whole leaves from rank 0, a sharded leaf's pieces along ``data``
-    # from the rank at data coordinate 0 of the same fsdp column
+    # whole leaves from rank 0, a sharded leaf's pieces along every axis
+    # that does not split the leaf, from its owner (coordinate 0 there)
     cut = _pieces(state)
     leaves = _state_leaves(state)
     distributed.broadcast_([v for k, v in leaves.items() if k not in cut])
     if cut:
         from ..parallel import collectives
-        for k in cut:
-            leaves[k].copy_(collectives.broadcast_one_to_all(
-                leaves[k], "data", src=0, mesh=state.layout.mesh))
+        layout = state.layout
+        for k, pkey in cut.items():
+            axes = layout.replica_axes(pkey)
+            if axes:
+                leaves[k].copy_(collectives.broadcast_one_to_all(
+                    leaves[k], axes, src=0, mesh=layout.mesh))
     return state, step is not None

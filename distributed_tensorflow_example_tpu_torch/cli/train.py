@@ -124,8 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
     :func:`main`) plus ``--device``."""
     p = argparse.ArgumentParser(
         description="sync data-parallel trainer, one rank a card over "
-                    "the data and fsdp axes (distributed-tensorflow-example "
-                    "parity CLI)")
+                    "the data, fsdp and model axes (distributed-tensorflow-"
+                    "example parity CLI)")
     add_legacy_flags(p)
     a = p.add_argument
     a("--device", default="cuda", choices=["cuda", "cpu"],
@@ -255,10 +255,13 @@ def build_parser() -> argparse.ArgumentParser:
       choices=["float32", "bfloat16"],
       help="batch-statistic reduction dtype of the ResNets")
     a("--mesh", default="",
-      help="axis sizes, e.g. data=2,fsdp=2: one rank a card, so they "
-           "multiply to the ranks; data and fsdp (params and optimizer "
-           "state sharded over it) train, model (slice A6a-2), seq (A6b), "
-           "pipe (A6c) and expert (A6d) are refused")
+      help="axis sizes, e.g. data=2,fsdp=2 or data=1,model=2: one rank a "
+           "card, so they multiply to the ranks; data, fsdp (params and "
+           "optimizer state sharded over it) and model (Megatron tensor "
+           "parallelism by the model's rules: GPT, BERT and MoE-BERT "
+           "compute on their pieces, the others replicate along it) "
+           "train; seq (slice A6b), pipe (A6c) and expert (A6d) are "
+           "refused")
     a("--sync_mode", default="auto", choices=["auto", "shard_map"],
       help="auto: batch norm over the global batch (sync-BN); "
            "shard_map: over each rank's batch")
@@ -561,21 +564,13 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
 
 def _refuse_mesh(args) -> None:
     """SystemExit for a mesh the port cannot train: a later slice's axis
-    (named), a mesh that is not one rank a card, or an optimizer that
-    reduces over whole leaves under fsdp > 1 (slice A6a-2)."""
+    (named), or a mesh that is not one rank a card."""
     from ..parallel.sync_replicas import resolve_mesh
-    from ..train.optimizers import WHOLE_LEAF_OPTIMIZERS
     mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
     try:
-        sizes = resolve_mesh(mesh, _num_workers(args))
+        resolve_mesh(mesh, _num_workers(args))
     except NotImplementedError as e:
         raise SystemExit(f"--mesh {args.mesh}: {e}") from None
-    if (sizes["fsdp"] > 1 and args.sync_mode == "auto"
-            and args.optimizer in WHOLE_LEAF_OPTIMIZERS):
-        raise SystemExit(
-            f"--optimizer {args.optimizer} under --mesh {args.mesh}: its "
-            "trust ratio or block RMS reduces over whole parameters, and "
-            "sharded over fsdp it arrives with slice A6a-2")
 
 
 def refuse_later_slices(args) -> None:
@@ -585,7 +580,8 @@ def refuse_later_slices(args) -> None:
         if on:
             raise SystemExit(f"{what} arrives with slice {slice_} of the "
                              "port; the port trains " + ", ".join(MODELS)
-                             + ", one rank a card over data and fsdp")
+                             + ", one rank a card over data, fsdp and "
+                             "model")
     _refuse_mesh(args)
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):

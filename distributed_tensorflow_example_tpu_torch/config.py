@@ -107,9 +107,11 @@ class SyncConfig:
 class MeshShape:
     """Logical mesh axis sizes (the reference's). The port runs one rank
     a card, so the axes multiply to the number of ranks (one ``-1``
-    takes the rest). ``data`` and ``fsdp`` train (``fsdp`` shards the
-    params and their optimizer state); ``model`` (slice A6a-2), ``seq``
-    (A6b), ``pipe`` (A6c) and ``expert`` (A6d) stay at 1."""
+    takes the rest). ``data``, ``fsdp`` and ``model`` train (``fsdp``
+    shards the params and their optimizer state ZeRO-3's way, ``model``
+    by the models' Megatron rules, the layers computing on the pieces);
+    ``seq`` (slice A6b), ``pipe`` (A6c) and ``expert`` (A6d) stay at
+    1."""
 
     data: int = 1
     fsdp: int = 1

@@ -1,6 +1,7 @@
 """Model registry + dtype helpers (port of the reference's
 ``models/base.py``), and the transformers' shared machinery: the flash
-kernels' key mask and ``--remat``."""
+kernels' key mask, ``--remat`` and the tensor-parallel binding
+(:class:`TensorParallelMixin`)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from ..config import TrainConfig
+from ..ops import nn
+from ..parallel import tensor_parallel
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -165,3 +168,67 @@ class DefaultRulesMixin:
         from ..parallel.sharding import ShardingRules
         fsdp = getattr(mesh_shape, "fsdp", 1) if mesh_shape else 1
         return ShardingRules(fsdp_axis_size=fsdp)
+
+
+class TensorParallelMixin:
+    """The ``model`` axis of GPT, BERT and MoE-BERT: ``bind_mesh(mesh)``
+    (the reference's pipe models' name) makes the layers compute on this
+    rank's pieces by the models' Megatron rules: column-parallel q/k/v
+    and FFN-in on the rank's head block and columns (through
+    ``copy_to_model``), row-parallel o and FFN-out with the replicated
+    bias added after the sum (:meth:`_row_dense`), the vocab-parallel
+    embedding and tied head. The sync step binds its mesh around the
+    loss of a step over ``model`` pieces and unbinds after; unbound, or
+    at ``model`` 1, every layer is the whole-params code, bit for bit."""
+
+    #: the bound ``tensor_parallel.ModelAxis`` (None: whole params)
+    tp = None
+
+    def bind_mesh(self, mesh) -> None:
+        """Compute on ``mesh``'s ``model`` pieces (None or a ``model``
+        axis of 1: whole params). Raises ValueError, naming the leaf,
+        when the heads do not split over the axis."""
+        tp = tensor_parallel.model_axis(mesh)
+        if tp is not None:
+            tp.local_heads(self.cfg.heads, "params/layer_0/attn/q/kernel")
+        self.tp = tp
+
+    def _heads_here(self) -> int:
+        """The heads this rank computes (its head block under TP)."""
+        return (self.cfg.heads if self.tp is None
+                else self.cfg.heads // self.tp.size)
+
+    def _column_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel block (identity unbound)."""
+        return tensor_parallel.copy_to_model(x, self.tp)
+
+    def _qkv(self, ap, h: torch.Tensor):
+        """Column-parallel q, k, v of ``h`` [B, S, hidden]: [B, S, heads
+        here, D] each (this rank's head block under TP)."""
+        b, s, _ = h.shape
+        heads = self._heads_here()
+        h = self._column_in(h)
+
+        def split(x):
+            return x.reshape(b, s, heads, self.head_dim)
+
+        return (split(nn.dense(ap["q"], h, dtype=self.dtype)),
+                split(nn.dense(ap["k"], h, dtype=self.dtype)),
+                split(nn.dense(ap["v"], h, dtype=self.dtype)))
+
+    def _row_dense(self, params, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product (o, FFN-out): ``nn.dense`` unbound."""
+        if self.tp is None:
+            return nn.dense(params, x, dtype=self.dtype)
+        return tensor_parallel.row_parallel_dense(params, x,
+                                                  dtype=self.dtype,
+                                                  tp=self.tp)
+
+    def _embed_rows(self, table: torch.Tensor,
+                    ids: torch.Tensor) -> torch.Tensor:
+        """The tied word table's lookup (vocab-parallel under TP)."""
+        return tensor_parallel.vocab_parallel_embedding(table, ids, self.tp)
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """A vocab piece's logits gathered into the whole vocab's."""
+        return logits if self.tp is None else self.tp.gather_last(logits)

@@ -39,9 +39,13 @@ forward runs twice a layer.
 The encoder layer is an attention half and an FFN tail
 (:meth:`Bert._attn_block`, :meth:`Bert._ffn_block`), which MoE-BERT
 (``models/moe.py``) shares. :meth:`Bert.sharding_rules` carries the
-reference's tensor-parallel rules as data; the port's step trains them
-only with ``model`` at 1, where they are the fsdp fallback (Megatron TP
-is slice A6a-2).
+reference's tensor-parallel rules as data. Bound to a mesh with a
+``model`` axis of M > 1 (``bind_mesh``, :class:`~.base.
+TensorParallelMixin`), the layers compute on this rank's pieces:
+heads / M heads a rank through the attention, FFN columns, the
+vocab-parallel word embedding, and the tied MLM decoder with its
+``mlm/bias`` on the rank's vocab range; with ``model`` at 1 the rules
+are the fsdp fallback.
 """
 
 from __future__ import annotations
@@ -55,8 +59,9 @@ from ..ckpt.checkpoint import to_numpy
 from ..config import TrainConfig, flash_attention_kwargs, lm_loss_settings
 from ..ops import losses, nn
 from ..ops.attention import multi_head_attention
-from .base import (cast_floating, check_remat, checked_params, generator,
-                   key_mask, register_model, remat_call, resolve_dtype)
+from .base import (TensorParallelMixin, cast_floating, check_remat,
+                   checked_params, generator, key_mask, register_model,
+                   remat_call, resolve_dtype)
 
 
 @dataclasses.dataclass
@@ -91,7 +96,7 @@ class BertConfig:
                    intermediate=256, max_len=128, max_predictions=8)
 
 
-class Bert:
+class Bert(TensorParallelMixin):
     #: TP rules for the (non-stacked) embedding/MLM head — shared with
     #: PipeBert's PP×TP rules in the reference
     TP_EMBED_RULES: tuple = (
@@ -217,20 +222,14 @@ class Bert:
 
     # ------------------------------------------------------------------
     def _attend(self, p, h, mask):
-        c = self.cfg
+        """Column-parallel q/k/v on the rank's head block, the attention
+        over those heads, the row-parallel o (whole heads unbound)."""
         b, s, _ = h.shape
-
-        def split(x):
-            return x.reshape(b, s, c.heads, self.head_dim)
-
-        q = split(nn.dense(p["q"], h, dtype=self.dtype))
-        k = split(nn.dense(p["k"], h, dtype=self.dtype))
-        v = split(nn.dense(p["v"], h, dtype=self.dtype))
+        q, k, v = self._qkv(p, h)
         ctx = multi_head_attention(
             q, k, v, mask=mask[:, None, None, :], impl=self.attention_impl,
             flash_kwargs=self.attention_kwargs or None)
-        return nn.dense(p["o"], ctx.reshape(b, s, c.hidden),
-                        dtype=self.dtype)
+        return self._row_dense(p["o"], ctx.reshape(b, s, -1))
 
     def _embed(self, params, batch, key):
         """The embedding front end -> (h [B, S, hidden] in the compute
@@ -244,7 +243,7 @@ class Bert:
         types = (torch.zeros_like(ids) if types is None
                  else torch.as_tensor(types, device=ids.device))
         mask = key_mask(batch.get("attention_mask"), ids)
-        h = (nn.embedding(word, ids)
+        h = (self._embed_rows(word["table"], ids)
              + nn.embedding(params["embed"]["pos"],
                             torch.arange(s, device=ids.device))[None]
              + nn.embedding(params["embed"]["type"], types))
@@ -269,9 +268,9 @@ class Bert:
         dropout -> add & LN. Its masks are those of ``key`` (None: no
         dropout), so :func:`remat_call` can recompute it."""
         h = self._attn_block(lp, h, mask, key)
-        f = nn.dense(lp["ffn"]["in"], h, dtype=self.dtype)
+        f = nn.dense(lp["ffn"]["in"], self._column_in(h), dtype=self.dtype)
         f = nn.gelu(f.float()).to(self.dtype)
-        f = nn.dense(lp["ffn"]["out"], f, dtype=self.dtype)
+        f = self._row_dense(lp["ffn"]["out"], f)
         return self._ffn_block(lp, h, f, key)
 
     def encode(self, params, batch, gen=None, train: bool = False):
@@ -299,25 +298,25 @@ class Bert:
 
     def mlm_logits(self, params, seq_out, masked_positions):
         """The masked positions decoded against the tied word table plus
-        the MLM bias: [B, M, V] f32 logits."""
+        the MLM bias: [B, M, V] f32 logits (under TP the rank's vocab
+        piece's, gathered into the whole vocab's)."""
         h = self.mlm_hidden(params, seq_out, masked_positions)
-        return losses._head_logits(h, params["embed"]["word"]["table"],
-                                   params["mlm"]["bias"], self.dtype)
+        return self._whole_logits(losses._head_logits(
+            h, params["embed"]["word"]["table"], params["mlm"]["bias"],
+            self.dtype))
 
     def _mlm_loss_and_acc(self, params, seq_out, batch, w):
-        """(masked-LM xent, accuracy) by ``cfg.lm_loss_impl``; ``w`` is
-        the per-prediction weight."""
+        """(masked-LM xent, accuracy) by ``cfg.lm_loss_impl`` (``full``
+        or ``fused``; on the rank's vocab piece under TP); ``w`` is the
+        per-prediction weight."""
         labels = torch.as_tensor(batch["masked_labels"],
                                  device=seq_out.device)
-        if self.cfg.lm_loss_impl == "fused":
-            h = self.mlm_hidden(params, seq_out, batch["masked_positions"])
-            return losses.lm_head_xent(
-                h, params["embed"]["word"]["table"], labels, w,
-                bias=params["mlm"]["bias"], impl="fused",
-                vocab_block=self.cfg.lm_loss_vocab_block, dtype=self.dtype)
-        logits = self.mlm_logits(params, seq_out, batch["masked_positions"])
-        nll, hit = losses.lm_nll_hits(logits, labels)
-        return losses.weighted_token_mean(nll, hit, w)
+        h = self.mlm_hidden(params, seq_out, batch["masked_positions"])
+        return losses.lm_head_xent(
+            h, params["embed"]["word"]["table"], labels, w,
+            bias=params["mlm"]["bias"], impl=self.cfg.lm_loss_impl,
+            vocab_block=self.cfg.lm_loss_vocab_block, dtype=self.dtype,
+            tp=self.tp)
 
     def _weights(self, batch, device) -> torch.Tensor:
         return torch.as_tensor(batch["masked_weights"], device=device).float()

@@ -44,7 +44,11 @@ head is ``ops/losses.py`` ``lm_head_xent``: ``full``, ``chunked`` or
 does. ``accuracy_every_n`` > 1 computes the token-accuracy argmax on
 every n-th step only (the others publish -1.0), counted by
 ``extras["lm_step"]``, an f32 counter that ticks once a step and is part
-of the checkpoint.
+of the checkpoint. Under tensor parallelism (``bind_mesh`` with a
+``model`` axis of M > 1, :class:`~.base.TensorParallelMixin`) the layers
+compute on this rank's pieces by :meth:`GPT.sharding_rules`: heads / M
+heads a rank through the attention (the flash kernels see them as any
+head count), FFN columns, the vocab-parallel embedding and tied head.
 
 Numerics follow the reference: bf16 matmuls with f32 accumulation, f32
 layernorm statistics (eps 1e-6), f32 softmax, tanh-approximated GELU,
@@ -67,8 +71,9 @@ from ..ops.cuda.decode_attention import decode_attention as decode_attn
 from ..ops.cuda.paged_decode_attention import \
     paged_decode_attention as paged_decode_attn
 from ..runtime.device import resolve_device
-from .base import (cast_floating, check_remat, checked_params, key_mask,
-                   register_model, remat_call, resolve_dtype)
+from .base import (TensorParallelMixin, cast_floating, check_remat,
+                   checked_params, key_mask, register_model, remat_call,
+                   resolve_dtype)
 
 
 def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -144,7 +149,7 @@ def _check_loss_levers(cfg: GPTConfig) -> None:
             f"{cfg.loss_impl!r}")
 
 
-class GPT:
+class GPT(TensorParallelMixin):
     def sharding_rules(self, mesh_shape):
         """Megatron TP, same shapes as Bert; vocab-sharded tied head (the
         reference's rules, carried as data; with ``model`` at 1 they are
@@ -259,20 +264,10 @@ class GPT:
         return params
 
     # ------------------------------------------------------------------
-    def _qkv(self, ap, h):
-        b, s, _ = h.shape
-
-        def split(x):
-            return x.reshape(b, s, self.cfg.heads, self.head_dim)
-
-        return (split(nn.dense(ap["q"], h, dtype=self.dtype)),
-                split(nn.dense(ap["k"], h, dtype=self.dtype)),
-                split(nn.dense(ap["v"], h, dtype=self.dtype)))
-
     def _ffn(self, lp, x):
-        f = nn.dense(lp["ffn"]["in"], x, dtype=self.dtype)
+        f = nn.dense(lp["ffn"]["in"], self._column_in(x), dtype=self.dtype)
         f = nn.gelu(f.float()).to(self.dtype)
-        return nn.dense(lp["ffn"]["out"], f, dtype=self.dtype)
+        return self._row_dense(lp["ffn"]["out"], f)
 
     def _layer(self, lp, h, mask, key=None, *, return_kv: bool = False):
         """Pre-LN decoder block over the full (causal) sequence: ONE body
@@ -286,15 +281,14 @@ class GPT:
             q, k, v, mask=mask[:, None, None, :], causal=True,
             impl=self.attention_impl,
             flash_kwargs=self.attention_kwargs or None)
-        a = nn.dense(lp["attn"]["o"], ctx.reshape(b, s, c.hidden),
-                     dtype=self.dtype)
+        a = self._row_dense(lp["attn"]["o"], ctx.reshape(b, s, -1))
         h = h + nn.keyed_dropout(key, 1, a, c.dropout).to(h.dtype)
         f = self._ffn(lp, nn.layernorm(lp["ln2"], h))
         h = h + nn.keyed_dropout(key, 2, f, c.dropout).to(h.dtype)
         return (h, (k, v)) if return_kv else h
 
     def _embed(self, params, ids, pos_ids, key=None):
-        h = (nn.embedding(params["wte"], ids)
+        h = (self._embed_rows(params["wte"]["table"], ids)
              + nn.embedding(params["wpe"], pos_ids))
         return nn.keyed_dropout(key, 1000, h.to(self.dtype), self.cfg.dropout)
 
@@ -318,10 +312,11 @@ class GPT:
     def lm_logits(self, params, h):
         """Weight-tied LM head: [B,S,hid] -> [B,S,V] f32 logits from
         operands rounded to the compute dtype, accumulated in f32 (the
-        reference's ``preferred_element_type=f32`` einsum)."""
+        reference's ``preferred_element_type=f32`` einsum). Under TP the
+        rank's vocab piece's logits, gathered into the whole vocab's."""
         table = params["wte"]["table"]
-        return torch.matmul(h.to(self.dtype).float(),
-                            table.to(self.dtype).float().t())
+        return self._whole_logits(torch.matmul(
+            h.to(self.dtype).float(), table.to(self.dtype).float().t()))
 
     @torch.no_grad()
     def apply(self, params, extras, batch):
@@ -352,7 +347,7 @@ class GPT:
         return losses.lm_head_xent(
             h, params["wte"]["table"], targets, w, impl=c.loss_impl,
             seq_chunk=c.loss_chunk, vocab_block=c.loss_vocab_block,
-            dtype=self.dtype, accuracy=accuracy)
+            dtype=self.dtype, accuracy=accuracy, tp=self.tp)
 
     def _targets(self, params, batch):
         ids = torch.as_tensor(batch["input_ids"],

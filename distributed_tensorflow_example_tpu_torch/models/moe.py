@@ -23,7 +23,10 @@ T) and the sync step takes the plain mean of the ranks' losses, metrics
 and gradients, as the reference's explicit EP step pmeans its members';
 the MLM loss reports no token weight here, so no rank's share is
 reweighed. :meth:`MoeBert.sharding_rules` carries the reference's
-expert and TP rules as data; expert parallelism itself (the token
+expert and TP rules as data. Under tensor parallelism (``bind_mesh``
+with ``model`` > 1, ``expert`` at 1) the attention halves and dense
+FFNs are BERT's, and each MoE layer runs its experts on this rank's
+hidden columns (``ops/moe.py``); expert parallelism itself (the token
 exchange over an ``expert`` axis) is slice A6d.
 """
 
@@ -141,7 +144,7 @@ class MoeBert(Bert):
                              top_k=c.top_k,
                              capacity_factor=c.capacity_factor,
                              dtype=self.dtype, key=jitter_key,
-                             jitter=c.jitter)
+                             jitter=c.jitter, tp=self.tp)
         return self._ffn_block(lp, h, f, key), aux
 
     def encode_with_aux(self, params, batch, gen=None, train: bool = False):

@@ -20,6 +20,20 @@ numerics (:func:`token_nll`, :func:`lm_nll_hits`,
 computes the same quantities online. Every product is ``torch.matmul``
 with f32 accumulation: the reference computes them outside any Pallas
 kernel too.
+
+Under tensor parallelism (``tp``, a ``parallel/tensor_parallel.
+ModelAxis``) the table and bias are this rank's vocab piece, rows
+[index * V/M, (index + 1) * V/M) of the whole, as the reference's
+``P(model, None)`` places the tied table. Each impl computes on the
+piece what it computes on the whole (the fused one still at most
+[N, vocab_block] logits at a time), and the ranks combine their partial
+statistics over ``model``: the max (taken as a constant, so its gradient
+is none), the sum of exponentials and the label's logit (zero off the
+rank's range; both summed through ``reduce_from_model``), and the argmax
+as (value, global index) pairs, a tie going to the lowest index, as
+``torch.argmax`` over the whole vocab does. ``h`` enters through
+``copy_to_model``, so its gradient is summed over ``model``; the
+table's gradient stays on its piece.
 """
 
 from __future__ import annotations
@@ -171,10 +185,12 @@ def _block_logits(h, blocks, biases, i: int, block: int, v: int):
 def _fused_fwd_pass(h, table, bias, labels, block: int):
     """One pass over the vocab blocks: the block's logits h E[v0:v1]^T,
     an online logsumexp (running max and rescaled sum of exps), the
-    label's logit picked in the block that holds it, and a running
-    argmax. Returns per-token (nll, argmax, logz); at most one [N, block]
-    logits tile is alive. ``h`` and ``table`` are already in the compute
-    dtype."""
+    label's logit picked in the block that holds it (0 when none does:
+    a label off this table's range), and a running argmax. Returns
+    per-token (max, sum of exp(. - max), label logit, best logit,
+    argmax); at most one [N, block] logits tile is alive. ``h`` and
+    ``table`` are already in the compute dtype; ``labels`` index the
+    table's rows."""
     v = table.shape[0]
     blocks, biases, nb = _vocab_blocks(table, bias, block)
     n = h.shape[0]
@@ -193,7 +209,9 @@ def _fused_fwd_pass(h, table, bias, labels, block: int):
              + torch.exp(logits - m_new[:, None]).sum(dim=-1))
         m = m_new
         rel = labels - off
-        in_blk = (rel >= 0) & (rel < block)
+        # a label past the table (another rank's row) may fall in the
+        # last block's padding: it is in no block
+        in_blk = (rel >= 0) & (rel < block) & (labels < v)
         pick = torch.gather(logits, 1,
                             rel.clamp(0, block - 1).long()[:, None])[:, 0]
         picked = torch.where(in_blk, pick, picked)
@@ -204,8 +222,29 @@ def _fused_fwd_pass(h, table, bias, labels, block: int):
         best = torch.where(better, bm, best)
         best_idx = torch.where(
             better, off + logits.argmax(dim=-1).to(torch.int32), best_idx)
-    logz = m + torch.log(s)
-    return logz - picked, best_idx, logz
+    return m, s, picked, best, best_idx
+
+
+def _first_best(best: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The argmax over ``model`` ranks from each rank's (best value,
+    global index) stacked on dim 0 in rank order: the first rank holding
+    the largest value, so a tie goes to the lowest index."""
+    top = best == best.amax(dim=0, keepdim=True)
+    first = top.to(torch.float32).argmax(dim=0)
+    return idx.gather(0, first[None])[0]
+
+
+def _combine_fused(stats: torch.Tensor, idx: torch.Tensor):
+    """Per-token (nll, argmax, logz) of the whole vocab from every rank's
+    online statistics over its piece, stacked in rank order: ``stats``
+    [M, 4, N] (max, sum of exps, label logit, best logit), ``idx``
+    [M, N] (global argmax). Every rank combines the same stacks in the
+    same order, so they compute the same bits."""
+    mm = stats[:, 0].amax(dim=0)
+    logz = mm + torch.log((stats[:, 1] * torch.exp(stats[:, 0] - mm)
+                           ).sum(dim=0))
+    pred = _first_best(stats[:, 3], idx)
+    return logz - stats[:, 2].sum(dim=0), pred, logz
 
 
 class FusedLinearXent(torch.autograd.Function):
@@ -213,13 +252,27 @@ class FusedLinearXent(torch.autograd.Function):
     ``_fused_nll_argmax``): per-token (nll f32, argmax int32) with no
     [N, V] logits tensor in the forward or the backward.
     ``apply(h [N, H], table [V, H], bias [V] or None, labels [N] int32,
-    block, dtype)``."""
+    block, dtype, tp)``; with ``tp`` the table and bias are this rank's
+    vocab piece and the statistics combine over ``model``
+    (:func:`_combine_fused`); the backward then gives this rank's partial
+    ``dh`` (summed by the caller's ``copy_to_model``)."""
 
     @staticmethod
-    def forward(ctx, h, table, bias, labels, block: int, dtype):
+    def forward(ctx, h, table, bias, labels, block: int, dtype, tp=None):
         hc = h if dtype is None else h.to(dtype)
         tc = table if dtype is None else table.to(dtype)
-        nll, best_idx, logz = _fused_fwd_pass(hc, tc, bias, labels, block)
+        start = 0 if tp is None else tp.index * table.shape[0]
+        if start:
+            labels = labels - start       # this piece's rows
+        m, s, picked, best, best_idx = _fused_fwd_pass(hc, tc, bias, labels,
+                                                       block)
+        if tp is None:
+            logz = m + torch.log(s)
+            nll = logz - picked
+        else:
+            nll, best_idx, logz = _combine_fused(
+                tp.gather(torch.stack([m, s, picked, best])),
+                tp.gather(best_idx + start))
         ctx.save_for_backward(h, table, bias, labels, logz)
         ctx.block, ctx.dtype = block, dtype
         ctx.mark_non_differentiable(best_idx)
@@ -227,42 +280,50 @@ class FusedLinearXent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_idx):
-        """Per vocab block: the [N, block] logits once more, d_logits =
-        (softmax - onehot) g, then dh (carried) and the block's rows of
-        the table and bias gradients, every product and sum in f32 as the
-        reference's backward takes them."""
         h, table, bias, labels, logz = ctx.saved_tensors
-        block, dtype = ctx.block, ctx.dtype
-        v, hd = table.shape
-        hc = h if dtype is None else h.to(dtype)
-        tc = table if dtype is None else table.to(dtype)
-        blocks, biases, nb = _vocab_blocks(tc, bias, block)
-        gf = g.float()
-        hf = hc.float()
-        dh = torch.zeros(hc.shape, dtype=torch.float32, device=h.device)
-        dtabs, dbs = [], []
-        for i in range(nb):
-            logits = _block_logits(hc, blocks, biases, i, block, v)
-            p = torch.exp(logits - logz[:, None])   # exp(-inf) = 0 on pads
-            cols = i * block + torch.arange(block, device=h.device)
-            d = (p - (cols[None, :] == labels[:, None]).float()) * gf[:, None]
-            dh = dh + torch.matmul(d, blocks[i].float())
-            dtabs.append(torch.matmul(d.t(), hf))
-            if bias is not None:
-                dbs.append(d.sum(dim=0))
-        dtable = torch.cat(dtabs)[:v].to(table.dtype)
-        dbias = None if bias is None else torch.cat(dbs)[:v].to(bias.dtype)
-        return dh.to(h.dtype), dtable, dbias, None, None, None
+        dh, dtable, dbias = _fused_bwd_pass(h, table, bias, labels, logz, g,
+                                            ctx.block, ctx.dtype)
+        return dh, dtable, dbias, None, None, None, None
+
+
+def _fused_bwd_pass(h, table, bias, labels, logz, g, block: int, dtype):
+    """The fused head's backward: per vocab block, the [N, block] logits
+    once more, d_logits = (softmax - onehot) g against the whole vocab's
+    ``logz``, then dh (carried) and the block's rows of the table and
+    bias gradients, every product and sum in f32 as the reference's
+    backward takes them. ``labels`` index this table's rows; on a vocab
+    piece ``dh`` is this piece's share."""
+    v, hd = table.shape
+    hc = h if dtype is None else h.to(dtype)
+    tc = table if dtype is None else table.to(dtype)
+    blocks, biases, nb = _vocab_blocks(tc, bias, block)
+    gf = g.float()
+    hf = hc.float()
+    dh = torch.zeros(hc.shape, dtype=torch.float32, device=h.device)
+    dtabs, dbs = [], []
+    for i in range(nb):
+        logits = _block_logits(hc, blocks, biases, i, block, v)
+        p = torch.exp(logits - logz[:, None])   # exp(-inf) = 0 on pads
+        cols = i * block + torch.arange(block, device=h.device)
+        d = (p - (cols[None, :] == labels[:, None]).float()) * gf[:, None]
+        dh = dh + torch.matmul(d, blocks[i].float())
+        dtabs.append(torch.matmul(d.t(), hf))
+        if bias is not None:
+            dbs.append(d.sum(dim=0))
+    dtable = torch.cat(dtabs)[:v].to(table.dtype)
+    dbias = None if bias is None else torch.cat(dbs)[:v].to(bias.dtype)
+    return dh.to(h.dtype), dtable, dbias
 
 
 def fused_linear_xent(h: torch.Tensor, table: torch.Tensor,
                       labels: torch.Tensor, *, bias=None,
-                      vocab_block: int = 0, dtype=None):
+                      vocab_block: int = 0, dtype=None, tp=None):
     """Fused blockwise LM-head cross-entropy: ``h`` [..., H] against the
     tied ``table`` [V, H] -> per-token ``(nll f32, argmax int32)`` without
     the [..., V] logits in either direction. ``vocab_block`` is the vocab
     tile (0 = :data:`DEFAULT_VOCAB_BLOCK`); V need not be a multiple of
-    it. ``dtype`` rounds the operands; the products accumulate in f32."""
+    it. ``dtype`` rounds the operands; the products accumulate in f32.
+    With ``tp``, ``table`` and ``bias`` are this rank's vocab piece."""
     block = int(vocab_block) if vocab_block else DEFAULT_VOCAB_BLOCK
     if block < 1:
         raise ValueError(
@@ -273,17 +334,48 @@ def fused_linear_xent(h: torch.Tensor, table: torch.Tensor,
     h2 = h.reshape(-1, h.shape[-1])
     lab = labels.reshape(-1).to(torch.int32)
     nll, idx = FusedLinearXent.apply(h2, table, bias, lab,
-                                     min(block, max(v, 1)), dtype)
+                                     min(block, max(v, 1)), dtype, tp)
     return nll.reshape(lead), idx.reshape(lead)
 
 
+def _vocab_parallel_nll_hits(logits: torch.Tensor, labels: torch.Tensor,
+                             tp, *, accuracy: bool = True):
+    """:func:`lm_nll_hits` from this rank's [..., V/M] logits piece:
+    the whole vocab's per-token ``(nll, hit)``, the same on every
+    ``model`` rank (``logz`` = max + log of the summed exps; the max a
+    constant of the backward, as in ``logsumexp``'s)."""
+    n = logits.shape[-1]
+    start = tp.index * n
+    local = labels.long() - start
+    inside = (local >= 0) & (local < n)
+    mx = tp.gather(logits.detach().amax(dim=-1)).amax(dim=0)
+    sexp = torch.exp(logits - mx[..., None]).sum(dim=-1)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = torch.where(inside, picked, torch.zeros_like(picked))
+    sums = tp.reduce_from_model(torch.stack([sexp, picked]))
+    nll = mx + torch.log(sums[0]) - sums[1]
+    if not accuracy:
+        return nll, None
+    idx = logits.detach().argmax(dim=-1)
+    best = torch.gather(logits.detach(), -1, idx[..., None])[..., 0]
+    pred = _first_best(tp.gather(best), tp.gather(idx + start))
+    return nll, (pred == labels.long()).float()
+
+
+def _nll_hits(logits, labels, tp, accuracy: bool):
+    if tp is None:
+        return lm_nll_hits(logits, labels, accuracy=accuracy)
+    return _vocab_parallel_nll_hits(logits, labels, tp, accuracy=accuracy)
+
+
 def _chunked_lm_xent(h, table, labels, w, *, bias, seq_chunk: int, dtype,
-                     accuracy: bool):
+                     accuracy: bool, tp=None):
     """Sequence-chunked LM-head xent: per chunk of ``seq_chunk``
-    positions, the [B, chunk, V] logits, their nll and hits, summed and
-    dropped; ``torch.utils.checkpoint`` recomputes them in the backward,
-    so one chunk's logits at most are alive (no dropout inside, so no
-    random state to restore)."""
+    positions, the [B, chunk, V] logits (a [B, chunk, V/M] piece under
+    ``tp``), their nll and hits, summed and dropped;
+    ``torch.utils.checkpoint`` recomputes them in the backward, so one
+    chunk's logits at most are alive (no dropout inside, so no random
+    state to restore)."""
     b, s, _ = h.shape
     if s % seq_chunk:
         raise ValueError(
@@ -292,8 +384,8 @@ def _chunked_lm_xent(h, table, labels, w, *, bias, seq_chunk: int, dtype,
             "knob exists for)")
 
     def body(hh, tt, ww):
-        nll, hit = lm_nll_hits(_head_logits(hh, table, bias, dtype), tt,
-                               accuracy=accuracy)
+        nll, hit = _nll_hits(_head_logits(hh, table, bias, dtype), tt, tp,
+                             accuracy)
         hsum = (hit * ww).sum() if accuracy else torch.zeros_like(ww[0, 0])
         return (nll * ww).sum(), hsum, ww.sum()
 
@@ -314,7 +406,7 @@ def _chunked_lm_xent(h, table, labels, w, *, bias, seq_chunk: int, dtype,
 def lm_head_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
                  weights: torch.Tensor, *, bias=None, impl: str = "full",
                  seq_chunk: int = 0, vocab_block: int = 0, dtype=None,
-                 accuracy: bool = True):
+                 accuracy: bool = True, tp=None):
     """Weighted-mean softmax cross-entropy and token accuracy of ``h``
     [..., T, H] decoded against the tied embedding ``table`` [V, H] (plus
     ``bias`` [V], BERT's MLM head): ``(loss, accuracy)`` scalars.
@@ -325,7 +417,10 @@ def lm_head_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     ``"fused"`` goes blockwise over ``vocab_block`` columns with its own
     backward (:class:`FusedLinearXent`), its accuracy argmax riding the
     same pass. ``accuracy=False`` drops the argmax of the full and
-    chunked impls and gives the -1.0 sentinel."""
+    chunked impls and gives the -1.0 sentinel. With ``tp`` (a
+    ``ModelAxis``), ``table`` and ``bias`` are this rank's vocab piece
+    and every impl combines over ``model`` (see the module docstring);
+    the result is the same on every ``model`` rank."""
     if impl not in LM_LOSS_IMPLS:
         raise ValueError(f"lm_loss_impl must be one of {LM_LOSS_IMPLS}, "
                          f"got {impl!r}")
@@ -338,9 +433,12 @@ def lm_head_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
             f"seq_chunk={seq_chunk} is the chunked impl's lever; got "
             f"impl={impl!r}")
     w = weights.float()
+    if tp is not None:
+        h = tp.copy_to_model(h)
     if impl == "fused":
         nll, pred = fused_linear_xent(h, table, labels, bias=bias,
-                                      vocab_block=vocab_block, dtype=dtype)
+                                      vocab_block=vocab_block, dtype=dtype,
+                                      tp=tp)
         hit = (pred == labels).float()
         return weighted_token_mean(nll, hit, w)
     if impl == "chunked":
@@ -353,7 +451,7 @@ def lm_head_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
                 f"[B, S, H] hidden stream; got ndim={h.ndim}")
         return _chunked_lm_xent(h, table, labels, w, bias=bias,
                                 seq_chunk=seq_chunk, dtype=dtype,
-                                accuracy=accuracy)
-    nll, hit = lm_nll_hits(_head_logits(h, table, bias, dtype), labels,
-                           accuracy=accuracy)
+                                accuracy=accuracy, tp=tp)
+    nll, hit = _nll_hits(_head_logits(h, table, bias, dtype), labels, tp,
+                         accuracy)
     return weighted_token_mean(nll, hit, w)

@@ -29,8 +29,16 @@ U[1-j, 1+j) in training. Its draws come from a key (``ops/nn.py``
 layer that ``--remat`` recomputes draws the same noise again. The stream
 is torch's, not JAX's.
 
-The expert-parallel form (``moe_ffn_shard_map``, the ``all_to_all`` of
-tokens over an ``expert`` axis) is slice A6d.
+Under tensor parallelism (``tp``, a ``parallel/tensor_parallel.
+ModelAxis``) each expert's FFN is split by its hidden columns, as the
+reference's rules place ``w_in`` ``P(None, None, model)``, ``b_in``
+``P(None, model)`` and ``w_out`` ``P(None, model, None)``: every
+``model`` rank routes alike (the router is replicated, its jitter key the
+same), runs the experts on its columns, and the partial outputs are
+summed over ``model`` before the replicated ``b_out`` is added once and
+the combine runs; the aux metrics are the whole routing's. The
+expert-parallel form (``moe_ffn_shard_map``, the ``all_to_all`` of tokens
+over an ``expert`` axis) is slice A6d.
 """
 
 from __future__ import annotations
@@ -169,16 +177,24 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _BmmF32.apply(a, b)
 
 
-def _expert_compute(params: Params, inp: torch.Tensor, dtype) -> torch.Tensor:
+def _expert_compute(params: Params, inp: torch.Tensor, dtype,
+                    tp=None) -> torch.Tensor:
     """[E, C, D] -> [E, C, D] f32: each expert's FFN (tanh GELU), one
     batched GEMM over E a projection, operands in the compute ``dtype``
     and accumulations kept in f32 (the reference's
     ``preferred_element_type``); the biases and GELU run in f32, and the
-    GELU's output is rounded to ``dtype`` for the second GEMM."""
+    GELU's output is rounded to ``dtype`` for the second GEMM. Under
+    ``tp`` the weights are this rank's column pieces: ``inp`` enters
+    through ``copy_to_model`` and the second GEMM's partial sums are
+    summed over ``model`` (in f32) before ``b_out`` is added."""
+    if tp is not None:
+        inp = tp.copy_to_model(inp)
     h = _bmm_f32(inp.to(dtype), params["w_in"].to(dtype))
     h = h + params["b_in"].float()[:, None, :]
     h = nn.gelu(h).to(dtype)
     out = _bmm_f32(h, params["w_out"].to(dtype))
+    if tp is not None:
+        out = tp.reduce_from_model(out)
     return out + params["b_out"].float()[:, None, :]
 
 
@@ -205,10 +221,11 @@ def _aux_pack(stats: dict, n_experts: int, k: int, tokens: int,
 def moe_ffn(params: Params, x: torch.Tensor, *, n_experts: int,
             top_k: int = 1, capacity_factor: float = 1.25,
             dtype=torch.float32, key: int | None = None,
-            jitter: float = 0.0) -> tuple[torch.Tensor, dict]:
+            jitter: float = 0.0, tp=None) -> tuple[torch.Tensor, dict]:
     """[B, S, D] -> ([B, S, D] in ``x.dtype``, the aux dict of
     :func:`_aux_pack`). ``key`` + ``jitter`` turn on router noise
-    (training only: an eval passes no key)."""
+    (training only: an eval passes no key). ``tp``: the experts' column
+    pieces on this ``model`` rank (see the module docstring)."""
     b, s, d = x.shape
     t = b * s
     cap = capacity_for(t, n_experts, capacity_factor)
@@ -220,7 +237,8 @@ def moe_ffn(params: Params, x: torch.Tensor, *, n_experts: int,
     expert_in = torch.matmul(dispatch.reshape(t, n_experts * cap).t()
                              .to(dtype), x2.to(dtype))
     expert_out = _expert_compute(params,
-                                 expert_in.reshape(n_experts, cap, d), dtype)
+                                 expert_in.reshape(n_experts, cap, d), dtype,
+                                 tp)
     # "tec,ecd->td" in f32: [T, E*C] @ [E*C, D]
     out = torch.matmul(combine.reshape(t, n_experts * cap),
                        expert_out.reshape(n_experts * cap, d))

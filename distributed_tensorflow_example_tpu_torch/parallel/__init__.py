@@ -1,7 +1,9 @@
 """Parallelism layer of the port: the mesh over ranks, the named
-collectives, the sharding rules and the sync-replica step (the
-reference's ``NamedSharding`` helpers, which need JAX's device arrays,
-have no counterpart: a rank holds its pieces as plain tensors)."""
+collectives, the sharding rules, the tensor-parallel operators and the
+sync-replica step (the reference's ``NamedSharding`` helpers, which need
+JAX's device arrays, have no counterpart: a rank holds its pieces as
+plain tensors, and ``tensor_parallel`` writes by hand what GSPMD
+inserts)."""
 
 from .mesh import AxisNames, MeshConfig, build_mesh, local_mesh
 from .collectives import (
@@ -21,6 +23,9 @@ from .sharding import (
     state_shardings,
 )
 from .sync_replicas import SyncReplicas, make_sync_train_step
+from .tensor_parallel import (ModelAxis, copy_to_model, model_axis,
+                              reduce_from_model, row_parallel_dense,
+                              vocab_parallel_embedding)
 
 __all__ = [
     "AxisNames", "MeshConfig", "build_mesh", "local_mesh",
@@ -29,4 +34,6 @@ __all__ = [
     "ShardingRules", "batch_pspec", "replica_device_setter", "shard_batch",
     "shard_params", "state_shardings",
     "SyncReplicas", "make_sync_train_step",
+    "ModelAxis", "copy_to_model", "model_axis", "reduce_from_model",
+    "row_parallel_dense", "vocab_parallel_embedding",
 ]

@@ -6,10 +6,12 @@ The reference gives each parameter a ``PartitionSpec`` over the mesh by
 path-pattern rules and lets XLA place it. The port keeps the rules as
 data, the same first-match-wins order and the same fsdp fallback (the
 largest evenly divisible dim of a leaf of at least ``fsdp_min_size``
-elements, over ``fsdp``), and places explicitly, as ZeRO-3 does: each
-rank keeps its own contiguous piece of a sharded leaf
-(:func:`shard_params`, :class:`ShardLayout`), and the sync step gathers
-the full leaf before the loss and reduce-scatters its gradient after.
+elements, over ``fsdp``), and places explicitly: each rank keeps its own
+contiguous piece of a sharded leaf (:func:`shard_params`,
+:class:`ShardLayout`). A piece over ``fsdp`` is ZeRO-3's: the sync step
+gathers the full leaf before the loss and reduce-scatters its gradient
+after. A piece over ``model`` is Megatron's: the layers compute on it
+(``parallel/tensor_parallel.py``) and it is never gathered in a step.
 
 Built-in policies:
 
@@ -17,9 +19,9 @@ Built-in policies:
 - **fsdp**: large params sharded over the ``fsdp`` axis;
 - **rules**: explicit per-path specs (models attach these: GPT's and
   BERT's Megatron rules over ``model``, MoE-BERT's over ``expert``),
-  carried as data; the port's step refuses a ``model`` or ``expert``
-  axis wider than 1, so with both at 1 the rules come down to the fsdp
-  fallback, as the reference's do.
+  carried as data. A spec splits at most one dim, over ``fsdp`` or
+  ``model``; one that splits over ``seq``, ``expert`` or ``pipe`` is
+  refused naming its slice (A6b, A6d, A6c).
 """
 
 from __future__ import annotations
@@ -153,47 +155,66 @@ def state_shardings(mesh: Mesh, state: Mapping[str, Any],
     return unflatten_dict(out)
 
 
-def _sharded_dim(mesh: Mesh, spec: P) -> int | None:
-    """The dim a spec splits over ``fsdp`` (None: replicated). An axis
-    of size 1 splits nothing; only the fsdp axis places parameters in
-    the port, and any other wide axis in a spec is refused."""
-    dims = []
+#: the axes that do not place parameters in the port yet, and their
+#: slices
+LATER_PLACEMENT = {AxisNames.SEQ: "A6b", AxisNames.EXPERT: "A6d",
+                   AxisNames.PIPE: "A6c"}
+#: the axes a parameter piece may lie over
+PLACEMENT_AXES = (AxisNames.FSDP, AxisNames.MODEL)
+
+
+def _split(mesh: Mesh, spec: P) -> tuple[int | None, str | None]:
+    """(dim, axis) a spec splits (``(None, None)``: replicated). An axis
+    of size 1 splits nothing. A dim split over two wide axes, two split
+    dims, or a split over an axis that places no parameter here is
+    refused, naming the cut."""
+    found = []
     for i, s in enumerate(spec):
         axes = s if isinstance(s, tuple) else (s,)
         wide = [a for a in axes if a is not None and mesh.shape[a] > 1]
         if not wide:
             continue
-        if wide != [AxisNames.FSDP]:
+        for a in wide:
+            if a in LATER_PLACEMENT:
+                raise NotImplementedError(
+                    f"spec {spec} splits over {a}: parameters placed over "
+                    f"{a} arrive with slice {LATER_PLACEMENT[a]}")
+            if a not in PLACEMENT_AXES:
+                raise NotImplementedError(
+                    f"spec {spec} splits over {a}: only fsdp and model "
+                    "place parameters")
+        if len(wide) > 1:
             raise NotImplementedError(
-                f"spec {spec} splits over {wide}: only the fsdp axis "
-                "places parameters in the port (Megatron TP is slice "
-                "A6a-2, expert parallelism A6d)")
-        dims.append(i)
-    if len(dims) > 1:
+                f"spec {spec} splits dim {i} over {wide}: one axis a dim")
+        found.append((i, wide[0]))
+    if len(found) > 1:
         raise NotImplementedError(f"spec {spec} splits two dims")
-    return dims[0] if dims else None
+    return found[0] if found else (None, None)
 
 
 class ShardLayout:
     """Where each parameter lives on this rank of a mesh: for each flat
-    param key its global shape and the dim split over ``fsdp`` (None:
-    replicated). A sharded leaf's piece here is the contiguous block at
-    this rank's fsdp coordinate. The per-parameter optimizer leaves of
-    a parameter's shape (moments, traces, EMA shadows) follow it."""
+    param key its global shape, the dim it is split along and the axis
+    it is split over, ``fsdp`` or ``model`` (None: whole here). A piece
+    is the contiguous block at this rank's coordinate on its axis. The
+    per-parameter optimizer leaves of a parameter's shape (moments,
+    traces, EMA shadows) follow it."""
 
     def __init__(self, mesh: Mesh, specs: Mapping[str, P],
                  shapes: Mapping[str, tuple]):
         self.mesh = mesh
-        self.n = mesh.shape[AxisNames.FSDP]
         self.specs = dict(specs)
         self.shapes = {k: tuple(v) for k, v in shapes.items()}
-        self.dims = {k: _sharded_dim(mesh, s)
-                     for k, s in self.specs.items()}
+        split = {k: _split(mesh, s) for k, s in self.specs.items()}
+        #: the split dim of each param (None: whole)
+        self.dims = {k: d for k, (d, _) in split.items()}
+        #: the axis each param is split over (None: whole)
+        self.axes = {k: a for k, (_, a) in split.items()}
         for k, d in self.dims.items():
-            if d is not None and self.shapes[k][d] % self.n:
+            if d is not None and self.shapes[k][d] % self.size(k):
                 raise ValueError(f"param {k!r} shape {self.shapes[k]}: "
-                                 f"dim {d} does not split over fsdp="
-                                 f"{self.n}")
+                                 f"dim {d} does not split over "
+                                 f"{self.axes[k]}={self.size(k)}")
 
     @classmethod
     def for_params(cls, mesh: Mesh, params: Mapping,
@@ -209,18 +230,25 @@ class ShardLayout:
     def sharded(self) -> bool:
         return any(d is not None for d in self.dims.values())
 
-    def flags(self) -> list[bool]:
-        """One flag a param, in ``flatten_dict`` order: sharded or not."""
-        return [d is not None for d in self.dims.values()]
+    @property
+    def model_sharded(self) -> bool:
+        """Whether a param is split over ``model`` (the layers then
+        compute on pieces: tensor parallelism)."""
+        return AxisNames.MODEL in self.axes.values()
+
+    def size(self, key: str) -> int:
+        """The number of pieces of param ``key`` (1: whole)."""
+        a = self.axes[key]
+        return 1 if a is None else self.mesh.shape[a]
 
     def bounds(self, key: str) -> tuple[tuple[int, int], ...]:
         """(start, stop) a dim of this rank's piece of param ``key``."""
         shape, d = self.shapes[key], self.dims[key]
         out = [(0, s) for s in shape]
         if d is not None:
-            step = shape[d] // self.n
-            f = self.mesh.coords[AxisNames.FSDP]
-            out[d] = (f * step, (f + 1) * step)
+            step = shape[d] // self.size(key)
+            c = self.mesh.coords[self.axes[key]]
+            out[d] = (c * step, (c + 1) * step)
         return tuple(out)
 
     def local(self, key: str, full: torch.Tensor) -> torch.Tensor:
@@ -229,25 +257,48 @@ class ShardLayout:
         d = self.dims[key]
         if d is None:
             return full
-        return full.chunk(self.n, dim=d)[
-            self.mesh.coords[AxisNames.FSDP]].contiguous()
+        return full.chunk(self.size(key), dim=d)[
+            self.mesh.coords[self.axes[key]]].contiguous()
 
     def gather(self, key: str, piece: torch.Tensor) -> torch.Tensor:
-        """The full leaf of param ``key`` from every fsdp member's piece
-        (an all-gather over ``fsdp``; every rank must call it)."""
+        """The full leaf of param ``key`` from every piece (an all-gather
+        over its axis; every rank must call it)."""
         d = self.dims[key]
         if d is None:
             return piece
-        return collectives.all_gather(piece, AxisNames.FSDP, axis=d,
+        return collectives.all_gather(piece, self.axes[key], axis=d,
                                       tiled=True, mesh=self.mesh)
+
+    def owns(self, key: str) -> bool:
+        """Whether this rank writes its piece of param ``key``: it sits
+        at coordinate 0 on every axis that does not split the leaf (the
+        reference's ``replica_id == 0``)."""
+        return all(c == 0 for a, c in self.mesh.coords.items()
+                   if a != self.axes[key])
+
+    def replica_axes(self, key: str) -> tuple[str, ...]:
+        """The wide axes along which param ``key``'s piece is repeated
+        (every wide axis but the one that splits it)."""
+        return tuple(a for a in AxisNames.ALL if self.mesh.shape[a] > 1
+                     and a != self.axes[key])
 
     def shard_params(self, params: Mapping) -> dict:
         return unflatten_dict({k: self.local(k, v) for k, v in
                                flatten_dict(params).items()})
 
     def full_params(self, params: Mapping) -> dict:
+        """The whole params from this rank's pieces, gathered over both
+        axes (eval, export, monolithic saves, warm start)."""
         return unflatten_dict({k: self.gather(k, v) for k, v in
                                flatten_dict(params).items()})
+
+    def step_params(self, params: Mapping) -> dict:
+        """The params a step computes on: the ``fsdp`` pieces gathered
+        whole, the ``model`` pieces left as they are (the layers compute
+        on them)."""
+        return unflatten_dict({
+            k: (self.gather(k, v) if self.axes[k] == AxisNames.FSDP else v)
+            for k, v in flatten_dict(params).items()})
 
     def map_per_param(self, tree, fn: Callable[[str, torch.Tensor],
                                                torch.Tensor]):

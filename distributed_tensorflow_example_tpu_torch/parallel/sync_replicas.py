@@ -64,25 +64,31 @@ FLOP count in ``last_cost_analysis``, the counterpart of the reference's
 
 The mesh is one rank a card (or a gloo CPU process): its axes multiply
 to the number of ranks, and a mesh that asks for more (several cards to
-a process) is refused. Of its axes ``data`` and ``fsdp`` may be wider
-than 1; ``model`` (slice A6a-2), ``seq`` (A6b), ``pipe`` (A6c) and
-``expert`` (A6d) are refused. The replicas are ``data`` × ``fsdp``.
-Under ``auto`` with ``fsdp`` > 1 the state is sharded as ZeRO-3 does it
-(:class:`~.sharding.ShardLayout`, by the model's
-:class:`~.sharding.ShardingRules`): :meth:`SyncReplicas.init` builds the
-whole state from the seed on every rank and keeps this rank's pieces of
-each sharded parameter and of its per-parameter optimizer leaves. A step
-gathers the sharded parameters over ``fsdp`` before the loss (the
-kernels see whole, contiguous tensors), takes the gradients of the
-rank's share of the batch, reduce-scatters each sharded gradient to its
-mean over ``fsdp`` and all-reduces it over ``data``, all-reduces the
-whole leaves' gradients over both, and updates the pieces; the global
-norm (the clip, the reported ``grad_norm``, the anomaly guard) sums its
-partial sums over ``fsdp`` (``optimizers.shard_reduction``). This is the
-program the reference's XLA compiles from its ``NamedSharding``.
+a process) is refused. Of its axes ``data``, ``fsdp`` and ``model`` may
+be wider than 1; ``seq`` (slice A6b), ``pipe`` (A6c) and ``expert``
+(A6d) are refused. The replicas are ``data`` × ``fsdp``: ``model`` ranks
+see the same batch rows. Under ``auto`` the state is placed by the
+model's :class:`~.sharding.ShardingRules` (:class:`~.sharding.
+ShardLayout`): :meth:`SyncReplicas.init` builds the whole state from the
+seed on every rank and keeps this rank's pieces of each sharded
+parameter and of its per-parameter optimizer leaves, over ``fsdp``
+(ZeRO-3) or ``model`` (Megatron tensor parallelism). A step gathers the
+``fsdp`` pieces before the loss and leaves the ``model`` pieces as they
+are: it binds its mesh on the loss's model (``bind_mesh``), whose layers
+compute on them (``parallel/tensor_parallel.py``). After the backward
+each ``fsdp`` piece's gradient is reduce-scattered to its mean over
+``fsdp`` and averaged over ``data``; the ``model`` pieces' and the whole
+leaves' gradients, the loss, the aux metrics, the token weights and the
+new extras are averaged over (``data``, ``fsdp``), never over ``model``.
+Every reduction over a whole leaf in the update (the global norm of the
+clip, ``grad_norm`` and the anomaly guard; the trust ratio; adafactor's
+factored RMS, block-RMS clip and parameter RMS) sums its partial sums
+over each piece's own shard group (``optimizers.shard_reduction``). This
+is the program the reference's XLA compiles from its ``NamedSharding``.
 ``shard_map`` keeps the parameters whole on every rank, as the
 reference's ``_shard_map_step`` (whose state is replicated, ``P()``)
-does: ``fsdp`` is then one more batch axis.
+does: ``fsdp`` is then one more batch axis, and ``model`` ranks repeat
+the same step.
 
 The loss signature is the framework's::
 
@@ -94,6 +100,7 @@ with ``gen`` the step's ``torch.Generator`` (dropout), on the device.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable
 
 import torch
@@ -102,8 +109,8 @@ from ..config import MeshShape, SyncConfig
 from ..ops.losses import LOSS_WEIGHT
 from ..runtime import distributed
 from ..runtime.device import resolve_device
-from ..train.optimizers import (Transform, apply_updates, global_norm,
-                                shard_reduction)
+from ..train.optimizers import (LeafShard, Transform, apply_updates,
+                                global_norm, shard_reduction)
 from ..train.state import TrainState
 from ..utils.pytree import flatten_dict, tree_map, unflatten_dict
 from . import collectives
@@ -149,33 +156,34 @@ def _value_and_grad(loss_fn: LossFn, params: dict, extras, batch, gen):
     return grads, loss.detach(), aux, new_extras
 
 
-def _token_share(weight: torch.Tensor) -> torch.Tensor:
-    """This rank's share of a weighted token mean over the ranks: its
-    weight W_r over the ranks' mean weight (a rank's mean is
-    S_r / max(W_r, 1), so the ranks' mean of the scaled means is
-    sum_r S_r / sum_r W_r); 1 where no rank has a token, so the plain
-    mean stands and a skipped metric's -1.0 stays -1.0."""
+def _token_share(weight: torch.Tensor, mean: Callable) -> torch.Tensor:
+    """This rank's share of a weighted token mean over the batch ranks:
+    its weight W_r over the ranks' mean weight (``mean``, over the batch
+    ranks; a rank's mean is S_r / max(W_r, 1), so the ranks' mean of the
+    scaled means is sum_r S_r / sum_r W_r); 1 where no rank has a token,
+    so the plain mean stands and a skipped metric's -1.0 stays -1.0."""
     w = weight.detach().float()
-    mean_w = distributed.all_reduce_mean([w])[0]
+    mean_w = mean([w])[0]
     some = mean_w > 0
     return torch.where(some, w / torch.where(some, mean_w, 1.0), 1.0)
 
 
 def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
-                       accum_steps: int, weigh: bool = False):
+                       accum_steps: int, weigh: Callable | None = None):
     """Gradients (+ loss/aux/extras) with optional microbatch
     accumulation: the microbatches' gradients summed in order, then
     divided, and their loss and aux metrics averaged, as the reference's
-    scan does. ``gens``: one generator per microbatch. ``weigh``: scale
-    each microbatch's gradients, loss and aux metrics by the rank's
-    :func:`_token_share` of its loss's :data:`LOSS_WEIGHT` (a loss
-    without one is left as it is)."""
+    scan does. ``gens``: one generator per microbatch. ``weigh`` (the
+    mean over the batch ranks, or None): scale each microbatch's
+    gradients, loss and aux metrics by the rank's :func:`_token_share`
+    of its loss's :data:`LOSS_WEIGHT` (a loss without one is left as it
+    is)."""
     gsum, lsum, auxes, ex = None, 0.0, [], extras
     for mb, gen in zip(_split_microbatches(batch, accum_steps), gens):
         g, loss, aux, ex = _value_and_grad(loss_fn, params, ex, mb, gen)
         weight = aux.pop(LOSS_WEIGHT, None)
-        if weigh and weight is not None:
-            c = _token_share(weight)
+        if weigh is not None and weight is not None:
+            c = _token_share(weight, weigh)
             g = [x * c.to(x.dtype) for x in g]
             loss = loss * c
             aux = {k: v * c for k, v in aux.items()}
@@ -192,7 +200,6 @@ def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
 
 #: the mesh axes the port does not shard over yet, and their slices
 LATER_AXES = {
-    "model": "A6a-2 (Megatron tensor parallelism by the models' rules)",
     "seq": "A6b (ring attention over a sequence axis)",
     "pipe": "A6c (pipeline stages, the pipe_* models)",
     "expert": "A6d (expert parallelism)",
@@ -211,7 +218,7 @@ def refuse_later_axes(mesh: MeshShape) -> None:
         if v != 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={v} arrives with slice {cut}; the port "
-                "shards over data and fsdp")
+                "shards over data, fsdp and model")
 
 
 def resolve_mesh(mesh, world: int) -> dict[str, int]:
@@ -286,6 +293,10 @@ class SyncReplicas:
         #: this rank's place in the mesh (its groups: the collectives')
         self.mesh = build_mesh(MeshShape(**sizes))
         self.num_replicas = sizes["data"] * sizes["fsdp"]
+        #: the model whose loss this is (a bound method's owner): the
+        #: step binds its mesh on it when the layers compute on
+        #: ``model`` pieces
+        self.model = getattr(loss_fn, "__self__", None)
         #: the placement rules (``shard_map`` keeps the params whole)
         self.rules = (rules or ShardingRules(fsdp_axis_size=sizes["fsdp"])
                       if self.sync.mode == "auto" else ShardingRules())
@@ -329,6 +340,8 @@ class SyncReplicas:
         layout = ShardLayout.for_params(self.mesh, params, self.rules)
         if not layout.sharded:
             return state
+        with self._bound(layout):       # the model refuses split heads
+            pass
         return state.replace(
             params=layout.shard_params(params),
             opt_state=layout.map_per_param(
@@ -340,8 +353,8 @@ class SyncReplicas:
     @staticmethod
     def full_params(state: TrainState) -> dict:
         """The state's params as whole tensors: gathered over ``fsdp``
-        from every rank's pieces on a sharded state (every rank must
-        call it then), the params themselves otherwise."""
+        and ``model`` from every rank's pieces on a sharded state (every
+        rank must call it then), the params themselves otherwise."""
         if state.layout is None:
             return state.params
         return state.layout.full_params(state.params)
@@ -367,53 +380,104 @@ class SyncReplicas:
         batch = self._to_device(batch)
         gens = [_generator(self.device, state.seed, state.step, i)
                 for i in range(max(1, self.sync.accum_steps))]
-        stats = (distributed.cross_rank_batch_stats()
+        stats = (distributed.cross_rank_batch_stats(*self._batch_group())
                  if self.sync.mode == "auto" else contextlib.nullcontext())
         layout = state.layout
-        with stats:
+        params = (state.params if layout is None
+                  else layout.step_params(state.params))
+        weigh = (self._batch_mean if self.sync.mode == "auto"
+                 and self.num_replicas > 1 else None)
+        with stats, self._bound(layout):
             grads, loss, aux, new_extras = _grads_and_metrics(
-                self.loss_fn, self.full_params(state), state.extras, batch,
-                gens, self.sync.accum_steps,
-                weigh=self.sync.mode == "auto" and self.num_replicas > 1)
+                self.loss_fn, params, state.extras, batch, gens,
+                self.sync.accum_steps, weigh=weigh)
         if layout is not None:
             grads, loss, aux, new_extras = self._reduce_sharded(
                 layout, grads, loss, aux, new_extras)
         elif self.num_replicas > 1:
             grads, loss, aux, new_extras = self._mean_over_ranks(
                 grads, loss, aux, new_extras)
-        with shard_reduction(*self._reduction(layout)):
+        with shard_reduction(self._leaf_shards(layout)):
             if self.debug_checks:
                 self._check_finite(state, grads, loss, aux)
             return self._update(state, grads, loss, aux, new_extras)
 
-    def _reduction(self, layout):
-        """The ``shard_reduction`` of a state: its sharded flags and the
-        sum over ``fsdp``."""
+    @contextlib.contextmanager
+    def _bound(self, layout):
+        """The loss's model bound to this mesh while the step computes on
+        ``model`` pieces (unbound again after, so eval and export see
+        whole params); inert for a state with none."""
+        if layout is None or not layout.model_sharded:
+            yield
+            return
+        if not hasattr(self.model, "bind_mesh"):
+            raise ValueError(
+                "the placement rules split parameters over model, but the "
+                f"loss's model ({type(self.model).__name__}) cannot compute "
+                "on model pieces (no bind_mesh)")
+        self.model.bind_mesh(self.mesh)
+        try:
+            yield
+        finally:
+            self.model.bind_mesh(None)
+
+    def _batch_group(self) -> tuple:
+        """``all_reduce_mean``'s (group, size) for the batch ranks: the
+        world's (None, None) when they are the world, else their group
+        (a mesh with a ``model`` axis)."""
+        if self.num_replicas == self.mesh.world:
+            return None, None
+        return self.mesh.group(AxisNames.BATCH), self.num_replicas
+
+    def _batch_mean(self, tensors: list) -> list:
+        """Each tensor's mean over the batch ranks (``data`` x ``fsdp``),
+        one all-reduce a dtype."""
+        return distributed.all_reduce_mean(tensors, *self._batch_group())
+
+    def _leaf_shards(self, layout) -> list:
+        """The ``shard_reduction`` of a state: a ``LeafShard`` for each
+        parameter that is a piece here (its collectives over its own
+        axis), None for a whole one."""
         if layout is None:
-            return [], None
-        return layout.flags(), (lambda t: collectives.all_reduce_sum(
-            t, AxisNames.FSDP, mesh=self.mesh))
+            return []
+        out = []
+        for key, axis in layout.axes.items():
+            if axis is None:
+                out.append(None)
+                continue
+            d = layout.dims[key]
+            start, stop = layout.bounds(key)[d]
+            out.append(LeafShard(
+                dim=d, shape=layout.shapes[key], start=start, stop=stop,
+                axis=axis,
+                sum=functools.partial(collectives.all_reduce_sum,
+                                      axis_name=axis, mesh=self.mesh),
+                gather=functools.partial(_gather_along, axis=axis,
+                                         mesh=self.mesh)))
+        return out
 
     def _reduce_sharded(self, layout, grads, loss, aux, extras):
-        """The ZeRO exchange: each sharded gradient reduce-scattered to
-        its mean over ``fsdp`` (this rank keeps its piece), then averaged
-        over ``data``; the whole leaves' gradients, the loss, the aux
-        metrics and the new extras averaged over every batch rank."""
-        dims = list(layout.dims.values())
+        """The gradient exchange of a sharded state: each ``fsdp`` piece's
+        gradient reduce-scattered to its mean over ``fsdp`` (this rank
+        keeps its piece), then averaged over ``data`` (ZeRO); the
+        ``model`` pieces' and the whole leaves' gradients, the loss, the
+        aux metrics and the new extras averaged over the batch ranks."""
         out = list(grads)
-        for i, (g, d) in enumerate(zip(grads, dims)):
-            if d is None:
+        rest = []
+        for i, (g, key) in enumerate(zip(grads, layout.axes)):
+            if layout.axes[key] != AxisNames.FSDP:
+                rest.append(i)
                 continue
             g = collectives.reduce_scatter_mean(
-                g, AxisNames.FSDP, scatter_axis=d, mesh=self.mesh)
+                g, AxisNames.FSDP, scatter_axis=layout.dims[key],
+                mesh=self.mesh)
             if self.mesh.shape[AxisNames.DATA] > 1:
                 g = collectives.all_reduce_mean(g, AxisNames.DATA,
                                                 mesh=self.mesh)
             out[i] = g
-        whole = [i for i, d in enumerate(dims) if d is None]
         got, loss, aux, extras = self._mean_over_ranks(
-            [grads[i] for i in whole], loss, aux, extras)
-        for i, g in zip(whole, got):
+            [grads[i] for i in rest], loss, aux, extras)
+        for i, g in zip(rest, got):
             out[i] = g
         return out, loss, aux, extras
 
@@ -458,15 +522,14 @@ class SyncReplicas:
             f"gradients: {', '.join(hits[:4])}"
             f"{', ...' if len(hits) > 4 else ''})")
 
-    @staticmethod
-    def _mean_over_ranks(grads, loss, aux, extras):
-        """The reference's ``pmean`` of the gradients, the loss, the aux
-        metrics and the new extras, in one all-reduce a dtype (under
-        ``auto`` the extras are already equal across the ranks, and
-        stay so)."""
+    def _mean_over_ranks(self, grads, loss, aux, extras):
+        """The reference's ``pmean`` over the batch ranks of the
+        gradients, the loss, the aux metrics and the new extras, in one
+        all-reduce a dtype (under ``auto`` the extras are already equal
+        across the ranks, and stay so)."""
         keys = list(aux)
         flat = flatten_dict(extras)
-        out = distributed.all_reduce_mean(
+        out = self._batch_mean(
             list(grads) + [loss] + [aux[k] for k in keys]
             + list(flat.values()))
         n, m = len(grads), len(grads) + 1 + len(keys)
@@ -502,6 +565,12 @@ class SyncReplicas:
             params=unflatten_dict(dict(zip(flat, new_params))),
             opt_state=opt_state, extras=extras, anomaly_count=anomaly_count)
         return new_state, metrics
+
+
+def _gather_along(t: torch.Tensor, dim: int, *, axis: str,
+                  mesh: Mesh) -> torch.Tensor:
+    """The members' ``t`` along ``axis`` concatenated on ``dim``."""
+    return collectives.all_gather(t, axis, axis=dim, tiled=True, mesh=mesh)
 
 
 def make_sync_train_step(loss_fn: LossFn, tx: Transform, mesh=None,

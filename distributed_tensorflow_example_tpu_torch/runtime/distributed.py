@@ -129,12 +129,14 @@ def barrier() -> None:
     dist.barrier(device_ids=_device_ids())
 
 
-def all_reduce_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+def all_reduce_mean(tensors: list[torch.Tensor], group=None,
+                    size: int | None = None) -> list[torch.Tensor]:
     """Each tensor's mean over the ranks (the reference's ``pmean``): one
     summing all-reduce for every dtype among them, over a flat buffer,
-    then a division by the world size. Every rank gets the same bits.
-    Returns new tensors; the inputs are unchanged."""
-    world = process_count()
+    then a division by the rank count. Every rank gets the same bits.
+    ``group``/``size``: a process group of ``size`` ranks instead of the
+    world. Returns new tensors; the inputs are unchanged."""
+    world = process_count() if size is None else size
     if world == 1:
         return list(tensors)
     out: list[torch.Tensor | None] = [None] * len(tensors)
@@ -143,7 +145,7 @@ def all_reduce_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         flat = flat / world
         off = 0
         for i in idx:
@@ -193,26 +195,30 @@ class _MeanOverRanks(torch.autograd.Function):
     is that of the mean loss over the global batch."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_mean([x])[0]
+    def forward(ctx, x, over):
+        ctx.over = over
+        return all_reduce_mean([x], *over)[0]
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_mean([g])[0]
+        return all_reduce_mean([g], *ctx.over)[0], None
 
 
-#: whether batch statistics are averaged over the ranks here
+#: the ranks batch statistics are averaged over here: None (no
+#: averaging), or ``all_reduce_mean``'s (group, size)
 _CROSS_RANK_STATS: contextvars.ContextVar = contextvars.ContextVar(
-    "cross_rank_batch_stats", default=False)
+    "cross_rank_batch_stats", default=None)
 
 
 @contextlib.contextmanager
-def cross_rank_batch_stats():
-    """Inside, :func:`batch_stats_mean` averages over every rank: the
-    reference's ``auto`` mode, which normalises over the global batch.
-    The sync step enters it around the forward and backward of a step;
-    with one rank it is inert."""
-    token = _CROSS_RANK_STATS.set(process_count() > 1)
+def cross_rank_batch_stats(group=None, size: int | None = None):
+    """Inside, :func:`batch_stats_mean` averages over every rank (or the
+    ``size`` ranks of ``group``, the batch ranks of a mesh with a
+    ``model`` axis): the reference's ``auto`` mode, which normalises over
+    the global batch. The sync step enters it around the forward and
+    backward of a step; with one rank it is inert."""
+    n = process_count() if size is None else size
+    token = _CROSS_RANK_STATS.set((group, size) if n > 1 else None)
     try:
         yield
     finally:
@@ -223,6 +229,7 @@ def batch_stats_mean(stats: torch.Tensor) -> torch.Tensor:
     """Per-channel batch statistics of this rank -> their mean over the
     ranks inside :func:`cross_rank_batch_stats` (one all-reduce forward,
     one backward), or ``stats`` unchanged outside it."""
-    if not _CROSS_RANK_STATS.get():
+    over = _CROSS_RANK_STATS.get()
+    if over is None:
         return stats
-    return _MeanOverRanks.apply(stats)
+    return _MeanOverRanks.apply(stats, over)

@@ -81,62 +81,123 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
-class ShardReduction(NamedTuple):
-    """How the parameters lie over ranks during a sharded step: one flag
-    a parameter (its leaves here are pieces of the whole), and the sum
-    over the ranks that hold the pieces of one leaf (``reduce``)."""
+class LeafShard(NamedTuple):
+    """One parameter's piece on this rank during a sharded step: the dim
+    it is split along, the whole leaf's shape, the piece's (start, stop)
+    along that dim, the axis it is split over (its shard group) and two
+    collectives over that group: ``sum(t)`` (every member's ``t``
+    summed) and ``gather(t, dim)`` (the members' ``t`` concatenated along
+    ``dim`` in member order)."""
 
-    sharded: list[bool]
-    reduce: Callable[[torch.Tensor], torch.Tensor]
+    dim: int
+    shape: tuple
+    start: int
+    stop: int
+    axis: str
+    sum: Callable[[torch.Tensor], torch.Tensor]
+    gather: Callable[[torch.Tensor, int], torch.Tensor]
 
 
-#: the sharding of the step being updated (None: every leaf whole here)
+#: the pieces of the step being updated, one entry a parameter (None:
+#: every leaf whole here)
 _SHARDS: contextvars.ContextVar = contextvars.ContextVar("shards",
                                                         default=None)
 
 
 @contextlib.contextmanager
-def shard_reduction(sharded: list[bool],
-                    reduce: Callable[[torch.Tensor], torch.Tensor]):
-    """Inside, a reduction over whole leaves (:func:`global_norm`) sums
-    the partial sums of the sharded leaves over their shard group, and
-    the transforms that reduce over one leaf refuse to run: on a piece
-    they would compute another number, with no error. The sharded sync
-    step enters it around its update."""
-    token = _SHARDS.set(ShardReduction(list(sharded), reduce)
-                        if any(sharded) else None)
+def shard_reduction(shards: list):
+    """Inside, every reduction over a whole leaf (:func:`global_norm`,
+    the trust ratio, adafactor's factored RMS, block-RMS clip and
+    parameter RMS) computes the whole leaf's number from this rank's
+    pieces: ``shards`` holds a :class:`LeafShard` for each parameter
+    that is a piece here, None for a whole one. The sharded sync step
+    enters it around its update."""
+    token = _SHARDS.set(list(shards) if any(x is not None for x in shards)
+                        else None)
     try:
         yield
     finally:
         _SHARDS.reset(token)
 
 
-def refuse_on_shards(what: str) -> None:
-    """Raise when a whole-leaf reduction would run on a piece."""
-    if _SHARDS.get() is not None:
-        raise NotImplementedError(
-            f"{what} reduces over a whole parameter and would compute it "
-            "on this rank's piece: under fsdp > 1 it arrives with slice "
-            "A6a-2")
+@contextlib.contextmanager
+def _select_shards(sel: list[int]):
+    """The shard context narrowed to the leaves ``sel`` (an inner
+    transform that sees only those, :func:`masked`'s)."""
+    shards = _SHARDS.get()
+    token = _SHARDS.set(None if shards is None
+                        else [shards[i] for i in sel])
+    try:
+        yield
+    finally:
+        _SHARDS.reset(token)
+
+
+def _leaf_shards(n: int) -> list:
+    """The current :class:`LeafShard` (or None) of each of ``n``
+    leaves."""
+    shards = _SHARDS.get()
+    if shards is None:
+        return [None] * n
+    if len(shards) != n:
+        raise ValueError(f"a whole-leaf reduction over {n} leaves of "
+                         f"{len(shards)} sharded parameters")
+    return shards
+
+
+def _whole_sums(parts: list, shards: list) -> list:
+    """Each piece's partial sum (``parts[i]``, a scalar) summed over its
+    shard group, one collective a group (the pieces of one axis stacked);
+    entries whose shard is None pass through."""
+    out = list(parts)
+    groups: dict[str, list[int]] = {}
+    for i, sh in enumerate(shards):
+        if sh is not None:
+            groups.setdefault(sh.axis, []).append(i)
+    for idx in groups.values():
+        tot = shards[idx[0]].sum(torch.stack([parts[i] for i in idx]))
+        for j, i in enumerate(idx):
+            out[i] = tot[j]
+    return out
+
+
+def _whole_sq(xs: Tensors, shards: list) -> list:
+    """The whole leaf's sum of squares (f32) of each piece in ``xs``
+    (None for a whole leaf, which its caller reduces itself)."""
+    parts = [None if sh is None else torch.sum(x.float() * x.float())
+             for x, sh in zip(xs, shards)]
+    return _whole_sums(parts, shards)
+
+
+def _whole_mean(x: torch.Tensor, dim: int, sh) -> torch.Tensor:
+    """``x``'s mean over ``dim`` as the whole leaf's: a piece split along
+    ``dim`` sums over its group, one split elsewhere gathers its part of
+    the result (every rank ends with the whole vector)."""
+    if sh is None:
+        return x.mean(dim=dim)
+    if sh.dim == dim:
+        return sh.sum(x.sum(dim=dim)) / sh.shape[dim]
+    return sh.gather(x.mean(dim=dim), sh.dim - (1 if sh.dim > dim else 0))
+
+
+def _on_piece(t: torch.Tensor, sh) -> torch.Tensor:
+    """A statistic broadcast against the whole leaf, cut to the piece."""
+    if sh is None or t.shape[sh.dim] == 1:
+        return t
+    return t.narrow(sh.dim, sh.start, sh.stop - sh.start)
 
 
 def global_norm(xs: Tensors) -> torch.Tensor:
     """sqrt of the sum of every element's square (optax.global_norm).
-    Inside :func:`shard_reduction`, over the whole leaves: the sharded
-    leaves' squares are summed here, then over their shard group, and
-    added to the whole leaves' once."""
+    Inside :func:`shard_reduction`, over the whole leaves: each piece's
+    squares summed over its shard group, then every leaf's added."""
     shards = _SHARDS.get()
     if shards is None:
         return torch.sqrt(sum(torch.sum(x * x) for x in xs))
-    if len(xs) != len(shards.sharded):
-        raise ValueError(f"global_norm over {len(xs)} leaves of "
-                         f"{len(shards.sharded)} sharded parameters")
-    part = [torch.sum(x * x) for x, s in zip(xs, shards.sharded) if s]
-    whole = [torch.sum(x * x) for x, s in zip(xs, shards.sharded) if not s]
-    total = shards.reduce(torch.stack(part).sum())
-    if whole:
-        total = total + torch.stack(whole).sum()
-    return torch.sqrt(total)
+    shards = _leaf_shards(len(xs))
+    sq = _whole_sq(xs, shards)
+    return torch.sqrt(sum(torch.sum(x * x) if sh is None else q.to(x.dtype)
+                          for x, q, sh in zip(xs, sq, shards)))
 
 
 def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
@@ -199,8 +260,9 @@ def masked(inner: Transform, mask) -> Transform:
     def fn(updates, params):
         keep = mask(params)
         sel = [i for i, m in enumerate(keep) if m]
-        out, _ = inner.update([updates[i] for i in sel], (),
-                              [params[i] for i in sel])
+        with _select_shards(sel):
+            out, _ = inner.update([updates[i] for i in sel], (),
+                                  [params[i] for i in sel])
         new = list(updates)
         for i, u in zip(sel, out):
             new[i] = u
@@ -211,15 +273,21 @@ def masked(inner: Transform, mask) -> Transform:
 def scale_by_trust_ratio(trust_coefficient: float = 1.0,
                          eps: float = 0.0) -> Transform:
     """optax's rule, a leaf: ``u * coeff ||p|| / (||u|| + eps)``, the
-    ratio 1 where ``||p||`` or ``||u||`` is 0."""
+    ratio 1 where ``||p||`` or ``||u||`` is 0; a piece's norms are the
+    whole leaf's (:func:`shard_reduction`)."""
     def fn(updates, params):
-        refuse_on_shards("scale_by_trust_ratio (LAMB, LARS)")
         if params is None:
             raise ValueError("scale_by_trust_ratio needs params in update")
+        shards = _leaf_shards(len(params))
+        sq = _whole_sq(list(params) + list(updates), shards + shards)
         out = []
-        for u, p in zip(updates, params):
-            pn = torch.linalg.vector_norm(p)
-            un = torch.linalg.vector_norm(u)
+        for i, (u, p, sh) in enumerate(zip(updates, params, shards)):
+            if sh is None:
+                pn = torch.linalg.vector_norm(p)
+                un = torch.linalg.vector_norm(u)
+            else:
+                pn = torch.sqrt(sq[i]).to(p.dtype)
+                un = torch.sqrt(sq[len(params) + i]).to(u.dtype)
             ratio = trust_coefficient * pn / (un + eps)
             ratio = torch.where((pn == 0) | (un == 0),
                                 torch.ones((), dtype=p.dtype,
@@ -389,7 +457,10 @@ def scale_by_factored_rms() -> Transform:
     with rate ``1 - (count + 1)^-FACTORED_DECAY_RATE``; the update is ``g`` over
     their rank-1 estimate of the RMS. Other leaves keep the full ``v``.
     Each leaf holds all three slots, the unused ones as ``[1]`` zeros,
-    so the state's keys are the reference's."""
+    so the state's keys are the reference's. A piece factors by its
+    whole leaf's shape and keeps the whole ``v_row`` and ``v_col`` (the
+    reference replicates them), from its partial means summed or
+    gathered over its shard group; its ``v`` is a piece."""
 
     def init(params):
         st = {"count": _count(params), "v_row": [], "v_col": [], "v": []}
@@ -411,15 +482,15 @@ def scale_by_factored_rms() -> Transform:
         return st
 
     def update(updates, state, params=None):
-        refuse_on_shards("scale_by_factored_rms (adafactor)")
         if params is None:
             raise ValueError("scale_by_factored_rms needs params in update")
         t = (state["count"] + 1).float()
         decay = 1.0 - t ** (-FACTORED_DECAY_RATE)
         out, v_row, v_col, v = [], [], [], []
-        for g, vr, vc, vf, p in zip(updates, state["v_row"],
-                                    state["v_col"], state["v"], params):
-            dims = _factored_dims(tuple(p.shape))
+        for g, vr, vc, vf, p, sh in zip(updates, state["v_row"],
+                                        state["v_col"], state["v"], params,
+                                        _leaf_shards(len(params))):
+            dims = _factored_dims(tuple(p.shape) if sh is None else sh.shape)
             grad_sqr = g * g + FACTORED_EPSILON
             if dims is None:
                 new_v = _ema_f32(vf, grad_sqr, decay)
@@ -429,14 +500,14 @@ def scale_by_factored_rms() -> Transform:
                 v.append(new_v)
                 continue
             d1, d0 = dims
-            new_vr = _ema_f32(vr, grad_sqr.mean(dim=d0), decay)
-            new_vc = _ema_f32(vc, grad_sqr.mean(dim=d1), decay)
+            new_vr = _ema_f32(vr, _whole_mean(grad_sqr, d0, sh), decay)
+            new_vc = _ema_f32(vc, _whole_mean(grad_sqr, d1, sh), decay)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_col_mean = new_vr.mean(dim=reduced_d1, keepdim=True)
             row_factor = (new_vr / row_col_mean) ** -0.5
             col_factor = new_vc ** -0.5
-            out.append(g * row_factor.unsqueeze(d0)
-                       * col_factor.unsqueeze(d1))
+            out.append(g * _on_piece(row_factor.unsqueeze(d0), sh)
+                       * _on_piece(col_factor.unsqueeze(d1), sh))
             v_row.append(new_vr)
             v_col.append(new_vc)
             v.append(vf)
@@ -447,24 +518,32 @@ def scale_by_factored_rms() -> Transform:
 
 
 def clip_by_block_rms(threshold: float) -> Transform:
-    """Each leaf over ``max(1, rms(u) / threshold)``."""
+    """Each leaf over ``max(1, rms(u) / threshold)`` (a piece's RMS is
+    the whole leaf's)."""
     def fn(updates, params):
-        refuse_on_shards("clip_by_block_rms (adafactor)")
-        return [u / torch.clamp_min(torch.sqrt(torch.mean(u * u))
-                                    / threshold, 1.0) for u in updates]
+        return [u / torch.clamp_min(rms / threshold, 1.0)
+                for u, rms in zip(updates, _block_rms(updates))]
     return _stateless(fn)
+
+
+def _block_rms(xs: Tensors) -> list:
+    """Each leaf's RMS over the whole leaf (a piece's from its partial
+    squares summed over its shard group)."""
+    shards = _leaf_shards(len(xs))
+    sq = _whole_sq(xs, shards)
+    return [torch.sqrt(torch.mean(x * x)) if sh is None
+            else torch.sqrt(q / math.prod(sh.shape)).to(x.dtype)
+            for x, q, sh in zip(xs, sq, shards)]
 
 
 def scale_by_param_block_rms() -> Transform:
     """Each leaf times its parameter's RMS, floored at
     ``PARAM_SCALE_FLOOR``."""
     def fn(updates, params):
-        refuse_on_shards("scale_by_param_block_rms (adafactor)")
         if params is None:
             raise ValueError("scale_by_param_block_rms needs params")
         out = []
-        for u, p in zip(updates, params):
-            rms = torch.sqrt(torch.mean(p * p))
+        for u, rms in zip(updates, _block_rms(params)):
             out.append(u * torch.where(
                 rms <= PARAM_SCALE_FLOOR,
                 torch.full_like(rms, PARAM_SCALE_FLOOR), rms))
@@ -751,25 +830,12 @@ def _wd_mask(cfg: OptimizerConfig):
 _MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-#: the optimizers whose update reduces over a whole parameter (the
-#: trust ratio, adafactor's factored moments and block RMS): not yet
-#: made right on fsdp pieces
-WHOLE_LEAF_OPTIMIZERS = ("lars", "lamb", "adafactor")
-
-
-def make_optimizer(cfg: OptimizerConfig, *, fsdp: int = 1) -> Transform:
+def make_optimizer(cfg: OptimizerConfig) -> Transform:
     """clip-by-global-norm -> clip-by-value -> the optimizer (+ decayed
-    weights) -> the parameter EMA, as the reference chains them.
-    ``fsdp`` > 1 (parameters sharded over that many ranks) refuses the
-    optimizers that reduce over a whole leaf (:data:`WHOLE_LEAF_
-    OPTIMIZERS`); the global-norm clip and the reported gradient norm
-    sum their partial sums over the shard group instead."""
+    weights) -> the parameter EMA, as the reference chains them. On a
+    sharded step every reduction over a whole leaf takes the whole
+    leaf's number from the pieces (:func:`shard_reduction`)."""
     name = cfg.name.lower()
-    if fsdp > 1 and name in WHOLE_LEAF_OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {name!r} reduces over whole parameters (a trust "
-            "ratio or a block RMS a leaf): under fsdp > 1 it arrives with "
-            "slice A6a-2; adam, adamw, sgd and momentum train sharded")
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
     if cfg.moment_dtype == "bfloat16" and name in ("lars", "lamb"):

@@ -8,8 +8,10 @@ one replica per rank.
 - per-step feed_dict       -> ShardedLoader batches, copied to the device
 
 Under N ranks of a ``torch.distributed`` group each rank takes its slice
-of every global batch (the loader's ``process_index``/``num_processes``)
-and the sync step all-reduces the gradients. The loop queues steps
+of every global batch (the loader's ``process_index``/``num_processes``
+are the rank's coordinate and count over the batch axes, ``data`` x
+``fsdp``: ``model`` ranks read the same rows) and the sync step
+all-reduces the gradients. The loop queues steps
 without a host sync: device metrics are read to the host only on steps
 where some hook asks (``wants_metrics``).
 
@@ -34,12 +36,13 @@ wins) and re-anchors the parameter EMA's shadows there; with the EMA on,
 eval runs on the shadows. Host metrics are floats, and a vector metric
 (MoE-BERT's per-expert load) a list: the JSONL takes it, the scalar
 hooks skip it. ``steps_per_loop > 1`` arrives with slice A3c-2b and
-raises. The mesh is one rank a card over ``data`` and ``fsdp``; under
-``fsdp`` > 1 the state is sharded by the model's ``sharding_rules``
-(eval, warm start and the EMA's eval see the whole params, gathered),
-and ``checkpoint.sharded`` writes per-rank shard files. A ``model``,
-``seq``, ``pipe`` or ``expert`` axis wider than 1 raises naming its
-slice (A6a-2, A6b, A6c, A6d).
+raises. The mesh is one rank a card over ``data``, ``fsdp`` and
+``model``; the state is sharded by the model's ``sharding_rules`` (over
+``fsdp`` ZeRO-3's way, over ``model`` Megatron's: GPT, BERT and
+MoE-BERT compute on their pieces; eval, warm start and the EMA's eval
+see the whole params, gathered), and ``checkpoint.sharded`` writes
+per-rank shard files. A ``seq``, ``pipe`` or ``expert`` axis wider than
+1 raises naming its slice (A6b, A6c, A6d).
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from ..data.loader import make_loader
 from ..obs import trace as obs_trace
 from ..obs.registry import Registry
 from ..obs.trace import add_span, span
+from ..parallel.mesh import AxisNames, Mesh
 from ..parallel.sync_replicas import SyncReplicas, resolve_mesh
 from ..runtime import distributed, faults
 from ..runtime.device import resolve_device
@@ -84,8 +88,8 @@ def _host_metric(v):
 
 def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
     """Raise NotImplementedError naming its slice for a set knob the
-    port's Trainer does not carry yet (a ``model``, ``seq``, ``pipe`` or
-    ``expert`` axis, ``steps_per_loop > 1``), or stating the rule of one
+    port's Trainer does not carry yet (a ``seq``, ``pipe`` or ``expert``
+    axis, ``steps_per_loop > 1``), or stating the rule of one
     rank a card for a mesh wider than the ranks (and the reference's
     ValueErrors on anomaly settings no path could honor)."""
     resolve_mesh(config.mesh, num_processes)
@@ -136,10 +140,13 @@ class Trainer:
         self.eval_arrays = eval_arrays
         self.train_transform = train_transform
         self.profiler_service = profiler_service
-        mesh = MeshShape(**resolve_mesh(config.mesh, self.num_processes))
-        self.tx = make_optimizer(
-            config.optimizer,
-            fsdp=mesh.fsdp if config.sync.mode == "auto" else 1)
+        sizes = resolve_mesh(config.mesh, self.num_processes)
+        mesh = MeshShape(**sizes)
+        # the loader's coordinate and count: over the batch axes
+        rows = Mesh(sizes, self.process_index, self.num_processes)
+        self.batch_index = rows.index(AxisNames.BATCH)
+        self.batch_count = rows.size(AxisNames.BATCH)
+        self.tx = make_optimizer(config.optimizer)
         self._schedule = make_schedule(config.optimizer)
         self._rollback_pending = False
         self._rollback_before: int | None = None
@@ -324,15 +331,15 @@ class Trainer:
             # are decoded when needed instead of held in memory
             return self.train_arrays.make_loader(
                 d.batch_size, start_step=start_step,
-                process_index=self.process_index,
-                num_processes=self.num_processes, shuffle=d.shuffle,
+                process_index=self.batch_index,
+                num_processes=self.batch_count, shuffle=d.shuffle,
                 seed=d.seed, prefetch=d.prefetch,
                 microbatches=self.sync.loader_microbatches)
         return make_loader(self.train_arrays, d.batch_size,
                            prefetch=d.prefetch, native=d.native,
                            start_step=start_step,
-                           process_index=self.process_index,
-                           num_processes=self.num_processes,
+                           process_index=self.batch_index,
+                           num_processes=self.batch_count,
                            shuffle=d.shuffle, seed=d.seed,
                            transform=self.train_transform,
                            microbatches=self.sync.loader_microbatches)

@@ -9,13 +9,23 @@ Joins a gloo group through ``--init`` and runs the tasks of
 - ``collectives``: the eight named collectives over the task's mesh, one
   case each (inputs ``in/<case>`` stacked a rank on dim 0, outputs
   ``out/<case>``);
-- ``train``: a model (``mlp`` or ``gpt_tiny`` dims, dropout off) under
-  the task's optimizer on the task's mesh, restored from the monolithic
-  checkpoint in ``bridge`` (the reference's step 0), for ``steps``
-  global batches from ``batches`` (each rank takes its share), writing
-  the per-step loss and grad norm, the whole final state (gathered),
-  each leaf's resident numel here, and, with ``save``, a sharded
-  checkpoint, restored again into a fresh template (``roundtrip``);
+- ``train``: a model (``mlp``, or ``gpt_tiny``, ``bert_tiny`` or
+  ``moe_bert_tiny`` dims with dropout off unless the task sets
+  ``dropout``) under the task's optimizer on the task's mesh (and its
+  ``sync`` settings), restored
+  from the monolithic checkpoint in ``bridge`` (the reference's step 0),
+  for ``steps`` global batches from ``batches`` (each rank takes its
+  share over the batch axes), writing the per-step loss and grad norm,
+  the whole final state (gathered), each leaf's resident numel here,
+  the leaves this rank holds whole (``whole/``, not gathered), the
+  head counts and table rows the layers saw (``seen/``), on a ``model``
+  mesh the last batch's logits bound and whole (``logits/``), and, with
+  ``save``, a sharded checkpoint, restored again into a fresh template
+  (``roundtrip``);
+- ``xent``: the vocab-parallel ``lm_head_xent`` on this rank's vocab
+  piece of ``inputs`` (h, table, bias, labels, weights), for each impl
+  with and without the bias: the loss, the accuracy, ``dh`` and the
+  table's and bias's gradients (of the piece);
 - ``restore``: the sharded checkpoint at ``dir`` step ``step`` restored
   into this mesh's template of the task's model and optimizer, written
   whole;
@@ -39,15 +49,23 @@ import torch.distributed as dist  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.ckpt import \
     checkpoint as tckpt  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.config import (  # noqa: E402
-    MeshShape, OptimizerConfig)
+    MeshShape, OptimizerConfig, SyncConfig)
+from distributed_tensorflow_example_tpu_torch.models.bert import (  # noqa: E402,E501
+    Bert, BertConfig)
 from distributed_tensorflow_example_tpu_torch.models.gpt import (  # noqa: E402,E501
     GPT, GPTConfig)
+from distributed_tensorflow_example_tpu_torch.models.moe import (  # noqa: E402,E501
+    MoeBert, MoeBertConfig)
 from distributed_tensorflow_example_tpu_torch.models.mlp import \
     MLP  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel import \
     collectives as C  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
     build_mesh  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.ops import \
+    losses  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.parallel import \
+    tensor_parallel  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
     shard_batch  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import \
@@ -62,8 +80,23 @@ GPT_TINY = dict(vocab_size=1000, hidden=128, layers=2, heads=4,
                 intermediate=256, max_len=128, dropout=0.0)
 
 
-def model_of(name: str):
-    return MLP() if name == "mlp" else GPT(GPTConfig(**GPT_TINY))
+#: bert_tiny's and moe_bert_tiny's dims (``BertConfig.tiny``,
+#: ``MoeBertConfig.tiny``) with dropout off
+BERT_TINY = dict(vocab_size=1000, hidden=128, layers=2, heads=4,
+                 intermediate=256, max_len=128, max_predictions=8,
+                 dropout=0.0)
+MOE_TINY = dict(BERT_TINY, n_experts=4, capacity_factor=2.0)
+
+
+def model_of(name: str, dropout: float = 0.0, **cfg):
+    """The test models by name; ``cfg`` overrides their config."""
+    if name == "mlp":
+        return MLP()
+    if name == "gpt_tiny":
+        return GPT(GPTConfig(**{**GPT_TINY, "dropout": dropout, **cfg}))
+    if name == "bert_tiny":
+        return Bert(BertConfig(**{**BERT_TINY, "dropout": dropout, **cfg}))
+    return MoeBert(MoeBertConfig(**{**MOE_TINY, "dropout": dropout, **cfg}))
 
 
 def _collectives(task, rank):
@@ -84,9 +117,11 @@ def _collectives(task, rank):
 
 
 def _sync(task, mesh):
-    model = model_of(task["model"])
-    tx = make_optimizer(OptimizerConfig(**task["opt"]), fsdp=mesh.fsdp)
+    model = model_of(task["model"], task.get("dropout", 0.0),
+                     **task.get("cfg", {}))
+    tx = make_optimizer(OptimizerConfig(**task["opt"]))
     return model, SyncReplicas(model.loss, tx, mesh, device="cpu",
+                               sync=SyncConfig(**task.get("sync", {})),
                                rules=model.sharding_rules(mesh))
 
 
@@ -95,25 +130,75 @@ def _whole(state) -> dict:
     return {f"state/{k}": v for k, v in tckpt.state_arrays(state).items()}
 
 
+def _spy(seen: dict):
+    """Record the head count each attention call sees and the table rows
+    each LM head gets (the pieces the layers compute on)."""
+    from distributed_tensorflow_example_tpu_torch.models import bert, gpt
+    attn, head = gpt.multi_head_attention, losses.lm_head_xent
+
+    def attention(q, *a, **kw):
+        seen.setdefault("heads", set()).add(q.shape[2])
+        return attn(q, *a, **kw)
+
+    def lm_head(h, table, *a, **kw):
+        seen.setdefault("vocab", set()).add(table.shape[0])
+        return head(h, table, *a, **kw)
+
+    gpt.multi_head_attention = bert.multi_head_attention = attention
+    losses.lm_head_xent = lm_head
+    return lambda: (setattr(gpt, "multi_head_attention", attn),
+                    setattr(bert, "multi_head_attention", attn),
+                    setattr(losses, "lm_head_xent", head))
+
+
+def _bound_logits(model, sync, state, batch) -> dict:
+    """The forward's logits (``apply``) of the model bound to the mesh on
+    this rank's pieces (the vocab-parallel head's, gathered) and of the
+    unbound model on the gathered whole params."""
+    whole = sync.full_params(state)
+    pieces = state.layout.step_params(state.params)
+    with torch.no_grad():
+        want = model.apply(whole, state.extras, batch)[0]
+        model.bind_mesh(sync.mesh)
+        try:
+            got = model.apply(pieces, state.extras, batch)[0]
+        finally:
+            model.bind_mesh(None)
+    return {"logits/tp": got.numpy(), "logits/whole": want.numpy()}
+
+
 def _train(task, rank):
     mesh = MeshShape(**task["mesh"])
     model, sync = _sync(task, mesh)
+    seen: dict = {}
+    undo = _spy(seen)
     state, restored = tckpt.restore_or_init(
         tckpt.CheckpointManager(task["bridge"]),
         lambda: sync.init(model.init, seed=0))
     assert restored, "the bridged step-0 checkpoint must restore"
-    losses, norms = [], []
+    losses_, norms = [], []
     with np.load(task["batches"]) as z:
         keys = sorted({k.split("/", 1)[1] for k in z.files})
         for i in range(task["steps"]):
             batch = {k: z[f"{i}/{k}"] for k in keys}
             state, met = sync.step(state, shard_batch(sync.mesh, batch))
-            losses.append(float(met["loss"]))
+            losses_.append(float(met["loss"]))
             norms.append(float(met["grad_norm"]))
-    out = {"loss": np.asarray(losses), "grad_norm": np.asarray(norms),
+    undo()
+    out = {"loss": np.asarray(losses_), "grad_norm": np.asarray(norms),
+           "seen/heads": np.asarray(sorted(seen.get("heads", ()))),
+           "seen/vocab": np.asarray(sorted(seen.get("vocab", ()))),
+           "seen/bound_after": np.asarray(getattr(model, "tp", None)
+                                          is not None),
            **_whole(state)}
+    if sync.mesh.shape["model"] > 1 and state.layout is not None:
+        out.update(_bound_logits(model, sync, state, shard_batch(
+            sync.mesh, batch)))
+    pieces = tckpt._pieces(state)
     for k, v in tckpt._state_leaves(state).items():
         out[f"numel/{k}"] = np.asarray(v.numel(), np.int64)
+        if k not in pieces:
+            out[f"whole/{k}"] = v.detach().numpy()
     if task.get("save"):
         mgr = tckpt.CheckpointManager(task["save"], sharded=True)
         mgr.save(state)
@@ -123,6 +208,36 @@ def _train(task, rank):
             tckpt._state_leaves(back).values())]
         out["roundtrip"] = np.asarray(all(same) and back.step == state.step
                                       and back.seed == state.seed)
+    return out
+
+
+def _xent(task, rank):
+    """The vocab-parallel head on this rank's piece, every impl."""
+    mesh = build_mesh(MeshShape(**task["mesh"]))
+    tp = tensor_parallel.model_axis(mesh)
+    with np.load(task["inputs"]) as z:
+        x = {k: torch.from_numpy(z[k]) for k in z.files}
+    v = x["table"].shape[0] // tp.size
+    rows = slice(tp.index * v, (tp.index + 1) * v)
+    out = {}
+    for impl in ("full", "chunked", "fused"):
+        for with_bias in (False, True):
+            h = x["h"].clone().requires_grad_(True)
+            table = x["table"][rows].clone().requires_grad_(True)
+            bias = (x["bias"][rows].clone().requires_grad_(True)
+                    if with_bias else None)
+            loss, acc = losses.lm_head_xent(
+                h, table, x["labels"], x["weights"], bias=bias, impl=impl,
+                seq_chunk=4 if impl == "chunked" else 0,
+                vocab_block=12 if impl == "fused" else 0, tp=tp)
+            loss.backward()
+            name = f"{impl}-{'bias' if with_bias else 'nobias'}"
+            out[f"{name}/loss"] = loss.detach().numpy()
+            out[f"{name}/acc"] = acc.detach().numpy()
+            out[f"{name}/dh"] = h.grad.numpy()
+            out[f"{name}/dtable"] = table.grad.numpy()
+            if with_bias:
+                out[f"{name}/dbias"] = bias.grad.numpy()
     return out
 
 
@@ -147,7 +262,7 @@ def main() -> int:
     dist.init_process_group("gloo", init_method=a.init, rank=a.rank,
                             world_size=a.world)
     runners = {"collectives": _collectives, "train": _train,
-               "restore": _restore}
+               "restore": _restore, "xent": _xent}
     for task in tasks:
         if task["kind"] == "cli":
             continue

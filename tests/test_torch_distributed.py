@@ -574,17 +574,18 @@ REFUSALS = {
                                SystemExit, "A3c-2b"),
     "trainer-steps_per_loop": (_trainer_refusal(steps_per_loop=2),
                                NotImplementedError, "A3c-2b"),
-    # the fsdp axis trains (slice A6a): each row that named it pairs it
-    # with an axis that is still refused
-    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,model=2"]),
-                      SystemExit, "A6a-2"),
+    # the fsdp (slice A6a) and model (A6a-2) axes train: a row that named
+    # them pairs them with an axis that is still refused, and a model
+    # axis wider than the ranks meets the rule of one rank a card
+    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,seq=2"]),
+                      SystemExit, "A6b"),
     "cli-mesh-model": (_cli_refusal(["--mesh", "model=2"]), SystemExit,
-                       "A6"),
+                       None),
     "trainer-mesh-fsdp": (_trainer_refusal(
-        mesh=tconfig.MeshShape(fsdp=2, model=2)), NotImplementedError,
-        "A6a-2"),
+        mesh=tconfig.MeshShape(fsdp=2, model=2, expert=2)),
+        NotImplementedError, "A6d"),
     "sync-mesh-model": (_sync_refusal(tconfig.MeshShape(model=2)),
-                        NotImplementedError, "A6"),
+                        NotImplementedError, None),
     # more replicas than ranks is no later slice's: it breaks the rule of
     # one rank a card, which the refusal states
     "sync-two-replicas-one-rank": (_sync_refusal(2), NotImplementedError,
@@ -597,9 +598,9 @@ REFUSALS = {
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_later_slices_stay_refused_naming_their_slice(name):
     """``multi_step``, ``--steps_per_loop 2``, ``--max_inflight_steps``
-    and the model and expert axes are still refused, each naming the
-    slice that brings it; more replicas than ranks states the rule of
-    one rank a card."""
+    and the seq and expert axes are still refused, each naming the slice
+    that brings it; more replicas (or ``model`` ranks) than ranks states
+    the rule of one rank a card."""
     run, exc, slice_ = REFUSALS[name]
     with pytest.raises(exc, match=f"slice {slice_}" if slice_
                        else "one rank a card"):

@@ -9,12 +9,15 @@ step-0 state bridged through its npz checkpoint, on numpy-seeded global
 batches. Each rank's result is held to the reference's run on as many
 devices of the ``cpu8`` mesh, to the port's replicated run of the same
 global batches on one rank, and to the reference's per-device shard
-sizes. Tolerances are stated per test; f32 differences come from
-summation order only.
+sizes. The 2-rank spawn also trains gpt_tiny under LAMB, LARS and
+adafactor, whose updates reduce over whole leaves. Tolerances are stated
+per test; f32 differences come from summation order only.
 """
 
+import fcntl
 import json
 import os
+import pickle
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -28,10 +31,16 @@ from distributed_tensorflow_example_tpu.ckpt import checkpoint as jckpt
 from distributed_tensorflow_example_tpu.config import MeshShape as JMesh
 from distributed_tensorflow_example_tpu.config import \
     OptimizerConfig as JOptimizerConfig
+from distributed_tensorflow_example_tpu.models.bert import Bert as JBert
+from distributed_tensorflow_example_tpu.models.bert import \
+    BertConfig as JBertConfig
 from distributed_tensorflow_example_tpu.models.gpt import GPT as JGPT
 from distributed_tensorflow_example_tpu.models.gpt import \
     GPTConfig as JGPTConfig
 from distributed_tensorflow_example_tpu.models.mlp import MLP as JMLP
+from distributed_tensorflow_example_tpu.models.moe import MoeBert as JMoeBert
+from distributed_tensorflow_example_tpu.models.moe import \
+    MoeBertConfig as JMoeBertConfig
 from distributed_tensorflow_example_tpu.parallel.mesh import \
     build_mesh as jbuild_mesh
 from distributed_tensorflow_example_tpu.parallel.sync_replicas import \
@@ -44,7 +53,7 @@ from distributed_tensorflow_example_tpu_torch.config import OptimizerConfig
 from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import \
     SyncReplicas
 from distributed_tensorflow_example_tpu_torch.train import optimizers as topt
-from _torch_fsdp_worker import GPT_TINY, model_of
+from _torch_fsdp_worker import BERT_TINY, GPT_TINY, MOE_TINY, model_of
 
 torch.set_num_threads(1)
 
@@ -56,6 +65,40 @@ OPT = dict(name="adamw", learning_rate=1e-3, weight_decay=0.01,
            grad_clip_norm=1e-3, ema_decay=0.9)
 MESHES = {2: dict(data=1, fsdp=2), 4: dict(data=2, fsdp=2)}
 MODELS = ("mlp", "gpt_tiny")
+#: the optimizers whose update reduces over whole leaves, at settings
+#: that engage each reduction (LAMB's global-norm clip, LARS's trust
+#: ratio on the masked leaves, adafactor's factored RMS with its
+#: block-RMS clip, parameter RMS and momentum average)
+WHOLE_LEAF = {
+    "lamb": dict(name="lamb", learning_rate=1e-3, weight_decay=0.01,
+                 grad_clip_norm=1e-3),
+    "lars": dict(name="lars", learning_rate=1e-3, weight_decay=0.01,
+                 momentum=0.9),
+    "adafactor": dict(name="adafactor", learning_rate=1e-3, momentum=0.9),
+}
+
+
+def shared_once(tmp_path_factory, name: str, build):
+    """``build(directory)``'s result, computed once for every pytest-xdist
+    worker of a run (each worker would otherwise run a module fixture of
+    its own): the first worker to take the lock builds it in a
+    directory under the run's shared temporary root and pickles it; the
+    others wait on the lock and load it. Without xdist, the run's root."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / name
+    done = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            out.mkdir(exist_ok=True)
+            result = build(out)
+            with open(f"{done}.tmp", "wb") as f:
+                pickle.dump(result, f)
+            os.replace(f"{done}.tmp", done)
+        with open(done, "rb") as f:
+            return pickle.load(f)
 
 
 def run_ranks(world: int, tasks: list, tmp) -> None:
@@ -87,44 +130,66 @@ def load(tmp, name: str, rank: int) -> dict:
 
 def global_batches(model: str) -> list[dict]:
     """3 numpy-seeded global batches: 16 MNIST-shaped rows, or 8 token
-    rows of 32 whose second and fifth rows end in 6 pad tokens."""
+    rows of 32 whose second and fifth rows end in 6 pad tokens; BERT's
+    (``bert_tiny``, ``moe_bert_tiny``) also carry 8 masked positions a
+    row, the last two of rows 0 and 3 at weight 0."""
     out = []
     for i in range(STEPS):
         rs = np.random.RandomState(100 + i)
         if model == "mlp":
             out.append({"x": rs.rand(16, 784).astype(np.float32),
                         "y": rs.randint(0, 10, (16,)).astype(np.int32)})
-        else:
-            ids = rs.randint(0, 1000, (8, 32)).astype(np.int32)
-            mask = np.ones_like(ids)
-            mask[[1, 4], 26:] = 0
-            out.append({"input_ids": ids, "attention_mask": mask})
+            continue
+        ids = rs.randint(0, 1000, (8, 32)).astype(np.int32)
+        mask = np.ones_like(ids)
+        mask[[1, 4], 26:] = 0
+        b = {"input_ids": ids, "attention_mask": mask}
+        if model != "gpt_tiny":
+            pos = np.stack([np.sort(rs.choice(26, 8, replace=False))
+                            for _ in range(8)]).astype(np.int32)
+            w = np.ones((8, 8), np.float32)
+            w[[0, 3], 6:] = 0.0
+            b.update(token_type_ids=np.zeros_like(ids),
+                     masked_positions=pos,
+                     masked_labels=rs.randint(0, 1000, (8, 8)).astype(
+                         np.int32),
+                     masked_weights=w)
+        out.append(b)
     return out
 
 
-def jmodel_of(name: str):
-    return JMLP() if name == "mlp" else JGPT(JGPTConfig(**GPT_TINY))
+def jmodel_of(name: str, dropout: float = 0.0):
+    """The reference's counterpart of ``_torch_fsdp_worker.model_of``."""
+    if name == "mlp":
+        return JMLP()
+    if name == "gpt_tiny":
+        return JGPT(JGPTConfig(**{**GPT_TINY, "dropout": dropout}))
+    if name == "bert_tiny":
+        return JBert(JBertConfig(**{**BERT_TINY, "dropout": dropout}))
+    return JMoeBert(JMoeBertConfig(**{**MOE_TINY, "dropout": dropout}))
 
 
-def reference_run(model: str, mesh: dict, bridge: str):
-    """The reference's 3 steps on ``mesh`` over as many cpu8 devices:
-    writes its step-0 state to ``bridge``; returns (losses, grad norms,
-    the final state's flat arrays, each leaf's per-device shard numel)."""
+def reference_run(model: str, mesh: dict, bridge: str | None,
+                  opt: dict = OPT, steps: int = STEPS):
+    """The reference's ``steps`` steps on ``mesh`` over as many cpu8
+    devices, writing its step-0 state to ``bridge`` (unless None);
+    returns (losses, grad norms, the final state's flat arrays, each
+    leaf's per-device shard numel)."""
     shape = JMesh(**mesh)
-    n = shape.data * shape.fsdp
     jm = jmodel_of(model)
     jsync = JSyncReplicas(
-        jm.loss, jopt.make_optimizer(JOptimizerConfig(**OPT)),
-        jbuild_mesh(shape, devices=jax.devices("cpu")[:n]),
+        jm.loss, jopt.make_optimizer(JOptimizerConfig(**opt)),
+        jbuild_mesh(shape, devices=jax.devices("cpu")[:shape.total()]),
         rules=jm.sharding_rules(shape), donate=False)
     js = jsync.init(jm.init, seed=0)
-    jckpt.CheckpointManager(bridge).save(js, 0)
+    if bridge:
+        jckpt.CheckpointManager(bridge).save(js, 0)
     numel = {path_str(p): int(x.addressable_shards[0].data.size)
              for p, x in jax.tree_util.tree_flatten_with_path(js)[0]
              if isinstance(x, jax.Array)
              and not jax.dtypes.issubdtype(x.dtype, jax.dtypes.prng_key)}
     losses, norms = [], []
-    for b in global_batches(model):
+    for b in global_batches(model)[:steps]:
         js, met = jsync.step(js, jsync.shard_batch(
             {k: jax.numpy.asarray(v) for k, v in b.items()}))
         losses.append(float(met["loss"]))
@@ -132,10 +197,10 @@ def reference_run(model: str, mesh: dict, bridge: str):
     return losses, norms, jckpt._flatten(js), numel
 
 
-def replicated_run(model: str, bridge: str):
+def replicated_run(model: str, bridge: str, dropout: float = 0.0):
     """The port's own replicated run (one rank) of the same global
     batches, from the same bridged state."""
-    m = model_of(model)
+    m = model_of(model, dropout)
     sync = SyncReplicas(m.loss, topt.make_optimizer(OptimizerConfig(**OPT)),
                         device="cpu")
     state, restored = tckpt.restore_or_init(
@@ -164,25 +229,52 @@ def _prepare(world: int, tmp):
                       "mesh": MESHES[world], "opt": OPT, "bridge": bridge,
                       "batches": str(tmp / f"batches_{model}.npz"),
                       "steps": STEPS})
+    for name, opt in (WHOLE_LEAF.items() if world == 2 else ()):
+        bridge = str(tmp / f"bridge_{name}")
+        ref[name] = reference_run("gpt_tiny", MESHES[world], bridge, opt)
+        tasks.append({"kind": "train", "name": name, "model": "gpt_tiny",
+                      "mesh": MESHES[world], "opt": opt, "bridge": bridge,
+                      "batches": str(tmp / "batches_gpt_tiny.npz"),
+                      "steps": STEPS})
     return tasks, ref, rep
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _build_runs(root):
     """Both world sizes' ranks spawned at once, after the in-process
     runs they are held to."""
-    tmps = {w: tmp_path_factory.mktemp(f"fsdp{w}") for w in MESHES}
+    tmps = {w: root / f"fsdp{w}" for w in MESHES}
+    for t in tmps.values():
+        t.mkdir()
     prep = {w: _prepare(w, tmps[w]) for w in MESHES}
     with ThreadPoolExecutor(len(MESHES)) as ex:
         list(ex.map(lambda w: run_ranks(w, prep[w][0], tmps[w]), MESHES))
     return {w: (prep[w][1], prep[w][2],
-                {m: [load(tmps[w], m, r) for r in range(w)]
-                 for m in MODELS})
+                {t["name"]: [load(tmps[w], t["name"], r) for r in range(w)]
+                 for t in prep[w][0]})
             for w in MESHES}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return shared_once(tmp_path_factory, "fsdp_runs", _build_runs)
 
 
 CASES = [(w, m) for w in MESHES for m in MODELS]
 IDS = [f"{w}ranks-{m}" for w, m in CASES]
+
+
+#: the optimizer-state fields held as moments (Adam's, the momentum
+#: trace, adafactor's second moments)
+MOMENTS = ("mu", "nu", "trace", "v_row", "v_col", "v")
+
+
+def _field(key: str) -> str | None:
+    """An optimizer-state key's field: its first part after
+    ``opt_state`` that is not a chain index."""
+    parts = key.split("/")
+    if parts[0] != "opt_state":
+        return None
+    return next((p for p in parts[1:] if not p.isdigit()), None)
 
 
 # Adam divides each gradient element by its running RMS, so an f32
@@ -202,7 +294,7 @@ def assert_states_close(got: dict, want: dict):
         g = got[f"state/{k}"]
         w = np.asarray(want[k])
         assert g.shape == w.shape, k
-        if "/mu/" in k or "/nu/" in k:
+        if _field(k) in MOMENTS:
             floor = 1e-5 * max(1e-3, float(np.max(np.abs(w))))
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=floor,
                                        err_msg=k)
@@ -276,19 +368,30 @@ def test_each_rank_holds_its_shard_of_params_and_moments(runs, world,
 
 
 @pytest.mark.parametrize("name", ["lars", "lamb", "adafactor"])
-def test_whole_leaf_optimizers_are_refused_under_fsdp(name):
-    """The optimizers whose update reduces over a whole leaf are refused
-    under fsdp > 1 naming A6a-2, at construction and, for a transform
-    built without that check, at the first update on pieces."""
-    cfg = OptimizerConfig(name=name, learning_rate=1e-2, momentum=0.9)
-    with pytest.raises(NotImplementedError, match="slice A6a-2"):
-        topt.make_optimizer(cfg, fsdp=2)
-    tx = topt.make_optimizer(cfg)
-    p = [torch.ones(256, 256)]
-    state = tx.init(p)
-    with topt.shard_reduction([True], lambda t: t):
-        with pytest.raises(NotImplementedError, match="slice A6a-2"):
-            tx.update([torch.ones(256, 256)], state, p)
+def test_whole_leaf_optimizers_are_refused_under_fsdp(runs, name):
+    """Named for the refusal it replaced: the optimizers whose update
+    reduces over a whole leaf now train under fsdp > 1. gpt_tiny on 2
+    ranks at fsdp=2 under each (LAMB with the global-norm clip engaged,
+    LARS's trust ratio on the masked leaves, adafactor factored with its
+    block-RMS clip, parameter RMS and momentum) equals the reference's
+    step on the same mesh: loss 1e-5, grad norm 1e-4 relative, states as
+    :func:`assert_states_close`. adafactor's ``v_row``/``v_col`` stay
+    whole on every rank, as the reference's relaxed shardings keep
+    them."""
+    ref, _, ranks = runs[2]
+    losses, norms, want, numel = ref[name]
+    for out in ranks[name]:
+        np.testing.assert_allclose(out["loss"], losses, rtol=1e-5)
+        np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-4)
+        assert_states_close(out, want)
+        got = {k[len("numel/"):]: int(v) for k, v in out.items()
+               if k.startswith("numel/")}
+        for k, n in got.items():
+            assert n == numel[k], (k, n, numel[k])
+        fac = [k for k in got if _field(k) in ("v_row", "v_col")]
+        assert (name != "adafactor") == (not fac), fac
+        for k in fac:
+            assert got[k] == np.asarray(want[k]).size, k
 
 
 @pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw"])
@@ -299,14 +402,18 @@ def test_elementwise_optimizers_train_on_pieces(name):
     train sharded update a piece as they update a whole leaf."""
     cfg = OptimizerConfig(name=name, learning_rate=1e-2, momentum=0.9,
                           grad_clip_norm=1.0, ema_decay=0.5)
-    tx = topt.make_optimizer(cfg, fsdp=2)
+    tx = topt.make_optimizer(cfg)
     rs = np.random.RandomState(0)
     p = [torch.from_numpy(rs.randn(8, 4).astype(np.float32)),
          torch.from_numpy(rs.randn(4).astype(np.float32))]
     g = [torch.from_numpy(rs.randn(8, 4).astype(np.float32)),
          torch.from_numpy(rs.randn(4).astype(np.float32))]
     whole = float(topt.global_norm(g))
-    with topt.shard_reduction([True, False], lambda t: 2 * t):
+    # leaf 0 is one of two equal pieces of a [16, 4] leaf
+    piece = topt.LeafShard(dim=0, shape=(16, 4), start=0, stop=8,
+                           axis="fsdp", sum=lambda t: 2 * t,
+                           gather=lambda t, d: torch.cat([t, t], d))
+    with topt.shard_reduction([piece, None]):
         got = float(topt.global_norm(g))
         upd, _ = tx.update(g, tx.init(p), p)
     want = float(torch.sqrt(2 * (g[0] ** 2).sum() + (g[1] ** 2).sum()))
@@ -322,12 +429,14 @@ def test_elementwise_optimizers_train_on_pieces(name):
 
 
 def test_cli_refuses_a_whole_leaf_optimizer_under_fsdp(tmp_path):
-    """``--optimizer lamb`` over ``--mesh data=1,fsdp=2`` exits naming
-    A6a-2 before any work (the worker hosts are never contacted)."""
+    """Named for the refusal it replaced: ``--optimizer lamb`` trains
+    under fsdp now; paired with a sequence axis, still to come, it exits
+    naming A6b before any work (the worker hosts are never
+    contacted)."""
     ck = str(tmp_path / "ck")
-    with pytest.raises(SystemExit, match="slice A6a-2"):
+    with pytest.raises(SystemExit, match="slice A6b"):
         tcli.main(["--model", "gpt_tiny", "--device", "cpu",
-                   "--optimizer", "lamb", "--mesh", "data=1,fsdp=2",
-                   "--worker_hosts", "127.0.0.1:1,127.0.0.1:2",
-                   "--ckpt_dir", ck])
+                   "--optimizer", "lamb", "--mesh", "fsdp=2,seq=2",
+                   "--worker_hosts", "127.0.0.1:1,127.0.0.1:2,127.0.0.1:3,"
+                   "127.0.0.1:4", "--ckpt_dir", ck])
     assert not os.path.exists(ck)

@@ -108,8 +108,8 @@ READER_MODULES = tuple(
 SHARDED_MODULES = tuple(
     f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
         "parallel.mesh", "parallel.collectives", "parallel.sharding",
-        "parallel.sync_replicas", "examples.finetune_export",
-        "examples.train_and_generate"))
+        "parallel.sync_replicas", "parallel.tensor_parallel",
+        "examples.finetune_export", "examples.train_and_generate"))
 #: imported only inside the functions that decode, tokenize or read a TF
 #: checkpoint: the card's machine has none of them
 OPTIONAL = ("PIL", "transformers", "tensorflow")

@@ -25,7 +25,7 @@ from distributed_tensorflow_example_tpu_torch.models import get_model
 from distributed_tensorflow_example_tpu_torch.parallel.mesh import (
     AxisNames, Mesh, batch_axis_size, build_mesh, local_mesh, mesh_sizes)
 from distributed_tensorflow_example_tpu_torch.parallel.sharding import (
-    P, ShardingRules, batch_pspec, shard_batch, shard_params,
+    P, ShardingRules, ShardLayout, batch_pspec, shard_batch, shard_params,
     state_shardings)
 from distributed_tensorflow_example_tpu_torch.utils.pytree import \
     flatten_dict
@@ -197,3 +197,68 @@ def test_model_tree_pspecs_equal_the_reference(name, mesh):
                 is_leaf=lambda x: isinstance(x, JP))[0]}
     assert got == want
     assert any(s for s in got.values()), "nothing sharded"
+
+
+TP_MESHES = [dict(model=2), dict(data=2, fsdp=2, model=2)]
+TP_IDS = ["model2", "data2-fsdp2-model2"]
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES, ids=TP_IDS)
+@pytest.mark.parametrize("name", ["gpt_tiny", "bert_tiny", "moe_bert_tiny"])
+def test_tp_tree_pspecs_equal_the_reference(name, mesh):
+    """With a ``model`` axis the transformers' Megatron rules (column q/k/v
+    and FFN-in, row o and FFN-out, the vocab-split word table, BERT's
+    ``mlm/bias``, the experts' columns) give every param the reference's
+    spec, the fsdp fallback taking the unmatched leaves."""
+    tm, tparams = _port_params(name)
+    jm, jparams = _ref_shapes(name)
+    got = {k: tuple(v) for k, v in flatten_dict(
+        tm.sharding_rules(MeshShape(**mesh)).tree_pspecs(tparams)).items()}
+    want = {path_str(p): tuple(s) for p, s in
+            jax.tree_util.tree_flatten_with_path(
+                jm.sharding_rules(JMesh(**mesh)).tree_pspecs(jparams),
+                is_leaf=lambda x: isinstance(x, JP))[0]}
+    assert got == want
+    assert any(AxisNames.MODEL in s for s in got.values())
+
+
+@pytest.mark.parametrize("name", ["gpt_tiny", "bert_tiny", "moe_bert_tiny"])
+def test_shard_layout_bounds_equal_the_reference_shards(name, cpu8):
+    """On (data=2, fsdp=2, model=2) each rank's ``ShardLayout`` piece of
+    every param (its bounds, over ``fsdp`` or ``model``) is the block
+    the reference places on the device of the same index, and the rank
+    writes it in a sharded save exactly where the reference's
+    ``replica_id`` is 0."""
+    shape = dict(data=2, fsdp=2, model=2)
+    tm, tparams = _port_params(name)
+    jm, _ = _ref_shapes(name)
+    arrays = {k: v.numpy() for k, v in flatten_dict(tparams).items()}
+    placed = jsharding.shard_params(
+        jmesh.build_mesh(shape, devices=cpu8),
+        jax.tree_util.tree_map(np.asarray, _nest(arrays)),
+        jm.sharding_rules(JMesh(**shape)))
+    ref = {path_str(p): x for p, x in
+           jax.tree_util.tree_flatten_with_path(placed)[0]}
+    rules = tm.sharding_rules(MeshShape(**shape))
+    for mesh in ranks(shape):
+        layout = ShardLayout.for_params(mesh, tparams, rules)
+        for k, x in ref.items():
+            [s] = [s for s in x.addressable_shards
+                   if s.device.id - cpu8[0].id == mesh.rank]
+            want = tuple((sl.start or 0, x.shape[i] if sl.stop is None
+                          else sl.stop) for i, sl in enumerate(s.index))
+            assert layout.bounds(k) == want, (k, mesh.rank)
+            assert layout.owns(k) == (s.replica_id == 0), (k, mesh.rank)
+    assert layout.model_sharded and any(
+        a == AxisNames.FSDP for a in layout.axes.values())
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        d = out
+        *head, last = k.split("/")
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = v
+    return out

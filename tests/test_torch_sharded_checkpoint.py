@@ -8,13 +8,15 @@ anchor.
 One spawn of 2 gloo ranks at (data=1, fsdp=2)
 (``tests/_torch_fsdp_worker.py``, no JAX) trains the MLP 2 steps and
 saves sharded, restores the reference's sharded checkpoint of a (data=2,
-fsdp=4) ``cpu8`` state, then runs the CLI three times. Every value is
-held bit for bit.
+fsdp=4) ``cpu8`` state, and, at ``model=2``, the reference's of a
+(data=2, model=2) gpt_tiny state, then runs the CLI three times at
+``fsdp=2`` and three at ``model=2``. Every value is held bit for bit.
 """
 
 import glob
 import os
 import socket
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +28,9 @@ from distributed_tensorflow_example_tpu.ckpt import checkpoint as jckpt
 from distributed_tensorflow_example_tpu.config import MeshShape as JMesh
 from distributed_tensorflow_example_tpu.config import \
     OptimizerConfig as JOptimizerConfig
+from distributed_tensorflow_example_tpu.models.gpt import GPT as JGPT
+from distributed_tensorflow_example_tpu.models.gpt import \
+    GPTConfig as JGPTConfig
 from distributed_tensorflow_example_tpu.models.mlp import MLP as JMLP
 from distributed_tensorflow_example_tpu.parallel.mesh import \
     build_mesh as jbuild_mesh
@@ -36,13 +41,16 @@ from distributed_tensorflow_example_tpu_torch.ckpt import checkpoint as tckpt
 from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import (
     CheckpointManager, CorruptCheckpointError, latest_checkpoint,
     restore_or_init)
+from distributed_tensorflow_example_tpu_torch.cli import train as tcli
 from distributed_tensorflow_example_tpu_torch.config import OptimizerConfig
 from distributed_tensorflow_example_tpu_torch.models.mlp import MLP
 from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import \
     SyncReplicas
 from distributed_tensorflow_example_tpu_torch.train import optimizers as topt
 from distributed_tensorflow_example_tpu_torch.train.state import TrainState
-from test_torch_fsdp import OPT, global_batches, load, run_ranks
+from _torch_fsdp_worker import GPT_TINY
+from test_torch_fsdp import (OPT, assert_states_close, global_batches, load,
+                             run_ranks, shared_once)
 
 torch.set_num_threads(1)
 
@@ -50,6 +58,8 @@ CLI_ARGV = ["--model", "gpt_tiny", "--device", "cpu", "--seq_len", "16",
             "--batch_size", "4", "--optimizer", "adamw", "--learning_rate",
             "1e-3", "--mesh", "data=1,fsdp=2", "--sharded_save",
             "--save_steps", "2", "--log_every_steps", "2"]
+#: the same run over the model axis (Megatron tensor parallelism)
+CLI_TP = [x if x != "data=1,fsdp=2" else "data=1,model=2" for x in CLI_ARGV]
 
 
 @pytest.fixture
@@ -103,9 +113,26 @@ def _reference_sharded(d: str):
     return jckpt._flatten(js)
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("shck")
+def _reference_tp_sharded(d: str):
+    """The reference's gpt_tiny state on a (data=2, model=2) cpu8 mesh
+    (its Megatron rules: column, row and vocab pieces), one step, saved
+    sharded at step 5."""
+    shape = JMesh(data=2, model=2)
+    jm = JGPT(JGPTConfig(**GPT_TINY))
+    jsync = JSyncReplicas(
+        jm.loss, jopt.make_optimizer(JOptimizerConfig(**OPT)),
+        jbuild_mesh(shape, devices=jax.devices("cpu")[:4]),
+        rules=jm.sharding_rules(shape), donate=False)
+    js = jsync.init(jm.init, seed=3)
+    b = global_batches("gpt_tiny")[0]
+    js, _ = jsync.step(js, jsync.shard_batch(
+        {k: jnp.asarray(v) for k, v in b.items()}))
+    jckpt.CheckpointManager(d, sharded=True).save(js, 5)
+    return jckpt._flatten(js)
+
+
+def _build_ranks(tmp):
+    """The reference's sharded checkpoints, then the 2-rank spawn."""
     model = MLP()
     sync = SyncReplicas(model.loss, topt.make_optimizer(
         OptimizerConfig(**OPT)), device="cpu")
@@ -116,25 +143,44 @@ def ranks(tmp_path_factory):
                        enumerate(global_batches("mlp")) for k, v in
                        b.items()})
     ref = _reference_sharded(str(tmp / "ref"))
-    ports = _free_ports(3)
-    cli = [CLI_ARGV + ["--ckpt_dir", str(tmp / "cli"), "--train_steps",
-                       "4"],
-           CLI_ARGV + ["--ckpt_dir", str(tmp / "cli"), "--train_steps",
-                       "6"],
-           CLI_ARGV + ["--ckpt_dir", str(tmp / "cli_whole"),
-                       "--train_steps", "6"]]
+    ref_tp = _reference_tp_sharded(str(tmp / "ref_tp"))
+    ports = _free_ports(6)
+    cli = {}
+    for tag, argv in (("", CLI_ARGV), ("_tp", CLI_TP)):
+        cli[tag] = [argv + ["--ckpt_dir", str(tmp / f"cli{tag}"),
+                            "--train_steps", "4"],
+                    argv + ["--ckpt_dir", str(tmp / f"cli{tag}"),
+                            "--train_steps", "6"],
+                    argv + ["--ckpt_dir", str(tmp / f"cli{tag}_whole"),
+                            "--train_steps", "6"]]
     mesh = dict(data=1, fsdp=2)
-    run_ranks(2, [
+    (tmp / "tp_cli").mkdir()
+    # the model=2 CLI runs in a spawn of their own: three process groups
+    # brought up and left a worker process, as the fsdp runs
+    spawns = [(2, [
         {"kind": "train", "name": "train", "model": "mlp", "mesh": mesh,
          "opt": OPT, "bridge": str(tmp / "bridge"),
          "batches": str(tmp / "batches.npz"), "steps": 2,
          "save": str(tmp / "port")},
         {"kind": "restore", "name": "restore", "model": "mlp",
          "mesh": mesh, "opt": OPT, "dir": str(tmp / "ref"), "step": 5},
-        {"kind": "cli", "argvs": cli, "ports": ports}], tmp)
-    return {"tmp": tmp, "ref": ref,
+        {"kind": "restore", "name": "restore_tp", "model": "gpt_tiny",
+         "mesh": dict(model=2), "opt": OPT, "dir": str(tmp / "ref_tp"),
+         "step": 5},
+        {"kind": "cli", "argvs": cli[""], "ports": ports[:3]}], tmp),
+        (2, [{"kind": "cli", "argvs": cli["_tp"], "ports": ports[3:]}],
+         tmp / "tp_cli")]
+    with ThreadPoolExecutor(2) as ex:
+        list(ex.map(lambda a: run_ranks(*a), spawns))
+    return {"tmp": tmp, "ref": ref, "ref_tp": ref_tp,
             "train": [load(tmp, "train", r) for r in range(2)],
-            "restore": [load(tmp, "restore", r) for r in range(2)]}
+            "restore": [load(tmp, "restore", r) for r in range(2)],
+            "restore_tp": [load(tmp, "restore_tp", r) for r in range(2)]}
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    return shared_once(tmp_path_factory, "shck_ranks", _build_ranks)
 
 
 def test_sharded_roundtrip_preserves_values(sync_and_state, tmp_path):
@@ -379,3 +425,48 @@ def test_cli_sharded_save_resumes_from_its_anchor(ranks):
     assert sorted(resumed) == sorted(whole)
     for k in whole:
         np.testing.assert_array_equal(resumed[k], whole[k], err_msg=k)
+
+
+def test_reference_tp_checkpoint_restores_into_the_port(ranks):
+    """A reference sharded checkpoint of gpt_tiny on a (data=2, model=2)
+    cpu8 mesh (its pieces: q/k/v and FFN-in columns, o and FFN-out rows,
+    the word table's vocab rows) restores exactly into the port at
+    ``model=2`` on 2 gloo ranks, each rank reading its own pieces."""
+    want = ranks["ref_tp"]
+    keys = [k for k in want if not k.startswith("__prng")]
+    for out in ranks["restore_tp"]:
+        assert int(out["step"]) == 1
+        for k in keys:
+            np.testing.assert_array_equal(out[f"state/{k}"], want[k],
+                                          err_msg=k)
+
+
+def test_cli_model_sharded_save_resumes_from_its_anchor(ranks, tmp_path):
+    """``cli/train.py --model gpt_tiny --mesh data=1,model=2
+    --sharded_save`` over two gloo workers: 4 steps, then a second run
+    resumes from the step-4 anchor to 6; its step-6 checkpoint equals an
+    uninterrupted 6-step run's bit for bit, and the word table's vocab
+    pieces lie in both ranks' shard files. Both ``model`` ranks read the
+    same rows: the run's params equal one worker's run of the same flags
+    with whole params (``test_torch_fsdp.assert_states_close``'s params
+    tolerance; after 6 steps with dropout a few near-zero Adam moments
+    drift past its 3-step moment tolerance, so the moments are left to
+    the 3-step tests of ``tests/test_torch_tp.py``)."""
+    tmp = ranks["tmp"]
+    names = sorted(os.listdir(tmp / "cli_tp"))
+    assert "ckpt-6.shards.json" in names and "ckpt-4.shards.json" in names
+    resumed = CheckpointManager(str(tmp / "cli_tp")).sharded_arrays(6)
+    whole = CheckpointManager(str(tmp / "cli_tp_whole")).sharded_arrays(6)
+    assert sorted(resumed) == sorted(whole)
+    for k in whole:
+        np.testing.assert_array_equal(resumed[k], whole[k], err_msg=k)
+    for r in range(2):
+        with np.load(tmp / "cli_tp" / f"ckpt-6.shard-{r}-of-2.npz") as z:
+            assert any(k.startswith("params/wte/table::") for k in z.files)
+    one = str(tmp_path / "one")
+    argv = [x if x != "data=1,model=2" else "data=1" for x in CLI_TP]
+    assert tcli.main(argv + ["--ckpt_dir", one, "--train_steps", "6"]) == 0
+    alone = CheckpointManager(one).sharded_arrays(6)
+    assert_states_close({f"state/{k}": v for k, v in whole.items()},
+                        {k: v for k, v in alone.items()
+                         if k.startswith("params/")})

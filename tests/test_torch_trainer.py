@@ -460,33 +460,34 @@ LATER = [
     (["--model", "bert_tiny", "--data_dir", "VOCAB", "--steps_per_loop",
       "2"], "A3c-2b"),
     # the fsdp axis and sharded saves train (slice A6a,
-    # tests/test_torch_fsdp.py, test_torch_sharded_checkpoint.py): the
-    # rows that named them, or a data axis wider than the ranks (refused
-    # by the rule of one rank a card, no slice's), pair them with an axis
-    # that is still refused (a later --mesh wins)
+    # tests/test_torch_fsdp.py, test_torch_sharded_checkpoint.py), and so
+    # does the model axis (A6a-2, tests/test_torch_tp.py): the rows that
+    # named them, or a data axis wider than the ranks (refused by the
+    # rule of one rank a card, no slice's), pair them with an axis that
+    # is still refused (a later --mesh wins)
     (["--model", "moe_bert_tiny", "--native", "--mesh", "data=2",
       "--mesh", "expert=2"], "A6d"),
     (["--model", "pipe_bert_tiny"], "A6c"),
     (["--model", "moe_bert", "--streaming", "--sharded_save", "--mesh",
-      "model=2"], "A6a-2"),
+      "seq=2"], "A6b"),
     (["--steps_per_loop", "2"], "A3c-2b"),
     (["--mesh", "data=2", "--mesh", "seq=2"], "A6b"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
     (["--model", "pipe_moe_bert_tiny"], "A6c"),
-    (["--sharded_save", "--mesh", "model=2"], "A6a-2", "sharded_save"),
+    (["--sharded_save", "--mesh", "seq=2"], "A6b", "sharded_save"),
     (["--warm_start", "w", "--fast_decode", "--max_inflight_steps", "1"],
      "A3c-2b"),
     (["--moment_dtype", "bfloat16", "--max_per_class", "5",
       "--sharded_save", "--mesh", "pipe=2"], "A6c"),
-    (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "model=2"],
-     "A6a-2"),
+    (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "expert=2"],
+     "A6d"),
     (["--streaming", "--model", "pipe_mlp"], "A6c"),
     (["--max_per_class", "5", "--steps_per_loop", "4"], "A3c-2b"),
     (["--label_offset", "-1", "--dataset", "pipe_bert"], "A6c"),
     (["--augment", "--model", "resnet50", "--sharded_save", "--mesh",
       "expert=2"], "A6d"),
     (["--data_dir", "IMAGENET", "--model", "resnet50", "--mesh",
-      "data=2", "--mesh", "model=2"], "A6a-2"),
+      "data=2", "--mesh", "seq=2"], "A6b"),
     # --export_dir itself is lifted (A4a), and moe_bert_tiny exports
     # (static-batch): exporting a model the port lacks still refuses,
     # naming that model's slice
