@@ -152,6 +152,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import logging
@@ -271,6 +272,11 @@ FLASH_LONG_S = 4096
 FLASH_WIDE = dict(b=4096, s=80, h=16)
 DECODE_SHAPE = dict(b=8, t=640, h=12, d=64)
 PROMPT_LEN, MAX_NEW, BATCH = 512, 128, 8
+# the profiled requests' new tokens: a quarter of MAX_NEW's decode steps.
+# torch.profiler took 17-40 s a call to gather a whole MAX_NEW request's
+# ~60k events on the card's host; the idle share is a ratio over decode
+# steps alike, held against an untraced request of the same length
+PROFILE_NEW = 32
 ENGINE_SLOTS = 8
 # paged vs slab engine on the same weights and prompts: the two differ in
 # layout (left-aligned blocks vs right-packed slab rows) and kernel (B5 vs
@@ -449,9 +455,10 @@ def phase_build() -> None:
 def _ragged_key_mask(gen, b: int, s: int, dev) -> torch.Tensor:
     """[B, S] int32 key mask with per-row left pads (the ragged-prefill
     layout): row 0 unpadded, the others up to a quarter padded."""
-    pads = torch.randint(0, s // 4, (b,), generator=gen)
+    pads = torch.randint(0, s // 4, (b,), generator=gen, device=gen.device)
     pads[0] = 0
-    mask = (torch.arange(s)[None, :] >= pads[:, None]).to(torch.int32)
+    mask = (torch.arange(s, device=gen.device)[None, :]
+            >= pads[:, None]).to(torch.int32)
     return mask.to(dev)
 
 
@@ -464,8 +471,9 @@ def flash_case(s: int, gen, timed: bool, b: int = FLASH_SHAPE["b"],
         flash_attention as fa
     dev = torch.device("cuda")
     d = FLASH_SHAPE["d"]
-    q, k, v = (torch.randn((b, s, h, d), generator=gen).to(
-        dev, torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                           device=gen.device).to(dev, torch.bfloat16)
+               for _ in range(3))
     mask = _ragged_key_mask(gen, b, s, dev)
     o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
     o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, mask,
@@ -547,9 +555,10 @@ def phase_flash_wide() -> None:
     ragged second tile; causal, left pads), past the 65,535 that a 2-D
     grid with B*H on y would take: B1, B2a and B2b and B3 against their
     plain versions, B3 bitwise B2a's and B2b's. Untimed; its own
-    generator."""
+    generator, on the card (its 1.3 G-element inputs drawn on the host
+    took ~35 s of the script)."""
     b, s, h = FLASH_WIDE["b"], FLASH_WIDE["s"], FLASH_WIDE["h"]
-    gen = torch.Generator().manual_seed(b * h)
+    gen = torch.Generator(device="cuda").manual_seed(b * h)
     flash_case(s, gen, timed=False, b=b, h=h)
     flash_bwd_case(b, s, gen, timed=False, h=h)
     flash_bwd_fused_case(b, s, True, gen, timed=False, h=h)
@@ -567,8 +576,9 @@ def flash_bwd_case(b: int, s: int, gen, timed: bool,
         flash_attention as fa
     dev = torch.device("cuda")
     d = FLASH_SHAPE["d"]
-    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
-        dev, torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                               device=gen.device).to(dev, torch.bfloat16)
+                   for _ in range(4))
     mask = _ragged_key_mask(gen, b, s, dev)
     o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True)
     args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
@@ -684,8 +694,9 @@ def flash_bwd_fused_case(b: int, s: int, causal: bool, gen, timed: bool,
         flash_attention as fa
     dev = torch.device("cuda")
     d = FLASH_SHAPE["d"]
-    q, k, v, do = (torch.randn((b, s, h, d), generator=gen).to(
-        dev, torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                               device=gen.device).to(dev, torch.bfloat16)
+                   for _ in range(4))
     mask = _ragged_key_mask(gen, b, s, dev)
     o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal)
     args = (q, k, v, do, lse, fa.flash_attention_dsum(do, o), mask)
@@ -1235,14 +1246,14 @@ def phase_paged_int8(gen) -> dict:
 # training phase: GPT-small training steps through SyncReplicas
 # ---------------------------------------------------------------------------
 
-def _loss_and_grads(model, params, batch) -> tuple[float, dict]:
-    """One forward and backward of ``model.loss`` with no generator
-    (dropout off): (loss, {flat key: grad})."""
+def _loss_and_grads(model, params, batch, gen=None) -> tuple[float, dict]:
+    """One forward and backward of ``model.loss`` with the generator
+    ``gen`` (None: dropout off): (loss, {flat key: grad})."""
     from distributed_tensorflow_example_tpu_torch.utils.pytree import (
         flatten_dict, unflatten_dict)
     flat = {k: v.detach().requires_grad_() for k, v in
             flatten_dict(params).items()}
-    loss, _ = model.loss(unflatten_dict(flat), {}, batch)
+    loss, _ = model.loss(unflatten_dict(flat), {}, batch, gen=gen)
     grads = torch.autograd.grad(loss, list(flat.values()))
     return loss.item(), dict(zip(flat, grads))
 
@@ -2285,8 +2296,9 @@ def first_logits_err(paged_sw, slab_sw, prompts: list) -> float:
 def phase_engine_profile(eng, prompt, card: str,
                          label: str = "engine profile") -> float:
     """One engine request alone (prompt, 128 new tokens): host-clock
-    latency, then the device's busy time and idle share under
-    ``torch.profiler`` over a second identical request."""
+    latency; then the device's busy time and idle share under
+    ``torch.profiler`` over a request of PROFILE_NEW new tokens, against
+    an untraced one of that length."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fresh = prompt.copy()
@@ -2297,10 +2309,15 @@ def phase_engine_profile(eng, prompt, card: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fresh[0] = (fresh[0] + 1) % 1000
+    t0 = time.perf_counter()
+    eng.generate(fresh, timeout=600, max_new=PROFILE_NEW)
+    torch.cuda.synchronize()
+    short = time.perf_counter() - t0
+    fresh[0] = (fresh[0] + 1) % 1000
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(fresh, timeout=600)
+        eng.generate(fresh, timeout=600, max_new=PROFILE_NEW)
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -2313,10 +2330,12 @@ def phase_engine_profile(eng, prompt, card: str,
         log(f"[{label}] the profiler saw no device time: idle share "
             "not measured")
         return float("nan")
-    idle = 1 - busy / (wall * 1e3)
-    log(f"[{label}] traced request {traced * 1e3:.1f} ms, device "
-        f"busy {busy:.1f} ms: idle share {1 - busy / (traced * 1e3):.3f} "
-        f"of the traced request, {idle:.3f} of the untraced one")
+    idle = 1 - busy / (short * 1e3)
+    log(f"[{label}] traced request ({PROFILE_NEW} new) "
+        f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms: idle share "
+        f"{1 - busy / (traced * 1e3):.3f} of the traced request, "
+        f"{idle:.3f} of an untraced one of {PROFILE_NEW} "
+        f"({short * 1e3:.1f} ms)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:6]:
         log(f"[{label}]   {_device_us(e) / 1e3:8.2f} ms  "
             f"{e.count:6d}x  {e.key[:90]}")
@@ -3696,13 +3715,14 @@ def phase_train_rest(card: str) -> None:
     synthetic LM corpus, 8 x 512 tokens a step; only the step count cut),
     through ``cli/train.py`` and its ``Trainer``:
 
-    (a) 30 steps of ``--optimizer adafactor --momentum 0`` against 30 of
+    (a) 20 steps of ``--optimizer adafactor --momentum 0`` against 20 of
         AdamW, each with ``--eval_every_steps 10``, ``--keep_best_metric
         loss --keep_best_mode min`` and ``--step_timing``: the loss falls,
         the optimizer state's bytes (from the run's checkpoint) and peak
-        memory of each, the step's p50 over steps 12-30 (each step to its
+        memory of each, the step's p50 over steps 12-20 (each step to its
         device sync, saves and evals outside); and adafactor's chain on
-        GPT-small's parameters, card against CPU over 3 steps;
+        GPT-small's parameters, card against CPU over 3 steps (30 steps
+        and 3 evals a run before: cut for the script's time limit);
     (b) 20 steps with ``--save_steps 10``: no save, sync, ``--async_save``,
         each step synced and stamped: the host ms of each save step, and
         the median ms of the steps inside the async writes' window against
@@ -3744,29 +3764,29 @@ def phase_train_rest(card: str) -> None:
         ck = os.path.join(tmp, opt)
         metrics = os.path.join(tmp, f"{opt}.jsonl")
         _, _, recs, peak = _cli_run(
-            REST_ARGV + ["--optimizer", opt, "--train_steps", "30",
+            REST_ARGV + ["--optimizer", opt, "--train_steps", "20",
                          "--ckpt_dir", ck, "--eval_every_steps", "10",
                          "--keep_best_metric", "loss", "--keep_best_mode",
                          "min", "--log_every_steps", "10",
                          "--summary_every_steps", "10", "--step_timing",
                          "--metrics_path", metrics] + extra,
-            f"(a) {opt}", failed, card, tag=tag, want=_rest_want(30, 3))
+            f"(a) {opt}", failed, card, tag=tag, want=_rest_want(20, 2))
         losses = {r["step"]: r["loss"] for r in recs if "loss" in r}
         evals = {r["step"]: r["eval"] for r in recs if "eval" in r}
         # the steps alone, each to its device sync: the window's saves
-        # and evals stay out (StepTimingHook, records at 11, 21, 30)
+        # and evals stay out (StepTimingHook, records at 11 and 20)
         p50s = [r["step_timing_ms"]["p50"] for r in recs
                 if "step_timing_ms" in r]
         ms = float(np.mean(p50s[1:])) if len(p50s) > 1 else float("nan")
         res[opt] = dict(peak=peak, ms=ms, losses=losses, evals=evals,
                         state=_opt_state_bytes(
-                            CheckpointManager(ck).checkpoint_path(30)),
+                            CheckpointManager(ck).checkpoint_path(
+                                CheckpointManager(ck).latest_step())),
                         ck=ck, extra=extra)
         log(f"[{tag} (a)] {opt}: loss {losses.get(10, float('nan')):.4f} "
-            f"(10) {losses.get(20, float('nan')):.4f} (20) "
-            f"{losses.get(30, float('nan')):.4f} (30); optimizer state "
-            f"{res[opt]['state'] / 2**20:.2f} MiB; peak device memory "
-            f"{peak:.1f} MiB; step p50 {ms:.2f} ms over steps 12-30 "
+            f"(10) {losses.get(20, float('nan')):.4f} (20); optimizer "
+            f"state {res[opt]['state'] / 2**20:.2f} MiB; peak device "
+            f"memory {peak:.1f} MiB; step p50 {ms:.2f} ms over steps 12-20 "
             f"(each synced; {[round(x, 2) for x in p50s]} a record) "
             f"({card})")
     a, w = res["adafactor"], res["adamw"]
@@ -3777,8 +3797,8 @@ def phase_train_rest(card: str) -> None:
         f"({(w['peak'] - a['peak']) / 1024:.3f} GiB less), "
         f"{a['ms']:.2f} vs {w['ms']:.2f} ms per step ({card})")
     la = a["losses"]
-    if not (10 in la and 30 in la
-            and la[30] < (1 - REST_MIN_LOSS_DROP) * la[10]):
+    if not (10 in la and 20 in la
+            and la[20] < (1 - REST_MIN_LOSS_DROP) * la[10]):
         failed.append(f"(a) adafactor's loss did not fall by "
                       f"{REST_MIN_LOSS_DROP:.0%}: {la}")
     rel = _adafactor_card_vs_cpu(REST_ARGV + ["--optimizer", "adafactor"]
@@ -6783,6 +6803,7 @@ def phase_profile(model, params, ids_t, card: str) -> None:
 
     one, full = min(wall(1) for _ in range(3)), min(wall(MAX_NEW)
                                                     for _ in range(2))
+    short = min(wall(PROFILE_NEW) for _ in range(2))
     step = (full - one) / (MAX_NEW - 1)
     log(f"[profile] prefill + first token {one * 1e3:.2f} ms, decode "
         f"{step * 1e3:.3f} ms/step, whole request {full * 1e3:.1f} ms "
@@ -6793,7 +6814,7 @@ def phase_profile(model, params, ids_t, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.generate(params, ids_t, MAX_NEW)
+        model.generate(params, ids_t, PROFILE_NEW)
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -6803,10 +6824,11 @@ def phase_profile(model, params, ids_t, card: str) -> None:
         log("[profile] the profiler saw no device time: device busy "
             "share not measured")
         return
-    log(f"[profile] traced request {traced * 1e3:.1f} ms, device busy "
-        f"{busy:.1f} ms: idle share {1 - busy / (traced * 1e3):.3f} of the "
-        f"traced request (the profiler slows the host), "
-        f"{1 - busy / (full * 1e3):.3f} of the untraced one")
+    log(f"[profile] traced request ({PROFILE_NEW} new) "
+        f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms: idle share "
+        f"{1 - busy / (traced * 1e3):.3f} of the traced request (the "
+        f"profiler slows the host), {1 - busy / (short * 1e3):.3f} of an "
+        f"untraced one of {PROFILE_NEW} ({short * 1e3:.1f} ms)")
     for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
         log(f"[profile]   {_device_us(e) / 1e3:8.2f} ms  {e.count:6d}x  "
             f"{e.key[:90]}")
@@ -6933,12 +6955,14 @@ def phase_sharded(card: str) -> dict:
     through ``cli/train.py``'s Trainer: 10 steps with ``--sharded_save``,
     then a restart from that run's ``ckpt-10.shards.json`` anchor for 5
     more; its step-15 checkpoint must equal, bit for bit, an
-    uninterrupted 15-step run's with ``--sharded_save`` and one with
-    monolithic saves. One card is one rank, so the state is whole (fsdp
-    1) and the shard set holds one file; the sharded format, its anchor
-    and its restore are what run. Reports the step ms (median of steps
-    2-14, each synced), each save's write ms and the peak memory. (c)
-    The kernel launches of (b), exact, for the kernels line."""
+    uninterrupted 15-step run's with monolithic saves (the sharded
+    uninterrupted run went: it repeated that check at ~10 s of the
+    script's time limit). One card is one rank, so the state is whole
+    (fsdp 1) and the shard set holds one file; the sharded format, its
+    anchor and its restore are what run. Reports the step ms (median of
+    steps 2-9, each synced, sharded against monolithic), each save's
+    write ms and the peak memory. (c) The kernel launches of (b), exact,
+    for the kernels line."""
     from distributed_tensorflow_example_tpu_torch.ckpt.checkpoint import (
         CheckpointManager, load_npz)
     from distributed_tensorflow_example_tpu_torch.obs import trace
@@ -6949,8 +6973,6 @@ def phase_sharded(card: str) -> dict:
                                "--sharded_save"]),
             ("resumed to 15", "a", ["--train_steps", "15", "--save_steps",
                                     "15", "--sharded_save"]),
-            ("whole 15", "b", ["--train_steps", "15", "--save_steps", "15",
-                               "--sharded_save"]),
             ("monolithic 15", "c", ["--train_steps", "15", "--save_steps",
                                     "15"])]
     rec = trace.recorder()
@@ -6976,7 +6998,7 @@ def phase_sharded(card: str) -> dict:
                        in spans if name == "checkpoint_write"]}
         del tr
     launches = read()
-    want = {k: sum(_rest_want(n)[k] for n in (10, 5, 15, 15))
+    want = {k: sum(_rest_want(n)[k] for n in (10, 5, 15))
             for k in _rest_want(1)}
     if launches != want:
         failed.append(f"(b) launches {launches}, want {want}")
@@ -6989,25 +7011,23 @@ def phase_sharded(card: str) -> dict:
         if f not in names:
             failed.append(f"(b) {f} missing: {names}")
     resumed = CheckpointManager(os.path.join(tmp, "a")).sharded_arrays(15)
-    whole = CheckpointManager(os.path.join(tmp, "b")).sharded_arrays(15)
     mono = load_npz(CheckpointManager(os.path.join(tmp, "c")
                                       ).checkpoint_path(15))
-    for other, what in ((whole, "uninterrupted"), (mono, "monolithic")):
-        bad = sorted(k for k in other if k not in resumed
-                     or not np.array_equal(resumed[k], other[k]))
-        if bad or sorted(resumed) != sorted(other):
-            failed.append(f"(b) the resumed state differs from the {what} "
-                          f"run's at {bad[:3]}")
+    bad = sorted(k for k in mono if k not in resumed
+                 or not np.array_equal(resumed[k], mono[k]))
+    if bad or sorted(resumed) != sorted(mono):
+        failed.append(f"(b) the resumed state differs from the "
+                      f"uninterrupted monolithic run's at {bad[:3]}")
     med = {k: float(np.median([info[k]["clock"].step_ms(n)
-                               for n in range(2, 15)]))
-           for k in ("whole 15", "monolithic 15")}
+                               for n in range(2, 10)]))
+           for k in ("first 10", "monolithic 15")}
     log("[sharded (b)] GPT-small 8 x 512 flash, AdamW: 10 steps with "
         "--sharded_save, restarted from ckpt-10.shards.json to 15: the "
-        "step-15 state equals the uninterrupted sharded run's and the "
-        "monolithic run's bit for bit"
+        "step-15 state equals the uninterrupted monolithic run's bit for "
+        "bit"
         + (" (FAILED)" if any(f.startswith("(b) the") for f in failed)
            else "")
-        + "; ms a step (median of steps 2-14, synced): "
+        + "; ms a step (median of steps 2-9, synced): "
         + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
         + "; write ms a save: "
         + ", ".join(f"{k} {v['writes']}" for k, v in info.items())
@@ -7220,7 +7240,7 @@ def _tp_layer_case(kind: str, gen, dev, b: int, s: int,
     exact, hx, out_x = whole_layer(f32)
     whole, hw, out_w = whole_layer(model)
     flat = leaves(lp)                   # the replicated leaves, shared
-    cut = [{k: (v if lay.dims[k] is None else
+    cut = [{k: (v if not lay.splits[k] else
                 lay.local(k, v.detach()).requires_grad_(True))
             for k, v in flat.items()} for lay in layouts]
     ht = h.clone().requires_grad_(True)
@@ -7237,9 +7257,9 @@ def _tp_layer_case(kind: str, gen, dev, b: int, s: int,
         out = {"out": row_rel_err(out_t, ref_out),
                "dh": grad_row_rel_err(ht.grad, ref_h.grad)}
         for k, w in ref.items():
-            d = layouts[0].dims[k]
-            got = (flat[k].grad if d is None
-                   else torch.cat([x[k].grad for x in cut], dim=d))
+            sp = layouts[0].splits[k]       # one split: over model
+            got = (flat[k].grad if not sp else
+                   torch.cat([x[k].grad for x in cut], dim=sp[0][0]))
             if k == "attn/k/bias":
                 # softmax shift invariance: its gradient is rounding
                 # noise, held absolutely to the query bias gradient's size
@@ -7387,6 +7407,311 @@ def phase_tp(card: str) -> dict:
             "b2b": launches["flash_attention_bwd_dkv"]}
 
 
+# ---------------------------------------------------------------------------
+# pipelines over ``pipe`` and ring attention over ``seq`` (slices A6b, A6c):
+# what one rank computes, on the one card
+# ---------------------------------------------------------------------------
+
+PIPE_ARGV = ["--model", "pipe_bert", "--device", "cuda", "--dtype",
+             "bfloat16", "--attention", "flash", "--optimizer", "adamw",
+             "--learning_rate", "1e-4", "--batch_size", "32", "--seq_len",
+             "128", "--seed", "0"]
+PIPE_B, PIPE_S, PIPE_MICRO, PIPE_STEPS = 32, 128, 4, 10
+#: the seed of the generator whose dropout masks (a) holds alike under
+#: flash, xla and f32
+PIPE_DROPOUT_SEED = 23
+#: the ring at a long shape: B=1, S=4096, 12 heads of 64, bf16, 4 blocks
+#: of 1024; valid keys up to RING_VALID, so the last block is all padding
+RING_SHAPE = dict(b=1, s=4096, h=12, d=64, blocks=4)
+RING_VALID = 2900
+#: phase_tp's gates: the ring within TP_LAYER_ROW_REL_TOL of the flash
+#: call (forward rows, and each gradient's rows with grad_row_rel_err's
+#: floor); against the f32 plain attention within twice the flash call's
+#: own error, or TP_LAYER_F32_FLOOR
+
+
+def _ring_blocks(q, k, v, mask, causal: bool, blocks: int):
+    """The ring's schedule on one rank: query block ``i`` folds the K/V
+    blocks in ring order (block ``(i - t) % n`` at hop ``t``) with the
+    port's ``_block_update``, the phase rotating K, V and the mask itself;
+    the blocks' outputs joined along the sequence."""
+    from distributed_tensorflow_example_tpu_torch.ops.attention import \
+        NEG_INF
+    from distributed_tensorflow_example_tpu_torch.parallel.ring_attention \
+        import _block_update
+    b, s, h, d = q.shape
+    n = s // blocks
+    qs, ks, vs = (t.split(n, dim=1) for t in (q, k, v))
+    ms = mask.split(n, dim=1)
+    outs = []
+    for i in range(blocks):
+        o = torch.zeros((b, h, n, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, h, n, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, n, 1), dtype=torch.float32, device=q.device)
+        for t in range(blocks):
+            src = (i - t) % blocks
+            o, m, l = _block_update(qs[i], ks[src], vs[src], o, m, l,
+                                    q_off=i * n, k_off=src * n,
+                                    causal=causal, kv_mask=ms[src])
+        out = o / torch.clamp_min(l, 1e-20)
+        outs.append(out.permute(0, 2, 1, 3).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _ring_case(causal: bool, gen, dev) -> tuple[dict, dict, dict]:
+    """(ring against the flash call, ring against f32, flash against
+    f32) row errors of the output and of dq, dk, dv of sum(out * w)."""
+    from distributed_tensorflow_example_tpu_torch.ops.attention import \
+        multi_head_attention
+    from distributed_tensorflow_example_tpu_torch.ops.cuda.flash_attention \
+        import flash_attention
+    c = RING_SHAPE
+    shape = (c["b"], c["s"], c["h"], c["d"])
+    base = [torch.randn(shape, generator=gen).to(dev) for _ in range(3)]
+    w = torch.randn(shape, generator=gen).to(dev)
+    mask = torch.zeros((c["b"], c["s"]), dtype=torch.int32, device=dev)
+    mask[:, :RING_VALID] = 1
+
+    def run(fn, dtype):
+        x = [t.to(dtype).requires_grad_() for t in base]
+        out = fn(*x)
+        dq, dk, dv = torch.autograd.grad((out.float() * w).sum(), x)
+        return {"out": out.detach(), "dq": dq, "dk": dk, "dv": dv}
+
+    ring = run(lambda q, k, v: _ring_blocks(q, k, v, mask, causal,
+                                            c["blocks"]), torch.bfloat16)
+    flash = run(lambda q, k, v: flash_attention(
+        q, k, v, mask=mask, causal=causal), torch.bfloat16)
+    f32 = run(lambda q, k, v: multi_head_attention(
+        q, k, v, mask=mask[:, None, None, :], causal=causal),
+        torch.float32)
+    torch.cuda.synchronize()
+
+    def errs(a, b):
+        return {k: (row_rel_err if k == "out" else grad_row_rel_err)(
+            a[k], b[k]) for k in a}
+
+    return errs(ring, flash), errs(ring, f32), errs(flash, f32)
+
+
+def _pipe_microbatched(cfg, pipe, params, batch, failed: list,
+                       card: str) -> None:
+    """pipe_bert's first step with dropout on, so the unbound path runs
+    its ``microbatches`` (the flash kernels on [B/M, S, 12, 64] tiles),
+    under the flash kernels and under the plain einsum attention at the
+    same weights and masks (one generator: the masks are keyed by its
+    seed), each held to the same model in f32 (plain attention) by
+    :func:`_bert_grad_gate`, and flash to xla by the same gate; the
+    key biases (a zero gradient) within TRAIN_ZERO_GRAD_SHARE of the
+    global norm. The flash run must launch B1, B2a and B2b once a layer
+    and microbatch. A control must fail the gate: the flash gradients
+    with the stacked attention q leaves zeroed (a lost dq)."""
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    plain = get_model(cfg.model, cfg.replace(attention_impl="xla"))
+    oracle = get_model(cfg.model, cfg.replace(attention_impl="xla",
+                                              dtype="float32"))
+    gen = torch.Generator().manual_seed(PIPE_DROPOUT_SEED)
+    c = pipe.cfg
+    read = _reset_launches()
+    lf, gf = _loss_and_grads(pipe, params, batch, gen)
+    torch.cuda.synchronize()
+    got = read()
+    lx, gx = _loss_and_grads(plain, params, batch, gen)
+    l32, g32 = _loss_and_grads(oracle, params, batch, gen)
+    n = c.layers * c.microbatches
+    want = {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n}
+    counts = {k: got[k] for k in want}
+    finite = np.isfinite([lf, lx, l32]).all() and all(
+        torch.isfinite(g).all().item() for g in (*gf.values(),
+                                                 *gx.values()))
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in g32.values()))
+    total_x = torch.sqrt(sum((g.float() ** 2).sum() for g in gx.values()))
+    zero = max((g[k].float().norm() / total).item() for g in (gf, gx)
+               for k in g32 if k.endswith("attn/k/bias"))
+    bad_f, floored = _bert_grad_gate(gf, g32, total)
+    bad_x, _ = _bert_grad_gate(gx, g32, total)
+    bad_fx, _ = _bert_grad_gate(gf, gx, total_x)
+    control = {k: torch.zeros_like(g) if "/attn/q/" in k else g
+               for k, g in gf.items()}
+    bad_c, _ = _bert_grad_gate(control, g32, total)
+    log(f"[pipe (a)] {cfg.model} dropout {c.dropout} on, {c.microbatches} "
+        f"microbatches of {PIPE_B // c.microbatches} x {PIPE_S} (one "
+        f"generator, seed {PIPE_DROPOUT_SEED}), one step from one state: "
+        f"loss flash {lf:.6f}, xla {lx:.6f}, f32 {l32:.6f} (tol "
+        f"{TRAIN_LOSS_TOL}); flash launches {counts} (want {n} each); key "
+        f"biases ||g|| / global norm {zero:.3e} (tol "
+        f"{TRAIN_ZERO_GRAD_SHARE}); every value finite {finite}; leaves over "
+        f"the gate: flash vs f32 {bad_f}, xla vs f32 {bad_x}, flash vs xla "
+        f"{bad_fx}; {len(floored)} of {len(g32)} leaves held to "
+        f"{BERT_QK_FLOOR} of the global norm, the rest to "
+        f"{TRAIN_GRAD_REL_TOL} of the leaf; control (flash with the attn/q "
+        f"leaves zeroed): {len(bad_c)} leaves over the gate (must be > 0) "
+        f"({card})")
+    if (bad_f or bad_x or bad_fx or not bad_c or counts != want
+            or zero > TRAIN_ZERO_GRAD_SHARE or not finite
+            or abs(lf - l32) > TRAIN_LOSS_TOL
+            or abs(lf - lx) > TRAIN_LOSS_TOL):
+        failed.append(f"(a) pipe_bert microbatched, dropout on: flash or "
+                      f"xla off the f32 oracle or each other, launches "
+                      f"{counts}, or the control passed")
+    del plain, oracle, gf, gx, g32, control
+    torch.cuda.empty_cache()
+
+
+def phase_pipe(card: str) -> dict:
+    """GPipe pipelines over ``pipe`` and ring attention over ``seq``
+    (slices A6b, A6c) on the one card. One card holds no two NCCL ranks,
+    so the multi-rank schedules run on gloo CPU ranks in the tests and
+    the card checks what one rank computes. (a) pipe_bert at BERT-base
+    widths (hidden 768, 12 heads, 12 stacked layers, 4 microbatches) in
+    bf16 on the flash kernels: its first step's loss and every gradient
+    (dropout off) against the port's bert at the same weights (stacked
+    against ``layer_i``) to phase_bert's gates; the same step with
+    dropout on, so the unbound path runs its 4 microbatches, under
+    flash, xla and f32 (:func:`_pipe_microbatched`); then ``cli/train.py
+    --model pipe_bert`` 10 steps at 32 x 128 and the eval, the flash
+    launches counted exactly (dropout on: each layer runs on each of the
+    4 microbatches). (b) The ring's block update over 4 blocks of S=4096
+    (B=1, 12 heads of 64, bf16, keys valid up to 2900 so the last block
+    is all padding), BERT-base non-causal and GPT-small causal, forward
+    and backward, against B1 and B2a/B2b over the whole sequence and
+    against an f32 run (phase_tp's gates). Returns (a)'s launches."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.models.bert import (
+        Bert, BertConfig)
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+        tree_map
+    failed: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    dev = torch.device(PIPE_ARGV[PIPE_ARGV.index("--device") + 1])
+    t0 = time.perf_counter()
+
+    # (a) pipe_bert's step against bert's at the same weights
+    cfg = cli.config_from_args(cli.build_parser().parse_args(PIPE_ARGV))
+    pipe = get_model(cfg.model, cfg)
+    bert = Bert(BertConfig(**{f.name: getattr(pipe.cfg, f.name)
+                              for f in dataclasses.fields(BertConfig)}),
+                dtype=pipe.dtype, attention_impl=pipe.attention_impl,
+                param_dtype=pipe.param_dtype)
+    params = pipe.init(0, device=dev)
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    for i in range(pipe.cfg.layers):
+        flat[f"layer_{i}"] = tree_map(lambda a, i=i: a[i], params["layers"])
+    tr, _ = get_bert_data(None, vocab_size=pipe.cfg.vocab_size,
+                          seq_len=PIPE_S,
+                          max_predictions=pipe.cfg.max_predictions,
+                          synthetic=True, num_train=PIPE_B, num_test=8)
+    batch = {k: torch.as_tensor(v[:PIPE_B], device=dev)
+             for k, v in tr.items()}
+    lp, gp = _loss_and_grads(pipe, params, batch)
+    lb, gb = _loss_and_grads(bert, flat, batch)
+    stacked = {}
+    for key, g in gb.items():
+        if key.startswith("layer_"):
+            i, rest = key.split("/", 1)
+            stacked.setdefault(rest, {})[int(i[len("layer_"):])] = g
+        else:
+            stacked[key] = g
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in gb.values()))
+    bad, same, worst = [], 0, (0.0, "")
+    for key, g in gp.items():
+        if key.startswith("layers/"):
+            parts = stacked[key[len("layers/"):]]
+            ref = torch.stack([parts[i] for i in range(pipe.cfg.layers)])
+        else:
+            ref = stacked[key]
+        same += torch.equal(g, ref)
+        err = (g.float() - ref.float()).norm()
+        n = ref.float().norm()
+        if key.endswith("attn/k/bias"):
+            ok = err <= TRAIN_ZERO_GRAD_SHARE * total
+        else:
+            ok = err <= TRAIN_GRAD_REL_TOL * n
+            rel = (err / n.clamp_min(1e-30)).item()
+            worst = max(worst, (rel, key))
+        if not ok or not torch.isfinite(g).all():
+            bad.append(key)
+    c = pipe.cfg
+    log(f"[pipe (a)] {cfg.model} ({c.layers} stacked layers, hidden "
+        f"{c.hidden}, {c.heads} heads, bf16, flash, dropout off: one "
+        f"microbatch) against bert at the same weights, {PIPE_B} x "
+        f"{PIPE_S}: loss {lp:.6f} / {lb:.6f} (tol "
+        f"{TRAIN_LOSS_TOL}); {same} of {len(gp)} gradient leaves bitwise "
+        f"equal, worst leaf {worst[1]} {worst[0]:.3e} of its norm (tol "
+        f"{TRAIN_GRAD_REL_TOL}); leaves over the gate {bad} ({card})")
+    if abs(lp - lb) > TRAIN_LOSS_TOL or not np.isfinite(lp) or bad:
+        failed.append(f"(a) pipe_bert against bert: loss {lp} / {lb}, "
+                      f"leaves {bad}")
+    del flat, gp, gb, stacked
+    _pipe_microbatched(cfg, pipe, params, batch, failed, card)
+    del params
+
+    # (a) the CLI: 10 steps and the eval, the flash launches exact
+    m = os.path.join(tmp, "pipe.jsonl")
+    eval_batches = -(-256 // PIPE_B)
+    per_step = pipe.cfg.layers * PIPE_MICRO
+    want = {"flash_attention_fwd": per_step * PIPE_STEPS
+            + pipe.cfg.layers * eval_batches,
+            "flash_attention_bwd_dq": per_step * PIPE_STEPS,
+            "flash_attention_bwd_dkv": per_step * PIPE_STEPS,
+            "flash_attention_bwd_fused": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+    t1 = time.perf_counter()
+    rc, lines, recs, peak = _cli_run(
+        PIPE_ARGV + ["--train_steps", str(PIPE_STEPS), "--log_every_steps",
+                     "5", "--metrics_path", m], "pipe_bert", failed, card,
+        tag="pipe (a)", want=want)
+    wall = time.perf_counter() - t1
+    got = _launch_counts()          # (b)'s comparisons are not counted
+    curve = _step_metrics(lines)
+    ev = _final_eval(lines)
+    losses = [curve[k]["loss"] for k in sorted(curve)]
+    rates = _rates(recs)
+    log(f"[pipe (a)] cli pipe_bert {PIPE_STEPS} steps at {PIPE_B} x "
+        f"{PIPE_S} ({PIPE_MICRO} microbatches, dropout on): loss at steps "
+        + " ".join(f"{k}:{curve[k]['loss']:.4f}" for k in sorted(curve))
+        + f", final eval {ev}, examples/s at the log steps "
+        + " / ".join(f"{r:.1f}" for r in rates)
+        + f", peak {peak:.1f} MiB, wall {wall:.1f} s ({card})")
+    if rc != 0 or sorted(curve) != [5, 10] or not all(np.isfinite(losses)) \
+            or not np.isfinite(ev.get("loss", np.nan)):
+        failed.append(f"(a) cli curve {curve}, eval {ev}")
+
+    # (b) the ring's block update at S=4096 against B1, B2a/B2b
+    gen = torch.Generator().manual_seed(23)
+    for causal, label in ((False, "BERT-base non-causal"),
+                          (True, "GPT-small causal")):
+        vs_flash, vs32, own = _ring_case(causal, gen, dev)
+        over = [k for k, e in vs_flash.items()
+                if e > TP_LAYER_ROW_REL_TOL or not np.isfinite(e)]
+        worse = [k for k in vs32
+                 if vs32[k] > max(2 * own[k], TP_LAYER_F32_FLOOR)]
+        if over or worse:
+            failed.append(f"(b) {label}: over the flash gate {over}, "
+                          f"against f32 {worse}")
+        r = RING_SHAPE
+        log(f"[pipe (b)] ring of {r['blocks']} blocks, B={r['b']} "
+            f"S={r['s']} {r['h']} x {r['d']} bf16, "
+            f"{label}, keys valid to {RING_VALID} (the last block all "
+            f"padding): row error against B1/B2a/B2b "
+            + ", ".join(f"{k} {v:.3e}" for k, v in vs_flash.items())
+            + f" (tol {TP_LAYER_ROW_REL_TOL}); against f32, ring / flash "
+            + ", ".join(f"{k} {vs32[k]:.3e} / {own[k]:.3e}" for k in vs32)
+            + f" ({card})")
+    torch.cuda.empty_cache()
+    log(f"[pipe] phase {time.perf_counter() - t0:.1f} s ({card})")
+    if failed:
+        raise SystemExit("the pipe phase failed: " + "; ".join(failed))
+    return {"b1": got["flash_attention_fwd"],
+            "b2a": got["flash_attention_bwd_dq"],
+            "b2b": got["flash_attention_bwd_dkv"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7455,6 +7780,8 @@ def main() -> int:
     timed("sharded")
     tp = phase_tp(card)
     timed("tp")
+    pipe = phase_pipe(card)
+    timed("pipe")
     log("[readers] MNIST at the mnist_mlp row (batch 8192), two Trainer "
         "runs a loader: " + "; ".join(
             f"{k} loader {v['alone_ms']:.3f} host ms a batch alone, ms a "
@@ -7486,7 +7813,7 @@ def main() -> int:
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
          + fleet["b1"] + moe["b1"] + readers["b1"] + sharded["b1"]
-         + tp["b1"],
+         + tp["b1"] + pipe["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -7494,7 +7821,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
          "launches": train["flash_attention_bwd_dq"] + moe["b2a"]
-         + readers["b2a"] + sharded["b2a"] + tp["b2a"],
+         + readers["b2a"] + sharded["b2a"] + tp["b2a"] + pipe["b2a"],
          **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -7502,7 +7829,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
          "launches": train["flash_attention_bwd_dkv"] + moe["b2b"]
-         + readers["b2b"] + sharded["b2b"] + tp["b2b"],
+         + readers["b2b"] + sharded["b2b"] + tp["b2b"] + pipe["b2b"],
          **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"

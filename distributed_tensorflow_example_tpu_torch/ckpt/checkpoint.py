@@ -320,7 +320,7 @@ def _pieces(state) -> dict[str, str]:
     if layout is None:
         return {}
     pkeys = list(flatten_dict(state.params))
-    out = {f"params/{k}": k for k in pkeys if layout.dims[k] is not None}
+    out = {f"params/{k}": k for k in pkeys if layout.splits[k]}
     keyed = _tree_items(layout.map_per_param(state.opt_state,
                                              lambda k, v: (k, v)),
                         "opt_state", pkeys)

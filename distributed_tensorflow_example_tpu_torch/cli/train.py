@@ -48,8 +48,11 @@ thread pool with ``--augment``, ``--fast_decode``, ``--label_offset``;
 ``gpt`` and ``gpt_tiny`` on the synthetic LM corpus or pre-tokenized
 ``.npy`` or TFRecord files, and ``bert``, ``bert_large``, ``bert_tiny``,
 ``moe_bert`` and ``moe_bert_tiny`` (masked LM; the ``--moe_*`` routing
-knobs) on the same tokens, masked, or on a raw-text corpus with its
-``vocab.txt``; ``--native`` takes the C++ loader and parsers
+knobs) and ``pipe_bert`` and ``pipe_bert_tiny`` (the encoder's layers
+stacked into GPipe stages over a ``pipe`` axis, with ``model`` as well
+PP x TP) on the same tokens, masked, or on a raw-text corpus with its
+``vocab.txt``, and ``pipe_mlp`` (residual blocks in GPipe stages) on
+MNIST; ``--native`` takes the C++ loader and parsers
 (``data/native.py``) and stops when its library cannot be built;
 ``--warm_start`` takes a fresh run's params from a checkpoint (resume
 wins), ``--ema_decay`` keeps a parameter EMA that eval and the export
@@ -93,11 +96,12 @@ log = get_logger("cli")
 #: aliases are the reference's)
 LM_MODELS = ("gpt", "gpt_tiny")
 BERT_MODELS = ("bert", "bert_large", "bert_tiny", "moe_bert",
-               "moe_bert_tiny")
-MNIST_DATASETS = ("mlp", "mnist", "lenet")
+               "moe_bert_tiny", "pipe_bert", "pipe_bert_tiny")
+MNIST_DATASETS = ("mlp", "pipe_mlp", "mnist", "lenet")
 CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
 IMAGENET_DATASETS = ("resnet50", "imagenet")
-MODELS = ("mlp", "lenet", "resnet20", "resnet50") + LM_MODELS + BERT_MODELS
+MODELS = (("mlp", "pipe_mlp", "lenet", "resnet20", "resnet50") + LM_MODELS
+          + BERT_MODELS)
 
 
 def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
@@ -124,15 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
     :func:`main`) plus ``--device``."""
     p = argparse.ArgumentParser(
         description="sync data-parallel trainer, one rank a card over "
-                    "the data, fsdp and model axes (distributed-tensorflow-"
-                    "example parity CLI)")
+                    "the data, fsdp, model, seq and pipe axes (distributed-"
+                    "tensorflow-example parity CLI)")
     add_legacy_flags(p)
     a = p.add_argument
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
-    a("--model", default="mlp", help="mlp | lenet | resnet20 | resnet50 | "
-      "gpt | gpt_tiny | bert | bert_large | bert_tiny | moe_bert | "
-      "moe_bert_tiny (the pipeline models arrive with slice A6c)")
+    a("--model", default="mlp", help="mlp | pipe_mlp | lenet | resnet20 | "
+      "resnet50 | gpt | gpt_tiny | bert | bert_large | bert_tiny | "
+      "moe_bert | moe_bert_tiny | pipe_bert | pipe_bert_tiny "
+      "(pipe_moe_bert and pipe_moe_bert_tiny arrive with slice A6d)")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
@@ -255,13 +260,15 @@ def build_parser() -> argparse.ArgumentParser:
       choices=["float32", "bfloat16"],
       help="batch-statistic reduction dtype of the ResNets")
     a("--mesh", default="",
-      help="axis sizes, e.g. data=2,fsdp=2 or data=1,model=2: one rank a "
-           "card, so they multiply to the ranks; data, fsdp (params and "
-           "optimizer state sharded over it) and model (Megatron tensor "
-           "parallelism by the model's rules: GPT, BERT and MoE-BERT "
-           "compute on their pieces, the others replicate along it) "
-           "train; seq (slice A6b), pipe (A6c) and expert (A6d) are "
-           "refused")
+      help="axis sizes, e.g. data=2,fsdp=2, data=1,model=2 or "
+           "data=2,pipe=2: one rank a card, so they multiply to the ranks; "
+           "data, fsdp (params and optimizer state sharded over it), model "
+           "(Megatron tensor parallelism by the model's rules: GPT, BERT, "
+           "MoE-BERT and pipe_bert compute on their pieces, the others "
+           "replicate along it), seq (the model replicated along it, as "
+           "the reference's trainer binds no ring attention) and pipe "
+           "(GPipe stages of pipe_mlp and pipe_bert, the others replicate "
+           "along it) train; expert (slice A6d) is refused")
     a("--sync_mode", default="auto", choices=["auto", "shard_map"],
       help="auto: batch norm over the global batch (sync-BN); "
            "shard_map: over each rank's batch")
@@ -554,9 +561,10 @@ def _later_slice(args) -> list[tuple[str, bool, str]]:
     """(what, set?, slice) for every knob the port does not carry yet."""
     dataset = args.dataset or args.model
     return [
-        # the pipeline models (pipe_mlp, pipe_bert, pipe_moe_bert, ...)
-        (f"--model {args.model}", args.model.startswith("pipe_"), "A6c"),
-        (f"--dataset {dataset}", dataset.startswith("pipe_"), "A6c"),
+        # the expert-parallel pipeline models (pipe_moe_bert, ...)
+        (f"--model {args.model}", args.model.startswith("pipe_moe"),
+         "A6d"),
+        (f"--dataset {dataset}", dataset.startswith("pipe_moe"), "A6d"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
     ]
@@ -580,8 +588,8 @@ def refuse_later_slices(args) -> None:
         if on:
             raise SystemExit(f"{what} arrives with slice {slice_} of the "
                              "port; the port trains " + ", ".join(MODELS)
-                             + ", one rank a card over data, fsdp and "
-                             "model")
+                             + ", one rank a card over data, fsdp, "
+                             "model, seq and pipe")
     _refuse_mesh(args)
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):

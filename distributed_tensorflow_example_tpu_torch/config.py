@@ -107,11 +107,12 @@ class SyncConfig:
 class MeshShape:
     """Logical mesh axis sizes (the reference's). The port runs one rank
     a card, so the axes multiply to the number of ranks (one ``-1``
-    takes the rest). ``data``, ``fsdp`` and ``model`` train (``fsdp``
-    shards the params and their optimizer state ZeRO-3's way, ``model``
-    by the models' Megatron rules, the layers computing on the pieces);
-    ``seq`` (slice A6b), ``pipe`` (A6c) and ``expert`` (A6d) stay at
-    1."""
+    takes the rest). ``data``, ``fsdp``, ``model``, ``seq`` and ``pipe``
+    train (``fsdp`` shards the params and their optimizer state ZeRO-3's
+    way, ``model`` by the models' Megatron rules, the layers computing on
+    the pieces; along ``seq`` the model is replicated unless ring
+    attention is bound; ``pipe`` splits the pipe models' stacked blocks
+    into GPipe stages); ``expert`` (slice A6d) stays at 1."""
 
     data: int = 1
     fsdp: int = 1

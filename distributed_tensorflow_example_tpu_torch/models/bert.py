@@ -127,7 +127,8 @@ class Bert(TensorParallelMixin):
 
     def __init__(self, cfg: BertConfig, dtype=torch.float32,
                  attention_impl: str = "xla", param_dtype=torch.float32,
-                 remat: str = "none", attention_kwargs: dict | None = None):
+                 remat: str = "none", attention_kwargs: dict | None = None,
+                 attention_fn=None):
         if cfg.hidden % cfg.heads:
             raise ValueError(f"hidden {cfg.hidden} is not a multiple of "
                              f"heads {cfg.heads}")
@@ -153,6 +154,11 @@ class Bert(TensorParallelMixin):
         self.param_dtype = param_dtype
         self.attention_impl = attention_impl
         self.attention_kwargs = dict(attention_kwargs or {})
+        #: an attention in place of ``multi_head_attention`` (q, k, v,
+        #: ``mask=`` [B, S] key validity), e.g. ``parallel.ring_attention.
+        #: make_ring_attention(mesh)`` for sequence parallelism; None:
+        #: the ``attention_impl`` path
+        self.attention_fn = attention_fn
         self.remat = remat
         self.head_dim = cfg.hidden // cfg.heads
 
@@ -226,9 +232,13 @@ class Bert(TensorParallelMixin):
         over those heads, the row-parallel o (whole heads unbound)."""
         b, s, _ = h.shape
         q, k, v = self._qkv(p, h)
-        ctx = multi_head_attention(
-            q, k, v, mask=mask[:, None, None, :], impl=self.attention_impl,
-            flash_kwargs=self.attention_kwargs or None)
+        if self.attention_fn is not None:
+            ctx = self.attention_fn(q, k, v, mask=mask)
+        else:
+            ctx = multi_head_attention(
+                q, k, v, mask=mask[:, None, None, :],
+                impl=self.attention_impl,
+                flash_kwargs=self.attention_kwargs or None)
         return self._row_dense(p["o"], ctx.reshape(b, s, -1))
 
     def _embed(self, params, batch, key):

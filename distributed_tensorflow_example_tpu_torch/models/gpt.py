@@ -177,7 +177,8 @@ class GPT(TensorParallelMixin):
                  attention_impl: str = "xla",
                  param_dtype=torch.float32,
                  attention_kwargs: dict | None = None,
-                 accuracy_every_n: int = 1, remat: str = "none"):
+                 accuracy_every_n: int = 1, remat: str = "none",
+                 attention_fn=None):
         if cfg.hidden % cfg.heads:
             raise ValueError(f"hidden {cfg.hidden} is not a multiple of "
                              f"heads {cfg.heads}")
@@ -202,6 +203,11 @@ class GPT(TensorParallelMixin):
         self.param_dtype = param_dtype
         self.attention_impl = attention_impl
         self.attention_kwargs = dict(attention_kwargs or {})
+        #: sequence parallelism: ``parallel.ring_attention.
+        #: make_ring_attention(mesh, causal=True)``, called with
+        #: ``causal=True`` in place of the causal ``multi_head_attention``
+        #: of training and the prefill (None: the ``attention_impl`` path)
+        self.attention_fn = attention_fn
         self.head_dim = cfg.hidden // cfg.heads
 
     # ------------------------------------------------------------------
@@ -277,10 +283,13 @@ class GPT(TensorParallelMixin):
         c = self.cfg
         b, s, _ = h.shape
         q, k, v = self._qkv(lp["attn"], nn.layernorm(lp["ln1"], h))
-        ctx = multi_head_attention(
-            q, k, v, mask=mask[:, None, None, :], causal=True,
-            impl=self.attention_impl,
-            flash_kwargs=self.attention_kwargs or None)
+        if self.attention_fn is not None:
+            ctx = self.attention_fn(q, k, v, mask=mask, causal=True)
+        else:
+            ctx = multi_head_attention(
+                q, k, v, mask=mask[:, None, None, :], causal=True,
+                impl=self.attention_impl,
+                flash_kwargs=self.attention_kwargs or None)
         a = self._row_dense(lp["attn"]["o"], ctx.reshape(b, s, -1))
         h = h + nn.keyed_dropout(key, 1, a, c.dropout).to(h.dtype)
         f = self._ffn(lp, nn.layernorm(lp["ln2"], h))

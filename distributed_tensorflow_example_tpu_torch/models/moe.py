@@ -92,10 +92,12 @@ class MoeBert(Bert):
 
     def __init__(self, cfg: MoeBertConfig, dtype=torch.float32,
                  attention_impl: str = "xla", param_dtype=torch.float32,
-                 remat: str = "none", attention_kwargs: dict | None = None):
+                 remat: str = "none", attention_kwargs: dict | None = None,
+                 attention_fn=None):
         super().__init__(cfg, dtype=dtype, attention_impl=attention_impl,
                          param_dtype=param_dtype, remat=remat,
-                         attention_kwargs=attention_kwargs)
+                         attention_kwargs=attention_kwargs,
+                         attention_fn=attention_fn)
         self.cfg: MoeBertConfig = cfg
 
     def _is_moe_layer(self, i: int) -> bool:

@@ -225,6 +225,14 @@ def build_mesh(shape: MeshShape | dict | None = None,
     return mesh
 
 
+def forget_meshes() -> None:
+    """Drop the built meshes and their process groups (the process group
+    they were built over is being destroyed: a mesh built over a later
+    one must create its groups anew)."""
+    _CACHE.clear()
+    _CURRENT.clear()
+
+
 def current_mesh() -> Mesh:
     """The last mesh :func:`build_mesh` built (a mesh of ones over the
     process group's world when there is none yet)."""

@@ -11,7 +11,9 @@ contiguous piece of a sharded leaf (:func:`shard_params`,
 :class:`ShardLayout`). A piece over ``fsdp`` is ZeRO-3's: the sync step
 gathers the full leaf before the loss and reduce-scatters its gradient
 after. A piece over ``model`` is Megatron's: the layers compute on it
-(``parallel/tensor_parallel.py``) and it is never gathered in a step.
+(``parallel/tensor_parallel.py``) and it is never gathered in a step;
+nor is a stage's block of a pipe model's stack over ``pipe``
+(``parallel/pipeline.py``).
 
 Built-in policies:
 
@@ -19,9 +21,12 @@ Built-in policies:
 - **fsdp**: large params sharded over the ``fsdp`` axis;
 - **rules**: explicit per-path specs (models attach these: GPT's and
   BERT's Megatron rules over ``model``, MoE-BERT's over ``expert``),
-  carried as data. A spec splits at most one dim, over ``fsdp`` or
-  ``model``; one that splits over ``seq``, ``expert`` or ``pipe`` is
-  refused naming its slice (A6b, A6d, A6c).
+  carried as data. A spec splits a dim over one of ``fsdp``, ``model``
+  and ``pipe`` (the pipe models' stacked blocks over ``pipe`` on their
+  stage dim, and under PP x TP also over ``model`` on a kernel dim). No
+  rule places a parameter over ``seq`` (ring attention shards
+  activations only, as in the reference); one that splits over
+  ``expert`` is refused naming its slice (A6d).
 """
 
 from __future__ import annotations
@@ -157,17 +162,20 @@ def state_shardings(mesh: Mesh, state: Mapping[str, Any],
 
 #: the axes that do not place parameters in the port yet, and their
 #: slices
-LATER_PLACEMENT = {AxisNames.SEQ: "A6b", AxisNames.EXPERT: "A6d",
-                   AxisNames.PIPE: "A6c"}
+LATER_PLACEMENT = {AxisNames.EXPERT: "A6d"}
 #: the axes a parameter piece may lie over
-PLACEMENT_AXES = (AxisNames.FSDP, AxisNames.MODEL)
+PLACEMENT_AXES = (AxisNames.FSDP, AxisNames.MODEL, AxisNames.PIPE)
+#: the axes whose pieces the layers compute on (the step binds its mesh
+#: on the model): Megatron's over ``model``, a stage's blocks over
+#: ``pipe``
+BOUND_AXES = (AxisNames.MODEL, AxisNames.PIPE)
 
 
-def _split(mesh: Mesh, spec: P) -> tuple[int | None, str | None]:
-    """(dim, axis) a spec splits (``(None, None)``: replicated). An axis
-    of size 1 splits nothing. A dim split over two wide axes, two split
-    dims, or a split over an axis that places no parameter here is
-    refused, naming the cut."""
+def _split(mesh: Mesh, spec: P) -> tuple[tuple[int, str], ...]:
+    """The (dim, axis) of each dim a spec splits (empty: replicated). An
+    axis of size 1 splits nothing. A dim split over two wide axes, an
+    axis used twice, or a split over an axis that places no parameter
+    here is refused, naming the cut."""
     found = []
     for i, s in enumerate(spec):
         axes = s if isinstance(s, tuple) else (s,)
@@ -181,40 +189,41 @@ def _split(mesh: Mesh, spec: P) -> tuple[int | None, str | None]:
                     f"{a} arrive with slice {LATER_PLACEMENT[a]}")
             if a not in PLACEMENT_AXES:
                 raise NotImplementedError(
-                    f"spec {spec} splits over {a}: only fsdp and model "
-                    "place parameters")
+                    f"spec {spec} splits over {a}: only fsdp, model and "
+                    "pipe place parameters")
         if len(wide) > 1:
             raise NotImplementedError(
                 f"spec {spec} splits dim {i} over {wide}: one axis a dim")
         found.append((i, wide[0]))
-    if len(found) > 1:
-        raise NotImplementedError(f"spec {spec} splits two dims")
-    return found[0] if found else (None, None)
+    if len({a for _, a in found}) < len(found):
+        raise NotImplementedError(f"spec {spec} splits two dims over one "
+                                  "axis")
+    return tuple(found)
 
 
 class ShardLayout:
     """Where each parameter lives on this rank of a mesh: for each flat
-    param key its global shape, the dim it is split along and the axis
-    it is split over, ``fsdp`` or ``model`` (None: whole here). A piece
-    is the contiguous block at this rank's coordinate on its axis. The
-    per-parameter optimizer leaves of a parameter's shape (moments,
-    traces, EMA shadows) follow it."""
+    param key its global shape and the (dim, axis) of each dim it is
+    split along (``splits``; empty: whole here), over ``fsdp``,
+    ``model`` or ``pipe``: a pipe model's stacked block under PP x TP is
+    split on its stage dim over ``pipe`` and on a kernel dim over
+    ``model``. A piece is the contiguous block at this rank's coordinate
+    on each splitting axis. The per-parameter optimizer leaves of a
+    parameter's shape (moments, traces, EMA shadows) follow it."""
 
     def __init__(self, mesh: Mesh, specs: Mapping[str, P],
                  shapes: Mapping[str, tuple]):
         self.mesh = mesh
         self.specs = dict(specs)
         self.shapes = {k: tuple(v) for k, v in shapes.items()}
-        split = {k: _split(mesh, s) for k, s in self.specs.items()}
-        #: the split dim of each param (None: whole)
-        self.dims = {k: d for k, (d, _) in split.items()}
-        #: the axis each param is split over (None: whole)
-        self.axes = {k: a for k, (_, a) in split.items()}
-        for k, d in self.dims.items():
-            if d is not None and self.shapes[k][d] % self.size(k):
-                raise ValueError(f"param {k!r} shape {self.shapes[k]}: "
-                                 f"dim {d} does not split over "
-                                 f"{self.axes[k]}={self.size(k)}")
+        #: the (dim, axis) splits of each param, in dim order
+        self.splits = {k: _split(mesh, s) for k, s in self.specs.items()}
+        for k, sp in self.splits.items():
+            for d, a in sp:
+                if self.shapes[k][d] % mesh.shape[a]:
+                    raise ValueError(f"param {k!r} shape {self.shapes[k]}: "
+                                     f"dim {d} does not split over "
+                                     f"{a}={mesh.shape[a]}")
 
     @classmethod
     def for_params(cls, mesh: Mesh, params: Mapping,
@@ -228,76 +237,83 @@ class ShardLayout:
 
     @property
     def sharded(self) -> bool:
-        return any(d is not None for d in self.dims.values())
+        return any(self.splits.values())
+
+    def split_over(self, axis: str) -> bool:
+        """Whether some param is split over ``axis``."""
+        return any(a == axis for sp in self.splits.values() for _, a in sp)
 
     @property
-    def model_sharded(self) -> bool:
-        """Whether a param is split over ``model`` (the layers then
-        compute on pieces: tensor parallelism)."""
-        return AxisNames.MODEL in self.axes.values()
+    def bound(self) -> bool:
+        """Whether the layers compute on pieces (a split over ``model``
+        or ``pipe``): the step binds its mesh on the model."""
+        return any(self.split_over(a) for a in BOUND_AXES)
 
     def size(self, key: str) -> int:
         """The number of pieces of param ``key`` (1: whole)."""
-        a = self.axes[key]
-        return 1 if a is None else self.mesh.shape[a]
+        return math.prod(self.mesh.shape[a] for _, a in self.splits[key])
 
     def bounds(self, key: str) -> tuple[tuple[int, int], ...]:
         """(start, stop) a dim of this rank's piece of param ``key``."""
-        shape, d = self.shapes[key], self.dims[key]
+        shape = self.shapes[key]
         out = [(0, s) for s in shape]
-        if d is not None:
-            step = shape[d] // self.size(key)
-            c = self.mesh.coords[self.axes[key]]
+        for d, a in self.splits[key]:
+            step = shape[d] // self.mesh.shape[a]
+            c = self.mesh.coords[a]
             out[d] = (c * step, (c + 1) * step)
         return tuple(out)
 
     def local(self, key: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's piece of a full leaf shaped as param ``key`` (a
         contiguous copy, so it owns its storage)."""
-        d = self.dims[key]
-        if d is None:
+        if not self.splits[key]:
             return full
-        return full.chunk(self.size(key), dim=d)[
-            self.mesh.coords[self.axes[key]]].contiguous()
+        for d, a in self.splits[key]:
+            full = full.chunk(self.mesh.shape[a], dim=d)[self.mesh.coords[a]]
+        return full.contiguous()
 
-    def gather(self, key: str, piece: torch.Tensor) -> torch.Tensor:
+    def gather(self, key: str, piece: torch.Tensor, *,
+               axes=None) -> torch.Tensor:
         """The full leaf of param ``key`` from every piece (an all-gather
-        over its axis; every rank must call it)."""
-        d = self.dims[key]
-        if d is None:
-            return piece
-        return collectives.all_gather(piece, self.axes[key], axis=d,
-                                      tiled=True, mesh=self.mesh)
+        over each splitting axis, or over those of them in ``axes``;
+        every rank must call it)."""
+        for d, a in reversed(self.splits[key]):
+            if axes is None or a in axes:
+                piece = collectives.all_gather(piece, a, axis=d, tiled=True,
+                                               mesh=self.mesh)
+        return piece
 
     def owns(self, key: str) -> bool:
         """Whether this rank writes its piece of param ``key``: it sits
         at coordinate 0 on every axis that does not split the leaf (the
         reference's ``replica_id == 0``)."""
+        split = {a for _, a in self.splits[key]}
         return all(c == 0 for a, c in self.mesh.coords.items()
-                   if a != self.axes[key])
+                   if a not in split)
 
     def replica_axes(self, key: str) -> tuple[str, ...]:
         """The wide axes along which param ``key``'s piece is repeated
-        (every wide axis but the one that splits it)."""
+        (every wide axis but those that split it)."""
+        split = {a for _, a in self.splits[key]}
         return tuple(a for a in AxisNames.ALL if self.mesh.shape[a] > 1
-                     and a != self.axes[key])
+                     and a not in split)
 
     def shard_params(self, params: Mapping) -> dict:
         return unflatten_dict({k: self.local(k, v) for k, v in
                                flatten_dict(params).items()})
 
     def full_params(self, params: Mapping) -> dict:
-        """The whole params from this rank's pieces, gathered over both
-        axes (eval, export, monolithic saves, warm start)."""
+        """The whole params from this rank's pieces, gathered over every
+        axis (eval, export, monolithic saves, warm start)."""
         return unflatten_dict({k: self.gather(k, v) for k, v in
                                flatten_dict(params).items()})
 
     def step_params(self, params: Mapping) -> dict:
         """The params a step computes on: the ``fsdp`` pieces gathered
-        whole, the ``model`` pieces left as they are (the layers compute
-        on them)."""
+        whole, the ``model`` and ``pipe`` pieces left as they are (the
+        layers compute on them)."""
         return unflatten_dict({
-            k: (self.gather(k, v) if self.axes[k] == AxisNames.FSDP else v)
+            k: self.gather(k, v, axes=(AxisNames.FSDP,))
             for k, v in flatten_dict(params).items()})
 
     def map_per_param(self, tree, fn: Callable[[str, torch.Tensor],
@@ -322,8 +338,7 @@ class ShardLayout:
         """Whether a per-parameter optimizer leaf of param ``key`` is
         split with it: the param is sharded and the leaf has its shape
         (the full shape before sharding, the piece's after)."""
-        d = self.dims[key]
-        if d is None:
+        if not self.splits[key]:
             return False
         full = self.shapes[key]
         piece = tuple(b - a for a, b in self.bounds(key))

@@ -64,22 +64,38 @@ FLOP count in ``last_cost_analysis``, the counterpart of the reference's
 
 The mesh is one rank a card (or a gloo CPU process): its axes multiply
 to the number of ranks, and a mesh that asks for more (several cards to
-a process) is refused. Of its axes ``data``, ``fsdp`` and ``model`` may
-be wider than 1; ``seq`` (slice A6b), ``pipe`` (A6c) and ``expert``
-(A6d) are refused. The replicas are ``data`` × ``fsdp``: ``model`` ranks
-see the same batch rows. Under ``auto`` the state is placed by the
+a process) is refused. Of its axes ``data``, ``fsdp``, ``model``,
+``seq`` and ``pipe`` may be wider than 1; ``expert`` (A6d) is refused.
+The replicas are ``data`` × ``fsdp``, as the reference's batch split
+(``mesh.py``'s ``BATCH``): ``model``, ``seq`` and ``pipe`` ranks see the
+same batch rows. Under ``auto`` the state is placed by the
 model's :class:`~.sharding.ShardingRules` (:class:`~.sharding.
 ShardLayout`): :meth:`SyncReplicas.init` builds the whole state from the
 seed on every rank and keeps this rank's pieces of each sharded
 parameter and of its per-parameter optimizer leaves, over ``fsdp``
-(ZeRO-3) or ``model`` (Megatron tensor parallelism). A step gathers the
-``fsdp`` pieces before the loss and leaves the ``model`` pieces as they
-are: it binds its mesh on the loss's model (``bind_mesh``), whose layers
-compute on them (``parallel/tensor_parallel.py``). After the backward
-each ``fsdp`` piece's gradient is reduce-scattered to its mean over
-``fsdp`` and averaged over ``data``; the ``model`` pieces' and the whole
-leaves' gradients, the loss, the aux metrics, the token weights and the
-new extras are averaged over (``data``, ``fsdp``), never over ``model``.
+(ZeRO-3), ``model`` (Megatron tensor parallelism) or ``pipe`` (a pipe
+model's stage of its stacked blocks; under PP x TP a block is split over
+both). A step gathers the ``fsdp`` pieces before the loss and leaves the
+``model`` and ``pipe`` pieces as they are: it binds its mesh on the
+loss's model (``bind_mesh``), whose layers compute on them
+(``parallel/tensor_parallel.py``, ``parallel/pipeline.py``). After the
+backward each ``fsdp`` piece's gradient is reduce-scattered to its mean
+over ``fsdp`` and averaged over ``data``; the ``model`` and ``pipe``
+pieces' and the whole leaves' gradients, the loss, the aux metrics, the
+token weights and the new extras are averaged over (``data``,
+``fsdp``), never over ``model``, ``seq`` or ``pipe``. That is right for
+the leaves repeated along those axes because the model makes their
+gradients whole and equal on every member before the step sees them: a
+conjugate pair of collectives sits at each edge of a split region (the
+rule of ``parallel/tensor_parallel.py`` for ``model``). Along ``pipe``
+the pipeline's input sums its gradient over ``pipe`` (only stage 0 reads
+it: an input projection or the embeddings get their gradient there
+alone) and its output passes the gradient through (every stage computes
+the head and the loss alike, so a head's gradient is the same on each),
+so no leaf needs a sum on one axis and a mean on another. Along ``seq``
+the model runs replicated (each ``seq`` rank computes the same step)
+unless ring attention is bound (``parallel/ring_attention.py``), whose
+cut and join of the sequence are such a pair.
 Every reduction over a whole leaf in the update (the global norm of the
 clip, ``grad_norm`` and the anomaly guard; the trust ratio; adafactor's
 factored RMS, block-RMS clip and parameter RMS) sums its partial sums
@@ -87,8 +103,11 @@ over each piece's own shard group (``optimizers.shard_reduction``). This
 is the program the reference's XLA compiles from its ``NamedSharding``.
 ``shard_map`` keeps the parameters whole on every rank, as the
 reference's ``_shard_map_step`` (whose state is replicated, ``P()``)
-does: ``fsdp`` is then one more batch axis, and ``model`` ranks repeat
-the same step.
+does: ``fsdp`` is then one more batch axis, and ``model``, ``seq`` and
+``pipe`` ranks repeat the same step. A pipelined model (``pipe_mlp``,
+``pipe_bert``) over a ``pipe`` axis is refused there, as the
+reference's step refuses the pipeline's own ``shard_map`` inside its
+own.
 
 The loss signature is the framework's::
 
@@ -200,9 +219,7 @@ def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
 
 #: the mesh axes the port does not shard over yet, and their slices
 LATER_AXES = {
-    "seq": "A6b (ring attention over a sequence axis)",
-    "pipe": "A6c (pipeline stages, the pipe_* models)",
-    "expert": "A6d (expert parallelism)",
+    "expert": "A6d (expert parallelism, the pipe_moe_* models)",
 }
 #: the rule a mesh's size must keep
 ONE_RANK_A_CARD = ("the port runs one rank a card (one process a card, or "
@@ -218,7 +235,7 @@ def refuse_later_axes(mesh: MeshShape) -> None:
         if v != 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={v} arrives with slice {cut}; the port "
-                "shards over data, fsdp and model")
+                "shards over data, fsdp, model, seq and pipe")
 
 
 def resolve_mesh(mesh, world: int) -> dict[str, int]:
@@ -290,13 +307,22 @@ class SyncReplicas:
         if self.sync.mode not in ("auto", "shard_map"):
             raise ValueError(f"unknown sync mode {self.sync.mode!r}")
         sizes = resolve_mesh(mesh, distributed.process_count())
+        model = getattr(loss_fn, "__self__", None)
+        if (self.sync.mode == "shard_map" and sizes["pipe"] > 1
+                and getattr(model, "pipelined", False)):
+            raise ValueError(
+                f"sync mode shard_map with pipe={sizes['pipe']}: the "
+                f"{type(model).__name__} pipeline is its own SPMD program "
+                "over pipe and does not run inside the step's per-replica "
+                "one (the reference's shard_map step refuses it too); use "
+                "mode auto")
         #: this rank's place in the mesh (its groups: the collectives')
         self.mesh = build_mesh(MeshShape(**sizes))
         self.num_replicas = sizes["data"] * sizes["fsdp"]
         #: the model whose loss this is (a bound method's owner): the
         #: step binds its mesh on it when the layers compute on
-        #: ``model`` pieces
-        self.model = getattr(loss_fn, "__self__", None)
+        #: ``model`` or ``pipe`` pieces
+        self.model = model
         #: the placement rules (``shard_map`` keeps the params whole)
         self.rules = (rules or ShardingRules(fsdp_axis_size=sizes["fsdp"])
                       if self.sync.mode == "auto" else ShardingRules())
@@ -405,16 +431,16 @@ class SyncReplicas:
     @contextlib.contextmanager
     def _bound(self, layout):
         """The loss's model bound to this mesh while the step computes on
-        ``model`` pieces (unbound again after, so eval and export see
-        whole params); inert for a state with none."""
-        if layout is None or not layout.model_sharded:
+        ``model`` or ``pipe`` pieces (unbound again after, so eval and
+        export see whole params); inert for a state with none."""
+        if layout is None or not layout.bound:
             yield
             return
         if not hasattr(self.model, "bind_mesh"):
             raise ValueError(
-                "the placement rules split parameters over model, but the "
-                f"loss's model ({type(self.model).__name__}) cannot compute "
-                "on model pieces (no bind_mesh)")
+                "the placement rules split parameters over model or pipe, "
+                f"but the loss's model ({type(self.model).__name__}) cannot "
+                "compute on such pieces (no bind_mesh)")
         self.model.bind_mesh(self.mesh)
         try:
             yield
@@ -440,37 +466,42 @@ class SyncReplicas:
         axis), None for a whole one."""
         if layout is None:
             return []
-        out = []
-        for key, axis in layout.axes.items():
-            if axis is None:
-                out.append(None)
-                continue
-            d = layout.dims[key]
+        def one(key, d, axis):
             start, stop = layout.bounds(key)[d]
-            out.append(LeafShard(
+            return LeafShard(
                 dim=d, shape=layout.shapes[key], start=start, stop=stop,
                 axis=axis,
                 sum=functools.partial(collectives.all_reduce_sum,
                                       axis_name=axis, mesh=self.mesh),
                 gather=functools.partial(_gather_along, axis=axis,
-                                         mesh=self.mesh)))
+                                         mesh=self.mesh))
+
+        out = []
+        for key, splits in layout.splits.items():
+            if not splits:
+                out.append(None)
+                continue
+            first, *rest = (one(key, d, a) for d, a in splits)
+            out.append(first._replace(extra=tuple(rest)))
         return out
 
     def _reduce_sharded(self, layout, grads, loss, aux, extras):
         """The gradient exchange of a sharded state: each ``fsdp`` piece's
         gradient reduce-scattered to its mean over ``fsdp`` (this rank
         keeps its piece), then averaged over ``data`` (ZeRO); the
-        ``model`` pieces' and the whole leaves' gradients, the loss, the
-        aux metrics and the new extras averaged over the batch ranks."""
+        ``model`` and ``pipe`` pieces' and the whole leaves'
+        gradients, the loss, the aux metrics and the new extras averaged
+        over the batch ranks."""
         out = list(grads)
         rest = []
-        for i, (g, key) in enumerate(zip(grads, layout.axes)):
-            if layout.axes[key] != AxisNames.FSDP:
+        for i, (g, key) in enumerate(zip(grads, layout.splits)):
+            dim = dict((a, d) for d, a in layout.splits[key]).get(
+                AxisNames.FSDP)
+            if dim is None:
                 rest.append(i)
                 continue
             g = collectives.reduce_scatter_mean(
-                g, AxisNames.FSDP, scatter_axis=layout.dims[key],
-                mesh=self.mesh)
+                g, AxisNames.FSDP, scatter_axis=dim, mesh=self.mesh)
             if self.mesh.shape[AxisNames.DATA] > 1:
                 g = collectives.all_reduce_mean(g, AxisNames.DATA,
                                                 mesh=self.mesh)

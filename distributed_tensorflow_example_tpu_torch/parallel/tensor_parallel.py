@@ -59,10 +59,10 @@ class ModelAxis:
         return heads // self.size
 
     def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
-        return _CopyToModel.apply(x, self.mesh)
+        return collectives.copy_to(x, AxisNames.MODEL, mesh=self.mesh)
 
     def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
-        return _ReduceFromModel.apply(x, self.mesh)
+        return collectives.reduce_from(x, AxisNames.MODEL, mesh=self.mesh)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` stacked on a new leading dim, in rank order
@@ -84,33 +84,6 @@ def model_axis(mesh: Mesh | None) -> ModelAxis | None:
     if mesh is None or mesh.shape[AxisNames.MODEL] <= 1:
         return None
     return ModelAxis(mesh)
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward; the gradient summed over ``model`` backward."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return collectives.all_reduce_sum(g.contiguous(), AxisNames.MODEL,
-                                          mesh=ctx.mesh), None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """Summed over ``model`` forward; the gradient passed through."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        return collectives.all_reduce_sum(x.contiguous(), AxisNames.MODEL,
-                                          mesh=mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 def copy_to_model(x: torch.Tensor, tp: ModelAxis | None) -> torch.Tensor:

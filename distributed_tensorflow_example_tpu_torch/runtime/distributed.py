@@ -103,8 +103,11 @@ def initialize(cluster: ClusterSpec | None = None,
 
 
 def shutdown() -> None:
-    """Leave the process group (no-op without one)."""
+    """Leave the process group (no-op without one), with the meshes and
+    subgroups built over it."""
     if dist.is_initialized():
+        from ..parallel.mesh import forget_meshes
+        forget_meshes()
         dist.destroy_process_group()
 
 

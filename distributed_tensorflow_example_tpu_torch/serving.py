@@ -133,7 +133,8 @@ def _model_config(model) -> dict:
     """The config ``models.get_model`` rebuilds ``model`` from. Only a
     model built by ``get_model`` carries it, and only a model the port
     has ported can be rebuilt: anything else raises naming the slice
-    that brings the models the port lacks (the pipeline models, A6c)."""
+    that brings the models the port lacks (the expert-parallel pipeline
+    models, A6d)."""
     from .models import list_models
     name = getattr(model, "registry_name", None)
     cfg = getattr(model, "train_config", None)
@@ -142,8 +143,8 @@ def _model_config(model) -> dict:
         raise ValueError(
             f"export_model: {what!r} was not built by models.get_model, "
             f"so its config cannot be recorded (the port serves "
-            f"{', '.join(list_models())}; the pipeline models arrive "
-            "with slice A6c)")
+            f"{', '.join(list_models())}; the expert-parallel pipeline "
+            "models arrive with slice A6d)")
     return {"name": name,
             **{f: getattr(cfg, f) for f in _MODEL_CONFIG_FIELDS},
             "data": {"vocab_size": cfg.data.vocab_size,

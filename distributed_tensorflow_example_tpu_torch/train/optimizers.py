@@ -87,7 +87,10 @@ class LeafShard(NamedTuple):
     along that dim, the axis it is split over (its shard group) and two
     collectives over that group: ``sum(t)`` (every member's ``t``
     summed) and ``gather(t, dim)`` (the members' ``t`` concatenated along
-    ``dim`` in member order)."""
+    ``dim`` in member order). ``extra`` holds the leaf's further splits,
+    one ``LeafShard`` each (a pipe model's stacked block under PP x TP
+    is split over ``pipe`` on its stage dim and over ``model`` on a
+    kernel dim)."""
 
     dim: int
     shape: tuple
@@ -96,6 +99,7 @@ class LeafShard(NamedTuple):
     axis: str
     sum: Callable[[torch.Tensor], torch.Tensor]
     gather: Callable[[torch.Tensor, int], torch.Tensor]
+    extra: tuple = ()
 
 
 #: the pieces of the step being updated, one entry a parameter (None:
@@ -150,12 +154,15 @@ def _whole_sums(parts: list, shards: list) -> list:
     shard group, one collective a group (the pieces of one axis stacked);
     entries whose shard is None pass through."""
     out = list(parts)
-    groups: dict[str, list[int]] = {}
+    groups: dict[tuple, list[int]] = {}
     for i, sh in enumerate(shards):
         if sh is not None:
-            groups.setdefault(sh.axis, []).append(i)
+            groups.setdefault((sh.axis,) + tuple(e.axis for e in sh.extra),
+                              []).append(i)
     for idx in groups.values():
-        tot = shards[idx[0]].sum(torch.stack([parts[i] for i in idx]))
+        tot = torch.stack([parts[i] for i in idx])
+        for sh in (shards[idx[0]],) + shards[idx[0]].extra:
+            tot = sh.sum(tot)
         for j, i in enumerate(idx):
             out[i] = tot[j]
     return out
@@ -175,16 +182,26 @@ def _whole_mean(x: torch.Tensor, dim: int, sh) -> torch.Tensor:
     the result (every rank ends with the whole vector)."""
     if sh is None:
         return x.mean(dim=dim)
-    if sh.dim == dim:
-        return sh.sum(x.sum(dim=dim)) / sh.shape[dim]
-    return sh.gather(x.mean(dim=dim), sh.dim - (1 if sh.dim > dim else 0))
+    splits = (sh,) + sh.extra
+    out = x.sum(dim=dim)
+    for s in splits:
+        if s.dim == dim:
+            out = s.sum(out)
+    out = out / sh.shape[dim]
+    for s in splits:
+        if s.dim != dim:
+            out = s.gather(out, s.dim - (1 if s.dim > dim else 0))
+    return out
 
 
 def _on_piece(t: torch.Tensor, sh) -> torch.Tensor:
     """A statistic broadcast against the whole leaf, cut to the piece."""
-    if sh is None or t.shape[sh.dim] == 1:
+    if sh is None:
         return t
-    return t.narrow(sh.dim, sh.start, sh.stop - sh.start)
+    for s in (sh,) + sh.extra:
+        if t.shape[s.dim] != 1:
+            t = t.narrow(s.dim, s.start, s.stop - s.start)
+    return t
 
 
 def global_norm(xs: Tensors) -> torch.Tensor:

@@ -36,13 +36,15 @@ wins) and re-anchors the parameter EMA's shadows there; with the EMA on,
 eval runs on the shadows. Host metrics are floats, and a vector metric
 (MoE-BERT's per-expert load) a list: the JSONL takes it, the scalar
 hooks skip it. ``steps_per_loop > 1`` arrives with slice A3c-2b and
-raises. The mesh is one rank a card over ``data``, ``fsdp`` and
-``model``; the state is sharded by the model's ``sharding_rules`` (over
-``fsdp`` ZeRO-3's way, over ``model`` Megatron's: GPT, BERT and
-MoE-BERT compute on their pieces; eval, warm start and the EMA's eval
-see the whole params, gathered), and ``checkpoint.sharded`` writes
-per-rank shard files. A ``seq``, ``pipe`` or ``expert`` axis wider than
-1 raises naming its slice (A6b, A6c, A6d).
+raises. The mesh is one rank a card over ``data``, ``fsdp``,
+``model``, ``seq`` and ``pipe``; the state is sharded by the model's
+``sharding_rules`` (over ``fsdp`` ZeRO-3's way, over ``model``
+Megatron's: GPT, BERT, MoE-BERT and pipe_bert compute on their pieces;
+over ``pipe`` the pipe models' stages; eval, warm start and the EMA's
+eval see the whole params, gathered), and ``checkpoint.sharded`` writes
+per-rank shard files. Along ``seq`` the model runs replicated, as the
+reference's trainer binds no ring attention. An ``expert`` axis wider
+than 1 raises naming its slice (A6d).
 """
 
 from __future__ import annotations
@@ -88,8 +90,8 @@ def _host_metric(v):
 
 def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
     """Raise NotImplementedError naming its slice for a set knob the
-    port's Trainer does not carry yet (a ``seq``, ``pipe`` or ``expert``
-    axis, ``steps_per_loop > 1``), or stating the rule of one
+    port's Trainer does not carry yet (an ``expert`` axis,
+    ``steps_per_loop > 1``), or stating the rule of one
     rank a card for a mesh wider than the ranks (and the reference's
     ValueErrors on anomaly settings no path could honor)."""
     resolve_mesh(config.mesh, num_processes)
@@ -158,6 +160,14 @@ class Trainer:
                                  anomaly_policy=config.on_anomaly,
                                  device=self.device,
                                  debug_checks=config.obs.debug_checks)
+        if hasattr(model, "bind_mesh"):
+            # the mesh-aware models (the pipe models' stages, the Megatron
+            # pieces) check themselves against the mesh here, as the
+            # reference's trainer binds them; the step binds the mesh
+            # around each loss it computes on pieces, so eval and export
+            # run the unbound model on whole params
+            model.bind_mesh(self.sync.mesh)
+            model.bind_mesh(None)
 
         # the trainer's counters (hooks reach them through
         # ``trainer.registry``); registered up front so a run that never

@@ -29,6 +29,22 @@ Joins a gloo group through ``--init`` and runs the tasks of
 - ``restore``: the sharded checkpoint at ``dir`` step ``step`` restored
   into this mesh's template of the task's model and optimizer, written
   whole;
+- ``vjp``: the differentiable collectives (``ppermute``, the
+  sequence-parallel pair) on this rank's ``in/<case>`` of ``inputs``,
+  each output and the gradient of its product with ``cot/<case>``;
+- ``ring``: ring attention over the task's ``seq`` mesh on the whole
+  q, k, v and masks of ``inputs``, each case's output and the gradients
+  of q, k and v of a fixed weighting of it;
+- ``pipeline``: the task's ``cases`` of the GPipe schedule on the
+  stacked residual blocks of ``inputs`` against the sequential oracle,
+  outputs and gradients (of this rank's stage);
+- ``pipe_loss``: a pipe model's loss and gradients bound to the mesh on
+  this rank's pieces against the unbound model on the whole params, on
+  this rank's rows of ``batch``, with dropout as the task sets it;
+- ``bert_ring``: bert_tiny's (and gpt_tiny's, causal) loss and
+  gradients on this rank's rows of ``batch`` with ring attention over
+  ``seq`` and without, from the flat params in ``params`` (and
+  ``gpt_params``);
 - ``cli``: after the other tasks the group is left and ``cli/train.py``
   runs once per argv (each brings its own group up at worker 0's
   address), with ``--worker_hosts`` and ``--task_index`` added.
@@ -58,6 +74,10 @@ from distributed_tensorflow_example_tpu_torch.models.moe import (  # noqa: E402,
     MoeBert, MoeBertConfig)
 from distributed_tensorflow_example_tpu_torch.models.mlp import \
     MLP  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.models.pipe_bert import (  # noqa: E402,E501
+    PipeBert, PipeBertConfig)
+from distributed_tensorflow_example_tpu_torch.models.pipe_mlp import \
+    PipeMlp  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel import \
     collectives as C  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
@@ -70,8 +90,12 @@ from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
     shard_batch  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import \
     SyncReplicas  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.runtime import \
+    distributed  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.train.optimizers import \
     make_optimizer  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.utils.pytree import (  # noqa: E402,E501
+    flatten_dict, unflatten_dict)
 
 torch.set_num_threads(1)
 
@@ -92,6 +116,11 @@ def model_of(name: str, dropout: float = 0.0, **cfg):
     """The test models by name; ``cfg`` overrides their config."""
     if name == "mlp":
         return MLP()
+    if name == "pipe_mlp":
+        return PipeMlp()
+    if name == "pipe_bert_tiny":
+        return PipeBert(PipeBertConfig(**{**BERT_TINY, "layers": 4,
+                                          "dropout": dropout, **cfg}))
     if name == "gpt_tiny":
         return GPT(GPTConfig(**{**GPT_TINY, "dropout": dropout, **cfg}))
     if name == "bert_tiny":
@@ -191,7 +220,7 @@ def _train(task, rank):
            "seen/bound_after": np.asarray(getattr(model, "tp", None)
                                           is not None),
            **_whole(state)}
-    if sync.mesh.shape["model"] > 1 and state.layout is not None:
+    if state.layout is not None and state.layout.bound:
         out.update(_bound_logits(model, sync, state, shard_batch(
             sync.mesh, batch)))
     pieces = tckpt._pieces(state)
@@ -241,6 +270,154 @@ def _xent(task, rank):
     return out
 
 
+def _vjp(task, rank):
+    """Each case's differentiable collective on this rank's ``in/<case>``:
+    its output and the gradient of sum(out * ``cot/<case>``)."""
+    mesh = build_mesh(MeshShape(**task["mesh"]))
+    with np.load(task["inputs"]) as z:
+        ins = {k: torch.from_numpy(z[k][rank]) for k in z.files}
+    out = {}
+    for case in task["cases"]:
+        name = case["name"]
+        x = ins[f"in/{name}"].clone().requires_grad_(True)
+        y = getattr(C, case["fn"])(x, case["axes"], mesh=mesh, **case["kw"])
+        (y * ins[f"cot/{name}"]).sum().backward()
+        out[f"out/{name}"] = y.detach().numpy()
+        out[f"grad/{name}"] = x.grad.numpy()
+    return out
+
+
+def _ring(task, rank):
+    from distributed_tensorflow_example_tpu_torch.parallel.ring_attention \
+        import make_ring_attention
+    mesh = build_mesh(MeshShape(**task["mesh"]))
+    with np.load(task["inputs"]) as z:
+        x = {k: torch.from_numpy(z[k]) for k in z.files}
+    out = {}
+    for case in task["cases"]:
+        q, k, v = (x[n].clone().requires_grad_(True) for n in "qkv")
+        attn = make_ring_attention(mesh, causal=case["causal"])
+        o = attn(q, k, v, mask=x[case["mask"]] if case["mask"] else None)
+        (o * x["w"]).sum().backward()
+        name = case["name"]
+        out[f"{name}/out"] = o.detach().numpy()
+        for n, t in zip("qkv", (q, k, v)):
+            out[f"{name}/d{n}"] = t.grad.numpy()
+    return out
+
+
+def _pipeline(task, rank):
+    from distributed_tensorflow_example_tpu_torch.parallel import pipeline
+
+    def stage_fn(stacked, x, mb_idx=0):
+        h = x
+        for i in range(stacked["kernel"].shape[0]):
+            h = h + torch.relu(h @ stacked["kernel"][i] + stacked["bias"][i])
+        return h
+
+    out = {}
+    with np.load(task["inputs"]) as z:
+        arrays = {k: torch.from_numpy(z[k]) for k in z.files}
+    for case in task["cases"]:
+        mesh = build_mesh(MeshShape(**case["mesh"]))
+        name = case["name"]
+        whole = {k: arrays[f"{name}/{k}"] for k in ("kernel", "bias")}
+        x = arrays[f"{name}/x"]
+        piece = {k: v.clone().requires_grad_(True) for k, v in
+                 pipeline.stage_params(whole, mesh).items()}
+        piped = pipeline.make_pipeline(
+            mesh, stage_fn, num_microbatches=case["microbatches"])
+        got = piped(piece, x)
+        (got ** 2).sum().backward()
+        out[f"{name}/out"] = got.detach().numpy()
+        for k, v in piece.items():
+            out[f"{name}/d{k}"] = v.grad.numpy()
+    return out
+
+
+def _pipe_loss(task, rank):
+    """A pipe model bound on this rank's pieces against the unbound model
+    on the whole params, on this rank's rows (``pipe_bert_tiny`` with the
+    task's dropout and generator seed, or ``pipe_mlp``)."""
+    from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
+        ShardLayout
+    shape = MeshShape(**task["mesh"])
+    mesh = build_mesh(shape)
+    model = model_of(task["model"], task.get("dropout", 0.0))
+    whole = model.init(0, device="cpu")
+    layout = ShardLayout.for_params(mesh, whole, model.sharding_rules(shape))
+    with np.load(task["batch"]) as z:
+        batch = shard_batch(mesh, {k: torch.from_numpy(z[k])
+                                   for k in z.files})
+    out = {}
+
+    def run(params, bound):
+        flat = {k: v.detach().clone().requires_grad_(True)
+                for k, v in flatten_dict(params).items()}
+        gen = torch.Generator()
+        gen.manual_seed(task.get("seed", 7))
+        model.bind_mesh(mesh if bound else None)
+        try:
+            loss = model.loss(unflatten_dict(flat), {}, batch, gen)[0]
+            grads = torch.autograd.grad(loss, list(flat.values()))
+            with torch.no_grad():
+                logits = model.apply(unflatten_dict(flat), {}, batch)[0]
+        finally:
+            model.bind_mesh(None)
+        return loss, dict(zip(flat, grads)), logits
+
+    l_p, g_p, o_p = run(layout.shard_params(whole), True)
+    l_s, g_s, o_s = run(whole, False)
+    out["loss/piped"], out["loss/seq"] = l_p.detach().numpy(), \
+        l_s.detach().numpy()
+    out["logits/piped"], out["logits/seq"] = o_p.numpy(), o_s.numpy()
+    for k in g_p:
+        out[f"grad/piped/{k}"] = g_p[k].numpy()
+        out[f"grad/seq/{k}"] = layout.local(k, g_s[k]).numpy()
+    return out
+
+
+def _bert_ring(task, rank):
+    """bert_tiny's (and, with ``gpt_params``, gpt_tiny's causal) loss and
+    gradients on this rank's rows with ring attention over ``seq`` and
+    without it, from the given params."""
+    from distributed_tensorflow_example_tpu_torch.parallel.ring_attention \
+        import make_ring_attention
+    mesh = build_mesh(MeshShape(**task["mesh"]))
+    with np.load(task["params"]) as z:
+        params = tckpt.from_numpy({k: z[k] for k in z.files}, "cpu")
+    with np.load(task["batch"]) as z:
+        batch = shard_batch(mesh, {k: torch.from_numpy(z[k])
+                                   for k in z.files})
+    out = {}
+    for tag, fn in (("ring", make_ring_attention(mesh)), ("plain", None)):
+        model = Bert(BertConfig(**BERT_TINY), attention_fn=fn)
+        out.update(_loss_grads(model, params, batch, tag))
+    if task.get("gpt_params"):
+        with np.load(task["gpt_params"]) as z:
+            gparams = tckpt.from_numpy({k: z[k] for k in z.files}, "cpu")
+        gbatch = {k: batch[k] for k in ("input_ids", "attention_mask")}
+        for tag, fn in (("ring", make_ring_attention(mesh, causal=True)),
+                        ("plain", None)):
+            model = GPT(GPTConfig(**GPT_TINY), attention_fn=fn)
+            out.update(_loss_grads(model, gparams, gbatch, f"gpt/{tag}"))
+    return out
+
+
+def _loss_grads(model, params, batch, tag: str) -> dict:
+    """``model``'s loss on ``batch`` (no dropout), its token weight and
+    every parameter's gradient, keyed under ``tag``."""
+    flat = {k: v.clone().requires_grad_(True)
+            for k, v in flatten_dict(params).items()}
+    loss, (aux, _) = model.loss(unflatten_dict(flat), {}, batch, None)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    out = {f"{tag}/loss": loss.detach().numpy(),
+           f"{tag}/weight": aux[losses.LOSS_WEIGHT].numpy()}
+    for k, g in zip(flat, grads):
+        out[f"{tag}/grad/{k}"] = g.numpy()
+    return out
+
+
 def _restore(task, rank):
     mesh = MeshShape(**task["mesh"])
     model, sync = _sync(task, mesh)
@@ -262,14 +439,16 @@ def main() -> int:
     dist.init_process_group("gloo", init_method=a.init, rank=a.rank,
                             world_size=a.world)
     runners = {"collectives": _collectives, "train": _train,
-               "restore": _restore, "xent": _xent}
+               "restore": _restore, "xent": _xent, "ring": _ring,
+               "pipeline": _pipeline, "pipe_loss": _pipe_loss,
+               "bert_ring": _bert_ring, "vjp": _vjp}
     for task in tasks:
         if task["kind"] == "cli":
             continue
         out = runners[task["kind"]](task, a.rank)
         np.savez(os.path.join(a.out, f"{task['name']}.rank{a.rank}.npz"),
                  **out)
-    dist.destroy_process_group()
+    distributed.shutdown()
     from distributed_tensorflow_example_tpu_torch.cli import train as cli
     for task in tasks:
         if task["kind"] != "cli":

@@ -574,11 +574,12 @@ REFUSALS = {
                                SystemExit, "A3c-2b"),
     "trainer-steps_per_loop": (_trainer_refusal(steps_per_loop=2),
                                NotImplementedError, "A3c-2b"),
-    # the fsdp (slice A6a) and model (A6a-2) axes train: a row that named
-    # them pairs them with an axis that is still refused, and a model
-    # axis wider than the ranks meets the rule of one rank a card
-    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,seq=2"]),
-                      SystemExit, "A6b"),
+    # the fsdp (slice A6a), model (A6a-2), seq (A6b) and pipe (A6c) axes
+    # train: a row that named them pairs them with an axis that is still
+    # refused, and a model axis wider than the ranks meets the rule of
+    # one rank a card
+    "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,expert=2"]),
+                      SystemExit, "A6d"),
     "cli-mesh-model": (_cli_refusal(["--mesh", "model=2"]), SystemExit,
                        None),
     "trainer-mesh-fsdp": (_trainer_refusal(
@@ -598,7 +599,7 @@ REFUSALS = {
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_later_slices_stay_refused_naming_their_slice(name):
     """``multi_step``, ``--steps_per_loop 2``, ``--max_inflight_steps``
-    and the seq and expert axes are still refused, each naming the slice
+    and the expert axis are still refused, each naming the slice
     that brings it; more replicas (or ``model`` ranks) than ranks states
     the rule of one rank a card."""
     run, exc, slice_ = REFUSALS[name]

@@ -430,13 +430,13 @@ def test_elementwise_optimizers_train_on_pieces(name):
 
 def test_cli_refuses_a_whole_leaf_optimizer_under_fsdp(tmp_path):
     """Named for the refusal it replaced: ``--optimizer lamb`` trains
-    under fsdp now; paired with a sequence axis, still to come, it exits
-    naming A6b before any work (the worker hosts are never
+    under fsdp now; paired with an expert axis, still to come, it exits
+    naming A6d before any work (the worker hosts are never
     contacted)."""
     ck = str(tmp_path / "ck")
-    with pytest.raises(SystemExit, match="slice A6b"):
+    with pytest.raises(SystemExit, match="slice A6d"):
         tcli.main(["--model", "gpt_tiny", "--device", "cpu",
-                   "--optimizer", "lamb", "--mesh", "fsdp=2,seq=2",
+                   "--optimizer", "lamb", "--mesh", "fsdp=2,expert=2",
                    "--worker_hosts", "127.0.0.1:1,127.0.0.1:2,127.0.0.1:3,"
                    "127.0.0.1:4", "--ckpt_dir", ck])
     assert not os.path.exists(ck)

@@ -109,7 +109,11 @@ SHARDED_MODULES = tuple(
     f"distributed_tensorflow_example_tpu_torch.{m}" for m in (
         "parallel.mesh", "parallel.collectives", "parallel.sharding",
         "parallel.sync_replicas", "parallel.tensor_parallel",
-        "examples.finetune_export", "examples.train_and_generate"))
+        "examples.finetune_export", "examples.train_and_generate",
+        # ring attention over seq, the GPipe pipeline over pipe and the
+        # pipe models
+        "parallel.ring_attention", "parallel.pipeline", "models.pipe_mlp",
+        "models.pipe_bert"))
 #: imported only inside the functions that decode, tokenize or read a TF
 #: checkpoint: the card's machine has none of them
 OPTIONAL = ("PIL", "transformers", "tensorflow")

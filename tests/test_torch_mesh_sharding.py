@@ -249,8 +249,8 @@ def test_shard_layout_bounds_equal_the_reference_shards(name, cpu8):
                           else sl.stop) for i, sl in enumerate(s.index))
             assert layout.bounds(k) == want, (k, mesh.rank)
             assert layout.owns(k) == (s.replica_id == 0), (k, mesh.rank)
-    assert layout.model_sharded and any(
-        a == AxisNames.FSDP for a in layout.axes.values())
+    assert layout.split_over(AxisNames.MODEL) and any(
+        a == AxisNames.FSDP for sp in layout.splits.values() for _, a in sp)
 
 
 def _nest(flat: dict) -> dict:
