@@ -152,6 +152,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -5738,7 +5739,7 @@ MOE_STEPS = 10            # (a)'s CLI run
 MOE_TIMED = (3, 13)       # (a)'s Trainer run: steps 4-13 timed, 14-15 traced
 MOE_LEVER_STEPS = 6       # the top-1 / top-2 / --remat dots legs
 MOE_EXPORT_B = 8          # --export_dir's static batch
-MOE_PREDICT_ROWS = (1, 3, 8)
+MOE_PREDICT_ROWS = (1, 8)
 # (b): one f32 MoE-BERT-tiny step (xla attention, dropout and jitter off)
 # on the card against the CPU's from the same weights: the two differ
 # only in f32 summation order (TF32 is off), ~1e-7 of each value through
@@ -6067,7 +6068,7 @@ def _moe_card_vs_cpu(failed: list, card: str) -> float:
 
 def _moe_predict(export: str, failed: list, card: str) -> dict:
     """(c) the bench row's export (static batch 8) through ``PredictServer``
-    with the scheduler off and on: 1, 3 and 8 rows against the live model
+    with the scheduler off and on: 1 and 8 rows against the live model
     on the batch padded with row 0, 9 rows a 400, B1 12 a batch."""
     from distributed_tensorflow_example_tpu_torch.serving import (
         load_servable, read_meta)
@@ -7712,6 +7713,466 @@ def phase_pipe(card: str) -> dict:
             "b2b": got["flash_attention_bwd_dkv"]}
 
 
+#: the bench row's MoE layer (``MOE_ARGV``'s widths: hidden 768, 12 heads
+#: of 64, 8 experts, top-1, capacity 1.25, bf16, flash) at 64 x 128, over
+#: EXPERT_RANKS ``expert`` ranks (4 + 4 experts)
+EXPERT_RANKS = 2
+EXPERT_ARGV = ["--model", "pipe_moe_bert", "--device", "cuda", "--dtype",
+               "bfloat16", "--attention", "flash", "--optimizer", "adamw",
+               "--learning_rate", "1e-4", "--batch_size", "32", "--seq_len",
+               "128", "--moe_experts", "8", "--moe_top_k", "1",
+               "--moe_capacity_factor", "1.25", "--seed", "0"]
+EXPERT_B, EXPERT_S, EXPERT_MICRO, EXPERT_STEPS = 32, 128, 4, 10
+
+
+class _StubMesh:
+    """A mesh of ``EXPERT_RANKS`` ``expert`` ranks seen from rank ``r``
+    (no process group: :class:`_EmulatedRanks` stands in for its
+    collectives)."""
+
+    def __init__(self, r: int):
+        from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
+            AxisNames
+        self.shape = {a: 1 for a in AxisNames.ALL}
+        self.shape[AxisNames.EXPERT] = EXPERT_RANKS
+        self.coords = {a: 0 for a in AxisNames.ALL}
+        self.coords[AxisNames.EXPERT] = r
+
+
+class _EmulatedRanks:
+    """``n`` ranks of one mesh axis on this one card, each a thread that
+    runs the port's own code. The collectives that code calls
+    (``parallel/collectives.py``'s, patched inside :meth:`patched`) meet
+    at a barrier and return what the collective returns, computed by the
+    phase from every rank's tensor inside one autograd graph: one
+    backward then takes each collective's transpose (an all_to_all's
+    edges cross from one rank's graph into another's). ``copy_to`` is
+    the identity: every rank computes the same loss from the joined
+    outputs, so the graph's gradient of a rank's leaf is the whole
+    program's."""
+
+    def __init__(self, n: int):
+        import threading
+        self.n = n
+        self.barrier = threading.Barrier(n)
+        self.slots: list = [None] * n
+        self.local = threading.local()
+
+    def meet(self, x, fn):
+        r = self.local.rank
+        self.slots[r] = x
+        self.barrier.wait()
+        out = fn(list(self.slots), r)
+        self.barrier.wait()
+        return out
+
+    @contextlib.contextmanager
+    def patched(self):
+        from distributed_tensorflow_example_tpu_torch.parallel import \
+            collectives as C
+        names = ("copy_to", "gather_along", "all_to_all", "pmean")
+        saved = {k: getattr(C, k) for k in names}
+        n = self.n
+
+        def a2a(x, axis_name, *, split_axis, concat_axis, tiled=True,
+                mesh=None):
+            return self.meet(x, lambda s, r: torch.cat(
+                [t.chunk(n, split_axis)[r] for t in s], dim=concat_axis))
+
+        C.copy_to = lambda x, axis_name, *, mesh=None: x
+        C.gather_along = lambda x, axis_name, *, dim, mesh=None: self.meet(
+            x, lambda s, r: torch.cat(s, dim=dim))
+        C.all_to_all = a2a
+        C.pmean = lambda x, axis_name, *, mesh=None: self.meet(
+            x, lambda s, r: sum(s) / n)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(C, k, v)
+
+    def run(self, fn) -> list:
+        """[fn(r) for every rank r], each in a thread of its own."""
+        import threading
+        out, errors = [None] * self.n, []
+
+        def one(r):
+            self.local.rank = r
+            try:
+                out[r] = fn(r)
+            except BaseException as e:          # noqa: BLE001
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,))
+                   for r in range(self.n)]
+        with self.patched():
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+def _moe_layer_cfg(layers: int = 1):
+    from distributed_tensorflow_example_tpu_torch.models.moe import \
+        MoeBertConfig
+    return MoeBertConfig(layers=layers, n_experts=8, top_k=1,
+                         capacity_factor=1.25, moe_every=1, dropout=0.0)
+
+
+def _ep_layer_case(gen, dev, failed: list, card: str) -> dict:
+    """(a) One MoE-BERT encoder layer at the bench row's widths, 64 x 128,
+    over 2 ``expert`` ranks: each rank (a thread of
+    :class:`_EmulatedRanks`) runs ``MoeBert._moe_layer`` bound to its
+    rank (its 4 experts, cut by ``ShardLayout`` under the model's rules
+    at ``expert=2``): the attention half and the routing whole, its
+    experts' slots, the outputs joined over ``expert`` before the
+    combine. Forward and backward (sum(out * g) + lb) against the whole
+    layer in bf16 (row errors within TP_LAYER_ROW_REL_TOL) and against
+    the f32 whole layer (plain attention) within max(2x the whole bf16
+    layer's own, TP_LAYER_F32_FLOOR). Every rank runs the attention:
+    B1, B2a and B2b launch exactly 2 times each. Returns the launches."""
+    from distributed_tensorflow_example_tpu_torch.config import MeshShape
+    from distributed_tensorflow_example_tpu_torch.models.moe import MoeBert
+    from distributed_tensorflow_example_tpu_torch.parallel.mesh import (
+        Mesh, mesh_sizes)
+    from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
+        ShardLayout
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, unflatten_dict)
+    cfg = _moe_layer_cfg()
+    model = MoeBert(cfg, dtype=torch.bfloat16, attention_impl="flash")
+    f32 = MoeBert(cfg, dtype=torch.float32, attention_impl="xla")
+    lp = model.init(torch.Generator(device=dev).manual_seed(3))["layer_0"]
+    b, s = MOE_B, MOE_S
+    h = torch.randn((b, s, cfg.hidden), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((b, s, cfg.hidden), generator=gen).to(dev, torch.bfloat16)
+    mask = _right_pad_mask(gen, b, s, dev)
+
+    def leaves(tree):
+        return {k: v.detach().clone().requires_grad_(True)
+                for k, v in flatten_dict(tree).items()}
+
+    def objective(out, aux):
+        return (out.float() * g.float()).sum() + aux["lb_loss"]
+
+    def whole_layer(m):
+        p = leaves(lp)
+        x = h.detach().to(m.dtype).clone().requires_grad_(True)
+        out, aux = m._moe_layer(unflatten_dict(p), x, mask, None, None)
+        objective(out, aux).backward()
+        return p, x, out, aux
+
+    exact, hx, out_x, _ = whole_layer(f32)
+    whole, hw, out_w, aux_w = whole_layer(model)
+    rules = model.sharding_rules(MeshShape(expert=EXPERT_RANKS))
+    sizes = mesh_sizes(MeshShape(expert=EXPERT_RANKS), EXPERT_RANKS)
+    layouts = [ShardLayout.for_params(Mesh(sizes, r, EXPERT_RANKS), lp,
+                                      rules) for r in range(EXPERT_RANKS)]
+    flat = leaves(lp)                   # the replicated leaves, shared
+    cut = [{k: (v if not lay.splits[k] else
+                lay.local(k, v.detach()).requires_grad_(True))
+            for k, v in flat.items()} for lay in layouts]
+    ranks = [MoeBert(cfg, dtype=torch.bfloat16, attention_impl="flash")
+             for _ in range(EXPERT_RANKS)]
+    for r, m in enumerate(ranks):
+        m.ep = _StubMesh(r)
+    ht = h.clone().requires_grad_(True)
+    read = _reset_launches()
+    emu = _EmulatedRanks(EXPERT_RANKS)
+    outs = emu.run(lambda r: ranks[r]._moe_layer(unflatten_dict(cut[r]), ht,
+                                                 mask, None, None))
+    # every rank's loss is the same: the mean is the program's
+    total = sum(objective(o, a) for o, a in outs) / EXPERT_RANKS
+    total.backward()
+    torch.cuda.synchronize()
+    launches = read()
+
+    def errs(ref_out, ref_h, ref):
+        out = {"out": max(row_rel_err(o, ref_out) for o, _ in outs),
+               "dh": grad_row_rel_err(ht.grad, ref_h.grad)}
+        for k, w in ref.items():
+            sp = layouts[0].splits[k]
+            got = (flat[k].grad if not sp else
+                   torch.cat([x[k].grad for x in cut], dim=sp[0][0]))
+            if k == "attn/k/bias":
+                out[k] = ((got.float() - w.grad.float()).abs().max()
+                          / ref["attn/q/bias"].grad.abs().max()).item()
+            else:
+                out[k] = grad_row_rel_err(got, w.grad)
+        return out
+
+    vs_w, vs32 = errs(out_w, hw, whole), errs(out_x, hx, exact)
+    own = {"out": row_rel_err(out_w, out_x),
+           "dh": grad_row_rel_err(hw.grad, hx.grad)}
+    own.update({k: grad_row_rel_err(whole[k].grad, w.grad)
+                for k, w in exact.items() if k != "attn/k/bias"})
+    aux_rel = max(abs(float(a["lb_loss"].detach())
+                      - float(aux_w["lb_loss"].detach()))
+                  / float(aux_w["lb_loss"].detach()) for _, a in outs)
+    over = [k for k, e in vs_w.items()
+            if e > TP_LAYER_ROW_REL_TOL or not np.isfinite(e)]
+    worse = [k for k in vs32 if k in own
+             and vs32[k] > max(2 * own[k], TP_LAYER_F32_FLOOR)]
+    want = {"flash_attention_fwd": EXPERT_RANKS,
+            "flash_attention_bwd_dq": EXPERT_RANKS,
+            "flash_attention_bwd_dkv": EXPERT_RANKS}
+    got = {k: launches[k] for k in want}
+    moe_keys = [k for k in vs_w if k.startswith("moe/")]
+    log(f"[expert (a)] MoE-BERT layer {b} x {s}, hidden {cfg.hidden}, "
+        f"{cfg.heads} heads, {cfg.n_experts} experts over {EXPERT_RANKS} "
+        f"expert ranks (a thread each on this card), top-{cfg.top_k}, "
+        f"capacity {cfg.capacity_factor}, bf16, flash: against the whole "
+        f"layer, worst row errors out {vs_w['out']:.3e}, dh "
+        f"{vs_w['dh']:.3e}, experts' and router's grads "
+        + ", ".join(f"{k} {vs_w[k]:.3e}" for k in moe_keys)
+        + f" (tol {TP_LAYER_ROW_REL_TOL}); lb loss {aux_rel:.2e} relative; "
+        f"against f32, EP / whole bf16: out {vs32['out']:.3e} / "
+        f"{own['out']:.3e}, dh {vs32['dh']:.3e} / {own['dh']:.3e}; "
+        f"launches {got} (want {want}) ({card})")
+    if over or worse or got != want or aux_rel > 1e-5:
+        failed.append(f"(a) EP layer: over the gate {over}, against f32 "
+                      f"{worse}, launches {got}, lb {aux_rel:.2e}")
+    return got
+
+
+def _ep_body_case(gen, dev, failed: list, card: str) -> None:
+    """(b) ``ops/moe.moe_ffn_ep_body`` at the same widths over 2 token
+    shards (the sequence halves of 64 x 128; each shard a thread of
+    :class:`_EmulatedRanks` holding 4 experts, its capacity its own, the
+    two ``all_to_all``s and the stats' mean met by the phase) against the
+    dense ``moe_ffn`` on the whole batch, at a capacity factor where no
+    shard drops a token: outputs and the gradients of sum(y * g) + lb
+    (router, experts, inputs) within TP_LAYER_ROW_REL_TOL, the aux within
+    1e-5."""
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
+        AxisNames
+    cfg = _moe_layer_cfg()
+    e, d = cfg.n_experts, cfg.hidden
+    el = e // EXPERT_RANKS
+    params = moe.moe_ffn_init(torch.Generator(device=dev).manual_seed(5),
+                              e, d, cfg.intermediate)
+    x = torch.randn((MOE_B, MOE_S, d), generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn((MOE_B, MOE_S, d), generator=gen).to(dev)
+    shards = x.chunk(EXPERT_RANKS, dim=1)
+    # the capacity factor at which no shard drops: its busiest expert
+    with torch.no_grad():
+        busiest = max(int(torch.bincount(moe.router_logits(
+            params["router"], sh.reshape(-1, d)).argmax(-1),
+            minlength=e).max()) for sh in shards)
+    t_shard = shards[0].numel() // d
+    cf = float(np.ceil(busiest * e / t_shard * 4) / 4)
+    kw = dict(n_experts=e, top_k=1, capacity_factor=cf, dtype=torch.bfloat16)
+
+    def leaves():
+        return {k: (v.detach().clone().requires_grad_(True)
+                    if k != "router" else
+                    {"kernel": v["kernel"].detach().clone()
+                     .requires_grad_(True)})
+                for k, v in params.items()}
+
+    dense_p = leaves()
+    xd = x.clone().requires_grad_(True)
+    yd, auxd = moe.moe_ffn(dense_p, xd, **kw)
+    ((yd.float() * g).sum() + auxd["lb_loss"]).backward()
+    ep_p = leaves()
+    xs = [sh.contiguous().requires_grad_(True) for sh in shards]
+    local = [{"router": ep_p["router"],
+              **{k: ep_p[k][r * el:(r + 1) * el]
+                 for k in ("w_in", "b_in", "w_out", "b_out")}}
+             for r in range(EXPERT_RANKS)]
+    emu = _EmulatedRanks(EXPERT_RANKS)
+    mesh = _StubMesh(0)
+    outs = emu.run(lambda r: moe.moe_ffn_ep_body(
+        local[r], xs[r], n_ranks=EXPERT_RANKS, axis_name=AxisNames.EXPERT,
+        stat_axes=(AxisNames.EXPERT,), mesh=mesh, **kw))
+    gs = g.chunk(EXPERT_RANKS, dim=1)
+    ((sum((o.float() * gr).sum() for (o, _), gr in zip(outs, gs)))
+     + outs[0][1]["lb_loss"]).backward()
+    torch.cuda.synchronize()
+    y = torch.cat([o for o, _ in outs], dim=1)
+    errs = {"y": row_rel_err(y, yd),
+            "dx": grad_row_rel_err(torch.cat([t.grad for t in xs], dim=1),
+                                   xd.grad),
+            "router": grad_row_rel_err(ep_p["router"]["kernel"].grad,
+                                       dense_p["router"]["kernel"].grad)}
+    for k in ("w_in", "b_in", "w_out", "b_out"):
+        errs[k] = grad_row_rel_err(ep_p[k].grad, dense_p[k].grad)
+    aux = {k: abs(float(outs[0][1][k]) - float(auxd[k]))
+           / max(abs(float(auxd[k])), 1e-30)
+           for k in ("lb_loss", "z_loss")}
+    dropped = [float(a["dropped_fraction"]) for _, a in outs]
+    over = [k for k, v in errs.items()
+            if v > TP_LAYER_ROW_REL_TOL or not np.isfinite(v)]
+    log(f"[expert (b)] moe_ffn_ep_body, {EXPERT_RANKS} token shards of "
+        f"{MOE_B} x {MOE_S // EXPERT_RANKS} (a thread each), {el} experts a "
+        f"shard, capacity factor {cf} (the busiest expert of a shard: "
+        f"{busiest} tokens), two all_to_alls a call, against the dense "
+        f"moe_ffn on the whole batch: row errors "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {TP_LAYER_ROW_REL_TOL}); aux "
+        + ", ".join(f"{k} {v:.2e}" for k, v in aux.items())
+        + f" relative; dropped {dropped} ({card})")
+    if over or max(aux.values()) > 1e-5 or any(dropped):
+        failed.append(f"(b) EP body: over the gate {over}, aux {aux}, "
+                      f"dropped {dropped}")
+
+
+def _pipe_moe_case(failed: list, card: str, tmp: str) -> dict:
+    """(c) pipe_moe_bert at BERT-base widths on one rank (12 stacked MoE
+    layers, 8 experts, top-1, capacity 1.25, bf16, flash): its first step
+    (dropout off, one microbatch) against ``moe_bert --moe_every 1`` at
+    the same weights (the stacked ``layers`` against ``layer_i``), then
+    ``cli/train.py --model pipe_moe_bert`` 10 steps at 32 x 128 (4
+    microbatches) and its eval, B1, B2a and B2b counted exactly.
+    Returns the CLI run's launches."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.models.moe import (
+        MoeBert, MoeBertConfig)
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import \
+        tree_map
+    cfg = cli.config_from_args(cli.build_parser().parse_args(EXPERT_ARGV))
+    pipe = get_model(cfg.model, cfg)
+    c = pipe.cfg
+    bert = MoeBert(MoeBertConfig(**{f.name: getattr(c, f.name)
+                                    for f in dataclasses.fields(
+                                        MoeBertConfig)
+                                    if hasattr(c, f.name)},
+                                 moe_every=1),
+                   dtype=pipe.dtype, attention_impl=pipe.attention_impl,
+                   param_dtype=pipe.param_dtype)
+    dev = torch.device("cuda")
+    params = pipe.init(0, device=dev)
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    for i in range(c.layers):
+        flat[f"layer_{i}"] = tree_map(lambda a, i=i: a[i], params["layers"])
+    tr, _ = get_bert_data(None, vocab_size=c.vocab_size, seq_len=EXPERT_S,
+                          max_predictions=c.max_predictions, synthetic=True,
+                          num_train=EXPERT_B, num_test=8)
+    batch = {k: torch.as_tensor(v[:EXPERT_B], device=dev)
+             for k, v in tr.items()}
+    micro = c.microbatches
+    c.microbatches = 1
+    try:
+        lp, gp = _loss_and_grads(pipe, params, batch)
+    finally:
+        c.microbatches = micro
+    lb, gb = _loss_and_grads(bert, flat, batch)
+    stacked = {}
+    for key, g in gb.items():
+        if key.startswith("layer_"):
+            i, rest = key.split("/", 1)
+            stacked.setdefault(rest, {})[int(i[len("layer_"):])] = g
+        else:
+            stacked[key] = g
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in gb.values()))
+    bad, same = [], 0
+    for key, g in gp.items():
+        if key.startswith("layers/"):
+            parts = stacked[key[len("layers/"):]]
+            ref = torch.stack([parts[i] for i in range(c.layers)])
+        else:
+            ref = stacked[key]
+        same += torch.equal(g, ref)
+        err = (g.float() - ref.float()).norm()
+        tol = (TRAIN_ZERO_GRAD_SHARE * total if key.endswith("attn/k/bias")
+               else TRAIN_GRAD_REL_TOL * ref.float().norm())
+        if err > tol or not torch.isfinite(g).all():
+            bad.append(key)
+    log(f"[expert (c)] {cfg.model} ({c.layers} stacked MoE layers, hidden "
+        f"{c.hidden}, {c.n_experts} experts, bf16, flash, dropout off, one "
+        f"microbatch) against moe_bert --moe_every 1 at the same weights, "
+        f"{EXPERT_B} x {EXPERT_S}: loss {lp:.6f} / {lb:.6f} (tol "
+        f"{TRAIN_LOSS_TOL}); {same} of {len(gp)} gradient leaves bitwise "
+        f"equal; leaves over the gate {bad} ({card})")
+    if abs(lp - lb) > TRAIN_LOSS_TOL or not np.isfinite(lp) or bad:
+        failed.append(f"(c) pipe_moe_bert against moe_bert: loss {lp} / "
+                      f"{lb}, leaves {bad}")
+    del params, flat, gp, gb, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = os.path.join(tmp, "pipe_moe.jsonl")
+    eval_batches = -(-256 // EXPERT_B)
+    per_step = c.layers * EXPERT_MICRO
+    # the unbound eval splits its batches into the microbatches too
+    want = {"flash_attention_fwd": per_step * (EXPERT_STEPS + eval_batches),
+            "flash_attention_bwd_dq": per_step * EXPERT_STEPS,
+            "flash_attention_bwd_dkv": per_step * EXPERT_STEPS,
+            "flash_attention_bwd_fused": 0, "decode_attention": 0,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+    t1 = time.perf_counter()
+    rc, lines, recs, peak = _cli_run(
+        EXPERT_ARGV + ["--train_steps", str(EXPERT_STEPS),
+                       "--log_every_steps", "5", "--metrics_path", m],
+        "pipe_moe_bert", failed, card, tag="expert (c)", want=want)
+    wall = time.perf_counter() - t1
+    got = _launch_counts()
+    curve = _step_metrics(lines)
+    ev = _final_eval(lines)
+    rates = _rates(recs)
+    log(f"[expert (c)] cli pipe_moe_bert {EXPERT_STEPS} steps at "
+        f"{EXPERT_B} x {EXPERT_S} ({EXPERT_MICRO} microbatches, dropout on):"
+        f" loss at steps "
+        + " ".join(f"{k}:{curve[k]['loss']:.4f}" for k in sorted(curve))
+        + ", dropped token fraction "
+        + " ".join(f"{k}:{curve[k].get('dropped_token_fraction', -1):.4f}"
+                   for k in sorted(curve))
+        + f", final eval {ev}, examples/s at the log steps "
+        + " / ".join(f"{r:.1f}" for r in rates)
+        + f", peak {peak:.1f} MiB, wall {wall:.1f} s ({card})")
+    losses = [curve[k]["loss"] for k in sorted(curve)]
+    if rc != 0 or sorted(curve) != [5, 10] or not all(np.isfinite(losses)) \
+            or not np.isfinite(ev.get("loss", np.nan)):
+        failed.append(f"(c) cli curve {curve}, eval {ev}")
+    return got
+
+
+def phase_expert(card: str) -> dict:
+    """Expert parallelism over ``expert`` (slice A6d) on the one card. One
+    card holds no two NCCL ranks, so, as ``phase_tp`` does, the phase
+    computes each rank's share on the card and does the collectives'
+    arithmetic itself (the ranks are threads running the port's own
+    code; :class:`_EmulatedRanks`); the multi-rank schedules run on gloo
+    CPU ranks in the tests. (a) :func:`_ep_layer_case`, (b)
+    :func:`_ep_body_case`, (c) :func:`_pipe_moe_case`. Returns the
+    launches of (a) and (c)."""
+    failed: list[str] = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_expert_")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(31)
+    t0 = time.perf_counter()
+    try:
+        a = _ep_layer_case(gen, dev, failed, card)
+        t_a = time.perf_counter()
+        _ep_body_case(gen, dev, failed, card)
+        t_b = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = _pipe_moe_case(failed, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"b1": a["flash_attention_fwd"] + c["flash_attention_fwd"],
+           "b2a": a["flash_attention_bwd_dq"] + c["flash_attention_bwd_dq"],
+           "b2b": a["flash_attention_bwd_dkv"]
+           + c["flash_attention_bwd_dkv"]}
+    log(f"[expert] phase {time.perf_counter() - t0:.1f} s ((a) "
+        f"{t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) "
+        f"{time.perf_counter() - t_b:.1f} s); launches B1 {out['b1']}, "
+        f"B2a {out['b2a']}, B2b {out['b2b']} ({card})")
+    if failed:
+        raise SystemExit("the expert phase failed: " + "; ".join(failed))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7782,6 +8243,8 @@ def main() -> int:
     timed("tp")
     pipe = phase_pipe(card)
     timed("pipe")
+    expert = phase_expert(card)
+    timed("expert")
     log("[readers] MNIST at the mnist_mlp row (batch 8192), two Trainer "
         "runs a loader: " + "; ".join(
             f"{k} loader {v['alone_ms']:.3f} host ms a batch alone, ms a "
@@ -7813,7 +8276,7 @@ def main() -> int:
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
          + fleet["b1"] + moe["b1"] + readers["b1"] + sharded["b1"]
-         + tp["b1"] + pipe["b1"],
+         + tp["b1"] + pipe["b1"] + expert["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -7821,7 +8284,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
          "launches": train["flash_attention_bwd_dq"] + moe["b2a"]
-         + readers["b2a"] + sharded["b2a"] + tp["b2a"] + pipe["b2a"],
+         + readers["b2a"] + sharded["b2a"] + tp["b2a"] + pipe["b2a"] + expert["b2a"],
          **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -7829,7 +8292,7 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
          "launches": train["flash_attention_bwd_dkv"] + moe["b2b"]
-         + readers["b2b"] + sharded["b2b"] + tp["b2b"] + pipe["b2b"],
+         + readers["b2b"] + sharded["b2b"] + tp["b2b"] + pipe["b2b"] + expert["b2b"],
          **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"

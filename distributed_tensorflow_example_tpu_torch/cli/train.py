@@ -48,9 +48,10 @@ thread pool with ``--augment``, ``--fast_decode``, ``--label_offset``;
 ``gpt`` and ``gpt_tiny`` on the synthetic LM corpus or pre-tokenized
 ``.npy`` or TFRecord files, and ``bert``, ``bert_large``, ``bert_tiny``,
 ``moe_bert`` and ``moe_bert_tiny`` (masked LM; the ``--moe_*`` routing
-knobs) and ``pipe_bert`` and ``pipe_bert_tiny`` (the encoder's layers
-stacked into GPipe stages over a ``pipe`` axis, with ``model`` as well
-PP x TP) on the same tokens, masked, or on a raw-text corpus with its
+knobs) and ``pipe_bert``, ``pipe_bert_tiny``, ``pipe_moe_bert`` and
+``pipe_moe_bert_tiny`` (the encoder's layers stacked into GPipe stages
+over a ``pipe`` axis, with ``model`` as well PP x TP for pipe_bert, with
+``expert`` EP x PP for the MoE ones) on the same tokens, masked, or on a raw-text corpus with its
 ``vocab.txt``, and ``pipe_mlp`` (residual blocks in GPipe stages) on
 MNIST; ``--native`` takes the C++ loader and parsers
 (``data/native.py``) and stops when its library cannot be built;
@@ -96,7 +97,8 @@ log = get_logger("cli")
 #: aliases are the reference's)
 LM_MODELS = ("gpt", "gpt_tiny")
 BERT_MODELS = ("bert", "bert_large", "bert_tiny", "moe_bert",
-               "moe_bert_tiny", "pipe_bert", "pipe_bert_tiny")
+               "moe_bert_tiny", "pipe_bert", "pipe_bert_tiny",
+               "pipe_moe_bert", "pipe_moe_bert_tiny")
 MNIST_DATASETS = ("mlp", "pipe_mlp", "mnist", "lenet")
 CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
 IMAGENET_DATASETS = ("resnet50", "imagenet")
@@ -128,16 +130,16 @@ def build_parser() -> argparse.ArgumentParser:
     :func:`main`) plus ``--device``."""
     p = argparse.ArgumentParser(
         description="sync data-parallel trainer, one rank a card over "
-                    "the data, fsdp, model, seq and pipe axes (distributed-"
-                    "tensorflow-example parity CLI)")
+                    "the data, fsdp, model, seq, expert and pipe axes "
+                    "(distributed-tensorflow-example parity CLI)")
     add_legacy_flags(p)
     a = p.add_argument
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="device to train on (cuda unless the caller asks for the CPU)")
     a("--model", default="mlp", help="mlp | pipe_mlp | lenet | resnet20 | "
       "resnet50 | gpt | gpt_tiny | bert | bert_large | bert_tiny | "
-      "moe_bert | moe_bert_tiny | pipe_bert | pipe_bert_tiny "
-      "(pipe_moe_bert and pipe_moe_bert_tiny arrive with slice A6d)")
+      "moe_bert | moe_bert_tiny | pipe_bert | pipe_bert_tiny | "
+      "pipe_moe_bert | pipe_moe_bert_tiny")
     a("--dataset", default=None,
       help="default: the model's canonical dataset")
     a("--data_dir", default=None,
@@ -266,9 +268,11 @@ def build_parser() -> argparse.ArgumentParser:
            "(Megatron tensor parallelism by the model's rules: GPT, BERT, "
            "MoE-BERT and pipe_bert compute on their pieces, the others "
            "replicate along it), seq (the model replicated along it, as "
-           "the reference's trainer binds no ring attention) and pipe "
-           "(GPipe stages of pipe_mlp and pipe_bert, the others replicate "
-           "along it) train; expert (slice A6d) is refused")
+           "the reference's trainer binds no ring attention), expert "
+           "(MoE-BERT's and pipe_moe_bert's experts split over it, the "
+           "others replicate along it) and pipe (GPipe stages of "
+           "pipe_mlp, pipe_bert and pipe_moe_bert, the others replicate "
+           "along it)")
     a("--sync_mode", default="auto", choices=["auto", "shard_map"],
       help="auto: batch norm over the global batch (sync-BN); "
            "shard_map: over each rank's batch")
@@ -559,20 +563,14 @@ def _num_workers(args) -> int:
 
 def _later_slice(args) -> list[tuple[str, bool, str]]:
     """(what, set?, slice) for every knob the port does not carry yet."""
-    dataset = args.dataset or args.model
     return [
-        # the expert-parallel pipeline models (pipe_moe_bert, ...)
-        (f"--model {args.model}", args.model.startswith("pipe_moe"),
-         "A6d"),
-        (f"--dataset {dataset}", dataset.startswith("pipe_moe"), "A6d"),
         ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
         ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
     ]
 
 
 def _refuse_mesh(args) -> None:
-    """SystemExit for a mesh the port cannot train: a later slice's axis
-    (named), or a mesh that is not one rank a card."""
+    """SystemExit for a mesh that is not one rank a card."""
     from ..parallel.sync_replicas import resolve_mesh
     mesh = parse_mesh(args.mesh) or MeshShape(data=-1)
     try:
@@ -589,7 +587,7 @@ def refuse_later_slices(args) -> None:
             raise SystemExit(f"{what} arrives with slice {slice_} of the "
                              "port; the port trains " + ", ".join(MODELS)
                              + ", one rank a card over data, fsdp, "
-                             "model, seq and pipe")
+                             "model, seq, expert and pipe")
     _refuse_mesh(args)
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):

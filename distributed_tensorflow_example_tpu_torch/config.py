@@ -5,8 +5,7 @@ routing knobs, the parameter EMA, bf16 moments and warm start included).
 
 Field names and defaults are the reference's, so a config reads the same
 in both packages. The fields of a later slice are absent (the streaming
-and ImageNet-reader knobs), or refused by the ``Trainer`` when set: a
-``model``, ``seq``, ``pipe`` or ``expert`` mesh axis and
+and ImageNet-reader knobs), or refused by the ``Trainer`` when set:
 ``steps_per_loop > 1``.
 """
 
@@ -107,12 +106,12 @@ class SyncConfig:
 class MeshShape:
     """Logical mesh axis sizes (the reference's). The port runs one rank
     a card, so the axes multiply to the number of ranks (one ``-1``
-    takes the rest). ``data``, ``fsdp``, ``model``, ``seq`` and ``pipe``
-    train (``fsdp`` shards the params and their optimizer state ZeRO-3's
-    way, ``model`` by the models' Megatron rules, the layers computing on
-    the pieces; along ``seq`` the model is replicated unless ring
-    attention is bound; ``pipe`` splits the pipe models' stacked blocks
-    into GPipe stages); ``expert`` (slice A6d) stays at 1."""
+    takes the rest). Every axis trains (``fsdp`` shards the params and
+    their optimizer state ZeRO-3's way, ``model`` by the models'
+    Megatron rules, the layers computing on the pieces; along ``seq`` the
+    model is replicated unless ring attention is bound; ``expert`` splits
+    the MoE models' experts; ``pipe`` splits the pipe models' stacked
+    blocks into GPipe stages)."""
 
     data: int = 1
     fsdp: int = 1

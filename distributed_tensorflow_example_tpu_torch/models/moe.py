@@ -18,16 +18,24 @@ the token count. :attr:`MoeBert.batch_dependent_forward` says so, and
 ``serving.export_model`` then writes a static-batch artifact, as the
 reference's export falls back to one.
 
-Under N ranks each rank routes its own tokens (capacity from its local
-T) and the sync step takes the plain mean of the ranks' losses, metrics
-and gradients, as the reference's explicit EP step pmeans its members';
-the MLM loss reports no token weight here, so no rank's share is
-reweighed. :meth:`MoeBert.sharding_rules` carries the reference's
-expert and TP rules as data. Under tensor parallelism (``bind_mesh``
-with ``model`` > 1, ``expert`` at 1) the attention halves and dense
-FFNs are BERT's, and each MoE layer runs its experts on this rank's
-hidden columns (``ops/moe.py``); expert parallelism itself (the token
-exchange over an ``expert`` axis) is slice A6d.
+Under an ``auto`` step over N batch ranks the MoE layers route the
+global batch: the model passes the step's batch ranks
+(``runtime/distributed.batch_ranks``) to ``ops/moe.moe_ffn``, whose slot
+positions continue the earlier ranks' counts, whose capacity is the
+global one and whose routing statistics are averaged over the ranks
+before the aux losses, as the reference's GSPMD program does. The loss
+(:func:`moe_mlm_loss`, also ``pipe_moe_bert``'s) reports its token
+weight, so the step weighs each rank's MLM mean by its share, and its
+routing losses, the same on every rank here, under ``LOSS_GLOBAL``,
+which the step averages unweighted. A ``shard_map`` step routes each
+rank's tokens, as the reference's. :meth:`MoeBert.sharding_rules` carries the reference's
+expert and TP rules as data. Bound to a mesh (``bind_mesh``) with
+``expert`` > 1 each MoE layer runs this rank's E/ep experts on the
+whole batch's slots (every ``expert`` rank holds the same rows and
+routes alike) and joins their outputs over ``expert`` before the
+combine; with ``model`` > 1 the attention halves and dense FFNs are
+BERT's tensor-parallel ones and each expert runs on this rank's hidden
+columns (EP x TP: ``w_in`` [E/ep, H, I/tp]).
 """
 
 from __future__ import annotations
@@ -37,20 +45,28 @@ import dataclasses
 import torch
 
 from ..config import TrainConfig
-from ..ops import moe, nn
+from ..ops import losses, moe, nn
+from ..parallel.mesh import AxisNames
+from ..runtime import distributed
 from .base import checked_params, generator, register_model, remat_call
 from .bert import Bert, BertConfig, _make
 from .bert import params_to_numpy as _bert_params_to_numpy
 
 
 @dataclasses.dataclass
-class MoeBertConfig(BertConfig):
+class MoeFields:
+    """The MoE knobs of both MoE-BERTs (``moe_bert``, ``pipe_moe_bert``),
+    mixed into their configs."""
     n_experts: int = 8
     top_k: int = 1
     capacity_factor: float = 1.25
-    moe_every: int = 2            # a MoE FFN every k-th layer (offset k-1)
     aux_weight: float = 0.01      # load-balancing loss weight
     router_z_weight: float = 0.0  # ST-MoE router z-loss weight
+
+
+@dataclasses.dataclass
+class MoeBertConfig(MoeFields, BertConfig):
+    moe_every: int = 2            # a MoE FFN every k-th layer (offset k-1)
     jitter: float = 0.0           # router input noise U[1-j, 1+j], train
 
     @classmethod
@@ -58,6 +74,31 @@ class MoeBertConfig(BertConfig):
         return cls(vocab_size=1000, hidden=128, layers=2, heads=4,
                    intermediate=256, max_len=128, max_predictions=8,
                    n_experts=4, capacity_factor=2.0)
+
+
+def moe_mlm_loss(model, params, extras, batch, gen=None):
+    """A MoE-BERT's loss (``MoeBert``'s and ``PipeMoeBert``'s ``loss``):
+    ``(mlm + aux_weight * lb + router_z_weight * z, (metrics, extras))``
+    with the reference's metrics: ``mlm_accuracy``, ``mlm_loss``,
+    ``aux_loss``, ``router_z_loss``, ``dropped_token_fraction`` and, where
+    the model reports it, ``expert_load`` [E] with its min and max; and,
+    for the sync step, the prediction weight (``LOSS_WEIGHT``) and the
+    routing losses' part (``LOSS_GLOBAL``)."""
+    seq_out, aux = model.encode_with_aux(params, batch, gen, train=True)
+    w = model._weights(batch, seq_out.device)
+    mlm, acc = model._mlm_loss_and_acc(params, seq_out, batch, w)
+    routing = (model.cfg.aux_weight * aux["lb_loss"]
+               + model.cfg.router_z_weight * aux["z_loss"])
+    metrics = {"mlm_accuracy": acc, "mlm_loss": mlm,
+               "aux_loss": aux["lb_loss"], "router_z_loss": aux["z_loss"],
+               "dropped_token_fraction": aux["dropped_fraction"]}
+    if "expert_load" in aux:
+        load = aux["expert_load"]
+        metrics.update(expert_load=load, expert_load_min=torch.min(load),
+                       expert_load_max=torch.max(load))
+    metrics.update({losses.LOSS_WEIGHT: w.sum(),
+                    losses.LOSS_GLOBAL: routing})
+    return mlm + routing, (metrics, extras)
 
 
 class MoeBert(Bert):
@@ -99,6 +140,19 @@ class MoeBert(Bert):
                          attention_kwargs=attention_kwargs,
                          attention_fn=attention_fn)
         self.cfg: MoeBertConfig = cfg
+        #: the bound mesh when its ``expert`` axis splits the experts
+        self.ep = None
+
+    def bind_mesh(self, mesh) -> None:
+        """BERT's ``model`` binding, and with ``expert`` > 1 the MoE
+        layers on this rank's experts (None: the whole model). Raises
+        ValueError when the experts do not split over ``expert``."""
+        ep = mesh.shape[AxisNames.EXPERT] if mesh is not None else 1
+        if ep > 1 and self.cfg.n_experts % ep:
+            raise ValueError(f"n_experts={self.cfg.n_experts} not "
+                             f"divisible by expert axis size {ep}")
+        super().bind_mesh(mesh)
+        self.ep = mesh if ep > 1 else None
 
     def _is_moe_layer(self, i: int) -> bool:
         return (i % self.cfg.moe_every) == (self.cfg.moe_every - 1)
@@ -136,17 +190,19 @@ class MoeBert(Bert):
         return params
 
     # ------------------------------------------------------------------
-    def _moe_layer(self, lp, h, mask, key, jitter_key):
+    def _moe_layer(self, lp, h, mask, key, jitter_key, ranks=None):
         """One MoE encoder layer: MHA -> add & LN -> MoE FFN -> add & LN;
         ``(h, aux)``. Its randomness is its keys' (dropout, router
-        jitter), so :func:`remat_call` can recompute it."""
+        jitter), so :func:`remat_call` can recompute it. ``ranks``: the
+        batch ranks it routes over (None: its rows alone)."""
         c = self.cfg
         h = self._attn_block(lp, h, mask, key)
         f, aux = moe.moe_ffn(lp["moe"], h, n_experts=c.n_experts,
                              top_k=c.top_k,
                              capacity_factor=c.capacity_factor,
                              dtype=self.dtype, key=jitter_key,
-                             jitter=c.jitter, tp=self.tp)
+                             jitter=c.jitter, tp=self.tp, ep=self.ep,
+                             ranks=ranks)
         return self._ffn_block(lp, h, f, key), aux
 
     def encode_with_aux(self, params, batch, gen=None, train: bool = False):
@@ -155,8 +211,11 @@ class MoeBert(Bert):
         ``dropped_fraction`` and ``expert_load`` their mean. Router
         jitter runs only in training with a generator: its key is the
         layer's (the step generator's seed folded with the layer index)
-        folded with 3, as the reference folds its layer key."""
+        folded with 3, as the reference folds its layer key. Inside an
+        ``auto`` step over several batch ranks the layers route the
+        global batch."""
         c = self.cfg
+        ranks = distributed.batch_ranks()
         key = nn.dropout_key(gen, c.dropout, train)
         jkey = (gen.initial_seed()
                 if train and c.jitter > 0 and gen is not None else None)
@@ -176,7 +235,7 @@ class MoeBert(Bert):
                 jk = (None if jkey is None
                       else nn.fold_in(nn.fold_in(jkey, i), 3))
                 h, aux = remat_call(self.remat, self._moe_layer, lp, h, mask,
-                                    lkey, jk)
+                                    lkey, jk, ranks)
                 total = {k: v + aux[k] for k, v in total.items()}
                 n_moe += 1
             else:
@@ -190,26 +249,7 @@ class MoeBert(Bert):
     def encode(self, params, batch, gen=None, train: bool = False):
         return self.encode_with_aux(params, batch, gen, train)[0]
 
-    def loss(self, params, extras, batch, gen=None):
-        """``(mlm + aux_weight * lb + router_z_weight * z, (metrics,
-        extras))``, the reference's metrics: ``mlm_accuracy``,
-        ``mlm_loss``, ``aux_loss``, ``router_z_loss``,
-        ``dropped_token_fraction``, ``expert_load`` [E] and its min and
-        max."""
-        seq_out, aux = self.encode_with_aux(params, batch, gen, train=True)
-        w = self._weights(batch, seq_out.device)
-        mlm, acc = self._mlm_loss_and_acc(params, seq_out, batch, w)
-        total = (mlm + self.cfg.aux_weight * aux["lb_loss"]
-                 + self.cfg.router_z_weight * aux["z_loss"])
-        load = aux["expert_load"]
-        metrics = {"mlm_accuracy": acc, "mlm_loss": mlm,
-                   "aux_loss": aux["lb_loss"],
-                   "router_z_loss": aux["z_loss"],
-                   "dropped_token_fraction": aux["dropped_fraction"],
-                   "expert_load": load,
-                   "expert_load_min": torch.min(load),
-                   "expert_load_max": torch.max(load)}
-        return total, (metrics, extras)
+    loss = moe_mlm_loss
 
 
 # ---------------------------------------------------------------------------

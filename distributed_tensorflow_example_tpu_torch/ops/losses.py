@@ -51,6 +51,13 @@ DEFAULT_VOCAB_BLOCK = 2048
 #: reports its total weight (the sum before the clamp at 1): the sync
 #: step weights N ranks' means by it and drops it from the metrics
 LOSS_WEIGHT = "__loss_weight__"
+#: the aux-metric key under which such a loss reports the part of it
+#: whose plain mean over the batch ranks is the global batch's value
+#: (MoE routing losses: the same on every rank under global routing, or
+#: each rank's mean over its equal share of the microbatches): the sync
+#: step leaves that part out of the weighting and drops the key from the
+#: metrics
+LOSS_GLOBAL = "__loss_global__"
 
 
 def _masked_mean(values: torch.Tensor, where) -> torch.Tensor:

@@ -156,15 +156,8 @@ def ppermute_ring_shift(x: torch.Tensor, axis_name: AxisName, *,
     return out
 
 
-def all_to_all(x: torch.Tensor, axis_name: AxisName, *, split_axis: int,
-               concat_axis: int, tiled: bool = True,
-               mesh: Mesh | None = None) -> torch.Tensor:
-    """``lax.all_to_all``: ``x`` split along ``split_axis`` into one
-    chunk a member, chunk ``j`` sent to member ``j``, the received
-    chunks joined along ``concat_axis`` in member order. ``tiled``
-    keeps the rank of ``x``; otherwise ``split_axis`` must equal the
-    member count, is removed, and the members' slices stack on a new
-    ``concat_axis``."""
+def _all_to_all(x: torch.Tensor, axis_name: AxisName, split_axis: int,
+                concat_axis: int, tiled: bool, mesh) -> torch.Tensor:
     group, members, _ = _ctx(axis_name, mesh)
     n = len(members)
     if tiled:
@@ -180,6 +173,40 @@ def all_to_all(x: torch.Tensor, axis_name: AxisName, *, split_axis: int,
     got = _exchange(chunks, group, members)
     return (torch.cat(got, dim=concat_axis) if tiled
             else torch.stack(got, dim=concat_axis))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` forward; backward, the same exchange with the split
+    and concat axes swapped (JAX's transpose of ``lax.all_to_all``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis, tiled, mesh):
+        ctx.args = (axis_name, split_axis, concat_axis, tiled, mesh)
+        return _all_to_all(x, axis_name, split_axis, concat_axis, tiled,
+                           mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, split_axis, concat_axis, tiled, mesh = ctx.args
+        return (_all_to_all(g.contiguous(), axis_name, concat_axis,
+                            split_axis, tiled, mesh),
+                None, None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis_name: AxisName, *, split_axis: int,
+               concat_axis: int, tiled: bool = True,
+               mesh: Mesh | None = None) -> torch.Tensor:
+    """``lax.all_to_all``: ``x`` split along ``split_axis`` into one
+    chunk a member, chunk ``j`` sent to member ``j``, the received
+    chunks joined along ``concat_axis`` in member order. ``tiled``
+    keeps the rank of ``x``; otherwise ``split_axis`` must equal the
+    member count, is removed, and the members' slices stack on a new
+    ``concat_axis``. Differentiable: the gradient goes back through the
+    exchange with the two axes swapped (the expert-parallel token
+    exchange and its return). Every member of the axis must call it
+    (and its backward) alike."""
+    return _AllToAll.apply(x, axis_name, split_axis, concat_axis, tiled,
+                           mesh or current_mesh())
 
 
 def broadcast_one_to_all(x: torch.Tensor, axis_name: AxisName, *,
@@ -373,3 +400,25 @@ def reduce_from(x: torch.Tensor, axis_name: AxisName, *,
     which the last stage alone contributes and every member then uses
     alike)."""
     return _ReduceFrom.apply(x, axis_name, mesh or current_mesh())
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.args = (axis_name, mesh)
+        return all_reduce_mean(x.contiguous(), axis_name, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, mesh = ctx.args
+        return (all_reduce_mean(g.contiguous(), axis_name, mesh=mesh), None,
+                None)
+
+
+def pmean(x: torch.Tensor, axis_name: AxisName, *,
+          mesh: Mesh | None = None) -> torch.Tensor:
+    """``lax.pmean`` inside a ``shard_map`` body: the members' mean
+    forward; backward, the members' mean of the cotangent (JAX's
+    transpose of it). Statistics every member then reads alike (the
+    expert-parallel routing statistics) get their gradient this way."""
+    return _PMean.apply(x, axis_name, mesh or current_mesh())

@@ -39,7 +39,8 @@ A rank holds its stage's pieces of the stacked params, as the sync step's
 placement cut them (:func:`stage_params` cuts a whole stack the same
 way), and its own rows of the batch, whole along every other dim unless
 ``x_specs`` splits one (PipeBert's PP x TP layout splits the sequence
-over ``model``).
+over ``model``, the pipelined MoE-BERT's EP x PP layout the rows over
+``expert``).
 """
 
 from __future__ import annotations
@@ -153,11 +154,12 @@ def make_pipeline(mesh: Mesh, stage_fn: StageFn, *,
     dim ``L/P``); ``param_specs`` (the reference's per-leaf specs, which
     must keep ``pipe`` on the leading dim) are checked against that. ``x``
     is the rank's rows; ``x_specs`` (a spec a leaf of ``x``, default
-    ``P(batch_axes)``) may split a further dim of a leaf over another
-    axis: the pipeline then runs on this rank's block of it
-    (:func:`~.collectives.split_along`) and joins the output blocks
-    (:func:`~.collectives.gather_along`), the Megatron sequence-parallel
-    layout of PipeBert under PP x TP.
+    ``P(batch_axes)``) may split a dim of a leaf over another axis (the
+    rows too, over an axis beyond ``batch_axes``): the pipeline then runs
+    on this rank's block of it (:func:`~.collectives.split_along`) and
+    joins the output blocks (:func:`~.collectives.gather_along`), the
+    Megatron sequence-parallel layout of PipeBert under PP x TP, and the
+    rows over ``expert`` of the pipelined MoE-BERT under EP x PP.
     """
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1, got "
@@ -169,7 +171,7 @@ def make_pipeline(mesh: Mesh, stage_fn: StageFn, *,
         """(dim, axis) of each split a spec makes beyond the batch."""
         out = []
         for i, s in enumerate(spec or ()):
-            if i == 0 or s is None:
+            if s is None:
                 continue
             axes = s if isinstance(s, tuple) else (s,)
             for a in axes:
@@ -183,13 +185,16 @@ def make_pipeline(mesh: Mesh, stage_fn: StageFn, *,
                 if not spec or spec[0] != pipe_axis:
                     raise ValueError(f"param spec {spec} must keep "
                                      f"{pipe_axis} on the leading dim")
+        specs = (x_specs if x_specs is not None
+                 else tree_map(lambda _: P(batch_axes), x))
         b = _leaves(x)[0].shape[0]
+        for d, ax in splits(_leaves(specs)[0]):
+            if d == 0:
+                b //= mesh.shape[ax]
         if b % num_microbatches:
             raise ValueError(
                 f"per-shard batch {b} not divisible by "
                 f"num_microbatches={num_microbatches}")
-        specs = (x_specs if x_specs is not None
-                 else tree_map(lambda _: P(batch_axes), x))
 
         def enter(a, spec):
             a = collectives.copy_to(a, pipe_axis, mesh=mesh)
@@ -213,11 +218,13 @@ def make_pipeline(mesh: Mesh, stage_fn: StageFn, *,
 
 
 def sequential_blocks(stage_fn: StageFn, stacked_params, x, *,
-                      num_microbatches: int = 1):
+                      num_microbatches: int = 1, first_microbatch: int = 0):
     """The unsplit oracle: ALL stacked blocks in order on one rank (what
     the pipeline computes, minus the pipelining), with the same
     microbatch split, so microbatch-keyed dropout draws alike. The
-    unbound pipe models' path and the tests' parity target."""
+    unbound pipe models' path and the tests' parity target. The
+    microbatches are numbered from ``first_microbatch`` (a rank that
+    holds later microbatches of a global batch)."""
     b = _leaves(x)[0].shape[0]
     if not isinstance(b, int):
         # a symbolic batch (an export's dynamic dim): the split needs a
@@ -229,9 +236,9 @@ def sequential_blocks(stage_fn: StageFn, stacked_params, x, *,
         raise ValueError(f"batch {b} not divisible by "
                          f"num_microbatches={num_microbatches}")
     if num_microbatches == 1:
-        return stage_fn(stacked_params, x, 0)
+        return stage_fn(stacked_params, x, first_microbatch)
     parts = [stage_fn(stacked_params,
                       tree_map(lambda a, i=i: a.chunk(num_microbatches)[i],
-                               x), i)
+                               x), first_microbatch + i)
              for i in range(num_microbatches)]
     return _zip_map(lambda *ys: torch.cat(ys), *parts)

@@ -12,7 +12,8 @@ contiguous piece of a sharded leaf (:func:`shard_params`,
 gathers the full leaf before the loss and reduce-scatters its gradient
 after. A piece over ``model`` is Megatron's: the layers compute on it
 (``parallel/tensor_parallel.py``) and it is never gathered in a step;
-nor is a stage's block of a pipe model's stack over ``pipe``
+nor is a MoE layer's block of experts over ``expert`` (``ops/moe.py``)
+or a stage's block of a pipe model's stack over ``pipe``
 (``parallel/pipeline.py``).
 
 Built-in policies:
@@ -21,12 +22,13 @@ Built-in policies:
 - **fsdp**: large params sharded over the ``fsdp`` axis;
 - **rules**: explicit per-path specs (models attach these: GPT's and
   BERT's Megatron rules over ``model``, MoE-BERT's over ``expert``),
-  carried as data. A spec splits a dim over one of ``fsdp``, ``model``
-  and ``pipe`` (the pipe models' stacked blocks over ``pipe`` on their
-  stage dim, and under PP x TP also over ``model`` on a kernel dim). No
-  rule places a parameter over ``seq`` (ring attention shards
-  activations only, as in the reference); one that splits over
-  ``expert`` is refused naming its slice (A6d).
+  carried as data. A spec splits a dim over one of ``fsdp``, ``model``,
+  ``expert`` and ``pipe`` (the pipe models' stacked blocks over ``pipe``
+  on their stage dim, and under PP x TP also over ``model`` on a kernel
+  dim; MoE experts over ``expert`` on their expert dim, and under EP x
+  TP also over ``model`` on a column dim). No rule places a parameter
+  over ``seq`` (ring attention shards activations only, as in the
+  reference).
 """
 
 from __future__ import annotations
@@ -160,15 +162,13 @@ def state_shardings(mesh: Mesh, state: Mapping[str, Any],
     return unflatten_dict(out)
 
 
-#: the axes that do not place parameters in the port yet, and their
-#: slices
-LATER_PLACEMENT = {AxisNames.EXPERT: "A6d"}
 #: the axes a parameter piece may lie over
-PLACEMENT_AXES = (AxisNames.FSDP, AxisNames.MODEL, AxisNames.PIPE)
+PLACEMENT_AXES = (AxisNames.FSDP, AxisNames.MODEL, AxisNames.EXPERT,
+                  AxisNames.PIPE)
 #: the axes whose pieces the layers compute on (the step binds its mesh
-#: on the model): Megatron's over ``model``, a stage's blocks over
-#: ``pipe``
-BOUND_AXES = (AxisNames.MODEL, AxisNames.PIPE)
+#: on the model): Megatron's over ``model``, a MoE layer's experts over
+#: ``expert``, a stage's blocks over ``pipe``
+BOUND_AXES = (AxisNames.MODEL, AxisNames.EXPERT, AxisNames.PIPE)
 
 
 def _split(mesh: Mesh, spec: P) -> tuple[tuple[int, str], ...]:
@@ -183,14 +183,10 @@ def _split(mesh: Mesh, spec: P) -> tuple[tuple[int, str], ...]:
         if not wide:
             continue
         for a in wide:
-            if a in LATER_PLACEMENT:
-                raise NotImplementedError(
-                    f"spec {spec} splits over {a}: parameters placed over "
-                    f"{a} arrive with slice {LATER_PLACEMENT[a]}")
             if a not in PLACEMENT_AXES:
                 raise NotImplementedError(
-                    f"spec {spec} splits over {a}: only fsdp, model and "
-                    "pipe place parameters")
+                    f"spec {spec} splits over {a}: only fsdp, model, "
+                    "expert and pipe place parameters")
         if len(wide) > 1:
             raise NotImplementedError(
                 f"spec {spec} splits dim {i} over {wide}: one axis a dim")
@@ -205,9 +201,10 @@ class ShardLayout:
     """Where each parameter lives on this rank of a mesh: for each flat
     param key its global shape and the (dim, axis) of each dim it is
     split along (``splits``; empty: whole here), over ``fsdp``,
-    ``model`` or ``pipe``: a pipe model's stacked block under PP x TP is
-    split on its stage dim over ``pipe`` and on a kernel dim over
-    ``model``. A piece is the contiguous block at this rank's coordinate
+    ``model``, ``expert`` or ``pipe``: a pipe model's stacked block under
+    PP x TP is split on its stage dim over ``pipe`` and on a kernel dim
+    over ``model``, a MoE layer's experts under EP x TP over ``expert``
+    and ``model``. A piece is the contiguous block at this rank's coordinate
     on each splitting axis. The per-parameter optimizer leaves of a
     parameter's shape (moments, traces, EMA shadows) follow it."""
 
@@ -245,8 +242,9 @@ class ShardLayout:
 
     @property
     def bound(self) -> bool:
-        """Whether the layers compute on pieces (a split over ``model``
-        or ``pipe``): the step binds its mesh on the model."""
+        """Whether the layers compute on pieces (a split over ``model``,
+        ``expert`` or ``pipe``): the step binds its mesh on the
+        model."""
         return any(self.split_over(a) for a in BOUND_AXES)
 
     def size(self, key: str) -> int:
@@ -310,8 +308,8 @@ class ShardLayout:
 
     def step_params(self, params: Mapping) -> dict:
         """The params a step computes on: the ``fsdp`` pieces gathered
-        whole, the ``model`` and ``pipe`` pieces left as they are (the
-        layers compute on them)."""
+        whole, the ``model``, ``expert`` and ``pipe`` pieces left as they
+        are (the layers compute on them)."""
         return unflatten_dict({
             k: self.gather(k, v, axes=(AxisNames.FSDP,))
             for k, v in flatten_dict(params).items()})

@@ -48,7 +48,12 @@ mean weight (one small all-reduce a microbatch), so the ranks' mean is
 the weighted mean over the global (micro)batch (the reference's
 ``auto``, a loss over the whole sharded batch) even where the ranks'
 shares hold different numbers of tokens; the microbatches' means are
-then averaged as they are, as the reference's scan does. ``shard_map``
+then averaged as they are, as the reference's scan does. The part of
+such a loss that the loss reports under
+:data:`~..ops.losses.LOSS_GLOBAL` (the MoE models' routing losses,
+whose plain mean over the ranks is the global batch's) is left out of
+that scaling, so its gradient is averaged as it is. The scale is taken
+before the backward (one small all-reduce after each forward). ``shard_map``
 takes the plain mean of the ranks' means, as the reference's ``pmean``
 does.
 ``debug_checks=True`` is the counterpart of the reference's
@@ -64,30 +69,32 @@ FLOP count in ``last_cost_analysis``, the counterpart of the reference's
 
 The mesh is one rank a card (or a gloo CPU process): its axes multiply
 to the number of ranks, and a mesh that asks for more (several cards to
-a process) is refused. Of its axes ``data``, ``fsdp``, ``model``,
-``seq`` and ``pipe`` may be wider than 1; ``expert`` (A6d) is refused.
-The replicas are ``data`` × ``fsdp``, as the reference's batch split
-(``mesh.py``'s ``BATCH``): ``model``, ``seq`` and ``pipe`` ranks see the
+a process) is refused. Any of its axes may be wider than 1. The replicas
+are ``data`` × ``fsdp``, as the reference's batch split (``mesh.py``'s
+``BATCH``): ``model``, ``seq``, ``expert`` and ``pipe`` ranks see the
 same batch rows. Under ``auto`` the state is placed by the
 model's :class:`~.sharding.ShardingRules` (:class:`~.sharding.
 ShardLayout`): :meth:`SyncReplicas.init` builds the whole state from the
 seed on every rank and keeps this rank's pieces of each sharded
 parameter and of its per-parameter optimizer leaves, over ``fsdp``
-(ZeRO-3), ``model`` (Megatron tensor parallelism) or ``pipe`` (a pipe
-model's stage of its stacked blocks; under PP x TP a block is split over
-both). A step gathers the ``fsdp`` pieces before the loss and leaves the
-``model`` and ``pipe`` pieces as they are: it binds its mesh on the
-loss's model (``bind_mesh``), whose layers compute on them
-(``parallel/tensor_parallel.py``, ``parallel/pipeline.py``). After the
-backward each ``fsdp`` piece's gradient is reduce-scattered to its mean
-over ``fsdp`` and averaged over ``data``; the ``model`` and ``pipe``
-pieces' and the whole leaves' gradients, the loss, the aux metrics, the
-token weights and the new extras are averaged over (``data``,
-``fsdp``), never over ``model``, ``seq`` or ``pipe``. That is right for
+(ZeRO-3), ``model`` (Megatron tensor parallelism), ``expert`` (a MoE
+layer's experts) or ``pipe`` (a pipe model's stage of its stacked
+blocks; a leaf may be split over two of them). A step gathers the
+``fsdp`` pieces before the loss and leaves the ``model``, ``expert``
+and ``pipe`` pieces as they are: it binds its mesh on the loss's model
+(``bind_mesh``), whose layers compute on them
+(``parallel/tensor_parallel.py``, ``ops/moe.py``,
+``parallel/pipeline.py``). After the backward each ``fsdp`` piece's
+gradient is reduce-scattered to its mean over ``fsdp`` and averaged over
+``data``; the other pieces' and the whole leaves' gradients, the loss,
+the aux metrics, the token weights and the new extras are averaged over
+(``data``, ``fsdp``), never over ``model``, ``seq``, ``expert`` or
+``pipe``. That is right for
 the leaves repeated along those axes because the model makes their
 gradients whole and equal on every member before the step sees them: a
 conjugate pair of collectives sits at each edge of a split region (the
-rule of ``parallel/tensor_parallel.py`` for ``model``). Along ``pipe``
+rule of ``parallel/tensor_parallel.py`` for ``model``; along ``expert``
+the MoE layer's, ``ops/moe.py``). Along ``pipe``
 the pipeline's input sums its gradient over ``pipe`` (only stage 0 reads
 it: an input projection or the embeddings get their gradient there
 alone) and its output passes the gradient through (every stage computes
@@ -103,8 +110,9 @@ over each piece's own shard group (``optimizers.shard_reduction``). This
 is the program the reference's XLA compiles from its ``NamedSharding``.
 ``shard_map`` keeps the parameters whole on every rank, as the
 reference's ``_shard_map_step`` (whose state is replicated, ``P()``)
-does: ``fsdp`` is then one more batch axis, and ``model``, ``seq`` and
-``pipe`` ranks repeat the same step. A pipelined model (``pipe_mlp``,
+does: ``fsdp`` is then one more batch axis, and ``model``, ``seq``,
+``expert`` and ``pipe`` ranks repeat the same step (MoE-BERT routes each
+rank's tokens there). A pipelined model (``pipe_mlp``,
 ``pipe_bert``) over a ``pipe`` axis is refused there, as the
 reference's step refuses the pipeline's own ``shard_map`` inside its
 own.
@@ -125,7 +133,7 @@ from typing import Any, Callable
 import torch
 
 from ..config import MeshShape, SyncConfig
-from ..ops.losses import LOSS_WEIGHT
+from ..ops.losses import LOSS_GLOBAL, LOSS_WEIGHT
 from ..runtime import distributed
 from ..runtime.device import resolve_device
 from ..train.optimizers import (LeafShard, Transform, apply_updates,
@@ -160,18 +168,29 @@ def _split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
             for i in range(accum_steps)]
 
 
-def _value_and_grad(loss_fn: LossFn, params: dict, extras, batch, gen):
-    """(grads in ``flatten_dict`` order, loss, aux, new_extras); ``aux``
-    may hold the loss's :data:`LOSS_WEIGHT`."""
+def _value_and_grad(loss_fn: LossFn, params: dict, extras, batch, gen,
+                    weigh: Callable | None = None):
+    """(grads in ``flatten_dict`` order, loss, aux, new_extras). ``weigh``
+    (the mean over the batch ranks, or None): a loss that reports its
+    :data:`LOSS_WEIGHT` is scaled by the rank's :func:`_token_share` of
+    it before the backward, its :data:`LOSS_GLOBAL` part excepted, and
+    so are its aux metrics; both keys leave the metrics."""
     flat = {k: v.detach().requires_grad_(True)
             for k, v in flatten_dict(params).items()}
     loss, (aux, new_extras) = loss_fn(unflatten_dict(flat), extras, batch,
                                       gen)
+    weight = aux.pop(LOSS_WEIGHT, None)
+    fixed = aux.pop(LOSS_GLOBAL, None)
+    aux = {k: v.detach() for k, v in aux.items()}
+    if weigh is not None and weight is not None:
+        c = _token_share(weight, weigh)
+        loss = (c * loss if fixed is None
+                else c * (loss - fixed) + fixed)
+        aux = {k: v * c for k, v in aux.items()}
     leaves = list(flat.values())
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for g, p in zip(grads, leaves)]
-    aux = {k: v.detach() for k, v in aux.items()}
     return grads, loss.detach(), aux, new_extras
 
 
@@ -192,20 +211,12 @@ def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
     """Gradients (+ loss/aux/extras) with optional microbatch
     accumulation: the microbatches' gradients summed in order, then
     divided, and their loss and aux metrics averaged, as the reference's
-    scan does. ``gens``: one generator per microbatch. ``weigh`` (the
-    mean over the batch ranks, or None): scale each microbatch's
-    gradients, loss and aux metrics by the rank's :func:`_token_share`
-    of its loss's :data:`LOSS_WEIGHT` (a loss without one is left as it
-    is)."""
+    scan does. ``gens``: one generator per microbatch. ``weigh``: see
+    :func:`_value_and_grad`."""
     gsum, lsum, auxes, ex = None, 0.0, [], extras
     for mb, gen in zip(_split_microbatches(batch, accum_steps), gens):
-        g, loss, aux, ex = _value_and_grad(loss_fn, params, ex, mb, gen)
-        weight = aux.pop(LOSS_WEIGHT, None)
-        if weigh is not None and weight is not None:
-            c = _token_share(weight, weigh)
-            g = [x * c.to(x.dtype) for x in g]
-            loss = loss * c
-            aux = {k: v * c for k, v in aux.items()}
+        g, loss, aux, ex = _value_and_grad(loss_fn, params, ex, mb, gen,
+                                           weigh)
         if accum_steps <= 1:
             return g, loss, aux, ex
         gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
@@ -217,36 +228,19 @@ def _grads_and_metrics(loss_fn: LossFn, params, extras, batch, gens,
     return grads, lsum / accum_steps, aux, ex
 
 
-#: the mesh axes the port does not shard over yet, and their slices
-LATER_AXES = {
-    "expert": "A6d (expert parallelism, the pipe_moe_* models)",
-}
 #: the rule a mesh's size must keep
 ONE_RANK_A_CARD = ("the port runs one rank a card (one process a card, or "
                    "a gloo CPU process): the mesh's axes must multiply to "
                    "the number of ranks")
 
 
-def refuse_later_axes(mesh: MeshShape) -> None:
-    """NotImplementedError naming the slice of the first axis the port
-    does not shard over yet (any size but 1, a wildcard included)."""
-    for axis, cut in LATER_AXES.items():
-        v = getattr(mesh, axis)
-        if v != 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={v} arrives with slice {cut}; the port "
-                "shards over data, fsdp, model, seq and pipe")
-
-
 def resolve_mesh(mesh, world: int) -> dict[str, int]:
     """The axis sizes a ``mesh`` asks for over ``world`` ranks: None or
     -1 puts every rank on ``data``, an int is the data axis, a
     ``MeshShape`` its axes (one -1 wildcard allowed), a :class:`Mesh`
-    its own sizes. Refuses a later slice's axis (naming it) and a mesh
-    that is not one rank a card."""
+    its own sizes. Refuses a mesh that is not one rank a card."""
     if isinstance(mesh, Mesh):
         sizes = dict(mesh.shape)
-        refuse_later_axes(MeshShape(**sizes))
         if mesh.world != world:
             raise NotImplementedError(
                 f"mesh over {mesh.world} rank(s) in a world of {world}: "
@@ -255,7 +249,6 @@ def resolve_mesh(mesh, world: int) -> dict[str, int]:
     if not isinstance(mesh, MeshShape):
         data = world if mesh is None or mesh == -1 else int(mesh)
         mesh = MeshShape(data=data)
-    refuse_later_axes(mesh)
     axes = mesh.as_dict()
     if -1 not in axes.values() and mesh.total() != world:
         raise NotImplementedError(
@@ -321,7 +314,7 @@ class SyncReplicas:
         self.num_replicas = sizes["data"] * sizes["fsdp"]
         #: the model whose loss this is (a bound method's owner): the
         #: step binds its mesh on it when the layers compute on
-        #: ``model`` or ``pipe`` pieces
+        #: ``model``, ``expert`` or ``pipe`` pieces
         self.model = model
         #: the placement rules (``shard_map`` keeps the params whole)
         self.rules = (rules or ShardingRules(fsdp_axis_size=sizes["fsdp"])
@@ -431,14 +424,16 @@ class SyncReplicas:
     @contextlib.contextmanager
     def _bound(self, layout):
         """The loss's model bound to this mesh while the step computes on
-        ``model`` or ``pipe`` pieces (unbound again after, so eval and
-        export see whole params); inert for a state with none."""
+        ``model``, ``expert`` or ``pipe`` pieces (unbound again after, so
+        eval and export see whole params); inert for a state with
+        none."""
         if layout is None or not layout.bound:
             yield
             return
         if not hasattr(self.model, "bind_mesh"):
             raise ValueError(
-                "the placement rules split parameters over model or pipe, "
+                "the placement rules split parameters over model, expert "
+                "or pipe, "
                 f"but the loss's model ({type(self.model).__name__}) cannot "
                 "compute on such pieces (no bind_mesh)")
         self.model.bind_mesh(self.mesh)
@@ -450,7 +445,8 @@ class SyncReplicas:
     def _batch_group(self) -> tuple:
         """``all_reduce_mean``'s (group, size) for the batch ranks: the
         world's (None, None) when they are the world, else their group
-        (a mesh with a ``model`` axis)."""
+        (a mesh with a ``model``, ``seq``, ``expert`` or ``pipe``
+        axis)."""
         if self.num_replicas == self.mesh.world:
             return None, None
         return self.mesh.group(AxisNames.BATCH), self.num_replicas
@@ -489,8 +485,7 @@ class SyncReplicas:
         """The gradient exchange of a sharded state: each ``fsdp`` piece's
         gradient reduce-scattered to its mean over ``fsdp`` (this rank
         keeps its piece), then averaged over ``data`` (ZeRO); the
-        ``model`` and ``pipe`` pieces' and the whole leaves'
-        gradients, the loss, the aux metrics and the new extras averaged
+        other pieces' and the whole leaves' gradients, the loss, the aux metrics and the new extras averaged
         over the batch ranks."""
         out = list(grads)
         rest = []

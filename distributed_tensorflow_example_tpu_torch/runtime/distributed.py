@@ -13,8 +13,10 @@ One process (no cluster, or one worker) initializes nothing, and every
 helper here is then a no-op, so the same trainer runs on one card or on
 many. The collectives the sync step and the checkpoint ring need live
 here too: the mean all-reduce, the broadcast from rank 0, the barrier,
-and the differentiable mean of batch norm's statistics over the ranks
-(sync-BN), switched on by :func:`cross_rank_batch_stats`.
+and the differentiable mean of batch statistics over the ranks (batch
+norm's, sync-BN, and, through :class:`BatchRanks`, MoE routing's, with
+the gather of the routing counts), switched on by
+:func:`cross_rank_batch_stats`.
 """
 
 from __future__ import annotations
@@ -217,9 +219,12 @@ _CROSS_RANK_STATS: contextvars.ContextVar = contextvars.ContextVar(
 def cross_rank_batch_stats(group=None, size: int | None = None):
     """Inside, :func:`batch_stats_mean` averages over every rank (or the
     ``size`` ranks of ``group``, the batch ranks of a mesh with a
-    ``model`` axis): the reference's ``auto`` mode, which normalises over
-    the global batch. The sync step enters it around the forward and
-    backward of a step; with one rank it is inert."""
+    ``model``, ``expert``, ``seq`` or ``pipe`` axis), and
+    :func:`batch_ranks` names those ranks for the layers that route over
+    them (``models/moe.py``): the reference's ``auto`` mode, which
+    normalises (and routes) over the global batch. The sync step enters it
+    around the forward and backward of a step; with one rank it is
+    inert."""
     n = process_count() if size is None else size
     token = _CROSS_RANK_STATS.set((group, size) if n > 1 else None)
     try:
@@ -236,3 +241,40 @@ def batch_stats_mean(stats: torch.Tensor) -> torch.Tensor:
     if over is None:
         return stats
     return _MeanOverRanks.apply(stats, over)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchRanks:
+    """The batch ranks of an ``auto`` step over several of them: this
+    rank's ``index`` among the ``size`` ranks of ``group`` (None: every
+    rank), in member order, the order of their rows in the global batch.
+    A layer that computes over the global batch (MoE routing,
+    ``ops/moe.py``) takes it as an argument."""
+
+    index: int
+    size: int
+    group: object = None
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the ranks, differentiable (the backward
+        is the same mean of the cotangent)."""
+        return _MeanOverRanks.apply(x, (self.group, self.size))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked on a new leading dim in member
+        order (no gradient; one all-gather)."""
+        x = x.detach().contiguous()
+        got = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(got, x, group=self.group)
+        return torch.stack(got)
+
+
+def batch_ranks() -> BatchRanks | None:
+    """The ranks :func:`cross_rank_batch_stats` averages over, seen from
+    this rank; None outside it (one rank, a ``shard_map`` step, eval)."""
+    over = _CROSS_RANK_STATS.get()
+    if over is None:
+        return None
+    group, size = over
+    return BatchRanks(dist.get_rank(group),
+                      process_count() if size is None else size, group)

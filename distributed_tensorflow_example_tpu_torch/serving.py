@@ -131,10 +131,8 @@ def serving_signature(batch: dict[str, Any]) -> dict[str, Any]:
 
 def _model_config(model) -> dict:
     """The config ``models.get_model`` rebuilds ``model`` from. Only a
-    model built by ``get_model`` carries it, and only a model the port
-    has ported can be rebuilt: anything else raises naming the slice
-    that brings the models the port lacks (the expert-parallel pipeline
-    models, A6d)."""
+    model built by ``get_model`` carries it: anything else raises naming
+    the models the port serves."""
     from .models import list_models
     name = getattr(model, "registry_name", None)
     cfg = getattr(model, "train_config", None)
@@ -143,8 +141,7 @@ def _model_config(model) -> dict:
         raise ValueError(
             f"export_model: {what!r} was not built by models.get_model, "
             f"so its config cannot be recorded (the port serves "
-            f"{', '.join(list_models())}; the expert-parallel pipeline "
-            "models arrive with slice A6d)")
+            f"{', '.join(list_models())})")
     return {"name": name,
             **{f: getattr(cfg, f) for f in _MODEL_CONFIG_FIELDS},
             "data": {"vocab_size": cfg.data.vocab_size,

@@ -37,14 +37,14 @@ eval runs on the shadows. Host metrics are floats, and a vector metric
 (MoE-BERT's per-expert load) a list: the JSONL takes it, the scalar
 hooks skip it. ``steps_per_loop > 1`` arrives with slice A3c-2b and
 raises. The mesh is one rank a card over ``data``, ``fsdp``,
-``model``, ``seq`` and ``pipe``; the state is sharded by the model's
-``sharding_rules`` (over ``fsdp`` ZeRO-3's way, over ``model``
+``model``, ``seq``, ``expert`` and ``pipe``; the state is sharded by the
+model's ``sharding_rules`` (over ``fsdp`` ZeRO-3's way, over ``model``
 Megatron's: GPT, BERT, MoE-BERT and pipe_bert compute on their pieces;
-over ``pipe`` the pipe models' stages; eval, warm start and the EMA's
-eval see the whole params, gathered), and ``checkpoint.sharded`` writes
-per-rank shard files. Along ``seq`` the model runs replicated, as the
-reference's trainer binds no ring attention. An ``expert`` axis wider
-than 1 raises naming its slice (A6d).
+over ``expert`` MoE-BERT's and pipe_moe_bert's experts; over ``pipe``
+the pipe models' stages; eval, warm start and the EMA's eval see the
+whole params, gathered), and ``checkpoint.sharded`` writes per-rank
+shard files. Along ``seq`` the model runs replicated, as the
+reference's trainer binds no ring attention.
 """
 
 from __future__ import annotations
@@ -90,9 +90,8 @@ def _host_metric(v):
 
 def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
     """Raise NotImplementedError naming its slice for a set knob the
-    port's Trainer does not carry yet (an ``expert`` axis,
-    ``steps_per_loop > 1``), or stating the rule of one
-    rank a card for a mesh wider than the ranks (and the reference's
+    port's Trainer does not carry yet (``steps_per_loop > 1``), or
+    stating the rule of one rank a card for a mesh wider than the ranks (and the reference's
     ValueErrors on anomaly settings no path could honor)."""
     resolve_mesh(config.mesh, num_processes)
     if config.steps_per_loop > 1:

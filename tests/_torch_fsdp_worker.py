@@ -9,9 +9,9 @@ Joins a gloo group through ``--init`` and runs the tasks of
 - ``collectives``: the eight named collectives over the task's mesh, one
   case each (inputs ``in/<case>`` stacked a rank on dim 0, outputs
   ``out/<case>``);
-- ``train``: a model (``mlp``, or ``gpt_tiny``, ``bert_tiny`` or
-  ``moe_bert_tiny`` dims with dropout off unless the task sets
-  ``dropout``) under the task's optimizer on the task's mesh (and its
+- ``train``: a model (``mlp``, or ``gpt_tiny``, ``bert_tiny``,
+  ``moe_bert_tiny`` or ``pipe_moe_bert_tiny`` dims with dropout off
+  unless the task sets ``dropout``, and the task's ``cfg`` overrides) under the task's optimizer on the task's mesh (and its
   ``sync`` settings), restored
   from the monolithic checkpoint in ``bridge`` (the reference's step 0),
   for ``steps`` global batches from ``batches`` (each rank takes its
@@ -45,6 +45,17 @@ Joins a gloo group through ``--init`` and runs the tasks of
   gradients on this rank's rows of ``batch`` with ring attention over
   ``seq`` and without, from the flat params in ``params`` (and
   ``gpt_params``);
+- ``moe_ep``: the task's ``cases`` of a MoE FFN on the params, ``x`` and
+  ``cot`` of ``inputs``: ``shard_map`` runs ``moe_ffn_shard_map`` over
+  the case's mesh on the whole params and ``x`` (the output, the aux and
+  the gradients of sum(y²) + lb); ``global`` runs ``moe_ffn`` on this
+  batch rank's rows routed over the batch ranks that
+  ``cross_rank_batch_stats`` names (``batch_ranks``; its output, the
+  aux and the ranks' sum of the gradients of sum(y * cot) + (lb + z)/n,
+  which is the one-rank loss's gradient);
+- ``pipe_groups``: pipe_moe_bert_tiny's loss metrics bound to the mesh
+  on this rank's pieces and rows of ``batch``, and the unbound model's on
+  the whole params and the rows reordered by ``order``;
 - ``cli``: after the other tasks the group is left and ``cli/train.py``
   runs once per argv (each brings its own group up at worker 0's
   address), with ``--worker_hosts`` and ``--task_index`` added.
@@ -78,6 +89,8 @@ from distributed_tensorflow_example_tpu_torch.models.pipe_bert import (  # noqa:
     PipeBert, PipeBertConfig)
 from distributed_tensorflow_example_tpu_torch.models.pipe_mlp import \
     PipeMlp  # noqa: E402
+from distributed_tensorflow_example_tpu_torch.models.pipe_moe import (  # noqa: E402,E501
+    PipeMoeBert, PipeMoeBertConfig)
 from distributed_tensorflow_example_tpu_torch.parallel import \
     collectives as C  # noqa: E402
 from distributed_tensorflow_example_tpu_torch.parallel.mesh import \
@@ -121,6 +134,9 @@ def model_of(name: str, dropout: float = 0.0, **cfg):
     if name == "pipe_bert_tiny":
         return PipeBert(PipeBertConfig(**{**BERT_TINY, "layers": 4,
                                           "dropout": dropout, **cfg}))
+    if name == "pipe_moe_bert_tiny":
+        return PipeMoeBert(PipeMoeBertConfig(**{
+            **MOE_TINY, "layers": 4, "dropout": dropout, **cfg}))
     if name == "gpt_tiny":
         return GPT(GPTConfig(**{**GPT_TINY, "dropout": dropout, **cfg}))
     if name == "bert_tiny":
@@ -343,7 +359,8 @@ def _pipe_loss(task, rank):
         ShardLayout
     shape = MeshShape(**task["mesh"])
     mesh = build_mesh(shape)
-    model = model_of(task["model"], task.get("dropout", 0.0))
+    model = model_of(task["model"], task.get("dropout", 0.0),
+                     **task.get("cfg", {}))
     whole = model.init(0, device="cpu")
     layout = ShardLayout.for_params(mesh, whole, model.sharding_rules(shape))
     with np.load(task["batch"]) as z:
@@ -418,6 +435,78 @@ def _loss_grads(model, params, batch, tag: str) -> dict:
     return out
 
 
+def _moe_ep(task, rank):
+    """Each case's MoE FFN (see the module docstring)."""
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    with np.load(task["inputs"]) as z:
+        x = {k: torch.from_numpy(z[k]) for k in z.files}
+    out = {}
+    for case in task["cases"]:
+        mesh = build_mesh(MeshShape(**case["mesh"]))
+        name = case["name"]
+        params = unflatten_dict({k[len(f"{name}/p/"):]: v.clone()
+                                 .requires_grad_(True) for k, v in x.items()
+                                 if k.startswith(f"{name}/p/")})
+        flat = flatten_dict(params)
+        kw = dict(n_experts=case["experts"], top_k=case.get("top_k", 1),
+                  capacity_factor=case["capacity_factor"])
+        if case["mode"] == "shard_map":
+            y, aux = moe.moe_ffn_shard_map(
+                params, x[f"{name}/x"], mesh,
+                batch_axes=tuple(case["batch_axes"]),
+                model_axis=case.get("model_axis"), **kw)
+            loss = (y ** 2).sum() + aux["lb_loss"]
+        else:
+            n = mesh.size("data")
+            with distributed.cross_rank_batch_stats():
+                rows = shard_batch(mesh, {"x": x[f"{name}/x"],
+                                          "cot": x[f"{name}/cot"]})
+                y, aux = moe.moe_ffn(params, rows["x"],
+                                     ranks=distributed.batch_ranks(), **kw)
+                loss = ((y * rows["cot"]).sum()
+                        + (aux["lb_loss"] + aux["z_loss"]) / n)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        if case["mode"] != "shard_map":
+            grads = distributed.all_reduce_mean(list(grads))
+            grads = [g * mesh.size("data") for g in grads]
+        out[f"{name}/y"] = y.detach().numpy()
+        for k, v in aux.items():
+            out[f"{name}/aux/{k}"] = v.detach().numpy()
+        for k, g in zip(flat, grads):
+            out[f"{name}/grad/{k}"] = g.numpy()
+    return out
+
+
+def _pipe_groups(task, rank):
+    """pipe_moe_bert_tiny's metrics bound on this rank's pieces and rows,
+    and unbound on the whole params and the reordered rows."""
+    from distributed_tensorflow_example_tpu_torch.parallel.sharding import \
+        ShardLayout
+    shape = MeshShape(**task["mesh"])
+    mesh = build_mesh(shape)
+    model = model_of(task["model"], **task.get("cfg", {}))
+    whole = model.init(1, device="cpu")
+    layout = ShardLayout.for_params(mesh, whole, model.sharding_rules(shape))
+    with np.load(task["batch"]) as z:
+        batch = {k: torch.from_numpy(z[k]) for k in z.files}
+    order = np.asarray(task["order"])
+    out = {}
+    with torch.no_grad():
+        model.bind_mesh(mesh)
+        try:
+            met = model.loss(layout.shard_params(whole), {},
+                             shard_batch(mesh, batch), None)[1][0]
+        finally:
+            model.bind_mesh(None)
+        seq = model.loss(whole, {}, {k: v[order] for k, v in batch.items()},
+                         None)[1][0]
+    for k in ("aux_loss", "router_z_loss", "dropped_token_fraction",
+              "mlm_loss"):
+        out[f"piped/{k}"] = met[k].numpy()
+        out[f"seq/{k}"] = seq[k].numpy()
+    return out
+
+
 def _restore(task, rank):
     mesh = MeshShape(**task["mesh"])
     model, sync = _sync(task, mesh)
@@ -441,7 +530,8 @@ def main() -> int:
     runners = {"collectives": _collectives, "train": _train,
                "restore": _restore, "xent": _xent, "ring": _ring,
                "pipeline": _pipeline, "pipe_loss": _pipe_loss,
-               "bert_ring": _bert_ring, "vjp": _vjp}
+               "bert_ring": _bert_ring, "vjp": _vjp, "moe_ep": _moe_ep,
+               "pipe_groups": _pipe_groups}
     for task in tasks:
         if task["kind"] == "cli":
             continue

@@ -574,17 +574,16 @@ REFUSALS = {
                                SystemExit, "A3c-2b"),
     "trainer-steps_per_loop": (_trainer_refusal(steps_per_loop=2),
                                NotImplementedError, "A3c-2b"),
-    # the fsdp (slice A6a), model (A6a-2), seq (A6b) and pipe (A6c) axes
-    # train: a row that named them pairs them with an axis that is still
-    # refused, and a model axis wider than the ranks meets the rule of
-    # one rank a card
+    # the fsdp (slice A6a), model (A6a-2), seq (A6b), pipe (A6c) and
+    # expert (A6d) axes train: a row that named them meets the rule of one
+    # rank a card (more mesh ranks than ranks)
     "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,expert=2"]),
-                      SystemExit, "A6d"),
+                      SystemExit, None),
     "cli-mesh-model": (_cli_refusal(["--mesh", "model=2"]), SystemExit,
                        None),
     "trainer-mesh-fsdp": (_trainer_refusal(
         mesh=tconfig.MeshShape(fsdp=2, model=2, expert=2)),
-        NotImplementedError, "A6d"),
+        NotImplementedError, None),
     "sync-mesh-model": (_sync_refusal(tconfig.MeshShape(model=2)),
                         NotImplementedError, None),
     # more replicas than ranks is no later slice's: it breaks the rule of
@@ -592,16 +591,17 @@ REFUSALS = {
     "sync-two-replicas-one-rank": (_sync_refusal(2), NotImplementedError,
                                    None),
     "cli-native": (_cli_refusal(["--native", "--sharded_save", "--mesh",
-                                 "expert=2"]), SystemExit, "A6d"),
+                                 "expert=2", "--steps_per_loop", "2"]),
+                   SystemExit, "A3c-2b"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_later_slices_stay_refused_naming_their_slice(name):
-    """``multi_step``, ``--steps_per_loop 2``, ``--max_inflight_steps``
-    and the expert axis are still refused, each naming the slice
-    that brings it; more replicas (or ``model`` ranks) than ranks states
-    the rule of one rank a card."""
+    """``multi_step``, ``--steps_per_loop 2`` and
+    ``--max_inflight_steps`` are still refused, each naming the slice
+    that brings it; more replicas (or ``model``, ``expert`` ranks) than
+    ranks states the rule of one rank a card."""
     run, exc, slice_ = REFUSALS[name]
     with pytest.raises(exc, match=f"slice {slice_}" if slice_
                        else "one rank a card"):

@@ -17,9 +17,11 @@ per test; f32 differences come from summation order only.
 import fcntl
 import json
 import os
+import pathlib
 import pickle
 import subprocess
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -78,32 +80,75 @@ WHOLE_LEAF = {
 }
 
 
+class _ArrayFilePickler(pickle.Pickler):
+    """Pickles each large array's bytes into the one binary file
+    ``blob`` (at a 64-byte boundary) and only its place into the
+    stream."""
+
+    def __init__(self, f, blob):
+        super().__init__(f)
+        self.blob = blob
+
+    def persistent_id(self, obj):
+        if type(obj) is not np.ndarray or obj.dtype.kind not in "biufc" \
+                or obj.nbytes < 1 << 16:
+            return None
+        offset = self.blob.seek(0, os.SEEK_END)
+        self.blob.write(b"\0" * (-offset % 64))
+        offset += -offset % 64
+        self.blob.write(np.ascontiguousarray(obj).tobytes())
+        return offset, obj.dtype.str, obj.shape
+
+
+class _ArrayFileUnpickler(pickle.Unpickler):
+    """Maps the binary file copy-on-write and returns each large array as
+    a view of it: the workers of a run share the pages they read, and
+    none holds what its tests never read."""
+
+    def __init__(self, f, blob_path: str):
+        super().__init__(f)
+        self.blob = (np.memmap(blob_path, dtype=np.uint8, mode="c")
+                     if os.path.getsize(blob_path) else None)
+
+    def persistent_load(self, pid):
+        offset, dtype, shape = pid
+        dt = np.dtype(dtype)
+        size = int(np.prod(shape)) * dt.itemsize
+        return self.blob[offset:offset + size].view(dt).reshape(shape)
+
+
 def shared_once(tmp_path_factory, name: str, build):
     """``build(directory)``'s result, computed once for every pytest-xdist
     worker of a run (each worker would otherwise run a module fixture of
-    its own): the first worker to take the lock builds it in a
-    directory under the run's shared temporary root and pickles it; the
-    others wait on the lock and load it. Without xdist, the run's root."""
+    its own): the first worker to take the lock builds it in a fresh
+    directory under the run's shared temporary root and pickles it, the
+    large arrays' bytes to one file beside it; the others wait on the
+    lock and load it, the arrays mapped from that file. A build that raised
+    leaves the next caller a fresh directory of its own to build in.
+    Without xdist, the run's root."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
-    out = root / name
     done = root / f"{name}.pkl"
     with open(root / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not done.exists():
-            out.mkdir(exist_ok=True)
+            out = pathlib.Path(tempfile.mkdtemp(prefix=f"{name}-", dir=root))
             result = build(out)
-            with open(f"{done}.tmp", "wb") as f:
-                pickle.dump(result, f)
-            os.replace(f"{done}.tmp", done)
+            blob = out / "arrays.bin"
+            part = f"{done}.{os.getpid()}.tmp"
+            with open(part, "wb") as f, open(blob, "wb") as b:
+                pickle.dump(str(blob), f)
+                _ArrayFilePickler(f, b).dump(result)
+            os.replace(part, done)
         with open(done, "rb") as f:
-            return pickle.load(f)
+            return _ArrayFileUnpickler(f, pickle.load(f)).load()
 
 
-def run_ranks(world: int, tasks: list, tmp) -> None:
+def run_ranks(world: int, tasks: list, tmp,
+              timeout: float = RANK_TIMEOUT_S) -> None:
     """``world`` worker ranks over a ``file://`` rendezvous, all at once,
-    each under its own timeout."""
+    each under its own ``timeout`` (seconds)."""
     with open(tmp / "tasks.json", "w") as f:
         json.dump(tasks, f)
     env = dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo",
@@ -116,7 +161,7 @@ def run_ranks(world: int, tasks: list, tmp) -> None:
              str(world), "--init", "file://" + str(tmp / "rdv"), "--tasks",
              str(tmp / "tasks.json"), "--out", str(tmp)],
             cwd=ROOT, env=env, capture_output=True, text=True,
-            timeout=RANK_TIMEOUT_S)
+            timeout=timeout)
     with ThreadPoolExecutor(world) as ex:
         outs = list(ex.map(one, range(world)))
     for r in outs:
@@ -430,13 +475,14 @@ def test_elementwise_optimizers_train_on_pieces(name):
 
 def test_cli_refuses_a_whole_leaf_optimizer_under_fsdp(tmp_path):
     """Named for the refusal it replaced: ``--optimizer lamb`` trains
-    under fsdp now; paired with an expert axis, still to come, it exits
-    naming A6d before any work (the worker hosts are never
-    contacted)."""
+    under fsdp now (and the expert axis since A6d); paired with the
+    K-step dispatch, still to come, it exits naming A3c-2b before any
+    work (the worker hosts are never contacted)."""
     ck = str(tmp_path / "ck")
-    with pytest.raises(SystemExit, match="slice A6d"):
+    with pytest.raises(SystemExit, match="slice A3c-2b"):
         tcli.main(["--model", "gpt_tiny", "--device", "cpu",
                    "--optimizer", "lamb", "--mesh", "fsdp=2,expert=2",
+                   "--steps_per_loop", "2",
                    "--worker_hosts", "127.0.0.1:1,127.0.0.1:2,127.0.0.1:3,"
                    "127.0.0.1:4", "--ckpt_dir", ck])
     assert not os.path.exists(ck)

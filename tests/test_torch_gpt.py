@@ -281,12 +281,14 @@ def test_registered_configs():
     tiny = get_model("gpt_tiny")
     assert (tiny.cfg.vocab_size, tiny.cfg.hidden) == (1000, 128)
     # the MLP registers since the MNIST slice, BERT since slice A3c-3,
-    # MoE-BERT since A5b-1, the pipeline models since A6c; the
-    # expert-parallel pipeline models are a later slice's (A6d)
+    # MoE-BERT since A5b-1, the pipeline models since A6c, the
+    # expert-parallel pipeline models since A6d; a name no package
+    # registers is a KeyError
     assert get_model("mlp").hidden == 100
     assert get_model("bert_tiny").cfg.hidden == 128
     assert get_model("moe_bert_tiny").cfg.n_experts == 4
     assert get_model("pipe_bert_tiny").cfg.layers == 4
     assert get_model("pipe_mlp").cfg.blocks == 4
+    assert get_model("pipe_moe_bert_tiny").cfg.n_experts == 4
     with pytest.raises(KeyError, match="unknown model"):
-        get_model("pipe_moe_bert_tiny")
+        get_model("pipe_gpt_tiny")

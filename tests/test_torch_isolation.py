@@ -113,7 +113,9 @@ SHARDED_MODULES = tuple(
         # ring attention over seq, the GPipe pipeline over pipe and the
         # pipe models
         "parallel.ring_attention", "parallel.pipeline", "models.pipe_mlp",
-        "models.pipe_bert"))
+        "models.pipe_bert",
+        # the expert-parallel pipeline model (EP x PP)
+        "models.pipe_moe"))
 #: imported only inside the functions that decode, tokenize or read a TF
 #: checkpoint: the card's machine has none of them
 OPTIONAL = ("PIL", "transformers", "tensorflow")

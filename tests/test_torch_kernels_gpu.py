@@ -1171,6 +1171,125 @@ def test_moe_bert_step_launches_the_flash_kernels_and_matches_cpu(cuda):
         assert float((gc[k] - gp[k]).abs().max()) <= 1e-4 * size, k
 
 
+def _ep_layer(params, x, cot):
+    """The port's own EP branch of ``moe_ffn`` over ``chip_smoke.py``'s
+    ``expert`` ranks, each a thread whose collectives the script's
+    ``_EmulatedRanks`` meets in one autograd graph (each rank holds
+    E/ranks experts, routes the whole batch and joins the experts'
+    outputs): each rank's output, and the gradients of the mean over the
+    ranks of sum(y * cot) + lb, the expert leaves' pieces joined
+    whole."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    ranks = chip_smoke.EXPERT_RANKS
+    e = params["w_in"].shape[0]
+    el = e // ranks
+    router = params["router"]["kernel"].detach().clone().requires_grad_()
+    pieces = [{k: v[r * el:(r + 1) * el].detach().clone().requires_grad_()
+               for k, v in params.items() if k != "router"}
+              for r in range(ranks)]
+
+    def rank(r):
+        return moe.moe_ffn({"router": {"kernel": router}, **pieces[r]}, x,
+                           n_experts=e, capacity_factor=2.0,
+                           ep=chip_smoke._StubMesh(r))
+
+    outs = chip_smoke._EmulatedRanks(ranks).run(rank)
+    total = sum((y * cot).sum() + aux["lb_loss"] for y, aux in outs) / ranks
+    total.backward()
+    grads = {k: torch.cat([p[k].grad for p in pieces])
+             for k in pieces[0]}
+    grads["router/kernel"] = router.grad
+    return [y.detach() for y, _ in outs], grads
+
+
+def test_moe_ep_share_and_pipe_moe_step_match_cpu(cuda):
+    """moe_bert_tiny's MoE layer over 2 ``expert`` ranks on the card in
+    f32, each rank a thread running ``moe_ffn``'s own EP branch (its 2
+    of 4 experts' slots of the whole routing, the outputs joined over
+    ``expert`` before the combine; ``chip_smoke.py``'s ``_EmulatedRanks``
+    meets the collectives): each rank's output and the gradients of the ranks'
+    mean loss equal the CPU's run of the same (1e-5 of the largest
+    value), and the card's outputs and gradients equal the whole
+    ``moe_ffn``'s on the card (1e-5). Then one pipe_moe_bert_tiny step (4 MoE layers of 2 heads of
+    64, 4 microbatches, dropout off): with flash attention in bf16 it
+    launches B1, B2a and B2b once a layer and microbatch (16 each); in
+    f32 with the plain attention its loss and every gradient equal the
+    CPU's on the same weights (the loss within 1e-5 relative, each leaf
+    within 1e-4 of its largest value, floored at 1e-3 of the largest
+    gradient for the attention's key biases)."""
+    from distributed_tensorflow_example_tpu_torch.data.bert_data import \
+        get_bert_data
+    from distributed_tensorflow_example_tpu_torch.models.pipe_moe import (
+        PipeMoeBert, PipeMoeBertConfig, params_from_numpy, params_to_numpy)
+    from distributed_tensorflow_example_tpu_torch.ops import moe
+    from distributed_tensorflow_example_tpu_torch.utils.pytree import (
+        flatten_dict, unflatten_dict)
+    gen = torch.Generator().manual_seed(4)
+    params = moe.moe_ffn_init(gen, 4, 128, 256)
+    x = torch.randn((4, 32, 128), generator=gen)
+    cot = torch.randn((4, 32, 128), generator=gen)
+    on = {k: (v.to(cuda) if k != "router" else {"kernel": v["kernel"]
+                                                .to(cuda)})
+          for k, v in params.items()}
+
+    def close(got, want):
+        return float((got.cpu() - want.cpu()).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+    ys, grads = _ep_layer(on, x.to(cuda), cot.to(cuda))
+    cpu_ys, cpu_grads = _ep_layer(params, x, cot)
+    assert all(close(y, c) for y, c in zip(ys, cpu_ys))
+    assert all(close(grads[k], cpu_grads[k]) for k in cpu_grads), \
+        sorted(cpu_grads)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in
+              flatten_dict(on).items()}
+    whole, aux = moe.moe_ffn(unflatten_dict(leaves), x.to(cuda),
+                             n_experts=4, capacity_factor=2.0)
+    ((whole * cot.to(cuda)).sum() + aux["lb_loss"]).backward()
+    assert all(close(y, whole) for y in ys)
+    assert all(close(grads[k], leaves[k].grad) for k in leaves), sorted(leaves)
+
+    cfg = dict(PipeMoeBertConfig.tiny().__dict__, heads=2, dropout=0.0)
+    tr, _ = get_bert_data(None, vocab_size=1000, seq_len=64,
+                          max_predictions=8, synthetic=True, num_train=8,
+                          num_test=1)
+    flash = PipeMoeBert(PipeMoeBertConfig(**cfg), dtype=torch.bfloat16,
+                        attention_impl="flash")
+    fparams = unflatten_dict({k: v.requires_grad_() for k, v in
+                              flatten_dict(flash.init(0)).items()})
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [fn.launches for fn in counters]
+    loss, _ = flash.loss(fparams, {}, {k: torch.as_tensor(v, device=cuda)
+                                       for k, v in tr.items()})
+    loss.backward()
+    after = [fn.launches for fn in counters]
+    assert [a - b for a, b in zip(after, before)] == [16, 16, 16]
+    assert torch.isfinite(loss)
+
+    plain = PipeMoeBert(PipeMoeBertConfig(**cfg))
+    arrays = params_to_numpy(plain.init(0, device="cpu"))
+    runs = []
+    for dev in ("cuda", "cpu"):
+        flat = {k: v.requires_grad_() for k, v in flatten_dict(
+            params_from_numpy(plain, arrays, device=dev)).items()}
+        loss, _ = plain.loss(unflatten_dict(flat), {}, {
+            k: torch.as_tensor(v, device=dev) for k, v in tr.items()})
+        grads = torch.autograd.grad(loss, list(flat.values()))
+        runs.append((float(loss.detach()),
+                     {k: g.cpu() for k, g in zip(flat, grads)}))
+    (lc, gc), (lp, gp) = runs
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    top = max(float(g.abs().max()) for g in gp.values())
+    for k in gp:
+        size = max(float(gp[k].abs().max()), 1e-3 * top)
+        assert float((gc[k] - gp[k]).abs().max()) <= 1e-4 * size, k
+
+
 def test_native_loader_bert_run_equals_the_python_loaders(cuda, tmp_path):
     """``cli.train --model bert`` (BERT-base, bf16, flash, 16 x 128) with
     ``--native`` (the C++ loader, built from the port's source) and

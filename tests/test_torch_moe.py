@@ -48,6 +48,7 @@ from distributed_tensorflow_example_tpu_torch.models import (get_model,
                                                              list_models)
 from distributed_tensorflow_example_tpu_torch.models.moe import (
     MoeBert, MoeBertConfig, params_from_numpy, params_to_numpy)
+from distributed_tensorflow_example_tpu_torch.ops import losses
 from distributed_tensorflow_example_tpu_torch.ops import moe as tmoe
 from distributed_tensorflow_example_tpu_torch.parallel.sync_replicas import \
     SyncReplicas
@@ -461,7 +462,10 @@ def test_moe_bert_loss_metrics_and_every_grad_match_reference(
     assert min(taps[0].gaps) >= MIN_GAP
     np.testing.assert_array_equal(taps[0].dispatch[0], taps[1].dispatch[0])
     monkeypatch.undo()
-    assert sorted(tm0) == sorted(jm0)
+    # the port's loss also reports, for its sync step, its prediction
+    # weight and its routing losses' part (``ops/losses.py``)
+    assert sorted(tm0) == sorted(
+        list(jm0) + [losses.LOSS_WEIGHT, losses.LOSS_GLOBAL])
     for k in jm0:
         np.testing.assert_allclose(np.asarray(tm0[k]), np.asarray(jm0[k]),
                                    rtol=F32_TOL, atol=F32_TOL, err_msg=k)
@@ -670,8 +674,8 @@ def _free_ports(n: int) -> list[int]:
 
 
 def test_two_gloo_ranks_write_vector_metrics(tmp_path):
-    """``cli.train --model moe_bert_tiny`` as two workers (gloo, each
-    routing its half of every global batch, ``--accum_steps 2``): rank 0
+    """``cli.train --model moe_bert_tiny`` as two workers (gloo, routing
+    each global microbatch as one, ``--accum_steps 2``): rank 0
     alone writes the JSONL, whose every step row carries ``expert_load``
     as a list of 4 in [0, 1], the mean over the ranks of their
     microbatch means; both ranks exit 0."""

@@ -313,8 +313,8 @@ def test_sharding_rules_cover_all_four_mesh_kinds():
         assert layout.splits["embed/word/table"] == (
             ((0, "model"),) if tp else ())
     # a piece of a leaf split over two axes is the block at both
-    # coordinates; one axis may split one dim only, and expert places
-    # nothing yet (A6d)
+    # coordinates; one axis may split one dim only; expert places
+    # experts (A6d), seq no parameter
     from distributed_tensorflow_example_tpu_torch.parallel.sharding import P
     mesh = Mesh(mesh_sizes(dict(pipe=2, model=2), 4), 3, 4)
     w = torch.arange(64.0).reshape(4, 4, 4)
@@ -327,9 +327,13 @@ def test_sharding_rules_cover_all_four_mesh_kinds():
     assert layout.size("w") == 4 and layout.owns("w")
     with pytest.raises(NotImplementedError, match="two dims over one"):
         ShardLayout(mesh, {"w": P("pipe", "pipe")}, {"w": (4, 4)})
-    with pytest.raises(NotImplementedError, match="slice A6d"):
-        ShardLayout(Mesh(mesh_sizes(dict(expert=2), 2), 0, 2),
-                    {"w": P("expert")}, {"w": (4,)})
+    layout = ShardLayout(Mesh(mesh_sizes(dict(expert=2), 2), 1, 2),
+                         {"w": P("expert")}, {"w": (4,)})
+    assert layout.splits["w"] == ((0, "expert"),) and layout.bound
+    assert layout.bounds("w") == ((2, 4),)
+    with pytest.raises(NotImplementedError, match="only fsdp, model, expert"):
+        ShardLayout(Mesh(mesh_sizes(dict(seq=2), 2), 0, 2),
+                    {"w": P("seq")}, {"w": (4,)})
 
 
 def test_cli_sharded_save_resumes_and_restores_into_the_reference(runs):

@@ -117,10 +117,11 @@ def test_export_metadata_has_the_references_keys(exported, tmp_path):
 
 def test_export_refuses_a_model_the_port_cannot_rebuild(tmp_path):
     """A model not built by ``get_model`` carries no recordable config;
-    the refusal names the slice that brings the models the port lacks
-    (the pipeline models: every other family is ported)."""
+    the refusal says so and names the models the port serves (every
+    family is ported since slice A6d)."""
     m = MLP()
-    with pytest.raises(ValueError, match="slice A6"):
+    with pytest.raises(ValueError, match="not built by models.get_model.*"
+                                         "pipe_moe_bert"):
         export_model(m, m.init(0, device="cpu"), {}, str(tmp_path / "x"))
     assert not os.path.exists(tmp_path / "x")
 

@@ -4,9 +4,8 @@ mesh shape, whose GSPMD partitions the same rules.
 
 One spawn of 2 ranks (``tests/_torch_fsdp_worker.py``, no JAX) trains
 gpt_tiny, bert_tiny and moe_bert_tiny at ``model=2`` (and with dropout
-on), the three whole-leaf optimizers on bert_tiny at ``model=2``,
-moe_bert_tiny at ``data=2`` (the layout its 4-rank runs are held to),
-and runs the vocab-parallel head; one spawn of 4 ranks trains the three
+on), the three whole-leaf optimizers on bert_tiny at ``model=2``, and
+runs the vocab-parallel head; one spawn of 4 ranks trains the three
 models at (data=2, model=2) and (fsdp=2, model=2). Every run takes 3
 steps of the task's optimizer (AdamW with the global-norm clip engaged
 and the parameter EMA unless named) from the reference's step-0 state
@@ -14,11 +13,9 @@ bridged through its npz checkpoint, on numpy-seeded global batches, with
 dropout off unless named. Tolerances are stated per test; f32
 differences come from summation order only.
 
-MoE-BERT on a mesh with two batch ranks routes each rank's tokens on
-their own (``models/moe.py``, as since slice A5b-1), where the
-reference routes the global batch: those runs are held to the port's
-``data=2`` run, which routes alike, and to the reference only through
-the shard sizes.
+MoE-BERT on a mesh with two batch ranks routes the global batch, as
+the reference does (``ops/moe.py``), so its runs there are held to the
+reference like the other models'.
 """
 
 import json
@@ -137,9 +134,7 @@ def _build_runs(base):
     two += [_train_task(f"dropout-{m}", m, MESHES["model2"], root,
                         bridges[m], dropout=DROPOUT)
             for m in ("gpt_tiny", "bert_tiny")]
-    two += [_train_task("data2-moe_bert_tiny", "moe_bert_tiny",
-                        dict(data=2), root, bridges["moe_bert_tiny"]),
-            _train_task("shard_map-gpt_tiny", "gpt_tiny", MESHES["model2"],
+    two += [_train_task("shard_map-gpt_tiny", "gpt_tiny", MESHES["model2"],
                         root, bridges["gpt_tiny"],
                         sync={"mode": "shard_map"}),
             _train_task("model2-mlp", "mlp", MESHES["model2"], root,
@@ -158,10 +153,8 @@ def _build_runs(base):
                          [(2, two, tmp[2]), (4, four, tmp[4])])
         for model in MODELS:
             for mname in ("data2-model2", "fsdp2-model2"):
-                # MoE-BERT's shard sizes only: its routing differs here
-                steps = 0 if model == "moe_bert_tiny" else STEPS
-                ref[(mname, model)] = reference_run(
-                    model, MESHES[mname], None, steps=steps)
+                ref[(mname, model)] = reference_run(model, MESHES[mname],
+                                                    None)
             rep[model] = replicated_run(model, bridges[model])
         rep["mlp"] = replicated_run("mlp", bridges["mlp"])
         for model in ("gpt_tiny", "bert_tiny"):
@@ -185,7 +178,7 @@ def runs(tmp_path_factory):
 
 CASES = [(mn, m) for mn in MESHES for m in MODELS]
 IDS = [f"{mn}-{m}" for mn, m in CASES]
-REF_CASES = [c for c in CASES if c[1] != "moe_bert_tiny" or c[0] == "model2"]
+REF_CASES = CASES
 
 
 @pytest.mark.parametrize("mname,model", REF_CASES,
@@ -206,18 +199,11 @@ def test_tp_steps_match_the_reference_on_the_same_mesh(runs, mname, model):
 @pytest.mark.parametrize("mname,model", CASES, ids=IDS)
 def test_tp_steps_match_the_port_on_one_rank(runs, mname, model):
     """The TP ranks against the port's own run of the same global
-    batches with whole params (the same tolerances): on one rank, or for
-    MoE-BERT on two batch ranks, its run at ``data=2`` (the same
-    routing); and the ranks' gathered states against each other, bit for
-    bit."""
+    batches on one rank with whole params (the same tolerances; MoE-BERT
+    routes the global batch on two batch ranks too); and the ranks'
+    gathered states against each other, bit for bit."""
     ranks = runs["ranks"](mname, f"{mname}-{model}")
-    if model == "moe_bert_tiny" and mname != "model2":
-        base = runs["ranks"]("data2", "data2-moe_bert_tiny")[0]
-        losses_, norms = base["loss"], base["grad_norm"]
-        want = {k[len("state/"):]: v for k, v in base.items()
-                if k.startswith("state/")}
-    else:
-        losses_, norms, want = runs["rep"][model]
+    losses_, norms, want = runs["rep"][model]
     for out in ranks:
         np.testing.assert_allclose(out["loss"], losses_, rtol=1e-5)
         np.testing.assert_allclose(out["grad_norm"], norms, rtol=1e-4)

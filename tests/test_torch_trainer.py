@@ -466,36 +466,43 @@ LATER = [
     # rule of one rank a card, no slice's), pair them with an axis that
     # is still refused (a later --mesh wins)
     (["--model", "moe_bert_tiny", "--native", "--mesh", "data=2",
-      "--mesh", "expert=2"], "A6d"),
-    # the seq (A6b) and pipe (A6c) axes and the pipe models train too
-    # (tests/test_torch_ring_attention.py, test_torch_pipeline.py,
-    # test_torch_pipe_bert.py): their rows pair them with the expert
-    # axis or the expert-parallel pipe models, still refused (A6d)
-    (["--model", "pipe_bert_tiny", "--mesh", "expert=2"], "A6d"),
+      "--steps_per_loop", "2"], "A3c-2b"),
+    # the seq (A6b), pipe (A6c) and expert (A6d) axes and every model
+    # train too (tests/test_torch_ring_attention.py, test_torch_pipeline.py,
+    # test_torch_pipe_bert.py, test_torch_expert_parallel.py,
+    # test_torch_pipe_moe.py): their rows pair them with the K-step
+    # dispatch, still refused (A3c-2b)
+    (["--model", "pipe_bert_tiny", "--mesh", "expert=2",
+      "--steps_per_loop", "2"], "A3c-2b"),
     (["--model", "moe_bert", "--streaming", "--sharded_save", "--mesh",
-      "expert=2"], "A6d"),
+      "expert=2", "--steps_per_loop", "2"], "A3c-2b"),
     (["--steps_per_loop", "2"], "A3c-2b"),
-    (["--mesh", "data=2", "--mesh", "expert=2"], "A6d"),
+    (["--mesh", "data=2", "--steps_per_loop", "2"], "A3c-2b"),
     (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
-    (["--model", "pipe_moe_bert_tiny"], "A6d"),
-    (["--sharded_save", "--mesh", "expert=2"], "A6d", "sharded_save"),
+    (["--model", "pipe_moe_bert_tiny", "--steps_per_loop", "2"], "A3c-2b"),
+    (["--sharded_save", "--mesh", "expert=2", "--steps_per_loop", "2"],
+     "A3c-2b", "sharded_save"),
     (["--warm_start", "w", "--fast_decode", "--max_inflight_steps", "1"],
      "A3c-2b"),
     (["--moment_dtype", "bfloat16", "--max_per_class", "5",
-      "--sharded_save", "--mesh", "expert=2"], "A6d"),
-    (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "expert=2"],
-     "A6d"),
-    (["--streaming", "--model", "pipe_moe_bert"], "A6d"),
+      "--sharded_save", "--mesh", "expert=2", "--steps_per_loop", "2"],
+     "A3c-2b"),
+    (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "expert=2",
+      "--steps_per_loop", "2"], "A3c-2b"),
+    (["--streaming", "--model", "pipe_moe_bert", "--steps_per_loop", "2"],
+     "A3c-2b"),
     (["--max_per_class", "5", "--steps_per_loop", "4"], "A3c-2b"),
-    (["--label_offset", "-1", "--dataset", "pipe_moe_bert"], "A6d"),
+    (["--label_offset", "-1", "--dataset", "pipe_moe_bert",
+      "--max_inflight_steps", "2"], "A3c-2b"),
     (["--augment", "--model", "resnet50", "--sharded_save", "--mesh",
-      "expert=2"], "A6d"),
+      "expert=2", "--steps_per_loop", "2"], "A3c-2b"),
     (["--data_dir", "IMAGENET", "--model", "resnet50", "--mesh",
-      "data=2", "--mesh", "expert=2"], "A6d"),
-    # --export_dir itself is lifted (A4a), and moe_bert_tiny exports
-    # (static-batch): exporting a model the port lacks still refuses,
-    # naming that model's slice
-    (["--export_dir", "EXPORT", "--model", "pipe_moe_bert_tiny"], "A6d"),
+      "data=2", "--mesh", "expert=2", "--steps_per_loop", "2"], "A3c-2b"),
+    # --export_dir itself is lifted (A4a), and every model exports now
+    # (pipe_moe_bert_tiny static-batch): the row pairs it with the K-step
+    # dispatch
+    (["--export_dir", "EXPORT", "--model", "pipe_moe_bert_tiny",
+      "--steps_per_loop", "2"], "A3c-2b"),
     (["--worker_hosts", "w0:1,w1:1", "--steps_per_loop", "2"], "A3c-2b"),
 ]
 
