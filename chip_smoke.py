@@ -46,7 +46,13 @@ training CLI with the fused
 backward and a checkpoint ring, a resume to 30 with a generator export
 served once, a 5-step split-backward run against it; launch counts, the
 loss curve, ms per step, save and restore times, peak memory and the
-idle share of one Trainer step), the slice phase (three ``:generate`` requests on full-width GPT-small with
+idle share of one Trainer step), the multi-step phase (the same CLI
+at ``--steps_per_loop 4 --max_inflight_steps 4`` against K = 1 from one
+seed, split and fused backward: checkpoints equal bit for bit, equal
+logged losses and launch counts, the waits for the card; ms a step at
+K = 4 and K = 1 and the host's time in one K-step call against 4 single
+calls), the slice phase (three ``:generate`` requests on full-width
+GPT-small with
 launch counts, token agreement with the plain versions, tokens/s,
 latency, peak memory, then one request of an int8-weight export and the
 decode step with int8 weights beside the float one), the engine phase
@@ -1635,6 +1641,206 @@ def phase_cli(card: str) -> dict:
         raise SystemExit("the CLI phase failed: " + "; ".join(failed))
     phase_cli_profile(base, card)
     return {"launches": launches1["flash_attention_bwd_fused"]}
+
+
+class _WindowClock:
+    """A Trainer hook that reads the host clock at every ``every``-th step
+    (a loop boundary, after the Trainer's wait for the card there)."""
+
+    every_steps = 0
+
+    def __init__(self, every: int):
+        self.every = every
+        self.stamps: list[float] = []
+
+    def begin(self, trainer):
+        pass
+
+    def wants_metrics(self, step):
+        return False
+
+    def after_step(self, trainer, step, metrics):
+        if step % self.every == 0:
+            self.stamps.append(time.perf_counter())
+
+    def end(self, trainer):
+        pass
+
+
+def _timed_calls(sync, host: dict) -> None:
+    """Wrap ``sync.multi_step`` and ``sync.step`` to append each call's
+    host seconds to ``host[name]``."""
+    for name in ("multi_step", "step"):
+        real = getattr(sync, name)
+
+        def timed(*a, _real=real, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _real(*a, **kw)
+            host.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+        setattr(sync, name, timed)
+
+
+def phase_multi_step(card: str) -> dict:
+    """K training steps a call (``--steps_per_loop``) and the in-flight
+    bound (``--max_inflight_steps``) through ``cli/train.main`` on
+    full-width GPT-small (bf16 compute, f32 params, flash attention,
+    dropout 0.1, 8 x 512 tokens a step, AdamW), from one seed: 8 steps at
+    ``--steps_per_loop 4 --max_inflight_steps 4`` and 8 steps at K = 1
+    (``--max_inflight_steps 1``) with the split backward (B1, B2a, B2b),
+    saving at 4 and 8; then 4 steps of each with the fused backward (B3).
+    Each pair's final checkpoints must be equal leaf for leaf
+    (``torch.equal``), its losses logged at steps 4 and 8 equal, its
+    launch counts equal and exact (12 a step of each kernel of the path,
+    B1 12 an eval batch too) and its waits for the card steps / N. Then
+    two Trainer runs of 16 steps at K = 4 and K = 1, both waiting for the
+    card every 4 steps: ms a step over each 4-step window (the median of
+    the windows past the first) and the host's seconds in each
+    ``multi_step`` call against 4 ``step`` calls. Returns this phase's
+    CLI launches."""
+    from distributed_tensorflow_example_tpu_torch.cli import train as cli
+    from distributed_tensorflow_example_tpu_torch.models import get_model
+    from distributed_tensorflow_example_tpu_torch.train.trainer import \
+        Trainer
+
+    t_phase = time.perf_counter()
+    failed = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    base = ["--model", "gpt", "--device", "cuda", "--attention", "flash",
+            "--dtype", "bfloat16", "--seq_len", str(TRAIN_S),
+            "--batch_size", str(TRAIN_B), "--optimizer", "adamw",
+            "--learning_rate", "1e-3", "--warmup_steps", "2",
+            "--grad_clip_norm", "1.0", "--weight_decay", "0.01",
+            "--seed", "0"]
+    layers, eval_batches = 12, -(-256 // TRAIN_B)
+    names = {"b1": "flash_attention_fwd", "b2a": "flash_attention_bwd_dq",
+             "b2b": "flash_attention_bwd_dkv",
+             "b3": "flash_attention_bwd_fused"}
+    total = dict.fromkeys(names, 0)
+    tap = _LogTap()
+    logging.getLogger("dtx.hooks").addHandler(tap)
+    waits = [0]
+    real_wait = Trainer.wait_for_device
+
+    def counted_wait(self):
+        waits[0] += 1
+        real_wait(self)
+
+    Trainer.wait_for_device = counted_wait
+    try:
+        for bwd, steps in (("split", 8), ("fused", 4)):
+            runs = {}
+            for k, inflight in ((4, 4), (1, 1)):
+                ck = os.path.join(tmp, f"{bwd}-k{k}")
+                tap.lines.clear()
+                waits[0] = 0
+                gc.collect()
+                torch.cuda.empty_cache()
+                read = _reset_launches()
+                t0 = time.perf_counter()
+                rc = cli.main(base + [
+                    "--attention_bwd", bwd, "--train_steps", str(steps),
+                    "--steps_per_loop", str(k), "--max_inflight_steps",
+                    str(inflight), "--save_steps", "4",
+                    "--log_every_steps", "4", "--ckpt_dir", ck])
+                wall = time.perf_counter() - t0
+                launches = read()
+                split = bwd == "split"
+                want = {"flash_attention_fwd":
+                        layers * (steps + eval_batches),
+                        "flash_attention_bwd_dq": layers * steps * split,
+                        "flash_attention_bwd_dkv": layers * steps * split,
+                        "flash_attention_bwd_fused":
+                        layers * steps * (not split),
+                        "decode_attention": 0, "paged_decode_attention": 0,
+                        "paged_decode_attention_int8": 0}
+                label = f"{bwd} K={k}"
+                if rc != 0:
+                    failed.append(f"{label}: main returned {rc}")
+                if launches != want:
+                    failed.append(f"{label}: launches {launches}, want "
+                                  f"{want}")
+                if waits[0] != steps // inflight:
+                    failed.append(f"{label}: {waits[0]} waits for the card "
+                                  f"at --max_inflight_steps {inflight}, "
+                                  f"want {steps // inflight}")
+                losses = {s: m["loss"]
+                          for s, m in _step_metrics(tap.lines).items()}
+                log(f"[multi_step {label}] rc {rc} in {wall:.1f} s, "
+                    f"launches {launches}, waits {waits[0]} at "
+                    f"--max_inflight_steps {inflight}, losses {losses} "
+                    f"({card})")
+                runs[k] = (ck, losses, launches)
+                for key, name in names.items():
+                    total[key] += launches[name]
+            (ck4, l4, n4), (ck1, l1, n1) = runs[4], runs[1]
+            a, b = _ckpt_arrays(ck4, steps), _ckpt_arrays(ck1, steps)
+            bad = sorted(set(a) ^ set(b)) or [
+                key for key in a if a[key].dtype != b[key].dtype
+                or a[key].shape != b[key].shape or not torch.equal(
+                    torch.from_numpy(a[key]), torch.from_numpy(b[key]))]
+            log(f"[multi_step {bwd}] ckpt-{steps}: {len(a)} leaves, "
+                f"{len(bad)} differ between K = 4 and K = 1 "
+                f"(torch.equal); logged losses equal: {l4 == l1}")
+            if bad:
+                failed.append(f"{bwd}: ckpt-{steps} differs at {bad[:3]}")
+            if sorted(l4) != list(range(4, steps + 1, 4)) or l4 != l1:
+                failed.append(f"{bwd}: losses {l4} at K = 4, {l1} at K = 1")
+            if n4 != n1:
+                failed.append(f"{bwd}: launches {n4} at K = 4, {n1} at 1")
+            del a, b
+            shutil.rmtree(ck4, ignore_errors=True)
+            shutil.rmtree(ck1, ignore_errors=True)
+
+        # ms a step and the host's time in the calls, both runs waiting
+        # for the card every 4 steps
+        timing = {}
+        for k in (4, 1):
+            args = cli.build_parser().parse_args(base + [
+                "--attention_bwd", "split", "--train_steps", "16",
+                "--steps_per_loop", str(k), "--max_inflight_steps", "4",
+                "--log_every_steps", "0"])
+            cfg = cli.config_from_args(args)
+            model = get_model(cfg.model, cfg)
+            train, _ = cli.load_dataset(cfg, model)
+            clock, host = _WindowClock(4), {}
+            waits[0] = 0
+            with Trainer(model, cfg, train, None, hooks=[clock]) as tr:
+                _timed_calls(tr.sync, host)
+                tr.train()
+            windows = np.diff(clock.stamps) / 4 * 1e3
+            if k == 4:
+                calls = host["multi_step"][1:]
+            else:
+                calls = np.asarray(host["step"]).reshape(-1, 4).sum(1)[1:]
+            timing[k] = (float(np.median(windows)), windows,
+                         float(np.median(calls)) * 1e3, waits[0])
+            del model, train, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        for k, (ms, windows, host_ms, w) in timing.items():
+            log(f"[multi_step timing] K = {k}: ms a step {ms:.3f} (median "
+                f"of 4-step windows past the first: "
+                + ", ".join(f"{x:.3f}" for x in windows)
+                + f"); host ms in "
+                + ("one multi_step call" if k == 4 else "4 step calls")
+                + f" {host_ms:.3f} (median past the first); waits {w} "
+                f"({card})")
+            if w != 4 or len(windows) != 3:
+                failed.append(f"timing K = {k}: waits {w}, windows "
+                              f"{len(windows)}")
+        log(f"[multi_step] ms a step K = 4 / K = 1: "
+            f"{timing[4][0] / timing[1][0]:.4f}; host ms a 4-step call / "
+            f"4 single calls: {timing[4][2] / timing[1][2]:.4f} ({card})")
+    finally:
+        Trainer.wait_for_device = real_wait
+        logging.getLogger("dtx.hooks").removeHandler(tap)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[multi_step] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {total} ({card})")
+    if failed:
+        raise SystemExit("the multi_step phase failed: " + "; ".join(failed))
+    return total
 
 
 class _ProfileStep:
@@ -8208,6 +8414,8 @@ def main() -> int:
     timed("train")
     cli_run = phase_cli(card)
     timed("cli")
+    multi = phase_multi_step(card)
+    timed("multi_step")
     launches = phase_slice(card)
     timed("slice")
     engine = phase_engine(card)
@@ -8276,7 +8484,7 @@ def main() -> int:
                      "flash_attention.py:142",
          "launches": launches["flash_attention_fwd"] + http_ops["b1"]
          + fleet["b1"] + moe["b1"] + readers["b1"] + sharded["b1"]
-         + tp["b1"] + pipe["b1"] + expert["b1"],
+         + tp["b1"] + pipe["b1"] + expert["b1"] + multi["b1"],
          **flash},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -8284,7 +8492,8 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:233",
          "launches": train["flash_attention_bwd_dq"] + moe["b2a"]
-         + readers["b2a"] + sharded["b2a"] + tp["b2a"] + pipe["b2a"] + expert["b2a"],
+         + readers["b2a"] + sharded["b2a"] + tp["b2a"] + pipe["b2a"]
+         + expert["b2a"] + multi["b2a"],
          **bwd_dq},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
@@ -8292,14 +8501,15 @@ def main() -> int:
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:268",
          "launches": train["flash_attention_bwd_dkv"] + moe["b2b"]
-         + readers["b2b"] + sharded["b2b"] + tp["b2b"] + pipe["b2b"] + expert["b2b"],
+         + readers["b2b"] + sharded["b2b"] + tp["b2b"] + pipe["b2b"]
+         + expert["b2b"] + multi["b2b"],
          **bwd_dkv},
         {"name": "flash_attention_bwd_fused", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "flash_attention_bwd_fused.cu",
          "replaces": "distributed_tensorflow_example_tpu/ops/pallas/"
                      "flash_attention.py:310",
-         "launches": cli_run["launches"], **bwd_fused},
+         "launches": cli_run["launches"] + multi["b3"], **bwd_fused},
         {"name": "decode_attention", "route": "cuda",
          "source": "distributed_tensorflow_example_tpu_torch/csrc/"
                    "decode_attention.cu",

@@ -29,9 +29,13 @@ rank::
 
 Every reference flag parses, so the same argv reads the same in both
 packages, and the reference's validation runs first with its messages.
-Then every flag of a later slice is refused with a SystemExit naming the
-slice, before any work. ``--device`` (``cuda`` by default, ``cpu`` when
-asked) picks the device; without CUDA, ``cuda`` exits with an error.
+Then what the port refuses by design exits before any work: a mesh wider
+than the ranks (one rank a card), the flash kernels' tile levers and
+JAX's key implementations. ``--steps_per_loop K`` runs K steps a call
+(hook cadences must be multiples of K) and ``--max_inflight_steps N``
+makes the host wait for the card every N trained steps. ``--device``
+(``cuda`` by default, ``cpu`` when asked) picks the device; without
+CUDA, ``cuda`` exits with an error.
 ``--job_name ps`` logs the no-PS notice and returns 0. With
 ``--worker_hosts`` naming N workers, ``--task_index i`` trains as rank i
 of N (worker 0's address the rendezvous, NCCL on ``cuda``, gloo on the
@@ -102,8 +106,6 @@ BERT_MODELS = ("bert", "bert_large", "bert_tiny", "moe_bert",
 MNIST_DATASETS = ("mlp", "pipe_mlp", "mnist", "lenet")
 CIFAR_DATASETS = ("resnet20", "cifar10", "cifar")
 IMAGENET_DATASETS = ("resnet50", "imagenet")
-MODELS = (("mlp", "pipe_mlp", "lenet", "resnet20", "resnet50") + LM_MODELS
-          + BERT_MODELS)
 
 
 def add_legacy_flags(parser: argparse.ArgumentParser) -> None:
@@ -126,7 +128,7 @@ def parse_hosts(csv: str) -> list[str]:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's flags (a later slice's are refused in
+    """The reference's flags (those the port refuses by design exit in
     :func:`main`) plus ``--device``."""
     p = argparse.ArgumentParser(
         description="sync data-parallel trainer, one rank a card over "
@@ -171,8 +173,11 @@ def build_parser() -> argparse.ArgumentParser:
     a("--batch_size", type=int, default=128, help="GLOBAL batch size")
     a("--train_steps", type=int, default=1000)
     a("--steps_per_loop", type=int, default=1,
-      help="steps per dispatch (> 1: slice A3c-2b)")
-    a("--max_inflight_steps", type=int, default=0, help="slice A3c-2b")
+      help="training steps per call (SyncReplicas.multi_step over K "
+           "stacked batches; hook cadences must be multiples)")
+    a("--max_inflight_steps", type=int, default=0,
+      help="the host waits for the card every N trained steps, "
+           "bounding the queue of launched steps (0 = never mid-loop)")
     a("--learning_rate", type=float, default=0.5)
     a("--optimizer", default="sgd", type=str.lower,
       choices=["sgd", "momentum", "adam", "adamw", "lars", "lamb",
@@ -403,6 +408,7 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         early_stop_patience=args.early_stop_patience,
         early_stop_mode=args.early_stop_mode,
         steps_per_loop=args.steps_per_loop,
+        max_inflight_steps=args.max_inflight_steps,
         on_anomaly=args.on_anomaly,
         max_anomalies=args.max_anomalies,
         fault_spec=args.fault_spec,
@@ -561,14 +567,6 @@ def _num_workers(args) -> int:
     return len(parse_hosts(args.worker_hosts)) or 1
 
 
-def _later_slice(args) -> list[tuple[str, bool, str]]:
-    """(what, set?, slice) for every knob the port does not carry yet."""
-    return [
-        ("--steps_per_loop > 1", args.steps_per_loop > 1, "A3c-2b"),
-        ("--max_inflight_steps", args.max_inflight_steps != 0, "A3c-2b"),
-    ]
-
-
 def _refuse_mesh(args) -> None:
     """SystemExit for a mesh that is not one rank a card."""
     from ..parallel.sync_replicas import resolve_mesh
@@ -579,15 +577,8 @@ def _refuse_mesh(args) -> None:
         raise SystemExit(f"--mesh {args.mesh}: {e}") from None
 
 
-def refuse_later_slices(args) -> None:
-    """SystemExit for the first set knob of a later slice, and for the
-    knobs the port refuses by design."""
-    for what, on, slice_ in _later_slice(args):
-        if on:
-            raise SystemExit(f"{what} arrives with slice {slice_} of the "
-                             "port; the port trains " + ", ".join(MODELS)
-                             + ", one rank a card over data, fsdp, "
-                             "model, seq, expert and pipe")
+def refuse_by_design(args) -> None:
+    """SystemExit for the knobs the port refuses by design."""
     _refuse_mesh(args)
     for flag in ("attention_block_q", "attention_block_k",
                  "attention_bwd_block"):
@@ -769,7 +760,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.job_name == "ps":              # notice + exit 0, as the
         Server(cluster, args.job_name, args.task_index).join()
         return 0                           # reference's ps branch
-    refuse_later_slices(args)
+    refuse_by_design(args)
 
     from ..runtime import distributed
     from ..runtime.device import resolve_device

@@ -4,9 +4,7 @@ generation, the sync training step and the ``Trainer`` read, MoE-BERT's
 routing knobs, the parameter EMA, bf16 moments and warm start included).
 
 Field names and defaults are the reference's, so a config reads the same
-in both packages. The fields of a later slice are absent (the streaming
-and ImageNet-reader knobs), or refused by the ``Trainer`` when set:
-``steps_per_loop > 1``.
+in both packages.
 """
 
 from __future__ import annotations
@@ -201,7 +199,12 @@ class TrainConfig:
                                           # eval_every_steps)
     early_stop_patience: int = 3     # evals without improvement
     early_stop_mode: str = "max"     # max (accuracy) | min (loss)
-    steps_per_loop: int = 1          # > 1: slice A3c-2b
+    steps_per_loop: int = 1          # steps a dispatch (K > 1:
+                                     # SyncReplicas.multi_step on K
+                                     # stacked batches; hook cadences
+                                     # must be multiples of K)
+    max_inflight_steps: int = 0      # the host waits for the card every
+                                     # N trained steps (0: never mid-loop)
     on_anomaly: str = "halt"         # halt | skip | rollback (restore the
                                      # last verified checkpoint, replay)
     max_anomalies: int = 10          # anomaly budget for skip/rollback

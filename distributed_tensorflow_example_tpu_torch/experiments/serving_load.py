@@ -65,6 +65,7 @@ JSON line per mode and a ``summary`` line with every check.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -132,6 +133,45 @@ def _lockstep(engine, matrix, one) -> None:
                 t.join()
     finally:
         del engine._admit
+
+
+@contextlib.contextmanager
+def _storm_at_the_bound(engine, ladder_up: threading.Event,
+                        answered: threading.Event):
+    """The overload legs' storm, held at the queue's bound. Their checks
+    need a best_effort request to meet the ladder above healthy. With
+    free-running clients that was a race: four interactive clients on
+    two slots held the 3-deep queue at 2 or more only between a wave's
+    re-posts and the next admission, a few ms that a loaded host's
+    client threads could miss, so no best_effort post met the ladder up
+    and nothing was shed. Here the engine's first admission waits
+    (bounded) until the interactive clients have filled the queue to its
+    bound and admits nothing, so the engine's next pressure tick reads a
+    full queue; its second admission releases the best_effort poster
+    (``ladder_up``) and waits (bounded) for that poster's first answer
+    (``answered``) before it admits. The storm then runs free."""
+    real_admit = engine._admit
+    calls = [0]
+
+    def gated_admit():
+        calls[0] += 1
+        t0 = time.monotonic()
+        if calls[0] == 1:
+            while (engine.health()["queue_depth"] < engine.max_queue
+                   and time.monotonic() - t0 < 60.0):
+                time.sleep(0.001)
+            return
+        if calls[0] == 2:
+            ladder_up.set()
+            answered.wait(60.0)
+        real_admit()
+
+    engine._admit = gated_admit
+    try:
+        yield
+    finally:
+        del engine._admit
+        ladder_up.set()
 
 
 #: documented greedy-drift gate for the int8 legs: token-level
@@ -873,6 +913,7 @@ def run_overload(export_dir: str, *, vocab: int, seed: int,
         def best_effort():
             # hammer until the ladder sheds (bounded): a 429 carrying
             # Retry-After is the success condition here
+            ladder_up.wait(60.0)
             for _ in range(200):
                 if stop.is_set():
                     return
@@ -900,18 +941,21 @@ def run_overload(export_dir: str, *, vocab: int, seed: int,
                 except Exception as e:      # noqa: BLE001 — recorded
                     errors.append(f"best_effort: {type(e).__name__}: "
                                   f"{e}")
+                answered.set()
                 time.sleep(0.002)
 
         threads = [threading.Thread(target=interactive, args=(ci,))
                    for ci in range(interactive_clients)]
         be = threading.Thread(target=best_effort)
-        for t in threads:
-            t.start()
-        be.start()
-        for t in threads:
-            t.join()
-        stop.set()
-        be.join()
+        ladder_up, answered = threading.Event(), threading.Event()
+        with _storm_at_the_bound(srv.engine, ladder_up, answered):
+            for t in threads:
+                t.start()
+            be.start()
+            for t in threads:
+                t.join()
+            stop.set()
+            be.join()
         stats = _stats(srv.port)["generate"]
         registry = _prom(srv.port)
     n = len(lat)
@@ -1045,6 +1089,7 @@ def run_slo_report(export_dir: str, *, vocab: int, seed: int,
                         return
 
             def best_effort():
+                ladder_up.wait(60.0)
                 for _ in range(200):
                     if stop.is_set():
                         return
@@ -1069,18 +1114,21 @@ def run_slo_report(export_dir: str, *, vocab: int, seed: int,
                     except Exception as e:      # noqa: BLE001
                         errors.append(f"best_effort: "
                                       f"{type(e).__name__}: {e}")
+                    answered.set()
                     time.sleep(0.002)
 
             threads = [threading.Thread(target=interactive, args=(ci,))
                        for ci in range(interactive_clients)]
             be = threading.Thread(target=best_effort)
-            for t in threads:
-                t.start()
-            be.start()
-            for t in threads:
-                t.join()
-            stop.set()
-            be.join()
+            ladder_up, answered = threading.Event(), threading.Event()
+            with _storm_at_the_bound(srv.engine, ladder_up, answered):
+                for t in threads:
+                    t.start()
+                be.start()
+                for t in threads:
+                    t.join()
+                stop.set()
+                be.join()
             # ---- quiesced: poll #1 forces the breach evaluation ----
             hist1 = _get_json(srv.port, "/stats/history")
             bundles = sorted(os.listdir(inc_dir))

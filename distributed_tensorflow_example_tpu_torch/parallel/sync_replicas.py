@@ -65,7 +65,21 @@ a step under ``torch.utils.flop_counter.FlopCounterMode`` and keeps its
 FLOP count in ``last_cost_analysis``, the counterpart of the reference's
 ``precompile`` cost analysis (``--step_timing``'s
 ``step_cost_analysis``).
-``multi_step`` arrives with slice A3c-2b and raises.
+:meth:`SyncReplicas.multi_step` runs K steps in one call on a stack of K
+batches, ``[K, B, ...]`` with the loop axis first: the state after K
+steps and the last step's metrics (the reference's ``_multi_step``, a
+``lax.scan`` compiled into one dispatch). Eager, it is K runs of the
+same step in order, each on a view of its slice of the stack, which
+crosses to the card in one pinned, non-blocking copy a leaf; nothing
+syncs the host between the K steps. What it saves is the caller's host
+work between steps (the Trainer's loader, hooks and bookkeeping run once
+a call) and K - 1 copies to the card; it saves no launch, since each of
+its steps launches what one step does. Each step draws its dropout from
+its own generator (the seed's, the step's and the microbatch's), so K
+steps a call equal K single calls bit for bit. The reference donates the
+state's buffers to the step (its ``tests/test_donation.py``); eager torch
+has no donation: the old state's tensors are freed once nothing holds
+them, so a caller that keeps the old state holds both.
 
 The mesh is one rank a card (or a gloo CPU process): its axes multiply
 to the number of ranks, and a mesh that asks for more (several cards to
@@ -288,7 +302,7 @@ class SyncReplicas:
         #: check every step's loss, aux metrics and gradients for a
         #: non-finite value and raise (one host sync a step)
         self.debug_checks = bool(debug_checks)
-        #: ``{"flops": F}`` of one step, set by :meth:`counted_step`
+        #: ``{"flops": F}`` of one call, set by :meth:`counted_step`
         self.last_cost_analysis: dict | None = None
         self.tx = tx
         self.sync = sync or SyncConfig()
@@ -396,7 +410,32 @@ class SyncReplicas:
 
     def step(self, state: TrainState, batch: dict):
         """One sync step: ``(new_state, metrics)``."""
-        batch = self._to_device(batch)
+        return self._step(state, self._to_device(batch))
+
+    def multi_step(self, state: TrainState, stacked_batches: dict):
+        """K sync steps in one call: ``(state after K steps, the last
+        step's metrics)``. ``stacked_batches`` holds this rank's K
+        batches stacked on a leading loop axis, ``[K, B_rank, ...]``
+        (each batch in the ``loader_microbatches`` layout). Step i runs
+        on ``stacked_batches[...][i]`` exactly as :meth:`step` would,
+        its own dropout generator and ``debug_checks`` (which name the
+        global step) included."""
+        stack = self._to_device(stacked_batches)
+        loops = {k: int(x.shape[0]) if x.dim() else 0
+                 for k, x in stack.items()}
+        if not loops or len(set(loops.values())) != 1 \
+                or min(loops.values()) < 1:
+            raise ValueError(f"multi_step takes K >= 1 batches stacked on "
+                             f"a leading loop axis, got leading dims "
+                             f"{loops}")
+        metrics = None
+        for i in range(next(iter(loops.values()))):
+            state, metrics = self._step(
+                state, {k: x[i] for k, x in stack.items()})
+        return state, metrics
+
+    def _step(self, state: TrainState, batch: dict):
+        """:meth:`step` on a batch already on the device."""
         gens = [_generator(self.device, state.seed, state.step, i)
                 for i in range(max(1, self.sync.accum_steps))]
         stats = (distributed.cross_rank_batch_stats(*self._batch_group())
@@ -507,20 +546,23 @@ class SyncReplicas:
             out[i] = g
         return out, loss, aux, extras
 
-    def counted_step(self, state: TrainState, batch: dict):
-        """:meth:`step` under ``torch.utils.flop_counter.FlopCounterMode``:
-        the step's FLOPs go to ``last_cost_analysis`` as ``{"flops": F}``
-        (the reference's ``precompile`` records XLA's cost analysis of
-        the compiled step). The counter sees the aten ops the step
-        dispatches, forward, backward and update: matmuls, convolutions
-        and attention products, not elementwise ops. Like XLA's count,
+    def counted_step(self, state: TrainState, batch: dict, *,
+                     multi: bool = False):
+        """:meth:`step` (:meth:`multi_step` with ``multi``, on a stack)
+        under ``torch.utils.flop_counter.FlopCounterMode``: the call's
+        FLOPs go to ``last_cost_analysis`` as ``{"flops": F}`` (the
+        reference's ``precompile`` records XLA's cost analysis of the
+        compiled step, or of the K-step program). The counter sees the
+        aten ops the step dispatches, forward, backward and update:
+        matmuls, convolutions and attention products, not elementwise
+        ops. Like XLA's count,
         which cannot see inside a Pallas call, it cannot see a kernel
         launched through ``ctypes``: on the card the flash kernels' work
         is missing from it. The reference's ``bytes accessed`` and
         ``optimal_seconds`` have no counterpart here and are left out."""
         from torch.utils.flop_counter import FlopCounterMode
         with FlopCounterMode(display=False) as counter:
-            out = self.step(state, batch)
+            out = (self.multi_step if multi else self.step)(state, batch)
         self.last_cost_analysis = {"flops": float(counter.get_total_flops())}
         return out
 
@@ -561,10 +603,6 @@ class SyncReplicas:
         n, m = len(grads), len(grads) + 1 + len(keys)
         return (out[:n], out[n], dict(zip(keys, out[n + 1:m])),
                 unflatten_dict(dict(zip(flat, out[m:]))))
-
-    def multi_step(self, state: TrainState, stacked_batches):
-        raise NotImplementedError("multi_step (K steps per dispatch) "
-                                  "arrives with slice A3c-2b")
 
     def _update(self, state: TrainState, grads, loss, aux, new_extras):
         flat = flatten_dict(state.params)

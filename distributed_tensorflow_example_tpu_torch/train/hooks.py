@@ -290,11 +290,13 @@ class ParamHistogramHook(Hook):
 
 class StepTimingHook(Hook):
     """Per-dispatch times (the WorkerCacheLogger analogue): the Trainer
-    times each step from its call to a ``torch.cuda.synchronize`` of the
-    device (``last_dispatch_ms``), and every ``every_steps`` dispatches
-    this hook writes their percentiles to the metrics JSONL. The first
-    dispatch (cold caches, allocator growth) is kept out of the stats
-    and reported as ``first_dispatch_ms``. Syncing every step drains the
+    times each dispatch (one step, or the K steps of one ``multi_step``
+    call under ``steps_per_loop`` K) from its call to a
+    ``torch.cuda.synchronize`` of the device (``last_dispatch_ms``), and
+    every ``every_steps // K`` dispatches this hook writes their
+    percentiles and ``steps_per_dispatch`` K to the metrics JSONL. The
+    first dispatch (cold caches, allocator growth) is kept out of the
+    stats and reported as ``first_dispatch_ms``. Syncing every step drains the
     dispatch queue: opt-in via ``--step_timing``."""
 
     def __init__(self, metrics_logger: MetricsLogger | None,
@@ -314,16 +316,19 @@ class StepTimingHook(Hook):
             self._first_ms = dt_ms
             return
         self._times_ms.append(dt_ms)
-        if len(self._times_ms) >= max(1, self.every_steps):
-            self._emit(trainer, step)
+        spd = _steps_per_dispatch(trainer)
+        # a cadence in dispatches: with K steps a dispatch, the step
+        # count only lands on multiples of K
+        if len(self._times_ms) >= max(1, self.every_steps // spd):
+            self._emit(trainer, step, spd)
 
-    def _emit(self, trainer, step: int) -> None:
+    def _emit(self, trainer, step: int, steps_per_dispatch: int) -> None:
         if not self._times_ms:
             return
         arr = np.asarray(self._times_ms)
         rec: dict[str, Any] = {"step": step, "step_timing_ms": {
             "n": int(arr.size),
-            "steps_per_dispatch": 1,
+            "steps_per_dispatch": steps_per_dispatch,
             "mean": float(arr.mean()),
             "p50": float(np.percentile(arr, 50)),
             "p90": float(np.percentile(arr, 90)),
@@ -348,10 +353,16 @@ class StepTimingHook(Hook):
 
     def end(self, trainer):
         # flush the residue, so a short run still yields a record
-        self._emit(trainer, int(trainer.state.step))
+        self._emit(trainer, int(trainer.state.step),
+                   _steps_per_dispatch(trainer))
 
     def wants_metrics(self, step):
         return False
+
+
+def _steps_per_dispatch(trainer) -> int:
+    """The trainer's steps a dispatch, ``steps_per_loop`` (1 unset)."""
+    return max(1, getattr(trainer.config, "steps_per_loop", 1))
 
 
 #: the name of the zero-length profiler annotation a trace holds for each

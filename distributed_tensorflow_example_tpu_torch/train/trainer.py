@@ -35,9 +35,14 @@ params its assignment map selects from that checkpoint (resume always
 wins) and re-anchors the parameter EMA's shadows there; with the EMA on,
 eval runs on the shadows. Host metrics are floats, and a vector metric
 (MoE-BERT's per-expert load) a list: the JSONL takes it, the scalar
-hooks skip it. ``steps_per_loop > 1`` arrives with slice A3c-2b and
-raises. The mesh is one rank a card over ``data``, ``fsdp``,
-``model``, ``seq``, ``expert`` and ``pipe``; the state is sharded by the
+hooks skip it. ``steps_per_loop`` K > 1 runs K steps a call
+(``SyncReplicas.multi_step`` on K stacked host batches) while at least K
+steps remain and single steps for the tail; hooks, eval, rollback and
+early stop see loop boundaries only, so every set cadence must be a
+multiple of K. ``max_inflight_steps`` N > 0 makes the host wait for the
+card every N trained steps (:meth:`Trainer.wait_for_device`). The mesh
+is one rank a card over ``data``, ``fsdp``, ``model``, ``seq``,
+``expert`` and ``pipe``; the state is sharded by the
 model's ``sharding_rules`` (over ``fsdp`` ZeRO-3's way, over ``model``
 Megatron's: GPT, BERT, MoE-BERT and pipe_bert compute on their pieces;
 over ``expert`` MoE-BERT's and pipe_moe_bert's experts; over ``pipe``
@@ -88,16 +93,31 @@ def _host_metric(v):
     return float(v) if np.ndim(v) == 0 else np.asarray(v).tolist()
 
 
-def refuse_later_slices(config: TrainConfig, num_processes: int) -> None:
-    """Raise NotImplementedError naming its slice for a set knob the
-    port's Trainer does not carry yet (``steps_per_loop > 1``), or
-    stating the rule of one rank a card for a mesh wider than the ranks (and the reference's
-    ValueErrors on anomaly settings no path could honor)."""
+def check_config(config: TrainConfig, num_processes: int) -> None:
+    """Raise NotImplementedError stating the rule of one rank a card for
+    a mesh wider than the ranks, and the reference's ValueErrors on
+    settings no run could honor: anomaly settings, a ``steps_per_loop``
+    that a set cadence is not a multiple of (hooks only observe loop
+    boundaries), a negative ``max_inflight_steps``."""
     resolve_mesh(config.mesh, num_processes)
-    if config.steps_per_loop > 1:
-        raise NotImplementedError("steps_per_loop > 1 arrives with slice "
-                                  "A3c-2b")
     anomaly_settings(config)
+    k = config.steps_per_loop
+    if k > 1:
+        for name, every in (
+                ("log_every_steps", config.obs.log_every_steps),
+                ("summary_every_steps", config.obs.summary_every_steps),
+                ("param_histograms_every_steps",
+                 config.obs.param_histograms_every_steps),
+                ("save_steps", config.checkpoint.save_steps),
+                ("eval_every_steps", config.eval_every_steps)):
+            if every and every % k:
+                raise ValueError(
+                    f"{name}={every} must be a multiple of "
+                    f"steps_per_loop={k} (hooks only observe loop "
+                    "boundaries)")
+    if config.max_inflight_steps < 0:
+        raise ValueError(f"max_inflight_steps must be >= 0, got "
+                         f"{config.max_inflight_steps}")
 
 
 class Trainer:
@@ -133,7 +153,7 @@ class Trainer:
                               if process_index is None else process_index)
         self.num_processes = (distributed.process_count()
                               if num_processes is None else num_processes)
-        refuse_later_slices(config, self.num_processes)
+        check_config(config, self.num_processes)
         self.model = model
         self.config = config
         self.device = resolve_device(device)
@@ -249,9 +269,11 @@ class Trainer:
         # the anomaly policy rides the log cadence (no extra host
         # syncs); with logging off, halt omits it (the on-device identity
         # update still protects the state) and skip falls back to 100
+        # steps, rounded up to a loop boundary
+        spl = max(1, cfg.steps_per_loop)
         every = cfg.obs.log_every_steps
         if not every and cfg.on_anomaly != "halt":
-            every = 100
+            every = -(-100 // spl) * spl
         if every:
             hs.append(hooks_lib.AnomalyPolicyHook(
                 cfg.on_anomaly, cfg.max_anomalies, every_steps=every))
@@ -368,8 +390,13 @@ class Trainer:
         stop = step >= self.config.train_steps
         device_metrics: dict | None = None
         t_start = time.perf_counter()
-        # step_timing: each step is timed from its call to a device sync
+        # step_timing: each dispatch is timed from its call to a device
+        # sync, which also bounds the queue; else max_inflight_steps N > 0
+        # waits for the card every N trained steps
         timing = self.config.obs.step_timing
+        spl = max(1, self.config.steps_per_loop)
+        max_inflight = self.config.max_inflight_steps
+        pending = 0
         cuda = self.device.type == "cuda"
         self.last_dispatch_ms = None
         self._rollback_pending = False
@@ -386,8 +413,10 @@ class Trainer:
                 h.begin(self)
             loader = self._loader()
             while not stop:
+                # K steps a call while K remain, single steps for the tail
+                k = spl if self.config.train_steps - step >= spl else 1
                 t_d0 = time.perf_counter()
-                host_batch = next(loader)
+                host = [next(loader) for _ in range(k)]
                 t_d1 = time.perf_counter()
                 self._h_data_wait.observe(t_d1 - t_d0)
                 add_span("data_wait", t_d0, t_d1, process="training",
@@ -395,18 +424,25 @@ class Trainer:
                 if fault_reg is not None:
                     # step.* faults poison the host batch that produces
                     # the matching global step; the step is untouched
-                    host_batch = fault_reg.poison_batch(host_batch, step + 1)
+                    host = [fault_reg.poison_batch(b, step + i + 1)
+                            for i, b in enumerate(host)]
+                multi = k > 1
+                batch = ({name: np.stack([b[name] for b in host])
+                          for name in host[0]} if multi else host[0])
                 t_s0 = time.perf_counter()
                 if timing and self.sync.last_cost_analysis is None:
-                    # once a run: the step's FLOPs for step_timing's
-                    # record (the reference's precompile cost analysis)
+                    # once a run: the first dispatch's FLOPs for
+                    # step_timing's record (the reference's precompile
+                    # cost analysis)
                     state, device_metrics = self.sync.counted_step(
-                        state, host_batch)
+                        state, batch, multi=multi)
+                elif multi:
+                    state, device_metrics = self.sync.multi_step(state,
+                                                                 batch)
                 else:
-                    state, device_metrics = self.sync.step(state,
-                                                           host_batch)
+                    state, device_metrics = self.sync.step(state, batch)
                 t_s1 = time.perf_counter()
-                step += 1
+                step += k
                 self._h_dispatch.observe(t_s1 - t_s0)
                 add_span("step_dispatch", t_s0, t_s1, process="training",
                          lane="step", step=step)
@@ -415,7 +451,12 @@ class Trainer:
                         torch.cuda.synchronize(self.device)
                     self.last_dispatch_ms = (time.perf_counter()
                                              - t_s0) * 1e3
-                self._c_steps.inc()
+                elif max_inflight:
+                    pending += k
+                    if pending >= max_inflight:
+                        self.wait_for_device()
+                        pending = 0
+                self._c_steps.inc(k)
                 self.state = state
 
                 host_metrics = None
@@ -492,6 +533,14 @@ class Trainer:
                 summary["eval"] = self.evaluate(state)
                 self._maybe_save_best(state, step, summary["eval"])
         return state, summary
+
+    def wait_for_device(self) -> None:
+        """``max_inflight_steps``' wait: the host blocks until the card
+        has run every step queued so far (``torch.cuda.synchronize`` of
+        the Trainer's device; on the CPU the steps ran as they were
+        called, and the call returns at once)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def request_rollback(self, before_step: int | None = None) -> None:

@@ -56,6 +56,11 @@ Joins a gloo group through ``--init`` and runs the tasks of
 - ``pipe_groups``: pipe_moe_bert_tiny's loss metrics bound to the mesh
   on this rank's pieces and rows of ``batch``, and the unbound model's on
   the whole params and the rows reordered by ``order``;
+- ``multi``: the task's model (dropout as the task sets it) from the
+  seed-0 init on the task's mesh, trained on this rank's rows of the K
+  global batches stacked in ``batches`` (``[K, B, ...]``) twice: K
+  ``step`` calls, and one ``multi_step`` call on the stack; each run's
+  whole final state (gathered), step and last metrics;
 - ``cli``: after the other tasks the group is left and ``cli/train.py``
   runs once per argv (each brings its own group up at worker 0's
   address), with ``--worker_hosts`` and ``--task_index`` added.
@@ -507,6 +512,32 @@ def _pipe_groups(task, rank):
     return out
 
 
+def _multi(task, rank):
+    """K single steps against one ``multi_step`` call on the same
+    stack, each from the seed-0 init."""
+    mesh = MeshShape(**task["mesh"])
+    with np.load(task["batches"]) as z:
+        stacked = {k: z[k] for k in z.files}
+    out = {}
+    for run in ("single", "multi"):
+        model, sync = _sync(task, mesh)
+        state = sync.init(model.init, seed=0)
+        batch_axes = ("data", "fsdp")
+        n, i = sync.mesh.size(batch_axes), sync.mesh.index(batch_axes)
+        mine = {k: v[:, i * v.shape[1] // n:(i + 1) * v.shape[1] // n]
+                for k, v in stacked.items()}
+        if run == "single":
+            for j in range(len(next(iter(mine.values())))):
+                state, met = sync.step(state,
+                                       {k: v[j] for k, v in mine.items()})
+        else:
+            state, met = sync.multi_step(state, mine)
+        out[f"{run}/step"] = np.asarray(state.step)
+        out.update({f"{run}/{k}": v for k, v in _whole(state).items()})
+        out.update({f"{run}/metric/{k}": v.numpy() for k, v in met.items()})
+    return out
+
+
 def _restore(task, rank):
     mesh = MeshShape(**task["mesh"])
     model, sync = _sync(task, mesh)
@@ -531,7 +562,7 @@ def main() -> int:
                "restore": _restore, "xent": _xent, "ring": _ring,
                "pipeline": _pipeline, "pipe_loss": _pipe_loss,
                "bert_ring": _bert_ring, "vjp": _vjp, "moe_ep": _moe_ep,
-               "pipe_groups": _pipe_groups}
+               "pipe_groups": _pipe_groups, "multi": _multi}
     for task in tasks:
         if task["kind"] == "cli":
             continue

@@ -537,17 +537,22 @@ def test_replicas_to_aggregate_must_equal_the_world_size():
 
 def _cli_refusal(extra):
     def run():
-        tcli.main(["--model", "mlp", "--device", "cpu", "--train_steps",
-                   "1"] + extra)
+        return tcli.main(["--model", "mlp", "--device", "cpu",
+                          "--batch_size", "8", "--train_steps", "3"]
+                         + extra)
     return run
 
 
 def _trainer_refusal(**kw):
     def run():
-        cfg = tconfig.TrainConfig(model="mlp", **kw)
+        cfg = tconfig.TrainConfig(model="mlp", train_steps=3,
+                                  data=tconfig.DataConfig(batch_size=8),
+                                  **kw)
         data = synthetic_mnist(64, 8)
-        Trainer(MLP(), cfg, {"x": data["train_x"], "y": data["train_y"]},
-                device="cpu")
+        with Trainer(MLP(), cfg, {"x": data["train_x"],
+                                  "y": data["train_y"]},
+                     device="cpu") as t:
+            return t.train()[0].step
     return run
 
 
@@ -563,46 +568,58 @@ def _multi_step():
     model = MLP(in_dim=20, hidden=16, num_classes=4)
     sync = SyncReplicas(model.loss, topt.make_optimizer(
         tconfig.OptimizerConfig()), device="cpu")
-    sync.multi_step(sync.init(model.init), None)
+    rs = np.random.RandomState(0)
+    state, _ = sync.multi_step(sync.init(model.init), {
+        "x": rs.rand(2, 8, 20).astype(np.float32),
+        "y": rs.randint(0, 4, (2, 8)).astype(np.int32)})
+    return state.step
 
 
+#: name -> (run, what it does: an exception type and the fragment its
+#: message holds, or None and the value the run returns)
 REFUSALS = {
-    "multi_step": (_multi_step, NotImplementedError, "A3c-2b"),
+    # the K-step dispatch (slice A3c-2b) runs: multi_step takes 2 steps,
+    # the CLI's and the Trainer's runs end at their 3 steps (2 a call
+    # and a tail of 1)
+    "multi_step": (_multi_step, None, 2),
     "cli-steps_per_loop": (_cli_refusal(["--steps_per_loop", "2"]),
-                           SystemExit, "A3c-2b"),
+                           None, 0),
     "cli-max_inflight_steps": (_cli_refusal(["--max_inflight_steps", "2"]),
-                               SystemExit, "A3c-2b"),
+                               None, 0),
     "trainer-steps_per_loop": (_trainer_refusal(steps_per_loop=2),
-                               NotImplementedError, "A3c-2b"),
+                               None, 3),
     # the fsdp (slice A6a), model (A6a-2), seq (A6b), pipe (A6c) and
     # expert (A6d) axes train: a row that named them meets the rule of one
     # rank a card (more mesh ranks than ranks)
     "cli-mesh-fsdp": (_cli_refusal(["--mesh", "fsdp=2,expert=2"]),
-                      SystemExit, None),
+                      SystemExit, "one rank a card"),
     "cli-mesh-model": (_cli_refusal(["--mesh", "model=2"]), SystemExit,
-                       None),
+                       "one rank a card"),
     "trainer-mesh-fsdp": (_trainer_refusal(
         mesh=tconfig.MeshShape(fsdp=2, model=2, expert=2)),
-        NotImplementedError, None),
+        NotImplementedError, "one rank a card"),
     "sync-mesh-model": (_sync_refusal(tconfig.MeshShape(model=2)),
-                        NotImplementedError, None),
+                        NotImplementedError, "one rank a card"),
     # more replicas than ranks is no later slice's: it breaks the rule of
     # one rank a card, which the refusal states
     "sync-two-replicas-one-rank": (_sync_refusal(2), NotImplementedError,
-                                   None),
+                                   "one rank a card"),
+    # paired with the K-step dispatch, which runs now, --native and
+    # sharded saves meet the rule the expert axis breaks on one rank
     "cli-native": (_cli_refusal(["--native", "--sharded_save", "--mesh",
                                  "expert=2", "--steps_per_loop", "2"]),
-                   SystemExit, "A3c-2b"),
+                   SystemExit, "one rank a card"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_later_slices_stay_refused_naming_their_slice(name):
-    """``multi_step``, ``--steps_per_loop 2`` and
-    ``--max_inflight_steps`` are still refused, each naming the slice
-    that brings it; more replicas (or ``model``, ``expert`` ranks) than
-    ranks states the rule of one rank a card."""
-    run, exc, slice_ = REFUSALS[name]
-    with pytest.raises(exc, match=f"slice {slice_}" if slice_
-                       else "one rank a card"):
+def test_each_knob_runs_or_meets_the_rule_that_applies(name):
+    """``multi_step``, ``--steps_per_loop 2`` and ``--max_inflight_steps``
+    (slice A3c-2b) run to their end; more replicas (or ``model``,
+    ``expert`` ranks) than ranks states the rule of one rank a card."""
+    run, exc, want = REFUSALS[name]
+    if exc is None:
+        assert run() == want
+        return
+    with pytest.raises(exc, match=want):
         run()

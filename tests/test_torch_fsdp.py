@@ -475,14 +475,24 @@ def test_elementwise_optimizers_train_on_pieces(name):
 
 def test_cli_refuses_a_whole_leaf_optimizer_under_fsdp(tmp_path):
     """Named for the refusal it replaced: ``--optimizer lamb`` trains
-    under fsdp now (and the expert axis since A6d); paired with the
-    K-step dispatch, still to come, it exits naming A3c-2b before any
-    work (the worker hosts are never contacted)."""
+    under fsdp now (and the expert axis since A6d), and so does the
+    K-step dispatch (A3c-2b): over four worker hosts the argv passes the
+    reference's validation and the port's refusals, with its mesh, its
+    optimizer and its ``steps_per_loop`` in the TrainConfig (the run is
+    not started: the worker hosts are never contacted). The same argv on
+    one worker meets the rule of one rank a card before any work."""
     ck = str(tmp_path / "ck")
-    with pytest.raises(SystemExit, match="slice A3c-2b"):
-        tcli.main(["--model", "gpt_tiny", "--device", "cpu",
-                   "--optimizer", "lamb", "--mesh", "fsdp=2,expert=2",
-                   "--steps_per_loop", "2",
-                   "--worker_hosts", "127.0.0.1:1,127.0.0.1:2,127.0.0.1:3,"
-                   "127.0.0.1:4", "--ckpt_dir", ck])
+    argv = ["--model", "gpt_tiny", "--device", "cpu", "--optimizer",
+            "lamb", "--mesh", "fsdp=2,expert=2", "--steps_per_loop", "2",
+            "--ckpt_dir", ck]
+    parser = tcli.build_parser()
+    args = parser.parse_args(argv + [
+        "--worker_hosts", "127.0.0.1:1,127.0.0.1:2,127.0.0.1:3,"
+        "127.0.0.1:4"])
+    cfg = tcli._validate_like_the_reference(parser, args)
+    tcli.refuse_by_design(args)
+    assert (cfg.optimizer.name, cfg.mesh.fsdp, cfg.mesh.expert,
+            cfg.steps_per_loop) == ("lamb", 2, 2, 2)
+    with pytest.raises(SystemExit, match="one rank a card"):
+        tcli.main(argv)
     assert not os.path.exists(ck)

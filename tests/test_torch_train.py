@@ -490,10 +490,11 @@ def test_sync_replicas_nan_batch_is_the_identity_update(policy):
 
 
 def test_sync_replicas_refuses_what_a_later_slice_brings():
-    """One replica per rank: shard_map is the same step as auto; more
-    replicas than ranks breaks the rule of one rank a card, and
-    replicas_to_aggregate other than the world size is the reference's
-    ValueError."""
+    """Named for the refusals it held. One replica per rank: shard_map is
+    the same step as auto; more replicas than ranks breaks the rule of
+    one rank a card, and replicas_to_aggregate other than the world size
+    is the reference's ValueError; ``multi_step``, the last later slice's,
+    runs."""
     tm = GPT(GPTConfig(**SMALL))
     tx = topt.make_optimizer(tconfig.OptimizerConfig())
     assert SyncReplicas(tm.loss, tx, device="cpu", sync=tconfig.SyncConfig(
@@ -513,5 +514,9 @@ def test_sync_replicas_refuses_what_a_later_slice_brings():
     assert param_count(state.params) == sum(
         int(np.prod(s)) for s in tm.param_shapes().values())
     assert param_bytes(state.params) == 4 * param_count(state.params)
-    with pytest.raises(NotImplementedError, match="A3c-2b"):
-        sync.multi_step(state, None)
+    # the K-step dispatch (slice A3c-2b) runs: two steps of one stack
+    # (``tests/test_torch_multi_step.py`` holds it to single steps)
+    stack = {k: np.stack([v, v]) for k, v in lm_batch(
+        b=2, s=16, seed=0, pad_rows=(1,), pad=3).items()}
+    state, met = sync.multi_step(state, stack)
+    assert state.step == 2 and np.isfinite(float(met["loss"]))

@@ -432,78 +432,61 @@ def test_cli_refuses_what_the_reference_refuses(tmp_path):
 
 
 # --model mlp, --sync_mode shard_map and two worker hosts now train
-# (tests/test_torch_mnist.py, tests/test_torch_distributed.py): their rows
-# pair them with a knob that is still refused. A data axis of 2 in one
-# rank would need two cards in one process (refused: one rank a card).
-# The conv models train
-# too (tests/test_torch_conv.py): the row that named resnet20 names a
-# model still to come, and ImageNet's readers and knobs name A5b. BERT,
-# lars/lamb, the fused and chunked LM heads and --remat train too
-# (tests/test_torch_bert.py): their rows name what stays refused around
-# them (a vocab.txt corpus, the MoE and pipeline BERTs). adafactor, the
-# best checkpoint, async saves, early stop, --eval_only, rollback, fault
-# specs and the summary, TensorBoard, timing, profiler and trace sinks
-# train too (tests/test_torch_ckpt_best.py, test_torch_self_healing.py,
-# test_torch_eval_timing.py, test_torch_tb_events.py,
-# test_torch_adafactor.py; LIFTED below), and so do the debug tools
-# (tests/test_torch_debug_tools.py): of their slices only sharded saves
-# (A6) stay refused. MoE-BERT, the parameter EMA, bf16 moments and warm
-# start train too (tests/test_torch_moe.py, test_torch_ema.py,
-# test_torch_warm_start.py): their rows pair them with a knob that stays
-# refused, the pipeline models of A6 or the K-step dispatch of A3c-2b.
-# The file readers and their knobs train too (tests/test_torch_{native_
-# loader,imagenet_readers,streaming,bert_text}.py; LIFTED below): their
-# rows pair them with a knob of A6 or A3c-2b, which is refused before
-# the data (a raw-text BERT corpus, an ImageNet folder) is read.
+# (tests/test_torch_mnist.py, tests/test_torch_distributed.py), and so do
+# the conv models (tests/test_torch_conv.py), BERT, lars/lamb, the fused
+# and chunked LM heads and --remat (tests/test_torch_bert.py), the
+# rest-of-training flags (LIFTED below), the debug tools
+# (tests/test_torch_debug_tools.py), MoE-BERT, the parameter EMA, bf16
+# moments and warm start (tests/test_torch_moe.py, test_torch_ema.py,
+# test_torch_warm_start.py), the file readers (LIFTED below), every mesh
+# axis (tests/test_torch_fsdp.py, test_torch_tp.py,
+# test_torch_ring_attention.py, test_torch_pipeline.py,
+# test_torch_pipe_bert.py, test_torch_expert_parallel.py,
+# test_torch_pipe_moe.py) and, last, the K-step dispatch of slice A3c-2b
+# (tests/test_torch_multi_step.py). Each row paired a knob with one still
+# refused; each now either passes the port's refusals (PROCEEDS: the
+# reference's validation and the port's refusals take it, and
+# ``--steps_per_loop`` / ``--max_inflight_steps`` reach the TrainConfig;
+# the run is not started, so no worker host is contacted and no corpus
+# read) or meets the rule of one rank a card, which still applies to a
+# mesh wider than the ranks (a later --mesh wins).
+PROCEEDS = None
+ONE_RANK = "one rank a card"
 LATER = [
-    (["--model", "mlp", "--steps_per_loop", "2"], "A3c-2b"),
+    (["--model", "mlp", "--steps_per_loop", "2"], PROCEEDS),
     (["--model", "bert_tiny", "--data_dir", "VOCAB", "--steps_per_loop",
-      "2"], "A3c-2b"),
-    # the fsdp axis and sharded saves train (slice A6a,
-    # tests/test_torch_fsdp.py, test_torch_sharded_checkpoint.py), and so
-    # does the model axis (A6a-2, tests/test_torch_tp.py): the rows that
-    # named them, or a data axis wider than the ranks (refused by the
-    # rule of one rank a card, no slice's), pair them with an axis that
-    # is still refused (a later --mesh wins)
+      "2"], PROCEEDS),
     (["--model", "moe_bert_tiny", "--native", "--mesh", "data=2",
-      "--steps_per_loop", "2"], "A3c-2b"),
-    # the seq (A6b), pipe (A6c) and expert (A6d) axes and every model
-    # train too (tests/test_torch_ring_attention.py, test_torch_pipeline.py,
-    # test_torch_pipe_bert.py, test_torch_expert_parallel.py,
-    # test_torch_pipe_moe.py): their rows pair them with the K-step
-    # dispatch, still refused (A3c-2b)
+      "--steps_per_loop", "2"], ONE_RANK),
     (["--model", "pipe_bert_tiny", "--mesh", "expert=2",
-      "--steps_per_loop", "2"], "A3c-2b"),
+      "--steps_per_loop", "2"], ONE_RANK),
     (["--model", "moe_bert", "--streaming", "--sharded_save", "--mesh",
-      "expert=2", "--steps_per_loop", "2"], "A3c-2b"),
-    (["--steps_per_loop", "2"], "A3c-2b"),
-    (["--mesh", "data=2", "--steps_per_loop", "2"], "A3c-2b"),
-    (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], "A3c-2b"),
-    (["--model", "pipe_moe_bert_tiny", "--steps_per_loop", "2"], "A3c-2b"),
+      "expert=2", "--steps_per_loop", "2"], ONE_RANK),
+    (["--steps_per_loop", "2"], PROCEEDS),
+    (["--mesh", "data=2", "--steps_per_loop", "2"], ONE_RANK),
+    (["--sync_mode", "shard_map", "--max_inflight_steps", "2"], PROCEEDS),
+    (["--model", "pipe_moe_bert_tiny", "--steps_per_loop", "2"], PROCEEDS),
     (["--sharded_save", "--mesh", "expert=2", "--steps_per_loop", "2"],
-     "A3c-2b", "sharded_save"),
+     ONE_RANK, "sharded_save"),
     (["--warm_start", "w", "--fast_decode", "--max_inflight_steps", "1"],
-     "A3c-2b"),
+     PROCEEDS),
     (["--moment_dtype", "bfloat16", "--max_per_class", "5",
       "--sharded_save", "--mesh", "expert=2", "--steps_per_loop", "2"],
-     "A3c-2b"),
+     ONE_RANK),
     (["--ema_decay", "0.9", "--label_offset", "-1", "--mesh", "expert=2",
-      "--steps_per_loop", "2"], "A3c-2b"),
+      "--steps_per_loop", "2"], ONE_RANK),
     (["--streaming", "--model", "pipe_moe_bert", "--steps_per_loop", "2"],
-     "A3c-2b"),
-    (["--max_per_class", "5", "--steps_per_loop", "4"], "A3c-2b"),
+     PROCEEDS),
+    (["--max_per_class", "5", "--steps_per_loop", "4"], PROCEEDS),
     (["--label_offset", "-1", "--dataset", "pipe_moe_bert",
-      "--max_inflight_steps", "2"], "A3c-2b"),
+      "--max_inflight_steps", "2"], PROCEEDS),
     (["--augment", "--model", "resnet50", "--sharded_save", "--mesh",
-      "expert=2", "--steps_per_loop", "2"], "A3c-2b"),
+      "expert=2", "--steps_per_loop", "2"], ONE_RANK),
     (["--data_dir", "IMAGENET", "--model", "resnet50", "--mesh",
-      "data=2", "--mesh", "expert=2", "--steps_per_loop", "2"], "A3c-2b"),
-    # --export_dir itself is lifted (A4a), and every model exports now
-    # (pipe_moe_bert_tiny static-batch): the row pairs it with the K-step
-    # dispatch
+      "data=2", "--mesh", "expert=2", "--steps_per_loop", "2"], ONE_RANK),
     (["--export_dir", "EXPORT", "--model", "pipe_moe_bert_tiny",
-      "--steps_per_loop", "2"], "A3c-2b"),
-    (["--worker_hosts", "w0:1,w1:1", "--steps_per_loop", "2"], "A3c-2b"),
+      "--steps_per_loop", "2"], PROCEEDS),
+    (["--worker_hosts", "w0:1,w1:1", "--steps_per_loop", "2"], PROCEEDS),
 ]
 
 
@@ -515,14 +498,17 @@ def _later_id(row) -> str:
 
 
 
-@pytest.mark.parametrize("extra,slice_", [r[:2] for r in LATER],
+@pytest.mark.parametrize("extra,refusal", [r[:2] for r in LATER],
                          ids=[_later_id(r) for r in LATER])
-def test_cli_refuses_a_later_slice_before_any_work(tmp_path, extra,
-                                                   slice_):
-    """A knob of a later slice exits naming its slice before the model,
-    the data or the checkpoint directory is touched (a raw-text BERT
-    corpus, ``VOCAB``: a directory holding only a vocab.txt, exits
-    before any token is read)."""
+def test_cli_k_step_rows_proceed_or_meet_the_rule_that_applies(
+        tmp_path, extra, refusal):
+    """A row that pairs the K-step knobs with a mesh wider than the ranks
+    exits stating the rule of one rank a card before the model, the data
+    or the checkpoint directory is touched; any other row passes the
+    reference's validation and the port's refusals, with its
+    ``--steps_per_loop`` and ``--max_inflight_steps`` in the TrainConfig
+    (a raw-text BERT corpus, ``VOCAB``: a directory holding only a
+    vocab.txt)."""
     ck = str(tmp_path / "ck")
     vocab = tmp_path / "vocab"
     vocab.mkdir()
@@ -532,9 +518,18 @@ def test_cli_refuses_a_later_slice_before_any_work(tmp_path, extra,
              for x in extra]
     argv = ["--model", "gpt_tiny", "--device", "cpu", "--train_steps",
             "1"] + extra
-    with pytest.raises(SystemExit, match=f"slice {slice_}"):
-        tcli.main(argv)
-    assert not os.path.exists(ck)
+    if refusal is not None:
+        with pytest.raises(SystemExit, match=refusal):
+            tcli.main(argv + ["--ckpt_dir", ck])
+        assert not os.path.exists(ck)
+        return
+    parser = tcli.build_parser()
+    args = parser.parse_args(argv)
+    cfg = tcli._validate_like_the_reference(parser, args)
+    tcli.refuse_by_design(args)
+    assert (cfg.steps_per_loop, cfg.max_inflight_steps) == (
+        args.steps_per_loop, args.max_inflight_steps)
+    assert cfg.steps_per_loop > 1 or cfg.max_inflight_steps > 0
 
 
 # every flag the rest-of-training slices (A3c-3b, A3c-4, A3c-4b) ported
@@ -570,18 +565,21 @@ LIFTED = [
     ["--max_per_class", "5"],
     ["--augment", "--model", "resnet50"],
     ["--data_dir", "IMAGENET", "--model", "resnet50"],
+    # the K-step dispatch (A3c-2b)
+    ["--steps_per_loop", "4"],
+    ["--max_inflight_steps", "2"],
 ]
 
 
 @pytest.mark.parametrize("extra", LIFTED,
                          ids=lambda v: v[0].lstrip("-"))
 def test_cli_no_longer_refuses_a_lifted_flag(extra):
-    """A flag of the rest-of-training slice parses and sets no later-slice
-    refusal (each one trains in the test files named above LATER)."""
+    """A flag of the rest-of-training slice, or the K-step dispatch's,
+    parses and passes the port's refusals (each one trains in the test
+    files named above LATER)."""
     args = tcli.build_parser().parse_args(
         ["--model", "gpt_tiny", "--device", "cpu"] + extra)
-    assert [what for what, on, _ in tcli._later_slice(args) if on] == []
-    tcli.refuse_later_slices(args)
+    tcli.refuse_by_design(args)
 
 
 def test_cli_refuses_the_tile_levers_and_jax_key_impls(tmp_path):
